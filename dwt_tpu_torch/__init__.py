@@ -1,0 +1,14 @@
+"""dwt_tpu_torch — the PyTorch/CUDA port of ``dwt_tpu`` for NVIDIA Hopper.
+
+The port grows slice by slice beside the JAX package, which stays the
+reference.  Module names mirror ``dwt_tpu``'s so each counterpart is easy
+to find.  This package imports ``torch`` and ``numpy`` only — never
+``jax`` and nothing of ``dwt_tpu``.
+
+Slice 1 is the serving path: the eval-mode ResNet-DWT forward behind
+the micro-batching HTTP server, with every whitened site going through
+the hand-written CUDA whitening-apply kernel
+(``dwt_tpu_torch/csrc/whiten_apply.cu``).
+"""
+
+__version__ = "0.1.0"
