@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-GPU smoke of the PyTorch/CUDA port (``dwt_tpu_torch``): build, check, serve.
+"""On-GPU smoke of the PyTorch/CUDA port (``dwt_tpu_torch``): build, check, train, serve.
 
 Run from the root of a checkout, on a machine with one CUDA GPU::
 
@@ -8,30 +8,71 @@ Run from the root of a checkout, on a machine with one CUDA GPU::
 Phases, each printed as one JSON line; any failure raises and the
 script exits non-zero without the final line:
 
-1. ``env``     — torch/CUDA versions, the card's name and power limit
-                 (``nvidia-smi``), both TF32 flags.
-2. ``build``   — ``nvcc`` builds every ``dwt_tpu_torch/csrc/*.cu`` (in
-                 parallel) into ``build/kernels/``.
-3. ``parity``  — the whitening-apply kernel against its plain PyTorch
-                 version, both on the card, at the three site shapes of a
-                 bucket-128 ResNet50 forward at 224² and at a ragged
-                 M = 1000; ``rtol = atol = 1e-5``.
-4. ``timing``  — per shape: kernel, plain version and one-call library
-                 yardstick (``torch.addmm`` with the block-diagonal
-                 matrix) in CUDA-event milliseconds, beside the bound
-                 (bytes moved over the card's memory rate).
-5. ``serve``   — the port's server on 127.0.0.1 (``build_engine`` from
-                 the CLI flags ``--model resnet50 --num_classes 65
-                 --image_size 224 --buckets 1,8,32,128 --init_random
-                 --seed 0``) answers requests of 1, 5, 32 and 128 images;
-                 every response is checked (shape, finite, equal to
-                 ``engine.infer``), the kernel must have launched 11
-                 times per forward, a bucket-8 forward through the kernel
-                 is held to the same forward through the plain apply and
-                 a bucket-1 forward to the model on the CPU; then forward
-                 time per bucket and peak device memory.
-6. ``kernels`` — the contract line: per kernel its TPU counterpart,
-                 launches on the serving run, error and times.
+1. ``env``      — torch/CUDA versions, the card's name and power limit
+                  (``nvidia-smi``), both TF32 flags.
+2. ``build``    — ``nvcc`` builds every ``dwt_tpu_torch/csrc/*.cu`` (in
+                  parallel) into ``build/kernels/``.
+3. ``parity``   — the whitening-apply kernel against its plain PyTorch
+                  version, both on the card, at the three site shapes of a
+                  bucket-128 ResNet50 forward at 224² and at a ragged
+                  M = 1000; ``rtol = atol = 1e-5``.
+4. ``timing``   — per shape: kernel (``device_ms``: its device time in a
+                  ``torch.profiler`` trace; ``kernel_ms``: CUDA events
+                  around back-to-back wrapper calls, host time included),
+                  plain version and one-call library yardstick
+                  (``torch.addmm`` with the block-diagonal matrix) in
+                  milliseconds, beside the bound (bytes moved over the
+                  card's memory rate).
+5. ``moments_parity`` — the moments kernel against its plain version on
+                  the card and against a float64 two-pass reference, at
+                  the three per-domain site shapes of a ResNet50 train
+                  step (18 images per stream, 224²), at a ragged M = 1000
+                  and on an input with a channel-mean offset; mean
+                  ``rtol = atol = 1e-6``, cov ``rtol = 1e-4, atol = 1e-5``.
+                  At each shape also the apply kernel against its plain
+                  version, whitening the input with those moments
+                  (``rtol = atol = 1e-5`` per element).
+6. ``moments_timing`` — per train shape: the moments kernel, its plain
+                  version and the library yardstick ``torch.cov`` (the
+                  full C×C covariance, whose diagonal 4×4 blocks are the
+                  kernel's ``cov``), and the apply kernel at the same
+                  shapes, beside their bounds.
+7. ``train``    — the port's trainer through its CLI entry
+                  (``build_parser``/``run_officehome``): ResNet50-DWT,
+                  65 classes, 224², 3 streams × 18 images, 6 steps, an
+                  eval every 3, one stat-collection pass and the final
+                  eval, on synthetic data from seed 1.  ``--log_interval
+                  1`` so that every step's losses are read.  Checks:
+                  finite losses and grad norms, every parameter and
+                  every whitening site's running cov moved, 33 moments
+                  and 33 apply launches per train step and per
+                  collection forward, 11 apply launches per eval
+                  forward, an accuracy.
+8. ``train_reference`` — one ResNet50 train step through the kernels
+                  against the same step with both kernels swapped for
+                  their plain versions and against a float64 step of the
+                  plain versions, all on the card, from the same weights
+                  and batch; then one tiny-model step on the card against
+                  the same step on the CPU.  Metrics and stats as a whole,
+                  and each parameter's gradient and update on its own
+                  (tolerances and their readings at ``TRAIN_TOL``).
+9. ``train_throughput`` — steady-state train step time (CUDA events,
+                  after 2 warm-up steps), images per second, the time of
+                  a stat-collection forward and of an eval forward at the
+                  test batch, and peak device memory.
+10. ``serve``   — the port's server on 127.0.0.1 (``build_engine`` from
+                  the CLI flags ``--model resnet50 --num_classes 65
+                  --image_size 224 --buckets 1,8,32,128 --init_random
+                  --seed 0``) answers requests of 1, 5, 32 and 128 images;
+                  every response is checked (shape, finite, equal to
+                  ``engine.infer``), the kernel must have launched 11
+                  times per forward, a bucket-8 forward through the kernel
+                  is held to the same forward through the plain apply and
+                  a bucket-1 forward to the model on the CPU; then forward
+                  time per bucket and peak device memory.
+11. ``kernels`` — the contract line: per kernel and path its TPU
+                  counterpart, launches on that path's run, error and
+                  times (``ms`` is the kernel's device time).
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -50,9 +91,49 @@ RESNET50_SITES = (  # (site, M at bucket 128 and 224², C, sites per forward)
     ("stage1_c64", 128 * 56 * 56, 64, 6),
     ("stage1_c256", 128 * 56 * 56, 256, 4),
 )
+TRAIN_SITES = (  # (site, M per domain at 18 images and 224², C, launches per step)
+    ("stem_dn1", 18 * 112 * 112, 64, 3),
+    ("stage1_c64", 18 * 56 * 56, 64, 18),
+    ("stage1_c256", 18 * 56 * 56, 256, 12),
+)
 RAGGED_M = 1000
+APPLY_KERNELS = ("whiten_apply_f32_kernel",)
+MOMENTS_KERNELS = ("moments_partial_kernel", "moments_final_kernel")
+MEAN_TOL = 1e-6                   # moments: mean rtol = atol
+COV_RTOL, COV_ATOL = 1e-4, 1e-5   # moments: cov
+TRAIN_FLAGS = [
+    "--synthetic", "--arch", "resnet50", "--num_classes", "65",
+    "--img_crop_size", "224", "--source_batch_size", "18", "--num_iters", "6",
+    "--check_acc_step", "3", "--stat_collection_passes", "1", "--seed", "1",
+    "--log_interval", "1",
+]
+WHITENED_SITES = 11  # ResNet50-DWT: the stem and the 10 norm sites of stage 1
+SITE_DOMAINS = 3 * WHITENED_SITES
+# The ResNet50 step held to its plain-kernel twin: images per stream, size.
+REFERENCE_STEP = (18, 224)
 TOL = 1e-5            # kernel vs plain, per element: rtol = atol = 1e-5
 FORWARD_TOL = 1e-4    # whole forwards: max |a − b| / max |b|
+# Train steps against their references (the kernel step against the plain
+# step and against a float64 step, the tiny model's card step against the
+# CPU's), by relative error: losses and running stats (max |a − b| /
+# max |b| per stat tensor) at TRAIN_TOL, the gradient norm at
+# TRAIN_GRAD_TOL, and per parameter (compare_steps) its gradient and its
+# update, less one float32 spacing of the stored value per element.
+# The per-parameter limits come from tools/torch_step_sensitivity.py on
+# the H100 over 5 seeds (PERF.md, PR 2).  A fresh ResNet50-DWT step is
+# ill-conditioned in its backbone gradients: moving every input pixel by
+# one f32 rounding unit moves the float64 step's backbone gradients by
+# 0.08-0.64%, and every backbone leaf of an f32 step (kernels or plain
+# versions) sits 0.6-2.8% from float64, the head's ≤ 1.3e-5.  So each
+# backbone leaf is held at 5e-2 and the head at 1e-4, and the kernel
+# step's gradient over all parameters may be no further from float64
+# than F64_RATIO_TOL times the plain step's (readings 0.87-1.04).  The
+# tiny model has no such sensitivity (card vs CPU ≤ 2.2e-4 per leaf).
+TRAIN_TOL = 5e-4
+TRAIN_GRAD_TOL = 2e-3
+RESNET50_LEAF_TOL = (5e-2, 1e-4)  # (backbone, head)
+F64_RATIO_TOL = 1.25
+TINY_LEAF_TOL = 2e-3
 FP32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
 
 
@@ -91,6 +172,35 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, names, iters: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from a ``torch.profiler`` trace of ``iters`` calls: the
+    kernel's own time, without its wrapper's host time (which exceeds the
+    kernel at the small train shapes)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    total = sum(ev["dur"] for ev in trace.get("traceEvents", [])
+                if ev.get("cat") == "kernel" and "dur" in ev
+                and any(n in ev["name"] for n in names))
+    if total <= 0:
+        raise RuntimeError(f"the profiler recorded no {names} kernel")
+    return total / 1e3 / iters
 
 
 def norm_err(a, b) -> float:
@@ -145,6 +255,8 @@ def check_kernel(torch, cw, device, rate):
         row = {
             "shape": name, "M": m, "C": c, "bytes": nbytes,
             "kernel_ms": cuda_ms(torch, lambda: cw.whiten_apply(x, mean, w)),
+            "device_ms": device_ms(torch, lambda: cw.whiten_apply(x, mean, w),
+                                   APPLY_KERNELS),
             "plain_ms": cuda_ms(torch, lambda: cw.whiten_apply_plain(x, mean, w),
                                 iters=10),
             "library_ms": cuda_ms(torch, lambda: torch.addmm(bias, x, w_t)),
@@ -153,8 +265,8 @@ def check_kernel(torch, cw, device, rate):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_max_abs_err": lib_err,
         }
-        row["kernel_GBps"] = nbytes / row["kernel_ms"] / 1e6
-        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["kernel_GBps"] = nbytes / row["device_ms"] / 1e6
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
         timing[name] = row
         emit({"phase": "timing", **row})
         del x, y, ref, lib_y, diff
@@ -257,6 +369,435 @@ def serve(torch, cw, server):
     return launches
 
 
+# ----------------------------------------------------------------- moments
+
+
+def moments_input(torch, m, c, gen, device, offset=0.0):
+    """Channels correlated within a group, spread ~1.5, mean ``offset``."""
+    x = torch.randn(m, c, generator=gen, device=device) * 1.5
+    return x + 0.5 * x.roll(1, dims=1) + offset
+
+
+def two_pass_f64(torch, x):
+    xd = x.double()
+    mean = xd.mean(dim=0)
+    t = (xd - mean).view(x.shape[0], -1, 4)
+    return mean, torch.einsum("mgc,mgd->gcd", t, t) / x.shape[0]
+
+
+def moments_errors(torch, mean, cov, ref_mean, ref_cov):
+    dm = (mean.double() - ref_mean.double()).abs()
+    dc = (cov.double() - ref_cov.double()).abs()
+    ok = bool((dm <= MEAN_TOL + MEAN_TOL * ref_mean.double().abs()).all()
+              and (dc <= COV_ATOL + COV_RTOL * ref_cov.double().abs()).all())
+    return float(dm.max()), float(dc.max()), ok
+
+
+def check_moments(torch, cw, device, rate):
+    """Moments parity at every shape; moments and apply timing at the
+    train shapes."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    shapes = [(name, m, c, 0.0) for name, m, c, _ in TRAIN_SITES]
+    shapes += [("ragged_c64", RAGGED_M, 64, 0.0),
+               ("ragged_c256", RAGGED_M, 256, 0.0),
+               ("offset_c256", 18 * 56 * 56, 256, 4.0)]
+    parity, timing = [], {}
+    for name, m, c, offset in shapes:
+        x = moments_input(torch, m, c, gen, device, offset)
+        mean, cov = cw.whiten_moments(x, 4)
+        p_mean, p_cov = cw.whiten_moments_plain(x, 4)
+        r_mean, r_cov = two_pass_f64(torch, x)
+        # The apply kernel on the same input, whitened with these moments
+        # as a train step whitens it.
+        w = whitening_matrix(_shrink(cov, 1e-3))
+        y = cw.whiten_apply(x, mean, w)
+        y_ref = cw.whiten_apply_plain(x, mean, w)
+        torch.cuda.synchronize()
+        pm, pc, p_ok = moments_errors(torch, mean, cov, p_mean, p_cov)
+        rm, rc, r_ok = moments_errors(torch, mean, cov, r_mean, r_cov)
+        y_diff = (y - y_ref).abs()
+        a_ok = bool((y_diff <= TOL + TOL * y_ref.abs()).all())
+        row = {"shape": name, "M": m, "C": c, "mean_offset": offset,
+               "vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
+               "vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
+               "plain_vs_f64_cov_max_abs_err":
+                   moments_errors(torch, p_mean, p_cov, r_mean, r_cov)[1],
+               "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL,
+               "apply_vs_plain": {"max_abs_err": float(y_diff.max()),
+                                  "rtol": TOL, "atol": TOL, "ok": a_ok},
+               "ok": p_ok and r_ok and a_ok}
+        parity.append(row)
+        emit({"phase": "moments_parity", **row})
+        del y, y_ref, y_diff
+        if not row["ok"]:
+            raise AssertionError(f"moments or apply kernel disagrees at {name}: {row}")
+        if offset or m == RAGGED_M:
+            continue
+        groups = c // 4
+        w_t = torch.block_diag(*w).t().contiguous()
+        bias = -(mean @ w_t)
+        lib = torch.cov(x.t(), correction=0)
+        gi = torch.arange(groups, device=device)
+        lib_blocks = lib.view(groups, 4, groups, 4)[gi, :, gi, :]
+        n_read = m * c * 4
+        m_bytes = n_read + (c + groups * 16) * 4
+        m_bytes_ms = m_bytes / rate * 1e3
+        m_ops_ms = m * c * 6 / FP32_PEAK * 1e3  # per 4 channels: 4 adds, 10 FMAs
+        a_bytes = 2 * n_read
+        a_bytes_ms = a_bytes / rate * 1e3
+        a_ops_ms = m * c * 9 / FP32_PEAK * 1e3
+        row = {
+            "shape": name, "M": m, "C": c,
+            "moments": {
+                "bytes": m_bytes,
+                "kernel_ms": cuda_ms(torch, lambda: cw.whiten_moments(x, 4)),
+                "device_ms": device_ms(torch, lambda: cw.whiten_moments(x, 4),
+                                       MOMENTS_KERNELS),
+                "plain_ms": cuda_ms(torch, lambda: cw.whiten_moments_plain(x, 4),
+                                    iters=10),
+                "library_ms": cuda_ms(
+                    torch, lambda: torch.cov(x.t(), correction=0), iters=10),
+                "bound_ms": max(m_bytes_ms, m_ops_ms),
+                "bound_by": "bytes" if m_bytes_ms >= m_ops_ms else "operations",
+                "library_max_abs_err": float((lib_blocks - cov).abs().max()),
+            },
+            "apply": {
+                "bytes": a_bytes,
+                "kernel_ms": cuda_ms(torch, lambda: cw.whiten_apply(x, mean, w)),
+                "device_ms": device_ms(torch, lambda: cw.whiten_apply(x, mean, w),
+                                       APPLY_KERNELS),
+                "plain_ms": cuda_ms(
+                    torch, lambda: cw.whiten_apply_plain(x, mean, w), iters=10),
+                "library_ms": cuda_ms(torch, lambda: torch.addmm(bias, x, w_t)),
+                "bound_ms": max(a_bytes_ms, a_ops_ms),
+                "bound_by": "bytes" if a_bytes_ms >= a_ops_ms else "operations",
+            },
+        }
+        for part in ("moments", "apply"):
+            r = row[part]
+            r["kernel_GBps"] = r["bytes"] / r["device_ms"] / 1e6
+            r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        timing[name] = row
+        emit({"phase": "moments_timing", **row})
+        del x, lib, lib_blocks
+        torch.cuda.empty_cache()
+    return parity, timing
+
+
+# ------------------------------------------------------------------- train
+
+
+def train(torch, cw, officehome, loop):
+    """The main train path, through the CLI entry; returns the kernels'
+    launches on it."""
+    import math
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        TRAIN_FLAGS))
+    model = loop.build_model(cfg)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    records = []
+
+    def logger(kind, step, **fields):
+        records.append({"kind": kind, "step": step,
+                        "moments_launches": cw.moments_launches,
+                        "apply_launches": cw.apply_launches, **fields})
+
+    cw.moments_launches = cw.apply_launches = 0
+    t0 = time.perf_counter()
+    acc = loop.run_officehome(cfg, logger, model=model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"moments": cw.moments_launches, "apply": cw.apply_launches}
+    for r in records:
+        emit({"phase": "train_record", **r})
+
+    # Launches per record, against what each phase must launch.
+    prev = {"moments": 0, "apply": 0}
+    for r in records:
+        got = {k: r[f"{k}_launches"] - prev[k] for k in prev}
+        prev = {k: r[f"{k}_launches"] for k in prev}
+        n = r.get("forwards", 1)
+        want = {
+            "train": {"moments": SITE_DOMAINS, "apply": SITE_DOMAINS},
+            "stat_collection": {"moments": SITE_DOMAINS * n,
+                                "apply": SITE_DOMAINS * n},
+            "test": {"moments": 0, "apply": WHITENED_SITES * n},
+            "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
+        }[r["kind"]]
+        if got != want:
+            raise AssertionError(f"{r['kind']} at step {r['step']}: launches "
+                                 f"{got}, expected {want}")
+    if prev != launches:
+        raise AssertionError(f"launches after the last record: {launches} vs {prev}")
+    kinds = [r["kind"] for r in records]
+    if kinds != ["train"] * 3 + ["test"] + ["train"] * 3 + ["test",
+                                                             "stat_collection",
+                                                             "final_test"]:
+        raise AssertionError(f"unexpected record sequence {kinds}")
+    for r in records:
+        if r["kind"] == "train":
+            bad = [k for k in ("loss", "cls_loss", "mec_loss", "grad_norm")
+                   if not math.isfinite(r[k])]
+            if bad:
+                raise AssertionError(f"non-finite {bad} at step {r['step']}")
+    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0
+            and acc == records[-1]["accuracy"]):
+        raise AssertionError(f"bad accuracy {acc}")
+    state = model.state_dict()
+    unmoved = [k for k, p in model.named_parameters()
+               if torch.equal(p.detach().cpu(), init[k])]
+    covs = [k for k in state if k.endswith(".cov") or k == "dn1.cov"]
+    cov_unmoved = [f"{k}[{d}]" for k in covs for d in range(state[k].shape[0])
+                   if torch.equal(state[k][d].cpu(), torch.ones_like(init[k][d]))]
+    emit({"phase": "train", "flags": TRAIN_FLAGS, "seconds": seconds,
+          "accuracy": acc, "launches": launches,
+          "whitening_sites": len(covs), "unmoved_params": unmoved,
+          "unmoved_covs": cov_unmoved})
+    if unmoved or cov_unmoved or len(covs) != WHITENED_SITES:
+        raise AssertionError("training left parameters or stats unmoved")
+    return launches
+
+
+def synthetic_batch(torch, loop, n, size, classes, seed, device):
+    """One train batch (three streams) from the trainer's synthetic data."""
+    shape = (size, size, 3)
+    arrays = [loop._synthetic_classification_arrays(n, shape, classes, seed + i,
+                                                    0.5 * (i > 0))
+              for i in range(3)]
+    to = lambda a: torch.from_numpy(a).to(device)
+    return {"source_x": to(arrays[0][0]), "source_y": to(arrays[0][1]),
+            "target_x": to(arrays[1][0]), "target_aug_x": to(arrays[2][0])}
+
+
+def one_step(torch, cfg, model, batch, device):
+    from dwt_tpu_torch.train.optim import officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import make_officehome_train_step
+
+    model.to(device, memory_format=torch.channels_last)
+    optimizer, schedules = officehome_tx(model, cfg)
+    state = TrainState(model, optimizer, schedules)
+    metrics = make_officehome_train_step(model, cfg.lambda_mec_loss)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {k: float(v) for k, v in metrics.items()}, model
+
+
+def float64_model(torch, model):
+    """``model`` in float64, for a reference step.  The card's float64
+    convolutions return NCHW-contiguous activations; a pre-hook on every
+    norm site gives them the channels_last layout whose domain split is
+    a view (``apply_domain_norm`` takes no other)."""
+    from dwt_tpu_torch.nn.norms import DomainBatchNorm, DomainWhiten
+
+    def channels_last(_site, args):
+        x = args[0]
+        if x.dim() != 4:
+            return None
+        return (x.contiguous(memory_format=torch.channels_last),)
+
+    for site in model.modules():
+        if isinstance(site, (DomainWhiten, DomainBatchNorm)):
+            site.register_forward_pre_hook(channels_last)
+    return model.double()
+
+
+def f32_ulp(torch, v):
+    """The spacing of float32 values at ``v`` (a float64 tensor)."""
+    a = v.float().abs()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+
+
+def compare_steps(torch, a, b, init):
+    """Two train steps from the same ``init`` state, ``b`` the reference.
+
+    Relative errors of the metrics and of every running stat (max |a − b|
+    / max |b| per stat tensor, the worst in ``stats``), and per parameter
+    (``by_leaf``), with the worst leaf of each in ``*_worst``:
+
+    * ``grad``: ‖g_a − g_b‖ / ‖g_b‖ of the step's gradient (the optimizer
+      keeps it in ``.grad``);
+    * ``update``: ‖Δa − Δb‖ / ‖Δb‖ with Δ = post − pre, as stored;
+    * ``update_beyond_rounding``: the same after forgiving each element
+      one float32 spacing of its stored value, ‖max(|a − b| − ulp, 0)‖ /
+      ‖Δb‖.  A step moves a norm's γ ≈ 1 by ~1e-6 at the backbone's lr,
+      and storing γ + Δ in float32 rounds Δ by up to 6e-8: percent of Δ
+      that no computation of the step can remove.
+
+    ``update`` and ``grad`` are also given over all parameters at once.
+    """
+    (ma, model_a), (mb, model_b) = a, b
+    out = {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+           for k in ("loss", "cls_loss", "mec_loss", "grad_norm")}
+    sa, sb = model_a.state_dict(), model_b.state_dict()
+    grads_a = {k: p.grad for k, p in model_a.named_parameters()}
+    grads_b = {k: p.grad for k, p in model_b.named_parameters()}
+    sums = {"update": [0.0, 0.0], "grad": [0.0, 0.0]}
+    worst = (0.0, "")
+    leaves = {}
+    for k, ref in sb.items():
+        ref, got = ref.detach().double().cpu(), sa[k].detach().double().cpu()
+        if k not in grads_b:
+            err = float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
+            worst = max(worst, (err, k))
+            continue
+        step = float((ref - init[k].double()).norm())
+        diff = (got - ref).abs()
+        ga, gb = grads_a[k].double().cpu(), grads_b[k].double().cpu()
+        g_diff, g_norm = float((ga - gb).norm()), float(gb.norm())
+        leaves[k] = {
+            "update": float(diff.norm()) / max(step, 1e-300),
+            "update_beyond_rounding": float(
+                (diff - f32_ulp(torch, ref)).clamp_min(0).norm()) / max(step, 1e-300),
+            "grad": g_diff / max(g_norm, 1e-300),
+        }
+        sums["update"][0] += float(diff.square().sum())
+        sums["update"][1] += step ** 2
+        sums["grad"][0] += g_diff ** 2
+        sums["grad"][1] += g_norm ** 2
+    out["stats"], out["stats_worst"] = worst
+    for key, (num, den) in sums.items():
+        out[key] = (num / den) ** 0.5
+    for key in ("update", "update_beyond_rounding", "grad"):
+        leaf = max(leaves, key=lambda k: leaves[k][key])
+        out[f"{key}_worst"] = {"leaf": leaf, "err": leaves[leaf][key]}
+    out["by_leaf"] = leaves
+    return out
+
+
+def leaf_summary(errs):
+    """``compare_steps``'s result without its per-leaf table."""
+    return {k: v for k, v in errs.items() if k != "by_leaf"}
+
+
+def check_step(name, errs, leaf_tol, head_tol=None):
+    """Raise unless the metrics and stats are within ``TRAIN_TOL`` (the
+    grad norm ``TRAIN_GRAD_TOL``) and every parameter's gradient and
+    update (beyond rounding) within ``leaf_tol`` — the head's
+    (``fc_out.*``) within ``head_tol`` when given."""
+    tols = {"grad_norm": TRAIN_GRAD_TOL}
+    bad = {k: errs[k] for k in ("loss", "cls_loss", "mec_loss", "grad_norm", "stats")
+           if errs[k] > tols.get(k, TRAIN_TOL)}
+    for leaf, e in errs["by_leaf"].items():
+        tol = head_tol if head_tol is not None and leaf.startswith("fc_out.") else leaf_tol
+        for key in ("grad", "update_beyond_rounding"):
+            if e[key] > tol:
+                bad[f"{leaf} {key}"] = e[key]
+    if bad:
+        worst = sorted(bad.items(), key=lambda kv: -kv[1])[:8]
+        raise AssertionError(f"{name}: {len(bad)} errors over their limits; "
+                             f"the largest: {worst}")
+
+
+def train_reference(torch, cw, loop, device):
+    from dwt_tpu_torch.config import OfficeHomeConfig
+
+    # Kernels vs their plain versions, both on the card, ResNet50 at 224².
+    n, size = REFERENCE_STEP
+    cfg = OfficeHomeConfig(seed=2, img_crop_size=size, source_batch_size=n)
+    batch = synthetic_batch(torch, loop, n, size, 65, 5, device)
+    base = loop.build_model(cfg)
+    init = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    kernels = (cw.whiten_moments, cw.whiten_apply)
+    before = (cw.moments_launches, cw.apply_launches)
+    kernel_step = one_step(torch, cfg, copy.deepcopy(base), batch, device)
+    kernel_launches = (cw.moments_launches - before[0],
+                       cw.apply_launches - before[1])
+    cw.whiten_moments, cw.whiten_apply = cw.whiten_moments_plain, cw.whiten_apply_plain
+    try:
+        plain_step = one_step(torch, cfg, copy.deepcopy(base), batch, device)
+        f64_step = one_step(torch, cfg, float64_model(torch, base), {
+            k: v.double() if v.is_floating_point() else v
+            for k, v in batch.items()}, device)
+    finally:
+        cw.whiten_moments, cw.whiten_apply = kernels
+    vs_plain = compare_steps(torch, kernel_step, plain_step, init)
+    vs_f64 = compare_steps(torch, kernel_step, f64_step, init)
+    plain_vs_f64 = compare_steps(torch, plain_step, f64_step, init)
+    del kernel_step, plain_step, f64_step, base
+    torch.cuda.empty_cache()
+
+    # The tiny model's step on the card vs on the CPU (8 images per
+    # stream: fewer make its stage-4 BN ill-conditioned).
+    tiny = OfficeHomeConfig(arch="tiny", num_classes=5, img_crop_size=32, seed=3)
+    batch = synthetic_batch(torch, loop, 8, 32, 5, 7, torch.device("cpu"))
+    base = loop.build_model(tiny)
+    init = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    card = one_step(torch, tiny, copy.deepcopy(base), batch, device)
+    cpu = one_step(torch, tiny, base, batch, torch.device("cpu"))
+    vs_cpu = compare_steps(torch, card, cpu, init)
+    emit({"phase": "train_reference",
+          "kernel_vs_plain_resnet50": leaf_summary(vs_plain),
+          "kernel_vs_f64_resnet50": leaf_summary(vs_f64),
+          "plain_vs_f64_resnet50": leaf_summary(plain_vs_f64),
+          "kernel_launches": kernel_launches,
+          "card_vs_cpu_tiny": leaf_summary(vs_cpu),
+          "tolerance": TRAIN_TOL, "grad_tolerance": TRAIN_GRAD_TOL,
+          "resnet50_leaf_tolerance": dict(zip(("backbone", "head"), RESNET50_LEAF_TOL)),
+          "f64_ratio_tolerance": F64_RATIO_TOL,
+          "tiny_leaf_tolerance": TINY_LEAF_TOL,
+          "why": "sums in other orders (kernel vs plain, f32 vs float64, "
+                 "card vs CPU); each stored parameter's own float32 "
+                 "rounding is forgiven"})
+    if kernel_launches != (SITE_DOMAINS, SITE_DOMAINS):
+        raise AssertionError(f"kernel step launched {kernel_launches}")
+    for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
+        check_step(f"{what} (ResNet50)", errs, *RESNET50_LEAF_TOL)
+    if vs_f64["grad"] > F64_RATIO_TOL * plain_vs_f64["grad"]:
+        raise AssertionError(
+            f"the kernel step's gradient is {vs_f64['grad']} from float64, "
+            f"over {F64_RATIO_TOL} times the plain step's {plain_vs_f64['grad']}")
+    check_step("card vs CPU (tiny)", vs_cpu, TINY_LEAF_TOL)
+
+
+def train_throughput(torch, loop, device):
+    from dwt_tpu_torch.config import OfficeHomeConfig
+    from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
+    from dwt_tpu_torch.train.optim import officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import (
+        eval_counters,
+        make_accum_eval_step,
+        make_officehome_train_step,
+        make_stat_collection_step,
+    )
+
+    n, size = REFERENCE_STEP
+    cfg = OfficeHomeConfig(seed=4, img_crop_size=size, source_batch_size=n)
+    model = loop.build_model(cfg).to(device, memory_format=torch.channels_last)
+    optimizer, schedules = officehome_tx(model, cfg)
+    state = TrainState(model, optimizer, schedules)
+    step = make_officehome_train_step(model, cfg.lambda_mec_loss)
+    batch = synthetic_batch(torch, loop, n, size, 65, 11, device)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: step(state, batch), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    x = batch["target_x"][: cfg.test_batch_size]
+    y = batch["source_y"][: cfg.test_batch_size]
+    mask = torch.ones_like(y, dtype=torch.bool)
+    collect = make_stat_collection_step(model, 3)
+    collect_ms = cuda_ms(torch, lambda: collect(state, x), iters=5, warmup=1)
+    install_whiten_cache(model, make_whiten_cache(model))
+    accum = make_accum_eval_step(model)
+    counters = eval_counters(device)
+    eval_ms = cuda_ms(torch, lambda: accum(counters, x, y, mask), iters=5, warmup=1)
+    install_whiten_cache(model, None)
+    images = 3 * cfg.source_batch_size
+    row = {"phase": "train_throughput", "images_per_step": images,
+           "step_ms": step_ms, "imgs_per_s": images / step_ms * 1e3,
+           "stat_collection_forward_ms": collect_ms,
+           "eval_forward_ms": eval_ms, "test_batch": cfg.test_batch_size,
+           "max_memory_allocated": peak}
+    emit(row)
+    del model, optimizer, state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -264,8 +805,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
+    from dwt_tpu_torch.cli import officehome
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
     from dwt_tpu_torch.serve import server
+    from dwt_tpu_torch.train import loop
 
     tf32_defaults = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
@@ -296,26 +839,69 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     parity, timing = check_kernel(torch, cw, device, rate)
-    launches = serve(torch, cw, server)
+    m_parity, m_timing = check_moments(torch, cw, device, rate)
+    train_launches = train(torch, cw, officehome, loop)
+    train_reference(torch, cw, loop, device)
+    train_throughput(torch, loop, device)
+    serve_launches = serve(torch, cw, server)
 
     def per_forward(key):  # the 11 sites of one bucket-128 forward
         return sum(timing[s][key] * n for s, _, _, n in RESNET50_SITES)
 
-    emit({"kernels": [{
-        "name": "whiten_apply",
-        "route": "cuda",
-        "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-        "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": per_forward("kernel_ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                    for r in timing.values()) else "operations"),
-        "library_ms": per_forward("library_ms"),
-        "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224²",
-    }]})
+    def per_step(part, key):  # the 33 site-domains of one train step
+        return sum(m_timing[s][part][key] * n for s, _, _, n in TRAIN_SITES)
+
+    def bound_by(rows):
+        return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations")
+
+    train_per = ("the 33 whitened site-domains of one ResNet50 train step, "
+                 "18 images per stream at 224²")
+    train_rows = {
+        part: {"ms": per_step(part, "device_ms"),
+               "plain_ms": per_step(part, "plain_ms"),
+               "bound_ms": per_step(part, "bound_ms"),
+               "bound_by": bound_by([r[part] for r in m_timing.values()]),
+               "library_ms": per_step(part, "library_ms"),
+               "path": "train", "per": train_per}
+        for part in ("moments", "apply")
+    }
+    emit({"kernels": [
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": serve_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in parity),
+            "ms": per_forward("device_ms"),
+            "plain_ms": per_forward("plain_ms"),
+            "bound_ms": per_forward("bound_ms"),
+            "bound_by": bound_by(timing.values()),
+            "library_ms": per_forward("library_ms"),
+            "path": "serve",
+            "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224²",
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": train_launches["apply"],
+            "max_abs_err": max(r["apply_vs_plain"]["max_abs_err"]
+                               for r in m_parity),
+            **train_rows["apply"],
+        },
+        {
+            "name": "whiten_moments",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
+            "launches": train_launches["moments"],
+            "max_abs_err": max(max(r["vs_plain"].values()) for r in m_parity),
+            **train_rows["moments"],
+        },
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,11 @@ to find.  This package imports ``torch`` and ``numpy`` only — never
 Slice 1 is the serving path: the eval-mode ResNet-DWT forward behind
 the micro-batching HTTP server, with every whitened site going through
 the hand-written CUDA whitening-apply kernel
-(``dwt_tpu_torch/csrc/whiten_apply.cu``).
+(``dwt_tpu_torch/csrc/whiten_apply.cu``).  Slice 2 is OfficeHome
+training (``python -m dwt_tpu_torch.cli.officehome``): the MEC train
+step, stat collection and eval, every whitened site in train mode going
+through the hand-written moments kernel
+(``dwt_tpu_torch/csrc/whiten_moments.cu``) and the apply kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,77 @@
+"""OfficeHome trainer entry point — the ported subset of ``dwt_tpu.cli.officehome``.
+
+    python -m dwt_tpu_torch.cli.officehome --synthetic [flags]
+
+Runs on CUDA; ``--device cpu`` runs on the CPU (without it, a machine
+with no CUDA raises).  Defaults are the JAX package's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from typing import Optional, Sequence
+
+from dwt_tpu_torch.config import OfficeHomeConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    d = OfficeHomeConfig()
+    p = argparse.ArgumentParser(
+        description="DWT-MEC OfficeHome trainer (PyTorch/CUDA port)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on generated data (the only data ported)")
+    p.add_argument("--synthetic_size", type=int, default=d.synthetic_size)
+    p.add_argument("--arch", choices=["resnet50", "tiny"], default=d.arch)
+    p.add_argument("--num_classes", type=int, default=d.num_classes)
+    p.add_argument("--img_crop_size", type=int, default=d.img_crop_size)
+    p.add_argument("--source_batch_size", type=int, default=d.source_batch_size)
+    p.add_argument("--test_batch_size", type=int, default=d.test_batch_size)
+    p.add_argument("--num_iters", type=int, default=d.num_iters)
+    p.add_argument("--check_acc_step", type=int, default=d.check_acc_step)
+    p.add_argument("--log_interval", type=int, default=d.log_interval)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--lr_milestones", type=int, nargs="+",
+                   default=list(d.lr_milestones),
+                   help="iterations at which the lr decays by --lr_gamma "
+                        "(each one step early, as the reference's)")
+    p.add_argument("--lr_gamma", type=float, default=d.lr_gamma)
+    p.add_argument("--backbone_lr_scale", type=float,
+                   default=d.backbone_lr_scale,
+                   help="everything but the fc_out head trains at lr times this")
+    p.add_argument("--sgd_momentum", type=float, default=None,
+                   help="the reference's flag default 0.5 is unused there; "
+                        "its optimizer runs at 0.9, used when the flag is "
+                        "not given")
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    p.add_argument("--running_momentum", type=float, default=d.running_momentum)
+    p.add_argument("--lambda_mec_loss", type=float, default=d.lambda_mec_loss)
+    p.add_argument("--group_size", type=int, default=d.group_size)
+    p.add_argument("--stat_collection_passes", type=int,
+                   default=d.stat_collection_passes)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--device", default=d.device,
+                   help="cuda (default; fails without CUDA) or cpu")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> OfficeHomeConfig:
+    kwargs = {f.name: getattr(args, f.name)
+              for f in OfficeHomeConfig.__dataclass_fields__.values()}
+    kwargs["lr_milestones"] = tuple(kwargs["lr_milestones"])
+    if kwargs["sgd_momentum"] is None:
+        kwargs["sgd_momentum"] = 0.9
+    return OfficeHomeConfig(**kwargs)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    from dwt_tpu_torch.train.loop import run_officehome
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    acc = run_officehome(config_from_args(build_parser().parse_args(argv)))
+    print(f"final target accuracy: {acc:.2f}%", flush=True)
+    return acc
+
+
+if __name__ == "__main__":
+    main()

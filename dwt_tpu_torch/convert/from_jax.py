@@ -2,8 +2,9 @@
 
 Takes the JAX package's ``params`` and ``batch_stats`` trees as nested
 dicts of numpy arrays (stat structs may be dicts or named tuples, e.g.
-``jax.tree.map(np.asarray, variables)``) and loads them into a port
-module whose submodule names are the Flax scope names.  Layouts:
+``jax.tree.map(np.asarray, variables)``, or a JAX ``TrainState``'s
+``params`` and ``batch_stats``) and loads them into a port module whose
+submodule names are the Flax scope names.  Layouts:
 
 * conv kernel HWIO → ``weight`` OIHW;
 * dense kernel ``[in, out]`` → ``weight [out, in]``, bias as is;

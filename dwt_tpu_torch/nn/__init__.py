@@ -1,6 +1,12 @@
 """Models and norm modules of the port (``dwt_tpu.nn`` counterparts)."""
 
-from dwt_tpu_torch.nn.norms import DomainBatchNorm, DomainWhiten, merge_domains, split_domains
+from dwt_tpu_torch.nn.norms import (
+    DomainBatchNorm,
+    DomainWhiten,
+    apply_domain_norm,
+    merge_domains,
+    split_domains,
+)
 from dwt_tpu_torch.nn.resnet import BottleneckDWT, ResNetDWT, init_weights, padded_num_classes
 
 __all__ = [
@@ -8,6 +14,7 @@ __all__ = [
     "DomainBatchNorm",
     "DomainWhiten",
     "ResNetDWT",
+    "apply_domain_norm",
     "init_weights",
     "merge_domains",
     "padded_num_classes",

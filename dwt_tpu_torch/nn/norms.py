@@ -1,25 +1,39 @@
-"""Multi-branch domain normalization modules — eval path of ``dwt_tpu.nn.norms``.
+"""Multi-branch domain normalization modules — the port of ``dwt_tpu.nn.norms``.
 
 Each site carries ``num_domains`` stat branches stacked on a leading
 domain axis (buffers ``mean [D, C]``, ``cov [D, G, g, g]`` for whitening;
 ``mean``/``var [D, C]``, ``count [D]`` for BN) and ONE shared affine
-``gamma``/``beta``.  Eval routes the whole batch through branch
-``eval_domain``, the reference's target-branch eval routing.
+``gamma``/``beta``, applied after the domain concat.  ``self.training``
+picks the path:
 
-Inputs are ``[N, C, H, W]`` in ``torch.channels_last`` memory format (or
-``[N, C]``): the sites hand the ops a channels-last ``[..., C]`` view
-without a copy, as ``dwt_tpu``'s ops take.  Train mode is the next slice
-of the port and raises ``NotImplementedError``.
+* **train**: the input is the merged ``[D·N, C, H, W]`` batch in
+  ``torch.channels_last`` memory format (or ``[D·N, C]``).  Its
+  ``[D, N·H·W, C]`` view is contiguous (:func:`apply_domain_norm`), so
+  each domain's ``[M_d, C]`` slice reaches the ops — and the CUDA kernels
+  — without a copy.  Branch ``d`` normalizes slice ``d`` with its batch
+  moments, and its running stats advance IN PLACE, under
+  ``torch.no_grad()``: the buffers are the JAX package's returned
+  ``batch_stats``.  Whitening goes through
+  :func:`~dwt_tpu_torch.ops.cuda_whitening.cuda_group_whiten` (the moments
+  and apply kernels on the card).
+* **eval**: the whole ``[N, C, H, W]`` batch goes through branch
+  ``eval_domain``, the reference's target-branch eval routing.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from dwt_tpu_torch.ops.batch_norm import BatchNormStats, batch_norm, init_batch_norm_stats
+from dwt_tpu_torch.ops import cuda_whitening
+from dwt_tpu_torch.ops.batch_norm import (
+    BatchNormStats,
+    batch_norm,
+    domain_batch_norm,
+    init_batch_norm_stats,
+)
 from dwt_tpu_torch.ops.whitening import (
     WhiteningStats,
     group_whiten,
@@ -47,21 +61,39 @@ def _from_channels_last(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 3, 1, 2) if y.dim() == 4 else y
 
 
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: train mode is the next slice of the "
-            "port; call .eval() first"
+def apply_domain_norm(
+    x: torch.Tensor,
+    num_domains: int,
+    norm: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """Train-mode plumbing of a domain norm site: the merged batch ``x``
+    (``[D·N, C, H, W]``, or ``[D·N, C]``) → its ``[D, N·H·W, C]`` form →
+    ``norm`` → the result, channels-last ``[D·N, H, W, C]`` (or
+    ``[D·N, C]``).  ``x`` must be in channels_last memory format — what
+    the model's convs give — so that form is a view and each domain's
+    slice reaches the kernels without a copy; any other layout fails
+    here rather than being copied.  The counterpart of the JAX package's
+    split → normalize → merge."""
+    xc = _to_channels_last(x)
+    if xc.shape[0] % num_domains:
+        raise ValueError(
+            f"train batch of {xc.shape[0]} does not split into "
+            f"num_domains={num_domains} domains"
         )
+    return norm(xc.view(num_domains, -1, xc.shape[-1])).view(xc.shape)
 
 
 class DomainWhiten(nn.Module):
     """``num_domains`` grouped-whitening branches sharing one affine.
 
-    Eval input ``[N, C, H, W]`` (channels_last) → branch ``eval_domain``
-    whitens everything.  ``eval_matrix`` is the site's precomputed
-    ``[G, g, g]`` matrix (``build_whiten_cache``, installed by the serving
-    engine); ``None`` → factorize from the running stats per call.
+    Train input: the merged batch (module docstring) → branch ``d``
+    whitens domain slice ``d`` with its batch moments through
+    :func:`~dwt_tpu_torch.ops.cuda_whitening.cuda_group_whiten`, and every
+    branch's EMA advances in place.  Eval input ``[N, C, H, W]``
+    (channels_last) → branch ``eval_domain`` whitens everything.
+    ``eval_matrix`` is the site's precomputed ``[G, g, g]`` eval matrix
+    (``build_whiten_cache``, installed by the eval pipeline and the
+    serving engine); ``None`` → factorize from the running stats per call.
     """
 
     def __init__(
@@ -70,6 +102,7 @@ class DomainWhiten(nn.Module):
         group_size: int,
         num_domains: int = 2,
         eval_domain: int = 1,
+        momentum: float = 0.1,
         eps: float = 1e-3,
     ):
         super().__init__()
@@ -77,6 +110,7 @@ class DomainWhiten(nn.Module):
         self.group_size = group_size
         self.num_domains = num_domains
         self.eval_domain = eval_domain
+        self.momentum = momentum
         self.eps = eps
         proto = init_whitening_stats(features, group_size)
         self.register_buffer("mean", proto.mean.repeat(num_domains, 1))
@@ -85,37 +119,53 @@ class DomainWhiten(nn.Module):
         self.beta = nn.Parameter(torch.zeros(features))
         self.register_buffer("eval_matrix", None, persistent=False)
 
-    def branch(self, domain: int) -> WhiteningStats:
+    def branch(self, domain) -> WhiteningStats:
         return WhiteningStats(self.mean[domain], self.cov[domain])
 
+    def _train(self, x3: torch.Tensor) -> torch.Tensor:
+        y3, new = cuda_whitening.cuda_group_whiten(
+            x3, self.branch(slice(None)), group_size=self.group_size,
+            train=True, momentum=self.momentum, eps=self.eps)
+        with torch.no_grad():
+            self.mean.copy_(new.mean)
+            self.cov.copy_(new.cov)
+        return y3
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        y, _ = group_whiten(
-            _to_channels_last(x),
-            self.branch(self.eval_domain),
-            group_size=self.group_size,
-            train=False,
-            eps=self.eps,
-            eval_matrix=self.eval_matrix,
-        )
+        if self.training:
+            y = apply_domain_norm(x, self.num_domains, self._train)
+        else:
+            y, _ = group_whiten(
+                _to_channels_last(x),
+                self.branch(self.eval_domain),
+                group_size=self.group_size,
+                train=False,
+                eps=self.eps,
+                eval_matrix=self.eval_matrix,
+            )
         y = torch.addcmul(self.beta.to(y.dtype), y, self.gamma.to(y.dtype))
         return _from_channels_last(y)
 
 
 class DomainBatchNorm(nn.Module):
-    """``num_domains`` stat-injectable BN branches sharing one affine."""
+    """``num_domains`` stat-injectable BN branches sharing one affine;
+    train mode as :class:`DomainWhiten`'s, through
+    :func:`~dwt_tpu_torch.ops.batch_norm.domain_batch_norm`.
+    ``momentum=None`` is the cumulative ``1/count`` mode."""
 
     def __init__(
         self,
         features: int,
         num_domains: int = 2,
         eval_domain: int = 1,
+        momentum: Optional[float] = 0.1,
         eps: float = 1e-5,
     ):
         super().__init__()
         self.features = features
         self.num_domains = num_domains
         self.eval_domain = eval_domain
+        self.momentum = momentum
         self.eps = eps
         proto = init_batch_norm_stats(features)
         self.register_buffer("mean", proto.mean.repeat(num_domains, 1))
@@ -124,15 +174,26 @@ class DomainBatchNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(features))
         self.beta = nn.Parameter(torch.zeros(features))
 
-    def branch(self, domain: int) -> BatchNormStats:
+    def branch(self, domain) -> BatchNormStats:
         return BatchNormStats(self.mean[domain], self.var[domain], self.count[domain])
 
+    def _train(self, x3: torch.Tensor) -> torch.Tensor:
+        y3, new = domain_batch_norm(
+            x3, self.branch(slice(None)), momentum=self.momentum, eps=self.eps)
+        with torch.no_grad():
+            self.mean.copy_(new.mean)
+            self.var.copy_(new.var)
+            self.count.copy_(new.count)
+        return y3
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        y, _ = batch_norm(
-            _to_channels_last(x), self.branch(self.eval_domain),
-            train=False, eps=self.eps,
-        )
+        if self.training:
+            y = apply_domain_norm(x, self.num_domains, self._train)
+        else:
+            y, _ = batch_norm(
+                _to_channels_last(x), self.branch(self.eval_domain),
+                train=False, eps=self.eps,
+            )
         y = torch.addcmul(self.beta.to(y.dtype), y, self.gamma.to(y.dtype))
         return _from_channels_last(y)
 

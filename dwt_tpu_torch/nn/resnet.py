@@ -1,4 +1,4 @@
-"""ResNet-DWT — eval path of ``dwt_tpu.nn.resnet`` in PyTorch.
+"""ResNet-DWT — ``dwt_tpu.nn.resnet`` in PyTorch, train and eval.
 
 Same architecture and submodule names as the Flax model (``conv1``,
 ``dn1``, ``layer1_0``, ``downsample_conv``, ``downsample_dn``,
@@ -8,12 +8,15 @@ Same architecture and submodule names as the Flax model (``conv1``,
   (:class:`DomainWhiten`); stages 2-4 use domain BN;
 * the bottleneck's 3×3 conv pads (1, 1) explicitly, at stride 2 too;
 * downsample shortcuts are a bare 1×1 conv followed by a norm site;
-* three domain branches, eval through branch ``eval_domain``.
+* three domain branches (source, target, augmented target); train mode
+  normalizes each domain with its own branch, eval goes through branch
+  ``eval_domain``.
 
-The public forward takes NHWC images ``[N, H, W, 3]`` like the JAX
-model; inside, convs run on ``[N, C, H, W]`` tensors in
-``torch.channels_last`` memory format, so every norm site sees a
-contiguous ``[N·H·W, C]`` view of its input.
+The public forward takes NHWC images like the JAX model: ``[D, N, H, W,
+3]`` in train mode (merged to ``[D·N, …]`` for the convs, logits split
+back to ``[D, N, K]``), ``[N, H, W, 3]`` in eval mode.  Inside, convs run
+on ``[N, C, H, W]`` tensors in ``torch.channels_last`` memory format, so
+every norm site sees a contiguous ``[N·H·W, C]`` view of its input.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dwt_tpu_torch.nn.norms import DomainBatchNorm, DomainWhiten
+from dwt_tpu_torch.nn.norms import (
+    DomainBatchNorm,
+    DomainWhiten,
+    merge_domains,
+    split_domains,
+)
 
 
 class BottleneckDWT(nn.Module):
@@ -43,14 +51,16 @@ class BottleneckDWT(nn.Module):
         group_size: int = 4,
         num_domains: int = 3,
         eval_domain: int = 1,
+        momentum: float = 0.1,
     ):
         super().__init__()
         out_ch = planes * self.expansion
 
         def norm(features: int) -> nn.Module:
             if use_whitening:
-                return DomainWhiten(features, group_size, num_domains, eval_domain)
-            return DomainBatchNorm(features, num_domains, eval_domain)
+                return DomainWhiten(features, group_size, num_domains,
+                                    eval_domain, momentum)
+            return DomainBatchNorm(features, num_domains, eval_domain, momentum)
 
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.dn1 = norm(planes)
@@ -80,8 +90,11 @@ class BottleneckDWT(nn.Module):
 class ResNetDWT(nn.Module):
     """ResNet-50 with domain whitening (stem + stage 1) and domain BN.
 
-    Eval input ``[N, H, W, 3]`` through the target branches only →
-    logits ``[N, num_classes]``.
+    Train input ``[3, N, H, W, 3]`` (source, target, augmented target)
+    → logits ``[3, N, num_classes]``, every branch's running stats
+    advanced; eval input ``[N, H, W, 3]`` through the target branches
+    only → logits ``[N, num_classes]``.  ``momentum`` is the EMA weight
+    of every norm site.
     """
 
     def __init__(
@@ -92,6 +105,7 @@ class ResNetDWT(nn.Module):
         num_domains: int = 3,
         eval_domain: int = 1,
         pad_classes_to: int = 0,
+        momentum: float = 0.1,
     ):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
@@ -100,7 +114,8 @@ class ResNetDWT(nn.Module):
         self.eval_domain = eval_domain
 
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.dn1 = DomainWhiten(64, group_size, num_domains, eval_domain)
+        self.dn1 = DomainWhiten(64, group_size, num_domains, eval_domain,
+                                momentum)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
         for stage, num_blocks in enumerate(self.stage_sizes, start=1):
@@ -115,6 +130,7 @@ class ResNetDWT(nn.Module):
                     group_size=group_size,
                     num_domains=num_domains,
                     eval_domain=eval_domain,
+                    momentum=momentum,
                 ))
                 inplanes = planes * BottleneckDWT.expansion
         self.fc_out = nn.Linear(
@@ -138,6 +154,13 @@ class ResNetDWT(nn.Module):
                 yield getattr(self, f"layer{stage}_{block}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            if x.dim() != 5 or x.shape[0] != self.num_domains:
+                raise ValueError(
+                    f"train input must be [domains={self.num_domains}, N, H, "
+                    f"W, C]; got {tuple(x.shape)}"
+                )
+            x = merge_domains(x)
         # NHWC in; the permuted view IS channels_last memory for a
         # contiguous NHWC input.
         x = x.permute(0, 3, 1, 2)
@@ -147,7 +170,10 @@ class ResNetDWT(nn.Module):
             x = block(x)
         x = x.mean(dim=(2, 3))  # global average pool → [N, C]
         x = self.fc_out(x)
-        return x[:, : self.num_classes]  # no-op unless the head is padded
+        x = x[:, : self.num_classes]  # no-op unless the head is padded
+        if self.training:
+            x = split_domains(x, self.num_domains)
+        return x
 
 
 def padded_num_classes(num_classes: int, pad_to: int) -> int:
@@ -191,14 +217,15 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def build_resnet(
     name: str, *, num_classes: int = 65, group_size: int = 4,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, momentum: float = 0.1,
 ) -> ResNetDWT:
     """``resnet50`` or ``tiny`` by name, freshly initialized from ``seed``
     when one is given."""
     ctors = {"resnet50": ResNetDWT.resnet50, "tiny": ResNetDWT.tiny}
     if name not in ctors:
         raise ValueError(f"unknown model {name!r}; choose from {sorted(ctors)}")
-    model = ctors[name](num_classes=num_classes, group_size=group_size)
+    model = ctors[name](num_classes=num_classes, group_size=group_size,
+                        momentum=momentum)
     if seed is not None:
         init_weights(model, seed)
     return model

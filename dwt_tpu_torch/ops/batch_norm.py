@@ -1,14 +1,22 @@
-"""Stat-injectable batch normalization — the eval subset of ``dwt_tpu.ops.batch_norm``.
+"""Stat-injectable batch normalization — the port of ``dwt_tpu.ops.batch_norm``.
 
 Running statistics are explicit inputs (``BatchNormStats``), so "stat
-injection" is passing different stats.  Eval normalizes with the running
-mean and variance in float32, in the centered form of the JAX op's
-``_normalize`` for f32 activations: ``(x − m) · rsqrt(var + eps)``.
-The shared affine lives in the module layer (``nn.norms``).  Works on any
-channels-last ``[..., C]`` input.
+injection" is passing different stats, and train mode returns new stats
+rather than mutating buffers.  Semantics, as the JAX op:
 
-Train mode (batch moments, the unbiased-variance EMA, the cumulative
-``momentum=None`` mode) is the next slice; ``train=True`` raises.
+* train mode normalizes with the batch mean and the biased one-pass
+  variance ``E[x²] − m²``; eval with the running mean and variance, in
+  the centered form ``(x − m) · rsqrt(var + eps)`` in float32;
+* the running-variance EMA accumulates the UNBIASED batch variance;
+* EMA convention ``running ← momentum·new + (1 − momentum)·running``;
+  ``momentum=None`` selects the cumulative mode ``1/count``, with
+  ``count`` advanced first;
+* the new stats are detached and cast back to the stored dtype.
+
+The shared affine lives in the module layer (``nn.norms``).  Works on any
+channels-last ``[..., C]`` input; moments reduce over all leading axes.
+:func:`domain_batch_norm` is train mode for a stack of domain branches at
+once — what ``jax.vmap(batch_norm)`` over the domain axis computes.
 """
 
 from __future__ import annotations
@@ -36,20 +44,60 @@ def init_batch_norm_stats(
     )
 
 
+def domain_batch_norm(
+    x: torch.Tensor,
+    stats: BatchNormStats,
+    *,
+    momentum: Optional[float] = 0.1,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, BatchNormStats]:
+    """Train mode of ``D`` branches: ``x [D, ..., C]`` with stats of
+    leading shape ``[D]``; branch ``d`` normalizes ``x[d]`` with its own
+    batch moments and advances its own stats.  Returns ``(y, new_stats)``."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dtype)
+    reduce_axes = tuple(range(1, x.dim() - 1))
+    n = 1
+    for a in reduce_axes:
+        n *= x.shape[a]
+    bcast = (x.shape[0],) + (1,) * len(reduce_axes) + (x.shape[-1],)
+    m = xf.mean(dim=reduce_axes)
+    msq = torch.square(xf).mean(dim=reduce_axes)
+    var = msq - torch.square(m)  # biased — used for normalization
+    y = (xf - m.view(bcast)) * torch.rsqrt(var + eps).view(bcast)
+
+    count = stats.count + 1
+    if momentum is None:
+        factor = (1.0 / count.to(dtype)).view(-1, 1)
+    else:
+        factor = momentum
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    new_stats = BatchNormStats(
+        mean=(factor * m.detach() + (1.0 - factor) * stats.mean
+              ).to(stats.mean.dtype),
+        var=(factor * unbiased + (1.0 - factor) * stats.var
+             ).to(stats.var.dtype),
+        count=count,
+    )
+    return y.to(x.dtype), new_stats
+
+
 def batch_norm(
     x: torch.Tensor,
     stats: BatchNormStats,
     *,
     train: bool,
+    momentum: Optional[float] = 0.1,
     eps: float = 1e-5,
 ) -> Tuple[torch.Tensor, BatchNormStats]:
-    """Normalize channels-last ``x`` with the running stats; returns
-    ``(y, stats)``."""
+    """Normalize channels-last ``x``; returns ``(y, new_stats)``
+    (``stats`` unchanged in eval mode)."""
     if train:
-        raise NotImplementedError(
-            "train-mode batch_norm (batch moments and the EMA update) is "
-            "the next slice of the port"
+        y, new = domain_batch_norm(
+            x.unsqueeze(0), BatchNormStats(*(s.unsqueeze(0) for s in stats)),
+            momentum=momentum, eps=eps,
         )
+        return y[0], BatchNormStats(*(s[0] for s in new))
     dtype = torch.promote_types(x.dtype, torch.float32)
     scale = torch.rsqrt(stats.var.to(dtype) + eps)
     y = (x.to(dtype) - stats.mean.to(dtype)) * scale

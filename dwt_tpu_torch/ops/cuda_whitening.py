@@ -1,51 +1,79 @@
-"""Hand-written CUDA whitening apply — the port of ``dwt_tpu.ops.pallas_whitening``'s
-``_apply_kernel`` (launched there by ``_apply_call``).
+"""Hand-written CUDA whitening kernels — the port of ``dwt_tpu.ops.pallas_whitening``.
 
-``whiten_apply(x2d, mean, w)`` computes ``y = (x − m) · W_bdᵀ`` with
-``W_bd`` the block-diagonal expansion of ``w [G, 4, 4]`` — the eval-mode
-apply at every whitened site.
+Two kernels, each beside its plain PyTorch version:
 
-* A CUDA tensor launches ``csrc/whiten_apply.cu`` (built with ``nvcc``
-  at first use, loaded with ``ctypes``) on the current stream, or
-  raises: wrong dtype, group size, layout or device, a failed build and
-  a refused launch are errors, never a fallback.
-* A CPU tensor takes :func:`whiten_apply_plain`, the same function in
-  plain PyTorch — the JAX op's grouped einsum.
+* ``whiten_moments(x2d, group_size)`` → ``(mean [C], cov [G, 4, 4])``, the
+  biased batch moments of a whitened site in train mode
+  (``csrc/whiten_moments.cu``; replaces ``_moments_kernel``, launched by
+  ``_moments_call``).
+* ``whiten_apply(x2d, mean, w)`` → ``y = (x − m) · W_bdᵀ`` with ``W_bd`` the
+  block-diagonal expansion of ``w [G, 4, 4]`` (``csrc/whiten_apply.cu``;
+  replaces ``_apply_kernel``, launched by ``_apply_call``).
 
-``apply_launches`` counts kernel launches, so a run can show that its
-main path went through the kernel.  The kernel is bound by HBM bytes
-(one read and one write of ``x``); see the note at the head of the
-``.cu`` source for the design.
+Dispatch, for both:
+
+* A CUDA tensor launches the kernel (built with ``nvcc`` at first use,
+  loaded with ``ctypes``) on the current stream, or raises: wrong dtype,
+  group size, layout or device, a failed build and a refused launch are
+  errors, never a fallback.
+* A CPU tensor takes the plain version.
+
+``moments_launches`` and ``apply_launches`` count kernel launches, so a run
+can show that its main path went through the kernels.  Both kernels are
+bound by HBM bytes; see the notes at the head of the ``.cu`` sources.
+
+:class:`TrainWhiten` is the autograd seam of train mode, the counterpart of
+the JAX package's ``_train_whiten`` custom VJP: the moments kernel, the
+factorization in ``torch.linalg`` (outside any kernel), then the apply
+kernel; the backward recomputes the plain differentiable op
+(:func:`dwt_tpu_torch.ops.whitening.group_whiten`) and returns its
+gradient.  It looks both kernels up through this module at call time, so
+a caller can swap in the plain versions.  :func:`cuda_group_whiten` is the
+drop-in counterpart of ``pallas_group_whiten`` and the one train-mode entry
+of the model's whitening sites.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from dwt_tpu_torch.ops import _build
+from dwt_tpu_torch.ops import _build, whitening
 
-GROUP_SIZE = 4  # the only group size the kernel takes (the reference's)
+GROUP_SIZE = 4  # the only group size the kernels take (the reference's)
+_STATS_PER_GROUP = 14  # pass-1 partials per group: 4 sums + 10 products
 
-# Kernel launches since import (or since a caller reset it).
+# Kernel launches since import (or since a caller reset them).
 apply_launches = 0
+moments_launches = 0
+
+
+# ------------------------------------------------------------------- apply
 
 
 def whiten_apply_plain(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor
+    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``(x − m) · W_bdᵀ`` as the grouped einsum of
     ``dwt_tpu/ops/whitening.py:418-425``: ``x2d [M, C]``, ``mean [C]``,
-    ``w [G, g, g]`` → ``[M, C]``."""
+    ``w [G, g, g]`` → ``[M, C]`` (written into ``out`` when given)."""
     num_groups, g = w.shape[0], w.shape[1]
     t = (x2d - mean).view(-1, num_groups, g)
-    return torch.einsum("mgc,gdc->mgd", t, w).reshape(x2d.shape)
+    y = torch.einsum("mgc,gdc->mgd", t, w).reshape(x2d.shape)
+    if out is None:
+        return y
+    return out.copy_(y)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("whiten_apply")
-    if not getattr(lib, "_dwt_bound", False):
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    if getattr(lib, "_dwt_bound", False):
+        return lib
+    if name == "whiten_apply":
         lib.dwt_whiten_apply_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -54,18 +82,48 @@ def _library() -> ctypes.CDLL:
         lib.dwt_whiten_apply_f32.restype = ctypes.c_int
         lib.dwt_whiten_apply_max_channels.argtypes = []
         lib.dwt_whiten_apply_max_channels.restype = ctypes.c_int
-        lib.dwt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dwt_cuda_error_string.restype = ctypes.c_char_p
-        lib._dwt_bound = True
+    else:
+        lib.dwt_whiten_moments_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.dwt_whiten_moments_f32.restype = ctypes.c_int
+        lib.dwt_whiten_moments_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.dwt_whiten_moments_blocks.restype = ctypes.c_int
+        lib.dwt_whiten_moments_max_channels.argtypes = []
+        lib.dwt_whiten_moments_max_channels.restype = ctypes.c_int
+    lib.dwt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dwt_cuda_error_string.restype = ctypes.c_char_p
+    lib._dwt_bound = True
     return lib
 
 
-def _check_cuda_args(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor
+def _raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel failed: CUDA error {rc} "
+            f"({lib.dwt_cuda_error_string(rc).decode()})"
+        )
+
+
+def _check_f32_dense(what: str, device: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x2d on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_apply_args(
+    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    out: Optional[torch.Tensor],
 ) -> None:
     if x2d.dim() != 2:
         raise ValueError(f"whiten_apply: x2d must be [M, C], got {tuple(x2d.shape)}")
-    m_rows, c = x2d.shape
+    c = x2d.shape[1]
     if w.dim() != 3 or w.shape[1] != w.shape[2]:
         raise ValueError(f"whiten_apply: w must be [G, g, g], got {tuple(w.shape)}")
     if w.shape[1] != GROUP_SIZE:
@@ -78,49 +136,224 @@ def _check_cuda_args(
             f"whiten_apply: shapes disagree: x2d {tuple(x2d.shape)}, "
             f"mean {tuple(mean.shape)}, w {tuple(w.shape)}"
         )
-    for name, t in (("x2d", x2d), ("mean", mean), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"whiten_apply: {name} must be float32, got {t.dtype}")
-        if t.device != x2d.device:
+    tensors = dict(x2d=x2d, mean=mean, w=w)
+    if out is not None:
+        if out.shape != x2d.shape:
             raise ValueError(
-                f"whiten_apply: {name} is on {t.device}, x2d on {x2d.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"whiten_apply: {name} must be contiguous")
-    if x2d.data_ptr() % 16:
-        raise ValueError("whiten_apply: x2d must be 16-byte aligned (float4 loads)")
+                f"whiten_apply: out is {tuple(out.shape)}, x2d {tuple(x2d.shape)}")
+        tensors["out"] = out
+    _check_f32_dense("whiten_apply", x2d.device, **tensors)
+    if x2d.data_ptr() % 16 or (out is not None and out.data_ptr() % 16):
+        raise ValueError("whiten_apply: x2d and out must be 16-byte aligned "
+                         "(float4 loads)")
 
 
 def whiten_apply(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor
+    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``(x − m) · W_bdᵀ``: the CUDA kernel for a CUDA ``x2d``, the plain
     version for a CPU one.  ``x2d [M, C]`` f32 contiguous, ``mean [C]``
-    f32, ``w [C/4, 4, 4]`` f32, all on ``x2d``'s device."""
+    f32, ``w [C/4, 4, 4]`` f32, all on ``x2d``'s device; the result goes
+    to ``out`` (``[M, C]``, e.g. one domain's slice of a site's output)
+    when given, else to a new tensor."""
     global apply_launches
     if x2d.device.type == "cpu":
-        return whiten_apply_plain(x2d, mean, w)
+        return whiten_apply_plain(x2d, mean, w, out)
     if x2d.device.type != "cuda":
         raise ValueError(f"whiten_apply: unsupported device {x2d.device}")
-    _check_cuda_args(x2d, mean, w)
-    lib = _library()
+    _check_apply_args(x2d, mean, w, out)
+    lib = _library("whiten_apply")
     m_rows, c = x2d.shape
     if c > lib.dwt_whiten_apply_max_channels():
         raise ValueError(
             f"whiten_apply: C={c} exceeds the kernel's "
             f"{lib.dwt_whiten_apply_max_channels()} channels"
         )
-    y = torch.empty_like(x2d)
+    y = torch.empty_like(x2d) if out is None else out
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = lib.dwt_whiten_apply_f32(
             x2d.data_ptr(), mean.data_ptr(), w.data_ptr(), y.data_ptr(),
             m_rows, c, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"whiten_apply kernel failed: CUDA error {rc} "
-            f"({lib.dwt_cuda_error_string(rc).decode()})"
-        )
+    _raise_on_error(lib, rc, "whiten_apply")
     apply_launches += 1
     return y
+
+
+# ----------------------------------------------------------------- moments
+
+
+def whiten_moments_plain(
+    x2d: torch.Tensor, group_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean [C], biased cov [G, g, g])`` of ``x2d [M, C]``: the mean,
+    then :func:`~dwt_tpu_torch.ops.whitening.group_cov` of the centred
+    input, as ``dwt_tpu/ops/whitening.py:693-698`` computes them."""
+    num_groups, g = whitening._resolve_groups(x2d.shape[-1], group_size)
+    mean = x2d.mean(dim=0)
+    return mean, whitening.group_cov(x2d - mean, num_groups, g)
+
+
+def _check_moments_args(x2d: torch.Tensor, group_size: int) -> None:
+    if x2d.dim() != 2:
+        raise ValueError(
+            f"whiten_moments: x2d must be [M, C], got {tuple(x2d.shape)}")
+    m_rows, c = x2d.shape
+    if m_rows < 1:
+        raise ValueError("whiten_moments: x2d has no rows")
+    if min(c, group_size) != GROUP_SIZE or c % GROUP_SIZE:
+        raise ValueError(
+            f"whiten_moments: the CUDA kernel takes group size {GROUP_SIZE}, "
+            f"got {group_size} for C={c}"
+        )
+    _check_f32_dense("whiten_moments", x2d.device, x2d=x2d)
+    if x2d.data_ptr() % 16:
+        raise ValueError("whiten_moments: x2d must be 16-byte aligned "
+                         "(float4 loads)")
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_blocks(device_index: int, m_rows: int, c: int) -> int:
+    """The kernel's pass-1 grid size for ``[m_rows, c]`` on a device (an
+    occupancy query, asked once per shape)."""
+    lib = _library("whiten_moments")
+    with torch.cuda.device(device_index):
+        blocks = lib.dwt_whiten_moments_blocks(m_rows, c)
+    _raise_on_error(lib, -min(blocks, 0), "whiten_moments")
+    return blocks
+
+
+def whiten_moments(
+    x2d: torch.Tensor, group_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean [C], biased cov [C/4, 4, 4])`` of ``x2d [M, C]``: the CUDA
+    kernel for a CUDA ``x2d`` (f32, contiguous, group size 4), the plain
+    version for a CPU one.  Both of the kernel's passes count as one
+    launch."""
+    global moments_launches
+    if x2d.device.type == "cpu":
+        return whiten_moments_plain(x2d, group_size)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"whiten_moments: unsupported device {x2d.device}")
+    _check_moments_args(x2d, group_size)
+    lib = _library("whiten_moments")
+    m_rows, c = x2d.shape
+    if c > lib.dwt_whiten_moments_max_channels():
+        raise ValueError(
+            f"whiten_moments: C={c} exceeds the kernel's "
+            f"{lib.dwt_whiten_moments_max_channels()} channels"
+        )
+    groups = c // GROUP_SIZE
+    blocks = _moments_blocks(x2d.device.index, m_rows, c)
+    with torch.cuda.device(x2d.device):
+        partial = torch.empty(blocks * groups * _STATS_PER_GROUP,
+                              dtype=torch.float32, device=x2d.device)
+        mean = torch.empty(c, dtype=torch.float32, device=x2d.device)
+        cov = torch.empty(groups, GROUP_SIZE, GROUP_SIZE,
+                          dtype=torch.float32, device=x2d.device)
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        rc = lib.dwt_whiten_moments_f32(
+            x2d.data_ptr(), mean.data_ptr(), cov.data_ptr(),
+            partial.data_ptr(), m_rows, c, blocks, stream,
+        )
+    _raise_on_error(lib, rc, "whiten_moments")
+    moments_launches += 1
+    return mean, cov
+
+
+# ---------------------------------------------------- differentiable train path
+
+
+def _pure_train_y(x2d: torch.Tensor, group_size: int, eps: float) -> torch.Tensor:
+    """The plain op's train-mode output (``y`` only) — the recompute of
+    the backward.  Train-mode ``y`` does not depend on the running stats,
+    so fresh ones stand in."""
+    y, _ = whitening.group_whiten(
+        x2d,
+        whitening.init_whitening_stats(x2d.shape[-1], group_size,
+                                       device=x2d.device),
+        group_size=group_size, train=True, eps=eps,
+    )
+    return y
+
+
+class TrainWhiten(torch.autograd.Function):
+    """Train-mode whitening of ``x [D, M, C]``, each domain ``d`` with the
+    batch moments of its own slice ``x[d]``.
+
+    Forward, per domain: :func:`whiten_moments`, the factorization
+    ``whitening_matrix(_shrink(cov, eps))`` in ``torch.linalg``, then
+    :func:`whiten_apply` into the domain's slice of one output tensor.
+    Returns ``(y [D, M, C], means [D, C], covs [D, G, g, g])``; the
+    moments are non-differentiable (the running-stat EMA is detached).
+
+    Backward: like ``_train_whiten_bwd``, the plain train-mode op is
+    recomputed on the saved ``x`` under ``torch.enable_grad()`` and its
+    gradient returned.  The recompute never touches running stats, so
+    they advance once per forward.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group_size: int, eps: float):
+        ctx.group_size, ctx.eps = group_size, eps
+        ctx.save_for_backward(x)
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        means, covs = [], []
+        # Grad mode is already off inside Function.forward; explicit here
+        # because nothing in this loop may record a graph.
+        with torch.no_grad():
+            for d in range(x.shape[0]):
+                mean, cov = whiten_moments(x[d], group_size)
+                w = whitening.whitening_matrix(whitening._shrink(cov, eps))
+                whiten_apply(x[d], mean, w, out=y[d])
+                means.append(mean)
+                covs.append(cov)
+            means, covs = torch.stack(means), torch.stack(covs)
+        ctx.mark_non_differentiable(means, covs)
+        return y, means, covs
+
+    @staticmethod
+    def backward(ctx, gy, _gmeans, _gcovs):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            ys = [_pure_train_y(xr[d], ctx.group_size, ctx.eps)
+                  for d in range(x.shape[0])]
+            (dx,) = torch.autograd.grad(ys, xr, list(gy.to(x.dtype)))
+        return dx, None, None
+
+
+def cuda_group_whiten(
+    x: torch.Tensor,
+    stats: whitening.WhiteningStats,
+    *,
+    group_size: int,
+    train: bool,
+    momentum: float = 0.1,
+    eps: float = 1e-3,
+) -> Tuple[torch.Tensor, whitening.WhiteningStats]:
+    """Drop-in for :func:`dwt_tpu_torch.ops.whitening.group_whiten` through
+    the kernels (single device, Cholesky) — ``pallas_group_whiten``'s
+    counterpart.  ``x [..., C]`` must be viewable as ``[M, C]`` without a
+    copy.  Train mode returns the EMA-updated (new, detached) stats.
+
+    Train mode also takes the ``D`` branches of a domain site at once:
+    with ``stats`` stacked on a leading domain axis (``mean [D, C]``,
+    ``cov [D, G, g, g]``), ``x [D, ..., C]`` is split on its leading axis
+    and domain ``d`` is whitened with the batch moments of ``x[d]`` and
+    advances branch ``d`` — what :class:`~dwt_tpu_torch.nn.norms.DomainWhiten`
+    calls."""
+    c = x.shape[-1]
+    _, g = whitening._resolve_groups(c, group_size)
+    whitener = whitening.get_whitener("cholesky")
+    if train:
+        stacked = stats.mean.dim() == 2
+        y, mean, cov = TrainWhiten.apply(
+            x.view(x.shape[0] if stacked else 1, -1, c), g, eps)
+        if not stacked:
+            mean, cov = mean[0], cov[0]
+        return y.view(x.shape), whitener.update_stats(stats, mean, cov, momentum)
+    w = whitener.eval_matrix(stats, eps, x.dtype)
+    return whiten_apply(x.view(-1, c), stats.mean.to(x.dtype), w).view(x.shape), stats

@@ -5,8 +5,8 @@ artifact is the target-branch eval forward — frozen running stats,
 domain-specific whitening at test time:
 
 * **whiten once**: every site's eval whitening matrix is factorized from
-  the frozen stats in one batched call (:func:`make_whiten_cache`, the
-  counterpart of ``dwt_tpu.train.evalpipe.make_whiten_cache_fn``) and
+  the frozen stats in one batched call (:func:`dwt_tpu_torch.train.
+  evalpipe.make_whiten_cache`, which the eval pipeline uses too) and
   installed into the sites (the counterpart of
   ``dwt_tpu.train.steps.eval_variables``, which threads the cache
   collection into ``model.apply``);
@@ -37,67 +37,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
-from dwt_tpu_torch.ops.whitening import WHITEN_CACHE_COL, build_whiten_cache
 from dwt_tpu_torch.serve.batcher import DEFAULT_BUCKETS, bucket_for, pad_to_bucket
+from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
 
 log = logging.getLogger(__name__)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
-    """``None`` → ``cuda``.  A CUDA device without CUDA raises: the CPU
-    serves only when the caller asks for it."""
+    """``None`` → ``cuda``.  A CUDA device without CUDA raises: the port
+    serves and trains on the CPU only when the caller asks for it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available: the serving engine runs on a GPU; "
-            "pass device='cpu' (--device cpu) to serve on the CPU"
+            "CUDA is not available: the port runs on a GPU; pass "
+            "device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
-
-
-def whitening_stats_tree(model: nn.Module) -> Dict:
-    """The model's whitening stats in the JAX ``batch_stats`` layout
-    (scope path → ``{"whitening": WhiteningStats}``, domain-stacked)."""
-    tree: Dict = {}
-    for name, site in whitening_sites(model).items():
-        node = tree
-        for key in name.split("."):
-            node = node.setdefault(key, {})
-        node["whitening"] = site.branch(slice(None))
-    return tree
-
-
-@torch.no_grad()
-def make_whiten_cache(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Factorize every whitening site's eval matrix from the model's
-    frozen stats in one batched call; returns ``{site name: w}``.
-
-    The shrinkage eps and the eval branch are read off the sites, so the
-    cache is what each site would factorize for itself."""
-    sites = whitening_sites(model).values()
-    settings = {(site.eps, site.eval_domain) for site in sites}
-    if len(settings) > 1:
-        raise ValueError(
-            f"whitening sites disagree on (eps, eval_domain): {sorted(settings)}"
-        )
-    if not settings:
-        return {}
-    ((eps, eval_domain),) = settings
-    cache = build_whiten_cache(
-        whitening_stats_tree(model), eps=eps, eval_domain=eval_domain
-    )
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(node: Dict, path: Tuple[str, ...]) -> None:
-        for key, value in node.items():
-            if key == "w" and torch.is_tensor(value):
-                out[".".join(path)] = value
-            else:
-                walk(value, path + (key,))
-
-    walk(cache.get(WHITEN_CACHE_COL, {}), ())
-    return out
 
 
 class ServeEngine:
@@ -144,8 +99,7 @@ class ServeEngine:
         the device in eval mode, conv weights in channels_last memory
         format like the activations."""
         model = model.eval()
-        for name, w in make_whiten_cache(model).items():
-            install_eval_matrix(model.get_submodule(name), w)
+        install_whiten_cache(model, make_whiten_cache(model))
         model = model.to(self.device)
         for mod in model.modules():
             if isinstance(mod, nn.Conv2d):

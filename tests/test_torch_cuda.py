@@ -1,15 +1,19 @@
 """The port's CUDA kernels on the card, and their CPU-side dispatch.
 
 Tests marked ``cuda`` need a GPU and skip without one; run them on a
-machine with the card (no JAX needed there)::
+machine with the card (no JAX needed there; ``--noconftest`` skips the
+repository's conftest, which imports JAX)::
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The whitening-apply kernel is held to its plain PyTorch version on the
 same device, ``rtol = atol = 1e-5`` (both sum 4 products per output, in
-different orders).  The CPU-side tests check the dispatch rules: a CPU
-tensor takes the plain version, any other device raises, and
-``chip_smoke.py`` refuses to run without CUDA.
+different orders).  The moments kernel is held to its plain version and
+to a float64 two-pass computation: mean ``rtol = atol = 1e-6``, cov
+``rtol = 1e-4, atol = 1e-5`` (f32 sums in another order).  The CPU-side
+tests check the dispatch rules: a CPU tensor takes the plain version,
+any other device raises, and ``chip_smoke.py`` refuses to run without
+CUDA.
 """
 
 from __future__ import annotations
@@ -128,3 +132,94 @@ def test_wrapper_rejects_device_mismatch(cuda_device):
     x, mean, w = _args(device=cuda_device)
     with pytest.raises(ValueError, match="mean is on cpu"):
         cuda_whitening.whiten_apply(x, mean.cpu(), w)
+
+
+def test_cpu_apply_writes_into_out():
+    x, mean, w = _args()
+    out = torch.empty(2, *x.shape)
+    y = cuda_whitening.whiten_apply(x, mean, w, out=out[1])
+    assert y.data_ptr() == out[1].data_ptr()
+    torch.testing.assert_close(out[1], cuda_whitening.whiten_apply_plain(x, mean, w),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_writes_into_a_slice_of_out(cuda_device):
+    x, mean, w = _args(device=cuda_device)
+    out = torch.zeros(3, *x.shape, device=cuda_device)
+    cuda_whitening.whiten_apply(x, mean, w, out=out[1])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[1], cuda_whitening.whiten_apply_plain(x, mean, w),
+                               **TOL)
+    assert not out[0].any() and not out[2].any()
+
+
+MEAN_TOL = dict(rtol=1e-6, atol=1e-6)
+COV_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _two_pass_f64(x):
+    x = x.double()
+    mean = x.mean(dim=0)
+    t = (x - mean).view(x.shape[0], -1, 4)
+    return mean, torch.einsum("mgc,mgd->gcd", t, t) / x.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m,offset", [
+    (64, 1000, 0.0), (256, 1000, 0.0), (64, 7, 0.0), (256, 56448, 0.0),
+    (64, 225792, 0.0), (256, 4096, 5.0),
+])
+def test_moments_kernel_matches_plain_and_two_pass(cuda_device, c, m, offset):
+    x, _, _ = _args(c, m, device=cuda_device)
+    x = x + offset
+    before = cuda_whitening.moments_launches
+    mean, cov = cuda_whitening.whiten_moments(x, 4)
+    torch.cuda.synchronize()
+    assert cuda_whitening.moments_launches == before + 1
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    r_mean, r_cov = _two_pass_f64(x)
+    torch.testing.assert_close(mean, p_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov, p_cov, **COV_TOL)
+    torch.testing.assert_close(mean.double(), r_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov.double(), r_cov, **COV_TOL)
+
+
+@pytest.mark.cuda
+def test_moments_kernel_is_deterministic(cuda_device):
+    x, _, _ = _args(256, 56448, device=cuda_device)
+    a = cuda_whitening.whiten_moments(x, 4)
+    b = cuda_whitening.whiten_moments(x, 4)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_moments_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, _, _ = _args(device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_whitening.whiten_moments(x.double(), 4)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_whitening.whiten_moments(x.half(), 4)
+    with pytest.raises(ValueError, match="group size"):
+        cuda_whitening.whiten_moments(x, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_whitening.whiten_moments(torch.cat([x, x], dim=1)[:, ::2], 4)
+    with pytest.raises(ValueError, match="no rows"):
+        cuda_whitening.whiten_moments(x[:0], 4)
+
+
+@pytest.mark.cuda
+def test_train_whiten_on_the_card_matches_the_cpu(cuda_device):
+    """One train-mode site, kernels on the card, plain versions on the
+    CPU: outputs, moments and input gradients."""
+    x, _, _ = _args(64, 3 * 500, seed=3)
+    r = torch.randn(3, 500, 64, generator=torch.Generator().manual_seed(0))
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        xd = x.view(3, 500, 64).to(device).requires_grad_(True)
+        y, means, covs = cuda_whitening.TrainWhiten.apply(xd, 4, 1e-3)
+        (y * r.to(device)).sum().backward()
+        results.append([t.detach().cpu() for t in (y, means, covs, xd.grad)])
+    for ours, ref, tol in zip(*results, [dict(rtol=2e-4, atol=2e-5), MEAN_TOL,
+                                         COV_TOL, dict(rtol=2e-3, atol=5e-5)]):
+        torch.testing.assert_close(ours, ref, **tol)

@@ -16,6 +16,8 @@ orders in XLA and in PyTorch's CPU kernels.
 
 from __future__ import annotations
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,13 +119,16 @@ def test_forward_matches_jax_pallas_model(tied):
 
 
 def test_train_mode_is_next_slice(tied):
+    """Train mode landed with the port's second slice (its parity tests are
+    in ``test_torch_train.py``): it takes the domain-stacked
+    ``[3, N, H, W, 3]`` batch and returns ``[3, N, K]`` logits; an
+    eval-shaped batch raises."""
     _, _, _, port, images = tied
-    port.train()
-    try:
-        with pytest.raises(NotImplementedError):
-            port(torch.from_numpy(images))
-    finally:
-        port.eval()
+    port = copy.deepcopy(port).train()  # train forwards advance the stats
+    with pytest.raises(ValueError, match="domains=3"):
+        port(torch.from_numpy(images))
+    logits = port(torch.from_numpy(np.stack([images[:2]] * 3)))
+    assert logits.shape == (3, 2, CLASSES) and torch.isfinite(logits).all()
 
 
 def test_merge_split_domains_match_jax():

@@ -79,6 +79,12 @@ def test_group_whiten_matches_pallas_and_xla(c):
                               train=False)
     np.testing.assert_allclose(ours.numpy(), np.asarray(pallas_y), **F32_TOL)
     np.testing.assert_allclose(ours.numpy(), np.asarray(xla_y), **F32_TOL)
+    # The kernel path's drop-in (pallas_group_whiten's counterpart).
+    kernel_path, same = cuda_whitening.cuda_group_whiten(
+        torch.from_numpy(x), tstats, group_size=4, train=False)
+    np.testing.assert_allclose(kernel_path.numpy(), np.asarray(pallas_y),
+                               **F32_TOL)
+    assert same is tstats
 
 
 def test_group_whiten_matches_jax_in_f64():
@@ -99,9 +105,15 @@ def test_group_whiten_matches_jax_in_f64():
 
 
 def test_group_whiten_train_mode_is_next_slice():
+    """Train mode landed with the port's second slice (its parity tests are
+    in ``test_torch_moments.py``); the whiteners other than Cholesky are
+    still to come, and raise."""
     stats = tw.init_whitening_stats(8, 4)
+    y, new = tw.group_whiten(torch.randn(3, 8), stats, group_size=4, train=True)
+    assert y.shape == (3, 8) and not torch.equal(new.cov, stats.cov)
     with pytest.raises(NotImplementedError):
-        tw.group_whiten(torch.zeros(3, 8), stats, group_size=4, train=True)
+        tw.group_whiten(torch.zeros(3, 8), stats, group_size=4, train=True,
+                        whitener="swbn")
 
 
 def test_init_stats_all_ones_cov_and_group_divisibility():
