@@ -22,21 +22,30 @@ script exits non-zero without the final line:
                   plain version and one-call library yardstick
                   (``torch.addmm`` with the block-diagonal matrix) in
                   milliseconds, beside the bound (bytes moved over the
-                  card's memory rate).
+                  card's memory rate).  Every timing here and in phase 6
+                  cycles through distinct input (and output) buffers of
+                  ``COLD_BYTES`` (100 MB) or more in all, so that L2 is
+                  cold for each call, as in a train step or a forward.
 5. ``moments_parity`` — the moments kernel against its plain version on
-                  the card and against a float64 two-pass reference, at
-                  the three per-domain site shapes of a ResNet50 train
-                  step (18 images per stream, 224²), at a ragged M = 1000
-                  and on an input with a channel-mean offset; mean
+                  the card and against a float64 two-pass reference of
+                  each domain, at the three batched site shapes of a
+                  ResNet50 train step (``[3, M, C]``, 18 images per
+                  stream, 224²), at D = 1 and D = 2, at a ragged M = 1000
+                  and on an input with a channel-mean offset of 4; mean
                   ``rtol = atol = 1e-6``, cov ``rtol = 1e-4, atol = 1e-5``.
-                  At each shape also the apply kernel against its plain
-                  version, whitening the input with those moments
-                  (``rtol = atol = 1e-5`` per element).
-6. ``moments_timing`` — per train shape: the moments kernel, its plain
-                  version and the library yardstick ``torch.cov`` (the
-                  full C×C covariance, whose diagonal 4×4 blocks are the
-                  kernel's ``cov``), and the apply kernel at the same
-                  shapes, beside their bounds.
+                  One launch per call, and one kernel and no other device
+                  operation in a profiler trace of a call; a second call
+                  is bitwise equal to the first, and at the three train
+                  shapes so are two replays of a CUDA graph that captured
+                  a call.  At each shape also the apply kernel against its
+                  plain version on each domain, whitening it with those
+                  moments (``rtol = atol = 1e-5`` per element).
+6. ``moments_timing`` — per train site: the moments kernel (one launch for
+                  the site's 3 domains), its plain version and the library
+                  yardstick ``torch.cov`` once per domain (the full C×C
+                  covariance, whose diagonal 4×4 blocks are the kernel's
+                  ``cov``), and the apply kernel on one domain, beside
+                  their bounds.
 7. ``train``    — the port's trainer through its CLI entry
                   (``build_parser``/``run_officehome``): ResNet50-DWT,
                   65 classes, 224², 3 streams × 18 images, 6 steps, an
@@ -44,10 +53,11 @@ script exits non-zero without the final line:
                   eval, on synthetic data from seed 1.  ``--log_interval
                   1`` so that every step's losses are read.  Checks:
                   finite losses and grad norms, every parameter and
-                  every whitening site's running cov moved, 33 moments
-                  and 33 apply launches per train step and per
-                  collection forward, 11 apply launches per eval
-                  forward, an accuracy.
+                  every whitening site's running cov moved, 11 moments
+                  launches (one per site) and 33 apply launches (one per
+                  site and domain) per train step and per collection
+                  forward, 11 apply launches per eval forward, an
+                  accuracy.
 8. ``train_reference`` — one ResNet50 train step through the kernels
                   against the same step with both kernels swapped for
                   their plain versions and against a float64 step of the
@@ -91,14 +101,18 @@ RESNET50_SITES = (  # (site, M at bucket 128 and 224², C, sites per forward)
     ("stage1_c64", 128 * 56 * 56, 64, 6),
     ("stage1_c256", 128 * 56 * 56, 256, 4),
 )
-TRAIN_SITES = (  # (site, M per domain at 18 images and 224², C, launches per step)
-    ("stem_dn1", 18 * 112 * 112, 64, 3),
-    ("stage1_c64", 18 * 56 * 56, 64, 18),
-    ("stage1_c256", 18 * 56 * 56, 256, 12),
+TRAIN_SITES = (  # (site, M per domain at 18 images and 224², C, sites per step)
+    ("stem_dn1", 18 * 112 * 112, 64, 1),
+    ("stage1_c64", 18 * 56 * 56, 64, 6),
+    ("stage1_c256", 18 * 56 * 56, 256, 4),
 )
+DOMAINS = 3  # domain branches of a train site: one moments launch, 3 applies
 RAGGED_M = 1000
 APPLY_KERNELS = ("whiten_apply_f32_kernel",)
-MOMENTS_KERNELS = ("moments_partial_kernel", "moments_final_kernel")
+MOMENTS_KERNELS = ("whiten_moments_f32_kernel",)
+# Kernel timings cycle through distinct buffers of at least this many
+# bytes in all, more than the H100's 50 MB L2, so no reading comes from L2.
+COLD_BYTES = 100_000_000
 MEAN_TOL = 1e-6                   # moments: mean rtol = atol
 COV_RTOL, COV_ATOL = 1e-4, 1e-5   # moments: cov
 TRAIN_FLAGS = [
@@ -108,7 +122,7 @@ TRAIN_FLAGS = [
     "--log_interval", "1",
 ]
 WHITENED_SITES = 11  # ResNet50-DWT: the stem and the 10 norm sites of stage 1
-SITE_DOMAINS = 3 * WHITENED_SITES
+SITE_DOMAINS = DOMAINS * WHITENED_SITES
 # The ResNet50 step held to its plain-kernel twin: images per stream, size.
 REFERENCE_STEP = (18, 224)
 TOL = 1e-5            # kernel vs plain, per element: rtol = atol = 1e-5
@@ -160,31 +174,30 @@ def memory_rate(name: str) -> float:
     raise RuntimeError(f"no published memory rate for {name!r}")
 
 
-def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
+def cuda_ms(torch, fn, rotation=((),), iters: int = 50, warmup: int = 5) -> float:
+    """Milliseconds per call of ``fn(*rotation[i % len(rotation)])`` by
+    CUDA events around back-to-back calls (host time included)."""
+    for i in range(warmup):
+        fn(*rotation[i % len(rotation)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*rotation[i % len(rotation)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, names, iters: int = 20) -> float:
-    """Device time per call of the kernels whose names contain one of
-    ``names``, from a ``torch.profiler`` trace of ``iters`` calls: the
-    kernel's own time, without its wrapper's host time (which exceeds the
-    kernel at the small train shapes)."""
+def trace_events(torch, fn, iters: int = 1):
+    """The device events (kernels, copies, memsets) of ``iters`` calls of
+    ``fn()`` in a ``torch.profiler`` trace, in order."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -195,12 +208,40 @@ def device_ms(torch, fn, names, iters: int = 20) -> float:
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    total = sum(ev["dur"] for ev in trace.get("traceEvents", [])
-                if ev.get("cat") == "kernel" and "dur" in ev
-                and any(n in ev["name"] for n in names))
+    return [ev for ev in trace.get("traceEvents", [])
+            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "dur" in ev]
+
+
+def device_ms(torch, fn, names, rotation=((),), iters: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from a ``torch.profiler`` trace of ``iters`` calls of
+    ``fn(*rotation[i % len(rotation)])``: the kernel's own time, without
+    its wrapper's host time (which exceeds the kernel at the small train
+    shapes)."""
+    for args in rotation:
+        fn(*args)
+    calls = iter(range(iters))
+    events = trace_events(
+        torch, lambda: fn(*rotation[next(calls) % len(rotation)]), iters)
+    total = sum(ev["dur"] for ev in events
+                if ev["cat"] == "kernel" and any(n in ev["name"] for n in names))
     if total <= 0:
         raise RuntimeError(f"the profiler recorded no {names} kernel")
     return total / 1e3 / iters
+
+
+def cold_rotation(torch, tensors, out_like=()):
+    """Argument tuples over distinct buffers, so that timing a kernel by
+    cycling through them finds L2 cold: ``tensors`` and their copies, with
+    fresh ``out_like``-shaped outputs, ``COLD_BYTES`` or more in all and at
+    least two sets."""
+    per_set = sum(t.numel() * t.element_size() for t in (*tensors, *out_like))
+    sets = max(2, -(-COLD_BYTES // per_set))
+    first = (*tensors, *(torch.empty_like(t) for t in out_like))
+    return [first] + [(*(t.clone() for t in tensors),
+                       *(torch.empty_like(t) for t in out_like))
+                      for _ in range(sets - 1)]
 
 
 def norm_err(a, b) -> float:
@@ -252,15 +293,20 @@ def check_kernel(torch, cw, device, rate):
         nbytes = 2 * m * c * 4
         flops = m * c * 9  # per 4 channels: 4 subtracts + 16 FMAs
         bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
+        del y, ref, lib_y
+        cold = cold_rotation(torch, (x,), out_like=(x,))  # (x_i, y_i)
+        kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
         row = {
             "shape": name, "M": m, "C": c, "bytes": nbytes,
-            "kernel_ms": cuda_ms(torch, lambda: cw.whiten_apply(x, mean, w)),
-            "device_ms": device_ms(torch, lambda: cw.whiten_apply(x, mean, w),
-                                   APPLY_KERNELS),
-            "plain_ms": cuda_ms(torch, lambda: cw.whiten_apply_plain(x, mean, w),
-                                iters=10),
-            "library_ms": cuda_ms(torch, lambda: torch.addmm(bias, x, w_t)),
-            "copy_ms": cuda_ms(torch, lambda: y.copy_(x)),
+            "rotation_buffers": len(cold),
+            "kernel_ms": cuda_ms(torch, kernel, cold),
+            "device_ms": device_ms(torch, kernel, APPLY_KERNELS, cold),
+            "plain_ms": cuda_ms(
+                torch, lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi),
+                cold, iters=10),
+            "library_ms": cuda_ms(
+                torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), cold),
+            "copy_ms": cuda_ms(torch, lambda xi, yi: yi.copy_(xi), cold),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_max_abs_err": lib_err,
@@ -269,7 +315,7 @@ def check_kernel(torch, cw, device, rate):
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         timing[name] = row
         emit({"phase": "timing", **row})
-        del x, y, ref, lib_y, diff
+        del x, diff, cold
         torch.cuda.empty_cache()
     return parity, timing
 
@@ -372,17 +418,20 @@ def serve(torch, cw, server):
 # ----------------------------------------------------------------- moments
 
 
-def moments_input(torch, m, c, gen, device, offset=0.0):
-    """Channels correlated within a group, spread ~1.5, mean ``offset``."""
-    x = torch.randn(m, c, generator=gen, device=device) * 1.5
-    return x + 0.5 * x.roll(1, dims=1) + offset
+def moments_input(torch, d, m, c, gen, device, offset=0.0):
+    """``[d, m, c]``, each domain its own draw: channels correlated within
+    a group, spread ~1.5, mean ``offset``."""
+    x = torch.randn(d, m, c, generator=gen, device=device) * 1.5
+    return x + 0.5 * x.roll(1, dims=2) + offset
 
 
 def two_pass_f64(torch, x):
+    """Per domain of ``x [D, M, C]``: mean and biased group cov in float64,
+    the cov from the centred input."""
     xd = x.double()
-    mean = xd.mean(dim=0)
-    t = (xd - mean).view(x.shape[0], -1, 4)
-    return mean, torch.einsum("mgc,mgd->gcd", t, t) / x.shape[0]
+    mean = xd.mean(dim=1)
+    t = (xd - mean[:, None]).view(*x.shape[:2], -1, 4)
+    return mean, torch.einsum("kmgc,kmgd->kgcd", t, t) / x.shape[1]
 
 
 def moments_errors(torch, mean, cov, ref_mean, ref_cov):
@@ -393,84 +442,135 @@ def moments_errors(torch, mean, cov, ref_mean, ref_cov):
     return float(dm.max()), float(dc.max()), ok
 
 
+def graph_replays(torch, cw, x, eager):
+    """Capture one moments launch in a CUDA graph, replay it twice over
+    zeroed outputs: is every replay bitwise the eager result?  (The
+    arrival counter must be zero again after each launch.)"""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cw.whiten_moments(x, 4)
+    same = []
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, b) for a, b in zip(captured, eager)))
+    del graph, captured
+    return all(same)
+
+
 def check_moments(torch, cw, device, rate):
-    """Moments parity at every shape; moments and apply timing at the
-    train shapes."""
+    """Moments parity at every shape; moments (one launch per site, all
+    domains) and apply (per domain) timing at the train shapes."""
     from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
 
     gen = torch.Generator(device=device).manual_seed(1)
-    shapes = [(name, m, c, 0.0) for name, m, c, _ in TRAIN_SITES]
-    shapes += [("ragged_c64", RAGGED_M, 64, 0.0),
-               ("ragged_c256", RAGGED_M, 256, 0.0),
-               ("offset_c256", 18 * 56 * 56, 256, 4.0)]
+    shapes = [(name, DOMAINS, m, c, 0.0) for name, m, c, _ in TRAIN_SITES]
+    shapes += [("d1_c256", 1, 18 * 56 * 56, 256, 0.0),
+               ("d2_c64", 2, 18 * 56 * 56, 64, 0.0),
+               ("ragged_c64", DOMAINS, RAGGED_M, 64, 0.0),
+               ("ragged_c256", DOMAINS, RAGGED_M, 256, 0.0),
+               ("offset_c256", DOMAINS, 18 * 56 * 56, 256, 4.0)]
+    train_shapes = {name for name, *_ in TRAIN_SITES}
     parity, timing = [], {}
-    for name, m, c, offset in shapes:
-        x = moments_input(torch, m, c, gen, device, offset)
+    for name, d, m, c, offset in shapes:
+        x = moments_input(torch, d, m, c, gen, device, offset)
+        before = cw.moments_launches
         mean, cov = cw.whiten_moments(x, 4)
+        launches = cw.moments_launches - before
+        again = cw.whiten_moments(x, 4)
+        torch.cuda.synchronize()
+        repeat_bitwise = torch.equal(again[0], mean) and torch.equal(again[1], cov)
+        replay_bitwise = (graph_replays(torch, cw, x, (mean, cov))
+                          if name in train_shapes else None)
+        # What one call puts on the device: one kernel, nothing else.
+        device_ops = [ev["name"][:80] for ev in
+                      trace_events(torch, lambda: cw.whiten_moments(x, 4))]
         p_mean, p_cov = cw.whiten_moments_plain(x, 4)
         r_mean, r_cov = two_pass_f64(torch, x)
-        # The apply kernel on the same input, whitened with these moments
-        # as a train step whitens it.
+        # The apply kernel on each domain, whitened with these moments as a
+        # train step whitens it.
         w = whitening_matrix(_shrink(cov, 1e-3))
-        y = cw.whiten_apply(x, mean, w)
-        y_ref = cw.whiten_apply_plain(x, mean, w)
+        a_err, a_ok = 0.0, True
+        for k in range(d):
+            y = cw.whiten_apply(x[k], mean[k], w[k])
+            y_ref = cw.whiten_apply_plain(x[k], mean[k], w[k])
+            y_diff = (y - y_ref).abs()
+            a_err = max(a_err, float(y_diff.max()))
+            a_ok = a_ok and bool((y_diff <= TOL + TOL * y_ref.abs()).all())
+            del y, y_ref, y_diff
         torch.cuda.synchronize()
         pm, pc, p_ok = moments_errors(torch, mean, cov, p_mean, p_cov)
         rm, rc, r_ok = moments_errors(torch, mean, cov, r_mean, r_cov)
-        y_diff = (y - y_ref).abs()
-        a_ok = bool((y_diff <= TOL + TOL * y_ref.abs()).all())
-        row = {"shape": name, "M": m, "C": c, "mean_offset": offset,
+        row = {"shape": name, "D": d, "M": m, "C": c, "mean_offset": offset,
+               "launches": launches, "device_ops_per_call": device_ops,
+               "repeat_bitwise": repeat_bitwise,
+               "graph_replay_bitwise": replay_bitwise,
                "vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
                "vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
                "plain_vs_f64_cov_max_abs_err":
                    moments_errors(torch, p_mean, p_cov, r_mean, r_cov)[1],
                "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL,
-               "apply_vs_plain": {"max_abs_err": float(y_diff.max()),
-                                  "rtol": TOL, "atol": TOL, "ok": a_ok},
-               "ok": p_ok and r_ok and a_ok}
+               "apply_vs_plain": {"max_abs_err": a_err,
+                                  "rtol": TOL, "atol": TOL, "ok": a_ok}}
+        one_kernel = (len(device_ops) == 1
+                      and any(n in device_ops[0] for n in MOMENTS_KERNELS))
+        row["ok"] = (p_ok and r_ok and a_ok and launches == 1 and one_kernel
+                     and repeat_bitwise and replay_bitwise is not False)
         parity.append(row)
         emit({"phase": "moments_parity", **row})
-        del y, y_ref, y_diff
         if not row["ok"]:
             raise AssertionError(f"moments or apply kernel disagrees at {name}: {row}")
-        if offset or m == RAGGED_M:
+        if name not in train_shapes:
             continue
         groups = c // 4
-        w_t = torch.block_diag(*w).t().contiguous()
-        bias = -(mean @ w_t)
-        lib = torch.cov(x.t(), correction=0)
+        w_t = torch.block_diag(*w[0]).t().contiguous()  # domain 0's apply
+        bias = -(mean[0] @ w_t)
+        lib = torch.cov(x[0].t(), correction=0)
         gi = torch.arange(groups, device=device)
         lib_blocks = lib.view(groups, 4, groups, 4)[gi, :, gi, :]
-        n_read = m * c * 4
-        m_bytes = n_read + (c + groups * 16) * 4
+        lib_err = float((lib_blocks - cov[0]).abs().max())
+        del lib, lib_blocks
+        n_read = d * m * c * 4
+        m_bytes = n_read + d * (c + groups * 16) * 4
         m_bytes_ms = m_bytes / rate * 1e3
-        m_ops_ms = m * c * 6 / FP32_PEAK * 1e3  # per 4 channels: 4 adds, 10 FMAs
-        a_bytes = 2 * n_read
+        m_ops_ms = d * m * c * 6 / FP32_PEAK * 1e3  # per 4 channels: 4 adds, 10 FMAs
+        a_bytes = 2 * m * c * 4  # one domain: read x[k], write y[k]
         a_bytes_ms = a_bytes / rate * 1e3
         a_ops_ms = m * c * 9 / FP32_PEAK * 1e3
+        m_cold = cold_rotation(torch, (x,))
+        moments = lambda xi: cw.whiten_moments(xi, 4)
+        a_cold = cold_rotation(torch, (x[0],), out_like=(x[0],))
+        apply = lambda xi, yi: cw.whiten_apply(xi, mean[0], w[0], out=yi)
         row = {
-            "shape": name, "M": m, "C": c,
+            "shape": name, "D": d, "M": m, "C": c,
             "moments": {
-                "bytes": m_bytes,
-                "kernel_ms": cuda_ms(torch, lambda: cw.whiten_moments(x, 4)),
-                "device_ms": device_ms(torch, lambda: cw.whiten_moments(x, 4),
-                                       MOMENTS_KERNELS),
-                "plain_ms": cuda_ms(torch, lambda: cw.whiten_moments_plain(x, 4),
-                                    iters=10),
+                "per": f"one site: {d} domains, one launch",
+                "bytes": m_bytes, "rotation_buffers": len(m_cold),
+                "kernel_ms": cuda_ms(torch, moments, m_cold),
+                "device_ms": device_ms(torch, moments, MOMENTS_KERNELS, m_cold),
+                "plain_ms": cuda_ms(
+                    torch, lambda xi: cw.whiten_moments_plain(xi, 4), m_cold,
+                    iters=10),
                 "library_ms": cuda_ms(
-                    torch, lambda: torch.cov(x.t(), correction=0), iters=10),
+                    torch, lambda xi: [torch.cov(xi[k].t(), correction=0)
+                                       for k in range(d)], m_cold, iters=10),
                 "bound_ms": max(m_bytes_ms, m_ops_ms),
                 "bound_by": "bytes" if m_bytes_ms >= m_ops_ms else "operations",
-                "library_max_abs_err": float((lib_blocks - cov).abs().max()),
+                "library_max_abs_err": lib_err,
             },
             "apply": {
-                "bytes": a_bytes,
-                "kernel_ms": cuda_ms(torch, lambda: cw.whiten_apply(x, mean, w)),
-                "device_ms": device_ms(torch, lambda: cw.whiten_apply(x, mean, w),
-                                       APPLY_KERNELS),
+                "per": "one domain, one launch",
+                "bytes": a_bytes, "rotation_buffers": len(a_cold),
+                "kernel_ms": cuda_ms(torch, apply, a_cold),
+                "device_ms": device_ms(torch, apply, APPLY_KERNELS, a_cold),
                 "plain_ms": cuda_ms(
-                    torch, lambda: cw.whiten_apply_plain(x, mean, w), iters=10),
-                "library_ms": cuda_ms(torch, lambda: torch.addmm(bias, x, w_t)),
+                    torch, lambda xi, yi: cw.whiten_apply_plain(
+                        xi, mean[0], w[0], out=yi), a_cold, iters=10),
+                "library_ms": cuda_ms(
+                    torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi),
+                    a_cold),
                 "bound_ms": max(a_bytes_ms, a_ops_ms),
                 "bound_by": "bytes" if a_bytes_ms >= a_ops_ms else "operations",
             },
@@ -481,7 +581,7 @@ def check_moments(torch, cw, device, rate):
             r["bound_share"] = r["bound_ms"] / r["device_ms"]
         timing[name] = row
         emit({"phase": "moments_timing", **row})
-        del x, lib, lib_blocks
+        del x, m_cold, a_cold
         torch.cuda.empty_cache()
     return parity, timing
 
@@ -521,8 +621,8 @@ def train(torch, cw, officehome, loop):
         prev = {k: r[f"{k}_launches"] for k in prev}
         n = r.get("forwards", 1)
         want = {
-            "train": {"moments": SITE_DOMAINS, "apply": SITE_DOMAINS},
-            "stat_collection": {"moments": SITE_DOMAINS * n,
+            "train": {"moments": WHITENED_SITES, "apply": SITE_DOMAINS},
+            "stat_collection": {"moments": WHITENED_SITES * n,
                                 "apply": SITE_DOMAINS * n},
             "test": {"moments": 0, "apply": WHITENED_SITES * n},
             "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
@@ -743,7 +843,7 @@ def train_reference(torch, cw, loop, device):
           "why": "sums in other orders (kernel vs plain, f32 vs float64, "
                  "card vs CPU); each stored parameter's own float32 "
                  "rounding is forgiven"})
-    if kernel_launches != (SITE_DOMAINS, SITE_DOMAINS):
+    if kernel_launches != (WHITENED_SITES, SITE_DOMAINS):
         raise AssertionError(f"kernel step launched {kernel_launches}")
     for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
         check_step(f"{what} (ResNet50)", errs, *RESNET50_LEAF_TOL)
@@ -848,22 +948,29 @@ def main() -> int:
     def per_forward(key):  # the 11 sites of one bucket-128 forward
         return sum(timing[s][key] * n for s, _, _, n in RESNET50_SITES)
 
-    def per_step(part, key):  # the 33 site-domains of one train step
-        return sum(m_timing[s][part][key] * n for s, _, _, n in TRAIN_SITES)
+    def per_step(part, key):  # one train step: 11 sites, 3 domains each
+        per_site = {"moments": 1, "apply": DOMAINS}[part]  # launches per site
+        return sum(m_timing[s][part][key] * n * per_site
+                   for s, _, _, n in TRAIN_SITES)
 
     def bound_by(rows):
         return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                 else "operations")
 
-    train_per = ("the 33 whitened site-domains of one ResNet50 train step, "
-                 "18 images per stream at 224²")
+    train_per = {
+        "moments": "the 11 whitened sites of one ResNet50 train step, one "
+                   "launch per site for its 3 domains, 18 images per stream "
+                   "at 224²",
+        "apply": "the 33 whitened site-domains of one ResNet50 train step, "
+                 "18 images per stream at 224²",
+    }
     train_rows = {
         part: {"ms": per_step(part, "device_ms"),
                "plain_ms": per_step(part, "plain_ms"),
                "bound_ms": per_step(part, "bound_ms"),
                "bound_by": bound_by([r[part] for r in m_timing.values()]),
                "library_ms": per_step(part, "library_ms"),
-               "path": "train", "per": train_per}
+               "path": "train", "per": train_per[part]}
         for part in ("moments", "apply")
     }
     emit({"kernels": [

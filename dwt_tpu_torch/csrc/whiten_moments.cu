@@ -1,84 +1,121 @@
-// Whitening moments for Hopper (sm_90a): mean [C] and per-group covariance
-// [G, 4, 4] of x [M, C], f32 in and out.
+// Whitening moments for Hopper (sm_90a): per domain, mean [C] and per-group
+// covariance [G, 4, 4] of x [D, M, C], f32 in and out, in ONE launch.
 //
 // Replaces the TPU kernel dwt_tpu/ops/pallas_whitening.py::_moments_kernel
-// (launched by _moments_call), the batch statistics of every whitened site
-// of ResNet-DWT in train mode: the stem dn1 and every stage-1 norm site,
-// once per domain branch (33 launches per train step).
+// (line 68, launched by _moments_call), the batch statistics of every
+// whitened site of ResNet-DWT in train mode: the stem dn1 and every
+// stage-1 norm site.  The TPU path calls it once per domain branch; here
+// one launch takes all D domain branches of a site (11 launches per train
+// step, not 33).
 //
-// What it computes: x [M, C] channels-last f32 with C = 4G;
-//     mean[c]       = (1/M) Σ_r x[r, c]
-//     cov[g, c, d]  = (1/M) Σ_r x[r, 4g + c] · x[r, 4g + d] − mean[4g + c] · mean[4g + d]
-// (biased), the same function as _moments_call.  The TPU kernel forms the
-// full [C, C] Gram matrix because Mosaic lowers only 2-D dots, so C/4 of
-// its products are discarded; this kernel accumulates only the per-group
-// 4×4 blocks (10 unique products) and the channel sums.
+// What it computes, for each domain d, x[d] [M, C] channels-last with
+// C = 4G:
+//     mean[d, c]      = (1/M) Σ_r x[d, r, c]
+//     cov[d, g, c, e] = (1/M) Σ_r x[d, r, 4g + c] · x[d, r, 4g + e]
+//                       − mean[d, 4g + c] · mean[d, 4g + e]
+// (biased), the same function as _moments_call on x[d].  The TPU kernel
+// forms the full [C, C] Gram matrix because Mosaic lowers only 2-D dots;
+// this kernel accumulates only the per-group 4×4 blocks (10 unique
+// products) and the channel sums.
 //
-// What bounds it: HBM bytes.  One read of x, M·C·4 bytes, against ~6 FLOPs
-// per element.  At the train shapes a launch moves 14–58 MB, 4–17 µs at
-// 3.35 TB/s, so the launch latency and the second (reduction) pass below
-// are of the same order as the read itself; batching the three domains of
-// a site into one launch is the lever for that, in a later change.
+// What bounds it: HBM bytes.  One read of x, D·M·C·4 bytes, against ~6
+// FLOPs per element.  At the train shapes a site reads 43–173 MB, 13–52 µs
+// at 3.35 TB/s.  Its first Hopper design (one launch per domain, then a
+// second kernel reducing the per-block partials) lost most of that to
+// three things, and this design answers each:
+//  * A second launch.  The cross-block reduction now happens inside the
+//    one launch.  Blocks form clusters of 8 (the portable cluster size).
+//    Each block reduces its threads' sums through shared memory; the
+//    cluster sums its 8 block partials through distributed shared memory
+//    in rank order (float64) and writes one cluster partial; an arrival
+//    counter per domain picks the domain's last cluster to finish, whose 8
+//    blocks each take a share of the domain's groups, sum the cluster
+//    partials of each in float64 in a fixed order (several threads per
+//    statistic, each on a fixed slice of the clusters, 8 loads in flight),
+//    and write mean and cov from shared memory.  One last cluster per
+//    domain, not one for the site, splits that final work D ways and lets
+//    a domain that ends early finish while the others still read.
+//    Writers fence (__threadfence) before the cluster barrier that
+//    precedes the arrival, and the last cluster reads the partials with
+//    L1-bypassing loads (ld.global.cg).  The counters are kMaxDomains
+//    int32 per device that the caller zeroes once; each domain's last
+//    cluster sets its counter back to 0, so the next launch, or a
+//    CUDA-graph replay, finds them zeroed.  Two launches that share the
+//    counters must not run at once (one stream).
+//  * Launches too small to fill the card.  One launch covers all D·M·G
+//    (row, group) chunks of the site.  The grid is persistent: as many
+//    clusters as the occupancy query (cudaOccupancyMaxActiveClusters)
+//    says fit on the card at once, split evenly over the domains, so every
+//    cluster lies in one domain and every block streams one contiguous
+//    span of that domain's rows; no partial mixes two domains.
+//  * Host time per call.  One C call per site (the wrapper caches the
+//    grid per shape), and the occupancy query is made once per shape.
+// The streaming read: one thread owns one group of one row at a time, a
+// 16-byte float4 load of the group's 4 channels, neighbouring threads on
+// neighbouring chunks (coalesced).  The block size is a multiple of G, so
+// each thread's group never changes and its 4 sums and 10 products stay in
+// f32 registers; the loop issues 4 independent float4 loads before it
+// accumulates any, to keep enough bytes in flight per SM.
 //
-// What the design does about it:
-//  * Pass 1 (moments_partial_kernel) reads x exactly once.  One thread owns
-//    one (row, group) chunk at a time: a 16-byte float4 load of the group's
-//    4 channels, neighbouring threads on neighbouring chunks (coalesced).
-//    A grid-stride loop over the M·G chunks; the block size and hence the
-//    stride are multiples of G, so each thread's group never changes and
-//    its 4 sums and 10 products stay in f32 registers.  The block then
-//    reduces each group's threads through shared memory, in thread order,
-//    and writes one partial [G, 14] per block to a scratch buffer.
-//  * Blocks run in any order on 132 SMs, so the TPU's grid-carried
-//    accumulator becomes a second pass (moments_final_kernel): one block
-//    per group sums the partials in a fixed order in float64 and forms
-//    mean and cov.  The order of every sum is fixed, so the result is
-//    deterministic; there are no atomics.
-//  * E[xxᵀ] − m mᵀ cancels leading bits when a channel's mean is large
-//    against its spread (post-ReLU inputs).  Every thread subtracts the
-//    group's values in row 0 before accumulating: the covariance does not
-//    change under a shift, and the shifted sums are small.  The shift is
-//    added back to the mean in float64.
-//  * Ragged M needs no mask: the loop bound stops at the last row.
+// E[xxᵀ] − m mᵀ cancels leading bits when a channel's mean is large
+// against its spread (post-ReLU inputs).  Every thread subtracts its
+// domain's row-0 values of the group before accumulating: the covariance
+// does not change under a shift, and the shifted sums are small.  The
+// shift is added back to the mean in float64.
+//
+// The order of every sum is fixed by the grid, which is fixed per shape:
+// two launches give bitwise equal results.  No float atomics; nothing is
+// allocated or synchronised here, so the launch can be captured in a CUDA
+// graph.
 //
 // Plain C interface for ctypes (dwt_tpu_torch/ops/cuda_whitening.py): the
-// caller asks dwt_whiten_moments_blocks for the grid size, allocates the
-// outputs and the [blocks, G, 14] f32 scratch, passes device pointers and
-// the stream, and checks the returned cudaError_t.  Nothing is allocated
-// or synchronised here.
+// caller asks dwt_whiten_moments_clusters for the clusters per domain,
+// allocates the outputs and a float64 scratch of D · clusters · G · 14
+// elements, passes device pointers, the counters and the stream, and
+// checks the returned cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+// MOMENTS_PHASE(k) marks the k-th boundary between the kernel's phases and
+// compiles to nothing.  tools/torch_moments_probe.py includes this file
+// with it defined to stamp %globaltimer, into a library of its own.
+#ifndef MOMENTS_PHASE
+#define MOMENTS_PHASE(k)
+#endif
 
 namespace {
 
-constexpr int kGroup = 4;          // channels per whitening group
-constexpr int kStats = 14;         // 4 sums + 10 unique products per group
-constexpr int kMaxThreads = 256;   // pass-1 block size ceiling
-constexpr int kReduceThreads = 128;  // pass-2 block size (a power of two)
+constexpr int kGroup = 4;         // channels per whitening group
+constexpr int kStats = 14;        // 4 sums + 10 unique products per group
+constexpr int kMaxThreads = 256;  // block size ceiling (for G ≤ 256)
+constexpr int kCluster = 8;       // blocks per cluster (portable size)
+constexpr int kLoads = 4;         // float4 loads in flight per thread
+constexpr int kMaxDomains = 64;   // arrival counters per device
 
-__host__ __device__ inline int pass1_threads(int groups) {
+__host__ __device__ inline int block_threads(int groups) {
   return groups <= kMaxThreads ? groups * (kMaxThreads / groups) : groups;
 }
 
-__global__ void moments_partial_kernel(const float4* __restrict__ x,
-                                       long long chunks,  // M · G
-                                       int groups,
-                                       float* __restrict__ partial) {
-  extern __shared__ float smem[];  // [blockDim.x, kStats]
-  const long long start =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  // blockDim.x is a multiple of groups: this thread's group for every
-  // iteration, and threadIdx.x = j · groups + g within the block.
-  const int g = static_cast<int>(start % groups);
-  const float4 k = x[g];  // the group's row-0 values: the shift
+__host__ __device__ inline size_t smem_bytes(int threads) {
+  return static_cast<size_t>(threads) * kStats * sizeof(float);
+}
 
+// Index of the product (c, e), c <= e, in the order the sums are kept.
+__device__ inline int product_index(int c, int e) {
+  const int lo = c < e ? c : e, hi = c < e ? e : c;
+  // Row offsets of the upper triangle of a 4×4: 0, 4, 7, 9.
+  return kGroup + (lo == 0 ? 0 : lo == 1 ? 4 : lo == 2 ? 7 : 9) + (hi - lo);
+}
+
+struct Sums {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   float p00 = 0.f, p01 = 0.f, p02 = 0.f, p03 = 0.f, p11 = 0.f;
   float p12 = 0.f, p13 = 0.f, p22 = 0.f, p23 = 0.f, p33 = 0.f;
-#pragma unroll 4
-  for (long long i = start; i < chunks; i += stride) {
-    const float4 v = x[i];
+
+  __device__ inline void add(const float4 v, const float4 k) {
     const float a0 = v.x - k.x, a1 = v.y - k.y, a2 = v.z - k.z, a3 = v.w - k.w;
     s0 += a0; s1 += a1; s2 += a2; s3 += a3;
     p00 = fmaf(a0, a0, p00); p01 = fmaf(a0, a1, p01);
@@ -88,131 +125,280 @@ __global__ void moments_partial_kernel(const float4* __restrict__ x,
     p23 = fmaf(a2, a3, p23); p33 = fmaf(a3, a3, p33);
   }
 
-  float* mine = smem + threadIdx.x * kStats;
-  mine[0] = s0; mine[1] = s1; mine[2] = s2; mine[3] = s3;
-  mine[4] = p00; mine[5] = p01; mine[6] = p02; mine[7] = p03;
-  mine[8] = p11; mine[9] = p12; mine[10] = p13;
-  mine[11] = p22; mine[12] = p23; mine[13] = p33;
+  __device__ inline void store(float* out) const {
+    out[0] = s0; out[1] = s1; out[2] = s2; out[3] = s3;
+    out[4] = p00; out[5] = p01; out[6] = p02; out[7] = p03;
+    out[8] = p11; out[9] = p12; out[10] = p13;
+    out[11] = p22; out[12] = p23; out[13] = p33;
+  }
+};
+
+// Grid: domains · clusters_per_domain clusters of kCluster blocks, each of
+// block_threads(groups) threads and smem_bytes(threads) of shared memory.
+// scratch (float64): [domains · clusters_per_domain, groups, kStats], the
+// cluster partials.
+__global__ void whiten_moments_f32_kernel(const float4* __restrict__ x,
+                                          long long rows, int groups,
+                                          int clusters_per_domain,
+                                          float* __restrict__ mean,
+                                          float* __restrict__ cov,
+                                          double* __restrict__ scratch,
+                                          int* __restrict__ counters) {
+  // [blockDim.x, kStats] per-thread sums; then its first groups · kStats
+  // floats hold the block's partial.
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last_cluster;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x, threads = blockDim.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cluster_id = blockIdx.x / kCluster;
+  const int d = cluster_id / clusters_per_domain;
+  const long long span_blocks =
+      static_cast<long long>(clusters_per_domain) * kCluster;
+  const long long local_block =
+      static_cast<long long>(cluster_id % clusters_per_domain) * kCluster + rank;
+  const int per_block = groups * kStats;
+
+  MOMENTS_PHASE(0);
+  // 1. Stream this block's rows [r0, r1) of domain d.
+  {
+    const int g = t % groups;
+    const int rows_per_pass = threads / groups;
+    const float4* xd = x + static_cast<long long>(d) * rows * groups;
+    const float4 k = __ldg(xd + g);  // the domain's row-0 values: the shift
+    const long long r0 = local_block * rows / span_blocks;
+    const long long r1 = (local_block + 1) * rows / span_blocks;
+    long long row = r0 + t / groups;
+    const float4* p = xd + row * groups + g;
+    Sums acc;
+    for (; row + (kLoads - 1) * rows_per_pass < r1;
+         row += kLoads * rows_per_pass) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) v[i] = __ldg(p + i * threads);
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) acc.add(v[i], k);
+      p += kLoads * threads;
+    }
+    for (; row < r1; row += rows_per_pass) {
+      acc.add(__ldg(p), k);
+      p += threads;
+    }
+    acc.store(smem + t * kStats);
+  }
+  MOMENTS_PHASE(1);
   __syncthreads();
 
-  // Each (group, statistic) of the block: its threads j = 0, 1, … in order.
-  const int per_group = blockDim.x / groups;
-  for (int idx = threadIdx.x; idx < groups * kStats; idx += blockDim.x) {
-    const int grp = idx / kStats, s = idx % kStats;
-    float acc = 0.f;
-    for (int j = 0; j < per_group; ++j)
-      acc += smem[(j * groups + grp) * kStats + s];
-    partial[(static_cast<long long>(blockIdx.x) * groups + grp) * kStats + s] =
-        acc;
+  // 2. The block's partial [groups, kStats]: each (group, statistic) over
+  //    its threads j = 0, 1, … in order.  Thread t handles entries
+  //    t + i·threads (at most kStats of them, since threads ≥ groups).
+  {
+    float part[kStats];
+    const int per_group = threads / groups;
+#pragma unroll
+    for (int i = 0; i < kStats; ++i) {
+      const int idx = t + i * threads;
+      float s = 0.f;
+      if (idx < per_block) {
+        const int grp = idx / kStats, st = idx % kStats;
+        for (int j = 0; j < per_group; ++j)
+          s += smem[(j * groups + grp) * kStats + st];
+      }
+      part[i] = s;
+    }
+    __syncthreads();  // every read of the per-thread sums is done
+#pragma unroll
+    for (int i = 0; i < kStats; ++i) {
+      const int idx = t + i * threads;
+      if (idx < per_block) smem[idx] = part[i];
+    }
   }
-}
+  MOMENTS_PHASE(2);
+  cluster.sync();  // every block's partial is visible to the cluster
 
-// Index of the product (c, d), c <= d, in the order pass 1 stores them.
-__device__ inline int product_index(int c, int d) {
-  const int lo = c < d ? c : d, hi = c < d ? d : c;
-  // Row offsets of the upper triangle of a 4×4: 0, 4, 7, 9.
-  const int row_start[kGroup] = {0, 4, 7, 9};
-  return kGroup + row_start[lo] + (hi - lo);
-}
-
-__global__ void moments_final_kernel(const float* __restrict__ partial,
-                                     int blocks, int groups,
-                                     const float* __restrict__ x,
-                                     long long rows,
-                                     float* __restrict__ mean,
-                                     float* __restrict__ cov) {
-  __shared__ double red[kReduceThreads][kStats];
-  const int grp = blockIdx.x;
-  double acc[kStats];
+  // 3. The cluster's partial: each entry over the 8 blocks in rank order,
+  //    in float64, shared out over the cluster's threads.
+  double* cluster_partial = scratch;
+  for (int idx = rank * threads + t; idx < per_block;
+       idx += kCluster * threads) {
+    double s = 0.0;
 #pragma unroll
-  for (int s = 0; s < kStats; ++s) acc[s] = 0.0;
-  for (int b = threadIdx.x; b < blocks; b += blockDim.x) {
-    const float* p = partial + (static_cast<long long>(b) * groups + grp) * kStats;
-#pragma unroll
-    for (int s = 0; s < kStats; ++s) acc[s] += static_cast<double>(p[s]);
+    for (int q = 0; q < kCluster; ++q)
+      s += static_cast<double>(*cluster.map_shared_rank(smem + idx, q));
+    cluster_partial[static_cast<long long>(cluster_id) * per_block + idx] = s;
   }
+  __threadfence();  // release this cluster's partial before its arrival
+  cluster.sync();   // the partial is written; no block reads a peer's smem
+
+  MOMENTS_PHASE(3);
+  // 4. Arrival: rank 0 counts the cluster in to its domain and tells its
+  //    peers whether it was the domain's last one.
+  if (rank == 0 && t == 0) {
+    const int last = atomicAdd(counters + d, 1) == clusters_per_domain - 1;
+    if (last) {
+      __threadfence();    // acquire the domain's other cluster partials
+      atomicExch(counters + d, 0);  // reset for the next launch or replay
+    }
 #pragma unroll
-  for (int s = 0; s < kStats; ++s) red[threadIdx.x][s] = acc[s];
-  __syncthreads();
-  for (int width = blockDim.x / 2; width > 0; width >>= 1) {
-    if (threadIdx.x < width) {
+    for (int q = 0; q < kCluster; ++q)
+      *cluster.map_shared_rank(&last_cluster, q) = last;
+  }
+  cluster.sync();
+  if (!last_cluster) return;
+  MOMENTS_PHASE(4);
+
+  // 5. Domain d's last cluster: rank r owns the groups [p_begin, p_end)
+  //    and finishes them in shared memory, a chunk of groups at a time.
+  //    Each (group, statistic) is the float64 sum over the domain's
+  //    cluster partials in cluster order, cut into `splits` consecutive
+  //    slices that separate threads sum (8 loads in flight each) and that
+  //    are then added in slice order.  The cut depends only on the shape,
+  //    so the order of every sum is fixed.
+  const int per_rank = (groups + kCluster - 1) / kCluster;
+  const int p_begin = rank * per_rank;
+  const int p_end = min(groups, p_begin + per_rank);
+  // The per-thread sums' room holds 7 · threads doubles: a chunk's slice
+  // sums (at most max(threads, items)) and its totals (items ≤ 3 · threads).
+  double* stage = reinterpret_cast<double*>(smem);
+  const int chunk = (3 * threads) / kStats;
+  const double inv = 1.0 / static_cast<double>(rows);
+  for (int q0 = p_begin; q0 < p_end; q0 += chunk) {
+    const int n = min(chunk, p_end - q0), items = n * kStats;
+    const int splits = max(1, min(threads / items, clusters_per_domain));
+    double* totals = stage + items * splits;
+    for (int w = t; w < items * splits; w += threads) {
+      const int item = w / splits, k = w % splits;
+      const int grp = q0 + item / kStats, st = item % kStats;
+      const int c_end = (k + 1) * clusters_per_domain / splits;
+      int c = k * clusters_per_domain / splits;
+      const double* src = cluster_partial +
+          static_cast<long long>(d) * clusters_per_domain * per_block +
+          grp * kStats + st;
+      double sum = 0.0;
+      for (; c + 7 < c_end; c += 8) {
+        double v[8];
 #pragma unroll
-      for (int s = 0; s < kStats; ++s)
-        red[threadIdx.x][s] += red[threadIdx.x + width][s];
+        for (int i = 0; i < 8; ++i)
+          v[i] = __ldcg(src + static_cast<long long>(c + i) * per_block);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += v[i];
+      }
+      for (; c < c_end; ++c)
+        sum += __ldcg(src + static_cast<long long>(c) * per_block);
+      stage[w] = sum;
     }
     __syncthreads();
-  }
-
-  if (threadIdx.x < kGroup * kGroup) {
-    const int c = threadIdx.x / kGroup, d = threadIdx.x % kGroup;
-    const double inv = 1.0 / static_cast<double>(rows);
-    const double mc = red[0][c] * inv, md = red[0][d] * inv;  // shifted means
-    cov[grp * kGroup * kGroup + threadIdx.x] =
-        static_cast<float>(red[0][product_index(c, d)] * inv - mc * md);
-    if (d == 0) {
-      const int ch = grp * kGroup + c;
-      mean[ch] = static_cast<float>(static_cast<double>(x[ch]) + mc);
+    for (int item = t; item < items; item += threads) {
+      double sum = 0.0;
+      for (int k = 0; k < splits; ++k) sum += stage[item * splits + k];
+      totals[item] = sum;
     }
+    __syncthreads();
+
+    MOMENTS_PHASE(5);
+    // 6. mean and cov of the chunk's groups, one output element per
+    //    thread.
+    for (int o = t; o < n * kGroup * kGroup; o += threads) {
+      const int gl = o / (kGroup * kGroup), ce = o % (kGroup * kGroup);
+      const int c = ce / kGroup, e = ce % kGroup;
+      const int grp = q0 + gl;
+      const double* tot = totals + gl * kStats;
+      const double mc = tot[c] * inv, me = tot[e] * inv;
+      cov[(static_cast<long long>(d) * groups + grp) * kGroup * kGroup + ce] =
+          static_cast<float>(tot[product_index(c, e)] * inv - mc * me);
+      if (e == 0) {
+        const float* row0 = reinterpret_cast<const float*>(
+            x + static_cast<long long>(d) * rows * groups);
+        const int ch = grp * kGroup + c;
+        mean[static_cast<long long>(d) * groups * kGroup + ch] =
+            static_cast<float>(static_cast<double>(row0[ch]) + mc);
+      }
+    }
+    __syncthreads();  // the next chunk reuses the stage
   }
+  MOMENTS_PHASE(6);
+}
+
+cudaLaunchConfig_t launch_config(long long clusters, int groups,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  const int threads = block_threads(groups);
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster), 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes(threads);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest C the launcher accepts (G ≤ 512 threads keep a block a multiple
-// of G; pass 1's shared memory is then at most 512 · 14 · 4 bytes).
+// Largest C the launcher accepts (G ≤ 512 keeps a block a multiple of G
+// within 512 threads and its shared memory at most 512 · 14 · 4 bytes).
 int dwt_whiten_moments_max_channels() { return 2048; }
 
-// Pass-1 grid size for x [rows, channels] on the current device: enough
-// blocks to cover the chunks, at most as many as fit on the card at once.
-// Returns the count (≥ 1), or −cudaError_t on a failed query.
-int dwt_whiten_moments_blocks(long long rows, int channels) {
+// Largest D the launcher accepts: the int32 arrival counters the caller
+// keeps per device.
+int dwt_whiten_moments_max_domains() { return kMaxDomains; }
+
+// Clusters per domain for x [domains, rows, channels] on the current
+// device: the clusters that fit on the card at once, split over the
+// domains, at most one per kCluster passes of rows, at least 1.  Returns
+// the count, or −cudaError_t on a failed query.
+int dwt_whiten_moments_clusters(long long domains, long long rows,
+                                int channels) {
   const int groups = channels / kGroup;
-  if (rows <= 0 || groups <= 0) return 1;
-  const int threads = pass1_threads(groups);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  if (domains <= 0 || rows <= 0 || groups <= 0) return 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(1, groups, nullptr, &attr);
+  int fit = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &fit, whiten_moments_f32_kernel, &cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, moments_partial_kernel, threads,
-      static_cast<size_t>(threads) * kStats * sizeof(float));
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  const long long chunks = rows * groups;
-  const long long needed = (chunks + threads - 1) / threads;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(needed < cap ? needed : cap);
+  long long per_domain = fit / domains;
+  const long long rows_per_cluster =
+      static_cast<long long>(kCluster) * (cfg.blockDim.x / groups);
+  const long long useful = (rows + rows_per_cluster - 1) / rows_per_cluster;
+  if (per_domain > useful) per_domain = useful;
+  return per_domain < 1 ? 1 : static_cast<int>(per_domain);
 }
 
-// mean[C], cov[C/4, 4, 4] of x[rows, C] on `stream`, through `partial`
-// ([blocks, C/4, 14] f32 scratch).  Returns cudaSuccess,
+// mean [domains, C], cov [domains, C/4, 4, 4] of x [domains, rows, C] on
+// `stream`, through `scratch` (float64, domains · clusters_per_domain ·
+// C/4 · 14 elements) and `counters` (kMaxDomains int32, zero before the
+// first launch; every launch leaves them zero).  Returns cudaSuccess,
 // cudaErrorInvalidValue for shapes the kernel does not take, or the
-// launches' cudaGetLastError().
+// launch's error.
 int dwt_whiten_moments_f32(const void* x, void* mean, void* cov,
-                           void* partial, long long rows, int channels,
-                           int blocks, void* stream) {
-  if (rows <= 0 || channels <= 0 || channels % kGroup != 0 ||
-      channels > dwt_whiten_moments_max_channels() || blocks < 1)
+                           void* scratch, void* counters, long long domains,
+                           long long rows, int channels,
+                           int clusters_per_domain, void* stream) {
+  if (domains <= 0 || domains > kMaxDomains || rows <= 0 || channels <= 0 ||
+      channels % kGroup != 0 ||
+      channels > dwt_whiten_moments_max_channels() ||
+      clusters_per_domain < 1 ||
+      domains * clusters_per_domain * kCluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = channels / kGroup;
-  const int threads = pass1_threads(groups);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  moments_partial_kernel<<<blocks, threads,
-                           static_cast<size_t>(threads) * kStats *
-                               sizeof(float),
-                           s>>>(static_cast<const float4*>(x),
-                                rows * groups, groups,
-                                static_cast<float*>(partial));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moments_final_kernel<<<groups, kReduceThreads, 0, s>>>(
-      static_cast<const float*>(partial), blocks, groups,
-      static_cast<const float*>(x), rows, static_cast<float*>(mean),
-      static_cast<float*>(cov));
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(domains * clusters_per_domain, groups,
+                    static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, whiten_moments_f32_kernel, static_cast<const float4*>(x), rows,
+      groups, clusters_per_domain,
+      static_cast<float*>(mean), static_cast<float*>(cov),
+      static_cast<double*>(scratch), static_cast<int*>(counters));
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 const char* dwt_cuda_error_string(int code) {

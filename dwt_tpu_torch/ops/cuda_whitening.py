@@ -2,10 +2,11 @@
 
 Two kernels, each beside its plain PyTorch version:
 
-* ``whiten_moments(x2d, group_size)`` → ``(mean [C], cov [G, 4, 4])``, the
-  biased batch moments of a whitened site in train mode
+* ``whiten_moments(x, group_size)`` → per domain of ``x [D, M, C]``,
+  ``(mean [D, C], cov [D, G, 4, 4])``, the biased batch moments of a
+  whitened site's ``D`` domain branches in train mode, in one launch
   (``csrc/whiten_moments.cu``; replaces ``_moments_kernel``, launched by
-  ``_moments_call``).
+  ``_moments_call``; ``x [M, C]`` gives ``[C]`` and ``[G, 4, 4]``).
 * ``whiten_apply(x2d, mean, w)`` → ``y = (x − m) · W_bdᵀ`` with ``W_bd`` the
   block-diagonal expansion of ``w [G, 4, 4]`` (``csrc/whiten_apply.cu``;
   replaces ``_apply_kernel``, launched by ``_apply_call``).
@@ -23,9 +24,10 @@ can show that its main path went through the kernels.  Both kernels are
 bound by HBM bytes; see the notes at the head of the ``.cu`` sources.
 
 :class:`TrainWhiten` is the autograd seam of train mode, the counterpart of
-the JAX package's ``_train_whiten`` custom VJP: the moments kernel, the
-factorization in ``torch.linalg`` (outside any kernel), then the apply
-kernel; the backward recomputes the plain differentiable op
+the JAX package's ``_train_whiten`` custom VJP: the moments kernel once
+for all domains of a site, the factorization in ``torch.linalg`` (outside
+any kernel, batched over the domains), then the apply kernel per domain;
+the backward recomputes the plain differentiable op
 (:func:`dwt_tpu_torch.ops.whitening.group_whiten`) and returns its
 gradient.  It looks both kernels up through this module at call time, so
 a caller can swap in the plain versions.  :func:`cuda_group_whiten` is the
@@ -37,14 +39,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from dwt_tpu_torch.ops import _build, whitening
 
 GROUP_SIZE = 4  # the only group size the kernels take (the reference's)
-_STATS_PER_GROUP = 14  # pass-1 partials per group: 4 sums + 10 products
+_STATS_PER_GROUP = 14  # moments partials per group: 4 sums + 10 products
 
 # Kernel launches since import (or since a caller reset them).
 apply_launches = 0
@@ -85,14 +87,17 @@ def _library(name: str) -> ctypes.CDLL:
     else:
         lib.dwt_whiten_moments_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.dwt_whiten_moments_f32.restype = ctypes.c_int
-        lib.dwt_whiten_moments_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
-        lib.dwt_whiten_moments_blocks.restype = ctypes.c_int
+        lib.dwt_whiten_moments_clusters.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+        lib.dwt_whiten_moments_clusters.restype = ctypes.c_int
         lib.dwt_whiten_moments_max_channels.argtypes = []
         lib.dwt_whiten_moments_max_channels.restype = ctypes.c_int
+        lib.dwt_whiten_moments_max_domains.argtypes = []
+        lib.dwt_whiten_moments_max_domains.restype = ctypes.c_int
     lib.dwt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dwt_cuda_error_string.restype = ctypes.c_char_p
     lib._dwt_bound = True
@@ -186,80 +191,115 @@ def whiten_apply(
 
 
 def whiten_moments_plain(
-    x2d: torch.Tensor, group_size: int
+    x: torch.Tensor, group_size: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(mean [C], biased cov [G, g, g])`` of ``x2d [M, C]``: the mean,
-    then :func:`~dwt_tpu_torch.ops.whitening.group_cov` of the centred
-    input, as ``dwt_tpu/ops/whitening.py:693-698`` computes them."""
-    num_groups, g = whitening._resolve_groups(x2d.shape[-1], group_size)
-    mean = x2d.mean(dim=0)
-    return mean, whitening.group_cov(x2d - mean, num_groups, g)
+    """The biased moments of ``x [D, M, C]`` per domain, ``(mean [D, C],
+    cov [D, G, g, g])``, or of ``x [M, C]``, ``(mean [C], cov [G, g, g])``.
+    Per domain: the mean, then :func:`~dwt_tpu_torch.ops.whitening.group_cov`
+    of the centred input, as ``dwt_tpu/ops/whitening.py:693-698`` computes
+    them."""
+    if x.dim() == 3:
+        means, covs = zip(*(whiten_moments_plain(xd, group_size) for xd in x))
+        return torch.stack(means), torch.stack(covs)
+    num_groups, g = whitening._resolve_groups(x.shape[-1], group_size)
+    mean = x.mean(dim=0)
+    return mean, whitening.group_cov(x - mean, num_groups, g)
 
 
-def _check_moments_args(x2d: torch.Tensor, group_size: int) -> None:
-    if x2d.dim() != 2:
+def _check_moments_args(x: torch.Tensor, group_size: int) -> None:
+    if x.dim() not in (2, 3):
         raise ValueError(
-            f"whiten_moments: x2d must be [M, C], got {tuple(x2d.shape)}")
-    m_rows, c = x2d.shape
-    if m_rows < 1:
-        raise ValueError("whiten_moments: x2d has no rows")
+            f"whiten_moments: x must be [M, C] or [D, M, C], got {tuple(x.shape)}")
+    m_rows, c = x.shape[-2:]
+    if m_rows < 1 or x.numel() == 0:
+        raise ValueError("whiten_moments: x has no rows")
     if min(c, group_size) != GROUP_SIZE or c % GROUP_SIZE:
         raise ValueError(
             f"whiten_moments: the CUDA kernel takes group size {GROUP_SIZE}, "
             f"got {group_size} for C={c}"
         )
-    _check_f32_dense("whiten_moments", x2d.device, x2d=x2d)
-    if x2d.data_ptr() % 16:
-        raise ValueError("whiten_moments: x2d must be 16-byte aligned "
+    # is_contiguous() of the whole tensor: a [D, M, C] whose domains lie
+    # apart in memory (a strided view) is refused, not copied.
+    _check_f32_dense("whiten_moments", x.device, x=x)
+    if x.data_ptr() % 16:
+        raise ValueError("whiten_moments: x must be 16-byte aligned "
                          "(float4 loads)")
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_blocks(device_index: int, m_rows: int, c: int) -> int:
-    """The kernel's pass-1 grid size for ``[m_rows, c]`` on a device (an
-    occupancy query, asked once per shape)."""
+def _moments_grid(device_index: int, domains: int, m_rows: int, c: int
+                  ) -> Tuple[int, int]:
+    """``(clusters per domain, float64 scratch elements)`` of the kernel's
+    launch for ``[domains, m_rows, c]`` on a device: an occupancy query,
+    asked once per shape.  Raises for a ``domains`` or ``c`` the kernel
+    does not take."""
     lib = _library("whiten_moments")
-    with torch.cuda.device(device_index):
-        blocks = lib.dwt_whiten_moments_blocks(m_rows, c)
-    _raise_on_error(lib, -min(blocks, 0), "whiten_moments")
-    return blocks
-
-
-def whiten_moments(
-    x2d: torch.Tensor, group_size: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(mean [C], biased cov [C/4, 4, 4])`` of ``x2d [M, C]``: the CUDA
-    kernel for a CUDA ``x2d`` (f32, contiguous, group size 4), the plain
-    version for a CPU one.  Both of the kernel's passes count as one
-    launch."""
-    global moments_launches
-    if x2d.device.type == "cpu":
-        return whiten_moments_plain(x2d, group_size)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"whiten_moments: unsupported device {x2d.device}")
-    _check_moments_args(x2d, group_size)
-    lib = _library("whiten_moments")
-    m_rows, c = x2d.shape
     if c > lib.dwt_whiten_moments_max_channels():
         raise ValueError(
             f"whiten_moments: C={c} exceeds the kernel's "
             f"{lib.dwt_whiten_moments_max_channels()} channels"
         )
-    groups = c // GROUP_SIZE
-    blocks = _moments_blocks(x2d.device.index, m_rows, c)
-    with torch.cuda.device(x2d.device):
-        partial = torch.empty(blocks * groups * _STATS_PER_GROUP,
-                              dtype=torch.float32, device=x2d.device)
-        mean = torch.empty(c, dtype=torch.float32, device=x2d.device)
-        cov = torch.empty(groups, GROUP_SIZE, GROUP_SIZE,
-                          dtype=torch.float32, device=x2d.device)
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = lib.dwt_whiten_moments_f32(
-            x2d.data_ptr(), mean.data_ptr(), cov.data_ptr(),
-            partial.data_ptr(), m_rows, c, blocks, stream,
+    if domains > lib.dwt_whiten_moments_max_domains():
+        raise ValueError(
+            f"whiten_moments: D={domains} exceeds the kernel's "
+            f"{lib.dwt_whiten_moments_max_domains()} domains"
         )
+    with torch.cuda.device(device_index):
+        clusters = lib.dwt_whiten_moments_clusters(domains, m_rows, c)
+    _raise_on_error(lib, -min(clusters, 0), "whiten_moments")
+    return clusters, domains * clusters * (c // GROUP_SIZE) * _STATS_PER_GROUP
+
+
+_arrival_counters: Dict[int, torch.Tensor] = {}
+
+
+def _arrival_counter(device: torch.device) -> torch.Tensor:
+    """The kernel's arrival counters on ``device``, one int32 per domain it
+    takes, zeroed once here; every launch leaves them zero."""
+    counter = _arrival_counters.get(device.index)
+    if counter is None:
+        counter = _arrival_counters[device.index] = torch.zeros(
+            _library("whiten_moments").dwt_whiten_moments_max_domains(),
+            dtype=torch.int32, device=device)
+    return counter
+
+
+def whiten_moments(
+    x: torch.Tensor, group_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The biased moments of ``x [D, M, C]`` per domain, ``(mean [D, C],
+    cov [D, C/4, 4, 4])`` (of ``x [M, C]``: ``(mean [C], cov [C/4, 4,
+    4])``): the CUDA kernel for a CUDA ``x`` (f32, one contiguous block,
+    group size 4), the plain version for a CPU one.  One launch per call,
+    whatever ``D``.
+
+    Launches on the current stream.  Calls on two streams at once are not
+    supported: all launches on a device share the arrival counters."""
+    global moments_launches
+    if x.device.type == "cpu":
+        return whiten_moments_plain(x, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"whiten_moments: unsupported device {x.device}")
+    _check_moments_args(x, group_size)
+    domains = x.shape[0] if x.dim() == 3 else 1
+    m_rows, c = x.shape[-2:]
+    groups, device = c // GROUP_SIZE, x.device
+    clusters, scratch_len = _moments_grid(device.index, domains, m_rows, c)
+    lib = _library("whiten_moments")
+    out = torch.empty(domains * (c + groups * GROUP_SIZE * GROUP_SIZE),
+                      dtype=torch.float32, device=device)
+    mean = out[: domains * c].view(domains, c)
+    cov = out[domains * c:].view(domains, groups, GROUP_SIZE, GROUP_SIZE)
+    scratch = torch.empty(scratch_len, dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        rc = lib.dwt_whiten_moments_f32(
+            x.data_ptr(), mean.data_ptr(), cov.data_ptr(), scratch.data_ptr(),
+            _arrival_counter(device).data_ptr(), domains, m_rows, c, clusters,
+            torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(lib, rc, "whiten_moments")
     moments_launches += 1
+    if x.dim() == 2:
+        return mean[0], cov[0]
     return mean, cov
 
 
@@ -283,9 +323,10 @@ class TrainWhiten(torch.autograd.Function):
     """Train-mode whitening of ``x [D, M, C]``, each domain ``d`` with the
     batch moments of its own slice ``x[d]``.
 
-    Forward, per domain: :func:`whiten_moments`, the factorization
-    ``whitening_matrix(_shrink(cov, eps))`` in ``torch.linalg``, then
-    :func:`whiten_apply` into the domain's slice of one output tensor.
+    Forward: :func:`whiten_moments` once on the whole ``[D, M, C]`` (one
+    launch per site), the factorization ``whitening_matrix(_shrink(cov,
+    eps))`` in ``torch.linalg`` once over ``[D, G, g, g]``, then
+    :func:`whiten_apply` per domain into its slice of one output tensor.
     Returns ``(y [D, M, C], means [D, C], covs [D, G, g, g])``; the
     moments are non-differentiable (the running-stat EMA is detached).
 
@@ -300,17 +341,13 @@ class TrainWhiten(torch.autograd.Function):
         ctx.group_size, ctx.eps = group_size, eps
         ctx.save_for_backward(x)
         y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        means, covs = [], []
         # Grad mode is already off inside Function.forward; explicit here
-        # because nothing in this loop may record a graph.
+        # because nothing below may record a graph.
         with torch.no_grad():
+            means, covs = whiten_moments(x, group_size)
+            ws = whitening.whitening_matrix(whitening._shrink(covs, eps))
             for d in range(x.shape[0]):
-                mean, cov = whiten_moments(x[d], group_size)
-                w = whitening.whitening_matrix(whitening._shrink(cov, eps))
-                whiten_apply(x[d], mean, w, out=y[d])
-                means.append(mean)
-                covs.append(cov)
-            means, covs = torch.stack(means), torch.stack(covs)
+                whiten_apply(x[d], means[d], ws[d], out=y[d])
         ctx.mark_non_differentiable(means, covs)
         return y, means, covs
 

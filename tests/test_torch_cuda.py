@@ -8,9 +8,11 @@ repository's conftest, which imports JAX)::
 
 The whitening-apply kernel is held to its plain PyTorch version on the
 same device, ``rtol = atol = 1e-5`` (both sum 4 products per output, in
-different orders).  The moments kernel is held to its plain version and
-to a float64 two-pass computation: mean ``rtol = atol = 1e-6``, cov
-``rtol = 1e-4, atol = 1e-5`` (f32 sums in another order).  The CPU-side
+different orders).  The moments kernel (one launch for the D
+domains of ``x [D, M, C]``) is held to its plain version and to a float64
+two-pass computation of each domain: mean ``rtol = atol = 1e-6``, cov
+``rtol = 1e-4, atol = 1e-5`` (f32 sums in another order); two calls, and
+replays of a CUDA graph that captured one, are bitwise equal.  The CPU-side
 tests check the dispatch rules: a CPU tensor takes the plain version,
 any other device raises, and ``chip_smoke.py`` refuses to run without
 CUDA.
@@ -206,6 +208,85 @@ def test_moments_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         cuda_whitening.whiten_moments(torch.cat([x, x], dim=1)[:, ::2], 4)
     with pytest.raises(ValueError, match="no rows"):
         cuda_whitening.whiten_moments(x[:0], 4)
+    with pytest.raises(ValueError, match="domains"):  # one counter per domain
+        cuda_whitening.whiten_moments(
+            torch.zeros(65, 8, 64, device=cuda_device), 4)
+
+
+def _domains(d, m, c, device, seed=0, offset=0.0):
+    """``[D, M, C]`` f32 on ``device``, domain ``i`` its own draw with a
+    mean offset of ``offset + i``."""
+    return torch.stack([_args(c, m, seed=seed + i)[0] + offset + i
+                        for i in range(d)]).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("c,m,offset", [
+    (64, 1000, 0.0), (256, 1000, 4.0), (64, 7, 0.0), (64, 56448, 0.0),
+    (256, 56448, 0.0),
+])
+def test_batched_moments_kernel_matches_plain_and_two_pass(cuda_device, d, c,
+                                                          m, offset):
+    """One launch for all D domains; each domain against the plain
+    version and a float64 two-pass computation of its own slice."""
+    x = _domains(d, m, c, cuda_device, seed=m + c, offset=offset)
+    before = cuda_whitening.moments_launches
+    mean, cov = cuda_whitening.whiten_moments(x, 4)
+    torch.cuda.synchronize()
+    assert cuda_whitening.moments_launches == before + 1
+    assert mean.shape == (d, c) and cov.shape == (d, c // 4, 4, 4)
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    torch.testing.assert_close(mean, p_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov, p_cov, **COV_TOL)
+    for i in range(d):
+        r_mean, r_cov = _two_pass_f64(x[i])
+        torch.testing.assert_close(mean[i].double(), r_mean, **MEAN_TOL)
+        torch.testing.assert_close(cov[i].double(), r_cov, **COV_TOL)
+
+
+@pytest.mark.cuda
+def test_batched_moments_kernel_is_bitwise_repeatable(cuda_device):
+    x = _domains(3, 56448, 64, cuda_device, seed=5)
+    a = cuda_whitening.whiten_moments(x, 4)
+    b = cuda_whitening.whiten_moments(x, 4)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_batched_moments_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A launch captured in a CUDA graph and replayed twice gives the eager
+    call's result bitwise: the arrival counter is zero again after every
+    launch, replays included."""
+    x = _domains(3, 56448, 256, cuda_device, seed=6, offset=2.0)
+    eager = cuda_whitening.whiten_moments(x, 4)  # also warms up the shape
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_whitening.moments_launches
+    with torch.cuda.graph(graph):
+        captured = cuda_whitening.whiten_moments(x, 4)
+    assert cuda_whitening.moments_launches == before + 1
+    for _ in range(2):
+        captured[0].zero_()
+        captured[1].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured[0], eager[0])
+        assert torch.equal(captured[1], eager[1])
+    again = cuda_whitening.whiten_moments(x, 4)
+    assert torch.equal(again[0], eager[0]) and torch.equal(again[1], eager[1])
+
+
+@pytest.mark.cuda
+def test_moments_wrapper_rejects_a_strided_domain_stack(cuda_device):
+    """A ``[D, M, C]`` whose domains are not one contiguous block raises."""
+    x = _domains(3, 1000, 64, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_whitening.whiten_moments(x[:, ::2], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_whitening.whiten_moments(x.transpose(0, 1), 4)
+    with pytest.raises(ValueError, match=r"\[M, C\] or \[D, M, C\]"):
+        cuda_whitening.whiten_moments(x[None], 4)
 
 
 @pytest.mark.cuda

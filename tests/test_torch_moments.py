@@ -80,6 +80,97 @@ def test_moments_match_pallas_and_two_pass(m, c, offset):
     np.testing.assert_allclose(cov.numpy(), np.asarray(p_cov), **COV_TOL)
 
 
+def _domains(d, m, c, seed, offset, dtype=np.float32):
+    """``[D, M, C]``: each domain its own draw, domain ``i`` shifted by
+    ``offset − i``, so the domains' moments differ.  (Above an offset of 4
+    the Pallas reference's ``E[xxᵀ] − m mᵀ`` in f32 leaves the cov
+    tolerance.)"""
+    return np.stack([_x(m, c, seed=seed + i, offset=offset - i, dtype=dtype)
+                     for i in range(d)])
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("m,c,offset", [(1000, 64, 0.0), (1000, 256, 4.0),
+                                        (777, 64, 4.0)])
+def test_batched_moments_match_pallas_per_domain(d, m, c, offset):
+    """One call on ``[D, M, C]`` (ragged M, a channel-mean offset of 4)
+    against the Pallas ``_moments_call`` and a float64 two-pass run on
+    each domain on its own."""
+    x = _domains(d, m, c, seed=m + c, offset=offset)
+    mean, cov = cw.whiten_moments(torch.from_numpy(x), 4)
+    assert mean.shape == (d, c) and cov.shape == (d, c // 4, 4, 4)
+    for i in range(d):
+        p_mean, p_cov = _moments_call(jnp.asarray(x[i]), c // 4, 4,
+                                      interpret=True)
+        np.testing.assert_allclose(mean[i].numpy(), np.asarray(p_mean), **MEAN_TOL)
+        np.testing.assert_allclose(cov[i].numpy(), np.asarray(p_cov), **COV_TOL)
+        ref_mean, ref_cov = _two_pass_f64(x[i])
+        np.testing.assert_allclose(mean[i].numpy(), ref_mean, **MEAN_TOL)
+        np.testing.assert_allclose(cov[i].numpy(), ref_cov, **COV_TOL)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_batched_moments_match_jax_in_f64(d):
+    """The same in float64 under ``jax.enable_x64``: against the Pallas
+    kernel (which accumulates in f32 by design, so at the f32 tolerances)
+    and against the JAX op's own moments, the mean and ``group_cov`` of
+    the centred input in float64, at 1e-12."""
+    m, c = 1000, 64
+    x = _domains(d, m, c, seed=41, offset=4.0, dtype=np.float64)
+    mean, cov = cw.whiten_moments(torch.from_numpy(x), 4)
+    assert mean.dtype == cov.dtype == torch.float64
+    with jax.enable_x64(True):
+        for i in range(d):
+            xi = jnp.asarray(x[i])
+            p_mean, p_cov = _moments_call(xi, c // 4, 4, interpret=True)
+            np.testing.assert_allclose(mean[i].numpy(), np.asarray(p_mean),
+                                       **MEAN_TOL)
+            np.testing.assert_allclose(cov[i].numpy(), np.asarray(p_cov),
+                                       **COV_TOL)
+            j_mean = xi.mean(axis=0)
+            j_cov = jw.group_cov(xi - j_mean, c // 4, 4)
+            assert j_cov.dtype == jnp.float64
+            np.testing.assert_allclose(mean[i].numpy(), np.asarray(j_mean),
+                                       rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(cov[i].numpy(), np.asarray(j_cov),
+                                       rtol=1e-12, atol=1e-12)
+
+
+def test_two_and_three_dimensional_inputs_agree():
+    """``[M, C]`` and ``[1, M, C]`` give the same numbers, in their own
+    shapes."""
+    x = torch.from_numpy(_x(333, 64, seed=3, offset=4.0))
+    mean2, cov2 = cw.whiten_moments(x, 4)
+    mean3, cov3 = cw.whiten_moments(x[None], 4)
+    assert mean2.shape == (64,) and cov2.shape == (16, 4, 4)
+    assert mean3.shape == (1, 64) and cov3.shape == (1, 16, 4, 4)
+    torch.testing.assert_close(mean3[0], mean2, rtol=0, atol=0)
+    torch.testing.assert_close(cov3[0], cov2, rtol=0, atol=0)
+
+
+def test_a_site_takes_one_moments_call_for_all_domains(monkeypatch):
+    """A ``DomainWhiten`` site in train mode calls ``whiten_moments`` once,
+    on its whole ``[D, M, C]``, and factorizes all domains at once."""
+    calls, factorized = [], []
+    moments, matrix = cw.whiten_moments, tw.whitening_matrix
+
+    def counted(x, group_size):
+        calls.append(tuple(x.shape))
+        return moments(x, group_size)
+
+    def counted_matrix(cov):
+        factorized.append(tuple(cov.shape))
+        return matrix(cov)
+
+    monkeypatch.setattr(cw, "whiten_moments", counted)
+    monkeypatch.setattr(tw, "whitening_matrix", counted_matrix)
+    site = norms.DomainWhiten(8, 4, num_domains=3).train()
+    x = torch.randn(6, 8, 3, 2).contiguous(memory_format=torch.channels_last)
+    site(x)
+    assert calls == [(3, 2 * 3 * 2, 8)]
+    assert factorized == [(3, 2, 4, 4)]
+
+
 def test_cpu_moments_take_the_plain_version_without_launch():
     x = torch.from_numpy(_x(100, 64))
     before = cw.moments_launches
