@@ -80,7 +80,31 @@ script exits non-zero without the final line:
                   is held to the same forward through the plain apply and
                   a bucket-1 forward to the model on the CPU; then forward
                   time per bucket and peak device memory.
-11. ``kernels`` — the contract line: per kernel and path its TPU
+11. ``digits_parity`` / ``digits_timing`` — both kernels at LeNet-DWT's
+                  whitened sites (``dn1`` C = 32, ``dn2`` C = 48): the
+                  moments kernel against its plain version and a float64
+                  two-pass reference at the train shapes ``[2, M, C]`` (32
+                  images per stream), the apply kernel against its plain
+                  version there and at the eval (test batch 100) and serve
+                  (buckets 1 and 128) shapes, tolerances as above; times
+                  with L2 cold beside the bound, the plain version and the
+                  library yardsticks.
+12. ``digits_train`` — the digits trainer through its CLI entry
+                  (``build_parser``/``run_digits``): LeNet-DWT, 32 images per
+                  stream, 2 epochs of 8 steps on synthetic data, an eval
+                  after each.  Checks: finite losses and grad norms, every
+                  parameter and both sites' running covs moved, 2 moments
+                  and 4 apply launches per step, 2 apply launches per eval
+                  forward, the record sequence, an accuracy.
+13. ``digits_reference`` — one LeNet-DWT step through the kernels against
+                  the plain-kernel step and a float64 step on the card
+                  (limits and readings at ``DIGITS_LEAF_TOL``).
+14. ``digits_throughput`` — steady-state digits step and eval forward
+                  (batch 100), images per second, peak memory, and the
+                  card's idle share from a profiled window of steps.
+15. ``digits_serve`` — phase 10 for ``--model lenet`` (2 apply launches
+                  per forward).
+16. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time).
 
@@ -148,7 +172,32 @@ TRAIN_GRAD_TOL = 2e-3
 RESNET50_LEAF_TOL = (5e-2, 1e-4)  # (backbone, head)
 F64_RATIO_TOL = 1.25
 TINY_LEAF_TOL = 2e-3
+STEP_METRICS = ("loss", "cls_loss", "mec_loss", "entropy_loss", "grad_norm")
 FP32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
+
+# The digits slice: LeNet-DWT, 2 domain branches, whitened sites in groups of 4.
+DIGITS_SITES = (("dn1", 32, 28 * 28), ("dn2", 48, 14 * 14))  # (site, C, rows per image)
+DIGITS_STREAM = 32  # images per stream: the reference recipe
+DIGITS_APPLY_BATCHES = (("eval", 100), ("serve_b1", 1), ("serve_b128", 128))
+DIGITS_TRAIN_FLAGS = [
+    "--synthetic", "--group_size", "4", "--synthetic_size", "256", "--epochs", "2",
+    "--seed", "1", "--log_interval", "1",
+]
+DIGITS_STEPS_PER_EPOCH = 256 // DIGITS_STREAM
+# Biases that feed a normalization site: the batch mean removes them, so
+# their exact gradient is zero and every step computes rounding noise,
+# which Adam's first step (lr·g/(|g| + 1e-8)) turns into ±lr.  They are
+# held to be noise (at most DIGITS_NOISE_TOL of the step's gradient norm)
+# instead of leaf by leaf.
+DIGITS_NORMALIZED_BIASES = ("conv1.bias", "conv2.bias", "fc3.bias", "fc4.bias",
+                            "fc5.bias")
+DIGITS_NOISE_TOL = 1e-6  # readings on the H100: 5.6e-8 (f32), 9.2e-17 (float64)
+# Every other parameter's gradient and update (beyond rounding) against
+# the plain step and the float64 step.  Readings on the H100: gradients
+# ≤ 1.1e-6 per parameter, updates ≤ 4.8e-6 (fc3.weight: Adam divides by
+# |g| + 1e-8, so its smallest gradients reach the update); loss ≤ 1.6e-7,
+# stats ≤ 4.8e-7 (held at TRAIN_TOL).
+DIGITS_LEAF_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -190,9 +239,10 @@ def cuda_ms(torch, fn, rotation=((),), iters: int = 50, warmup: int = 5) -> floa
     return start.elapsed_time(end) / iters
 
 
-def trace_events(torch, fn, iters: int = 1):
-    """The device events (kernels, copies, memsets) of ``iters`` calls of
-    ``fn()`` in a ``torch.profiler`` trace, in order."""
+def trace_events(torch, fn, iters: int = 1, cats=("kernel", "gpu_memcpy", "gpu_memset")):
+    """The events of categories ``cats`` (by default the device's: kernels,
+    copies, memsets) of ``iters`` calls of ``fn()`` in a ``torch.profiler``
+    trace, in order."""
     import os
     import tempfile
 
@@ -209,23 +259,22 @@ def trace_events(torch, fn, iters: int = 1):
         with open(path) as f:
             trace = json.load(f)
     return [ev for ev in trace.get("traceEvents", [])
-            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-            and "dur" in ev]
+            if ev.get("cat") in cats and "dur" in ev]
 
 
 def device_ms(torch, fn, names, rotation=((),), iters: int = 20) -> float:
     """Device time per call of the kernels whose names contain one of
-    ``names``, from a ``torch.profiler`` trace of ``iters`` calls of
-    ``fn(*rotation[i % len(rotation)])``: the kernel's own time, without
-    its wrapper's host time (which exceeds the kernel at the small train
-    shapes)."""
+    ``names`` (``None``: every kernel), from a ``torch.profiler`` trace of
+    ``iters`` calls of ``fn(*rotation[i % len(rotation)])``: the kernels'
+    own time, without the host time around them (which exceeds the kernel
+    at the small train shapes)."""
     for args in rotation:
         fn(*args)
     calls = iter(range(iters))
     events = trace_events(
         torch, lambda: fn(*rotation[next(calls) % len(rotation)]), iters)
-    total = sum(ev["dur"] for ev in events
-                if ev["cat"] == "kernel" and any(n in ev["name"] for n in names))
+    total = sum(ev["dur"] for ev in events if ev["cat"] == "kernel"
+                and (names is None or any(n in ev["name"] for n in names)))
     if total <= 0:
         raise RuntimeError(f"the profiler recorded no {names} kernel")
     return total / 1e3 / iters
@@ -260,6 +309,78 @@ def site_inputs(torch, m, c, gen, cpu_gen, device):
     return x, mean, w
 
 
+def time_apply(torch, cw, x, mean, w, rate):
+    """Times of the apply kernel on ``x [M, C]`` (one launch) with L2 cold:
+    its device time (``device_ms``; ``kernel_ms`` by CUDA events, host time
+    included), its plain version's, the library yardstick's
+    (``torch.addmm`` with the block-diagonal matrix; ``library_ms`` by CUDA
+    events, ``library_device_ms`` its kernels' device time) and a D2D
+    copy's of the same bytes, beside its bound."""
+    m, c = x.shape
+    w_t = torch.block_diag(*w).t().contiguous()  # [C, C]
+    bias = -(mean @ w_t)
+    lib_err = float((torch.addmm(bias, x, w_t)
+                     - cw.whiten_apply_plain(x, mean, w)).abs().max())
+    nbytes = 2 * m * c * 4  # read x, write y
+    flops = m * c * 9  # per 4 channels: 4 subtracts + 16 FMAs
+    bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
+    cold = cold_rotation(torch, (x,), out_like=(x,))  # (x_i, y_i)
+    kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
+    row = {
+        "M": m, "C": c, "bytes": nbytes, "rotation_buffers": len(cold),
+        "kernel_ms": cuda_ms(torch, kernel, cold),
+        "device_ms": device_ms(torch, kernel, APPLY_KERNELS, cold),
+        "plain_ms": cuda_ms(
+            torch, lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi),
+            cold, iters=10),
+        "library_ms": cuda_ms(
+            torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), cold),
+        "library_device_ms": device_ms(
+            torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), None, cold),
+        "copy_ms": cuda_ms(torch, lambda xi, yi: yi.copy_(xi), cold),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_max_abs_err": lib_err,
+    }
+    row["kernel_GBps"] = nbytes / row["device_ms"] / 1e6
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def time_moments(torch, cw, x, rate):
+    """Times of the moments kernel on ``x [D, M, C]`` (one launch for its D
+    domains) with L2 cold, beside its plain version's, the library
+    yardstick's (``torch.cov`` once per domain: the full C×C covariance,
+    whose diagonal 4×4 blocks are the kernel's ``cov``) and its bound."""
+    d, m, c = x.shape
+    groups = c // 4
+    cov = cw.whiten_moments(x, 4)[1]
+    gi = torch.arange(groups, device=x.device)
+    lib = torch.cov(x[0].t(), correction=0).view(groups, 4, groups, 4)[gi, :, gi, :]
+    lib_err = float((lib - cov[0]).abs().max())
+    nbytes = d * m * c * 4 + d * (c + groups * 16) * 4
+    flops = d * m * c * 6  # per 4 channels: 4 adds, 10 FMAs
+    bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
+    cold = cold_rotation(torch, (x,))
+    kernel = lambda xi: cw.whiten_moments(xi, 4)
+    library = lambda xi: [torch.cov(xi[k].t(), correction=0) for k in range(d)]
+    row = {
+        "D": d, "M": m, "C": c, "bytes": nbytes, "rotation_buffers": len(cold),
+        "kernel_ms": cuda_ms(torch, kernel, cold),
+        "device_ms": device_ms(torch, kernel, MOMENTS_KERNELS, cold),
+        "plain_ms": cuda_ms(torch, lambda xi: cw.whiten_moments_plain(xi, 4),
+                            cold, iters=10),
+        "library_ms": cuda_ms(torch, library, cold, iters=10),
+        "library_device_ms": device_ms(torch, library, None, cold, iters=10),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_max_abs_err": lib_err,
+    }
+    row["kernel_GBps"] = nbytes / row["device_ms"] / 1e6
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
 def check_kernel(torch, cw, device, rate):
     """Parity at every shape, timing at the bucket-128 shapes."""
     gen = torch.Generator(device=device).manual_seed(0)
@@ -284,55 +405,44 @@ def check_kernel(torch, cw, device, rate):
             raise AssertionError(f"kernel disagrees with plain at {name}: {row}")
         if m == RAGGED_M:
             continue
-        w_bd = torch.block_diag(*w)                  # [C, C]
-        w_t = w_bd.t().contiguous()
-        bias = -(mean @ w_t)
-        lib_y = torch.addmm(bias, x, w_t)
-        torch.cuda.synchronize()
-        lib_err = float((lib_y - ref).abs().max())
-        nbytes = 2 * m * c * 4
-        flops = m * c * 9  # per 4 channels: 4 subtracts + 16 FMAs
-        bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
-        del y, ref, lib_y
-        cold = cold_rotation(torch, (x,), out_like=(x,))  # (x_i, y_i)
-        kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
-        row = {
-            "shape": name, "M": m, "C": c, "bytes": nbytes,
-            "rotation_buffers": len(cold),
-            "kernel_ms": cuda_ms(torch, kernel, cold),
-            "device_ms": device_ms(torch, kernel, APPLY_KERNELS, cold),
-            "plain_ms": cuda_ms(
-                torch, lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi),
-                cold, iters=10),
-            "library_ms": cuda_ms(
-                torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), cold),
-            "copy_ms": cuda_ms(torch, lambda xi, yi: yi.copy_(xi), cold),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_max_abs_err": lib_err,
-        }
-        row["kernel_GBps"] = nbytes / row["device_ms"] / 1e6
-        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        del y, ref
+        row = {"shape": name, **time_apply(torch, cw, x, mean, w, rate)}
         timing[name] = row
         emit({"phase": "timing", **row})
-        del x, diff, cold
+        del x, diff
         torch.cuda.empty_cache()
     return parity, timing
 
 
-def serve(torch, cw, server):
-    """The main path: the port's HTTP server on ResNet50-DWT at 224²."""
+SERVED = {  # per served model: flags, image shape, classes, whitened
+    # sites per forward, and the names of its phases
+    "resnet50": dict(
+        flags=["--model", "resnet50", "--num_classes", "65", "--image_size", "224"],
+        shape=(224, 224, 3), classes=65, sites=11,
+        phases=("engine", "serve", "reference", "throughput")),
+    "lenet": dict(
+        flags=["--model", "lenet"], shape=(28, 28, 1), classes=10, sites=2,
+        phases=("digits_engine", "digits_serve", "digits_serve_reference",
+                "digits_serve_throughput")),
+}
+
+
+def serve(torch, cw, server, model="resnet50"):
+    """A main path: the port's HTTP server on ResNet50-DWT at 224² (or
+    LeNet-DWT at 28×28); returns the apply kernel's launches on it."""
     import numpy as np
 
-    args = server.build_parser().parse_args([
-        "--model", "resnet50", "--num_classes", "65", "--image_size", "224",
+    spec = SERVED[model]
+    shape, classes, sites = spec["shape"], spec["classes"], spec["sites"]
+    engine_phase, serve_phase, reference_phase, throughput_phase = spec["phases"]
+    args = server.build_parser().parse_args(spec["flags"] + [
         "--buckets", "1,8,32,128", "--init_random", "--seed", "0",
         "--host", "127.0.0.1", "--port", "0",
     ])
     t0 = time.perf_counter()
     engine = server.build_engine(args)
     build_s = time.perf_counter() - t0
-    emit({"phase": "engine", "build_s": build_s, "warmup_s": engine.warmup_s,
+    emit({"phase": engine_phase, "build_s": build_s, "warmup_s": engine.warmup_s,
           "device": str(engine.device),
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
@@ -341,7 +451,7 @@ def serve(torch, cw, server):
 
     rng = np.random.default_rng(0)
     sizes = (1, 5, 32, 128)
-    inputs = [rng.normal(size=(n, 224, 224, 3)).astype(np.float32) for n in sizes]
+    inputs = [rng.normal(size=(n,) + shape).astype(np.float32) for n in sizes]
     client = server.ServeClient(engine, max_batch_delay_ms=args.max_batch_delay_ms,
                                 max_queue_items=args.max_queue)
     front = server.HttpFront(client, args.host, args.port)
@@ -364,18 +474,18 @@ def serve(torch, cw, server):
         http.close()
         front.close()
     forwards = sum(batches.values())
-    emit({"phase": "serve", "requests": list(sizes), "e2e_ms": e2e_ms,
-          "batches_by_bucket": batches, "apply_launches": launches,
-          "stats": stats})
+    emit({"phase": serve_phase, "model": model, "requests": list(sizes),
+          "e2e_ms": e2e_ms, "batches_by_bucket": batches,
+          "apply_launches": launches, "stats": stats})
     if batches != {1: 1, 8: 1, 32: 1, 128: 1}:
         raise AssertionError(f"expected one batch per bucket, got {batches}")
-    if launches != 11 * forwards:
+    if launches != sites * forwards:
         raise AssertionError(
-            f"{launches} kernel launches for {forwards} forwards, not 11 each")
+            f"{launches} kernel launches for {forwards} forwards, not {sites} each")
 
     worst = 0.0
     for x, out in zip(inputs, responses):
-        if out.shape != (x.shape[0], 65) or not np.isfinite(out).all():
+        if out.shape != (x.shape[0], classes) or not np.isfinite(out).all():
             raise AssertionError(f"bad response {out.shape} for {x.shape[0]} images")
         err = norm_err(torch.from_numpy(out), torch.from_numpy(engine.infer(x)))
         worst = max(worst, err)
@@ -398,7 +508,7 @@ def serve(torch, cw, server):
     with torch.inference_mode():
         cpu_logits = cpu_model(torch.from_numpy(inputs[0]))
     gpu_vs_cpu = norm_err(torch.from_numpy(responses[0]), cpu_logits)
-    emit({"phase": "reference", "http_vs_infer": worst,
+    emit({"phase": reference_phase, "http_vs_infer": worst,
           "kernel_vs_plain_bucket8": kernel_vs_plain,
           "gpu_vs_cpu_bucket1": gpu_vs_cpu, "tolerance": FORWARD_TOL,
           "logits_max_abs": float(np.abs(responses[-1]).max())})
@@ -407,10 +517,10 @@ def serve(torch, cw, server):
 
     per_bucket = {}
     for b in engine.buckets:
-        xb = engine.stage(np.zeros((b, 224, 224, 3), np.float32))
+        xb = engine.stage(np.zeros((b,) + shape, np.float32))
         ms = cuda_ms(torch, lambda: engine.forward(xb, b), iters=10, warmup=2)
         per_bucket[b] = {"forward_ms": ms, "imgs_per_s": b / ms * 1e3}
-    emit({"phase": "throughput", "per_bucket": per_bucket,
+    emit({"phase": throughput_phase, "per_bucket": per_bucket,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches
 
@@ -524,69 +634,59 @@ def check_moments(torch, cw, device, rate):
             raise AssertionError(f"moments or apply kernel disagrees at {name}: {row}")
         if name not in train_shapes:
             continue
-        groups = c // 4
-        w_t = torch.block_diag(*w[0]).t().contiguous()  # domain 0's apply
-        bias = -(mean[0] @ w_t)
-        lib = torch.cov(x[0].t(), correction=0)
-        gi = torch.arange(groups, device=device)
-        lib_blocks = lib.view(groups, 4, groups, 4)[gi, :, gi, :]
-        lib_err = float((lib_blocks - cov[0]).abs().max())
-        del lib, lib_blocks
-        n_read = d * m * c * 4
-        m_bytes = n_read + d * (c + groups * 16) * 4
-        m_bytes_ms = m_bytes / rate * 1e3
-        m_ops_ms = d * m * c * 6 / FP32_PEAK * 1e3  # per 4 channels: 4 adds, 10 FMAs
-        a_bytes = 2 * m * c * 4  # one domain: read x[k], write y[k]
-        a_bytes_ms = a_bytes / rate * 1e3
-        a_ops_ms = m * c * 9 / FP32_PEAK * 1e3
-        m_cold = cold_rotation(torch, (x,))
-        moments = lambda xi: cw.whiten_moments(xi, 4)
-        a_cold = cold_rotation(torch, (x[0],), out_like=(x[0],))
-        apply = lambda xi, yi: cw.whiten_apply(xi, mean[0], w[0], out=yi)
         row = {
             "shape": name, "D": d, "M": m, "C": c,
-            "moments": {
-                "per": f"one site: {d} domains, one launch",
-                "bytes": m_bytes, "rotation_buffers": len(m_cold),
-                "kernel_ms": cuda_ms(torch, moments, m_cold),
-                "device_ms": device_ms(torch, moments, MOMENTS_KERNELS, m_cold),
-                "plain_ms": cuda_ms(
-                    torch, lambda xi: cw.whiten_moments_plain(xi, 4), m_cold,
-                    iters=10),
-                "library_ms": cuda_ms(
-                    torch, lambda xi: [torch.cov(xi[k].t(), correction=0)
-                                       for k in range(d)], m_cold, iters=10),
-                "bound_ms": max(m_bytes_ms, m_ops_ms),
-                "bound_by": "bytes" if m_bytes_ms >= m_ops_ms else "operations",
-                "library_max_abs_err": lib_err,
-            },
-            "apply": {
-                "per": "one domain, one launch",
-                "bytes": a_bytes, "rotation_buffers": len(a_cold),
-                "kernel_ms": cuda_ms(torch, apply, a_cold),
-                "device_ms": device_ms(torch, apply, APPLY_KERNELS, a_cold),
-                "plain_ms": cuda_ms(
-                    torch, lambda xi, yi: cw.whiten_apply_plain(
-                        xi, mean[0], w[0], out=yi), a_cold, iters=10),
-                "library_ms": cuda_ms(
-                    torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi),
-                    a_cold),
-                "bound_ms": max(a_bytes_ms, a_ops_ms),
-                "bound_by": "bytes" if a_bytes_ms >= a_ops_ms else "operations",
-            },
+            "moments": {"per": f"one site: {d} domains, one launch",
+                        **time_moments(torch, cw, x, rate)},
+            "apply": {"per": "one domain, one launch",
+                      **time_apply(torch, cw, x[0], mean[0], w[0], rate)},
         }
-        for part in ("moments", "apply"):
-            r = row[part]
-            r["kernel_GBps"] = r["bytes"] / r["device_ms"] / 1e6
-            r["bound_share"] = r["bound_ms"] / r["device_ms"]
         timing[name] = row
         emit({"phase": "moments_timing", **row})
-        del x, m_cold, a_cold
+        del x
         torch.cuda.empty_cache()
     return parity, timing
 
 
 # ------------------------------------------------------------------- train
+
+
+def run_counted(torch, cw, run, phase):
+    """Drive a train path: zero both kernels' launch counts, call
+    ``run(logger)``, which trains through the loop with ``logger``; every
+    record carries the counts at its emission.  Returns ``(result,
+    records, launches over the run, seconds)``."""
+    records = []
+
+    def logger(kind, step, **fields):
+        records.append({"kind": kind, "step": step,
+                        "moments_launches": cw.moments_launches,
+                        "apply_launches": cw.apply_launches, **fields})
+
+    cw.moments_launches = cw.apply_launches = 0
+    t0 = time.perf_counter()
+    result = run(logger)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"moments": cw.moments_launches, "apply": cw.apply_launches}
+    for r in records:
+        emit({"phase": phase, **r})
+    return result, records, launches, seconds
+
+
+def check_record_launches(records, launches, want):
+    """Raise unless the launches between each record and the one before
+    are ``want(record)`` (``{"moments": n, "apply": n}``) and no launch
+    follows the last record."""
+    prev = {"moments": 0, "apply": 0}
+    for r in records:
+        got = {k: r[f"{k}_launches"] - prev[k] for k in prev}
+        prev = {k: r[f"{k}_launches"] for k in prev}
+        if got != want(r):
+            raise AssertionError(f"{r['kind']} at step {r['step']}: launches "
+                                 f"{got}, expected {want(r)}")
+    if prev != launches:
+        raise AssertionError(f"launches after the last record: {launches} vs {prev}")
 
 
 def train(torch, cw, officehome, loop):
@@ -598,40 +698,22 @@ def train(torch, cw, officehome, loop):
         TRAIN_FLAGS))
     model = loop.build_model(cfg)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    records = []
-
-    def logger(kind, step, **fields):
-        records.append({"kind": kind, "step": step,
-                        "moments_launches": cw.moments_launches,
-                        "apply_launches": cw.apply_launches, **fields})
-
-    cw.moments_launches = cw.apply_launches = 0
-    t0 = time.perf_counter()
-    acc = loop.run_officehome(cfg, logger, model=model)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"moments": cw.moments_launches, "apply": cw.apply_launches}
-    for r in records:
-        emit({"phase": "train_record", **r})
+    acc, records, launches, seconds = run_counted(
+        torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
+        "train_record")
 
     # Launches per record, against what each phase must launch.
-    prev = {"moments": 0, "apply": 0}
-    for r in records:
-        got = {k: r[f"{k}_launches"] - prev[k] for k in prev}
-        prev = {k: r[f"{k}_launches"] for k in prev}
+    def want(r):
         n = r.get("forwards", 1)
-        want = {
+        return {
             "train": {"moments": WHITENED_SITES, "apply": SITE_DOMAINS},
             "stat_collection": {"moments": WHITENED_SITES * n,
                                 "apply": SITE_DOMAINS * n},
             "test": {"moments": 0, "apply": WHITENED_SITES * n},
             "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
         }[r["kind"]]
-        if got != want:
-            raise AssertionError(f"{r['kind']} at step {r['step']}: launches "
-                                 f"{got}, expected {want}")
-    if prev != launches:
-        raise AssertionError(f"launches after the last record: {launches} vs {prev}")
+
+    check_record_launches(records, launches, want)
     kinds = [r["kind"] for r in records]
     if kinds != ["train"] * 3 + ["test"] + ["train"] * 3 + ["test",
                                                              "stat_collection",
@@ -732,7 +814,7 @@ def compare_steps(torch, a, b, init):
     """
     (ma, model_a), (mb, model_b) = a, b
     out = {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
-           for k in ("loss", "cls_loss", "mec_loss", "grad_norm")}
+           for k in STEP_METRICS if k in mb}
     sa, sb = model_a.state_dict(), model_b.state_dict()
     grads_a = {k: p.grad for k, p in model_a.named_parameters()}
     grads_b = {k: p.grad for k, p in model_b.named_parameters()}
@@ -774,15 +856,18 @@ def leaf_summary(errs):
     return {k: v for k, v in errs.items() if k != "by_leaf"}
 
 
-def check_step(name, errs, leaf_tol, head_tol=None):
+def check_step(name, errs, leaf_tol, head_tol=None, skip=()):
     """Raise unless the metrics and stats are within ``TRAIN_TOL`` (the
     grad norm ``TRAIN_GRAD_TOL``) and every parameter's gradient and
     update (beyond rounding) within ``leaf_tol`` — the head's
-    (``fc_out.*``) within ``head_tol`` when given."""
+    (``fc_out.*``) within ``head_tol`` when given; the leaves in ``skip``
+    are checked by the caller."""
     tols = {"grad_norm": TRAIN_GRAD_TOL}
-    bad = {k: errs[k] for k in ("loss", "cls_loss", "mec_loss", "grad_norm", "stats")
-           if errs[k] > tols.get(k, TRAIN_TOL)}
+    bad = {k: errs[k] for k in (*STEP_METRICS, "stats")
+           if k in errs and errs[k] > tols.get(k, TRAIN_TOL)}
     for leaf, e in errs["by_leaf"].items():
+        if leaf in skip:
+            continue
         tol = head_tol if head_tol is not None and leaf.startswith("fc_out.") else leaf_tol
         for key in ("grad", "update_beyond_rounding"):
             if e[key] > tol:
@@ -898,6 +983,301 @@ def train_throughput(torch, loop, device):
     return row
 
 
+# ------------------------------------------------------------------ digits
+
+
+def apply_error(torch, cw, x, mean, w):
+    """``(max |kernel − plain|, within rtol = atol = TOL)`` of one apply."""
+    y, ref = cw.whiten_apply(x, mean, w), cw.whiten_apply_plain(x, mean, w)
+    torch.cuda.synchronize()
+    diff = (y - ref).abs()
+    return float(diff.max()), bool((diff <= TOL + TOL * ref.abs()).all())
+
+
+def check_digits_kernels(torch, cw, device, rate):
+    """Both kernels at LeNet-DWT's two whitened sites (``dn1`` C = 32, ``dn2``
+    C = 48, groups of 4): parity with the plain versions (the moments also
+    with a float64 two-pass reference) and times, L2 cold, at the train
+    shapes (``[2, M, C]``, 32 images per stream), the eval shapes (test
+    batch 100) and the serve shapes of buckets 1 and 128."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    cpu_gen = torch.Generator().manual_seed(2)
+    apply_errs, moments_errs, timing = {}, {}, {}
+    for site, c, hw in DIGITS_SITES:
+        m = DIGITS_STREAM * hw
+        x = moments_input(torch, 2, m, c, gen, device)
+        before = cw.moments_launches
+        mean, cov = cw.whiten_moments(x, 4)
+        launches = cw.moments_launches - before
+        again = cw.whiten_moments(x, 4)
+        torch.cuda.synchronize()
+        repeat_bitwise = torch.equal(again[0], mean) and torch.equal(again[1], cov)
+        pm, pc, p_ok = moments_errors(torch, mean, cov, *cw.whiten_moments_plain(x, 4))
+        rm, rc, r_ok = moments_errors(torch, mean, cov, *two_pass_f64(torch, x))
+        w = whitening_matrix(_shrink(cov, 1e-3))
+        per_domain = [apply_error(torch, cw, x[k], mean[k], w[k]) for k in range(2)]
+        a_err, a_ok = max(e for e, _ in per_domain), all(ok for _, ok in per_domain)
+        moments_errs[site] = max(pm, pc)
+        apply_errs[("train", site)] = a_err
+        row = {"shape": f"train_{site}", "D": 2, "M": m, "C": c,
+               "launches": launches, "repeat_bitwise": repeat_bitwise,
+               "vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
+               "vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
+               "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL,
+               "apply_vs_plain": {"max_abs_err": a_err, "rtol": TOL, "atol": TOL},
+               "ok": p_ok and r_ok and a_ok and launches == 1 and repeat_bitwise}
+        emit({"phase": "digits_parity", **row})
+        if not row["ok"]:
+            raise AssertionError(f"digits kernels disagree at train_{site}: {row}")
+        timing[("train", site)] = {"moments": time_moments(torch, cw, x, rate),
+                                   "apply": time_apply(torch, cw, x[0], mean[0],
+                                                       w[0], rate)}
+        emit({"phase": "digits_timing", "shape": f"train_{site}",
+              **timing[("train", site)]})
+        del x, again
+        for path, n in DIGITS_APPLY_BATCHES:
+            xa, ma, wa = site_inputs(torch, n * hw, c, gen, cpu_gen, device)
+            err, ok = apply_error(torch, cw, xa, ma, wa)
+            apply_errs[(path, site)] = err
+            emit({"phase": "digits_parity", "shape": f"{path}_{site}",
+                  "M": n * hw, "C": c, "apply_vs_plain": {
+                      "max_abs_err": err, "rtol": TOL, "atol": TOL}, "ok": ok})
+            if not ok:
+                raise AssertionError(f"apply kernel disagrees at {path}_{site}")
+            timing[(path, site)] = {"apply": time_apply(torch, cw, xa, ma, wa, rate)}
+            emit({"phase": "digits_timing", "shape": f"{path}_{site}",
+                  **timing[(path, site)]})
+        torch.cuda.empty_cache()
+    return apply_errs, moments_errs, timing
+
+
+def digits_train(torch, cw, usps_mnist, loop):
+    """The digits main path, through the trainer's CLI entry: LeNet-DWT,
+    32 images per stream, 2 epochs of 8 steps, an eval after each; returns
+    the kernels' launches on it."""
+    import math
+
+    cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
+        DIGITS_TRAIN_FLAGS))
+    model = loop.build_digits_model(cfg)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    acc, records, launches, seconds = run_counted(
+        torch, cw, lambda logger: loop.run_digits(cfg, logger, model=model),
+        "digits_train_record")
+    sites = len(DIGITS_SITES)
+    check_record_launches(records, launches, lambda r: {
+        "train": {"moments": sites, "apply": 2 * sites},
+        "test": {"moments": 0, "apply": sites * r.get("forwards", 0)},
+    }[r["kind"]])
+    kinds = [r["kind"] for r in records]
+    if kinds != (["train"] * 8 + ["test"]) * 2:
+        raise AssertionError(f"unexpected record sequence {kinds}")
+    for r in records:
+        if r["kind"] == "train":
+            bad = [k for k in ("loss", "cls_loss", "entropy_loss", "grad_norm")
+                   if not math.isfinite(r[k])]
+            if bad:
+                raise AssertionError(f"non-finite {bad} at step {r['step']}")
+        elif r["forwards"] != 2 or r["count"] != 128:
+            raise AssertionError(f"eval of {r['count']} images in {r['forwards']} "
+                                 "forwards, not 128 in 2")
+    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0
+            and acc == records[-1]["accuracy"]):
+        raise AssertionError(f"bad accuracy {acc}")
+    state = model.state_dict()
+    unmoved = [k for k, p in model.named_parameters()
+               if torch.equal(p.detach().cpu(), init[k])]
+    cov_unmoved = [f"{site}.cov[{d}]" for site, _, _ in DIGITS_SITES for d in range(2)
+                   if torch.equal(state[f"{site}.cov"][d].cpu(), init[f"{site}.cov"][d])]
+    emit({"phase": "digits_train", "flags": DIGITS_TRAIN_FLAGS, "seconds": seconds,
+          "accuracy": acc, "launches": launches, "unmoved_params": unmoved,
+          "unmoved_covs": cov_unmoved})
+    if unmoved or cov_unmoved:
+        raise AssertionError("training left parameters or stats unmoved")
+    return launches
+
+
+def digits_batch(torch, loop, seed, device, dtype=None):
+    """One digits train batch (two streams of ``DIGITS_STREAM`` images) from
+    the trainer's synthetic data."""
+    arrays = [loop._synthetic_classification_arrays(
+        DIGITS_STREAM, (28, 28, 1), 10, seed + i, 0.5 * i) for i in range(2)]
+    to = lambda a: torch.from_numpy(a).to(device)
+    batch = {"source_x": to(arrays[0][0]), "source_y": to(arrays[0][1]),
+             "target_x": to(arrays[1][0])}
+    if dtype is not None:
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+    return batch
+
+
+def digits_step(torch, cfg, model, batch, device):
+    """One digits train step of ``model`` on ``device``; returns its
+    metrics as floats and the model (its ``.grad`` the step's gradient)."""
+    from dwt_tpu_torch.train.optim import digits_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import make_digits_train_step
+
+    model.to(device, memory_format=torch.channels_last)
+    optimizer, schedules = digits_tx(model, cfg, DIGITS_STEPS_PER_EPOCH)
+    state = TrainState(model, optimizer, schedules)
+    metrics = make_digits_train_step(model, cfg.lambda_entropy_loss)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in metrics.items()}, model
+
+
+def noise_share(torch, step):
+    """The largest gradient of the biases that feed a normalization site
+    (their exact gradient is zero), relative to the step's gradient norm."""
+    metrics, model = step
+    grads = dict((k, p.grad) for k, p in model.named_parameters())
+    return max(float(grads[k].norm()) for k in DIGITS_NORMALIZED_BIASES) / metrics["grad_norm"]
+
+
+def digits_reference(torch, cw, loop, device):
+    """One LeNet-DWT step through the kernels against the same step with
+    both kernels swapped for their plain versions and against a float64
+    step of the plain versions, all on the card, from the same weights and
+    batch (tolerances and their readings at ``DIGITS_LEAF_TOL``)."""
+    from dwt_tpu_torch.config import DigitsConfig
+
+    cfg = DigitsConfig(seed=2, group_size=4)
+    batch = digits_batch(torch, loop, 5, device)
+    base = loop.build_digits_model(cfg)
+    init = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    kernels = (cw.whiten_moments, cw.whiten_apply)
+    before = (cw.moments_launches, cw.apply_launches)
+    kernel_step = digits_step(torch, cfg, copy.deepcopy(base), batch, device)
+    launches = (cw.moments_launches - before[0], cw.apply_launches - before[1])
+    cw.whiten_moments, cw.whiten_apply = cw.whiten_moments_plain, cw.whiten_apply_plain
+    try:
+        plain_step = digits_step(torch, cfg, copy.deepcopy(base), batch, device)
+        f64_step = digits_step(torch, cfg, float64_model(torch, base),
+                               digits_batch(torch, loop, 5, device, torch.float64),
+                               device)
+    finally:
+        cw.whiten_moments, cw.whiten_apply = kernels
+    vs_plain = compare_steps(torch, kernel_step, plain_step, init)
+    vs_f64 = compare_steps(torch, kernel_step, f64_step, init)
+    plain_vs_f64 = compare_steps(torch, plain_step, f64_step, init)
+    noise = {name: noise_share(torch, st) for name, st in (
+        ("kernel", kernel_step), ("plain", plain_step), ("float64", f64_step))}
+    emit({"phase": "digits_reference",
+          "kernel_vs_plain": leaf_summary(vs_plain),
+          "kernel_vs_f64": leaf_summary(vs_f64),
+          "plain_vs_f64": leaf_summary(plain_vs_f64),
+          "kernel_launches": launches,
+          "normalized_bias_grad_share": noise,
+          "tolerance": TRAIN_TOL, "grad_tolerance": TRAIN_GRAD_TOL,
+          "leaf_tolerance": DIGITS_LEAF_TOL, "f64_ratio_tolerance": F64_RATIO_TOL,
+          "noise_tolerance": DIGITS_NOISE_TOL,
+          "by_leaf_kernel_vs_f64": vs_f64["by_leaf"]})
+    if launches != (len(DIGITS_SITES), 2 * len(DIGITS_SITES)):
+        raise AssertionError(f"kernel step launched {launches}")
+    for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
+        check_step(f"{what} (LeNet-DWT)", errs, DIGITS_LEAF_TOL,
+                   skip=DIGITS_NORMALIZED_BIASES)
+    if vs_f64["grad"] > F64_RATIO_TOL * plain_vs_f64["grad"]:
+        raise AssertionError(
+            f"the kernel step's gradient is {vs_f64['grad']} from float64, "
+            f"over {F64_RATIO_TOL} times the plain step's {plain_vs_f64['grad']}")
+    if max(noise.values()) > DIGITS_NOISE_TOL:
+        raise AssertionError(f"normalized biases' gradients are not noise: {noise}")
+
+
+def digits_throughput(torch, loop, device):
+    """Steady-state LeNet-DWT train step and eval forward; the card's idle
+    share from a profiled window of steps."""
+    from dwt_tpu_torch.config import DigitsConfig
+    from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
+    from dwt_tpu_torch.train.optim import digits_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import (
+        eval_counters,
+        make_accum_eval_step,
+        make_digits_train_step,
+    )
+
+    cfg = DigitsConfig(seed=4, group_size=4)
+    model = loop.build_digits_model(cfg).to(device, memory_format=torch.channels_last)
+    optimizer, schedules = digits_tx(model, cfg, DIGITS_STEPS_PER_EPOCH)
+    state = TrainState(model, optimizer, schedules)
+    step = make_digits_train_step(model, cfg.lambda_entropy_loss)
+    batch = digits_batch(torch, loop, 11, device)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: step(state, batch), iters=20, warmup=3)
+    peak = torch.cuda.max_memory_allocated()
+    window = 5
+    device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    traced = trace_events(torch, lambda: step(state, batch), iters=window,
+                          cats=device_cats + ("cpu_op", "cuda_runtime"))
+    events = [ev for ev in traced if ev["cat"] in device_cats]
+    busy_ms = sum(ev["dur"] for ev in events) / 1e3 / window
+    span_ms = (max(ev["ts"] + ev["dur"] for ev in events)
+               - min(ev["ts"] for ev in events)) / 1e3 / window
+    # Where the host's time goes: the outermost PyTorch operators by host
+    # time (profiled, so stretched), and the runtime calls that wait.
+    host, ends = {}, {}
+    for ev in sorted((ev for ev in traced if ev["cat"] == "cpu_op"),
+                     key=lambda ev: (ev.get("tid"), ev["ts"], -ev["dur"])):
+        if ev["ts"] >= ends.get(ev.get("tid"), float("-inf")):
+            ends[ev.get("tid")] = ev["ts"] + ev["dur"]
+            host[ev["name"]] = host.get(ev["name"], 0.0) + ev["dur"] / 1e3 / window
+    syncs = [ev["name"] for ev in traced if ev["cat"] == "cuda_runtime"
+             and "ynchronize" in ev["name"]]
+    by_kernel = {}
+    for ev in events:
+        name = ev["name"][:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + ev["dur"] / 1e3 / window
+    x = torch.cat([batch["target_x"]] * 4)[: cfg.test_batch_size]
+    y = torch.cat([batch["source_y"]] * 4)[: cfg.test_batch_size]
+    mask = torch.ones_like(y, dtype=torch.bool)
+    install_whiten_cache(model, make_whiten_cache(model))
+    accum = make_accum_eval_step(model)
+    counters = eval_counters(device)
+    eval_ms = cuda_ms(torch, lambda: accum(counters, x, y, mask), iters=20, warmup=2)
+    install_whiten_cache(model, None)
+    images = 2 * DIGITS_STREAM
+    row = {"phase": "digits_throughput", "images_per_step": images,
+           "step_ms": step_ms, "imgs_per_s": images / step_ms * 1e3,
+           "device_ops_per_step": len(events) / window,
+           "device_busy_ms_per_step": busy_ms,
+           "idle_share": 1.0 - busy_ms / step_ms,
+           "profiled_span_ms_per_step": span_ms,
+           "idle_share_in_profile": 1.0 - busy_ms / span_ms,
+           "host_top_ops_ms_per_step_profiled": dict(sorted(
+               host.items(), key=lambda kv: -kv[1])[:12]),
+           "device_top_ms_per_step": dict(sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:12]),
+           "host_syncs_per_step": len(syncs) / window,
+           "host_sync_calls": sorted(set(syncs)),
+           "eval_forward_ms": eval_ms, "test_batch": cfg.test_batch_size,
+           "max_memory_allocated": peak}
+    emit(row)
+    return row
+
+
+def bound_by(rows):
+    return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations")
+
+
+def digits_row(timing, path, part):
+    """The kernels line's times of ``part`` (``"apply"`` or ``"moments"``)
+    on a digits path: the sum over one train step's (or one bucket-128
+    forward's) launches, each site's times from ``check_digits_kernels``."""
+    rows = [timing[(path, site)][part] for site, _, _ in DIGITS_SITES]
+    n = 2 if (path, part) == ("train", "apply") else 1  # launches per site
+    total = lambda key: sum(r[key] * n for r in rows)
+    return {"ms": total("device_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": bound_by(rows),
+            "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms")}
+
+
 def main() -> int:
     import torch
 
@@ -905,7 +1285,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
-    from dwt_tpu_torch.cli import officehome
+    from dwt_tpu_torch.cli import officehome, usps_mnist
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
     from dwt_tpu_torch.serve import server
     from dwt_tpu_torch.train import loop
@@ -944,6 +1324,11 @@ def main() -> int:
     train_reference(torch, cw, loop, device)
     train_throughput(torch, loop, device)
     serve_launches = serve(torch, cw, server)
+    d_apply_errs, d_moments_errs, d_timing = check_digits_kernels(torch, cw, device, rate)
+    digits_train_launches = digits_train(torch, cw, usps_mnist, loop)
+    digits_reference(torch, cw, loop, device)
+    digits_throughput(torch, loop, device)
+    digits_serve_launches = serve(torch, cw, server, "lenet")
 
     def per_forward(key):  # the 11 sites of one bucket-128 forward
         return sum(timing[s][key] * n for s, _, _, n in RESNET50_SITES)
@@ -952,10 +1337,6 @@ def main() -> int:
         per_site = {"moments": 1, "apply": DOMAINS}[part]  # launches per site
         return sum(m_timing[s][part][key] * n * per_site
                    for s, _, _, n in TRAIN_SITES)
-
-    def bound_by(rows):
-        return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
-                else "operations")
 
     train_per = {
         "moments": "the 11 whitened sites of one ResNet50 train step, one "
@@ -970,6 +1351,7 @@ def main() -> int:
                "bound_ms": per_step(part, "bound_ms"),
                "bound_by": bound_by([r[part] for r in m_timing.values()]),
                "library_ms": per_step(part, "library_ms"),
+               "library_device_ms": per_step(part, "library_device_ms"),
                "path": "train", "per": train_per[part]}
         for part in ("moments", "apply")
     }
@@ -986,6 +1368,7 @@ def main() -> int:
             "bound_ms": per_forward("bound_ms"),
             "bound_by": bound_by(timing.values()),
             "library_ms": per_forward("library_ms"),
+            "library_device_ms": per_forward("library_device_ms"),
             "path": "serve",
             "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224²",
         },
@@ -1007,6 +1390,43 @@ def main() -> int:
             "launches": train_launches["moments"],
             "max_abs_err": max(max(r["vs_plain"].values()) for r in m_parity),
             **train_rows["moments"],
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": digits_train_launches["apply"],
+            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
+                               if path == "train"),
+            **digits_row(d_timing, "train", "apply"),
+            "path": "digits_train",
+            "per": "the 4 whitened site-domains of one LeNet-DWT train step, "
+                   "32 images per stream at 28²",
+        },
+        {
+            "name": "whiten_moments",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
+            "launches": digits_train_launches["moments"],
+            "max_abs_err": max(d_moments_errs.values()),
+            **digits_row(d_timing, "train", "moments"),
+            "path": "digits_train",
+            "per": "the 2 whitened sites of one LeNet-DWT train step, one launch "
+                   "per site for its 2 domains, 32 images per stream at 28²",
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": digits_serve_launches,
+            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
+                               if path.startswith("serve")),
+            **digits_row(d_timing, "serve_b128", "apply"),
+            "path": "digits_serve",
+            "per": "the 2 whitened sites of one bucket-128 LeNet-DWT forward at 28²",
         },
     ]})
     print(smi, flush=True)

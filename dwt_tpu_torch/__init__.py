@@ -13,6 +13,9 @@ training (``python -m dwt_tpu_torch.cli.officehome``): the MEC train
 step, stat collection and eval, every whitened site in train mode going
 through the hand-written moments kernel
 (``dwt_tpu_torch/csrc/whiten_moments.cu``) and the apply kernel.
+Slice 4 is the digits experiment: LeNet-DWT trained on USPS→MNIST with
+Adam and the entropy loss (``python -m dwt_tpu_torch.cli.usps_mnist``)
+and served by the same server (``--model lenet``), through both kernels.
 """
 
 __version__ = "0.1.0"

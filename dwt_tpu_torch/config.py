@@ -1,4 +1,4 @@
-"""Typed config of the OfficeHome trainer — the ported subset of ``dwt_tpu.config.OfficeHomeConfig``.
+"""Typed configs of the two trainers — the ported subsets of ``dwt_tpu.config``'s ``DigitsConfig`` and ``OfficeHomeConfig``.
 
 Every default is the JAX package's (which are the reference's); ``device``
 is the port's own.
@@ -8,6 +8,32 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass
+class DigitsConfig:
+    """USPS↔MNIST experiment — reference ``usps_mnist.py:331-349``."""
+
+    source: str = "usps"
+    target: str = "mnist"
+    source_batch_size: int = 32
+    target_batch_size: int = 32
+    test_batch_size: int = 100
+    epochs: int = 120
+    lr: float = 1e-3
+    weight_decay: float = 5e-4
+    sgd_momentum: float = 0.5  # dead in the reference (Adam is used, :389)
+    running_momentum: float = 0.1
+    lambda_entropy_loss: float = 0.1
+    log_interval: int = 100
+    seed: int = 1
+    group_size: int = 32  # the reference's argparse default; its README uses 4
+    lr_milestones: Tuple[int, ...] = (50, 80)  # epochs; MultiStepLR γ=0.1
+    lr_gamma: float = 0.1
+    data_root: str = "../data"
+    synthetic: bool = False
+    synthetic_size: int = 256
+    device: str = "cuda"  # "cpu" only when asked for
 
 
 @dataclasses.dataclass

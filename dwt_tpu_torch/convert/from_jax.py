@@ -6,7 +6,7 @@ dicts of numpy arrays (stat structs may be dicts or named tuples, e.g.
 ``params`` and ``batch_stats``) and loads them into a port module whose
 submodule names are the Flax scope names.  Layouts:
 
-* conv kernel HWIO → ``weight`` OIHW;
+* conv kernel HWIO → ``weight`` OIHW, bias (LeNet's convs) as is;
 * dense kernel ``[in, out]`` → ``weight [out, in]``, bias as is;
 * norm affine ``gamma``/``beta`` as is;
 * ``WhiteningStats`` → buffers ``mean [D, C]``, ``cov [D, G, g, g]``;
@@ -86,6 +86,9 @@ def load_jax_variables(
             path = scope + ("kernel",)
             hwio = take("params", params, path)
             _copy(mod.weight, np.transpose(hwio, (3, 2, 0, 1)), path, "params")
+            if mod.bias is not None:
+                path = scope + ("bias",)
+                _copy(mod.bias, take("params", params, path), path, "params")
         elif isinstance(mod, nn.Linear):
             path = scope + ("kernel",)
             _copy(mod.weight, take("params", params, path).T, path, "params")

@@ -1,5 +1,6 @@
 """Models and norm modules of the port (``dwt_tpu.nn`` counterparts)."""
 
+from dwt_tpu_torch.nn.lenet import LeNetDWT, build_lenet, init_lenet_weights
 from dwt_tpu_torch.nn.norms import (
     DomainBatchNorm,
     DomainWhiten,
@@ -13,8 +14,11 @@ __all__ = [
     "BottleneckDWT",
     "DomainBatchNorm",
     "DomainWhiten",
+    "LeNetDWT",
     "ResNetDWT",
     "apply_domain_norm",
+    "build_lenet",
+    "init_lenet_weights",
     "init_weights",
     "merge_domains",
     "padded_num_classes",

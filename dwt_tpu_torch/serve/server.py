@@ -18,7 +18,8 @@ takes ``{"inputs": [...]}`` JSON, or a ``.npy`` body with
 ~77 MB as float32 and several hundred MB as JSON text.
 
 Run: ``python -m dwt_tpu_torch.serve.server --model resnet50
---init_random`` (on CUDA; ``--device cpu`` for the CPU).  SIGTERM or
+--init_random`` (or ``--model lenet``, the digits model at 28×28×1; on
+CUDA, ``--device cpu`` for the CPU).  SIGTERM or
 SIGINT drains: in-flight requests complete, queued requests dispatch,
 new arrivals get 503 with ``Retry-After``, exit code 0.
 """
@@ -41,6 +42,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
+from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.resnet import build_resnet
 from dwt_tpu_torch.serve.batcher import (
     Future,
@@ -433,13 +436,18 @@ class HttpFront:
 
 
 def build_model(args):
-    """``(model, input_shape)`` for ``--model resnet50|tiny``; fresh
-    weights from ``--seed`` under ``--init_random``."""
+    """``(model, input_shape)`` for ``--model lenet|resnet50|tiny``; fresh
+    weights from ``--seed`` under ``--init_random``.  LeNet-DWT always has
+    10 classes and takes 28×28×1 (``--num_classes`` and ``--image_size``
+    are the ResNets')."""
+    seed = args.seed if args.init_random else None
+    if args.model == "lenet":
+        return build_lenet(group_size=args.group_size, seed=seed), LENET_INPUT_SHAPE
     model = build_resnet(
         args.model,
         num_classes=args.num_classes,
         group_size=args.group_size,
-        seed=args.seed if args.init_random else None,
+        seed=seed,
     )
     return model, (args.image_size, args.image_size, 3)
 
@@ -466,9 +474,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_random", action="store_true",
                    help="serve a freshly initialized model (weights from "
                         "--seed)")
-    p.add_argument("--model", choices=["resnet50", "tiny"], default="resnet50")
-    p.add_argument("--num_classes", type=int, default=65)
-    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--model", choices=["lenet", "resnet50", "tiny"],
+                   default="resnet50")
+    p.add_argument("--num_classes", type=int, default=65,
+                   help="resnet head size (lenet is always 10)")
+    p.add_argument("--image_size", type=int, default=224,
+                   help="resnet input resolution (lenet takes 28)")
     p.add_argument("--group_size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--buckets", default="1,8,32,128",

@@ -1,11 +1,15 @@
-"""Optimizer and schedule of the OfficeHome recipe — the port of ``dwt_tpu.train.optim``.
+"""Optimizers and schedules of the two recipes — the port of ``dwt_tpu.train.optim``.
 
-The reference's SGD ``weight_decay`` is classic L2 (added to the gradient
-before the momentum), which ``torch.optim.SGD`` does by itself: with
-momentum 0.9, dampening 0 and no Nesterov, its update is the optax chain
-``add_decayed_weights → trace → scale_by_learning_rate`` of the JAX
-package.  optax's ``trace`` starts from zeros, so its first step moves by
-``g``; torch's momentum buffer starts at ``g``: the two agree.
+The reference's ``weight_decay`` is classic L2 (added to the gradient
+before the moments), which ``torch.optim.SGD`` and ``torch.optim.Adam`` do
+by themselves:
+
+* OfficeHome: SGD with momentum 0.9, dampening 0 and no Nesterov is the
+  optax chain ``add_decayed_weights → trace → scale_by_learning_rate`` of
+  the JAX package.  optax's ``trace`` starts from zeros, so its first step
+  moves by ``g``; torch's momentum buffer starts at ``g``: the two agree.
+* Digits: Adam (β = 0.9, 0.999, ε = 1e-8, bias-corrected) is the chain
+  ``add_decayed_weights → scale_by_adam → scale_by_learning_rate``.
 
 The JAX package wraps the chain in ``with_lr_backoff``, a global update
 scale that only the divergence guard moves off 1.0; at 1.0 it is inert,
@@ -76,6 +80,24 @@ def officehome_tx(model: nn.Module, cfg) -> Tuple[torch.optim.SGD,
                            cfg.lr_gamma),
     )
     return sgd_two_group(model, cfg.sgd_momentum, cfg.weight_decay), schedules
+
+
+def adam_l2(model: nn.Module, weight_decay: float = 5e-4) -> torch.optim.Adam:
+    """Adam with torch-style L2 weight decay on every parameter (the digits
+    recipe, ``usps_mnist.py:389``: Adam(lr=1e-3, weight_decay=5e-4)); one
+    param group, its lr set per step (:func:`set_learning_rates`)."""
+    return torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay)
+
+
+def digits_tx(model: nn.Module, cfg, steps_per_epoch: int
+              ) -> Tuple[torch.optim.Adam, Tuple[Schedule]]:
+    """The digits optimizer: Adam with L2 and its multistep schedule, the
+    epoch milestones converted to steps (decays at ``(m − 1)·
+    steps_per_epoch``, the reference's pre-step quirk)."""
+    schedule = multistep_schedule(cfg.lr, cfg.lr_milestones, cfg.lr_gamma,
+                                  scale=steps_per_epoch)
+    return adam_l2(model, cfg.weight_decay), (schedule,)
 
 
 def set_learning_rates(

@@ -304,3 +304,75 @@ def test_train_whiten_on_the_card_matches_the_cpu(cuda_device):
     for ours, ref, tol in zip(*results, [dict(rtol=2e-4, atol=2e-5), MEAN_TOL,
                                          COV_TOL, dict(rtol=2e-3, atol=5e-5)]):
         torch.testing.assert_close(ours, ref, **tol)
+
+
+# The digits slice (LeNet-DWT): C = 32 (G = 8) and C = 48 (G = 12, whose
+# 252-thread blocks are not a multiple of 32 and whose last cluster splits
+# 12 groups over 8 ranks), 2 domains, a few thousand rows per domain.
+DIGITS_MOMENTS = [  # (D, M, C)
+    (2, 25088, 32), (2, 6272, 48),   # a train step's dn1 and dn2 at 32 per stream
+    (2, 300, 48), (2, 5, 32),        # more blocks than rows: most read nothing
+    (1, 6272, 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,c", DIGITS_MOMENTS)
+def test_moments_kernel_at_digits_shapes(cuda_device, d, m, c):
+    x = _domains(d, m, c, cuda_device, seed=m + c, offset=1.0)
+    before = cuda_whitening.moments_launches
+    mean, cov = cuda_whitening.whiten_moments(x, 4)
+    again = cuda_whitening.whiten_moments(x, 4)
+    torch.cuda.synchronize()
+    assert cuda_whitening.moments_launches == before + 2
+    assert torch.equal(mean, again[0]) and torch.equal(cov, again[1])
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    torch.testing.assert_close(mean, p_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov, p_cov, **COV_TOL)
+    for i in range(d):
+        r_mean, r_cov = _two_pass_f64(x[i])
+        torch.testing.assert_close(mean[i].double(), r_mean, **MEAN_TOL)
+        torch.testing.assert_close(cov[i].double(), r_cov, **COV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m", [
+    (32, 784), (48, 196),            # a bucket-1 serve forward's dn1 and dn2
+    (32, 25088), (48, 6272),         # one domain of a train step
+    (48, 19600), (48, 7),
+])
+def test_apply_kernel_at_digits_shapes(cuda_device, c, m):
+    x, mean, w = _args(c, m, device=cuda_device, seed=c + m)
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, cuda_whitening.whiten_apply_plain(x, mean, w),
+                               **TOL)
+
+
+@pytest.mark.cuda
+def test_lenet_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """LeNet-DWT's train forward (both kernels at both sites) and eval
+    forward (the apply kernel) on the card against the same model on the
+    CPU: logits and running stats.  Convolutions in full f32 on the card,
+    as the trainer and the engine run them (TF32 off)."""
+    from dwt_tpu_torch.nn.lenet import build_lenet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 32, 28, 28, 1)).astype(np.float32))
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        model = build_lenet(seed=0).to(device, memory_format=torch.channels_last)
+        before = (cuda_whitening.moments_launches, cuda_whitening.apply_launches)
+        with torch.no_grad():
+            train_logits = model.train()(x.to(device))
+            eval_logits = model.eval()(x[1].to(device))
+        launches = (cuda_whitening.moments_launches - before[0],
+                    cuda_whitening.apply_launches - before[1])
+        results.append([train_logits.cpu(), eval_logits.cpu(), model.dn2.cov.cpu(),
+                        model.dn1.mean.cpu()])
+        if device.type == "cuda":
+            assert launches == (2, 2 * 2 + 2)
+    for ours, ref in zip(*results):
+        torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4 * float(ref.abs().max()))

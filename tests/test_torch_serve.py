@@ -162,6 +162,11 @@ import importlib, json, pkgutil, sys
 import dwt_tpu_torch
 for mod in pkgutil.walk_packages(dwt_tpu_torch.__path__, "dwt_tpu_torch."):
     importlib.import_module(mod.name)
+# The digits slice by name: the model, the trainer's CLI and the loaders.
+from dwt_tpu_torch.nn.lenet import LeNetDWT
+from dwt_tpu_torch.cli.usps_mnist import main
+from dwt_tpu_torch.data.datasets import load_mnist, load_usps
+from dwt_tpu_torch.train.loop import run_digits
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
