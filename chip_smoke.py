@@ -14,15 +14,27 @@ script exits non-zero without the final line:
                   parallel) into ``build/kernels/``.
 3. ``parity``   — the whitening-apply kernel against its plain PyTorch
                   version, both on the card, at the three site shapes of a
-                  bucket-128 ResNet50 forward at 224² and at a ragged
-                  M = 1000; ``rtol = atol = 1e-5``.
+                  bucket-128 ResNet50 forward at 224² (``x [M, C]``) and at
+                  a ragged M = 1000; in its domain-batched form (``x [D, M,
+                  C]``, one launch for the D domains) at the three site
+                  shapes of a ResNet50 train step (D = 3, 18 images per
+                  stream), at D = 1 and at ragged M = 1, 7 and 1000;
+                  ``rtol = atol = 1e-5``.  At the train shapes also: in a
+                  profiler trace of ten calls the kernel and no other
+                  device operation, at most once per call; a second call
+                  bitwise equal to the first, and two replays of a CUDA
+                  graph that captured a call bitwise equal to it.
 4. ``timing``   — per shape: kernel (``device_ms``: its device time in a
                   ``torch.profiler`` trace; ``kernel_ms``: CUDA events
-                  around back-to-back wrapper calls, host time included),
-                  plain version and one-call library yardstick
-                  (``torch.addmm`` with the block-diagonal matrix) in
-                  milliseconds, beside the bound (bytes moved over the
-                  card's memory rate).  Every timing here and in phase 6
+                  around back-to-back wrapper calls, host time included;
+                  ``host_us``: the wrapper's host time per call), plain
+                  version and one-call library yardstick (``torch.addmm``
+                  with the block-diagonal matrix; ``torch.baddbmm`` for D
+                  domains) in milliseconds, beside the bound (bytes moved
+                  over the card's memory rate), a D2D copy of the same
+                  bytes (``copy_ms``, ``copy_device_ms``) and the device
+                  time of an empty launch (``launch_floor_ms``, the card's
+                  per-launch floor).  Every timing here and in phase 6
                   cycles through distinct input (and output) buffers of
                   ``COLD_BYTES`` (100 MB) or more in all, so that L2 is
                   cold for each call, as in a train step or a forward.
@@ -38,14 +50,15 @@ script exits non-zero without the final line:
                   is bitwise equal to the first, and at the three train
                   shapes so are two replays of a CUDA graph that captured
                   a call.  At each shape also the apply kernel against its
-                  plain version on each domain, whitening it with those
-                  moments (``rtol = atol = 1e-5`` per element).
+                  plain version on all domains in one launch, whitening
+                  each with its own moments (``rtol = atol = 1e-5`` per
+                  element).
 6. ``moments_timing`` — per train site: the moments kernel (one launch for
                   the site's 3 domains), its plain version and the library
                   yardstick ``torch.cov`` once per domain (the full C×C
                   covariance, whose diagonal 4×4 blocks are the kernel's
-                  ``cov``), and the apply kernel on one domain, beside
-                  their bounds.
+                  ``cov``), and the apply kernel on the site's 3 domains
+                  (one launch), beside their bounds.
 7. ``train``    — the port's trainer through its CLI entry
                   (``build_parser``/``run_officehome``): ResNet50-DWT,
                   65 classes, 224², 3 streams × 18 images, 6 steps, an
@@ -54,8 +67,8 @@ script exits non-zero without the final line:
                   1`` so that every step's losses are read.  Checks:
                   finite losses and grad norms, every parameter and
                   every whitening site's running cov moved, 11 moments
-                  launches (one per site) and 33 apply launches (one per
-                  site and domain) per train step and per collection
+                  launches and 11 apply launches (one each per site, for
+                  its 3 domains) per train step and per collection
                   forward, 11 apply launches per eval forward, an
                   accuracy.
 8. ``train_reference`` — one ResNet50 train step through the kernels
@@ -85,16 +98,19 @@ script exits non-zero without the final line:
                   moments kernel against its plain version and a float64
                   two-pass reference at the train shapes ``[2, M, C]`` (32
                   images per stream), the apply kernel against its plain
-                  version there and at the eval (test batch 100) and serve
+                  version there (one launch for both domains; also at D =
+                  1 and at ragged M = 1, 7 and 1000, and at the train
+                  shapes one kernel per call, bitwise repeats and graph
+                  replays) and at the eval (test batch 100) and serve
                   (buckets 1 and 128) shapes, tolerances as above; times
-                  with L2 cold beside the bound, the plain version and the
-                  library yardsticks.
+                  with L2 cold beside the bound, the plain version, the
+                  library yardsticks, the D2D copy and the launch floor.
 12. ``digits_train`` — the digits trainer through its CLI entry
                   (``build_parser``/``run_digits``): LeNet-DWT, 32 images per
                   stream, 2 epochs of 8 steps on synthetic data, an eval
                   after each.  Checks: finite losses and grad norms, every
                   parameter and both sites' running covs moved, 2 moments
-                  and 4 apply launches per step, 2 apply launches per eval
+                  and 2 apply launches per step, 2 apply launches per eval
                   forward, the record sequence, an accuracy.
 13. ``digits_reference`` — one LeNet-DWT step through the kernels against
                   the plain-kernel step and a float64 step on the card
@@ -115,6 +131,8 @@ The last two lines are the card's ``nvidia-smi`` name/power limit and
 from __future__ import annotations
 
 import copy
+import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -130,9 +148,12 @@ TRAIN_SITES = (  # (site, M per domain at 18 images and 224², C, sites per step
     ("stage1_c64", 18 * 56 * 56, 64, 6),
     ("stage1_c256", 18 * 56 * 56, 256, 4),
 )
-DOMAINS = 3  # domain branches of a train site: one moments launch, 3 applies
+DOMAINS = 3  # domain branches of a train site: one moments and one apply launch
 RAGGED_M = 1000
+APPLY_RAGGED_M = (1, 7, 1000)  # ragged rows of the batched apply's parity
+TRACED_CALLS = 10  # calls in the trace that shows what one call puts on the card
 APPLY_KERNELS = ("whiten_apply_f32_kernel",)
+APPLY_EXTRA = ("host_us", "copy_device_ms")  # apply timings summed per step
 MOMENTS_KERNELS = ("whiten_moments_f32_kernel",)
 # Kernel timings cycle through distinct buffers of at least this many
 # bytes in all, more than the H100's 50 MB L2, so no reading comes from L2.
@@ -146,7 +167,6 @@ TRAIN_FLAGS = [
     "--log_interval", "1",
 ]
 WHITENED_SITES = 11  # ResNet50-DWT: the stem and the 10 norm sites of stage 1
-SITE_DOMAINS = DOMAINS * WHITENED_SITES
 # The ResNet50 step held to its plain-kernel twin: images per stream, size.
 REFERENCE_STEP = (18, 224)
 TOL = 1e-5            # kernel vs plain, per element: rtol = atol = 1e-5
@@ -239,45 +259,61 @@ def cuda_ms(torch, fn, rotation=((),), iters: int = 50, warmup: int = 5) -> floa
     return start.elapsed_time(end) / iters
 
 
-def trace_events(torch, fn, iters: int = 1, cats=("kernel", "gpu_memcpy", "gpu_memset")):
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(torch, fn, iters: int = 1, cats=DEVICE_CATS, attempts: int = 3):
     """The events of categories ``cats`` (by default the device's: kernels,
     copies, memsets) of ``iters`` calls of ``fn()`` in a ``torch.profiler``
-    trace, in order."""
+    trace, in order.  The profiler on the H100's machine now and then
+    delivers a trace without a device event: such a trace is taken again,
+    up to ``attempts`` times in all."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    return [ev for ev in trace.get("traceEvents", [])
-            if ev.get("cat") in cats and "dur" in ev]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        events = [ev for ev in trace.get("traceEvents", [])
+                  if ev.get("cat") in cats and "dur" in ev]
+        if any(ev["cat"] in DEVICE_CATS for ev in events):
+            break
+    return events
 
 
-def device_ms(torch, fn, names, rotation=((),), iters: int = 20) -> float:
+def device_ms(torch, fn, names, rotation=((),), iters: int = 20,
+              cats=("kernel",)) -> float:
     """Device time per call of the kernels whose names contain one of
-    ``names`` (``None``: every kernel), from a ``torch.profiler`` trace of
-    ``iters`` calls of ``fn(*rotation[i % len(rotation)])``: the kernels'
-    own time, without the host time around them (which exceeds the kernel
-    at the small train shapes)."""
+    ``names`` (``None``: every kernel; ``cats`` also ``"gpu_memcpy"``:
+    copies too), from a ``torch.profiler`` trace of ``iters`` calls of
+    ``fn(*rotation[i % len(rotation)])``: the kernels' own time, without
+    the host time around them (which exceeds the kernel at the small train
+    shapes).  The profiler has been seen to drop some of a trace's device
+    events, so per kernel name the mean duration is taken, times its
+    launches per call (its count over ``iters``, rounded)."""
     for args in rotation:
         fn(*args)
-    calls = iter(range(iters))
+    calls = itertools.count()
     events = trace_events(
         torch, lambda: fn(*rotation[next(calls) % len(rotation)]), iters)
-    total = sum(ev["dur"] for ev in events if ev["cat"] == "kernel"
-                and (names is None or any(n in ev["name"] for n in names)))
-    if total <= 0:
+    by_name = {}
+    for ev in events:
+        if ev["cat"] in cats and (names is None or any(n in ev["name"] for n in names)):
+            by_name.setdefault(ev["name"], []).append(ev["dur"])
+    if not by_name:
         raise RuntimeError(f"the profiler recorded no {names} kernel")
-    return total / 1e3 / iters
+    return sum(sum(d) / len(d) * max(1, round(len(d) / iters))
+               for d in by_name.values()) / 1e3
 
 
 def cold_rotation(torch, tensors, out_like=()):
@@ -298,9 +334,15 @@ def norm_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
 
-def site_inputs(torch, m, c, gen, cpu_gen, device):
+def site_inputs(torch, m, c, gen, cpu_gen, device, d=None):
+    """``x [m, c]``, ``mean [c]`` and ``w [c/4, 4, 4]`` of an apply site;
+    with ``d``, ``x [d, m, c]``, ``mean [d, c]`` and ``w [d, c/4, 4, 4]``,
+    each domain its own draw."""
     from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
 
+    if d is not None:
+        parts = [site_inputs(torch, m, c, gen, cpu_gen, device) for _ in range(d)]
+        return tuple(torch.stack(ts) for ts in zip(*parts))
     x = torch.randn(m, c, generator=gen, device=device) * 2.0 + 1.0
     mean = torch.randn(c, generator=gen, device=device) * 0.5
     a = torch.randn(c // 4, 4, 4, dtype=torch.float64, generator=cpu_gen)
@@ -309,41 +351,81 @@ def site_inputs(torch, m, c, gen, cpu_gen, device):
     return x, mean, w
 
 
+HOST_CALLS = 200  # wrapper calls per host-time reading
+
+
+def host_us(torch, fn, rotation) -> float:
+    """Host microseconds per ``fn`` call, over ``HOST_CALLS`` calls
+    through ``rotation`` with no synchronisation inside (the launches
+    queue up; the host never waits for the device)."""
+    for args in rotation:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(HOST_CALLS):
+        fn(*rotation[i % len(rotation)])
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / HOST_CALLS * 1e6
+
+
+@functools.lru_cache(maxsize=None)
+def launch_floor_ms(torch) -> float:
+    """Device time of an empty launch (``torch.cuda._sleep(0)``: one
+    thread that returns at once), the card's per-launch floor; measured
+    once per run."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0), None, iters=50)
+
+
 def time_apply(torch, cw, x, mean, w, rate):
-    """Times of the apply kernel on ``x [M, C]`` (one launch) with L2 cold:
-    its device time (``device_ms``; ``kernel_ms`` by CUDA events, host time
-    included), its plain version's, the library yardstick's
-    (``torch.addmm`` with the block-diagonal matrix; ``library_ms`` by CUDA
-    events, ``library_device_ms`` its kernels' device time) and a D2D
-    copy's of the same bytes, beside its bound."""
-    m, c = x.shape
-    w_t = torch.block_diag(*w).t().contiguous()  # [C, C]
-    bias = -(mean @ w_t)
-    lib_err = float((torch.addmm(bias, x, w_t)
+    """Times of the apply kernel on ``x [M, C]`` or, for the D domains of
+    a train site, ``x [D, M, C]`` (one launch) with L2 cold: its device
+    time (``device_ms``; ``kernel_ms`` by CUDA events, host time
+    included), the wrapper's host µs per call, its plain version's time,
+    the library yardstick's (``torch.addmm`` with the block-diagonal
+    matrix, ``torch.baddbmm`` over the domains; ``library_ms`` by CUDA
+    events, ``library_device_ms`` its kernels' device time), a D2D copy's
+    of the same bytes (``copy_ms`` by CUDA events, ``copy_device_ms``) and
+    the launch floor, beside its bound."""
+    batched = x.dim() == 3
+    d, (m, c) = (x.shape[0] if batched else 1), x.shape[-2:]
+    w3, mean3 = (w, mean) if batched else (w[None], mean[None])
+    w_t = torch.stack([torch.block_diag(*wd).t() for wd in w3]).contiguous()
+    bias = -(mean3[:, None, :] @ w_t)  # [D, 1, C]
+    if batched:
+        library = lambda xi, yi: torch.baddbmm(bias, xi, w_t, out=yi)
+    else:
+        library = lambda xi, yi: torch.addmm(bias[0, 0], xi, w_t[0], out=yi)
+    lib_err = float((library(x, torch.empty_like(x))
                      - cw.whiten_apply_plain(x, mean, w)).abs().max())
-    nbytes = 2 * m * c * 4  # read x, write y
-    flops = m * c * 9  # per 4 channels: 4 subtracts + 16 FMAs
+    nbytes = 4 * d * (2 * m * c + 5 * c)  # read x, mean, w; write y
+    flops = d * m * c * 9  # per 4 channels: 4 subtracts + 16 FMAs
     bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
     cold = cold_rotation(torch, (x,), out_like=(x,))  # (x_i, y_i)
     kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
+    copy = lambda xi, yi: yi.copy_(xi)
     row = {
-        "M": m, "C": c, "bytes": nbytes, "rotation_buffers": len(cold),
+        "D": d if batched else None, "M": m, "C": c, "bytes": nbytes,
+        "rotation_buffers": len(cold),
         "kernel_ms": cuda_ms(torch, kernel, cold),
         "device_ms": device_ms(torch, kernel, APPLY_KERNELS, cold),
+        "host_us": host_us(torch, kernel, cold),
         "plain_ms": cuda_ms(
             torch, lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi),
             cold, iters=10),
-        "library_ms": cuda_ms(
-            torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), cold),
-        "library_device_ms": device_ms(
-            torch, lambda xi, yi: torch.addmm(bias, xi, w_t, out=yi), None, cold),
-        "copy_ms": cuda_ms(torch, lambda xi, yi: yi.copy_(xi), cold),
+        "library_ms": cuda_ms(torch, library, cold),
+        "library_device_ms": device_ms(torch, library, None, cold),
+        "copy_ms": cuda_ms(torch, copy, cold),
+        "copy_device_ms": device_ms(torch, copy, None, cold,
+                                    cats=("kernel", "gpu_memcpy")),
+        "launch_floor_ms": launch_floor_ms(torch),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_max_abs_err": lib_err,
     }
     row["kernel_GBps"] = nbytes / row["device_ms"] / 1e6
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["copy_bound_share"] = row["bound_ms"] / row["copy_device_ms"]
     return row
 
 
@@ -381,35 +463,89 @@ def time_moments(torch, cw, x, rate):
     return row
 
 
+def apply_graph_replays(torch, cw, x, mean, w, eager):
+    """Capture one apply launch in a CUDA graph, replay it twice over a
+    zeroed output: is every replay bitwise the eager result?"""
+    out = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cw.whiten_apply(x, mean, w, out=out)
+    same = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(out, eager))
+    del graph, out
+    return all(same)
+
+
+def apply_parity(torch, cw, name, x, mean, w, full=False):
+    """The apply kernel against its plain version on ``x [M, C]`` or ``x
+    [D, M, C]``: one launch, within ``rtol = atol = TOL`` per element.
+    With ``full``, also: one kernel per call and no other device operation
+    in a profiler trace of calls, a second call bitwise equal to the
+    first, and two graph replays bitwise equal to it."""
+    before = cw.apply_launches
+    y = cw.whiten_apply(x, mean, w)
+    launches = cw.apply_launches - before
+    ref = cw.whiten_apply_plain(x, mean, w)
+    torch.cuda.synchronize()
+    diff = (y - ref).abs()
+    row = {"shape": name, "D": x.shape[0] if x.dim() == 3 else None,
+           "M": x.shape[-2], "C": x.shape[-1], "launches": launches,
+           "max_abs_err": float(diff.max()),
+           "max_rel_err": float((diff / ref.abs().clamp_min(1e-30)).max()),
+           "rtol": TOL, "atol": TOL}
+    ok = bool((diff <= TOL + TOL * ref.abs()).all()) and launches == 1
+    del ref, diff
+    if full:
+        again = cw.whiten_apply(x, mean, w)
+        torch.cuda.synchronize()
+        row["repeat_bitwise"] = torch.equal(again, y)
+        del again
+        row["graph_replay_bitwise"] = apply_graph_replays(torch, cw, x, mean, w, y)
+        # A trace of TRACED_CALLS calls: every device operation in it is the
+        # kernel, at most one per call.  (A trace of one short call can
+        # come back empty after the serve phase; the profiler drops device
+        # events now and then, so fewer than one per call may be recorded.)
+        ops = [ev["name"][:80] for ev in trace_events(
+            torch, lambda: cw.whiten_apply(x, mean, w), iters=TRACED_CALLS)]
+        row["device_ops_per_call"] = sorted(set(ops))
+        row["device_ops_in_trace"] = len(ops)
+        ok = (ok and row["repeat_bitwise"] and row["graph_replay_bitwise"]
+              and 1 <= len(ops) <= TRACED_CALLS
+              and all(any(n in op for n in APPLY_KERNELS) for op in ops))
+    row["ok"] = ok
+    return row
+
+
 def check_kernel(torch, cw, device, rate):
-    """Parity at every shape, timing at the bucket-128 shapes."""
+    """Parity at every shape (serve ``[M, C]``, train ``[D, M, C]``),
+    timing at the bucket-128 shapes."""
     gen = torch.Generator(device=device).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
-    shapes = [(name, m, c) for name, m, c, _ in RESNET50_SITES]
-    shapes += [("ragged_c64", RAGGED_M, 64), ("ragged_c256", RAGGED_M, 256)]
+    shapes = [(name, None, m, c) for name, m, c, _ in RESNET50_SITES]
+    shapes += [("ragged_c64", None, RAGGED_M, 64), ("ragged_c256", None, RAGGED_M, 256)]
+    shapes += [(f"train_{name}", DOMAINS, m, c) for name, m, c, _ in TRAIN_SITES]
+    shapes += [("train_d1_c256", 1, 18 * 56 * 56, 256)]
+    shapes += [(f"train_ragged_m{m}_c{c}", DOMAINS, m, c)
+               for m in APPLY_RAGGED_M for c in (64, 256)]
+    train_shapes = {f"train_{name}" for name, *_ in TRAIN_SITES}
     parity, timing = [], {}
-    for name, m, c in shapes:
-        x, mean, w = site_inputs(torch, m, c, gen, cpu_gen, device)
-        y = cw.whiten_apply(x, mean, w)
-        ref = cw.whiten_apply_plain(x, mean, w)
-        torch.cuda.synchronize()
-        diff = (y - ref).abs()
-        ok = bool((diff <= TOL + TOL * ref.abs()).all())
-        row = {"shape": name, "M": m, "C": c,
-               "max_abs_err": float(diff.max()),
-               "max_rel_err": float((diff / ref.abs().clamp_min(1e-30)).max()),
-               "rtol": TOL, "atol": TOL, "ok": ok}
+    for name, d, m, c in shapes:
+        x, mean, w = site_inputs(torch, m, c, gen, cpu_gen, device, d)
+        row = apply_parity(torch, cw, name, x, mean, w, full=name in train_shapes)
         parity.append(row)
         emit({"phase": "parity", **row})
-        if not ok:
+        if not row["ok"]:
             raise AssertionError(f"kernel disagrees with plain at {name}: {row}")
-        if m == RAGGED_M:
+        if d is not None or m == RAGGED_M:
             continue
-        del y, ref
         row = {"shape": name, **time_apply(torch, cw, x, mean, w, rate)}
         timing[name] = row
         emit({"phase": "timing", **row})
-        del x, diff
+        del x
         torch.cuda.empty_cache()
     return parity, timing
 
@@ -571,8 +707,8 @@ def graph_replays(torch, cw, x, eager):
 
 
 def check_moments(torch, cw, device, rate):
-    """Moments parity at every shape; moments (one launch per site, all
-    domains) and apply (per domain) timing at the train shapes."""
+    """Moments parity at every shape; moments and apply timing (one
+    launch each per site, all domains) at the train shapes."""
     from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
 
     gen = torch.Generator(device=device).manual_seed(1)
@@ -599,18 +735,11 @@ def check_moments(torch, cw, device, rate):
                       trace_events(torch, lambda: cw.whiten_moments(x, 4))]
         p_mean, p_cov = cw.whiten_moments_plain(x, 4)
         r_mean, r_cov = two_pass_f64(torch, x)
-        # The apply kernel on each domain, whitened with these moments as a
-        # train step whitens it.
+        # The apply kernel on all domains in one launch, each whitened with
+        # its own moments as a train step whitens it.
         w = whitening_matrix(_shrink(cov, 1e-3))
-        a_err, a_ok = 0.0, True
-        for k in range(d):
-            y = cw.whiten_apply(x[k], mean[k], w[k])
-            y_ref = cw.whiten_apply_plain(x[k], mean[k], w[k])
-            y_diff = (y - y_ref).abs()
-            a_err = max(a_err, float(y_diff.max()))
-            a_ok = a_ok and bool((y_diff <= TOL + TOL * y_ref.abs()).all())
-            del y, y_ref, y_diff
-        torch.cuda.synchronize()
+        a_row = apply_parity(torch, cw, name, x, mean, w)
+        a_err, a_ok = a_row["max_abs_err"], a_row["ok"]
         pm, pc, p_ok = moments_errors(torch, mean, cov, p_mean, p_cov)
         rm, rc, r_ok = moments_errors(torch, mean, cov, r_mean, r_cov)
         row = {"shape": name, "D": d, "M": m, "C": c, "mean_offset": offset,
@@ -638,8 +767,8 @@ def check_moments(torch, cw, device, rate):
             "shape": name, "D": d, "M": m, "C": c,
             "moments": {"per": f"one site: {d} domains, one launch",
                         **time_moments(torch, cw, x, rate)},
-            "apply": {"per": "one domain, one launch",
-                      **time_apply(torch, cw, x[0], mean[0], w[0], rate)},
+            "apply": {"per": f"one site: {d} domains, one launch",
+                      **time_apply(torch, cw, x, mean, w, rate)},
         }
         timing[name] = row
         emit({"phase": "moments_timing", **row})
@@ -706,9 +835,9 @@ def train(torch, cw, officehome, loop):
     def want(r):
         n = r.get("forwards", 1)
         return {
-            "train": {"moments": WHITENED_SITES, "apply": SITE_DOMAINS},
+            "train": {"moments": WHITENED_SITES, "apply": WHITENED_SITES},
             "stat_collection": {"moments": WHITENED_SITES * n,
-                                "apply": SITE_DOMAINS * n},
+                                "apply": WHITENED_SITES * n},
             "test": {"moments": 0, "apply": WHITENED_SITES * n},
             "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
         }[r["kind"]]
@@ -928,7 +1057,7 @@ def train_reference(torch, cw, loop, device):
           "why": "sums in other orders (kernel vs plain, f32 vs float64, "
                  "card vs CPU); each stored parameter's own float32 "
                  "rounding is forgiven"})
-    if kernel_launches != (WHITENED_SITES, SITE_DOMAINS):
+    if kernel_launches != (WHITENED_SITES, WHITENED_SITES):
         raise AssertionError(f"kernel step launched {kernel_launches}")
     for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
         check_step(f"{what} (ResNet50)", errs, *RESNET50_LEAF_TOL)
@@ -986,20 +1115,13 @@ def train_throughput(torch, loop, device):
 # ------------------------------------------------------------------ digits
 
 
-def apply_error(torch, cw, x, mean, w):
-    """``(max |kernel − plain|, within rtol = atol = TOL)`` of one apply."""
-    y, ref = cw.whiten_apply(x, mean, w), cw.whiten_apply_plain(x, mean, w)
-    torch.cuda.synchronize()
-    diff = (y - ref).abs()
-    return float(diff.max()), bool((diff <= TOL + TOL * ref.abs()).all())
-
-
 def check_digits_kernels(torch, cw, device, rate):
     """Both kernels at LeNet-DWT's two whitened sites (``dn1`` C = 32, ``dn2``
     C = 48, groups of 4): parity with the plain versions (the moments also
     with a float64 two-pass reference) and times, L2 cold, at the train
-    shapes (``[2, M, C]``, 32 images per stream), the eval shapes (test
-    batch 100) and the serve shapes of buckets 1 and 128."""
+    shapes (``[2, M, C]``, 32 images per stream; the apply in one launch
+    for both domains, also at D = 1 and at ragged M), the eval shapes
+    (test batch 100) and the serve shapes of buckets 1 and 128."""
     from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -1017,34 +1139,40 @@ def check_digits_kernels(torch, cw, device, rate):
         pm, pc, p_ok = moments_errors(torch, mean, cov, *cw.whiten_moments_plain(x, 4))
         rm, rc, r_ok = moments_errors(torch, mean, cov, *two_pass_f64(torch, x))
         w = whitening_matrix(_shrink(cov, 1e-3))
-        per_domain = [apply_error(torch, cw, x[k], mean[k], w[k]) for k in range(2)]
-        a_err, a_ok = max(e for e, _ in per_domain), all(ok for _, ok in per_domain)
+        a_row = apply_parity(torch, cw, f"train_{site}", x, mean, w, full=True)
         moments_errs[site] = max(pm, pc)
-        apply_errs[("train", site)] = a_err
+        apply_errs[("train", site)] = a_row["max_abs_err"]
         row = {"shape": f"train_{site}", "D": 2, "M": m, "C": c,
                "launches": launches, "repeat_bitwise": repeat_bitwise,
                "vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
                "vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
                "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL,
-               "apply_vs_plain": {"max_abs_err": a_err, "rtol": TOL, "atol": TOL},
-               "ok": p_ok and r_ok and a_ok and launches == 1 and repeat_bitwise}
+               "apply_vs_plain": a_row,
+               "ok": (p_ok and r_ok and a_row["ok"] and launches == 1
+                      and repeat_bitwise)}
         emit({"phase": "digits_parity", **row})
         if not row["ok"]:
             raise AssertionError(f"digits kernels disagree at train_{site}: {row}")
         timing[("train", site)] = {"moments": time_moments(torch, cw, x, rate),
-                                   "apply": time_apply(torch, cw, x[0], mean[0],
-                                                       w[0], rate)}
+                                   "apply": time_apply(torch, cw, x, mean, w, rate)}
         emit({"phase": "digits_timing", "shape": f"train_{site}",
               **timing[("train", site)]})
         del x, again
+        # The batched apply at one domain and at ragged M.
+        for d, rows in ((1, m), *((2, r) for r in APPLY_RAGGED_M)):
+            name = f"train_d{d}_m{rows}_{site}"
+            a_row = apply_parity(torch, cw, name,
+                                 *site_inputs(torch, rows, c, gen, cpu_gen, device, d))
+            apply_errs[("train", name)] = a_row["max_abs_err"]
+            emit({"phase": "digits_parity", **a_row})
+            if not a_row["ok"]:
+                raise AssertionError(f"apply kernel disagrees at {name}: {a_row}")
         for path, n in DIGITS_APPLY_BATCHES:
             xa, ma, wa = site_inputs(torch, n * hw, c, gen, cpu_gen, device)
-            err, ok = apply_error(torch, cw, xa, ma, wa)
-            apply_errs[(path, site)] = err
-            emit({"phase": "digits_parity", "shape": f"{path}_{site}",
-                  "M": n * hw, "C": c, "apply_vs_plain": {
-                      "max_abs_err": err, "rtol": TOL, "atol": TOL}, "ok": ok})
-            if not ok:
+            a_row = apply_parity(torch, cw, f"{path}_{site}", xa, ma, wa)
+            apply_errs[(path, site)] = a_row["max_abs_err"]
+            emit({"phase": "digits_parity", **a_row})
+            if not a_row["ok"]:
                 raise AssertionError(f"apply kernel disagrees at {path}_{site}")
             timing[(path, site)] = {"apply": time_apply(torch, cw, xa, ma, wa, rate)}
             emit({"phase": "digits_timing", "shape": f"{path}_{site}",
@@ -1068,7 +1196,7 @@ def digits_train(torch, cw, usps_mnist, loop):
         "digits_train_record")
     sites = len(DIGITS_SITES)
     check_record_launches(records, launches, lambda r: {
-        "train": {"moments": sites, "apply": 2 * sites},
+        "train": {"moments": sites, "apply": sites},
         "test": {"moments": 0, "apply": sites * r.get("forwards", 0)},
     }[r["kind"]])
     kinds = [r["kind"] for r in records]
@@ -1175,7 +1303,7 @@ def digits_reference(torch, cw, loop, device):
           "leaf_tolerance": DIGITS_LEAF_TOL, "f64_ratio_tolerance": F64_RATIO_TOL,
           "noise_tolerance": DIGITS_NOISE_TOL,
           "by_leaf_kernel_vs_f64": vs_f64["by_leaf"]})
-    if launches != (len(DIGITS_SITES), 2 * len(DIGITS_SITES)):
+    if launches != (len(DIGITS_SITES), len(DIGITS_SITES)):
         raise AssertionError(f"kernel step launched {launches}")
     for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
         check_step(f"{what} (LeNet-DWT)", errs, DIGITS_LEAF_TOL,
@@ -1211,10 +1339,9 @@ def digits_throughput(torch, loop, device):
     step_ms = cuda_ms(torch, lambda: step(state, batch), iters=20, warmup=3)
     peak = torch.cuda.max_memory_allocated()
     window = 5
-    device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
     traced = trace_events(torch, lambda: step(state, batch), iters=window,
-                          cats=device_cats + ("cpu_op", "cuda_runtime"))
-    events = [ev for ev in traced if ev["cat"] in device_cats]
+                          cats=DEVICE_CATS + ("cpu_op", "cuda_runtime"))
+    events = [ev for ev in traced if ev["cat"] in DEVICE_CATS]
     busy_ms = sum(ev["dur"] for ev in events) / 1e3 / window
     span_ms = (max(ev["ts"] + ev["dur"] for ev in events)
                - min(ev["ts"] for ev in events)) / 1e3 / window
@@ -1268,14 +1395,131 @@ def bound_by(rows):
 def digits_row(timing, path, part):
     """The kernels line's times of ``part`` (``"apply"`` or ``"moments"``)
     on a digits path: the sum over one train step's (or one bucket-128
-    forward's) launches, each site's times from ``check_digits_kernels``."""
+    forward's) launches, one per site, each site's times from
+    ``check_digits_kernels``."""
     rows = [timing[(path, site)][part] for site, _, _ in DIGITS_SITES]
-    n = 2 if (path, part) == ("train", "apply") else 1  # launches per site
-    total = lambda key: sum(r[key] * n for r in rows)
-    return {"ms": total("device_ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"), "bound_by": bound_by(rows),
-            "library_ms": total("library_ms"),
-            "library_device_ms": total("library_device_ms")}
+    total = lambda key: sum(r[key] for r in rows)
+    keys = ("plain_ms", "bound_ms", "library_ms", "library_device_ms")
+    if part == "apply":
+        keys += APPLY_EXTRA
+    return {"ms": total("device_ms"), "bound_by": bound_by(rows),
+            **{k: total(k) for k in keys}}
+
+
+def kernels_line(torch, r):
+    """The contract line's rows: per kernel and path, its launches on that
+    path's run, its largest error against its plain version, and its
+    times per serve forward or train step, from the phases' results
+    ``r``."""
+    timing, m_timing, d_timing = r["timing"], r["m_timing"], r["d_timing"]
+    d_apply_errs = r["d_apply_errs"]
+
+    def per_forward(key):  # the 11 sites of one bucket-128 forward
+        return sum(timing[s][key] * n for s, _, _, n in RESNET50_SITES)
+
+    def per_step(part, key):  # one train step: 11 sites, one launch each
+        return sum(m_timing[s][part][key] * n for s, _, _, n in TRAIN_SITES)
+
+    train_per = {
+        "moments": "the 11 whitened sites of one ResNet50 train step, one "
+                   "launch per site for its 3 domains, 18 images per stream "
+                   "at 224²",
+        "apply": "the 11 whitened sites of one ResNet50 train step, one "
+                 "launch per site for its 3 domains, 18 images per stream "
+                 "at 224²",
+    }
+    # The apply rows also carry, summed over the same launches, the
+    # wrapper's host time and a D2D copy of the same bytes, and the card's
+    # per-launch floor (one empty launch).
+    floor = {"launch_floor_ms": launch_floor_ms(torch)}
+    train_rows = {
+        part: {"ms": per_step(part, "device_ms"),
+               "plain_ms": per_step(part, "plain_ms"),
+               "bound_ms": per_step(part, "bound_ms"),
+               "bound_by": bound_by([row[part] for row in m_timing.values()]),
+               "library_ms": per_step(part, "library_ms"),
+               "library_device_ms": per_step(part, "library_device_ms"),
+               "path": "train", "per": train_per[part]}
+        for part in ("moments", "apply")
+    }
+    train_rows["apply"].update(floor, **{k: per_step("apply", k) for k in APPLY_EXTRA})
+    return [
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": r["serve_launches"],
+            "max_abs_err": max(p["max_abs_err"] for p in r["parity"]
+                               if p["D"] is None),
+            "ms": per_forward("device_ms"),
+            "plain_ms": per_forward("plain_ms"),
+            "bound_ms": per_forward("bound_ms"),
+            "bound_by": bound_by(timing.values()),
+            "library_ms": per_forward("library_ms"),
+            "library_device_ms": per_forward("library_device_ms"),
+            **{k: per_forward(k) for k in APPLY_EXTRA}, **floor,
+            "path": "serve",
+            "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224²",
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": r["train_launches"]["apply"],
+            "max_abs_err": max(
+                [p["apply_vs_plain"]["max_abs_err"] for p in r["m_parity"]]
+                + [p["max_abs_err"] for p in r["parity"] if p["D"] is not None]),
+            **train_rows["apply"],
+        },
+        {
+            "name": "whiten_moments",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
+            "launches": r["train_launches"]["moments"],
+            "max_abs_err": max(max(p["vs_plain"].values()) for p in r["m_parity"]),
+            **train_rows["moments"],
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": r["digits_train_launches"]["apply"],
+            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
+                               if path == "train"),
+            **digits_row(d_timing, "train", "apply"), **floor,
+            "path": "digits_train",
+            "per": "the 2 whitened sites of one LeNet-DWT train step, one launch "
+                   "per site for its 2 domains, 32 images per stream at 28²",
+        },
+        {
+            "name": "whiten_moments",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
+            "launches": r["digits_train_launches"]["moments"],
+            "max_abs_err": max(r["d_moments_errs"].values()),
+            **digits_row(d_timing, "train", "moments"),
+            "path": "digits_train",
+            "per": "the 2 whitened sites of one LeNet-DWT train step, one launch "
+                   "per site for its 2 domains, 32 images per stream at 28²",
+        },
+        {
+            "name": "whiten_apply",
+            "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": r["digits_serve_launches"],
+            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
+                               if path.startswith("serve")),
+            **digits_row(d_timing, "serve_b128", "apply"), **floor,
+            "path": "digits_serve",
+            "per": "the 2 whitened sites of one bucket-128 LeNet-DWT forward at 28²",
+        },
+    ]
 
 
 def main() -> int:
@@ -1318,117 +1562,20 @@ def main() -> int:
                     for k, v in logs.items()}})
 
     device = torch.device("cuda", 0)
-    parity, timing = check_kernel(torch, cw, device, rate)
-    m_parity, m_timing = check_moments(torch, cw, device, rate)
-    train_launches = train(torch, cw, officehome, loop)
+    r = {}
+    r["parity"], r["timing"] = check_kernel(torch, cw, device, rate)
+    r["m_parity"], r["m_timing"] = check_moments(torch, cw, device, rate)
+    r["train_launches"] = train(torch, cw, officehome, loop)
     train_reference(torch, cw, loop, device)
     train_throughput(torch, loop, device)
-    serve_launches = serve(torch, cw, server)
-    d_apply_errs, d_moments_errs, d_timing = check_digits_kernels(torch, cw, device, rate)
-    digits_train_launches = digits_train(torch, cw, usps_mnist, loop)
+    r["serve_launches"] = serve(torch, cw, server)
+    r["d_apply_errs"], r["d_moments_errs"], r["d_timing"] = check_digits_kernels(
+        torch, cw, device, rate)
+    r["digits_train_launches"] = digits_train(torch, cw, usps_mnist, loop)
     digits_reference(torch, cw, loop, device)
     digits_throughput(torch, loop, device)
-    digits_serve_launches = serve(torch, cw, server, "lenet")
-
-    def per_forward(key):  # the 11 sites of one bucket-128 forward
-        return sum(timing[s][key] * n for s, _, _, n in RESNET50_SITES)
-
-    def per_step(part, key):  # one train step: 11 sites, 3 domains each
-        per_site = {"moments": 1, "apply": DOMAINS}[part]  # launches per site
-        return sum(m_timing[s][part][key] * n * per_site
-                   for s, _, _, n in TRAIN_SITES)
-
-    train_per = {
-        "moments": "the 11 whitened sites of one ResNet50 train step, one "
-                   "launch per site for its 3 domains, 18 images per stream "
-                   "at 224²",
-        "apply": "the 33 whitened site-domains of one ResNet50 train step, "
-                 "18 images per stream at 224²",
-    }
-    train_rows = {
-        part: {"ms": per_step(part, "device_ms"),
-               "plain_ms": per_step(part, "plain_ms"),
-               "bound_ms": per_step(part, "bound_ms"),
-               "bound_by": bound_by([r[part] for r in m_timing.values()]),
-               "library_ms": per_step(part, "library_ms"),
-               "library_device_ms": per_step(part, "library_device_ms"),
-               "path": "train", "per": train_per[part]}
-        for part in ("moments", "apply")
-    }
-    emit({"kernels": [
-        {
-            "name": "whiten_apply",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-            "launches": serve_launches,
-            "max_abs_err": max(r["max_abs_err"] for r in parity),
-            "ms": per_forward("device_ms"),
-            "plain_ms": per_forward("plain_ms"),
-            "bound_ms": per_forward("bound_ms"),
-            "bound_by": bound_by(timing.values()),
-            "library_ms": per_forward("library_ms"),
-            "library_device_ms": per_forward("library_device_ms"),
-            "path": "serve",
-            "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224²",
-        },
-        {
-            "name": "whiten_apply",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-            "launches": train_launches["apply"],
-            "max_abs_err": max(r["apply_vs_plain"]["max_abs_err"]
-                               for r in m_parity),
-            **train_rows["apply"],
-        },
-        {
-            "name": "whiten_moments",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
-            "launches": train_launches["moments"],
-            "max_abs_err": max(max(r["vs_plain"].values()) for r in m_parity),
-            **train_rows["moments"],
-        },
-        {
-            "name": "whiten_apply",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-            "launches": digits_train_launches["apply"],
-            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
-                               if path == "train"),
-            **digits_row(d_timing, "train", "apply"),
-            "path": "digits_train",
-            "per": "the 4 whitened site-domains of one LeNet-DWT train step, "
-                   "32 images per stream at 28²",
-        },
-        {
-            "name": "whiten_moments",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_moments.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:68",
-            "launches": digits_train_launches["moments"],
-            "max_abs_err": max(d_moments_errs.values()),
-            **digits_row(d_timing, "train", "moments"),
-            "path": "digits_train",
-            "per": "the 2 whitened sites of one LeNet-DWT train step, one launch "
-                   "per site for its 2 domains, 32 images per stream at 28²",
-        },
-        {
-            "name": "whiten_apply",
-            "route": "cuda",
-            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-            "launches": digits_serve_launches,
-            "max_abs_err": max(e for (path, _), e in d_apply_errs.items()
-                               if path.startswith("serve")),
-            **digits_row(d_timing, "serve_b128", "apply"),
-            "path": "digits_serve",
-            "per": "the 2 whitened sites of one bucket-128 LeNet-DWT forward at 28²",
-        },
-    ]})
+    r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
+    emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

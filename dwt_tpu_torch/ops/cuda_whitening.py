@@ -7,9 +7,11 @@ Two kernels, each beside its plain PyTorch version:
   whitened site's ``D`` domain branches in train mode, in one launch
   (``csrc/whiten_moments.cu``; replaces ``_moments_kernel``, launched by
   ``_moments_call``; ``x [M, C]`` gives ``[C]`` and ``[G, 4, 4]``).
-* ``whiten_apply(x2d, mean, w)`` → ``y = (x − m) · W_bdᵀ`` with ``W_bd`` the
-  block-diagonal expansion of ``w [G, 4, 4]`` (``csrc/whiten_apply.cu``;
-  replaces ``_apply_kernel``, launched by ``_apply_call``).
+* ``whiten_apply(x, mean, w)`` → ``y = (x − m) · W_bdᵀ`` with ``W_bd`` the
+  block-diagonal expansion of ``w [G, 4, 4]``, for ``x [M, C]``, or per
+  domain of ``x [D, M, C]`` with ``mean [D, C]`` and ``w [D, G, 4, 4]``,
+  in one launch (``csrc/whiten_apply.cu``; replaces ``_apply_kernel``,
+  launched by ``_apply_call``).
 
 Dispatch, for both:
 
@@ -26,8 +28,8 @@ bound by HBM bytes; see the notes at the head of the ``.cu`` sources.
 :class:`TrainWhiten` is the autograd seam of train mode, the counterpart of
 the JAX package's ``_train_whiten`` custom VJP: the moments kernel once
 for all domains of a site, the factorization in ``torch.linalg`` (outside
-any kernel, batched over the domains), then the apply kernel per domain;
-the backward recomputes the plain differentiable op
+any kernel, batched over the domains), then the apply kernel once for all
+domains; the backward recomputes the plain differentiable op
 (:func:`dwt_tpu_torch.ops.whitening.group_whiten`) and returns its
 gradient.  It looks both kernels up through this module at call time, so
 a caller can swap in the plain versions.  :func:`cuda_group_whiten` is the
@@ -57,15 +59,22 @@ moments_launches = 0
 
 
 def whiten_apply_plain(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    x: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``(x − m) · W_bdᵀ`` as the grouped einsum of
-    ``dwt_tpu/ops/whitening.py:418-425``: ``x2d [M, C]``, ``mean [C]``,
-    ``w [G, g, g]`` → ``[M, C]`` (written into ``out`` when given)."""
+    ``dwt_tpu/ops/whitening.py:418-425``: ``x [M, C]``, ``mean [C]``,
+    ``w [G, g, g]`` → ``[M, C]``; or per domain of ``x [D, M, C]`` with
+    ``mean [D, C]``, ``w [D, G, g, g]`` → ``[D, M, C]`` (written into
+    ``out`` when given)."""
+    if x.dim() == 3:
+        y = torch.empty_like(x) if out is None else out
+        for d in range(x.shape[0]):
+            whiten_apply_plain(x[d], mean[d], w[d], out=y[d])
+        return y
     num_groups, g = w.shape[0], w.shape[1]
-    t = (x2d - mean).view(-1, num_groups, g)
-    y = torch.einsum("mgc,gdc->mgd", t, w).reshape(x2d.shape)
+    t = (x - mean).view(-1, num_groups, g)
+    y = torch.einsum("mgc,gdc->mgd", t, w).reshape(x.shape)
     if out is None:
         return y
     return out.copy_(y)
@@ -78,10 +87,13 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "whiten_apply":
         lib.dwt_whiten_apply_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.dwt_whiten_apply_f32.restype = ctypes.c_int
+        lib.dwt_whiten_apply_blocks.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+        lib.dwt_whiten_apply_blocks.restype = ctypes.c_int
         lib.dwt_whiten_apply_max_channels.argtypes = []
         lib.dwt_whiten_apply_max_channels.restype = ctypes.c_int
     else:
@@ -117,72 +129,120 @@ def _check_f32_dense(what: str, device: torch.device, **tensors) -> None:
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if t.device != device:
-            raise ValueError(f"{what}: {name} is on {t.device}, x2d on {device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def _check_apply_args(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    x: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
     out: Optional[torch.Tensor],
 ) -> None:
-    if x2d.dim() != 2:
-        raise ValueError(f"whiten_apply: x2d must be [M, C], got {tuple(x2d.shape)}")
-    c = x2d.shape[1]
-    if w.dim() != 3 or w.shape[1] != w.shape[2]:
-        raise ValueError(f"whiten_apply: w must be [G, g, g], got {tuple(w.shape)}")
-    if w.shape[1] != GROUP_SIZE:
+    """Raise unless the kernel takes these arguments: ``x [M, C]`` with
+    ``mean [C]`` and ``w [C/4, 4, 4]``, or ``x [D, M, C]`` with ``mean
+    [D, C]`` and ``w [D, C/4, 4, 4]``; ``out`` shaped like ``x``; all
+    float32, dense (a ``[D, M, C]`` whose domains are not one contiguous
+    block is refused, not copied), 16-byte aligned and on ``x``'s
+    device."""
+    shape, w_shape = x.shape, w.shape
+    if len(shape) not in (2, 3):
+        raise ValueError(
+            f"whiten_apply: x must be [M, C] or [D, M, C], got {tuple(shape)}")
+    lead, c = shape[:-2], shape[-1]
+    if len(w_shape) != len(shape) + 1 or w_shape[-1] != w_shape[-2]:
+        raise ValueError(f"whiten_apply: w must be [{'D, ' if lead else ''}G, g, g] "
+                         f"for x {tuple(shape)}, got {tuple(w_shape)}")
+    if w_shape[-1] != GROUP_SIZE:
         raise ValueError(
             f"whiten_apply: the CUDA kernel takes group size {GROUP_SIZE}, "
-            f"got {w.shape[1]}"
+            f"got {w_shape[-1]}"
         )
-    if w.shape[0] * GROUP_SIZE != c or tuple(mean.shape) != (c,):
+    if (c % GROUP_SIZE or w_shape[:-2] != (*lead, c // GROUP_SIZE)
+            or mean.shape != (*lead, c)):
         raise ValueError(
-            f"whiten_apply: shapes disagree: x2d {tuple(x2d.shape)}, "
-            f"mean {tuple(mean.shape)}, w {tuple(w.shape)}"
+            f"whiten_apply: shapes disagree: x {tuple(shape)}, "
+            f"mean {tuple(mean.shape)}, w {tuple(w_shape)}"
         )
-    tensors = dict(x2d=x2d, mean=mean, w=w)
-    if out is not None:
-        if out.shape != x2d.shape:
-            raise ValueError(
-                f"whiten_apply: out is {tuple(out.shape)}, x2d {tuple(x2d.shape)}")
-        tensors["out"] = out
-    _check_f32_dense("whiten_apply", x2d.device, **tensors)
-    if x2d.data_ptr() % 16 or (out is not None and out.data_ptr() % 16):
-        raise ValueError("whiten_apply: x2d and out must be 16-byte aligned "
-                         "(float4 loads)")
+    if c > _apply_max_channels():
+        raise ValueError(
+            f"whiten_apply: C={c} exceeds the kernel's "
+            f"{_apply_max_channels()} channels")
+    if out is not None and out.shape != shape:
+        raise ValueError(
+            f"whiten_apply: out is {tuple(out.shape)}, x {tuple(shape)}")
+    # _check_f32_dense's checks and the alignment in one pass, without the
+    # keyword dict: this runs on every launch, on the host's critical path.
+    device = x.device
+    for name, t in (("x", x), ("mean", mean), ("w", w), ("out", out)):
+        if t is None:
+            continue
+        if t.dtype is not torch.float32:
+            raise TypeError(f"whiten_apply: {name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"whiten_apply: {name} is on {t.device}, x on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"whiten_apply: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("whiten_apply: x, mean, w and out must be 16-byte "
+                             "aligned (float4 loads)")
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_max_channels() -> int:
+    return _library("whiten_apply").dwt_whiten_apply_max_channels()
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_grid(device_index: int, domains: int, m_rows: int, c: int) -> int:
+    """Blocks per domain of the kernel's launch for ``[domains, m_rows,
+    c]`` on a device: an occupancy query, asked once per shape."""
+    lib = _library("whiten_apply")
+    with torch.cuda.device(device_index):
+        blocks = lib.dwt_whiten_apply_blocks(domains, m_rows, c)
+    _raise_on_error(lib, -min(blocks, 0), "whiten_apply")
+    return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_launch():
+    """The kernel's bound C entry (loaded, and built if needed, once)."""
+    return _library("whiten_apply").dwt_whiten_apply_f32
 
 
 def whiten_apply(
-    x2d: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
+    x: torch.Tensor, mean: torch.Tensor, w: torch.Tensor,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``(x − m) · W_bdᵀ``: the CUDA kernel for a CUDA ``x2d``, the plain
-    version for a CPU one.  ``x2d [M, C]`` f32 contiguous, ``mean [C]``
-    f32, ``w [C/4, 4, 4]`` f32, all on ``x2d``'s device; the result goes
-    to ``out`` (``[M, C]``, e.g. one domain's slice of a site's output)
-    when given, else to a new tensor."""
+    """``(x − m) · W_bdᵀ``: the CUDA kernel for a CUDA ``x``, the plain
+    version for a CPU one.  ``x [M, C]`` with ``mean [C]`` and ``w [C/4,
+    4, 4]`` (eval and serving: one site, one branch), or ``x [D, M, C]``
+    with ``mean [D, C]`` and ``w [D, C/4, 4, 4]`` (train mode: all D
+    domains of a site, each with its own moments and matrix); f32, dense,
+    16-byte aligned, all on ``x``'s device.  One launch per call, whatever
+    ``D``.  The result goes to ``out`` (shaped like ``x``) when given,
+    else to a new tensor."""
     global apply_launches
-    if x2d.device.type == "cpu":
-        return whiten_apply_plain(x2d, mean, w, out)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"whiten_apply: unsupported device {x2d.device}")
-    _check_apply_args(x2d, mean, w, out)
-    lib = _library("whiten_apply")
-    m_rows, c = x2d.shape
-    if c > lib.dwt_whiten_apply_max_channels():
-        raise ValueError(
-            f"whiten_apply: C={c} exceeds the kernel's "
-            f"{lib.dwt_whiten_apply_max_channels()} channels"
-        )
-    y = torch.empty_like(x2d) if out is None else out
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = lib.dwt_whiten_apply_f32(
-            x2d.data_ptr(), mean.data_ptr(), w.data_ptr(), y.data_ptr(),
-            m_rows, c, stream,
-        )
-    _raise_on_error(lib, rc, "whiten_apply")
+    if x.device.type == "cpu":
+        return whiten_apply_plain(x, mean, w, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"whiten_apply: unsupported device {x.device}")
+    _check_apply_args(x, mean, w, out)
+    y = torch.empty_like(x) if out is None else out
+    if x.numel() == 0:
+        return y
+    domains = x.shape[0] if x.dim() == 3 else 1
+    m_rows, c = x.shape[-2:]
+    index = x.device.index
+    blocks = _apply_grid(index, domains, m_rows, c)
+    args = (x.data_ptr(), mean.data_ptr(), w.data_ptr(), y.data_ptr(),
+            domains, m_rows, c, blocks)
+    if index == torch.cuda.current_device():
+        rc = _apply_launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = _apply_launch()(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        _raise_on_error(_library("whiten_apply"), rc, "whiten_apply")
     apply_launches += 1
     return y
 
@@ -326,7 +386,8 @@ class TrainWhiten(torch.autograd.Function):
     Forward: :func:`whiten_moments` once on the whole ``[D, M, C]`` (one
     launch per site), the factorization ``whitening_matrix(_shrink(cov,
     eps))`` in ``torch.linalg`` once over ``[D, G, g, g]``, then
-    :func:`whiten_apply` per domain into its slice of one output tensor.
+    :func:`whiten_apply` once on the whole ``[D, M, C]`` (one launch per
+    site), each domain with its own moments and matrix.
     Returns ``(y [D, M, C], means [D, C], covs [D, G, g, g])``; the
     moments are non-differentiable (the running-stat EMA is detached).
 
@@ -346,8 +407,7 @@ class TrainWhiten(torch.autograd.Function):
         with torch.no_grad():
             means, covs = whiten_moments(x, group_size)
             ws = whitening.whitening_matrix(whitening._shrink(covs, eps))
-            for d in range(x.shape[0]):
-                whiten_apply(x[d], means[d], ws[d], out=y[d])
+            whiten_apply(x, means, ws, out=y)
         ctx.mark_non_differentiable(means, covs)
         return y, means, covs
 

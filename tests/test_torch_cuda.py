@@ -6,9 +6,11 @@ repository's conftest, which imports JAX)::
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The whitening-apply kernel is held to its plain PyTorch version on the
+The whitening-apply kernel (one launch for the D domains of ``x [D, M,
+C]``, or for one ``x [M, C]``) is held to its plain PyTorch version on the
 same device, ``rtol = atol = 1e-5`` (both sum 4 products per output, in
-different orders).  The moments kernel (one launch for the D
+different orders); two calls, calls at other grid sizes, and replays of a
+CUDA graph that captured one, are bitwise equal.  The moments kernel (one launch for the D
 domains of ``x [D, M, C]``) is held to its plain version and to a float64
 two-pass computation of each domain: mean ``rtol = atol = 1e-6``, cov
 ``rtol = 1e-4, atol = 1e-5`` (f32 sums in another order); two calls, and
@@ -372,7 +374,114 @@ def test_lenet_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
                     cuda_whitening.apply_launches - before[1])
         results.append([train_logits.cpu(), eval_logits.cpu(), model.dn2.cov.cpu(),
                         model.dn1.mean.cpu()])
-        if device.type == "cuda":
-            assert launches == (2, 2 * 2 + 2)
+        if device.type == "cuda":  # one launch per site and pass for both domains
+            assert launches == (2, 2 + 2)
     for ours, ref in zip(*results):
         torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4 * float(ref.abs().max()))
+
+
+# The domain-batched apply: one launch for the D domains of x [D, M, C],
+# each with its own mean [D, C] and matrix w [D, G, 4, 4].
+APPLY_BATCHED = [  # (C, M)
+    (32, 1), (48, 7), (64, 1000), (256, 1000),  # ragged M, under one block
+    (32, 25088), (48, 6272),                    # LeNet-DWT's train sites
+    (64, 56448), (256, 37),                     # ResNet50's stage 1; ragged
+]
+
+
+def _apply_domains(d, m, c, device, seed=0):
+    """``x [D, M, C]``, ``mean [D, C]``, ``w [D, C/4, 4, 4]`` on ``device``,
+    each domain its own draw."""
+    parts = [_args(c, m, seed=seed + i) for i in range(d)]
+    return tuple(torch.stack(ts).to(device) for ts in zip(*parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("c,m", APPLY_BATCHED)
+def test_batched_apply_kernel_matches_plain(cuda_device, d, c, m):
+    x, mean, w = _apply_domains(d, m, c, cuda_device, seed=c + m)
+    before = cuda_whitening.apply_launches
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    torch.cuda.synchronize()
+    assert cuda_whitening.apply_launches == before + 1
+    assert y.shape == (d, m, c)
+    torch.testing.assert_close(y, cuda_whitening.whiten_apply_plain(x, mean, w),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m", [(48, 7), (256, 1000), (64, 56448)])
+def test_batched_apply_does_not_depend_on_the_grid(cuda_device, c, m):
+    """Launched through the C entry at other grids than the wrapper's —
+    one block per domain, or far more blocks than rows, most of whose
+    threads own nothing — the result is bitwise the wrapper's, and the
+    2-D form gives bitwise the same numbers per domain."""
+    x, mean, w = _apply_domains(3, m, c, cuda_device, seed=9)
+    want = cuda_whitening.whiten_apply(x, mean, w)
+    launch = cuda_whitening._apply_launch()
+    for blocks in (1, 3, 500):
+        y = torch.full_like(x, float("nan"))
+        rc = launch(x.data_ptr(), mean.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    3, m, c, blocks, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(y, want), blocks
+    for i in range(3):
+        assert torch.equal(cuda_whitening.whiten_apply(x[i], mean[i], w[i]), want[i])
+
+
+@pytest.mark.cuda
+def test_batched_apply_kernel_is_bitwise_repeatable(cuda_device):
+    x, mean, w = _apply_domains(3, 56448, 64, cuda_device, seed=5)
+    a = cuda_whitening.whiten_apply(x, mean, w)
+    b = cuda_whitening.whiten_apply(x, mean, w)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batched_apply_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A launch captured in a CUDA graph and replayed twice writes the
+    eager call's result bitwise."""
+    x, mean, w = _apply_domains(2, 6272, 48, cuda_device, seed=6)
+    eager = cuda_whitening.whiten_apply(x, mean, w)  # also warms up the shape
+    out = torch.empty_like(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_whitening.apply_launches
+    with torch.cuda.graph(graph):
+        cuda_whitening.whiten_apply(x, mean, w, out=out)
+    assert cuda_whitening.apply_launches == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_apply_wrapper_refuses_what_the_batched_kernel_does_not_take(cuda_device):
+    """A strided domain stack is refused, not copied; so are a ``mean`` or
+    ``w`` whose domains disagree with ``x``'s and a misaligned ``out``."""
+    x, mean, w = _apply_domains(3, 1000, 64, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_whitening.whiten_apply(x[:, ::2], mean, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_whitening.whiten_apply(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                    mean, w)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda_whitening.whiten_apply(x, mean[:2], w)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda_whitening.whiten_apply(x, mean, w[:2])
+    with pytest.raises(ValueError, match=r"\[D, G, g, g\]"):
+        cuda_whitening.whiten_apply(x, mean, w[0])
+    with pytest.raises(ValueError, match="group size"):
+        cuda_whitening.whiten_apply(x, mean, torch.eye(8, device=cuda_device)
+                                    .repeat(3, 8, 1, 1))
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_whitening.whiten_apply(x, mean, w, out=buf[1:].view_as(x))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_whitening.whiten_apply(buf[1:].view_as(x), mean, w)
+    with pytest.raises(ValueError, match=r"\[M, C\] or \[D, M, C\]"):
+        cuda_whitening.whiten_apply(x[None], mean, w)

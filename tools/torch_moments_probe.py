@@ -41,14 +41,12 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SITES = (("stem_dn1", 18 * 112 * 112, 64), ("stage1_c64", 18 * 56 * 56, 64),
          ("stage1_c256", 18 * 56 * 56, 256))
 DOMAINS = 3
-HOST_CALLS = 200
 # The kernel's phase boundaries, in the order of its MOMENTS_PHASE(k) marks.
 PHASES = ("start", "streamed", "block_partial", "cluster_partial",
           "last_cluster", "sums", "end")
@@ -90,20 +88,6 @@ def stamped_library():
     return lib
 
 
-def host_us(torch, fn, rotation) -> float:
-    """Host microseconds per ``fn`` call, over ``HOST_CALLS`` calls
-    through ``rotation`` with no synchronisation inside."""
-    for args in rotation:
-        fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(HOST_CALLS):
-        fn(*rotation[i % len(rotation)])
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / HOST_CALLS * 1e6
-
-
 def launcher(torch, lib, counter, m, c, clusters):
     """A call of ``lib``'s kernel on ``[3, m, c]`` at ``clusters`` per
     domain, into its own outputs and scratch."""
@@ -143,7 +127,7 @@ def per_domain(torch, cs, cw, row, x, cold) -> None:
 
     ms = cs.device_ms(torch, calls, ("moments",), cold)
     row["per_domain_ms"] = {"ms": ms, "bound_share": row["bound_ms"] / ms}
-    row["per_domain_host_us"] = host_us(torch, calls, cold)
+    row["per_domain_host_us"] = cs.host_us(torch, calls, cold)
 
 
 def phases_us(torch, stamped, call, x, cold):
@@ -208,7 +192,7 @@ def main(argv=None) -> int:
             ms = cs.device_ms(torch, call, cs.MOMENTS_KERNELS, cold)
             row["device_ms"][clusters] = {"ms": ms,
                                           "bound_share": row["bound_ms"] / ms}
-        row["wrapper_host_us"] = host_us(
+        row["wrapper_host_us"] = cs.host_us(
             torch, lambda xi: cw.whiten_moments(xi, 4), cold)
         per_domain(torch, cs, cw, row, x, cold)
         row["phases_us"] = phases_us(
