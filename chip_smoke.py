@@ -9,9 +9,12 @@ Phases, each printed as one JSON line; any failure raises and the
 script exits non-zero without the final line:
 
 1. ``env``      — torch/CUDA versions, the card's name and power limit
-                  (``nvidia-smi``), both TF32 flags.
+                  (``nvidia-smi``), both TF32 flags, PIL's version, the
+                  host's CPU count and ``g++ --version``.
 2. ``build``    — ``nvcc`` builds every ``dwt_tpu_torch/csrc/*.cu`` (in
-                  parallel) into ``build/kernels/``.
+                  parallel) into ``build/kernels/``, then ``g++`` the data
+                  path's native pixel passes (``dwt_tpu_torch/native/``)
+                  into ``build/native/``.
 3. ``parity``   — the whitening-apply kernel against its plain PyTorch
                   version, both on the card, at the three site shapes of a
                   bucket-128 ResNet50 forward at 224² (``x [M, C]``) and at
@@ -54,7 +57,8 @@ script exits non-zero without the final line:
                   each with its own moments (``rtol = atol = 1e-5`` per
                   element).
 6. ``moments_timing`` — per train site: the moments kernel (one launch for
-                  the site's 3 domains), its plain version and the library
+                  the site's 3 domains; also its wrapper's host µs per
+                  call), its plain version and the library
                   yardstick ``torch.cov`` once per domain (the full C×C
                   covariance, whose diagonal 4×4 blocks are the kernel's
                   ``cov``), and the apply kernel on the site's 3 domains
@@ -83,7 +87,31 @@ script exits non-zero without the final line:
                   after 2 warm-up steps), images per second, the time of
                   a stat-collection forward and of an eval forward at the
                   test batch, and peak device memory.
-10. ``serve``   — the port's server on 127.0.0.1 (``build_engine`` from
+10. ``data_plane`` — on two OfficeHome-shaped image folders written from
+                  seed 1 (``Art/`` and ``Clipart/`` under ``build/``, 65
+                  classes × 3 JPEGs, sides 300–800 px, quality 90): the
+                  source and target streams' batch ids equal the seekable
+                  sampler's order across the epoch boundary, a stream
+                  opened at cursor 4 yields bitwise the suffix of one
+                  opened at 0, 1 and 4 loader threads give bitwise the same
+                  batches, and a batch prefetched to the card equals its
+                  numpy source bitwise; then images per second of the
+                  target stream (both views) and of the source stream at
+                  1, 2, 4 and 8 threads, and the host-to-device time of a
+                  batch (CUDA events from pinned memory, and wall clock
+                  through ``prefetch_to_device``).
+11. ``folder_train`` — phase 7 on the folders: ``run_officehome`` through
+                  the CLI flags ``--s_dset_path …/Art --t_dset_path
+                  …/Clipart --num_workers 4 --num_iters 12
+                  --check_acc_step 6 --stat_collection_passes 1
+                  --log_interval 1`` (ResNet50, 65 classes, 224², 3 × 18;
+                  12 steps cross the 10-batch epoch), with phase 7's
+                  checks; phases 7 and 11 also report the median step
+                  (batch to batch) and the loop's mean wait for a batch.
+                  ``folder_profile``: the card's idle share over a
+                  profiled window of folder steps; ``folder_vs_synthetic``
+                  sets the two paths' steps side by side.
+12. ``serve``   — the port's server on 127.0.0.1 (``build_engine`` from
                   the CLI flags ``--model resnet50 --num_classes 65
                   --image_size 224 --buckets 1,8,32,128 --init_random
                   --seed 0``) answers requests of 1, 5, 32 and 128 images;
@@ -93,7 +121,7 @@ script exits non-zero without the final line:
                   is held to the same forward through the plain apply and
                   a bucket-1 forward to the model on the CPU; then forward
                   time per bucket and peak device memory.
-11. ``digits_parity`` / ``digits_timing`` — both kernels at LeNet-DWT's
+13. ``digits_parity`` / ``digits_timing`` — both kernels at LeNet-DWT's
                   whitened sites (``dn1`` C = 32, ``dn2`` C = 48): the
                   moments kernel against its plain version and a float64
                   two-pass reference at the train shapes ``[2, M, C]`` (32
@@ -105,22 +133,22 @@ script exits non-zero without the final line:
                   (buckets 1 and 128) shapes, tolerances as above; times
                   with L2 cold beside the bound, the plain version, the
                   library yardsticks, the D2D copy and the launch floor.
-12. ``digits_train`` — the digits trainer through its CLI entry
+14. ``digits_train`` — the digits trainer through its CLI entry
                   (``build_parser``/``run_digits``): LeNet-DWT, 32 images per
                   stream, 2 epochs of 8 steps on synthetic data, an eval
                   after each.  Checks: finite losses and grad norms, every
                   parameter and both sites' running covs moved, 2 moments
                   and 2 apply launches per step, 2 apply launches per eval
                   forward, the record sequence, an accuracy.
-13. ``digits_reference`` — one LeNet-DWT step through the kernels against
+15. ``digits_reference`` — one LeNet-DWT step through the kernels against
                   the plain-kernel step and a float64 step on the card
                   (limits and readings at ``DIGITS_LEAF_TOL``).
-14. ``digits_throughput`` — steady-state digits step and eval forward
+16. ``digits_throughput`` — steady-state digits step and eval forward
                   (batch 100), images per second, peak memory, and the
                   card's idle share from a profiled window of steps.
-15. ``digits_serve`` — phase 10 for ``--model lenet`` (2 apply launches
+17. ``digits_serve`` — phase 12 for ``--model lenet`` (2 apply launches
                   per forward).
-16. ``kernels`` — the contract line: per kernel and path its TPU
+18. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time).
 
@@ -134,8 +162,10 @@ import copy
 import functools
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 RESNET50_SITES = (  # (site, M at bucket 128 and 224², C, sites per forward)
@@ -154,6 +184,7 @@ APPLY_RAGGED_M = (1, 7, 1000)  # ragged rows of the batched apply's parity
 TRACED_CALLS = 10  # calls in the trace that shows what one call puts on the card
 APPLY_KERNELS = ("whiten_apply_f32_kernel",)
 APPLY_EXTRA = ("host_us", "copy_device_ms")  # apply timings summed per step
+MOMENTS_EXTRA = ("host_us",)  # moments timings summed per step
 MOMENTS_KERNELS = ("whiten_moments_f32_kernel",)
 # Kernel timings cycle through distinct buffers of at least this many
 # bytes in all, more than the H100's 50 MB L2, so no reading comes from L2.
@@ -166,6 +197,21 @@ TRAIN_FLAGS = [
     "--check_acc_step", "3", "--stat_collection_passes", "1", "--seed", "1",
     "--log_interval", "1",
 ]
+# The image-folder path: two OfficeHome-shaped folders written from seed 1
+# (65 classes of 3 JPEGs per domain, sides drawn from 300-800 px, quality
+# 90), trained Art → Clipart through the CLI entry with 4 loader threads;
+# 12 steps cross the 10-batch epoch (195 images at 18 per batch).
+FOLDER_DOMAINS = ("Art", "Clipart")
+FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_SIDES = 65, 3, (300, 800)
+FOLDER_TRAIN_FLAGS = [
+    "--num_workers", "4", "--num_iters", "12", "--check_acc_step", "6",
+    "--stat_collection_passes", "1", "--log_interval", "1",
+    "--arch", "resnet50", "--num_classes", "65", "--img_crop_size", "224",
+    "--source_batch_size", "18", "--seed", "1",
+]
+WORKER_COUNTS = (1, 2, 4, 8)  # loader threads at which the streams are timed
+RATE_BATCHES = 4  # batches per stream and worker count in the image rates
+PROFILED_STEPS = 4  # folder steps in the profiled window of the idle share
 WHITENED_SITES = 11  # ResNet50-DWT: the stem and the 10 norm sites of stage 1
 # The ResNet50 step held to its plain-kernel twin: images per stream, size.
 REFERENCE_STEP = (18, 224)
@@ -268,9 +314,6 @@ def trace_events(torch, fn, iters: int = 1, cats=DEVICE_CATS, attempts: int = 3)
     trace, in order.  The profiler on the H100's machine now and then
     delivers a trace without a device event: such a trace is taken again,
     up to ``attempts`` times in all."""
-    import os
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -450,6 +493,7 @@ def time_moments(torch, cw, x, rate):
         "D": d, "M": m, "C": c, "bytes": nbytes, "rotation_buffers": len(cold),
         "kernel_ms": cuda_ms(torch, kernel, cold),
         "device_ms": device_ms(torch, kernel, MOMENTS_KERNELS, cold),
+        "host_us": host_us(torch, kernel, cold),
         "plain_ms": cuda_ms(torch, lambda xi: cw.whiten_moments_plain(xi, 4),
                             cold, iters=10),
         "library_ms": cuda_ms(torch, library, cold, iters=10),
@@ -818,18 +862,85 @@ def check_record_launches(records, launches, want):
         raise AssertionError(f"launches after the last record: {launches} vs {prev}")
 
 
-def train(torch, cw, officehome, loop):
-    """The main train path, through the CLI entry; returns the kernels'
-    launches on it."""
+def expected_kinds(cfg):
+    """The record sequence of ``run_officehome`` under ``cfg``."""
+    kinds = []
+    for it in range(cfg.num_iters):
+        if it % cfg.log_interval == 0:
+            kinds.append("train")
+        if (it + 1) % cfg.check_acc_step == 0:
+            kinds.append("test")
+    return kinds + ["stat_collection"] * cfg.stat_collection_passes + ["final_test"]
+
+
+class TimedBatches:
+    """Replaces the trainer's ``prefetch_to_device`` for one run with a
+    wrapper that stamps, per train step, the host clock when the loop
+    asks for the step's batch and when it gets it.  With ``--log_interval
+    1`` the loop reads every step's losses, so the time from one batch to
+    the next is a step, the wait for its batch included."""
+
+    def __init__(self, loop):
+        self.loop = loop
+        self.stamps = []  # (asked, got) per step
+
+    def __enter__(self):
+        inner = self.inner = self.loop.prefetch_to_device
+        stamps = self.stamps
+
+        def timed(*args, **kwargs):
+            it = inner(*args, **kwargs)
+
+            def gen():
+                try:
+                    while True:
+                        asked = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        stamps.append((asked, time.perf_counter()))
+                        yield batch
+                finally:
+                    it.close()
+
+            return gen()
+
+        self.loop.prefetch_to_device = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.prefetch_to_device = self.inner
+
+    def summary(self):
+        """Median step (batch to batch, the steps after the first; an eval
+        between two steps lands in one interval and not in the median),
+        and the mean wait for a batch of those steps and of the first."""
+        import statistics
+
+        got = [g for _, g in self.stamps]
+        periods = [(b - a) * 1e3 for a, b in zip(got, got[1:])]
+        waits = [(g - a) * 1e3 for a, g in self.stamps]
+        return {"step_ms_median": statistics.median(periods) if periods else None,
+                "step_ms_all": periods,
+                "batch_wait_ms_mean": (statistics.fmean(waits[1:])
+                                       if len(waits) > 1 else None),
+                "batch_wait_ms_first": waits[0] if waits else None,
+                "batch_wait_ms_max": max(waits[1:]) if len(waits) > 1 else None}
+
+
+def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
+    """A train path through the CLI entry (by default the main synthetic
+    one); returns the kernels' launches on it and its step timing."""
     import math
 
-    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
-        TRAIN_FLAGS))
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
     model = loop.build_model(cfg)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    acc, records, launches, seconds = run_counted(
-        torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
-        "train_record")
+    with TimedBatches(loop) as timed:
+        acc, records, launches, seconds = run_counted(
+            torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
+            f"{phase}_record")
 
     # Launches per record, against what each phase must launch.
     def want(r):
@@ -844,9 +955,7 @@ def train(torch, cw, officehome, loop):
 
     check_record_launches(records, launches, want)
     kinds = [r["kind"] for r in records]
-    if kinds != ["train"] * 3 + ["test"] + ["train"] * 3 + ["test",
-                                                             "stat_collection",
-                                                             "final_test"]:
+    if kinds != expected_kinds(cfg):
         raise AssertionError(f"unexpected record sequence {kinds}")
     for r in records:
         if r["kind"] == "train":
@@ -863,13 +972,14 @@ def train(torch, cw, officehome, loop):
     covs = [k for k in state if k.endswith(".cov") or k == "dn1.cov"]
     cov_unmoved = [f"{k}[{d}]" for k in covs for d in range(state[k].shape[0])
                    if torch.equal(state[k][d].cpu(), torch.ones_like(init[k][d]))]
-    emit({"phase": "train", "flags": TRAIN_FLAGS, "seconds": seconds,
+    timing = timed.summary()
+    emit({"phase": phase, "flags": flags, "seconds": seconds,
           "accuracy": acc, "launches": launches,
           "whitening_sites": len(covs), "unmoved_params": unmoved,
-          "unmoved_covs": cov_unmoved})
+          "unmoved_covs": cov_unmoved, **timing})
     if unmoved or cov_unmoved or len(covs) != WHITENED_SITES:
         raise AssertionError("training left parameters or stats unmoved")
-    return launches
+    return launches, timing
 
 
 def synthetic_batch(torch, loop, n, size, classes, seed, device):
@@ -1108,6 +1218,208 @@ def train_throughput(torch, loop, device):
            "max_memory_allocated": peak}
     emit(row)
     del model, optimizer, state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------- the folder path
+
+
+def folder_flags(root):
+    return ["--s_dset_path", os.path.join(root, FOLDER_DOMAINS[0]),
+            "--t_dset_path", os.path.join(root, FOLDER_DOMAINS[1]),
+            *FOLDER_TRAIN_FLAGS]
+
+
+def write_folders(root):
+    """The two OfficeHome-shaped folders: smooth random images (a coarse
+    6×6 draw resized bilinear, plus N(0, 8) noise), all from seed 1.
+    Returns the JPEG bytes written."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    written = 0
+    for domain in FOLDER_DOMAINS:
+        for k in range(FOLDER_CLASSES):
+            d = os.path.join(root, domain, f"class_{k:02d}")
+            os.makedirs(d)
+            for i in range(FOLDER_PER_CLASS):
+                w, h = (int(v) for v in rng.integers(FOLDER_SIDES[0],
+                                                     FOLDER_SIDES[1] + 1, size=2))
+                coarse = rng.integers(0, 256, size=(6, 6, 3), dtype=np.uint8)
+                img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR),
+                                 np.float32) + rng.normal(0, 8, size=(h, w, 3))
+                path = os.path.join(d, f"{i}.jpg")
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    path, quality=90)
+                written += os.path.getsize(path)
+    return written
+
+
+class Indexed:
+    """A dataset whose items carry their index as a last field, so that a
+    batch names the items it holds."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return (*self.dataset[i], i)
+
+
+def same_batches(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.asarray(u).dtype == np.asarray(v).dtype
+                                 and np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def data_plane(torch, officehome, loop, device, root):
+    """The data plane on the folders: the streams' batch ids against the
+    seekable sampler, a stream opened at cursor 4 against the suffix of
+    one opened at 0, 1 against 4 loader threads, a prefetched batch on the
+    card against its numpy source (all bitwise); then images per second of
+    each stream per thread count and the host-to-device time of a batch."""
+    import numpy as np
+
+    from dwt_tpu_torch.data.loader import prefetch_to_device
+    from dwt_tpu_torch.data.sampler import SeekableSampler
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        folder_flags(root)))
+    source_ds, target_ds, _ = loop._officehome_datasets(cfg)
+    bs = cfg.source_batch_size
+    data = {"source": Indexed(source_ds), "target": Indexed(target_ds)}
+    plane = loop.officehome_plane(cfg, source_ds, target_ds)
+    steps = 12  # crosses the epoch boundary at 10
+    whole = {}
+    for role, ds in data.items():
+        pos = plane.streams[role]
+        stream = plane.stream(ds, role, bs)
+        whole[role] = [next(stream) for _ in range(steps)]
+        stream.close()
+        order = np.concatenate([SeekableSampler(len(ds), pos.seed, e).positions()[
+            : pos.epoch_len * bs] for e in range(2)])
+        ids = [b[-1].tolist() for b in whole[role]]
+        if ids != [order[k * bs:(k + 1) * bs].tolist() for k in range(steps)]:
+            raise AssertionError(f"{role} batch ids differ from the sampler's")
+    resumed = loop.officehome_plane(cfg, source_ds, target_ds)
+    resumed.seek_step(4)
+    stream = resumed.stream(data["target"], "target", bs)
+    suffix = [next(stream) for _ in range(steps - 4)]
+    stream.close()
+    if not same_batches(suffix, whole["target"][4:]):
+        raise AssertionError("a stream opened at cursor 4 is not the suffix")
+    one = loop.officehome_plane(cfg, source_ds, target_ds)
+    one.num_workers = 1
+    stream = one.stream(data["target"], "target", bs)
+    single = [next(stream) for _ in range(3)]
+    stream.close()
+    if not same_batches(single, whole["target"][:3]):
+        raise AssertionError("1 and 4 loader threads give other batches")
+    host = list(loop.officehome_batches(
+        loop.officehome_plane(cfg, source_ds, target_ds), source_ds, target_ds,
+        bs, 2))
+    staged = list(prefetch_to_device(iter(host), device=device))
+    torch.cuda.synchronize()
+    for a, b in zip(staged, host):
+        if not all(a[k].device == device and np.array_equal(a[k].cpu().numpy(), v)
+                   for k, v in b.items()):
+            raise AssertionError("a prefetched batch differs from its source")
+
+    rates = {}
+    epoch = 2
+    for workers in WORKER_COUNTS:
+        plane.num_workers = workers
+        for role, ds in data.items():
+            epoch += 1
+            t0 = time.perf_counter()
+            it = plane.epoch_iterator(ds, role, bs, epoch=epoch, start_batch=0)
+            for _ in range(RATE_BATCHES):
+                next(it)
+            seconds = time.perf_counter() - t0
+            it.close()
+            views = 2 if role == "target" else 1
+            rates[f"{role}_w{workers}"] = {
+                "items_per_s": RATE_BATCHES * bs / seconds,
+                "images_per_s": RATE_BATCHES * bs * views / seconds}
+    # Host-to-device: the batch's bytes from pinned memory on a side stream
+    # (CUDA events), and a batch through prefetch_to_device from numpy
+    # (host copy into the pinned ring included; wall clock).
+    batch = host[0]
+    nbytes = sum(v.nbytes for v in batch.values())
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    dev = {k: torch.empty_like(v, device=device) for k, v in pinned.items()}
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        h2d_ms = cuda_ms(torch, lambda: [dev[k].copy_(v, non_blocking=True)
+                                         for k, v in pinned.items()], iters=10, warmup=2)
+    reps = 10
+    t0 = time.perf_counter()
+    for b in prefetch_to_device(iter([batch] * reps), device=device):
+        pass
+    torch.cuda.synchronize()
+    prefetch_ms = (time.perf_counter() - t0) / reps * 1e3
+    row = {"phase": "data_plane", "images": {r: len(d) for r, d in data.items()},
+           "epoch_len": {r: plane.streams[r].epoch_len for r in data},
+           "ids_checked_batches": steps, "suffix_from_cursor": 4,
+           "workers_compared": [1, cfg.num_workers], "rates": rates,
+           "batch_bytes": nbytes, "h2d_ms_per_batch": h2d_ms,
+           "h2d_GBps": nbytes / h2d_ms / 1e6,
+           "prefetch_ms_per_batch_wall": prefetch_ms,
+           "cpu_count": os.cpu_count()}
+    emit(row)
+    return row
+
+
+def folder_profile(torch, officehome, loop, device, root, step_ms):
+    """The card's idle share over ``PROFILED_STEPS`` folder steps (after 2
+    warm-up steps): device busy time in a profiler trace against the
+    traced span, and against the unprofiled step ``step_ms``."""
+    from dwt_tpu_torch.train.optim import officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import make_officehome_train_step
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        folder_flags(root)))
+    source_ds, target_ds, _ = loop._officehome_datasets(cfg)
+    plane = loop.officehome_plane(cfg, source_ds, target_ds)
+    model = loop.build_model(cfg).to(device, memory_format=torch.channels_last)
+    optimizer, schedules = officehome_tx(model, cfg)
+    state = TrainState(model, optimizer, schedules)
+    step = make_officehome_train_step(model, cfg.lambda_mec_loss)
+    produce = loop.officehome_batches(plane, source_ds, target_ds,
+                                      cfg.source_batch_size, 2 + 3 * PROFILED_STEPS)
+    batches = loop.prefetch_to_device(produce, device=device)
+
+    def one():
+        step(state, next(batches))
+        plane.advance(1)
+
+    try:
+        for _ in range(2):
+            one()
+        events = trace_events(torch, one, iters=PROFILED_STEPS)
+    finally:
+        batches.close()
+        produce.close()
+    busy_ms = sum(ev["dur"] for ev in events) / 1e3 / PROFILED_STEPS
+    span_ms = (max(ev["ts"] + ev["dur"] for ev in events)
+               - min(ev["ts"] for ev in events)) / 1e3 / PROFILED_STEPS
+    row = {"phase": "folder_profile", "steps": PROFILED_STEPS,
+           "device_ops_per_step": len(events) / PROFILED_STEPS,
+           "device_busy_ms_per_step": busy_ms,
+           "profiled_span_ms_per_step": span_ms,
+           "idle_share_in_profile": 1.0 - busy_ms / span_ms,
+           "idle_share": 1.0 - busy_ms / step_ms}
+    emit(row)
+    del model, optimizer, state
     torch.cuda.empty_cache()
     return row
 
@@ -1400,8 +1712,7 @@ def digits_row(timing, path, part):
     rows = [timing[(path, site)][part] for site, _, _ in DIGITS_SITES]
     total = lambda key: sum(r[key] for r in rows)
     keys = ("plain_ms", "bound_ms", "library_ms", "library_device_ms")
-    if part == "apply":
-        keys += APPLY_EXTRA
+    keys += APPLY_EXTRA if part == "apply" else MOMENTS_EXTRA
     return {"ms": total("device_ms"), "bound_by": bound_by(rows),
             **{k: total(k) for k in keys}}
 
@@ -1443,7 +1754,8 @@ def kernels_line(torch, r):
         for part in ("moments", "apply")
     }
     train_rows["apply"].update(floor, **{k: per_step("apply", k) for k in APPLY_EXTRA})
-    return [
+    train_rows["moments"].update({k: per_step("moments", k) for k in MOMENTS_EXTRA})
+    rows = [
         {
             "name": "whiten_apply",
             "route": "cuda",
@@ -1520,6 +1832,13 @@ def kernels_line(torch, r):
             "per": "the 2 whitened sites of one bucket-128 LeNet-DWT forward at 28²",
         },
     ]
+    # The image-folder path runs the train path's shapes: its launches, the
+    # train rows' times.
+    folder = [{**row, "launches": r["folder_launches"][row["name"].split("_")[1]],
+               "path": "officehome_folder_train",
+               "per": row["per"] + ", the images decoded from JPEG folders"}
+              for row in rows if row["path"] == "train"]
+    return rows[:3] + folder + rows[3:]
 
 
 def main() -> int:
@@ -1529,6 +1848,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
+    from dwt_tpu_torch import native
     from dwt_tpu_torch.cli import officehome, usps_mnist
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
     from dwt_tpu_torch.serve import server
@@ -1538,6 +1858,8 @@ def main() -> int:
                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    import PIL
+
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     rate = memory_rate(name)
@@ -1550,13 +1872,21 @@ def main() -> int:
           "device": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "memory_rate_Bps": rate,
           "memory_rate_from_clock_Bps": reported,
+          "pil": PIL.__version__, "cpu_count": os.cpu_count(),
+          "gxx": subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                                check=True, timeout=60).stdout.splitlines()[0],
           "tf32_defaults": tf32_defaults,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load()
+    emit({"phase": "build", "seconds": seconds,
+          "native_seconds": time.perf_counter() - t0,
+          "native_library": os.path.relpath(native.library_path()),
           "built": sorted(logs),
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
                     for k, v in logs.items()}})
@@ -1565,9 +1895,24 @@ def main() -> int:
     r = {}
     r["parity"], r["timing"] = check_kernel(torch, cw, device, rate)
     r["m_parity"], r["m_timing"] = check_moments(torch, cw, device, rate)
-    r["train_launches"] = train(torch, cw, officehome, loop)
+    r["train_launches"], synthetic_timing = train(torch, cw, officehome, loop)
     train_reference(torch, cw, loop, device)
     train_throughput(torch, loop, device)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="folders-", dir=build) as root:
+        emit({"phase": "folders", "jpeg_bytes": write_folders(root)})
+        data_plane(torch, officehome, loop, device, root)
+        r["folder_launches"], folder_timing = train(
+            torch, cw, officehome, loop, folder_flags(root), "folder_train")
+        profiled = folder_profile(torch, officehome, loop, device, root,
+                                  folder_timing["step_ms_median"])
+    emit({"phase": "folder_vs_synthetic",
+          "folder_step_ms_median": folder_timing["step_ms_median"],
+          "synthetic_step_ms_median": synthetic_timing["step_ms_median"],
+          "folder_batch_wait_ms_mean": folder_timing["batch_wait_ms_mean"],
+          "synthetic_batch_wait_ms_mean": synthetic_timing["batch_wait_ms_mean"],
+          "folder_idle_share": profiled["idle_share"]})
     r["serve_launches"] = serve(torch, cw, server)
     r["d_apply_errs"], r["d_moments_errs"], r["d_timing"] = check_digits_kernels(
         torch, cw, device, rate)

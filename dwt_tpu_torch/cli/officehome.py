@@ -1,5 +1,6 @@
 """OfficeHome trainer entry point — the ported subset of ``dwt_tpu.cli.officehome``.
 
+    python -m dwt_tpu_torch.cli.officehome --s_dset_path DIR --t_dset_path DIR [flags]
     python -m dwt_tpu_torch.cli.officehome --synthetic [flags]
 
 Runs on CUDA; ``--device cpu`` runs on the CPU (without it, a machine
@@ -20,13 +21,20 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="DWT-MEC OfficeHome trainer (PyTorch/CUDA port)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated data (the only data ported)")
+                   help="train on generated data instead of the image folders")
     p.add_argument("--synthetic_size", type=int, default=d.synthetic_size)
     p.add_argument("--arch", choices=["resnet50", "tiny"], default=d.arch)
     p.add_argument("--num_classes", type=int, default=d.num_classes)
-    p.add_argument("--img_crop_size", type=int, default=d.img_crop_size)
+    p.add_argument("--num_workers", type=int, default=d.num_workers,
+                   help="item-loading worker threads (decode+augment)")
     p.add_argument("--source_batch_size", type=int, default=d.source_batch_size)
     p.add_argument("--test_batch_size", type=int, default=d.test_batch_size)
+    p.add_argument("--s_dset_path", type=str, default=d.s_dset_path,
+                   help="source domain: one directory of images per class")
+    p.add_argument("--t_dset_path", type=str, default=d.t_dset_path,
+                   help="target domain, as --s_dset_path")
+    p.add_argument("--img_resize", type=int, default=d.img_resize)
+    p.add_argument("--img_crop_size", type=int, default=d.img_crop_size)
     p.add_argument("--num_iters", type=int, default=d.num_iters)
     p.add_argument("--check_acc_step", type=int, default=d.check_acc_step)
     p.add_argument("--log_interval", type=int, default=d.log_interval)

@@ -21,6 +21,8 @@ def build_parser() -> argparse.ArgumentParser:
     d = DigitsConfig()
     p = argparse.ArgumentParser(
         description="DWT digits trainer, USPS↔MNIST (PyTorch/CUDA port)")
+    p.add_argument("--num_workers", type=int, default=d.num_workers,
+                   help="item-loading worker threads")
     p.add_argument("--source", default=d.source, help="usps or mnist")
     p.add_argument("--target", default=d.target, help="usps or mnist")
     p.add_argument("--source_batch_size", type=int, default=d.source_batch_size)

@@ -19,6 +19,7 @@ class DigitsConfig:
     source_batch_size: int = 32
     target_batch_size: int = 32
     test_batch_size: int = 100
+    num_workers: int = 2  # item-loading worker threads (reference :332)
     epochs: int = 120
     lr: float = 1e-3
     weight_decay: float = 5e-4
@@ -42,6 +43,10 @@ class OfficeHomeConfig:
 
     source_batch_size: int = 18
     test_batch_size: int = 10
+    num_workers: int = 2  # item-loading worker threads (reference :499)
+    s_dset_path: str = "../data/OfficeHomeDataset_10072016/Art"
+    t_dset_path: str = "../data/OfficeHomeDataset_10072016/Clipart"
+    img_resize: int = 256
     img_crop_size: int = 224
     num_iters: int = 10_000
     check_acc_step: int = 100

@@ -1,8 +1,8 @@
-"""Datasets — the USPS and MNIST loaders and ``ArrayDataset`` of ``dwt_tpu.data.datasets``, copied.
+"""Datasets — the USPS and MNIST loaders, ``ArrayDataset`` and ``ImageFolderDataset`` of ``dwt_tpu.data.datasets``, copied.
 
 Items are ``(img, label)`` or — when a second ``transform_aug`` view is
 configured — ``(img, img_aug, label)``, the reference's dual-view triple
-protocol.  The ImageFolder walker is not ported yet.
+protocol.
 """
 
 from __future__ import annotations
@@ -11,10 +11,14 @@ import gzip
 import os
 import pickle
 import struct
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+IMG_EXTENSIONS = (
+    ".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp",
+)
 
 # Training-set replication factor for USPS (reference
 # ``usps_mnist.py:24``: usps_dataset_multiplier = 6).
@@ -113,6 +117,79 @@ class ArrayDataset:
     def __getitem__(self, i: int):
         img = self.images[i]
         label = int(self.labels[i])
+        out = self.transform(img) if self.transform else img
+        if self.transform_aug is not None:
+            return out, self.transform_aug(img), label
+        return out, label
+
+
+def _find_classes(root: str) -> Tuple[List[str], dict]:
+    classes = sorted(
+        entry.name for entry in os.scandir(root) if entry.is_dir()
+    )
+    return classes, {c: i for i, c in enumerate(classes)}
+
+
+def make_dataset(
+    root: str, class_to_idx: dict, extensions: Sequence[str] = IMG_EXTENSIONS
+) -> List[Tuple[str, int]]:
+    """Sorted ``(path, class_index)`` walk — reference ``folder.py:40-55``."""
+    samples = []
+    root = os.path.expanduser(root)
+    for cls in sorted(class_to_idx):
+        d = os.path.join(root, cls)
+        if not os.path.isdir(d):
+            continue
+        for sub, _, files in sorted(os.walk(d)):
+            for name in sorted(files):
+                if name.lower().endswith(tuple(extensions)):
+                    samples.append((os.path.join(sub, name), class_to_idx[cls]))
+    return samples
+
+
+class ImageFolderDataset:
+    """``root/class_x/*.jpg`` walker with the dual-view protocol.
+
+    The reference's vendored folder dataset (``utils/folder.py:58-190``):
+    sorted class discovery, a recursive sorted walk of the samples, an RGB
+    PIL load, and the ``transform_aug`` second view that makes items
+    ``(img, img_aug, label)`` triples (``:138-147``).
+    """
+
+    def __init__(
+        self,
+        root: str,
+        transform: Optional[Callable] = None,
+        transform_aug: Optional[Callable] = None,
+        extensions: Sequence[str] = IMG_EXTENSIONS,
+    ):
+        classes, class_to_idx = _find_classes(root)
+        samples = make_dataset(root, class_to_idx, extensions)
+        if not samples:
+            raise RuntimeError(
+                f"Found 0 images in subfolders of {root} "
+                f"(extensions: {','.join(extensions)})"
+            )
+        self.root = root
+        self.classes = classes
+        self.class_to_idx = class_to_idx
+        self.samples = samples
+        self.targets = [t for _, t in samples]
+        self.transform = transform
+        self.transform_aug = transform_aug
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def _load(self, path: str):
+        from PIL import Image
+
+        with open(path, "rb") as f:
+            return Image.open(f).convert("RGB")
+
+    def __getitem__(self, i: int):
+        path, label = self.samples[i]
+        img = self._load(path)
         out = self.transform(img) if self.transform else img
         if self.transform_aug is not None:
             return out, self.transform_aug(img), label

@@ -13,7 +13,12 @@
   padding would perturb the batch moments the pass exists to estimate —
   so the ragged tail is a forward of its own.
 
-Mesh sharding, scanned dispatch and prefetch are not ported yet.
+Batches come from ``batch_iterator`` with the JAX pipeline's seeds,
+epochs and worker count (an item's random crop draws from its token
+``(seed, epoch, index)``: ``(0, 0, i)`` in an eval pass, ``(seed, pass,
+i)`` in a collection pass) and reach the device through
+``prefetch_to_device``.  Mesh sharding and scanned dispatch are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dwt_tpu_torch.data.loader import batch_iterator
+from dwt_tpu_torch.data.loader import batch_iterator, prefetch_to_device
 from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
 from dwt_tpu_torch.ops.whitening import WHITEN_CACHE_COL, build_whiten_cache
 from dwt_tpu_torch.train.state import TrainState
@@ -90,21 +95,17 @@ def install_whiten_cache(
 
 
 class EvalPipeline:
-    """Eval and stat-collection passes over an in-memory dataset, on the
-    model's device; ``num_domains`` is the model's domain branches, which
-    a collection forward fills with the same batch."""
+    """Eval and stat-collection passes over a dataset, on ``device``;
+    ``num_domains`` is the model's domain branches, which a collection
+    forward fills with the same batch, and ``num_workers`` the loader's
+    item-loading threads."""
 
     def __init__(self, test_batch_size: int, device: torch.device,
-                 num_domains: int):
+                 num_domains: int, num_workers: int = 0):
         self.test_batch_size = int(test_batch_size)
         self.device = torch.device(device)
         self.num_domains = num_domains
-
-    def _stage(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        self.num_workers = int(num_workers)
 
     def evaluate(self, state: TrainState, dataset) -> dict:
         """Accumulate eval counters over ``dataset``; one host fetch.
@@ -117,18 +118,22 @@ class EvalPipeline:
         step = make_accum_eval_step(model)
         counters = eval_counters(self.device)
         forwards = 0
+        stream = batch_iterator(
+            dataset, self.test_batch_size, shuffle=False, drop_last=False,
+            num_workers=self.num_workers, pad_and_mask=True,
+        )
+        batches = prefetch_to_device(
+            ((np.asarray(x, np.float32), np.asarray(y, np.int64), mask)
+             for x, y, mask in stream), device=self.device)
         install_whiten_cache(model, make_whiten_cache(model))
         try:
-            for x, y, mask in batch_iterator(
-                dataset, self.test_batch_size, shuffle=False,
-                drop_last=False, pad_and_mask=True,
-            ):
-                counters = step(counters, self._stage(np.asarray(x, np.float32)),
-                                self._stage(np.asarray(y, np.int64)),
-                                self._stage(mask))
+            for x, y, mask in batches:
+                counters = step(counters, x, y, mask)
                 forwards += 1
         finally:
             install_whiten_cache(model, None)
+            batches.close()
+            stream.close()
         # The pass's ONE device→host fetch.
         loss_sum, correct, count = torch.stack(
             [v.double() for v in counters.values()]).tolist()
@@ -141,15 +146,25 @@ class EvalPipeline:
             "eval_s": round(time.perf_counter() - t0, 3),
         }
 
-    def collect_stats(self, state: TrainState, dataset) -> int:
+    def collect_stats(self, state: TrainState, dataset, *, seed: int = 0,
+                      epoch: int = 0) -> int:
         """One stat-collection pass (reference ``eval_pass_collect_stats``):
         gradient-free train-mode forwards over ``dataset`` that advance
-        only the running stats.  Returns the number of forwards."""
+        only the running stats; ``seed``/``epoch`` set the items' tokens.
+        Returns the number of forwards."""
         collect = make_stat_collection_step(state.model, self.num_domains)
         forwards = 0
-        for x, _ in batch_iterator(
+        stream = batch_iterator(
             dataset, self.test_batch_size, shuffle=False, drop_last=False,
-        ):
-            collect(state, self._stage(np.asarray(x, np.float32)))
-            forwards += 1
+            seed=seed, epoch=epoch, num_workers=self.num_workers,
+        )
+        batches = prefetch_to_device(
+            (np.asarray(b[0], np.float32) for b in stream), device=self.device)
+        try:
+            for x in batches:
+                collect(state, x)
+                forwards += 1
+        finally:
+            batches.close()
+            stream.close()
         return forwards

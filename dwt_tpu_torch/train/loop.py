@@ -9,8 +9,8 @@
   target streams (the target carrying its augmented view), ``num_iters``
   steps, an eval every ``check_acc_step``, then the post-training
   protocol — ``stat_collection_passes`` gradient-free train-mode passes
-  over the target test set, and the final eval.  Only its
-  ``--synthetic`` data is ported.
+  over the target test set, and the final eval.  Data: ``--synthetic``,
+  or the two image folders ``s_dset_path`` and ``t_dset_path``.
 
 Both return the final target accuracy (%).  A trainer runs on CUDA unless
 the config asks for the CPU, and raises when CUDA is absent rather than
@@ -19,27 +19,47 @@ cuBLAS matmuls, process-wide: the JAX reference's f32 train step is full
 f32.  The loops read values back to the host only at their log interval
 and once per eval pass.
 
+Both loops read their streams through a ``DataPlane`` registered as the
+JAX loops register theirs, so they train on the JAX package's batches,
+item for item, and take them through ``prefetch_to_device``.
+
 Not ported yet, in either loop (ROADMAP): checkpoints and resume, the
-divergence guard, metric harvesting, the watchdog, preemption, the data
-plane and prefetch, scanned dispatch, bf16 compute and multi-host runs.
+divergence guard, metric harvesting, the watchdog, preemption, scanned
+dispatch, bf16 compute and multi-host runs.
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import logging
 import time
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from dwt_tpu_torch.config import DigitsConfig, OfficeHomeConfig
-from dwt_tpu_torch.data.datasets import ArrayDataset, load_mnist, load_usps
-from dwt_tpu_torch.data.loader import batch_iterator
-from dwt_tpu_torch.data.transforms import gaussian_blur, random_affine
+from dwt_tpu_torch.data.datasets import (
+    ArrayDataset,
+    ImageFolderDataset,
+    load_mnist,
+    load_usps,
+)
+from dwt_tpu_torch.data.loader import prefetch_to_device
+from dwt_tpu_torch.data.pipeline import DataPlane
+from dwt_tpu_torch.data.sampler import epoch_batch_count
+from dwt_tpu_torch.data.transforms import (
+    Compose,
+    FusedAffineBlurNormalize,
+    FusedToArrayNormalize,
+    RandomCrop,
+    RandomHorizontalFlip,
+    Resize,
+    ThreadLocalRng,
+    gaussian_blur,
+    random_affine,
+)
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.resnet import build_resnet
 from dwt_tpu_torch.serve.engine import resolve_device
@@ -147,25 +167,37 @@ def run_digits(
     optimizer, schedules = digits_tx(model, cfg, steps_per_epoch)
     state = TrainState(model, optimizer, schedules)
     train_step = make_digits_train_step(model, cfg.lambda_entropy_loss)
-    evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=2)
+    evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=2,
+                         num_workers=cfg.num_workers)
+    # Both streams roll over at the zip's length, so a stream's position
+    # is a function of the step.
+    plane = DataPlane(num_workers=cfg.num_workers)
+    plane.register("source", seed=cfg.seed, epoch_len=steps_per_epoch)
+    plane.register("target", seed=cfg.seed + 1, epoch_len=steps_per_epoch)
 
     acc = 0.0
     for epoch in range(cfg.epochs):
-        # Both streams shuffle anew each epoch, from their own seeds; the
-        # zip ends with the shorter one.
-        source = batch_iterator(source_ds, bs, seed=cfg.seed, epoch=epoch)
-        target = batch_iterator(target_ds, bs, seed=cfg.seed + 1, epoch=epoch)
-        for i, ((sx, sy), (tx_img, _)) in enumerate(zip(source, target)):
-            batch = {
-                "source_x": _stage(np.asarray(sx, np.float32), device),
-                "source_y": _stage(np.asarray(sy, np.int64), device),
-                "target_x": _stage(np.asarray(tx_img, np.float32), device),
-            }
-            metrics = train_step(state, batch)
-            if i % cfg.log_interval == 0:
-                keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
-                values = torch.stack([metrics[k].double() for k in keys]).tolist()
-                logger("train", state.step, epoch=epoch, **dict(zip(keys, values)))
+        # Each stream opens at the plane's position and shuffles anew each
+        # epoch, from its own seed; the zip ends with the shorter one.
+        source = plane.epoch_iterator(source_ds, "source", bs)
+        target = plane.epoch_iterator(target_ds, "target", bs)
+        batches = prefetch_to_device(({
+            "source_x": np.asarray(sx, np.float32),
+            "source_y": np.asarray(sy, np.int64),
+            "target_x": np.asarray(tx_img, np.float32),
+        } for (sx, sy), (tx_img, _) in zip(source, target)), device=device)
+        try:
+            for i, batch in enumerate(batches):
+                metrics = train_step(state, batch)
+                plane.advance(1)
+                if i % cfg.log_interval == 0:
+                    keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
+                    values = torch.stack([metrics[k].double() for k in keys]).tolist()
+                    logger("train", state.step, epoch=epoch, **dict(zip(keys, values)))
+        finally:
+            batches.close()
+            source.close()
+            target.close()
         result = evalp.evaluate(state, test_ds)
         acc = result["accuracy"]
         logger("test", state.step, epoch=epoch, **result)
@@ -173,46 +205,87 @@ def run_digits(
 
 
 def _officehome_datasets(cfg: OfficeHomeConfig):
-    """``(source, target with its augmented view, test)`` datasets."""
-    if not cfg.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported; the OfficeHome image folders "
-            "(ImageFolder, resize/crop/normalize) are ROADMAP queue 1, item 4"
+    """``(source, target with its augmented view, test)`` datasets: the
+    synthetic arrays, or the two image folders."""
+    if cfg.synthetic:
+        n = cfg.synthetic_size
+        shape = (cfg.img_crop_size, cfg.img_crop_size, 3)
+        src = _synthetic_classification_arrays(n, shape, cfg.num_classes, cfg.seed)
+        tgt_x, tgt_y = _synthetic_classification_arrays(
+            n, shape, cfg.num_classes, cfg.seed + 1, 0.5
         )
-    n = cfg.synthetic_size
-    shape = (cfg.img_crop_size, cfg.img_crop_size, 3)
-    src = _synthetic_classification_arrays(n, shape, cfg.num_classes, cfg.seed)
-    tgt_x, tgt_y = _synthetic_classification_arrays(
-        n, shape, cfg.num_classes, cfg.seed + 1, 0.5
-    )
-    # One generator, drawn in load order: the loader is sequential, so
-    # the augmented views are a function of the seed.
-    rng = np.random.default_rng(cfg.seed + 9)
-    aug = lambda a: gaussian_blur(random_affine(a, rng=rng))
-    source_ds = ArrayDataset(*src)
-    target_ds = ArrayDataset(tgt_x, tgt_y, transform_aug=aug)
-    test_ds = ArrayDataset(
-        *_synthetic_classification_arrays(
-            n // 2, shape, cfg.num_classes, cfg.seed + 2, 0.5
+        rng = ThreadLocalRng(cfg.seed + 9)  # reseeded per item by the loader
+        aug = lambda a: gaussian_blur(random_affine(a, rng=rng))
+        source_ds = ArrayDataset(*src)
+        target_ds = ArrayDataset(tgt_x, tgt_y, transform_aug=aug)
+        test_ds = ArrayDataset(
+            *_synthetic_classification_arrays(
+                n // 2, shape, cfg.num_classes, cfg.seed + 2, 0.5
+            )
         )
+        return source_ds, target_ds, test_ds
+
+    mean = [0.485, 0.456, 0.406]
+    std = [0.229, 0.224, 0.225]
+    rng = ThreadLocalRng(cfg.seed)
+    # The source and test transform (resnet50…py:527-532) and the target's
+    # augmented view (:535-543), each ending in one native pass over the
+    # uint8 crop.
+    base_tf = Compose([
+        Resize(cfg.img_resize),
+        RandomCrop(cfg.img_crop_size, rng=rng),
+        FusedToArrayNormalize(mean, std),
+    ])
+    aug_tf = Compose([
+        Resize(cfg.img_resize),
+        RandomCrop(cfg.img_crop_size, rng=rng),
+        RandomHorizontalFlip(rng=rng),
+        FusedAffineBlurNormalize(mean, std, rng=rng),
+    ])
+    source_ds = ImageFolderDataset(cfg.s_dset_path, transform=base_tf)
+    target_ds = ImageFolderDataset(
+        cfg.t_dset_path, transform=base_tf, transform_aug=aug_tf
     )
+    test_ds = ImageFolderDataset(cfg.t_dset_path, transform=base_tf)
     return source_ds, target_ds, test_ds
 
 
-def _stream(dataset, batch_size: int, seed: int) -> Iterator[tuple]:
-    """Endless shuffled batches, a new order every epoch."""
-    if len(dataset) < batch_size:
+def officehome_batches(plane: DataPlane, source_ds, target_ds, batch_size: int,
+                       steps: int):
+    """``steps`` train batches of the three streams, from the plane's
+    position: the target stream carries its augmented view."""
+    source = plane.stream(source_ds, "source", batch_size)
+    target = plane.stream(target_ds, "target", batch_size)
+    try:
+        for _ in range(steps):
+            sx, sy = next(source)
+            tx_img, tx_aug, _ = next(target)
+            yield {
+                "source_x": np.asarray(sx, np.float32),
+                "source_y": np.asarray(sy, np.int64),
+                "target_x": np.asarray(tx_img, np.float32),
+                "target_aug_x": np.asarray(tx_aug, np.float32),
+            }
+    finally:
+        source.close()
+        target.close()
+
+
+def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
+    """The run's data plane: the source at ``seed``, the target at
+    ``seed + 1`` and its augmented view as an alias of the target, each
+    rolling over at its own dataset's batch count."""
+    bs = cfg.source_batch_size  # the target stream uses the source's too
+    source_len = epoch_batch_count(len(source_ds), bs)
+    target_len = epoch_batch_count(len(target_ds), bs)
+    if min(source_len, target_len) == 0:
         raise ValueError("datasets smaller than one batch")
-    for epoch in itertools.count():
-        yield from batch_iterator(dataset, batch_size, shuffle=True,
-                                  drop_last=True, seed=seed, epoch=epoch)
-
-
-def _stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    plane = DataPlane(num_workers=cfg.num_workers)
+    plane.register("source", seed=cfg.seed, epoch_len=source_len)
+    plane.register("target", seed=cfg.seed + 1, epoch_len=target_len)
+    plane.register("target_aug", seed=cfg.seed + 1, epoch_len=target_len,
+                   alias_of="target")
+    return plane
 
 
 def build_model(cfg: OfficeHomeConfig) -> nn.Module:
@@ -238,44 +311,43 @@ def run_officehome(
     torch.backends.cuda.matmul.allow_tf32 = False
 
     source_ds, target_ds, test_ds = _officehome_datasets(cfg)
-    bs = cfg.source_batch_size  # the target stream uses the source's too
+    plane = officehome_plane(cfg, source_ds, target_ds)
     if model is None:
         model = build_model(cfg)
     model.to(device, memory_format=torch.channels_last)
     optimizer, schedules = officehome_tx(model, cfg)
     state = TrainState(model, optimizer, schedules)
     train_step = make_officehome_train_step(model, cfg.lambda_mec_loss)
-    evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=3)
+    evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=3,
+                         num_workers=cfg.num_workers)
 
-    source = _stream(source_ds, bs, cfg.seed)
-    target = _stream(target_ds, bs, cfg.seed + 1)
     acc = 0.0
-    for it in range(cfg.num_iters):
-        sx, sy = next(source)
-        tx_img, tx_aug, _ = next(target)
-        batch = {
-            "source_x": _stage(np.asarray(sx, np.float32), device),
-            "source_y": _stage(np.asarray(sy, np.int64), device),
-            "target_x": _stage(np.asarray(tx_img, np.float32), device),
-            "target_aug_x": _stage(np.asarray(tx_aug, np.float32), device),
-        }
-        metrics = train_step(state, batch)
-        if it % cfg.log_interval == 0:
-            values = torch.stack([metrics[k].double() for k in (
-                "loss", "cls_loss", "mec_loss", "grad_norm")]).tolist()
-            logger("train", state.step, iter=it, **dict(zip(
-                ("loss", "cls_loss", "mec_loss", "grad_norm"), values)))
-        if (it + 1) % cfg.check_acc_step == 0:
-            result = evalp.evaluate(state, test_ds)
-            acc = result["accuracy"]
-            logger("test", state.step, iter=it, **result)
+    produce = officehome_batches(plane, source_ds, target_ds,
+                                 cfg.source_batch_size, cfg.num_iters)
+    batches = prefetch_to_device(produce, device=device)
+    try:
+        for it, batch in enumerate(batches):
+            metrics = train_step(state, batch)
+            plane.advance(1)
+            if it % cfg.log_interval == 0:
+                values = torch.stack([metrics[k].double() for k in (
+                    "loss", "cls_loss", "mec_loss", "grad_norm")]).tolist()
+                logger("train", state.step, iter=it, **dict(zip(
+                    ("loss", "cls_loss", "mec_loss", "grad_norm"), values)))
+            if (it + 1) % cfg.check_acc_step == 0:
+                result = evalp.evaluate(state, test_ds)
+                acc = result["accuracy"]
+                logger("test", state.step, iter=it, **result)
+    finally:
+        batches.close()
+        produce.close()
 
     # Post-training protocol: passes over the target TEST set with the
     # batch tiled into every domain slot re-estimate the target stats
     # (resnet50…py:380-389).
     for p in range(cfg.stat_collection_passes):
         t0 = time.perf_counter()
-        forwards = evalp.collect_stats(state, test_ds)
+        forwards = evalp.collect_stats(state, test_ds, seed=cfg.seed, epoch=p)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         logger("stat_collection", state.step, pass_index=p, forwards=forwards,

@@ -14,7 +14,10 @@ CUDA graph that captured one, are bitwise equal.  The moments kernel (one launch
 domains of ``x [D, M, C]``) is held to its plain version and to a float64
 two-pass computation of each domain: mean ``rtol = atol = 1e-6``, cov
 ``rtol = 1e-4, atol = 1e-5`` (f32 sums in another order); two calls, and
-replays of a CUDA graph that captured one, are bitwise equal.  The CPU-side
+replays of a CUDA graph that captured one, are bitwise equal.  The data
+plane's ``prefetch_to_device`` delivers batches on the card bitwise equal
+to their numpy sources, through its reused pinned buffers and when closed
+mid-stream.  The CPU-side
 tests check the dispatch rules: a CPU tensor takes the plain version,
 any other device raises, and ``chip_smoke.py`` refuses to run without
 CUDA.
@@ -485,3 +488,73 @@ def test_apply_wrapper_refuses_what_the_batched_kernel_does_not_take(cuda_device
         cuda_whitening.whiten_apply(buf[1:].view_as(x), mean, w)
     with pytest.raises(ValueError, match=r"\[M, C\] or \[D, M, C\]"):
         cuda_whitening.whiten_apply(x[None], mean, w)
+
+
+# ------------------------------------------------- prefetch to the card
+
+
+def _host_batches(count, seed=0, rows=4):
+    rng = np.random.default_rng(seed)
+    return [{"x": rng.normal(size=(rows, 3, 32, 32)).astype(np.float32),
+             "y": rng.integers(0, 65, size=rows),
+             "mask": rng.integers(0, 2, size=rows).astype(bool)}
+            for _ in range(count)]
+
+
+def _assert_on_card_and_equal(got, want, device):
+    for key, host in want.items():
+        t = got[key]
+        assert t.device.type == device.type and t.dtype == torch.from_numpy(host).dtype
+        assert np.array_equal(t.cpu().numpy(), host)
+
+
+@pytest.mark.cuda
+def test_prefetch_delivers_batches_bitwise_through_the_pinned_ring(cuda_device):
+    """Ten batches through a ring of size + 1 = 3 pinned sets (each reused
+    three times or more), each consumed on the default stream after a
+    kernel that keeps the card busy, and a batch of another shape (the
+    ring reallocates that set)."""
+    from dwt_tpu_torch.data.loader import prefetch_to_device
+
+    src = _host_batches(10) + _host_batches(1, seed=1, rows=7)
+    got = []
+    for batch in prefetch_to_device(iter(src), size=2, device=cuda_device):
+        torch.cuda._sleep(1_000_000)  # the consumer's stream lags the copies
+        got.append({k: v.clone() for k, v in batch.items()})  # used on this stream
+    torch.cuda.synchronize()
+    assert len(got) == len(src)
+    for g, s in zip(got, src):
+        _assert_on_card_and_equal(g, s, cuda_device)
+
+
+@pytest.mark.cuda
+def test_prefetch_stops_cleanly_when_closed_mid_stream(cuda_device):
+    import threading
+
+    from dwt_tpu_torch.data.loader import prefetch_to_device
+
+    src = _host_batches(5)
+    pulled = []
+
+    def endless():
+        for i in range(10_000):
+            pulled.append(i)
+            yield src[i % 5]
+
+    it = prefetch_to_device(endless(), size=2, device=cuda_device)
+    first = next(it)
+    second = next(it)
+    it.close()  # joins the producer thread
+    assert not [t for t in threading.enumerate() if t.name == "dwt-prefetch"]
+    assert len(pulled) <= 6
+    _assert_on_card_and_equal(first, src[0], cuda_device)
+    _assert_on_card_and_equal(second, src[1], cuda_device)
+
+    def failing():
+        yield src[0]
+        raise OSError("decode failed")
+
+    it = prefetch_to_device(failing(), device=cuda_device)
+    _assert_on_card_and_equal(next(it), src[0], cuda_device)
+    with pytest.raises(OSError, match="decode failed"):
+        next(it)

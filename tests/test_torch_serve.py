@@ -167,6 +167,12 @@ from dwt_tpu_torch.nn.lenet import LeNetDWT
 from dwt_tpu_torch.cli.usps_mnist import main
 from dwt_tpu_torch.data.datasets import load_mnist, load_usps
 from dwt_tpu_torch.train.loop import run_digits
+# The data plane by name: the sampler, the pool, prefetch and the native passes.
+from dwt_tpu_torch.data.sampler import SeekableSampler
+from dwt_tpu_torch.data.pipeline import DataPlane, OrderedWorkerPool
+from dwt_tpu_torch.data.loader import batch_iterator, prefetch_to_device
+from dwt_tpu_torch.data.datasets import ImageFolderDataset
+from dwt_tpu_torch.native import normalize_from_u8
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
