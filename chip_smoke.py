@@ -148,9 +148,41 @@ script exits non-zero without the final line:
                   card's idle share from a profiled window of steps.
 17. ``digits_serve`` — phase 12 for ``--model lenet`` (2 apply launches
                   per forward).
-18. ``kernels`` — the contract line: per kernel and path its TPU
+18. ``ckpt_resume`` — phase 7's run with ``--ckpt_dir`` and
+                  ``--ckpt_every_iters 3`` (under ``build/``), three times:
+                  runs A and A2 uninterrupted, run B cut by its logger
+                  after step 4 and rerun, resuming from step 3.  Checks:
+                  each record's launches (none for the checkpoint
+                  records), B's resume at step 3 with the data plane at
+                  the manifest's exact position, the batch ids of every
+                  run equal A's, A2's records and final state bitwise
+                  equal to A's and B's from step 4 on too (all three
+                  under cuDNN's deterministic algorithms), saves
+                  at 3 and 6, a checkpoint of the tensors' bytes (≈ 2 ×
+                  the parameters, the momentum, plus the stats).  Prints
+                  each save's and the restore's ms.
+19. ``ckpt_serve`` — the server with ``--ckpt_dir`` on run A
+                  (``--model resnet50``, bucket 8) answers 8 test images
+                  sent as ``.npy``: ``/healthz`` at A's final step, 11
+                  apply launches for the forward, logits within
+                  ``FORWARD_TOL`` of the trainer's eval forward of the
+                  restored model; the restore-and-warm seconds.
+20. ``digits_ckpt`` — phase 14's run with ``--ckpt_dir`` and
+                  ``--ckpt_every_epochs 1``: runs U and U2 of 2 epochs, run
+                  C of 1 epoch resumed to 2, held as phase 18's; then
+                  ``--model lenet`` serving run
+                  C (``digits_ckpt_serve``, 2 apply launches).
+21. ``convert`` — a reference-scheme ResNet50 archive from seed 1 (all
+                  309 keys, the ImageNet ``fc``), ``python -m
+                  dwt_tpu_torch.cli.convert`` on it (307 loaded, the head's
+                  2 skipped), then one train step from ``--init_ckpt`` on
+                  the card: the converted weights at step 0, finite
+                  losses, the launches.
+22. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
-                  times (``ms`` is the kernel's device time).
+                  times (``ms`` is the kernel's device time); each row's
+                  ``phase_launches`` counts the launches of phases 18–21
+                  on its shapes.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -207,7 +239,7 @@ FOLDER_TRAIN_FLAGS = [
     "--num_workers", "4", "--num_iters", "12", "--check_acc_step", "6",
     "--stat_collection_passes", "1", "--log_interval", "1",
     "--arch", "resnet50", "--num_classes", "65", "--img_crop_size", "224",
-    "--source_batch_size", "18", "--seed", "1",
+    "--source_batch_size", "18", "--seed", "1", "--resnet_path", "",
 ]
 WORKER_COUNTS = (1, 2, 4, 8)  # loader threads at which the streams are timed
 RATE_BATCHES = 4  # batches per stream and worker count in the image rates
@@ -264,6 +296,28 @@ DIGITS_NOISE_TOL = 1e-6  # readings on the H100: 5.6e-8 (f32), 9.2e-17 (float64)
 # |g| + 1e-8, so its smallest gradients reach the update); loss ≤ 1.6e-7,
 # stats ≤ 4.8e-7 (held at TRAIN_TOL).
 DIGITS_LEAF_TOL = 1e-4
+
+# Checkpoints: the main train path with a save every 3 steps (runs A and
+# A2 uninterrupted; run B cut by its logger at CKPT_CUT's train record,
+# then resumed from step 3), and the digits path with a save every epoch.
+CKPT_FLAGS = TRAIN_FLAGS + ["--ckpt_every_iters", "3"]
+CKPT_CUT = 4
+DIGITS_CKPT_FLAGS = DIGITS_TRAIN_FLAGS + ["--ckpt_every_epochs", "1"]
+# A resumed run against the uninterrupted one, on the card, by relative
+# error (train and eval losses |a − b| / |b|; each parameter and stat
+# tensor max |a − b| / max |b|).  With cuDNN's default algorithms two
+# uninterrupted ResNet50 runs of one call differ by percents in a train
+# loss after 6 steps (tools/torch_resume_spread.py): the backward's sums
+# are not repeatable and the first steps amplify the difference.  So the
+# compared runs use cuDNN's deterministic algorithms, under which the
+# kernels and the rest of the step are bitwise repeatable (phases 3 and
+# 5 for the kernels): two uninterrupted runs must be bitwise equal, and
+# the resumed run bitwise equal to them.
+RESUME_KEYS = ("train_loss", "eval_loss", "params", "stats")
+SERVED_IMAGES = 8  # test images sent to a server restored from a checkpoint
+CKPT_PHASES = {  # the kernels line's path → the checkpoint phases on its shapes
+    "train": ("ckpt_resume", "convert"), "serve": ("ckpt_serve",),
+    "digits_train": ("digits_ckpt",), "digits_serve": ("digits_ckpt_serve",)}
 
 
 def emit(obj) -> None:
@@ -862,6 +916,24 @@ def check_record_launches(records, launches, want):
         raise AssertionError(f"launches after the last record: {launches} vs {prev}")
 
 
+# Records of the loops that launch no kernel: checkpoint bookkeeping.
+QUIET_RECORDS = ("checkpoint", "best", "resume", "init_ckpt", "params_digest")
+
+
+def officehome_want(r):
+    """The launches an OfficeHome record must follow (ResNet50-DWT)."""
+    n = r.get("forwards", 1)
+    if r["kind"] in QUIET_RECORDS:
+        return {"moments": 0, "apply": 0}
+    return {
+        "train": {"moments": WHITENED_SITES, "apply": WHITENED_SITES},
+        "stat_collection": {"moments": WHITENED_SITES * n,
+                            "apply": WHITENED_SITES * n},
+        "test": {"moments": 0, "apply": WHITENED_SITES * n},
+        "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
+    }[r["kind"]]
+
+
 def expected_kinds(cfg):
     """The record sequence of ``run_officehome`` under ``cfg``."""
     kinds = []
@@ -942,19 +1014,8 @@ def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
             torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
             f"{phase}_record")
 
-    # Launches per record, against what each phase must launch.
-    def want(r):
-        n = r.get("forwards", 1)
-        return {
-            "train": {"moments": WHITENED_SITES, "apply": WHITENED_SITES},
-            "stat_collection": {"moments": WHITENED_SITES * n,
-                                "apply": WHITENED_SITES * n},
-            "test": {"moments": 0, "apply": WHITENED_SITES * n},
-            "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
-        }[r["kind"]]
-
-    check_record_launches(records, launches, want)
-    kinds = [r["kind"] for r in records]
+    check_record_launches(records, launches, officehome_want)
+    kinds = [r["kind"] for r in records if r["kind"] not in QUIET_RECORDS]
     if kinds != expected_kinds(cfg):
         raise AssertionError(f"unexpected record sequence {kinds}")
     for r in records:
@@ -1493,6 +1554,17 @@ def check_digits_kernels(torch, cw, device, rate):
     return apply_errs, moments_errs, timing
 
 
+def digits_want(r):
+    """The launches a digits record must follow (LeNet-DWT)."""
+    sites = len(DIGITS_SITES)
+    if r["kind"] in QUIET_RECORDS:
+        return {"moments": 0, "apply": 0}
+    return {
+        "train": {"moments": sites, "apply": sites},
+        "test": {"moments": 0, "apply": sites * r.get("forwards", 0)},
+    }[r["kind"]]
+
+
 def digits_train(torch, cw, usps_mnist, loop):
     """The digits main path, through the trainer's CLI entry: LeNet-DWT,
     32 images per stream, 2 epochs of 8 steps, an eval after each; returns
@@ -1506,11 +1578,7 @@ def digits_train(torch, cw, usps_mnist, loop):
     acc, records, launches, seconds = run_counted(
         torch, cw, lambda logger: loop.run_digits(cfg, logger, model=model),
         "digits_train_record")
-    sites = len(DIGITS_SITES)
-    check_record_launches(records, launches, lambda r: {
-        "train": {"moments": sites, "apply": sites},
-        "test": {"moments": 0, "apply": sites * r.get("forwards", 0)},
-    }[r["kind"]])
+    check_record_launches(records, launches, digits_want)
     kinds = [r["kind"] for r in records]
     if kinds != (["train"] * 8 + ["test"]) * 2:
         raise AssertionError(f"unexpected record sequence {kinds}")
@@ -1699,6 +1767,452 @@ def digits_throughput(torch, loop, device):
     return row
 
 
+# -------------------------------------------------------------- checkpoints
+
+
+class BatchIds:
+    """For one run, the dataset ids of every batch the data plane's train
+    streams build, by stream role (a cut run's prefetch thread may have
+    built a few it never trained on)."""
+
+    def __init__(self, loader):
+        self.loader, self.ids = loader, {}
+
+    def __enter__(self):
+        inner = self.inner = self.loader.batch_iterator
+        ids = self.ids
+
+        def recording(*args, **kwargs):
+            role = kwargs.get("quarantine_key")
+            return inner(*args, on_batch_ids=ids.setdefault(role, []).append,
+                         **kwargs)
+
+        self.loader.batch_iterator = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.loader.batch_iterator = self.inner
+
+
+class Cut(Exception):
+    """Raised by a run's logger to end the run where a crash would."""
+
+
+def counted_run(torch, cw, loader, run, cfg, phase, want, cut_at=None):
+    """``run(cfg, logger)`` (a trainer loop) through ``run_counted``, its
+    launches checked record by record against ``want``; with ``cut_at``
+    the logger raises ``Cut`` after that step's train record, ending the
+    run.  Returns ``(records, launches, batch ids by stream)``."""
+    def drive(logger):
+        def cutting(kind, step, **fields):
+            logger(kind, step, **fields)
+            if kind == "train" and step == cut_at:
+                raise Cut
+        try:
+            run(cfg, cutting)
+        except Cut:
+            return "cut"
+        return "ended"
+
+    with BatchIds(loader) as ids:
+        how, records, launches, _ = run_counted(torch, cw, drive, phase)
+    if how != ("cut" if cut_at else "ended"):
+        raise AssertionError(f"{phase}: the run {how}, cut_at={cut_at}")
+    check_record_launches(records, launches, want)
+    return records, launches, ids.ids
+
+
+def added(*launches):
+    return {k: sum(l[k] for l in launches) for k in launches[0]}
+
+
+def record_errs(a, b, steps):
+    """Relative errors of run ``b``'s records against ``a``'s: the train
+    losses at ``steps``, and the eval losses of the last test record (and
+    the final test, where there is one)."""
+    def rel(x, y):
+        return abs(x - y) / abs(y) if y else abs(x - y)
+
+    def pick(records, kind):
+        return {r["step"]: r for r in records if r["kind"] == kind}
+
+    ta, tb = pick(a, "train"), pick(b, "train")
+    train = max(rel(tb[s][k], ta[s][k]) for s in steps for k in STEP_METRICS
+                if k in ta[s])
+    evals = [max(pick(a, "test").items())[1], max(pick(b, "test").items())[1]]
+    finals = [[r for r in recs if r["kind"] == "final_test"] for recs in (a, b)]
+    if finals[0]:
+        evals += [finals[0][0], finals[1][0]]
+    return {"train_loss": train,
+            "eval_loss": max(rel(evals[i + 1]["loss"], evals[i]["loss"])
+                             for i in range(0, len(evals), 2)),
+            "accuracies": [r["accuracy"] for r in evals]}
+
+
+def state_errs(torch, model, a_dir, b_dir):
+    """The final artifacts of two runs, tensor by tensor: the largest
+    relative error of a parameter and of a running stat, and whether the
+    BN counts and the optimizer's steps agree."""
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    def load(d):
+        return torch.load(os.path.join(d, str(ckpt.latest_step(d)), ckpt.STATE_FILE),
+                          map_location="cpu", weights_only=True)
+
+    a, b = load(a_dir), load(b_dir)
+    params = {n for n, _ in model.named_parameters()}
+    errs = {"params": 0.0, "stats": 0.0}
+    exact = a["step"] == b["step"]
+    for k, va in a["model"].items():
+        vb = b["model"][k]
+        if not va.is_floating_point():
+            exact = exact and torch.equal(va, vb)
+            continue
+        key = "params" if k in params else "stats"
+        errs[key] = max(errs[key], norm_err(vb, va))
+    return {**errs, "steps_and_counts_equal": exact, "step": a["step"]}
+
+
+def check_resume(name, noise, resumed):
+    """Under cuDNN's deterministic algorithms: the second uninterrupted run
+    (``noise``: its errors against the first) and the resumed run
+    (``resumed``) must both equal the first run bitwise."""
+    for what, errs in (("the second uninterrupted run", noise),
+                       ("the resumed run", resumed)):
+        bad = {k: errs[k] for k in RESUME_KEYS if errs[k] != 0}
+        if bad or not errs["steps_and_counts_equal"]:
+            raise AssertionError(f"{name}: {what} is off the uninterrupted one "
+                                 f"by {bad}, or its step or BN counts differ")
+
+
+class DeterministicCudnn:
+    """cuDNN's deterministic algorithms for the runs inside."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.before = self.backends.deterministic
+        self.backends.deterministic = True
+
+    def __exit__(self, *exc):
+        self.backends.deterministic = self.before
+
+
+def ckpt_resume(torch, cw, officehome, loop, loader, root):
+    """Phase ``ckpt_resume``: the main train path through the CLI entry
+    with ``--ckpt_dir``: run A and A2 uninterrupted, run B cut after step
+    CKPT_CUT and resumed.  Checks each record's launches, the resume
+    (source, exact data position), the batch ids exactly and the records,
+    parameters and stats bitwise (``check_resume``).  Returns the launches
+    of runs A, A2 and B, run A's directory and final step."""
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    def cfg(name):
+        return officehome.config_from_args(officehome.build_parser().parse_args(
+            CKPT_FLAGS + ["--ckpt_dir", os.path.join(root, name)]))
+
+    runs = {}
+    with DeterministicCudnn(torch):
+        for key, name, cut in (("A", "A", None), ("A2", "A2", None),
+                               ("B_cut", "B", CKPT_CUT), ("B_resumed", "B", None)):
+            runs[key] = counted_run(torch, cw, loader, loop.run_officehome,
+                                    cfg(name), f"ckpt_resume_{key}",
+                                    officehome_want, cut)
+    (a, _, a_ids), (a2, _, a2_ids) = runs["A"], runs["A2"]
+    (b1, _, b1_ids), (b2, _, b2_ids) = runs["B_cut"], runs["B_resumed"]
+    resume = b2[0]
+    if (resume["kind"], resume["step"], resume["source"], resume["data"]) != (
+            "resume", CKPT_CUT - 1, "checkpoint", "exact"):
+        raise AssertionError(f"run B resumed as {resume}")
+    n = cfg("A").num_iters
+    for role in ("source", "target"):
+        if not (a_ids[role] == a2_ids[role] and len(a_ids[role]) == n
+                and b1_ids[role][:CKPT_CUT] == a_ids[role][:CKPT_CUT]
+                and b2_ids[role] == a_ids[role][CKPT_CUT - 1:]):
+            raise AssertionError(f"{role} batch ids differ: A {a_ids[role]}, "
+                                 f"B {b1_ids[role]} then {b2_ids[role]}")
+    steps = range(CKPT_CUT, n + 1)
+    model = loop.build_model(cfg("A"))
+    def errs(other, name):
+        return {**record_errs(a, other, steps), **state_errs(
+            torch, model, os.path.join(root, "A"), os.path.join(root, name))}
+
+    noise, resumed = errs(a2, "A2"), errs(b2, "B")
+    saves = [r for r in a if r["kind"] == "checkpoint"]
+    main_dir = os.path.join(root, "A", str(n))
+    state_bytes = os.path.getsize(os.path.join(main_dir, ckpt.STATE_FILE))
+    tensor_bytes = (2 * sum(p.numel() * 4 for p in model.parameters())
+                    + sum(b.numel() * b.element_size() for b in model.buffers()))
+    launches = added(*(l for _, l, _ in runs.values()))
+    emit({"phase": "ckpt_resume", "flags": CKPT_FLAGS, "cut_at": CKPT_CUT,
+          "cudnn_deterministic": True,
+          "uninterrupted_vs_uninterrupted": noise, "resumed_vs_uninterrupted": resumed,
+          "save_ms": [r["seconds"] * 1e3 for r in saves],
+          "save_dirs": [os.path.relpath(r["dir"], root) for r in saves],
+          "restore_ms": resume["restore_s"] * 1e3,
+          "checkpoint_bytes": state_bytes, "tensor_bytes": tensor_bytes,
+          "steps_saved": ckpt.valid_steps(os.path.join(root, "A")),
+          "best_steps": ckpt.valid_steps(os.path.join(root, "A", "best_gr_4")),
+          "batch_ids_equal": True, "launches": launches,
+          "launches_by_run": {k: l for k, (_, l, _) in runs.items()}})
+    check_resume("ResNet50", noise, resumed)
+    if ckpt.valid_steps(os.path.join(root, "A")) != [3, n]:
+        raise AssertionError("run A did not save at its cadence")
+    if not tensor_bytes <= state_bytes <= 1.01 * tensor_bytes:
+        raise AssertionError(f"a checkpoint of {state_bytes} bytes for "
+                             f"{tensor_bytes} bytes of tensors")
+    return launches, os.path.join(root, "A"), n
+
+
+def served_checkpoint(torch, cw, server, spec, ckpt_dir, images, step, reference,
+                      phase):
+    """Serve ``ckpt_dir`` through the CLI flags of ``spec`` (an entry of
+    ``SERVED``) over HTTP, send ``images`` as one ``.npy`` request, and
+    hold the logits to ``reference`` (the trainer's eval forward of the
+    restored model) at ``FORWARD_TOL``; returns the apply launches of the
+    request."""
+    import numpy as np
+
+    args = server.build_parser().parse_args(spec["flags"] + [
+        "--ckpt_dir", ckpt_dir, "--buckets", str(len(images)),
+        "--host", "127.0.0.1", "--port", "0"])
+    t0 = time.perf_counter()
+    engine = server.build_engine(args)
+    torch.cuda.synchronize()
+    restore_warm_s = time.perf_counter() - t0
+    client = server.ServeClient(engine, max_batch_delay_ms=args.max_batch_delay_ms,
+                                max_queue_items=args.max_queue)
+    front = server.HttpFront(client, args.host, args.port)
+    http = server.HttpServeClient(args.host, front.port, timeout=300)
+    try:
+        status, health = http.healthz()
+        cw.apply_launches = 0
+        logits = http.infer(images, binary=True)
+        launches = cw.apply_launches
+        batches = client.batches
+    finally:
+        http.close()
+        front.close()
+    err = norm_err(torch.from_numpy(logits), reference)
+    emit({"phase": phase, "restore_and_warm_s": restore_warm_s,
+          "engine_step": engine.step, "source": engine.source,
+          "healthz": health, "images": len(images), "batches_by_bucket": batches,
+          "apply_launches": launches, "apply_launches_per_forward":
+              launches / max(sum(batches.values()), 1),
+          "served_vs_trainer": err, "tolerance": FORWARD_TOL,
+          "logits_finite": bool(np.isfinite(logits).all())})
+    if status != 200 or health["step"] != step or engine.step != step:
+        raise AssertionError(f"/healthz {status} {health}: not step {step}")
+    if sum(batches.values()) != 1 or launches != spec["sites"]:
+        raise AssertionError(f"{launches} apply launches for {batches}")
+    if logits.shape != (len(images), spec["classes"]) or err > FORWARD_TOL:
+        raise AssertionError(f"served logits {logits.shape} off the trainer's by {err}")
+    return launches
+
+
+def trainer_eval_logits(torch, model, tx, ckpt_dir, images, device):
+    """The trainer's eval forward of ``model`` restored as a resume restores
+    it (``restore_state`` into a ``TrainState`` on the card)."""
+    from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    model.to(device, memory_format=torch.channels_last)
+    state = TrainState(model, *tx(model))
+    restored = ckpt.restore_state(ckpt_dir, state)
+    model.eval()
+    install_whiten_cache(model, make_whiten_cache(model))
+    with torch.inference_mode():
+        out = model(torch.from_numpy(images).to(device)).cpu()
+    install_whiten_cache(model, None)
+    return out, restored.step
+
+
+def ckpt_serve(torch, cw, server, officehome, loop, a_dir, step, device):
+    """Phase ``ckpt_serve``: the server with ``--ckpt_dir`` on run A's
+    directory answers 8 test images as ``.npy``; returns its launches."""
+    from dwt_tpu_torch.train.optim import officehome_tx
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(CKPT_FLAGS))
+    images = loop._synthetic_classification_arrays(
+        cfg.synthetic_size // 2, (cfg.img_crop_size,) * 2 + (3,), cfg.num_classes,
+        cfg.seed + 2, 0.5)[0][:SERVED_IMAGES]
+    reference, restored = trainer_eval_logits(
+        torch, loop.build_model(cfg), lambda m: officehome_tx(m, cfg), a_dir,
+        images, device)
+    if restored != step:
+        raise AssertionError(f"the trainer restored step {restored}, not {step}")
+    return served_checkpoint(torch, cw, server, SERVED["resnet50"], a_dir, images,
+                             step, reference, "ckpt_serve")
+
+
+def digits_ckpt(torch, cw, usps_mnist, loop, loader, server, root, device):
+    """Phase ``digits_ckpt``: the digits path through the CLI entry with
+    ``--ckpt_dir``: runs U and U2 of 2 epochs, run C of 1 epoch resumed to
+    2; checks as ``ckpt_resume``'s, then serves
+    run C with ``--model lenet``.  Returns the train and serve launches."""
+    from dwt_tpu_torch.train.optim import digits_tx
+
+    def cfg(name, extra=()):
+        return usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
+            DIGITS_CKPT_FLAGS + ["--ckpt_dir", os.path.join(root, name), *extra]))
+
+    runs = {}
+    with DeterministicCudnn(torch):
+        for key, name, extra in (("U", "U", ()), ("U2", "U2", ()),
+                                 ("C_epoch1", "C", ("--epochs", "1")),
+                                 ("C_resumed", "C", ())):
+            runs[key] = counted_run(torch, cw, loader, loop.run_digits,
+                                    cfg(name, extra), f"digits_ckpt_{key}",
+                                    digits_want)
+    (u, _, u_ids), (u2, _, u2_ids) = runs["U"], runs["U2"]
+    (c1, _, c1_ids), (c2, _, c2_ids) = runs["C_epoch1"], runs["C_resumed"]
+    per_epoch = DIGITS_STEPS_PER_EPOCH
+    resume = c2[0]
+    if (resume["kind"], resume["step"], resume["data"], resume["cursor"]) != (
+            "resume", per_epoch, "exact", 0):
+        raise AssertionError(f"run C resumed as {resume}")
+    for role in ("source", "target"):
+        if not (u_ids[role] == u2_ids[role] and len(u_ids[role]) == 2 * per_epoch
+                and c1_ids[role] + c2_ids[role] == u_ids[role]):
+            raise AssertionError(f"{role} batch ids differ")
+    steps = range(per_epoch + 1, 2 * per_epoch + 1)
+    model = loop.build_digits_model(cfg("U"))
+    noise = {**record_errs(u, u2, steps),
+             **state_errs(torch, model, os.path.join(root, "U"), os.path.join(root, "U2"))}
+    resumed = {**record_errs(u, c2, steps),
+               **state_errs(torch, model, os.path.join(root, "U"), os.path.join(root, "C"))}
+    train_launches = added(*(l for _, l, _ in runs.values()))
+    emit({"phase": "digits_ckpt", "flags": DIGITS_CKPT_FLAGS,
+          "cudnn_deterministic": True,
+          "uninterrupted_vs_uninterrupted": noise, "resumed_vs_uninterrupted": resumed,
+          "save_ms": [r["seconds"] * 1e3 for r in u if r["kind"] == "checkpoint"],
+          "restore_ms": resume["restore_s"] * 1e3,
+          "checkpoint_bytes": os.path.getsize(os.path.join(
+              root, "U", str(2 * per_epoch), "state.pt")),
+          "batch_ids_equal": True, "launches": train_launches})
+    check_resume("LeNet-DWT", noise, resumed)
+
+    c = cfg("C")
+    images = loop._synthetic_classification_arrays(
+        c.synthetic_size // 2, (28, 28, 1), 10, c.seed + 2, 0.5)[0][:SERVED_IMAGES]
+    reference, restored = trainer_eval_logits(
+        torch, loop.build_digits_model(c), lambda m: digits_tx(m, c, per_epoch),
+        os.path.join(root, "C"), images, device)
+    serve_launches = served_checkpoint(
+        torch, cw, server, SERVED["lenet"], os.path.join(root, "C"), images,
+        2 * per_epoch, reference, "digits_ckpt_serve")
+    return train_launches, {"apply": serve_launches}
+
+
+RESNET50_STAGES = {  # stage -> (planes, num_blocks, in_channels_of_block0)
+    1: (64, 3, 64), 2: (128, 4, 256), 3: (256, 6, 512), 4: (512, 3, 1024)}
+
+
+def reference_state_dict(torch, seed):
+    """Every key of the reference's ``model_best_gr_4.pth.tar`` at its
+    shape (the table of ``tests/test_convert_fullsize.py``, the ImageNet
+    ``fc`` head included), with values from ``seed`` that train: convs
+    at He scale, SPD whitening covariances, positive BN variances."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name] = rng.normal(0, (2.0 / (i * k * k)) ** 0.5, (o, i, k, k))
+
+    def wh_site(prefix, c):
+        a = rng.normal(size=(c // 4, 4, 4))
+        sd[f"{prefix}.wh.running_mean"] = rng.normal(0, 0.1, (1, c, 1, 1))
+        sd[f"{prefix}.wh.running_variance"] = a @ a.transpose(0, 2, 1) / 4 + 0.5 * np.eye(4)
+        sd[f"{prefix}.gamma"] = 1 + rng.normal(0, 0.1, (c, 1, 1))
+        sd[f"{prefix}.beta"] = rng.normal(0, 0.1, (c, 1, 1))
+
+    def bn_site(prefix, c):
+        sd[f"{prefix}.running_mean"] = rng.normal(0, 0.1, c)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c)
+        sd[f"{prefix}.weight"] = 1 + rng.normal(0, 0.1, c)
+        sd[f"{prefix}.bias"] = rng.normal(0, 0.1, c)
+        sd[f"{prefix}.num_batches_tracked"] = np.asarray(1000, np.int64)
+
+    conv("conv1.weight", 64, 3, 7)
+    wh_site("bn1", 64)
+    for stage, (planes, blocks, in0) in RESNET50_STAGES.items():
+        site = wh_site if stage == 1 else bn_site
+        out = planes * 4
+        for b in range(blocks):
+            p = f"layer{stage}.{b}"
+            conv(f"{p}.conv1.weight", planes, in0 if b == 0 else out, 1)
+            conv(f"{p}.conv2.weight", planes, planes, 3)
+            conv(f"{p}.conv3.weight", out, planes, 1)
+            for k, c in ((1, planes), (2, planes), (3, out)):
+                site(f"{p}.bn{k}", c)
+        conv(f"layer{stage}.0.downsample.0.weight", out, in0, 1)
+        site(f"layer{stage}.0.downsample_bn", out)
+    sd["fc.weight"] = rng.normal(0, 0.01, (1000, 2048))
+    sd["fc.bias"] = np.zeros(1000)
+    return {k: torch.from_numpy(np.asarray(v)).to(
+        torch.int64 if k.endswith("num_batches_tracked") else torch.float32)
+        for k, v in sd.items()}
+
+
+def convert_phase(torch, cw, officehome, loop, loader, root):
+    """Phase ``convert``: a reference-scheme ResNet50 archive from a seed,
+    ``python -m dwt_tpu_torch.cli.convert`` on it, then one train step
+    from ``--init_ckpt`` on the card; returns that run's launches."""
+    import math
+
+    sd = reference_state_dict(torch, 1)
+    archive = os.path.join(root, "model_best_gr_4.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, archive)
+    out = os.path.join(root, "init")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwt_tpu_torch.cli.convert", "--torch_ckpt", archive,
+         "--out_dir", out], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600, check=True)
+    convert_s = time.perf_counter() - t0
+    printed = proc.stdout.strip().splitlines()
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        TRAIN_FLAGS + ["--num_iters", "1", "--check_acc_step", "1000",
+                       "--stat_collection_passes", "0", "--init_ckpt", out]))
+    model = loop.build_model(cfg)
+    loaded = {}
+
+    def run(cfg, logger):
+        def hook(kind, step, **fields):
+            if kind == "init_ckpt":  # the converted weights, before step 1
+                loaded["conv"] = torch.equal(model.layer3_2.conv2.weight.cpu(),
+                                             sd["layer3.2.conv2.weight"])
+                loaded["cov"] = all(torch.equal(
+                    model.layer1_0.dn1.cov[d].cpu(), sd["layer1.0.bn1.wh.running_variance"])
+                    for d in range(3))
+            logger(kind, step, **fields)
+        return loop.run_officehome(cfg, hook, model=model)
+
+    records, launches, _ = counted_run(torch, cw, loader, run, cfg,
+                                       "convert_record", officehome_want)
+    emit({"phase": "convert", "keys": len(sd), "report": printed[0],
+          "cli_output": printed, "convert_s": convert_s,
+          "checkpoint_bytes": os.path.getsize(os.path.join(out, "0", "state.pt")),
+          "weights_loaded": loaded, "records": [r["kind"] for r in records],
+          "launches": launches})
+    if printed != ["loaded=307 unexpected=0 shape_mismatch=2",
+                   f"wrote {os.path.join(out, '0')}"]:
+        raise AssertionError(f"convert printed {printed}")
+    if [(r["kind"], r["step"]) for r in records] != [
+            ("init_ckpt", 0), ("train", 1), ("final_test", 1)]:
+        raise AssertionError(f"records {[(r['kind'], r['step']) for r in records]}")
+    if not all(loaded.values()) or len(loaded) != 2:
+        raise AssertionError(f"init_ckpt did not load the converted weights: {loaded}")
+    bad = [k for k in STEP_METRICS if k in records[1] and not math.isfinite(records[1][k])]
+    if bad:
+        raise AssertionError(f"non-finite {bad} in the step from the converted state")
+    return launches
+
+
 def bound_by(rows):
     return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations")
@@ -1838,7 +2352,15 @@ def kernels_line(torch, r):
                "path": "officehome_folder_train",
                "per": row["per"] + ", the images decoded from JPEG folders"}
               for row in rows if row["path"] == "train"]
-    return rows[:3] + folder + rows[3:]
+    rows = rows[:3] + folder + rows[3:]
+    # The checkpoint phases' launches, on the paths whose shapes they run.
+    for row in rows:
+        part = row["name"].split("_")[1]
+        row["phase_launches"] = {
+            phase: r["ckpt"][phase][part]
+            for phase in CKPT_PHASES.get(row["path"], ())
+            if part in r["ckpt"][phase]}
+    return rows
 
 
 def main() -> int:
@@ -1850,6 +2372,7 @@ def main() -> int:
         return 2
     from dwt_tpu_torch import native
     from dwt_tpu_torch.cli import officehome, usps_mnist
+    from dwt_tpu_torch.data import loader
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
     from dwt_tpu_torch.serve import server
     from dwt_tpu_torch.train import loop
@@ -1920,6 +2443,15 @@ def main() -> int:
     digits_reference(torch, cw, loop, device)
     digits_throughput(torch, loop, device)
     r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
+    with tempfile.TemporaryDirectory(prefix="ckpt-", dir=build) as root:
+        ck = r["ckpt"] = {}
+        ck["ckpt_resume"], a_dir, a_step = ckpt_resume(
+            torch, cw, officehome, loop, loader, root)
+        ck["ckpt_serve"] = {"apply": ckpt_serve(torch, cw, server, officehome, loop,
+                                                a_dir, a_step, device)}
+        ck["digits_ckpt"], ck["digits_ckpt_serve"] = digits_ckpt(
+            torch, cw, usps_mnist, loop, loader, server, root, device)
+        ck["convert"] = convert_phase(torch, cw, officehome, loop, loader, root)
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

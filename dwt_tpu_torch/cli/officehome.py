@@ -4,7 +4,12 @@
     python -m dwt_tpu_torch.cli.officehome --synthetic [flags]
 
 Runs on CUDA; ``--device cpu`` runs on the CPU (without it, a machine
-with no CUDA raises).  Defaults are the JAX package's.
+with no CUDA raises).  Defaults are the JAX package's.  The initial state
+is, first to last: the newest valid checkpoint of ``--ckpt_dir`` (a
+resume), ``--init_ckpt``, the reference checkpoint at ``--resnet_path``
+(not with ``--synthetic``), fresh weights from ``--seed``.
+``--async_ckpt`` and ``--ckpt_format`` are not ported (ROADMAP queue 1
+item 3), nor are the guard, preemption and watchdog flags (item 4).
 """
 
 from __future__ import annotations
@@ -58,6 +63,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stat_collection_passes", type=int,
                    default=d.stat_collection_passes)
     p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--resnet_path", type=str, default=d.resnet_path,
+                   help="the reference's PyTorch checkpoint, converted at "
+                        "start (not with --synthetic, --init_ckpt or a "
+                        "resume); a missing file trains from fresh init")
+    p.add_argument("--init_ckpt", type=str, default=None,
+                   help="a port checkpoint directory (python -m "
+                        "dwt_tpu_torch.cli.convert) to start from, at step "
+                        "0; read only, and skipped when --ckpt_dir resumes")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="checkpoint directory: saved into, resumed from")
+    p.add_argument("--ckpt_every_iters", type=int, default=d.ckpt_every_iters)
+    p.add_argument("--keep_ckpts", type=int, default=d.keep_ckpts,
+                   help=">0: prune the main --ckpt_dir to the newest N steps "
+                        "after each save; anchors and best_* are exempt")
+    p.add_argument("--anchor_every", type=int, default=d.anchor_every,
+                   help=">0: every N iters also save an anchor checkpoint "
+                        "under ckpt_dir/anchors, never pruned")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

@@ -5,7 +5,11 @@
 Runs on CUDA; ``--device cpu`` runs on the CPU (without it, a machine
 with no CUDA raises).  Defaults are the JAX package's, the reference's
 ``--group_size 32`` included (it does not divide conv2's 48 channels;
-every published digits result uses 4).
+every published digits result uses 4).  ``--ckpt_dir`` saves every
+``--ckpt_every_epochs`` and at the end, and a rerun with the same
+directory resumes from its newest valid checkpoint.  ``--async_ckpt``
+and ``--ckpt_format`` are not ported (ROADMAP queue 1 item 3), nor are
+the guard, preemption and watchdog flags (item 4).
 """
 
 from __future__ import annotations
@@ -43,6 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="train on generated data instead of the files")
     p.add_argument("--synthetic_size", type=int, default=d.synthetic_size)
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="checkpoint directory: saved into, resumed from")
+    p.add_argument("--ckpt_every_epochs", type=int, default=d.ckpt_every_epochs)
+    p.add_argument("--keep_ckpts", type=int, default=d.keep_ckpts,
+                   help=">0: prune the main --ckpt_dir to the newest N steps "
+                        "after each save; anchors are exempt")
+    p.add_argument("--anchor_every", type=int, default=d.anchor_every,
+                   help=">0: every N epochs also save an anchor checkpoint "
+                        "under ckpt_dir/anchors, never pruned")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

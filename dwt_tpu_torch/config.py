@@ -1,13 +1,15 @@
 """Typed configs of the two trainers — the ported subsets of ``dwt_tpu.config``'s ``DigitsConfig`` and ``OfficeHomeConfig``.
 
 Every default is the JAX package's (which are the reference's); ``device``
-is the port's own.
+is the port's own.  Checkpoints are written synchronously in the port's
+full format: ``async_ckpt`` and ``ckpt_format`` are not ported (ROADMAP
+queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -34,6 +36,14 @@ class DigitsConfig:
     data_root: str = "../data"
     synthetic: bool = False
     synthetic_size: int = 256
+    ckpt_dir: Optional[str] = None
+    ckpt_every_epochs: int = 10
+    # >0: prune the MAIN ckpt_dir to the newest N steps after each save
+    # (anchors are exempt).
+    keep_ckpts: int = 0
+    # >0: every N epochs also save an anchor under ckpt_dir/anchors,
+    # never pruned.
+    anchor_every: int = 0
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -46,6 +56,7 @@ class OfficeHomeConfig:
     num_workers: int = 2  # item-loading worker threads (reference :499)
     s_dset_path: str = "../data/OfficeHomeDataset_10072016/Art"
     t_dset_path: str = "../data/OfficeHomeDataset_10072016/Clipart"
+    resnet_path: str = "../data/models/model_best_gr_4.pth.tar"
     img_resize: int = 256
     img_crop_size: int = 224
     num_iters: int = 10_000
@@ -66,4 +77,9 @@ class OfficeHomeConfig:
     arch: str = "resnet50"
     synthetic: bool = False
     synthetic_size: int = 64
+    init_ckpt: Optional[str] = None  # a port checkpoint dir (cli/convert.py)
+    ckpt_dir: Optional[str] = None
+    ckpt_every_iters: int = 1000
+    keep_ckpts: int = 0  # as DigitsConfig.keep_ckpts
+    anchor_every: int = 0  # as DigitsConfig.anchor_every, in iterations
     device: str = "cuda"  # "cpu" only when asked for

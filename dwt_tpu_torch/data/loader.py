@@ -14,17 +14,22 @@ nearest good one, so an epoch's batch count never changes.
 thread: on CUDA through a small ring of reused pinned host buffers and a
 side stream, on the CPU as ``torch.from_numpy`` tensors.
 
-Not ported yet: the quarantine registry that persists quarantined ids
-under the checkpoint directory (with checkpoints, ROADMAP queue 1 item
-3) and the per-process ``shard=(index, count)`` split (with DDP, item 8).
+A :class:`QuarantineRegistry` persists quarantined ids under the
+checkpoint directory (``quarantine.json``), so a resumed run skips
+known-bad items without reading them.
+
+Not ported yet: the per-process ``shard=(index, count)`` split (with DDP,
+ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Dict, FrozenSet, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +50,89 @@ ITEM_RETRIES = 1
 QUARANTINED = object()
 
 
-def _load_item(dataset, i: int, token, quarantine: bool = True):
+class QuarantineRegistry:
+    """Durable record of quarantined item ids, keyed by stream role.
+
+    A quarantined item (undecodable image, persistently failing read) is
+    skipped for the rest of the epoch, but a resumed run would pay the
+    retries for the same file every epoch.  The registry persists the ids
+    under the run's ``ckpt_dir`` (``quarantine.json``) so a resume skips
+    known-bad items without a single access attempt.
+
+    Keys separate index spaces ("source"/"target"): the same integer id
+    names different files in different datasets.  Writes are atomic (tmp
+    + replace), lock-guarded (quarantine fires from loader worker
+    threads), and merge with the ids already on disk first, so a second
+    writer of the same directory loses nothing it wrote before.
+    """
+
+    FILENAME = "quarantine.json"
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self._known: Dict[str, set] = {}
+        self._merge_from_disk()
+
+    def _merge_from_disk(self) -> None:
+        """Fail-soft merge: a torn or malformed registry file never stops a
+        run — the worst it costs is re-quarantining items as they fail
+        again; every surprise is a warning and whatever parsed cleanly."""
+        try:
+            with open(self.path) as f:
+                raw = json.load(f)
+        except FileNotFoundError:
+            return
+        except (OSError, ValueError) as e:
+            log.warning("quarantine registry %s unreadable (%s); starting "
+                        "from an empty registry", self.path, e)
+            return
+        if not isinstance(raw, dict):
+            log.warning("quarantine registry %s is not a JSON object (got %s); "
+                        "starting from an empty registry",
+                        self.path, type(raw).__name__)
+            return
+        for k, v in raw.items():
+            try:
+                ids = {int(i) for i in v}
+            except (ValueError, TypeError) as e:
+                log.warning("quarantine registry %s: ignoring malformed entry "
+                            "%r (%s)", self.path, k, e)
+                continue
+            self._known.setdefault(str(k), set()).update(ids)
+
+    @classmethod
+    def for_ckpt_dir(cls, ckpt_dir: str) -> "QuarantineRegistry":
+        return cls(os.path.join(
+            os.path.abspath(os.path.expanduser(ckpt_dir)), cls.FILENAME))
+
+    def known(self, key: str) -> FrozenSet[int]:
+        with self._lock:
+            return frozenset(self._known.get(key, ()))
+
+    def add(self, key: str, index: int) -> None:
+        with self._lock:
+            ids = self._known.setdefault(key, set())
+            if int(index) in ids:
+                return
+            ids.add(int(index))
+            self._merge_from_disk()  # keep concurrent writers additive
+            payload = {k: sorted(v) for k, v in self._known.items()}
+            tmp = f"{self.path}.{os.getpid()}.tmp"
+            try:
+                os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+                with open(tmp, "w") as f:
+                    json.dump(payload, f, indent=1)
+                os.replace(tmp, self.path)
+            except OSError as e:
+                # Best-effort: the in-memory record still protects this run.
+                log.warning("could not persist quarantine registry %s: %s",
+                            self.path, e)
+
+
+def _load_item(dataset, i: int, token, quarantine: bool = True,
+               known_bad: FrozenSet[int] = frozenset(),
+               on_quarantine: Optional[Callable[[int], None]] = None):
     """``dataset[i]`` under the item-seed context ``token``, so stochastic
     transforms on ``ThreadLocalRng`` draw from a stream set by ``token``
     alone.
@@ -53,9 +140,14 @@ def _load_item(dataset, i: int, token, quarantine: bool = True):
     A failing load is retried ``ITEM_RETRIES`` times, each attempt in a
     fresh context of the same token (a retry that succeeds is bitwise a
     first-try success).
-    An item that keeps failing is quarantined: logged, and returned as
-    ``QUARANTINED``.  ``quarantine=False`` re-raises the last exception.
+    An item that keeps failing is quarantined: logged, passed to
+    ``on_quarantine`` and returned as ``QUARANTINED``.  ``quarantine=False``
+    re-raises the last exception.  An item of ``known_bad`` (a registry's
+    ids) is ``QUARANTINED`` without an access attempt, unless
+    ``quarantine=False``.
     """
+    if quarantine and int(i) in known_bad:
+        return QUARANTINED
     last: Optional[BaseException] = None
     for attempt in range(ITEM_RETRIES + 1):
         set_item_seed(token)
@@ -76,6 +168,8 @@ def _load_item(dataset, i: int, token, quarantine: bool = True):
         "quarantined item %d after %d attempts (%s: %s)",
         i, ITEM_RETRIES + 1, type(last).__name__, last,
     )
+    if on_quarantine is not None:
+        on_quarantine(int(i))
     return QUARANTINED
 
 
@@ -100,6 +194,8 @@ def batch_iterator(
     substitute: bool = False,
     on_batch_ids: Optional[Callable] = None,
     on_substitute: Optional[Callable[[], None]] = None,
+    quarantine_registry: Optional[QuarantineRegistry] = None,
+    quarantine_key: str = "items",
 ) -> Iterator[Tuple[np.ndarray, ...]]:
     """Yield tuples of stacked numpy batches from an indexable dataset.
 
@@ -124,7 +220,11 @@ def batch_iterator(
       one, by the next), so the epoch's batch count is fixed;
       ``on_substitute`` is called once per substituted sample;
     * ``on_batch_ids``: called with the dataset indices of every yielded
-      batch (after substitution).
+      batch (after substitution);
+    * ``quarantine_registry``/``quarantine_key``: persist quarantined ids
+      under the key (the stream role), and skip the ids already recorded
+      without an access attempt — with the same drop or substitute
+      semantics as a freshly quarantined item.
     """
     n = len(dataset)
     sampler = SeekableSampler(n, seed=seed, epoch=epoch, shuffle=shuffle)
@@ -165,7 +265,13 @@ def batch_iterator(
         if first:
             prior_positions = np.arange(first, dtype=np.int64)[::-1]
     token_of = lambda i: (seed, epoch, int(i))
-    load = lambda i: _load_item(dataset, i, token_of(i), quarantine)
+    known_bad: FrozenSet[int] = frozenset()
+    on_quarantine = None
+    if quarantine_registry is not None:
+        known_bad = quarantine_registry.known(quarantine_key)
+        on_quarantine = lambda i: quarantine_registry.add(quarantine_key, i)
+    load = lambda i: _load_item(dataset, i, token_of(i), quarantine,
+                                known_bad, on_quarantine)
     if num_workers and num_workers > 1:
         items_iter = OrderedWorkerPool(num_workers).imap(load, indices)
     else:

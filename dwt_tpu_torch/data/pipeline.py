@@ -19,9 +19,8 @@
 
 Not ported yet: the pool's gauges and decode-time histogram, its
 ``reassembly`` spans and the ``DWT_DATA_TRAIL`` batch-id trail (they need
-the metrics plane, ROADMAP queue 1 item 9); the persistent quarantine
-registry (with checkpoints, item 3) and the per-process ``shard`` split
-(with DDP, item 8).
+the metrics plane, ROADMAP queue 1 item 9) and the per-process
+``shard`` split (with DDP, item 8).
 """
 
 from __future__ import annotations
@@ -88,10 +87,14 @@ class DataPlane:
     at the plane's current position for their role.
     """
 
-    def __init__(self, *, num_workers: int = 0, seed_bump: int = 0):
+    def __init__(self, *, num_workers: int = 0, seed_bump: int = 0,
+                 quarantine_registry=None):
         self.streams: Dict[str, StreamPos] = {}
         self.num_workers = int(num_workers)
         self.seed_bump = int(seed_bump)
+        # A loader.QuarantineRegistry, keyed by stream role; None keeps
+        # quarantine in memory for the run.
+        self.quarantine_registry = quarantine_registry
 
     # -------------------------------------------------------- registration
 
@@ -218,6 +221,8 @@ class DataPlane:
             seed=pos.seed + self.seed_bump, epoch=epoch,
             num_workers=self.num_workers, start_batch=start,
             substitute=True,
+            quarantine_registry=self.quarantine_registry,
+            quarantine_key=role,
             on_substitute=lambda: self.note_substitution(role),
         )
 

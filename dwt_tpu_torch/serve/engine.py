@@ -17,7 +17,12 @@ domain-specific whitening at test time:
   (the counterpart of the JAX engine's AOT compile), so the first
   request of any size pays no first-call set-up;
 * the forward itself is ``model(x)`` in eval mode under
-  ``torch.inference_mode`` — ``dwt_tpu.train.steps.make_serve_forward``.
+  ``torch.inference_mode`` — ``dwt_tpu.train.steps.make_serve_forward``;
+* **from a checkpoint**: :meth:`ServeEngine.from_checkpoint` restores the
+  parameters and stats of the newest valid step (main directory and
+  anchors) without an optimizer — a checkpoint the port trained, or one
+  the JAX package wrote in its host-shard format — and records its
+  ``step`` and ``source``.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; it
 raises when CUDA is absent rather than choosing the CPU itself.  It
@@ -39,6 +44,7 @@ from torch import nn
 
 from dwt_tpu_torch.serve.batcher import DEFAULT_BUCKETS, bucket_for, pad_to_bucket
 from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
+from dwt_tpu_torch.utils.checkpoint import restore_newest
 
 log = logging.getLogger(__name__)
 
@@ -59,8 +65,10 @@ class ServeEngine:
     """Bucketed eval forwards over a device-resident model.
 
     ``model`` is a port model (fresh-initialized or loaded through
-    :func:`dwt_tpu_torch.convert.load_jax_variables`); ``input_shape`` is
-    the per-sample shape, ``(224, 224, 3)`` for OfficeHome.
+    :func:`dwt_tpu_torch.convert.load_jax_variables`; or use
+    :meth:`from_checkpoint`); ``input_shape`` is the per-sample shape,
+    ``(224, 224, 3)`` for OfficeHome.  ``step`` and ``source`` name the
+    checkpoint the model came from (None for fresh weights).
     """
 
     def __init__(
@@ -70,13 +78,16 @@ class ServeEngine:
         *,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         device: Optional[str] = None,
+        step: Optional[int] = None,
+        source: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.input_shape = tuple(int(d) for d in input_shape)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        self.step: Optional[int] = None  # no checkpoint identity yet
+        self.step = step
+        self.source = source
         self.model = self.build_state(model)
         self.warmup_s: Dict[int, float] = {}
         for b in self.buckets:
@@ -87,6 +98,20 @@ class ServeEngine:
             self.warmup_s[b] = round(time.perf_counter() - t0, 3)
         log.info("serve engine ready on %s: buckets %s warmed in %s s",
                  self.device, self.buckets, self.warmup_s)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, model: nn.Module,
+                        input_shape: Tuple[int, ...], **kwargs) -> "ServeEngine":
+        """Restore the newest valid checkpoint under ``ckpt_dir`` (main
+        directory and anchors; the port's format or the JAX host-shard
+        format) into ``model`` — parameters and stats, no optimizer — and
+        build the engine from it.  A checkpoint of another structure or
+        shape than ``model`` does not restore; with no restorable
+        checkpoint this raises ``FileNotFoundError``, every candidate's
+        reason in its message."""
+        restored = restore_newest(ckpt_dir, model)
+        return cls(model, input_shape, step=restored.step,
+                   source=restored.source, **kwargs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

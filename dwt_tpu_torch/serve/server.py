@@ -17,9 +17,13 @@ takes ``{"inputs": [...]}`` JSON, or a ``.npy`` body with
 ``Content-Type: application/x-npy`` — a 128-image batch at 224² is
 ~77 MB as float32 and several hundred MB as JSON text.
 
-Run: ``python -m dwt_tpu_torch.serve.server --model resnet50
---init_random`` (or ``--model lenet``, the digits model at 28×28×1; on
-CUDA, ``--device cpu`` for the CPU).  SIGTERM or
+Run: ``python -m dwt_tpu_torch.serve.server --model resnet50 --ckpt_dir
+DIR`` to serve the newest valid checkpoint of a training run (the port's,
+or the JAX package's host-shard format), or ``--init_random`` for fresh
+weights from ``--seed`` (``--model lenet`` serves the digits model at
+28×28×1; on CUDA, ``--device cpu`` for the CPU).  ``serve_ready``,
+``/healthz`` and every ``/infer`` reply carry the checkpoint's ``step``.
+SIGTERM or
 SIGINT drains: in-flight requests complete, queued requests dispatch,
 new arrivals get 503 with ``Retry-After``, exit code 0.
 """
@@ -437,10 +441,11 @@ class HttpFront:
 
 def build_model(args):
     """``(model, input_shape)`` for ``--model lenet|resnet50|tiny``; fresh
-    weights from ``--seed`` under ``--init_random``.  LeNet-DWT always has
+    weights from ``--seed`` under ``--init_random`` (and without it,
+    weights a checkpoint replaces).  LeNet-DWT always has
     10 classes and takes 28×28×1 (``--num_classes`` and ``--image_size``
     are the ResNets')."""
-    seed = args.seed if args.init_random else None
+    seed = args.seed if args.init_random and not args.ckpt_dir else None
     if args.model == "lenet":
         return build_lenet(group_size=args.group_size, seed=seed), LENET_INPUT_SHAPE
     model = build_resnet(
@@ -453,17 +458,19 @@ def build_model(args):
 
 
 def build_engine(args) -> ServeEngine:
-    if not args.init_random:
+    """The engine of ``--ckpt_dir`` (which wins) or ``--init_random``."""
+    if not (args.ckpt_dir or args.init_random):
         raise SystemExit(
-            "dwt_tpu_torch serve: pass --init_random (checkpoint restore "
-            "is not ported yet)"
+            "dwt_tpu_torch serve: pass --ckpt_dir (a training checkpoint "
+            "directory) or --init_random for a fresh-init smoke server"
         )
     model, input_shape = build_model(args)
-    return ServeEngine(
-        model, input_shape,
-        buckets=[int(b) for b in args.buckets.split(",")],
-        device=args.device,
-    )
+    kwargs = dict(buckets=[int(b) for b in args.buckets.split(",")],
+                  device=args.device)
+    if args.ckpt_dir:
+        return ServeEngine.from_checkpoint(args.ckpt_dir, model, input_shape,
+                                           **kwargs)
+    return ServeEngine(model, input_shape, **kwargs)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -471,6 +478,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="Micro-batching inference server for the DWT "
         "deployment forward (PyTorch/CUDA port)"
     )
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="serve the newest valid checkpoint of this training "
+                        "checkpoint directory (main or anchors)")
     p.add_argument("--init_random", action="store_true",
                    help="serve a freshly initialized model (weights from "
                         "--seed)")
@@ -512,6 +522,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(json.dumps({
         "kind": "serve_ready", "host": args.host, "port": front.port,
         "buckets": list(engine.buckets), "device": str(engine.device),
+        "step": engine.step, "source": engine.source,
         "warmup_s": engine.warmup_s,
     }), flush=True)
     stop.wait()

@@ -23,15 +23,35 @@ Both loops read their streams through a ``DataPlane`` registered as the
 JAX loops register theirs, so they train on the JAX package's batches,
 item for item, and take them through ``prefetch_to_device``.
 
-Not ported yet, in either loop (ROADMAP): checkpoints and resume, the
-divergence guard, metric harvesting, the watchdog, preemption, scanned
-dispatch, bf16 compute and multi-host runs.
+With ``ckpt_dir``, both loops save and resume as the JAX loops do
+(``dwt_tpu_torch.utils.checkpoint``): a save after each
+``ckpt_every_epochs``-th epoch and the last (digits) or every
+``ckpt_every_iters`` steps (OfficeHome), an anchor every
+``anchor_every`` into ``anchors/``, ``keep_ckpts`` pruning the main
+directory only; OfficeHome also keeps the best-accuracy state in
+``best_gr_{group_size}/`` with ``best.json``, and saves the
+post-collection state last, the run's deployable artifact.  A run whose
+``ckpt_dir`` holds a valid checkpoint (main or anchors) resumes from the
+newest, its data plane at the manifest's ``data_state``, and continues
+with the batches, draws and learning rates of the uninterrupted run.
+Every save logs a ``checkpoint`` record (its seconds and bytes), a
+resume a ``resume`` record.  Quarantined items are recorded in
+``ckpt_dir/quarantine.json`` and skipped on resume.  OfficeHome starts,
+when it does not resume, from ``init_ckpt`` (its step reset to 0), else
+from the reference checkpoint at ``resnet_path`` (not with
+``synthetic``), else from fresh weights.
+
+Not ported yet, in either loop (ROADMAP): the background checkpoint
+writer and the delta format (queue 1 item 3), the divergence guard,
+metric harvesting, the watchdog, preemption (item 4), scanned dispatch,
+bf16 compute and multi-host runs.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -46,7 +66,8 @@ from dwt_tpu_torch.data.datasets import (
     load_mnist,
     load_usps,
 )
-from dwt_tpu_torch.data.loader import prefetch_to_device
+from dwt_tpu_torch.convert import convert_resnet_state_dict, load_pytorch_checkpoint
+from dwt_tpu_torch.data.loader import QuarantineRegistry, prefetch_to_device
 from dwt_tpu_torch.data.pipeline import DataPlane
 from dwt_tpu_torch.data.sampler import epoch_batch_count
 from dwt_tpu_torch.data.transforms import (
@@ -67,6 +88,17 @@ from dwt_tpu_torch.train.evalpipe import EvalPipeline
 from dwt_tpu_torch.train.optim import digits_tx, officehome_tx
 from dwt_tpu_torch.train.state import TrainState
 from dwt_tpu_torch.train.steps import make_digits_train_step, make_officehome_train_step
+from dwt_tpu_torch.utils.checkpoint import (
+    STATE_FILE,
+    Restored,
+    anchor_dir,
+    load_data_state,
+    params_digest,
+    ranked_checkpoints,
+    restore_newest,
+    restore_state,
+    save_state,
+)
 
 log = logging.getLogger(__name__)
 
@@ -76,6 +108,74 @@ Logger = Callable[..., None]
 
 def _log_record(kind: str, step: int, **fields) -> None:
     log.info(json.dumps({"kind": kind, "step": step, **fields}))
+
+
+def _keep_kwargs(cfg) -> dict:
+    """``save_state`` kwargs of main-directory saves: ``keep_ckpts``
+    prunes there only — anchors and best_* never get a ``keep``."""
+    return {"keep": cfg.keep_ckpts} if cfg.keep_ckpts > 0 else {}
+
+
+def _save(logger: Logger, ckpt_dir: str, state: TrainState, **kwargs
+          ) -> Optional[str]:
+    """``save_state`` at ``state.step``, logged as a ``checkpoint`` record
+    (the save's wall seconds, device-to-host copy and fsync included,
+    and the bytes of its state file) when it wrote an artifact."""
+    t0 = time.perf_counter()
+    path = save_state(ckpt_dir, state.step, state, **kwargs)
+    if path is not None:
+        logger("checkpoint", state.step, dir=ckpt_dir,
+               seconds=time.perf_counter() - t0,
+               bytes=os.path.getsize(os.path.join(path, STATE_FILE)))
+    return path
+
+
+def _resume(cfg, state: TrainState, plane: DataPlane, ranked,
+            fallback_epoch) -> Tuple[Restored, str, float]:
+    """Restore the newest valid checkpoint of ``cfg.ckpt_dir`` (main or
+    anchors) into ``state`` and re-open the data plane where the saved
+    run stood: at the manifest's ``data_state`` (``"exact"``), else at the
+    epoch boundary ``fallback_epoch(step)``, logged as a downgrade.
+    Returns the restore, the data mode and the restore's seconds."""
+    t0 = time.perf_counter()
+    restored = restore_newest(cfg.ckpt_dir, state, ranked)
+    seconds = time.perf_counter() - t0
+    if plane.load_snapshot(load_data_state(restored.path)):
+        return restored, "exact", seconds
+    plane.seek_epoch(fallback_epoch(state.step))
+    log.warning(
+        "checkpoint %s has no usable data_state: resuming the data streams "
+        "at the epoch boundary; the position within the epoch is lost",
+        restored.path)
+    return restored, "epoch_boundary", seconds
+
+
+def _quarantine_registry(cfg) -> Optional[QuarantineRegistry]:
+    """The run's quarantine record under ``ckpt_dir``; None keeps it in
+    memory."""
+    return QuarantineRegistry.for_ckpt_dir(cfg.ckpt_dir) if cfg.ckpt_dir else None
+
+
+def _best_record_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "best.json")
+
+
+def _write_best_record(ckpt_dir: str, accuracy: float, step: int) -> None:
+    """Persist the best accuracy, so a resumed run cannot regress the
+    best-accuracy artifact by restarting its comparison from -1."""
+    path = _best_record_path(ckpt_dir)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"accuracy": accuracy, "step": step}, f)
+    os.replace(tmp, path)
+
+
+def _read_best_record(ckpt_dir: str) -> float:
+    try:
+        with open(_best_record_path(ckpt_dir)) as f:
+            return float(json.load(f)["accuracy"])
+    except (OSError, ValueError, TypeError, KeyError):
+        return -1.0
 
 
 def _synthetic_classification_arrays(
@@ -171,12 +271,31 @@ def run_digits(
                          num_workers=cfg.num_workers)
     # Both streams roll over at the zip's length, so a stream's position
     # is a function of the step.
-    plane = DataPlane(num_workers=cfg.num_workers)
+    plane = DataPlane(num_workers=cfg.num_workers,
+                      quarantine_registry=_quarantine_registry(cfg))
     plane.register("source", seed=cfg.seed, epoch_len=steps_per_epoch)
     plane.register("target", seed=cfg.seed + 1, epoch_len=steps_per_epoch)
 
+    start_epoch = 0
+    ranked = ranked_checkpoints(cfg.ckpt_dir) if cfg.ckpt_dir else []
+    if ranked:
+        restored, data_mode, seconds = _resume(
+            cfg, state, plane, ranked, lambda step: step // steps_per_epoch)
+        start_epoch = plane.streams["source"].epoch
+        logger("resume", state.step, epoch=start_epoch, source=restored.source,
+               data=data_mode, cursor=plane.streams["source"].cursor,
+               restore_s=seconds)
+    if start_epoch >= cfg.epochs:
+        # Resumed from a finished run: report the restored model's
+        # accuracy instead of training.
+        result = evalp.evaluate(state, test_ds)
+        logger("test", state.step, epoch=start_epoch, **result)
+        logger("params_digest", state.step,
+               digest=params_digest(model.named_parameters()))
+        return result["accuracy"]
+
     acc = 0.0
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         # Each stream opens at the plane's position and shuffles anew each
         # epoch, from its own seed; the zip ends with the shorter one.
         source = plane.epoch_iterator(source_ds, "source", bs)
@@ -201,6 +320,17 @@ def run_digits(
         result = evalp.evaluate(state, test_ds)
         acc = result["accuracy"]
         logger("test", state.step, epoch=epoch, **result)
+        if cfg.ckpt_dir:
+            data_state = plane.snapshot()
+            if (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch == cfg.epochs - 1:
+                _save(logger, cfg.ckpt_dir, state, data_state=data_state,
+                      **_keep_kwargs(cfg))
+            if cfg.anchor_every and (epoch + 1) % cfg.anchor_every == 0:
+                _save(logger, anchor_dir(cfg.ckpt_dir), state,
+                      data_state=data_state)
+    if cfg.ckpt_dir:
+        logger("params_digest", state.step,
+               digest=params_digest(model.named_parameters()))
     return acc
 
 
@@ -274,13 +404,15 @@ def officehome_batches(plane: DataPlane, source_ds, target_ds, batch_size: int,
 def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
     """The run's data plane: the source at ``seed``, the target at
     ``seed + 1`` and its augmented view as an alias of the target, each
-    rolling over at its own dataset's batch count."""
+    rolling over at its own dataset's batch count; with ``ckpt_dir``,
+    quarantined items are recorded there."""
     bs = cfg.source_batch_size  # the target stream uses the source's too
     source_len = epoch_batch_count(len(source_ds), bs)
     target_len = epoch_batch_count(len(target_ds), bs)
     if min(source_len, target_len) == 0:
         raise ValueError("datasets smaller than one batch")
-    plane = DataPlane(num_workers=cfg.num_workers)
+    plane = DataPlane(num_workers=cfg.num_workers,
+                      quarantine_registry=_quarantine_registry(cfg))
     plane.register("source", seed=cfg.seed, epoch_len=source_len)
     plane.register("target", seed=cfg.seed + 1, epoch_len=target_len)
     plane.register("target_aug", seed=cfg.seed + 1, epoch_len=target_len,
@@ -304,7 +436,8 @@ def run_officehome(
     """Train ResNet-DWT with MEC; returns the final target test accuracy (%).
 
     ``model`` (default :func:`build_model`) is trained in place: it is
-    moved to the device, its convs to channels_last memory format."""
+    moved to the device, its convs to channels_last memory format, and
+    a resume, ``init_ckpt`` or ``resnet_path`` loads into it."""
     logger = logger or _log_record
     device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
@@ -321,13 +454,49 @@ def run_officehome(
     evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=3,
                          num_workers=cfg.num_workers)
 
+    # The initial state: a resume beats init_ckpt, which beats the
+    # reference checkpoint, which beats fresh init.
+    ranked = ranked_checkpoints(cfg.ckpt_dir) if cfg.ckpt_dir else []
+    if cfg.init_ckpt and not ranked:
+        restore_state(cfg.init_ckpt, state)
+        state.step = 0
+        logger("init_ckpt", 0, detail=cfg.init_ckpt)
+    elif cfg.resnet_path and not cfg.synthetic and not ranked:
+        if os.path.exists(cfg.resnet_path):
+            _, report = convert_resnet_state_dict(
+                load_pytorch_checkpoint(cfg.resnet_path), model, num_domains=3)
+            logger("checkpoint_convert", 0, detail=report.summary())
+        else:
+            logger("checkpoint_convert", 0,
+                   detail="resnet_path missing; training from fresh init")
+    start_iter, best_acc = 0, -1.0
+    if ranked:
+        restored, data_mode, seconds = _resume(cfg, state, plane, ranked,
+                                               lambda step: 0)
+        start_iter = state.step
+        # Only a resume inherits the best record: a fresh run in a used
+        # directory would otherwise never beat a dead run's best.
+        best_acc = _read_best_record(cfg.ckpt_dir)
+        logger("resume", start_iter, source=restored.source, data=data_mode,
+               cursor=plane.streams["target"].cursor, restore_s=seconds)
+
+    def save_targets(it):
+        targets = []
+        if cfg.ckpt_dir and (it + 1) % cfg.ckpt_every_iters == 0:
+            targets.append((cfg.ckpt_dir, _keep_kwargs(cfg)))
+        if cfg.ckpt_dir and cfg.anchor_every and (it + 1) % cfg.anchor_every == 0:
+            targets.append((anchor_dir(cfg.ckpt_dir), {}))
+        return targets
+
     acc = 0.0
     produce = officehome_batches(plane, source_ds, target_ds,
-                                 cfg.source_batch_size, cfg.num_iters)
+                                 cfg.source_batch_size, cfg.num_iters - start_iter)
     batches = prefetch_to_device(produce, device=device)
     try:
-        for it, batch in enumerate(batches):
+        for it, batch in enumerate(batches, start=start_iter):
             metrics = train_step(state, batch)
+            # The plane's position is the next batch the loop trains on,
+            # whatever the prefetch thread has built: what a save records.
             plane.advance(1)
             if it % cfg.log_interval == 0:
                 values = torch.stack([metrics[k].double() for k in (
@@ -338,6 +507,20 @@ def run_officehome(
                 result = evalp.evaluate(state, test_ds)
                 acc = result["accuracy"]
                 logger("test", state.step, iter=it, **result)
+                if cfg.ckpt_dir and acc > best_acc:
+                    # The reference's model_best_gr_N: the highest target
+                    # accuracy's state.  best.json names only an artifact
+                    # that was written (a refused, non-finite save is not).
+                    best = _save(logger, os.path.join(
+                        cfg.ckpt_dir, f"best_gr_{cfg.group_size}"), state,
+                        keep=1, data_state=plane.snapshot())
+                    if best is not None:
+                        best_acc = acc
+                        _write_best_record(cfg.ckpt_dir, acc, state.step)
+                        logger("best", state.step, accuracy=acc)
+            for directory, kwargs in save_targets(it):
+                _save(logger, directory, state, data_state=plane.snapshot(),
+                      **kwargs)
     finally:
         batches.close()
         produce.close()
@@ -355,4 +538,10 @@ def run_officehome(
     result = evalp.evaluate(state, test_ds)
     acc = result["accuracy"]
     logger("final_test", state.step, **result)
+    if cfg.ckpt_dir:
+        # The post-collection state is the run's deployable artifact.
+        logger("params_digest", state.step,
+               digest=params_digest(model.named_parameters()))
+        _save(logger, cfg.ckpt_dir, state, data_state=plane.snapshot(),
+              **_keep_kwargs(cfg))
     return acc

@@ -392,7 +392,7 @@ def test_run_officehome_trains_from_image_folders_as_the_jax_loop(tmp_path, monk
                                jax.tree.map(np.asarray, variables["params"]),
                                jax.tree.map(np.asarray, variables["batch_stats"]))
     ours = []
-    loop.run_officehome(OfficeHomeConfig(**flags, device="cpu"),
+    loop.run_officehome(OfficeHomeConfig(**flags, resnet_path="", device="cpu"),
                         lambda kind, step, **f: ours.append((kind, step, f)),
                         model=model)
     assert [k for k, _, _ in ours] == [

@@ -129,8 +129,9 @@ def test_build_engine_from_cli_flags():
     engine = server.build_engine(args)
     assert engine.buckets == (1, 8) and engine.input_shape == SHAPE
     assert engine.infer(_images(1)).shape == (1, 5)
+    # Neither --ckpt_dir nor --init_random: refused, naming both.
     args = server.build_parser().parse_args(["--model", "tiny", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="init_random"):
+    with pytest.raises(SystemExit, match="--ckpt_dir .* or --init_random"):
         server.build_engine(args)
 
 
@@ -173,6 +174,10 @@ from dwt_tpu_torch.data.pipeline import DataPlane, OrderedWorkerPool
 from dwt_tpu_torch.data.loader import batch_iterator, prefetch_to_device
 from dwt_tpu_torch.data.datasets import ImageFolderDataset
 from dwt_tpu_torch.native import normalize_from_u8
+# Checkpoints by name: the store, the converter and its CLI.
+from dwt_tpu_torch.utils.checkpoint import restore_newest, read_host_shard_tree
+from dwt_tpu_torch.convert import convert_resnet_state_dict
+from dwt_tpu_torch.cli.convert import main
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
