@@ -149,18 +149,23 @@ script exits non-zero without the final line:
 17. ``digits_serve`` — phase 12 for ``--model lenet`` (2 apply launches
                   per forward).
 18. ``ckpt_resume`` — phase 7's run with ``--ckpt_dir`` and
-                  ``--ckpt_every_iters 3`` (under ``build/``), three times:
-                  runs A and A2 uninterrupted, run B cut by its logger
-                  after step 4 and rerun, resuming from step 3.  Checks:
-                  each record's launches (none for the checkpoint
+                  ``--ckpt_every_iters 3`` (under ``build/``), saving on
+                  the background writer: runs A and A2 uninterrupted, run
+                  B cut by its logger after step 4 and rerun, resuming
+                  from step 3, and run S with ``--no-async_ckpt``.
+                  Checks: each record's launches (none for the checkpoint
                   records), B's resume at step 3 with the data plane at
                   the manifest's exact position, the batch ids of every
-                  run equal A's, A2's records and final state bitwise
-                  equal to A's and B's from step 4 on too (all three
-                  under cuDNN's deterministic algorithms), saves
-                  at 3 and 6, a checkpoint of the tensors' bytes (≈ 2 ×
-                  the parameters, the momentum, plus the stats).  Prints
-                  each save's and the restore's ms.
+                  run equal A's, A2's, S's and B's (from step 4 on)
+                  records and final states bitwise equal to A's (all
+                  under cuDNN's deterministic algorithms), S's manifests'
+                  parameter digests equal to A's, saves at 3 and 6, a
+                  checkpoint of the tensors' bytes (≈ 2 × the parameters,
+                  the momentum, plus the stats).  Prints each save's loop
+                  stall and writer time (async and sync) and the
+                  restore's ms; then 20 steps with a background save every
+                  10 and no eval, each step's time after the first 2
+                  split by whether a write was in flight (``overlap``).
 19. ``ckpt_serve`` — the server with ``--ckpt_dir`` on run A
                   (``--model resnet50``, bucket 8) answers 8 test images
                   sent as ``.npy``: ``/healthz`` at A's final step, 11
@@ -178,10 +183,38 @@ script exits non-zero without the final line:
                   2 skipped), then one train step from ``--init_ckpt`` on
                   the card: the converted weights at step 0, finite
                   losses, the launches.
-22. ``kernels`` — the contract line: per kernel and path its TPU
+22. ``guard``    — phase 18's run (saves every 3) with ``--guard_policy
+                  rollback --guard_interval 2`` and a NaN injected after
+                  step 4 (``inject.arm``): a ``rollback`` from 4 to the
+                  step-3 checkpoint, the last 3 steps on reseeded batches,
+                  a finite end; with ``--guard_lr_backoff 0.5`` a
+                  ``lr_backoff`` at 4 (an in-memory recovery, the batches
+                  unchanged) and ``lr_scale`` 0.5 saved.  The guard's host
+                  readbacks per step (``aten::_local_scalar_dense`` in a
+                  profiled 6-step run without evals, with and without the
+                  guard: 3 in 6 steps) and the state snapshot's ms and
+                  device bytes (the guard's and the checkpoint writer's).
+23. ``delta``   — phase 18's run with ``--ckpt_format delta``, held
+                  bitwise to run A; each save's bytes as written, the
+                  manifests' modes (``3`` full, ``6`` delta), the restore
+                  through the chain (ms); ``delta_serve``: the delta and
+                  the full checkpoint served at bucket 8, the logits
+                  bitwise equal, 11 apply launches.
+24. ``preempt`` — phase 18's run with a SIGTERM at step 4's boundary
+                  (``inject.arm``): the run returns after a final save at
+                  4; the rerun resumes there (exact) and ends bitwise
+                  equal to A; the time from the SIGTERM to the return.
+25. ``chaos_digits`` — the digits trainer through its CLI flags in four
+                  subprocesses started together, each with one
+                  ``DWT_FAULT_PLAN``: a hang (exit 113, a stack dump under
+                  ``ckpt_dir/watchdog/``), a crash in the step-16 save
+                  (exit 1, step 8 authoritative), 2 failed save writes
+                  (absorbed) and 99 (diagnosed); each child prints its
+                  records with both kernels' launch counts.
+26. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
-                  ``phase_launches`` counts the launches of phases 18–21
+                  ``phase_launches`` counts the launches of phases 18–25
                   on its shapes.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
@@ -315,9 +348,43 @@ DIGITS_CKPT_FLAGS = DIGITS_TRAIN_FLAGS + ["--ckpt_every_epochs", "1"]
 # the resumed run bitwise equal to them.
 RESUME_KEYS = ("train_loss", "eval_loss", "params", "stats")
 SERVED_IMAGES = 8  # test images sent to a server restored from a checkpoint
+# The resilience phases.  The main train path's saves run on the background
+# writer (A, A2, B); run S saves on the loop's thread and is held to A
+# bitwise.  OVERLAP_FLAGS: 20 steps with a save every 10 and no eval, whose
+# steps after the first OVERLAP_WARMUP are timed with and without a write
+# in flight (a write lasts ~4 steps, so each kind has several).
+OVERLAP_FLAGS = TRAIN_FLAGS + ["--num_iters", "20", "--check_acc_step", "100",
+                               "--stat_collection_passes", "0", "--ckpt_every_iters", "10"]
+OVERLAP_WARMUP = 2
+# guard: a NaN injected after step 4, a check every 2 steps, saves every 3:
+# a rollback from 4 to the step-3 checkpoint, then (with --guard_lr_backoff)
+# an in-memory recovery at scale 0.5.
+GUARD_NAN_STEP = 4
+GUARD_FLAGS = CKPT_FLAGS + ["--guard_policy", "rollback", "--guard_interval", "2"]
+# Guard syncs: 6 steps without evals, read back only by the guard.
+SYNC_FLAGS = TRAIN_FLAGS + ["--check_acc_step", "100", "--stat_collection_passes", "0",
+                            "--log_interval", "1000"]
+SNAPSHOT_REPEATS = 10
+SNAPSHOT_SPIN_CYCLES = 200_000_000  # ~0.1 s of the card's clock: more than the enqueue
+DELTA_FLAGS = CKPT_FLAGS + ["--ckpt_format", "delta"]
+PREEMPT_STEP = 4  # a SIGTERM at this step's boundary
+# chaos_digits: the digits CLI in subprocesses, one fault each (8 steps an
+# epoch, a save after each).
+CHAOS_DIGITS = {
+    "hang": ({"hang_at_step": 10}, ["--epochs", "3", "--watchdog_timeout", "20"],
+             {"rc": 113, "steps": [8]}),
+    "crash_in_save": ({"crash_in_save": 16}, ["--epochs", "3"],
+                      {"rc": 1, "steps": [8], "stderr": "injected crash"}),
+    "io_error_transient": ({"io_error_saves": 2}, ["--epochs", "2"],
+                           {"rc": 0, "steps": [8, 16]}),
+    "io_error_persistent": ({"io_error_saves": 99}, ["--epochs", "2"],
+                            {"rc": 1, "steps": [], "stderr": "injected I/O error"}),
+}
 CKPT_PHASES = {  # the kernels line's path → the checkpoint phases on its shapes
-    "train": ("ckpt_resume", "convert"), "serve": ("ckpt_serve",),
-    "digits_train": ("digits_ckpt",), "digits_serve": ("digits_ckpt_serve",)}
+    "train": ("ckpt_resume", "convert", "guard", "delta", "preempt"),
+    "serve": ("ckpt_serve", "delta_serve"),
+    "digits_train": ("digits_ckpt", "chaos_digits"),
+    "digits_serve": ("digits_ckpt_serve",)}
 
 
 def emit(obj) -> None:
@@ -917,7 +984,9 @@ def check_record_launches(records, launches, want):
 
 
 # Records of the loops that launch no kernel: checkpoint bookkeeping.
-QUIET_RECORDS = ("checkpoint", "best", "resume", "init_ckpt", "params_digest")
+QUIET_RECORDS = ("checkpoint", "best", "resume", "init_ckpt", "params_digest",
+                 "divergence", "rollback", "lr_backoff", "lr_recover", "skip_step",
+                 "notice_save", "preempt")
 
 
 def officehome_want(r):
@@ -1850,14 +1919,13 @@ def record_errs(a, b, steps):
 
 
 def state_errs(torch, model, a_dir, b_dir):
-    """The final artifacts of two runs, tensor by tensor: the largest
-    relative error of a parameter and of a running stat, and whether the
-    BN counts and the optimizer's steps agree."""
+    """The final artifacts of two runs (either format), tensor by tensor:
+    the largest relative error of a parameter and of a running stat, and
+    whether the BN counts and the optimizer's steps agree."""
     from dwt_tpu_torch.utils import checkpoint as ckpt
 
     def load(d):
-        return torch.load(os.path.join(d, str(ckpt.latest_step(d)), ckpt.STATE_FILE),
-                          map_location="cpu", weights_only=True)
+        return ckpt.read_payload(os.path.join(d, str(ckpt.latest_step(d))))[0]
 
     a, b = load(a_dir), load(b_dir)
     params = {n for n, _ in model.named_parameters()}
@@ -1899,57 +1967,139 @@ class DeterministicCudnn:
         self.backends.deterministic = self.before
 
 
-def ckpt_resume(torch, cw, officehome, loop, loader, root):
-    """Phase ``ckpt_resume``: the main train path through the CLI entry
-    with ``--ckpt_dir``: run A and A2 uninterrupted, run B cut after step
-    CKPT_CUT and resumed.  Checks each record's launches, the resume
-    (source, exact data position), the batch ids exactly and the records,
-    parameters and stats bitwise (``check_resume``).  Returns the launches
-    of runs A, A2 and B, run A's directory and final step."""
+class WriterSpans:
+    """For the runs inside, the host-clock span of every background write
+    (``AsyncCheckpointer._run``: the snapshot's copy to the host, the
+    digest, the write)."""
+
+    def __enter__(self):
+        from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer
+
+        self.cls, self.inner, self.spans = AsyncCheckpointer, AsyncCheckpointer._run, []
+        inner, spans = self.inner, self.spans
+
+        def run(acp, *args):
+            t0 = time.perf_counter()
+            try:
+                inner(acp, *args)
+            finally:
+                spans.append((t0, time.perf_counter()))
+
+        self.cls._run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run = self.inner
+
+
+def manifest_digests(torch, directory):
+    """``{step: params_digest}`` of a checkpoint directory's valid steps."""
     from dwt_tpu_torch.utils import checkpoint as ckpt
 
-    def cfg(name):
+    out = {}
+    for step in ckpt.valid_steps(directory):
+        with open(os.path.join(directory, str(step), "manifest.json")) as f:
+            out[step] = json.load(f)["params_digest"]
+    return out
+
+
+def save_records(records):
+    """The ``checkpoint`` records' stall, writer time and bytes."""
+    saves = [r for r in records if r["kind"] == "checkpoint"]
+    return {"stall_ms": [r["seconds"] * 1e3 for r in saves],
+            "writer_ms": [r["writer_s"] * 1e3 for r in saves],
+            "bytes": [r["bytes"] for r in saves],
+            "steps": [r["step"] for r in saves], "sync": [r["sync"] for r in saves],
+            "dirs": [os.path.basename(r["dir"]) for r in saves]}
+
+
+def overlap_run(torch, cw, officehome, loop, loader, root):
+    """20 steps with a background save every 10 and no eval: each step's
+    time (batch to batch) after the first OVERLAP_WARMUP, split by whether
+    a write was in flight in it."""
+    import statistics
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        OVERLAP_FLAGS + ["--ckpt_dir", os.path.join(root, "overlap")]))
+    with DeterministicCudnn(torch), TimedBatches(loop) as timed, WriterSpans() as spans:
+        records, launches, _ = counted_run(torch, cw, loader, loop.run_officehome, cfg,
+                                           "ckpt_overlap", officehome_want)
+    got = [g for _, g in timed.stamps]
+    overlapped, free = [], []
+    for a, b in list(zip(got, got[1:]))[OVERLAP_WARMUP:]:
+        hit = any(s < b and e > a for s, e in spans.spans)
+        (overlapped if hit else free).append((b - a) * 1e3)
+    med = lambda v: statistics.median(v) if v else None
+    return {"step_ms_overlapping_write": overlapped, "step_ms_free": free,
+            "median_overlapping_ms": med(overlapped), "median_free_ms": med(free),
+            "write_spans_ms": [(e - s) * 1e3 for s, e in spans.spans],
+            **{f"save_{k}": v for k, v in save_records(records).items()}}, launches
+
+
+def ckpt_resume(torch, cw, officehome, loop, loader, root):
+    """Phase ``ckpt_resume``: the main train path through the CLI entry
+    with ``--ckpt_dir``, saving on the background writer: run A and A2
+    uninterrupted, run B cut after step CKPT_CUT and resumed, and run S
+    with ``--no-async_ckpt``.  Checks each record's launches, the resume
+    (source, exact data position), the batch ids exactly and the records,
+    parameters and stats bitwise (``check_resume``), S bitwise equal to A
+    with the same manifests' parameter digests.  Reports each save's loop
+    stall and writer time, async and sync, and the overlap run's step
+    times.  Returns the launches, run A's records, directory and final
+    step."""
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    def cfg(name, extra=()):
         return officehome.config_from_args(officehome.build_parser().parse_args(
-            CKPT_FLAGS + ["--ckpt_dir", os.path.join(root, name)]))
+            CKPT_FLAGS + ["--ckpt_dir", os.path.join(root, name), *extra]))
 
     runs = {}
     with DeterministicCudnn(torch):
-        for key, name, cut in (("A", "A", None), ("A2", "A2", None),
-                               ("B_cut", "B", CKPT_CUT), ("B_resumed", "B", None)):
+        for key, name, cut, extra in (
+                ("A", "A", None, ()), ("A2", "A2", None, ()),
+                ("B_cut", "B", CKPT_CUT, ()), ("B_resumed", "B", None, ()),
+                ("S", "S", None, ("--no-async_ckpt",))):
             runs[key] = counted_run(torch, cw, loader, loop.run_officehome,
-                                    cfg(name), f"ckpt_resume_{key}",
+                                    cfg(name, extra), f"ckpt_resume_{key}",
                                     officehome_want, cut)
     (a, _, a_ids), (a2, _, a2_ids) = runs["A"], runs["A2"]
     (b1, _, b1_ids), (b2, _, b2_ids) = runs["B_cut"], runs["B_resumed"]
+    sync, _, s_ids = runs["S"]
     resume = b2[0]
     if (resume["kind"], resume["step"], resume["source"], resume["data"]) != (
             "resume", CKPT_CUT - 1, "checkpoint", "exact"):
         raise AssertionError(f"run B resumed as {resume}")
     n = cfg("A").num_iters
     for role in ("source", "target"):
-        if not (a_ids[role] == a2_ids[role] and len(a_ids[role]) == n
+        if not (a_ids[role] == a2_ids[role] == s_ids[role] and len(a_ids[role]) == n
                 and b1_ids[role][:CKPT_CUT] == a_ids[role][:CKPT_CUT]
                 and b2_ids[role] == a_ids[role][CKPT_CUT - 1:]):
             raise AssertionError(f"{role} batch ids differ: A {a_ids[role]}, "
                                  f"B {b1_ids[role]} then {b2_ids[role]}")
     steps = range(CKPT_CUT, n + 1)
     model = loop.build_model(cfg("A"))
-    def errs(other, name):
+    def errs(other, name, steps=steps):
         return {**record_errs(a, other, steps), **state_errs(
             torch, model, os.path.join(root, "A"), os.path.join(root, name))}
 
     noise, resumed = errs(a2, "A2"), errs(b2, "B")
-    saves = [r for r in a if r["kind"] == "checkpoint"]
+    sync_errs = errs(sync, "S", range(1, n + 1))
+    digests = {name: manifest_digests(torch, os.path.join(root, name))
+               for name in ("A", "S")}
     main_dir = os.path.join(root, "A", str(n))
     state_bytes = os.path.getsize(os.path.join(main_dir, ckpt.STATE_FILE))
     tensor_bytes = (2 * sum(p.numel() * 4 for p in model.parameters())
                     + sum(b.numel() * b.element_size() for b in model.buffers()))
-    launches = added(*(l for _, l, _ in runs.values()))
+    overlap, overlap_launches = overlap_run(torch, cw, officehome, loop, loader, root)
+    launches = added(overlap_launches, *(l for _, l, _ in runs.values()))
+    a_saves = save_records(a)
     emit({"phase": "ckpt_resume", "flags": CKPT_FLAGS, "cut_at": CKPT_CUT,
           "cudnn_deterministic": True,
           "uninterrupted_vs_uninterrupted": noise, "resumed_vs_uninterrupted": resumed,
-          "save_ms": [r["seconds"] * 1e3 for r in saves],
-          "save_dirs": [os.path.relpath(r["dir"], root) for r in saves],
+          "sync_vs_async": sync_errs, "manifest_digests": digests,
+          "save_ms": a_saves["stall_ms"], "save_dirs": a_saves["dirs"],
+          "async_saves": a_saves, "sync_saves": save_records(sync),
+          "overlap": overlap,
           "restore_ms": resume["restore_s"] * 1e3,
           "checkpoint_bytes": state_bytes, "tensor_bytes": tensor_bytes,
           "steps_saved": ckpt.valid_steps(os.path.join(root, "A")),
@@ -1957,12 +2107,22 @@ def ckpt_resume(torch, cw, officehome, loop, loader, root):
           "batch_ids_equal": True, "launches": launches,
           "launches_by_run": {k: l for k, (_, l, _) in runs.items()}})
     check_resume("ResNet50", noise, resumed)
+    check_resume("ResNet50 sync saves", sync_errs, sync_errs)
+    if digests["A"] != digests["S"]:
+        raise AssertionError(f"async and sync manifests differ: {digests}")
+    # A's cadence and final saves ran on the writer (its best saves block
+    # by design); every one of S's blocked.
+    if any(sync_ for sync_, d in zip(a_saves["sync"], a_saves["dirs"]) if d == "A") \
+            or not all(save_records(sync)["sync"]):
+        raise AssertionError(f"save modes: A {a_saves}, S {save_records(sync)}")
     if ckpt.valid_steps(os.path.join(root, "A")) != [3, n]:
         raise AssertionError("run A did not save at its cadence")
     if not tensor_bytes <= state_bytes <= 1.01 * tensor_bytes:
         raise AssertionError(f"a checkpoint of {state_bytes} bytes for "
                              f"{tensor_bytes} bytes of tensors")
-    return launches, os.path.join(root, "A"), n
+    if not overlap["step_ms_overlapping_write"] or not overlap["step_ms_free"]:
+        raise AssertionError(f"no step with or without a write in flight: {overlap}")
+    return launches, a, a_ids, os.path.join(root, "A"), n
 
 
 def served_checkpoint(torch, cw, server, spec, ckpt_dir, images, step, reference,
@@ -2104,6 +2264,364 @@ def digits_ckpt(torch, cw, usps_mnist, loop, loader, server, root, device):
         torch, cw, server, SERVED["lenet"], os.path.join(root, "C"), images,
         2 * per_epoch, reference, "digits_ckpt_serve")
     return train_launches, {"apply": serve_launches}
+
+
+def guard_syncs(torch, cw, officehome, loop, extra, phase):
+    """Host readbacks (``aten::_local_scalar_dense``, what ``.item()`` and
+    ``float()`` of a card tensor run) of a 6-step run without evals, in a
+    CPU-side profiler trace; returns ``(count, launches)``."""
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        SYNC_FLAGS + list(extra)))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _, _, launches, _ = run_counted(
+            torch, cw, lambda logger: loop.run_officehome(cfg, logger), phase)
+    count = sum(e.count for e in prof.key_averages()
+                if e.key == "aten::_local_scalar_dense")
+    return count, launches
+
+
+def snapshot_cost(torch, loop, officehome, device):
+    """The device copy of a ResNet50-DWT train state after one step (its
+    momentum exists), as the guard and the checkpoint writer take it: its
+    device time (CUDA events around it, enqueued behind a spin of the card
+    that outlasts the enqueue), the ms between CUDA events around it on an
+    idle card and the host's ms (medians of SNAPSHOT_REPEATS, each into
+    the buffers of the last), its device bytes and tensors."""
+    import statistics
+
+    from dwt_tpu_torch.resilience.async_ckpt import snapshot_state
+    from dwt_tpu_torch.train.optim import officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.train.steps import make_officehome_train_step
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(TRAIN_FLAGS))
+    model = loop.build_model(cfg).to(device, memory_format=torch.channels_last)
+    state = TrainState(model, *officehome_tx(model, cfg))
+    make_officehome_train_step(model)(state, synthetic_batch(
+        torch, loop, cfg.source_batch_size, cfg.img_crop_size, cfg.num_classes, 3,
+        device))
+    snap, times, device = snapshot_state(state), [], []
+    for _ in range(SNAPSHOT_REPEATS):
+        # Behind a spin of the card longer than the host's enqueue, the
+        # events bracket the copies' device time alone.
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SNAPSHOT_SPIN_CYCLES)
+        start.record()
+        snap = snapshot_state(state, snap)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    for _ in range(SNAPSHOT_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        snap = snapshot_state(state, snap)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(end), host_ms))
+    buffers = [b for b in snap.buffers().values() if b.is_cuda]
+    return {"device_ms": statistics.median(device),
+            "event_ms": statistics.median(t for t, _ in times),
+            "host_ms": statistics.median(h for _, h in times),
+            "bytes": sum(b.numel() * b.element_size() for b in buffers),
+            "tensors": len(buffers)}
+
+
+def guard_phase(torch, cw, officehome, loop, loader, inject, root, a_ids):
+    """Phase ``guard``: the main train path with a NaN injected after step
+    GUARD_NAN_STEP (``inject.arm``), a check every 2 steps and saves every
+    3, under cuDNN's deterministic algorithms: under ``rollback`` a
+    rollback from 4 to the step-3 checkpoint, the rest of the run on
+    reseeded batches and a finite end; with ``--guard_lr_backoff 0.5`` an
+    in-memory recovery at scale 0.5 and no rollback.  Also the guard's
+    host readbacks per step (a profiled 6-step run with and without the
+    guard) and the snapshot's cost.  Returns the launches."""
+    import math
+
+    guards = []
+    make_guard = loop._make_guard
+    loop._make_guard = lambda cfg, logger: guards.append(make_guard(cfg, logger)) or guards[-1]
+    runs = {}
+    try:
+        with DeterministicCudnn(torch):
+            for key, extra in (("rollback", []), ("lr_backoff", ["--guard_lr_backoff", "0.5"])):
+                cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+                    GUARD_FLAGS + extra + ["--ckpt_dir", os.path.join(root, f"guard_{key}")]))
+                inject.arm(inject.FaultPlan(nan_at_step=GUARD_NAN_STEP))
+                runs[key] = counted_run(torch, cw, loader, loop.run_officehome, cfg,
+                                        f"guard_{key}", officehome_want)
+                inject.disarm()
+    finally:
+        loop._make_guard = make_guard
+        inject.disarm()
+    (rb, _, rb_ids), (bo, _, bo_ids) = runs["rollback"], runs["lr_backoff"]
+    guard_kinds = ("divergence", "rollback", "lr_backoff", "lr_recover", "skip_step")
+    events = {k: [{"kind": r["kind"], "step": r["step"],
+                   **{f: r[f] for f in ("from_step", "source", "rollbacks", "scale")
+                      if f in r}} for r in recs if r["kind"] in guard_kinds]
+              for k, (recs, _, _) in runs.items()}
+    train_steps = {k: sum(r["kind"] == "train" for r in recs)
+                   for k, (recs, _, _) in runs.items()}
+    with_guard, l1 = guard_syncs(torch, cw, officehome, loop,
+                                 ["--guard_policy", "rollback", "--guard_interval", "2"],
+                                 "guard_syncs_on")
+    without, l2 = guard_syncs(torch, cw, officehome, loop, [], "guard_syncs_off")
+    steps = officehome.build_parser().parse_args(SYNC_FLAGS).num_iters
+    cost = snapshot_cost(torch, loop, officehome, torch.device("cuda", 0))
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    final_scale = torch.load(os.path.join(
+        root, "guard_lr_backoff", str(ckpt.latest_step(os.path.join(root, "guard_lr_backoff"))),
+        ckpt.STATE_FILE), weights_only=True)["lr_scale"]
+    launches = added(l1, l2, *(l for _, l, _ in runs.values()))
+    emit({"phase": "guard", "flags": GUARD_FLAGS, "nan_at_step": GUARD_NAN_STEP,
+          "events": events, "train_records": train_steps,
+          "guard_checks": [g.checks for g in guards],
+          "checks_per_step": [g.checks / train_steps[k] for g, k in zip(guards, runs)],
+          "profiled_readbacks": {"with_guard": with_guard, "without": without,
+                                 "steps": steps,
+                                 "guard_per_step": (with_guard - without) / steps},
+          "snapshot": cost, "final_lr_scale": final_scale,
+          "final_losses": {k: [r["loss"] for r in recs if r["kind"] == "final_test"]
+                           for k, (recs, _, _) in runs.items()},
+          "launches": launches})
+    want_rb = [{"kind": "divergence", "step": GUARD_NAN_STEP, "scale": 1.0},
+               {"kind": "rollback", "step": GUARD_NAN_STEP - 1,
+                "from_step": GUARD_NAN_STEP, "source": "checkpoint", "rollbacks": 1}]
+    want_bo = [{"kind": "divergence", "step": GUARD_NAN_STEP, "scale": 1.0},
+               {"kind": "lr_backoff", "step": GUARD_NAN_STEP, "scale": 0.5}]
+    if events["rollback"] != want_rb or events["lr_backoff"] != want_bo:
+        raise AssertionError(f"guard events {events}")
+    if final_scale != 0.5:
+        raise AssertionError(f"the backed-off run saved lr_scale {final_scale}")
+    for k, (recs, _, _) in runs.items():
+        final = [r for r in recs if r["kind"] == "final_test"]
+        if len(final) != 1 or not math.isfinite(final[0]["loss"]):
+            raise AssertionError(f"{k}: no finite end {final}")
+    n = 6
+    for role in ("source", "target"):
+        # The first attempt's prefetch may have built past step 4; the last
+        # attempt built exactly steps 4..6, on reseeded streams.
+        if rb_ids[role][:GUARD_NAN_STEP] != a_ids[role][:GUARD_NAN_STEP] or \
+                rb_ids[role][-(n - 3):] == a_ids[role][3:]:
+            raise AssertionError(f"{role}: the rollback did not reseed the batches")
+        if bo_ids[role][:n] != a_ids[role][:n]:
+            raise AssertionError(f"{role}: the in-memory recovery changed the batches")
+    if with_guard - without != steps // 2:
+        raise AssertionError(f"the guard read back {with_guard - without} times in "
+                             f"{steps} steps, not {steps // 2}")
+    return launches
+
+
+def delta_phase(torch, cw, officehome, loop, loader, server, root, a_records, a_dir,
+                device):
+    """Phase ``delta``: the main train path with ``--ckpt_format delta``
+    under cuDNN's deterministic algorithms, held bitwise to run A (records
+    and final state); each save's mode and bytes; the restore through the
+    chain; then the delta and the full checkpoint served at bucket 8, the
+    logits bitwise equal (``delta_serve``).  Returns the train and serve
+    launches."""
+    import numpy as np
+
+    from dwt_tpu_torch.ckpt.store import tree_bytes
+    from dwt_tpu_torch.train.optim import officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    d_dir = os.path.join(root, "D")
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        DELTA_FLAGS + ["--ckpt_dir", d_dir]))
+    with DeterministicCudnn(torch):
+        records, launches, _ = counted_run(torch, cw, loader, loop.run_officehome, cfg,
+                                           "delta_record", officehome_want)
+    n = cfg.num_iters
+    model = loop.build_model(cfg)
+    errs = {**record_errs(a_records, records, range(1, n + 1)),
+            **state_errs(torch, model, a_dir, d_dir)}
+    # Each save as its record saw it once written (a later save at the same
+    # step replaces the directory), and the tree's manifests at the end.
+    saves = [{"step": r["step"], "dir": os.path.basename(r["dir"]), "bytes": r["bytes"],
+              "stall_ms": r["seconds"] * 1e3, "writer_ms": r["writer_s"] * 1e3}
+             for r in records if r["kind"] == "checkpoint"]
+    on_disk = {}
+    for directory in (d_dir, os.path.join(d_dir, "best_gr_4")):
+        for step in ckpt.valid_steps(directory):
+            with open(os.path.join(directory, str(step), "manifest.json")) as f:
+                m = json.load(f)
+            on_disk[f"{os.path.relpath(directory, d_dir)}/{step}"] = {
+                "mode": m["mode"], "leaves_written": len(m["leaves"]),
+                "leaf_count": m["leaf_count"], "bytes_written": m["bytes_written"]}
+    net = loop.build_model(cfg).to(device, memory_format=torch.channels_last)
+    state = TrainState(net, *officehome_tx(net, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.restore_state(d_dir, state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(restored.path, "manifest.json")) as f:
+        depth = json.load(f).get("delta_depth")
+    images = loop._synthetic_classification_arrays(
+        cfg.synthetic_size // 2, (cfg.img_crop_size,) * 2 + (3,), cfg.num_classes,
+        cfg.seed + 2, 0.5)[0][:SERVED_IMAGES]
+    logits, serve_launches = {}, 0
+    for name, directory in (("full", a_dir), ("delta", d_dir)):
+        args = server.build_parser().parse_args(SERVED["resnet50"]["flags"] + [
+            "--ckpt_dir", directory, "--buckets", str(len(images))])
+        engine = server.build_engine(args)
+        cw.apply_launches = 0
+        logits[name] = engine.infer(images)
+        if name == "delta":
+            serve_launches = cw.apply_launches
+    emit({"phase": "delta", "flags": DELTA_FLAGS, "delta_vs_full_run": errs,
+          "saves": saves, "manifests": on_disk, "blob_store_bytes": tree_bytes(
+              os.path.join(d_dir, "blobs")), "restore_ms": restore_ms,
+          "restored_step": restored.step,
+          "restored_delta_depth": depth, "launches": launches})
+    emit({"phase": "delta_serve", "images": len(images),
+          "logits_bitwise_equal": bool(np.array_equal(logits["full"], logits["delta"])),
+          "apply_launches": serve_launches})
+    check_resume("ResNet50 delta format", errs, errs)
+    if not np.array_equal(logits["full"], logits["delta"]) or \
+            not np.isfinite(logits["delta"]).all():
+        raise AssertionError("the delta checkpoint serves other logits than the full one")
+    if serve_launches != SERVED["resnet50"]["sites"]:
+        raise AssertionError(f"{serve_launches} apply launches for one forward")
+    if {k: m["mode"] for k, m in on_disk.items() if k.startswith("./")} != {
+            "./3": "full", f"./{n}": "delta"} or restored.step != n:
+        raise AssertionError(f"delta manifests {on_disk}, restored {restored}")
+    return launches, {"apply": serve_launches}
+
+
+def preempt_phase(torch, cw, officehome, loop, loader, inject, root, a_records, a_dir):
+    """Phase ``preempt``: the main train path with a SIGTERM delivered at
+    step PREEMPT_STEP's boundary (``inject.arm``): the run returns normally
+    after its final save there; the rerun resumes from it and ends bitwise
+    equal to run A (cuDNN's deterministic algorithms).  Reports the time
+    from the SIGTERM to the return.  Returns the launches."""
+    p_dir = os.path.join(root, "P")
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        CKPT_FLAGS + ["--ckpt_dir", p_dir]))
+    stamps = {}
+
+    def run(cfg, logger):
+        def stamped(kind, step, **fields):
+            if kind == "train":
+                stamps["last_train"] = time.perf_counter()
+            logger(kind, step, **fields)
+        out = loop.run_officehome(cfg, stamped)
+        stamps["returned"] = time.perf_counter()
+        return out
+
+    with DeterministicCudnn(torch):
+        inject.arm(inject.FaultPlan(sigterm_at_step=PREEMPT_STEP))
+        try:
+            first, l1, _ = counted_run(torch, cw, loader, run, cfg, "preempt_stop",
+                                       officehome_want)
+        finally:
+            inject.disarm()
+        sigterm_s = stamps["returned"] - stamps["last_train"]
+        second, l2, _ = counted_run(torch, cw, loader, loop.run_officehome, cfg,
+                                    "preempt_resumed", officehome_want)
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    n = cfg.num_iters
+    model = loop.build_model(cfg)
+    errs = {**record_errs(a_records, second, range(PREEMPT_STEP + 1, n + 1)),
+            **state_errs(torch, model, a_dir, p_dir)}
+    pre = [r for r in first if r["kind"] == "preempt"]
+    resume = second[0]
+    launches = added(l1, l2)
+    emit({"phase": "preempt", "sigterm_at_step": PREEMPT_STEP,
+          "preempt_records": [{"step": r["step"]} for r in pre],
+          "sigterm_to_return_s": sigterm_s,
+          "final_save": save_records(first), "resume": {
+              k: resume.get(k) for k in ("kind", "step", "source", "data")},
+          "resumed_vs_uninterrupted": errs, "launches": launches})
+    if [r["step"] for r in pre] != [PREEMPT_STEP] or first[-1]["kind"] != "preempt":
+        raise AssertionError(f"no preempt exit at {PREEMPT_STEP}: {[r['kind'] for r in first]}")
+    if PREEMPT_STEP not in ckpt.valid_steps(p_dir):
+        raise AssertionError("no final save at the SIGTERM's step")
+    if (resume["kind"], resume["step"], resume["data"]) != ("resume", PREEMPT_STEP, "exact"):
+        raise AssertionError(f"resumed as {resume}")
+    check_resume("ResNet50 preempted", errs, errs)
+    return launches
+
+
+CHAOS_CHILD = """
+import json, sys
+from dwt_tpu_torch.cli import usps_mnist
+from dwt_tpu_torch.ops import cuda_whitening as cw
+from dwt_tpu_torch.train.loop import run_digits
+
+def logger(kind, step, **fields):
+    print(json.dumps({"kind": kind, "step": step, "moments": cw.moments_launches,
+                      "apply": cw.apply_launches, **fields}), file=sys.stderr, flush=True)
+
+run_digits(usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(sys.argv[1:])),
+           logger)
+"""
+
+
+def chaos_digits(torch, root):
+    """Phase ``chaos_digits``: the digits trainer through its CLI flags in
+    one subprocess per fault (``DWT_FAULT_PLAN``), all started together:
+    a hang (the watchdog's exit 113 and its dump), a crash in a save (the
+    previous step authoritative), 2 failed save writes (absorbed) and 99
+    (diagnosed).  Each child prints its records with both kernels'
+    launch counts; returns the launches summed over the children."""
+    from dwt_tpu_torch.resilience import inject
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (plan, extra, _) in CHAOS_DIGITS.items():
+        env = {**os.environ, inject.ENV_VAR: json.dumps(plan)}
+        ck = os.path.join(root, f"chaos_{name}")
+        procs[name] = (ck, subprocess.Popen(
+            [sys.executable, "-c", CHAOS_CHILD, *DIGITS_CKPT_FLAGS, "--ckpt_dir", ck,
+             *extra], cwd=here, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True))
+    results, launches = {}, {"moments": 0, "apply": 0}
+    try:
+        for name, (ck, proc) in procs.items():
+            _, err = proc.communicate(timeout=300)
+            records = []
+            for line in err.splitlines():
+                if line.startswith("{"):
+                    try:
+                        records.append(json.loads(line))
+                    except ValueError:
+                        pass
+            last = records[-1] if records else {"moments": 0, "apply": 0}
+            for k in launches:
+                launches[k] += last[k]
+            wd = os.path.join(ck, "watchdog")
+            results[name] = {
+                "rc": proc.returncode, "valid_steps": ckpt.valid_steps(ck),
+                "kinds": [r["kind"] for r in records],
+                "dumps": sorted(os.listdir(wd)) if os.path.isdir(wd) else [],
+                "stderr_tail": err[-600:], "launches": {k: last[k] for k in launches}}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    emit({"phase": "chaos_digits", "seconds": time.perf_counter() - t0,
+          "results": results, "launches": launches})
+    for name, (_, _, want) in CHAOS_DIGITS.items():
+        got = results[name]
+        if got["rc"] != want["rc"] or got["valid_steps"] != want["steps"]:
+            raise AssertionError(f"chaos {name}: {got}")
+        if "stderr" in want and want["stderr"] not in got["stderr_tail"]:
+            raise AssertionError(f"chaos {name}: no {want['stderr']!r} in {got}")
+    dump = results["hang"]["dumps"]
+    if not dump or not dump[0].startswith("stacks-"):
+        raise AssertionError(f"the watchdog left no stack dump: {results['hang']}")
+    return launches
 
 
 RESNET50_STAGES = {  # stage -> (planes, num_blocks, in_channels_of_block0)
@@ -2374,6 +2892,7 @@ def main() -> int:
     from dwt_tpu_torch.cli import officehome, usps_mnist
     from dwt_tpu_torch.data import loader
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
+    from dwt_tpu_torch.resilience import inject
     from dwt_tpu_torch.serve import server
     from dwt_tpu_torch.train import loop
 
@@ -2445,13 +2964,19 @@ def main() -> int:
     r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
     with tempfile.TemporaryDirectory(prefix="ckpt-", dir=build) as root:
         ck = r["ckpt"] = {}
-        ck["ckpt_resume"], a_dir, a_step = ckpt_resume(
+        ck["ckpt_resume"], a_records, a_ids, a_dir, a_step = ckpt_resume(
             torch, cw, officehome, loop, loader, root)
         ck["ckpt_serve"] = {"apply": ckpt_serve(torch, cw, server, officehome, loop,
                                                 a_dir, a_step, device)}
+        ck["guard"] = guard_phase(torch, cw, officehome, loop, loader, inject, root, a_ids)
+        ck["delta"], ck["delta_serve"] = delta_phase(
+            torch, cw, officehome, loop, loader, server, root, a_records, a_dir, device)
+        ck["preempt"] = preempt_phase(torch, cw, officehome, loop, loader, inject, root,
+                                      a_records, a_dir)
         ck["digits_ckpt"], ck["digits_ckpt_serve"] = digits_ckpt(
             torch, cw, usps_mnist, loop, loader, server, root, device)
         ck["convert"] = convert_phase(torch, cw, officehome, loop, loader, root)
+        ck["chaos_digits"] = chaos_digits(torch, root)
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

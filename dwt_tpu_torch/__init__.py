@@ -16,6 +16,10 @@ through the hand-written moments kernel
 Slice 4 is the digits experiment: LeNet-DWT trained on USPS→MNIST with
 Adam and the entropy loss (``python -m dwt_tpu_torch.cli.usps_mnist``)
 and served by the same server (``--model lenet``), through both kernels.
+Slices 6–8 add the data plane, checkpoints and exact resume, and the
+resilience plane (``dwt_tpu_torch.resilience``, ``dwt_tpu_torch.ckpt``):
+background and delta checkpoints, the divergence guard, preemption, the
+watchdog and the fault plans.
 """
 
 __version__ = "0.1.0"

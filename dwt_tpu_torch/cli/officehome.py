@@ -7,9 +7,12 @@ Runs on CUDA; ``--device cpu`` runs on the CPU (without it, a machine
 with no CUDA raises).  Defaults are the JAX package's.  The initial state
 is, first to last: the newest valid checkpoint of ``--ckpt_dir`` (a
 resume), ``--init_ckpt``, the reference checkpoint at ``--resnet_path``
-(not with ``--synthetic``), fresh weights from ``--seed``.
-``--async_ckpt`` and ``--ckpt_format`` are not ported (ROADMAP queue 1
-item 3), nor are the guard, preemption and watchdog flags (item 4).
+(not with ``--synthetic``; a JAX package's checkpoint gives its
+parameters and stats), fresh weights from ``--seed``.  Saves run on a
+writer thread (``--no-async_ckpt``: blocking), in the ``full`` or the
+``delta`` format; the guard, watchdog and preemption flags are the JAX
+CLI's (the guard at ``--harvest_depth 0``), and a SIGTERM ends the run
+with a final save and exit 0.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
+from dwt_tpu_torch.cli import add_resilience_args
 from dwt_tpu_torch.config import OfficeHomeConfig
 
 
@@ -80,6 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--anchor_every", type=int, default=d.anchor_every,
                    help=">0: every N iters also save an anchor checkpoint "
                         "under ckpt_dir/anchors, never pruned")
+    add_resilience_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

@@ -7,9 +7,12 @@ with no CUDA raises).  Defaults are the JAX package's, the reference's
 ``--group_size 32`` included (it does not divide conv2's 48 channels;
 every published digits result uses 4).  ``--ckpt_dir`` saves every
 ``--ckpt_every_epochs`` and at the end, and a rerun with the same
-directory resumes from its newest valid checkpoint.  ``--async_ckpt``
-and ``--ckpt_format`` are not ported (ROADMAP queue 1 item 3), nor are
-the guard, preemption and watchdog flags (item 4).
+directory resumes from its newest valid checkpoint.  Saves run on a
+writer thread (``--no-async_ckpt``: blocking), in the ``full`` or the
+``delta`` format; ``--guard_policy``, ``--watchdog_timeout`` and the
+preemption notice flags are the JAX CLI's, and a SIGTERM ends the run
+with a final save and exit 0.  The guard is the JAX package's at
+``--harvest_depth 0``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
+from dwt_tpu_torch.cli import add_resilience_args
 from dwt_tpu_torch.config import DigitsConfig
 
 
@@ -56,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--anchor_every", type=int, default=d.anchor_every,
                    help=">0: every N epochs also save an anchor checkpoint "
                         "under ckpt_dir/anchors, never pruned")
+    add_resilience_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

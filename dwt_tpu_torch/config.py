@@ -1,9 +1,10 @@
 """Typed configs of the two trainers — the ported subsets of ``dwt_tpu.config``'s ``DigitsConfig`` and ``OfficeHomeConfig``.
 
 Every default is the JAX package's (which are the reference's); ``device``
-is the port's own.  Checkpoints are written synchronously in the port's
-full format: ``async_ckpt`` and ``ckpt_format`` are not ported (ROADMAP
-queue 1 item 3).
+is the port's own.  The divergence guard is the JAX package's at
+``harvest_depth = 0`` (a synchronous readback every ``guard_interval``
+steps); the harvested guard waits for ``train/harvest.py`` (ROADMAP
+queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -44,6 +45,25 @@ class DigitsConfig:
     # >0: every N epochs also save an anchor under ckpt_dir/anchors,
     # never pruned.
     anchor_every: int = 0
+    # Background checkpoint writer (resilience/async_ckpt.py); --no-async_ckpt
+    # saves on the loop's thread.
+    async_ckpt: bool = True
+    # "full" (state.pt) or "delta" (the content-addressed store, ckpt/store.py).
+    ckpt_format: str = "full"
+    delta_max_chain: int = 8
+    blob_store: Optional[str] = None  # a blob store shared across runs (no GC)
+    # Divergence guard (resilience/guard.py): none | halt | skip_step | rollback.
+    guard_policy: str = "none"
+    guard_interval: int = 50
+    guard_max_rollbacks: int = 3
+    guard_lr_backoff: float = 0.0  # rung 1's lr factor in (0, 1); 0 = off
+    guard_backoff_recovery: int = 3
+    # >0: hang watchdog — no step-boundary heartbeat for this many seconds
+    # dumps every thread's stack under ckpt_dir/watchdog/ and exits 113.
+    watchdog_timeout: float = 0.0
+    watchdog_keep: int = 5
+    preempt_notice_file: Optional[str] = None  # notice = this file exists
+    preempt_notice_metadata: bool = False  # poll the GCE preempted key
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -82,4 +102,23 @@ class OfficeHomeConfig:
     ckpt_every_iters: int = 1000
     keep_ckpts: int = 0  # as DigitsConfig.keep_ckpts
     anchor_every: int = 0  # as DigitsConfig.anchor_every, in iterations
+    # Background checkpoint writer (resilience/async_ckpt.py); --no-async_ckpt
+    # saves on the loop's thread.
+    async_ckpt: bool = True
+    # "full" (state.pt) or "delta" (the content-addressed store, ckpt/store.py).
+    ckpt_format: str = "full"
+    delta_max_chain: int = 8
+    blob_store: Optional[str] = None  # a blob store shared across runs (no GC)
+    # Divergence guard (resilience/guard.py): none | halt | skip_step | rollback.
+    guard_policy: str = "none"
+    guard_interval: int = 50
+    guard_max_rollbacks: int = 3
+    guard_lr_backoff: float = 0.0  # rung 1's lr factor in (0, 1); 0 = off
+    guard_backoff_recovery: int = 3
+    # >0: hang watchdog — no step-boundary heartbeat for this many seconds
+    # dumps every thread's stack under ckpt_dir/watchdog/ and exits 113.
+    watchdog_timeout: float = 0.0
+    watchdog_keep: int = 5
+    preempt_notice_file: Optional[str] = None  # notice = this file exists
+    preempt_notice_metadata: bool = False  # poll the GCE preempted key
     device: str = "cuda"  # "cpu" only when asked for

@@ -34,26 +34,40 @@ post-collection state last, the run's deployable artifact.  A run whose
 ``ckpt_dir`` holds a valid checkpoint (main or anchors) resumes from the
 newest, its data plane at the manifest's ``data_state``, and continues
 with the batches, draws and learning rates of the uninterrupted run.
-Every save logs a ``checkpoint`` record (its seconds and bytes), a
-resume a ``resume`` record.  Quarantined items are recorded in
-``ckpt_dir/quarantine.json`` and skipped on resume.  OfficeHome starts,
+Saves run on a background writer thread (``--async_ckpt``, the
+default; ``resilience.async_ckpt``) in the ``full`` or the ``delta``
+format (``--ckpt_format``; ``ckpt.store``), and every save logs a
+``checkpoint`` record once it is written (``seconds``: the loop's stall;
+``writer_s``; ``bytes``; ``sync``), a resume a ``resume`` record.
+Quarantined items are recorded in ``ckpt_dir/quarantine.json`` and
+skipped on resume.  OfficeHome starts,
 when it does not resume, from ``init_ckpt`` (its step reset to 0), else
 from the reference checkpoint at ``resnet_path`` (not with
 ``synthetic``), else from fresh weights.
 
-Not ported yet, in either loop (ROADMAP): the background checkpoint
-writer and the delta format (queue 1 item 3), the divergence guard,
-metric harvesting, the watchdog, preemption (item 4), scanned dispatch,
-bf16 compute and multi-host runs.
+Both loops run the JAX loops' resilience plane (``dwt_tpu_torch.
+resilience``): a step boundary after every step (the fault plan's hooks,
+the watchdog's heartbeat, the divergence guard's amortized check, the
+preemption flag and the notice), the guard's ladder (``lr_backoff``,
+``skip_step``, ``rollback`` to the newest valid checkpoint with the data
+streams reseeded, ``halt``), a proactive ``notice_save`` on a preemption
+notice, and on SIGTERM a final save, a ``preempt`` record and a normal
+return (exit 0).  The guard is the JAX package's at ``--harvest_depth
+0``.
+
+Not ported yet, in either loop (ROADMAP): metric harvesting and the
+harvested guard (queue 1 item 4), the metrics counters (item 9),
+scanned dispatch (item 5), bf16 compute and multi-host runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +80,7 @@ from dwt_tpu_torch.data.datasets import (
     load_mnist,
     load_usps,
 )
+from dwt_tpu_torch.ckpt.store import blob_store_root, save_delta
 from dwt_tpu_torch.convert import convert_resnet_state_dict, load_pytorch_checkpoint
 from dwt_tpu_torch.data.loader import QuarantineRegistry, prefetch_to_device
 from dwt_tpu_torch.data.pipeline import DataPlane
@@ -83,15 +98,29 @@ from dwt_tpu_torch.data.transforms import (
 )
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.resnet import build_resnet
+from dwt_tpu_torch.resilience import inject
+from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
+from dwt_tpu_torch.resilience.coord import Coordinator
+from dwt_tpu_torch.resilience.guard import (
+    DivergenceError,
+    DivergenceGuard,
+    RollbackRequest,
+)
+from dwt_tpu_torch.resilience.notice import NoticeWatcher
+from dwt_tpu_torch.resilience.preemption import PreemptionHandler
+from dwt_tpu_torch.resilience.watchdog import HangWatchdog
 from dwt_tpu_torch.serve.engine import resolve_device
 from dwt_tpu_torch.train.evalpipe import EvalPipeline
 from dwt_tpu_torch.train.optim import digits_tx, officehome_tx
 from dwt_tpu_torch.train.state import TrainState
 from dwt_tpu_torch.train.steps import make_digits_train_step, make_officehome_train_step
 from dwt_tpu_torch.utils.checkpoint import (
+    MANIFEST,
     STATE_FILE,
     Restored,
     anchor_dir,
+    host_state,
+    is_valid_checkpoint,
     load_data_state,
     params_digest,
     ranked_checkpoints,
@@ -116,18 +145,271 @@ def _keep_kwargs(cfg) -> dict:
     return {"keep": cfg.keep_ckpts} if cfg.keep_ckpts > 0 else {}
 
 
-def _save(logger: Logger, ckpt_dir: str, state: TrainState, **kwargs
-          ) -> Optional[str]:
-    """``save_state`` at ``state.step``, logged as a ``checkpoint`` record
-    (the save's wall seconds, device-to-host copy and fsync included,
-    and the bytes of its state file) when it wrote an artifact."""
-    t0 = time.perf_counter()
-    path = save_state(ckpt_dir, state.step, state, **kwargs)
-    if path is not None:
-        logger("checkpoint", state.step, dir=ckpt_dir,
-               seconds=time.perf_counter() - t0,
-               bytes=os.path.getsize(os.path.join(path, STATE_FILE)))
-    return path
+def _saved_bytes(path: str) -> int:
+    """The bytes a save wrote: its state file (full format), or its new
+    blobs and its manifest (delta format)."""
+    state_file = os.path.join(path, STATE_FILE)
+    if os.path.exists(state_file):
+        return os.path.getsize(state_file)
+    manifest = os.path.join(path, MANIFEST)
+    with open(manifest) as f:
+        written = int(json.load(f).get("bytes_written", 0))
+    return written + os.path.getsize(manifest)
+
+
+class _CkptPipeline:
+    """One save/flush facade per run, as the JAX loops': the background
+    writer (``AsyncCheckpointer``, or ``DeltaAsyncCheckpointer`` with
+    ``--ckpt_format delta``; one blob store per ``ckpt_dir`` tree, or the
+    shared ``--blob_store`` without GC), or blocking saves on this thread
+    with ``--no-async_ckpt``.  ``flush`` is the rendezvous before the
+    preemption exit, the final save, a rollback and a ``best.json``
+    update (a no-op on the sync path).
+
+    Every save logs one ``checkpoint`` record at its step once it is
+    written — an async save at the next save or flush that joins it:
+    ``dir``, ``seconds`` (the loop's stall: the snapshot and the enqueue,
+    or the whole blocking save), ``writer_s`` (the write's wall seconds),
+    ``bytes`` and ``sync``."""
+
+    def __init__(self, cfg, logger: Logger):
+        self._logger = logger
+        self._fmt = cfg.ckpt_format
+        if self._fmt not in ("full", "delta"):
+            raise ValueError(f"--ckpt_format must be 'full' or 'delta'; got {self._fmt!r}")
+        self._delta_max_chain = int(cfg.delta_max_chain)
+        self._gc = cfg.blob_store is None
+        self._store_root = None
+        if cfg.ckpt_dir and self._fmt == "delta":
+            self._store_root = (os.path.abspath(os.path.expanduser(cfg.blob_store))
+                                if cfg.blob_store else blob_store_root(cfg.ckpt_dir))
+        self._acp = None
+        if cfg.ckpt_dir and cfg.async_ckpt:
+            self._acp = (DeltaAsyncCheckpointer(self._store_root, self._delta_max_chain,
+                                                gc=self._gc)
+                         if self._fmt == "delta" else AsyncCheckpointer())
+        # The in-flight async save: (seq, step, dirs, the loop's stall).
+        self._pending: Optional[Tuple[int, int, List[str], float]] = None
+
+    def _log(self, step: int, directory: str, path: str, seconds: float,
+             writer_s: float, sync: bool) -> None:
+        self._logger("checkpoint", step, dir=directory, seconds=seconds,
+                     writer_s=writer_s, bytes=_saved_bytes(path), sync=sync)
+
+    def _report(self) -> None:
+        """After a join: log the joined async save's records (none when
+        it failed; its error is raised at the join)."""
+        if self._pending is None:
+            return
+        seq, step, dirs, seconds = self._pending
+        self._pending = None
+        for done in [d for d in self._acp.done if d["seq"] == seq]:
+            self._acp.done.remove(done)
+            for directory, path in zip(dirs, done["paths"]):
+                if path is not None:
+                    self._log(step, directory, path, seconds, done["writer_s"], False)
+
+    def _blocking_save_multi(self, targets, step: int, state) -> List[Optional[str]]:
+        """Blocking saves in the run's format: the host copy once for all
+        targets."""
+        host = host_state(state)
+        if self._fmt == "delta":
+            return [save_delta(d, step, host, store_root=self._store_root,
+                               delta_max_chain=self._delta_max_chain, gc=self._gc, **kw)
+                    for d, kw in targets]
+        return [save_state(d, step, host, **kw) for d, kw in targets]
+
+    def save(self, ckpt_dir: str, step: int, state, **kwargs) -> None:
+        self.save_multi([(ckpt_dir, kwargs)], step, state)
+
+    def save_multi(self, targets, step: int, state) -> None:
+        """``targets = [(dir, kwargs), ...]`` from one snapshot in one
+        writer task (async), or written here (sync)."""
+        t0 = time.perf_counter()
+        if self._acp is not None:
+            try:
+                self._acp.save_multi(targets, step, state)
+            finally:
+                self._report()
+            self._pending = (self._acp.seq, int(step), [d for d, _ in targets],
+                             time.perf_counter() - t0)
+            return
+        paths = self._blocking_save_multi(targets, step, state)
+        seconds = time.perf_counter() - t0
+        for (directory, _), path in zip(targets, paths):
+            if path is not None:
+                self._log(step, directory, path, seconds, seconds, True)
+
+    def save_sync(self, ckpt_dir: str, step: int, state, **kwargs) -> Optional[str]:
+        """Join any in-flight save, then save on this thread; returns the
+        path, or None when the save was refused (non-finite parameters) —
+        for a save whose outcome gates what follows (``best.json``)."""
+        self.flush()
+        t0 = time.perf_counter()
+        path = self._blocking_save_multi([(ckpt_dir, kwargs)], step, state)[0]
+        if path is not None:
+            seconds = time.perf_counter() - t0
+            self._log(step, ckpt_dir, path, seconds, seconds, True)
+        return path
+
+    def in_flight_depth(self) -> int:
+        return int(self._acp is not None and self._acp.in_flight is not None)
+
+    def flush(self) -> None:
+        if self._acp is not None:
+            try:
+                self._acp.flush()
+            finally:
+                self._report()
+
+    def close(self, raise_errors: bool = True) -> None:
+        if self._acp is not None:
+            try:
+                self._acp.close(raise_errors=raise_errors)
+            finally:
+                self._report()
+
+
+def _make_guard(cfg, logger: Logger) -> Optional[DivergenceGuard]:
+    if cfg.guard_policy == "none":
+        if cfg.guard_lr_backoff:
+            # A silently ignored rung is worse than an error.
+            raise ValueError(
+                "--guard_lr_backoff needs an active guard (the ladder escalates "
+                "INTO --guard_policy); pass --guard_policy halt|skip_step|rollback")
+        return None
+    return DivergenceGuard(cfg.guard_policy, cfg.guard_interval, logger,
+                           max_rollbacks=cfg.guard_max_rollbacks,
+                           lr_backoff=cfg.guard_lr_backoff,
+                           backoff_recovery=cfg.guard_backoff_recovery)
+
+
+class _StepBoundary:
+    """What the loops do once per step, as the JAX loops' ``_StepBoundary``
+    on one process: the watchdog's heartbeat, the fault plan's step
+    hooks, the guard's check (it may revert ``state`` in place, or raise
+    ``RollbackRequest``/``DivergenceError``), then the stop flag and, on
+    an otherwise clean boundary, the notice's proactive save, once
+    (``on_notice(state)`` returns the saved step, kept as
+    ``notice_step``).  Returns whether the run must stop; ``stop`` stays
+    set."""
+
+    def __init__(self, guard, preempt, watchdog, notice_watcher):
+        self.guard = guard
+        self.preempt = preempt
+        self.watchdog = watchdog
+        self.notice_watcher = notice_watcher
+        self.coord = Coordinator()
+        self.on_notice = None
+        self.notice_step: Optional[int] = None
+        self._notice_handled = False
+        self.stop = False
+
+    def __call__(self, state, metrics, gstep: int) -> bool:
+        self.watchdog.heartbeat()
+        # Between the heartbeat and the guard: a hang is measured from a
+        # fresh beat, a SIGTERM is seen by this boundary's stop flag.
+        inject.at_step(gstep)
+        if self.guard is not None:
+            self.guard.step(state, metrics, 1, gstep)
+        decision = self.coord.decide(stop=self.preempt.should_stop,
+                                     notice=self.notice_watcher.noticed)
+        self.stop = self.stop or decision.stop
+        if decision.notice and not self.stop and not self._notice_handled:
+            self._notice_handled = True
+            if self.on_notice is not None:
+                self.notice_step = self.on_notice(state)
+        return self.stop
+
+
+# Seed stride between rollback attempts (the JAX loops'): the replayed
+# segment draws a new shuffle order from the same position.
+_ROLLBACK_SEED_STRIDE = 7919
+
+
+def _seek_data_plane(plane: DataPlane, ckpt_dir, source: str, step: int,
+                     fallback_epoch: int, arith_ok: bool) -> str:
+    """Re-open the data plane after a rollback's restore; returns the mode:
+    ``exact`` (the restored checkpoint's ``data_state``), ``exact_arith``
+    (an in-memory snapshot of a step-aligned run: positions are functions
+    of the step) or ``epoch_boundary`` (neither: a logged downgrade)."""
+    if source == "memory":
+        if arith_ok:
+            plane.seek_step(step)
+            return "exact_arith"
+    else:
+        directory = ckpt_dir if source == "checkpoint" else anchor_dir(ckpt_dir)
+        if plane.load_snapshot(load_data_state(os.path.join(directory, str(step)))):
+            return "exact"
+    plane.seek_epoch(fallback_epoch)
+    log.warning("rollback to step %d (%s): no exact data position; the streams "
+                "resume at the epoch boundary", step, source)
+    return "epoch_boundary"
+
+
+def _rollback_state(cfg, logger: Logger, guard: DivergenceGuard, state: TrainState,
+                    failed_step: int) -> str:
+    """Restore, in place, the newest valid on-disk checkpoint (anchors
+    included), else the guard's in-memory good state; returns the source
+    (``checkpoint``, ``anchor`` or ``memory``).  The caller has flushed
+    the writer, so the newest save is on disk and nothing races the
+    walk."""
+    source = None
+    if cfg.ckpt_dir:
+        ranked = ranked_checkpoints(cfg.ckpt_dir)
+        if ranked:
+            source = restore_newest(cfg.ckpt_dir, state, ranked).source
+    if source is None:
+        if not guard.has_good_state:
+            raise DivergenceError(
+                f"divergence at step {failed_step} with nothing to roll back to "
+                "(no valid checkpoint, no in-memory snapshot)")
+        guard.restore_good(state)
+        source = "memory"
+    # The saved scale predates the divergence; a backed-off ladder replays
+    # gently.
+    guard.reapply_backoff(state)
+    guard.prime(state)
+    logger("rollback", state.step, from_step=failed_step, source=source,
+           rollbacks=guard.rollbacks)
+    return source
+
+
+@contextlib.contextmanager
+def _resilience(cfg, pipeline: _CkptPipeline):
+    """The run's preemption handler, hang watchdog and notice watcher; on
+    any exit the writer is joined (an abnormal exit's writer error, already
+    logged, does not mask the original exception)."""
+    with PreemptionHandler() as preempt, HangWatchdog(
+            cfg.watchdog_timeout, cfg.ckpt_dir, keep=cfg.watchdog_keep) as wd, \
+            NoticeWatcher(cfg.preempt_notice_file, cfg.preempt_notice_metadata) as nw:
+        try:
+            yield preempt, wd, nw
+        except BaseException:
+            pipeline.close(raise_errors=False)
+            raise
+
+
+def _preempt_exit(cfg, pipeline: _CkptPipeline, wd, boundary: _StepBoundary,
+                  state: TrainState, plane: DataPlane) -> Optional[int]:
+    """The stop path: join the writer (a stale writer error, already logged,
+    must not block the final save), then save at the stop step unless the
+    notice's proactive save is durable, and flush — all with the watchdog
+    masked.  Returns the notice save's step when it stands in for the
+    final save."""
+    if not cfg.ckpt_dir:
+        return None
+    with wd.suspended():
+        pipeline.close(raise_errors=False)
+        resume_step = boundary.notice_step
+        if resume_step is not None and not is_valid_checkpoint(
+                os.path.join(cfg.ckpt_dir, str(resume_step))):
+            resume_step = None
+        if resume_step is None:
+            pipeline.save(cfg.ckpt_dir, state.step, state,
+                          data_state=plane.snapshot(), **_keep_kwargs(cfg))
+        pipeline.flush()
+    return resume_step
 
 
 def _resume(cfg, state: TrainState, plane: DataPlane, ranked,
@@ -235,7 +517,8 @@ def run_digits(
     model: Optional[nn.Module] = None,
 ) -> float:
     """Train LeNet-DWT with the entropy loss; returns the target test
-    accuracy (%) after the last epoch.
+    accuracy (%) after the last epoch (after the last finished epoch when
+    a SIGTERM ends the run early).
 
     ``model`` (default :func:`build_digits_model`) is trained in place: it
     is moved to the device, its convs to channels_last memory format."""
@@ -257,6 +540,8 @@ def run_digits(
     torch.backends.cuda.matmul.allow_tf32 = False
 
     source_ds, target_ds, test_ds = _digits_datasets(cfg)
+    source_ds = inject.wrap_dataset(source_ds, "source")
+    target_ds = inject.wrap_dataset(target_ds, "target")
     bs = cfg.source_batch_size
     steps_per_epoch = min(len(source_ds), len(target_ds)) // bs
     if steps_per_epoch == 0:
@@ -276,58 +561,114 @@ def run_digits(
     plane.register("source", seed=cfg.seed, epoch_len=steps_per_epoch)
     plane.register("target", seed=cfg.seed + 1, epoch_len=steps_per_epoch)
 
-    start_epoch = 0
+    epoch = 0
     ranked = ranked_checkpoints(cfg.ckpt_dir) if cfg.ckpt_dir else []
+    data_mode = None
     if ranked:
         restored, data_mode, seconds = _resume(
             cfg, state, plane, ranked, lambda step: step // steps_per_epoch)
-        start_epoch = plane.streams["source"].epoch
-        logger("resume", state.step, epoch=start_epoch, source=restored.source,
+        epoch = plane.streams["source"].epoch
+        logger("resume", state.step, epoch=epoch, source=restored.source,
                data=data_mode, cursor=plane.streams["source"].cursor,
                restore_s=seconds)
-    if start_epoch >= cfg.epochs:
+    if epoch >= cfg.epochs:
         # Resumed from a finished run: report the restored model's
         # accuracy instead of training.
         result = evalp.evaluate(state, test_ds)
-        logger("test", state.step, epoch=start_epoch, **result)
+        logger("test", state.step, epoch=epoch, **result)
         logger("params_digest", state.step,
                digest=params_digest(model.named_parameters()))
         return result["accuracy"]
 
+    guard = _make_guard(cfg, logger)
+    if guard:
+        guard.prime(state)
+    pipeline = _CkptPipeline(cfg, logger)
+    # A resumed run continues its recorded seed lineage.
+    bump0 = plane.seed_bump
+    # Stream position == divmod(step) unless the resume fell back to an
+    # epoch boundary (or an in-memory recovery rewound the step).
+    step_aligned = data_mode != "epoch_boundary"
+    gstep = state.step  # the host's step count: records and fault hooks
     acc = 0.0
-    for epoch in range(start_epoch, cfg.epochs):
-        # Each stream opens at the plane's position and shuffles anew each
-        # epoch, from its own seed; the zip ends with the shorter one.
-        source = plane.epoch_iterator(source_ds, "source", bs)
-        target = plane.epoch_iterator(target_ds, "target", bs)
-        batches = prefetch_to_device(({
-            "source_x": np.asarray(sx, np.float32),
-            "source_y": np.asarray(sy, np.int64),
-            "target_x": np.asarray(tx_img, np.float32),
-        } for (sx, sy), (tx_img, _) in zip(source, target)), device=device)
-        try:
-            for i, batch in enumerate(batches):
-                metrics = train_step(state, batch)
-                plane.advance(1)
-                if i % cfg.log_interval == 0:
-                    keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
-                    values = torch.stack([metrics[k].double() for k in keys]).tolist()
-                    logger("train", state.step, epoch=epoch, **dict(zip(keys, values)))
-        finally:
-            batches.close()
-            source.close()
-            target.close()
-        result = evalp.evaluate(state, test_ds)
-        acc = result["accuracy"]
-        logger("test", state.step, epoch=epoch, **result)
-        if cfg.ckpt_dir:
-            data_state = plane.snapshot()
-            if (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch == cfg.epochs - 1:
-                _save(logger, cfg.ckpt_dir, state, data_state=data_state,
-                      **_keep_kwargs(cfg))
-            if cfg.anchor_every and (epoch + 1) % cfg.anchor_every == 0:
-                _save(logger, anchor_dir(cfg.ckpt_dir), state,
-                      data_state=data_state)
+    with _resilience(cfg, pipeline) as (preempt, wd, nw):
+        boundary = _StepBoundary(guard, preempt, wd, nw)
+
+        def proactive_save(st):
+            # A preemption notice: save now and keep training; the SIGTERM
+            # that follows exits with this checkpoint already durable.
+            if not cfg.ckpt_dir:
+                return None
+            with wd.suspended():
+                pipeline.save(cfg.ckpt_dir, st.step, st,
+                              data_state=plane.snapshot(), **_keep_kwargs(cfg))
+            logger("notice_save", st.step, epoch=epoch)
+            return st.step
+
+        boundary.on_notice = proactive_save
+        while epoch < cfg.epochs:
+            # Each stream opens at the plane's position and shuffles anew each
+            # epoch, from its own seed; the zip ends with the shorter one.
+            source = plane.epoch_iterator(source_ds, "source", bs)
+            target = plane.epoch_iterator(target_ds, "target", bs)
+            batches = prefetch_to_device(({
+                "source_x": np.asarray(sx, np.float32),
+                "source_y": np.asarray(sy, np.int64),
+                "target_x": np.asarray(tx_img, np.float32),
+            } for (sx, sy), (tx_img, _) in zip(source, target)), device=device)
+            try:
+                for i, batch in enumerate(batches):
+                    metrics = train_step(state, batch)
+                    gstep += 1
+                    plane.advance(1)
+                    state, metrics = inject.maybe_nan(state, metrics, gstep)
+                    if i % cfg.log_interval == 0:
+                        keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
+                        values = torch.stack([metrics[k].double() for k in keys]).tolist()
+                        logger("train", gstep, epoch=epoch, **dict(zip(keys, values)))
+                    if boundary(state, metrics, gstep):
+                        break
+            except RollbackRequest as rb:
+                with wd.suspended():  # the join waits for the in-flight write
+                    pipeline.close(raise_errors=False)
+                source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                wd.heartbeat()
+                gstep = state.step
+                mode = _seek_data_plane(
+                    plane, cfg.ckpt_dir, source_kind, gstep, gstep // steps_per_epoch,
+                    arith_ok=step_aligned and guard.recoveries == 0)
+                step_aligned = step_aligned and mode != "epoch_boundary"
+                plane.seed_bump = bump0 + guard.rollbacks * _ROLLBACK_SEED_STRIDE
+                epoch = plane.streams["source"].epoch
+                continue
+            finally:
+                batches.close()
+                source.close()
+                target.close()
+            if boundary.stop:
+                # Preemption: save and get out, skipping the epoch's eval.
+                resume_step = _preempt_exit(cfg, pipeline, wd, boundary, state, plane)
+                logger("preempt", state.step, epoch=epoch,
+                       **({} if resume_step is None else {"resume_step": resume_step}))
+                return acc
+            result = evalp.evaluate(state, test_ds)
+            wd.heartbeat()  # an eval is progress, not a stall
+            acc = result["accuracy"]
+            logger("test", state.step, epoch=epoch, **result)
+            if cfg.ckpt_dir:
+                data_state = plane.snapshot()
+                targets = []
+                if (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch == cfg.epochs - 1:
+                    targets.append((cfg.ckpt_dir, {**_keep_kwargs(cfg),
+                                                   "data_state": data_state}))
+                if cfg.anchor_every and (epoch + 1) % cfg.anchor_every == 0:
+                    targets.append((anchor_dir(cfg.ckpt_dir), {"data_state": data_state}))
+                if targets:
+                    with wd.suspended():  # a blocking save may outlast the timeout
+                        pipeline.save_multi(targets, state.step, state)
+            epoch += 1
+        with wd.suspended():
+            pipeline.flush()  # a writer failure surfaces while the run can fail
     if cfg.ckpt_dir:
         logger("params_digest", state.step,
                digest=params_digest(model.named_parameters()))
@@ -433,7 +774,8 @@ def run_officehome(
     logger: Optional[Logger] = None,
     model: Optional[nn.Module] = None,
 ) -> float:
-    """Train ResNet-DWT with MEC; returns the final target test accuracy (%).
+    """Train ResNet-DWT with MEC; returns the final target test accuracy (%)
+    (the last eval's when a SIGTERM ends the run early).
 
     ``model`` (default :func:`build_model`) is trained in place: it is
     moved to the device, its convs to channels_last memory format, and
@@ -444,6 +786,8 @@ def run_officehome(
     torch.backends.cuda.matmul.allow_tf32 = False
 
     source_ds, target_ds, test_ds = _officehome_datasets(cfg)
+    source_ds = inject.wrap_dataset(source_ds, "source")
+    target_ds = inject.wrap_dataset(target_ds, "target")
     plane = officehome_plane(cfg, source_ds, target_ds)
     if model is None:
         model = build_model(cfg)
@@ -458,7 +802,8 @@ def run_officehome(
     # reference checkpoint, which beats fresh init.
     ranked = ranked_checkpoints(cfg.ckpt_dir) if cfg.ckpt_dir else []
     if cfg.init_ckpt and not ranked:
-        restore_state(cfg.init_ckpt, state)
+        # A JAX package's checkpoint gives its parameters and stats.
+        restore_state(cfg.init_ckpt, state, jax_params=True)
         state.step = 0
         logger("init_ckpt", 0, detail=cfg.init_ckpt)
     elif cfg.resnet_path and not cfg.synthetic and not ranked:
@@ -469,7 +814,7 @@ def run_officehome(
         else:
             logger("checkpoint_convert", 0,
                    detail="resnet_path missing; training from fresh init")
-    start_iter, best_acc = 0, -1.0
+    start_iter, best_acc, data_mode = 0, -1.0, None
     if ranked:
         restored, data_mode, seconds = _resume(cfg, state, plane, ranked,
                                                lambda step: 0)
@@ -480,7 +825,15 @@ def run_officehome(
         logger("resume", start_iter, source=restored.source, data=data_mode,
                cursor=plane.streams["target"].cursor, restore_s=seconds)
 
-    def save_targets(it):
+    guard = _make_guard(cfg, logger)
+    if guard:
+        guard.prime(state)
+    pipeline = _CkptPipeline(cfg, logger)
+    bump0 = plane.seed_bump
+    step_aligned = data_mode != "epoch_boundary"
+    acc = 0.0
+
+    def ckpt_targets(it):
         targets = []
         if cfg.ckpt_dir and (it + 1) % cfg.ckpt_every_iters == 0:
             targets.append((cfg.ckpt_dir, _keep_kwargs(cfg)))
@@ -488,42 +841,97 @@ def run_officehome(
             targets.append((anchor_dir(cfg.ckpt_dir), {}))
         return targets
 
-    acc = 0.0
-    produce = officehome_batches(plane, source_ds, target_ds,
-                                 cfg.source_batch_size, cfg.num_iters - start_iter)
-    batches = prefetch_to_device(produce, device=device)
-    try:
-        for it, batch in enumerate(batches, start=start_iter):
-            metrics = train_step(state, batch)
-            # The plane's position is the next batch the loop trains on,
-            # whatever the prefetch thread has built: what a save records.
-            plane.advance(1)
-            if it % cfg.log_interval == 0:
-                values = torch.stack([metrics[k].double() for k in (
-                    "loss", "cls_loss", "mec_loss", "grad_norm")]).tolist()
-                logger("train", state.step, iter=it, **dict(zip(
-                    ("loss", "cls_loss", "mec_loss", "grad_norm"), values)))
+    with _resilience(cfg, pipeline) as (preempt, wd, nw):
+        boundary = _StepBoundary(guard, preempt, wd, nw)
+
+        def proactive_save(st):
+            if not cfg.ckpt_dir:
+                return None
+            with wd.suspended():
+                pipeline.save(cfg.ckpt_dir, st.step, st,
+                              data_state=plane.snapshot(), **_keep_kwargs(cfg))
+            logger("notice_save", st.step)
+            return st.step
+
+        def boundary_actions(it):
+            """The eval, the best-accuracy save and the cadence saves after
+            the step at iteration ``it``."""
+            nonlocal acc, best_acc
             if (it + 1) % cfg.check_acc_step == 0:
                 result = evalp.evaluate(state, test_ds)
+                wd.heartbeat()
                 acc = result["accuracy"]
                 logger("test", state.step, iter=it, **result)
                 if cfg.ckpt_dir and acc > best_acc:
                     # The reference's model_best_gr_N: the highest target
-                    # accuracy's state.  best.json names only an artifact
-                    # that was written (a refused, non-finite save is not).
-                    best = _save(logger, os.path.join(
-                        cfg.ckpt_dir, f"best_gr_{cfg.group_size}"), state,
-                        keep=1, data_state=plane.snapshot())
+                    # accuracy's state.  Blocking, so that best.json names
+                    # only an artifact that was written (a refused,
+                    # non-finite save is not).
+                    with wd.suspended():
+                        best = pipeline.save_sync(
+                            os.path.join(cfg.ckpt_dir, f"best_gr_{cfg.group_size}"),
+                            state.step, state, keep=1, data_state=plane.snapshot())
                     if best is not None:
                         best_acc = acc
                         _write_best_record(cfg.ckpt_dir, acc, state.step)
                         logger("best", state.step, accuracy=acc)
-            for directory, kwargs in save_targets(it):
-                _save(logger, directory, state, data_state=plane.snapshot(),
-                      **kwargs)
-    finally:
-        batches.close()
-        produce.close()
+            targets = ckpt_targets(it)
+            if targets:
+                data_state = plane.snapshot()
+                with wd.suspended():
+                    pipeline.save_multi([(d, {**kw, "data_state": data_state})
+                                         for d, kw in targets], state.step, state)
+
+        boundary.on_notice = proactive_save
+        # Each attempt opens fresh streams at the plane's (re-sought,
+        # reseeded) position; a RollbackRequest restores and retries.
+        while True:
+            # The host's step numbering: step0 + it + 1 (an in-memory
+            # recovery rewinds state.step, not the iteration).
+            step0 = state.step - start_iter
+            produce = officehome_batches(plane, source_ds, target_ds,
+                                         cfg.source_batch_size, cfg.num_iters - start_iter)
+            batches = prefetch_to_device(produce, device=device)
+            try:
+                for it, batch in enumerate(batches, start=start_iter):
+                    metrics = train_step(state, batch)
+                    # The plane's position is the next batch the loop trains
+                    # on, whatever the prefetch thread has built: what a save
+                    # records.
+                    plane.advance(1)
+                    gstep = step0 + it + 1
+                    state, metrics = inject.maybe_nan(state, metrics, gstep)
+                    if it % cfg.log_interval == 0:
+                        keys = ("loss", "cls_loss", "mec_loss", "grad_norm")
+                        values = torch.stack([metrics[k].double() for k in keys]).tolist()
+                        logger("train", gstep, iter=it, **dict(zip(keys, values)))
+                    stop = boundary(state, metrics, gstep)
+                    boundary_actions(it)
+                    if stop:
+                        break
+            except RollbackRequest as rb:
+                with wd.suspended():
+                    pipeline.close(raise_errors=False)
+                source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                wd.heartbeat()
+                start_iter = state.step
+                mode = _seek_data_plane(plane, cfg.ckpt_dir, source_kind, start_iter, 0,
+                                        arith_ok=step_aligned and guard.recoveries == 0)
+                step_aligned = step_aligned and mode != "epoch_boundary"
+                plane.seed_bump = bump0 + guard.rollbacks * _ROLLBACK_SEED_STRIDE
+                continue
+            finally:
+                batches.close()
+                produce.close()
+            break
+        if boundary.stop:
+            # Save and get out; the stat collection is a resumed run's.
+            resume_step = _preempt_exit(cfg, pipeline, wd, boundary, state, plane)
+            logger("preempt", state.step,
+                   **({} if resume_step is None else {"resume_step": resume_step}))
+            return acc
+        with wd.suspended():
+            pipeline.flush()
 
     # Post-training protocol: passes over the target TEST set with the
     # batch tiled into every domain slot re-estimate the target stats
@@ -542,6 +950,7 @@ def run_officehome(
         # The post-collection state is the run's deployable artifact.
         logger("params_digest", state.step,
                digest=params_digest(model.named_parameters()))
-        _save(logger, cfg.ckpt_dir, state, data_state=plane.snapshot(),
-              **_keep_kwargs(cfg))
+        pipeline.save(cfg.ckpt_dir, state.step, state,
+                      data_state=plane.snapshot(), **_keep_kwargs(cfg))
+        pipeline.flush()
     return acc

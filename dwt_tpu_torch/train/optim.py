@@ -11,9 +11,16 @@ by themselves:
 * Digits: Adam (β = 0.9, 0.999, ε = 1e-8, bias-corrected) is the chain
   ``add_decayed_weights → scale_by_adam → scale_by_learning_rate``.
 
-The JAX package wraps the chain in ``with_lr_backoff``, a global update
-scale that only the divergence guard moves off 1.0; at 1.0 it is inert,
-and the guard is not ported, so neither is the wrapper.
+The JAX package wraps the chain in ``with_lr_backoff``: a global scale
+on the final update, which only the divergence guard's ``lr_backoff`` rung
+moves off 1.0.  Here the scale is ``TrainState.lr_scale``, and
+:func:`set_learning_rates` multiplies every group's scheduled lr by it.
+For these two optimizers that is the same thing: SGD's momentum buffer
+and Adam's moments are computed from the (L2-decayed) gradient alone and
+the lr only multiplies the final update, so ``lr · s`` moves every
+parameter by ``s`` times the update at ``lr``, as optax's
+``scale_by_backoff`` does.  At ``s = 1.0`` the lr is the schedule's,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -101,8 +108,10 @@ def digits_tx(model: nn.Module, cfg, steps_per_epoch: int
 
 
 def set_learning_rates(
-    optimizer: torch.optim.Optimizer, schedules: Sequence[Schedule], step: int
+    optimizer: torch.optim.Optimizer, schedules: Sequence[Schedule], step: int,
+    scale: float = 1.0,
 ) -> None:
-    """Set each param group's lr from its schedule at ``step``."""
+    """Set each param group's lr from its schedule at ``step``, times the
+    guard's backoff ``scale`` (1.0: the schedule's lr unchanged)."""
     for group, schedule in zip(optimizer.param_groups, schedules, strict=True):
-        group["lr"] = schedule(step)
+        group["lr"] = schedule(step) * scale

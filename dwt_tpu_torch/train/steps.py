@@ -44,7 +44,8 @@ def _finish_step(state: TrainState, loss: torch.Tensor,
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
     metrics["finite"] = _finite_flag(metrics)
-    set_learning_rates(state.optimizer, state.schedules, state.step)
+    set_learning_rates(state.optimizer, state.schedules, state.step,
+                       state.lr_scale)
     state.optimizer.step()
     state.step += 1
     return metrics

@@ -27,21 +27,31 @@ int}``, every tensor a contiguous CPU copy, read back with
 ``torch.load(weights_only=True)``, so a checkpoint written on the card
 loads on the CPU and the reverse.
 
-The JAX package's **host-shard** directories (``format: host_shards``:
-raw leaf bytes and a JSON manifest per process) are read too, into the
-``params`` and ``batch_stats`` trees that
-:func:`dwt_tpu_torch.convert.load_jax_variables` loads: a model trained
-by the JAX package serves from them (:func:`restore_model`).  They are
-validated by their manifests and file sizes; their digest is the JAX
-package's own (tree key paths), so it is not recomputed here.  Orbax
-directories (a manifest without ``format``, or none) and ``cas_delta``
-directories are recognized and refused with a one-line reason: reading
-them needs Orbax or the JAX package's blob store (ROADMAP queue 1
-item 3).
+The port's delta format (``format: cas_delta``, ``--ckpt_format delta``)
+lives in ``dwt_tpu_torch.ckpt.store``; this module validates, ranks,
+prunes (chain-aware: a kept manifest's ancestors stay) and restores it
+like the full format.
 
-Not ported (ROADMAP queue 1 item 3): the background writer thread
-(``--async_ckpt``), the content-addressed delta format (``--ckpt_format
-delta``), multi-host saves and restore onto a sharding plan.
+The JAX package's **host-shard** directories (``format: host_shards``:
+raw leaf bytes and a JSON manifest per process) and **cas_delta** chains
+are read too, into the ``params`` and ``batch_stats`` trees that
+:func:`dwt_tpu_torch.convert.load_jax_variables` loads: a model trained
+by the JAX package serves from them (:func:`restore_model`) and starts a
+trainer (``--init_ckpt``).  They are validated by their manifests, file
+sizes and blob digests; their parameter digest is the JAX package's own
+(tree key paths), so it is not recomputed here.  Orbax directories (a
+manifest without ``format``, or none) are recognized and refused with a
+one-line reason: reading them needs Orbax (ROADMAP queue 1 item 3).
+
+Saves take a ``TrainState`` or a :class:`HostState` (the host copy of a
+state that the background writer, ``dwt_tpu_torch.resilience.
+async_ckpt``, takes on its own stream): one writer, the same bytes on
+disk either way.  The fault hooks sit where the JAX package has them: an
+injected ``OSError`` at the top of each write attempt, and an injected
+crash between the manifest and the finalize rename.
+
+Not ported (ROADMAP queue 1 item 8): multi-host saves and restore onto a
+sharding plan.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from torch import nn
 
 from dwt_tpu_torch.convert.from_jax import load_jax_variables
 from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
+from dwt_tpu_torch.resilience import inject
 
 log = logging.getLogger(__name__)
 
@@ -127,15 +138,34 @@ def params_digest(named: Iterable[Tuple[str, torch.Tensor]]) -> str:
         h.update(name.encode())
         h.update(str(t.dtype).encode())
         h.update(str(tuple(t.shape)).encode())
-        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        # The array itself, not a bytes copy: hashlib reads the buffer with
+        # the interpreter lock released (the writer thread's digest then
+        # does not hold up the thread that launches the train steps).
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
     return h.hexdigest()
 
 
-def params_finite(model: nn.Module) -> bool:
-    """One device verdict: every floating parameter is finite."""
-    flags = [torch.isfinite(p).all() for p in model.parameters()
-             if p.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
+class HostState(NamedTuple):
+    """A ``TrainState.state_dict()`` payload (CPU tensors) and the names
+    of the model's parameters in order: what a save writes."""
+
+    payload: dict
+    param_names: Tuple[str, ...]
+
+
+def host_state(state) -> HostState:
+    """``state`` (a ``TrainState`` or a ``HostState``) copied to the host."""
+    if isinstance(state, HostState):
+        return state
+    return HostState(state.state_dict(),
+                     tuple(n for n, _ in state.model.named_parameters()))
+
+
+def host_params_finite(host: HostState) -> bool:
+    """Every floating parameter of the host copy is finite."""
+    weights = host.payload["model"]
+    return all(bool(torch.isfinite(weights[n]).all()) for n in host.param_names
+               if weights[n].is_floating_point())
 
 
 def _write_manifest(path: str, step: int, digest: Optional[str],
@@ -164,9 +194,10 @@ def _read_manifest(path: str) -> Optional[dict]:
 
 def checkpoint_invalid_reason(path: str) -> Optional[str]:
     """None when ``path`` is a finalized checkpoint whose manifest checks
-    out, else a one-line reason.  Unfinalized ``.tmp-`` directories are
-    never valid.  A directory without a manifest is a legacy Orbax
-    artifact of the JAX package: valid here, refused by the readers."""
+    out (a cas chain: every link and blob), else a one-line reason.
+    Unfinalized ``.tmp-`` directories are never valid.  A directory
+    without a manifest is a legacy Orbax artifact of the JAX package:
+    valid here, refused by the readers."""
     if not os.path.isdir(path):
         return "not a directory"
     if os.path.basename(path).startswith(_TMP_PREFIX):
@@ -176,6 +207,10 @@ def checkpoint_invalid_reason(path: str) -> Optional[str]:
     manifest = _read_manifest(path)
     if manifest is None:
         return "unreadable manifest"
+    if manifest.get("format") == CAS_FORMAT:
+        from dwt_tpu_torch.ckpt.store import cas_invalid_reason
+
+        return cas_invalid_reason(path, manifest)
     for rel, size in manifest.get("files", {}).items():
         full = os.path.join(path, rel)
         if not os.path.exists(full):
@@ -232,14 +267,39 @@ def _sweep_stale_tmp(root: str) -> None:
 
 
 def prune_checkpoints(root: str, keep: int) -> int:
-    """Prune ``root`` to its newest ``keep`` valid steps; returns the
-    number of step directories removed."""
+    """Prune ``root`` to its newest ``keep`` valid steps — chain-aware: a
+    step that is a chain ancestor of a kept ``cas_delta`` manifest, or of
+    a staged ``.tmp-cas-*`` one, is never deleted.  Returns the number of
+    step directories removed (the delta store collects blobs only when it
+    is nonzero)."""
+    root = _root(root)
     steps = valid_steps(root)
     if keep <= 0 or len(steps) <= keep:
         return 0
+    protect = set(steps[-keep:])
+
+    def _protect_ancestors(manifest):
+        hops = 0
+        while (manifest is not None and manifest.get("format") == CAS_FORMAT
+               and manifest.get("parent_step") is not None and hops < 1024):
+            parent = int(manifest["parent_step"])
+            if parent in protect:
+                break
+            protect.add(parent)
+            manifest = _read_manifest(os.path.join(root, str(parent)))
+            hops += 1
+
+    for s in steps[-keep:]:
+        _protect_ancestors(_read_manifest(os.path.join(root, str(s))))
+    for name in os.listdir(root):
+        if name.startswith(_TMP_PREFIX):
+            _protect_ancestors(_read_manifest(os.path.join(root, name)))
+    removed = 0
     for old in steps[:-keep]:
-        shutil.rmtree(os.path.join(_root(root), str(old)), ignore_errors=True)
-    return len(steps) - keep
+        if old not in protect:
+            shutil.rmtree(os.path.join(root, str(old)), ignore_errors=True)
+            removed += 1
+    return removed
 
 
 def _finalize_rename(root: str, tmp: str, final: str, step: int) -> None:
@@ -271,7 +331,8 @@ def save_state(
     ckpt_dir: str, step: int, state, keep: Optional[int] = None,
     data_state: Optional[dict] = None,
 ) -> Optional[str]:
-    """Atomically write ``state`` (a ``TrainState``) as
+    """Atomically write ``state`` (a ``TrainState``, or the
+    :class:`HostState` the background writer took) as
     ``ckpt_dir/<step>``; returns the path.
 
     A same-step checkpoint is replaced, so re-saves after a resume are
@@ -281,8 +342,8 @@ def save_state(
     digest proves integrity, not health) and become the newest valid step
     a resume restores.  ``data_state`` goes into the manifest.
     """
-    model = state.model
-    if not params_finite(model):
+    host = host_state(state)
+    if not host_params_finite(host):
         log.warning("skipping checkpoint save @%d: non-finite params (a NaN "
                     "checkpoint would poison newest-valid resume)", step)
         return None
@@ -292,14 +353,14 @@ def save_state(
     tmp = os.path.join(root, f"{_TMP_PREFIX}{int(step)}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
-    payload = state.state_dict()
-    weights = payload["model"]
-    digest = params_digest((n, weights[n]) for n, _ in model.named_parameters())
+    weights = host.payload["model"]
+    digest = params_digest((n, weights[n]) for n in host.param_names)
 
     def _write():
+        inject.maybe_io_error(f"save @{step}")
         os.makedirs(tmp, exist_ok=True)
         with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-            torch.save(payload, f)
+            torch.save(host.payload, f)
             f.flush()
             os.fsync(f.fileno())
 
@@ -307,6 +368,8 @@ def save_state(
         _with_retries(_write, f"checkpoint save @{step}")
         _write_manifest(tmp, step, digest,
                         {"format": TORCH_FORMAT, "data_state": data_state})
+        # A kill landing here leaves only the unfinalized tmp directory.
+        inject.maybe_crash_mid_save(step)
         _finalize_rename(root, tmp, final, step)
     except OSError:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -326,25 +389,35 @@ def _refusal(path: str, manifest: Optional[dict]) -> Optional[str]:
     if manifest is None or fmt is None:
         return (f"checkpoint {path} is an Orbax directory of the JAX "
                 f"package, which the port does not read {_UNREAD}")
-    if fmt == CAS_FORMAT:
-        return (f"checkpoint {path} is a JAX cas_delta checkpoint, which "
-                f"the port does not read {_UNREAD}")
-    if fmt not in (TORCH_FORMAT, HOST_SHARD_FORMAT):
+    if fmt not in (TORCH_FORMAT, HOST_SHARD_FORMAT, CAS_FORMAT):
         return f"checkpoint {path} has unknown format {fmt!r}"
     return None
 
 
-def _read_payload(path: str) -> Tuple[dict, Optional[str]]:
-    """The ``state.pt`` of a port checkpoint, on the CPU, and its
-    manifest's parameter digest."""
+def _is_jax_checkpoint(manifest: dict) -> bool:
+    """A host-shard or cas checkpoint the JAX package wrote."""
+    from dwt_tpu_torch.ckpt.store import is_torch_chain
+
+    fmt = manifest.get("format")
+    return fmt == HOST_SHARD_FORMAT or (fmt == CAS_FORMAT and not is_torch_chain(manifest))
+
+
+def read_payload(path: str) -> Tuple[dict, Optional[str]]:
+    """The ``TrainState.state_dict()`` payload of a port checkpoint (full
+    or delta), on the CPU, and its manifest's parameter digest."""
     manifest = _read_manifest(path)
     reason = _refusal(path, manifest)
-    if reason is None and manifest.get("format") != TORCH_FORMAT:
-        reason = (f"checkpoint {path} is a JAX host-shard checkpoint: its "
-                  "optimizer state is optax's, so it serves "
-                  "(ServeEngine.from_checkpoint) but does not resume")
+    if reason is None and _is_jax_checkpoint(manifest):
+        reason = (f"checkpoint {path} is a JAX {manifest['format']} checkpoint: "
+                  "its optimizer state is optax's, so it serves "
+                  "(ServeEngine.from_checkpoint) and starts a trainer "
+                  "(--init_ckpt) but does not resume")
     if reason is not None:
         raise ValueError(reason)
+    if manifest["format"] == CAS_FORMAT:
+        from dwt_tpu_torch.ckpt.store import read_torch_payload
+
+        return read_torch_payload(path), manifest.get("params_digest")
 
     def _read():
         with open(os.path.join(path, STATE_FILE), "rb") as f:
@@ -380,20 +453,32 @@ def _check_weights(path: str, model: nn.Module, weights: dict,
             f"({got[:12]}… != manifest {str(digest)[:12]}…)")
 
 
-def _restore_state_at(path: str, state) -> int:
-    payload, digest = _read_payload(path)
+def _restore_state_at(path: str, state, jax_params: bool = False) -> int:
+    """Restore ``path`` into ``state``; with ``jax_params`` a JAX
+    checkpoint loads its parameters and stats only (the optimizer stays
+    as it is) and sets the step it recorded."""
+    if jax_params:
+        manifest = _read_manifest(path)
+        if manifest is not None and _is_jax_checkpoint(manifest):
+            step = restore_model(path, state.model)
+            state.step = int(step or 0)
+            return state.step
+    payload, digest = read_payload(path)
     _check_weights(path, state.model, payload["model"], digest)
     state.load_state_dict(payload)
     return state.step
 
 
-def restore_state(ckpt_dir: str, state, step: Optional[int] = None) -> Restored:
+def restore_state(ckpt_dir: str, state, step: Optional[int] = None,
+                  jax_params: bool = False) -> Restored:
     """Restore ``state`` (a ``TrainState``, in place) from
     ``ckpt_dir/<step>``.
 
     ``step=None`` restores the newest checkpoint of ``ckpt_dir`` that
     validates and restores, walking older ones on failure; an explicit
-    ``step`` must be valid and restore, or this raises.
+    ``step`` must be valid and restore, or this raises.  ``jax_params``
+    (``--init_ckpt``) also takes a JAX package's checkpoint, its
+    parameters and stats only.
     """
     root = _root(ckpt_dir)
     if step is not None:
@@ -402,12 +487,13 @@ def restore_state(ckpt_dir: str, state, step: Optional[int] = None) -> Restored:
             raise FileNotFoundError(
                 f"checkpoint step {step} under {ckpt_dir} is missing, "
                 "unfinalized, or truncated")
-        return Restored(_restore_state_at(path, state), "checkpoint", path)
+        return Restored(_restore_state_at(path, state, jax_params), "checkpoint", path)
     errors: List[str] = []
     for s in reversed(valid_steps(root)):
         path = os.path.join(root, str(s))
         try:
-            return Restored(_restore_state_at(path, state), "checkpoint", path)
+            return Restored(_restore_state_at(path, state, jax_params),
+                            "checkpoint", path)
         except (OSError, ValueError) as e:
             errors.append(f"step {s}: {e}")
     raise FileNotFoundError(
@@ -417,15 +503,20 @@ def restore_state(ckpt_dir: str, state, step: Optional[int] = None) -> Restored:
 
 def restore_model(path: str, model: nn.Module) -> Optional[int]:
     """Load one finalized checkpoint's parameters and running stats into
-    ``model`` (no optimizer), in the port's format or the JAX package's
-    host-shard format; returns the checkpoint's step.  A structure or
-    shape mismatch with ``model`` raises ``ValueError``."""
+    ``model`` (no optimizer), in the port's formats or the JAX package's
+    host-shard and cas formats; returns the checkpoint's step.  A
+    structure or shape mismatch with ``model`` raises ``ValueError``."""
     manifest = _read_manifest(path)
     reason = _refusal(path, manifest)
     if reason is not None:
         raise ValueError(reason)
-    if manifest.get("format") == HOST_SHARD_FORMAT:
-        tree = read_host_shard_tree(path)
+    if _is_jax_checkpoint(manifest):
+        if manifest["format"] == HOST_SHARD_FORMAT:
+            tree = read_host_shard_tree(path)
+        else:
+            from dwt_tpu_torch.ckpt.store import restore_cas_tree
+
+            tree = restore_cas_tree(path)
         if "params" not in tree or "batch_stats" not in tree:
             raise ValueError(f"checkpoint {path} holds no params/batch_stats")
         try:
@@ -434,7 +525,7 @@ def restore_model(path: str, model: nn.Module) -> Optional[int]:
             raise ValueError(f"checkpoint {path}: {e}") from None
         step = tree.get("step")
     else:
-        payload, digest = _read_payload(path)
+        payload, digest = read_payload(path)
         _check_weights(path, model, payload["model"], digest)
         model.load_state_dict(payload["model"])
         step = payload["step"]

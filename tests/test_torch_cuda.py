@@ -558,3 +558,84 @@ def test_prefetch_stops_cleanly_when_closed_mid_stream(cuda_device):
     _assert_on_card_and_equal(next(it), src[0], cuda_device)
     with pytest.raises(OSError, match="decode failed"):
         next(it)
+
+
+def _cuda_state(device):
+    """A LeNet-DWT on the card, channels_last, with SGD after one step (its
+    momentum buffers exist)."""
+    from dwt_tpu_torch.nn import LeNetDWT
+    from dwt_tpu_torch.train.optim import sgd_two_group, set_learning_rates
+    from dwt_tpu_torch.train.state import TrainState
+
+    torch.manual_seed(0)
+    model = LeNetDWT(group_size=4).to(device, memory_format=torch.channels_last)
+    opt = sgd_two_group(model, head_key="fc4")
+    state = TrainState(model, opt, (lambda s: 1e-2, lambda s: 1e-3))
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    set_learning_rates(opt, state.schedules, 0)
+    opt.step()
+    state.step = 1
+    return state
+
+
+@pytest.mark.cuda
+def test_async_snapshot_is_ordered_before_the_next_in_place_updates(cuda_device, tmp_path):
+    """The writer copies its snapshot on its own stream after an event
+    recorded behind the snapshot's copies: parameters and momentum
+    overwritten in place right after ``save`` returns (with a long kernel
+    queue in front) do not reach the file, which holds the state of the
+    save's step bitwise."""
+    from dwt_tpu_torch.resilience import AsyncCheckpointer
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    state = _cuda_state(cuda_device)
+    want = state.state_dict()
+    big = torch.randn(4096, 4096, device=cuda_device)
+    acp = AsyncCheckpointer()
+    acp.save(str(tmp_path), 1, state)
+    with torch.no_grad():
+        for _ in range(20):
+            big = big @ big / 64.0  # keep the compute stream busy
+        for p in state.model.parameters():
+            p.add_(1.0)
+            state.optimizer.state[p]["momentum_buffer"].mul_(-1.0)
+    path = acp.flush()
+    got = torch.load(os.path.join(path, ckpt.STATE_FILE), weights_only=True)
+    assert all(torch.equal(want["model"][k], got["model"][k]) for k in want["model"])
+    for i, buffers in want["optimizer"]["state"].items():
+        for name, v in buffers.items():
+            assert torch.equal(v, got["optimizer"]["state"][i][name]), (i, name)
+    # The snapshot's buffers are the checkpointer's, reused by the next save.
+    before = {k: t.data_ptr() for k, t in acp._snapshot.buffers().items()}
+    acp.save(str(tmp_path), 2, state)
+    acp.flush()
+    assert {k: t.data_ptr() for k, t in acp._snapshot.buffers().items()} == before
+
+
+@pytest.mark.cuda
+def test_guard_revert_on_the_card_copies_in_place(cuda_device):
+    """The guard's device snapshot keeps each tensor's strides; a revert
+    copies into the live parameters and momentum (pointers unchanged) and
+    gives back the snapshot's values bitwise."""
+    from dwt_tpu_torch.resilience import DivergenceGuard
+
+    state = _cuda_state(cuda_device)
+    model, opt = state.model, state.optimizer
+    guard = DivergenceGuard("skip_step", 1)
+    guard.prime(state)
+    assert (guard._good.payload["model"]["conv1.weight"].stride()
+            == model.conv1.weight.stride())
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ptrs = [(p.data_ptr(), opt.state[p]["momentum_buffer"].data_ptr())
+            for p in model.parameters()]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(float("nan"))
+    state.step = 2
+    guard.step(state, {"loss": torch.tensor(float("nan"), device=cuda_device),
+                       "grad_norm": torch.tensor(1.0, device=cuda_device)}, 1, 2)
+    assert state.step == 1 and guard.checks == 1
+    assert ptrs == [(p.data_ptr(), opt.state[p]["momentum_buffer"].data_ptr())
+                    for p in model.parameters()]
+    assert all(torch.equal(p.detach(), want[n]) for n, p in model.named_parameters())

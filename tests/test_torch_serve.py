@@ -178,6 +178,16 @@ from dwt_tpu_torch.native import normalize_from_u8
 from dwt_tpu_torch.utils.checkpoint import restore_newest, read_host_shard_tree
 from dwt_tpu_torch.convert import convert_resnet_state_dict
 from dwt_tpu_torch.cli.convert import main
+# The resilience plane by name: the fault plans, the guard, the writer, the
+# delta store, preemption, the notice, the watchdog and the coordinator.
+from dwt_tpu_torch.resilience.inject import FaultPlan, maybe_nan
+from dwt_tpu_torch.resilience.guard import DivergenceGuard
+from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
+from dwt_tpu_torch.ckpt.store import save_delta, restore_cas_tree, gc_blobs
+from dwt_tpu_torch.resilience.preemption import PreemptionHandler
+from dwt_tpu_torch.resilience.notice import NoticeWatcher
+from dwt_tpu_torch.resilience.watchdog import HangWatchdog
+from dwt_tpu_torch.resilience.coord import Coordinator
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
