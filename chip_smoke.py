@@ -211,11 +211,52 @@ script exits non-zero without the final line:
                   (exit 1, step 8 authoritative), 2 failed save writes
                   (absorbed) and 99 (diagnosed); each child prints its
                   records with both kernels' launch counts.
-26. ``kernels`` — the contract line: per kernel and path its TPU
+26. ``dispatch`` — k steps per dispatch, each step a replay of one
+                  captured CUDA graph, records through the harvest ring
+                  (depth 2): ``dispatch_harness`` (after phase 9 and 16)
+                  runs a chunk of ResNet50-DWT (k = 3) and LeNet-DWT (k =
+                  4) steps outside the loop and holds the first whitened
+                  site's kernels, as the last replay left their inputs and
+                  outputs, to their plain versions (tolerances as phases
+                  3 and 5); the graph's and the eager step's ms and device
+                  busy ms and operations per step, the capture's ms and
+                  pool bytes, the kernels' device ms in the replays.
+                  ``dispatch_folder`` (in phase 11's folders): 16 steps at
+                  k = 1 with harvest depth 0, k = 1 at depth 2 and k = 4
+                  at depth 2; step ms over steps 4–12 (CUDA events at
+                  each batch or chunk) and the idle share from a trace of
+                  the run's last 4 steps (the union of the device's busy
+                  intervals).  ``dispatch_digits``: the digits CLI at k =
+                  4, harvest depth 2 and 8 eval batches per dispatch
+                  against every step eager (depth 0, 1 per dispatch) and
+                  every step eager at depth 2, records and batch ids
+                  equal, step ms, the idle share (a traced twin of each
+                  run), host syncs per step; every boundary at k = 4 (delta saves,
+                  background and blocking, the watchdog armed, a SIGTERM
+                  mid-chunk, the resume: train records and final
+                  parameters equal to the uninterrupted run); then the
+                  guard under harvest (a NaN at
+                  step 4, rollback, k = 2), on the card and on the CPU
+                  with both rings held until they overflow (equal guard
+                  events, record steps and batch ids) and on the card as
+                  it runs (the detection lag).  ``dispatch_resnet50``: run
+                  R (phase 18's flags at k = 3) bitwise equal to run A;
+                  step ms at k = 1 (depth 0 and 2) and k = 3 in turns;
+                  the eval pass at 1 and
+                  8 batches per dispatch (equal counters) and the
+                  collection pass.  Phases 7–25 read their records
+                  synchronously (``--harvest_depth 0``) and run their
+                  evals through the graph (8 batches per dispatch).
+27. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
                   ``phase_launches`` counts the launches of phases 18–25
-                  on its shapes.
+                  on its shapes.  Launches are the kernels made: a graph's
+                  capture records its launches and makes none, each
+                  replay makes them (``cuda_whitening.count_replay``); the
+                  graph paths (``*_graph``) are phase 26's runs, their
+                  error and ``ms`` measured inside replays, ``host_us``
+                  null.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -256,12 +297,18 @@ MOMENTS_KERNELS = ("whiten_moments_f32_kernel",)
 COLD_BYTES = 100_000_000
 MEAN_TOL = 1e-6                   # moments: mean rtol = atol
 COV_RTOL, COV_ATOL = 1e-4, 1e-5   # moments: cov
-TRAIN_FLAGS = [
+# The phases before ``dispatch`` read every train record synchronously
+# (``--harvest_depth 0``): their step times run batch to batch, and each
+# record's launches are checked when it is logged.  Phase ``dispatch`` runs
+# the defaults (harvest depth 2) and k steps per dispatch.
+SYNC_RECORDS = ["--harvest_depth", "0"]
+TRAIN_BASE_FLAGS = [
     "--synthetic", "--arch", "resnet50", "--num_classes", "65",
     "--img_crop_size", "224", "--source_batch_size", "18", "--num_iters", "6",
     "--check_acc_step", "3", "--stat_collection_passes", "1", "--seed", "1",
     "--log_interval", "1",
 ]
+TRAIN_FLAGS = TRAIN_BASE_FLAGS + SYNC_RECORDS
 # The image-folder path: two OfficeHome-shaped folders written from seed 1
 # (65 classes of 3 JPEGs per domain, sides drawn from 300-800 px, quality
 # 90), trained Art → Clipart through the CLI entry with 4 loader threads;
@@ -273,7 +320,7 @@ FOLDER_TRAIN_FLAGS = [
     "--stat_collection_passes", "1", "--log_interval", "1",
     "--arch", "resnet50", "--num_classes", "65", "--img_crop_size", "224",
     "--source_batch_size", "18", "--seed", "1", "--resnet_path", "",
-]
+] + SYNC_RECORDS
 WORKER_COUNTS = (1, 2, 4, 8)  # loader threads at which the streams are timed
 RATE_BATCHES = 4  # batches per stream and worker count in the image rates
 PROFILED_STEPS = 4  # folder steps in the profiled window of the idle share
@@ -310,10 +357,11 @@ FP32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
 DIGITS_SITES = (("dn1", 32, 28 * 28), ("dn2", 48, 14 * 14))  # (site, C, rows per image)
 DIGITS_STREAM = 32  # images per stream: the reference recipe
 DIGITS_APPLY_BATCHES = (("eval", 100), ("serve_b1", 1), ("serve_b128", 128))
-DIGITS_TRAIN_FLAGS = [
+DIGITS_BASE_FLAGS = [
     "--synthetic", "--group_size", "4", "--synthetic_size", "256", "--epochs", "2",
     "--seed", "1", "--log_interval", "1",
 ]
+DIGITS_TRAIN_FLAGS = DIGITS_BASE_FLAGS + SYNC_RECORDS
 DIGITS_STEPS_PER_EPOCH = 256 // DIGITS_STREAM
 # Biases that feed a normalization site: the batch mean removes them, so
 # their exact gradient is zero and every step computes rounding noise,
@@ -464,18 +512,22 @@ def device_ms(torch, fn, names, rotation=((),), iters: int = 20,
     the host time around them (which exceeds the kernel at the small train
     shapes).  The profiler has been seen to drop some of a trace's device
     events, so per kernel name the mean duration is taken, times its
-    launches per call (its count over ``iters``, rounded)."""
+    launches per call (its count over ``iters``, rounded); a trace without
+    any of the kernels is taken again, up to 3 traces in all."""
     for args in rotation:
         fn(*args)
     calls = itertools.count()
-    events = trace_events(
-        torch, lambda: fn(*rotation[next(calls) % len(rotation)]), iters)
-    by_name = {}
-    for ev in events:
-        if ev["cat"] in cats and (names is None or any(n in ev["name"] for n in names)):
-            by_name.setdefault(ev["name"], []).append(ev["dur"])
-    if not by_name:
-        raise RuntimeError(f"the profiler recorded no {names} kernel")
+    for _ in range(3):
+        events = trace_events(
+            torch, lambda: fn(*rotation[next(calls) % len(rotation)]), iters)
+        by_name = {}
+        for ev in events:
+            if ev["cat"] in cats and (names is None or any(n in ev["name"] for n in names)):
+                by_name.setdefault(ev["name"], []).append(ev["dur"])
+        if by_name:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no {names} kernel in 3 traces")
     return sum(sum(d) / len(d) * max(1, round(len(d) / iters))
                for d in by_name.values()) / 1e3
 
@@ -968,19 +1020,35 @@ def run_counted(torch, cw, run, phase):
     return result, records, launches, seconds
 
 
-def check_record_launches(records, launches, want):
+# Records logged where every launch before them is accounted for, in a
+# harvested run: the ring is drained before each eval and collection pass.
+ANCHOR_RECORDS = ("test", "final_test", "stat_collection")
+
+
+def check_record_launches(records, launches, want, harvested=False):
     """Raise unless the launches between each record and the one before
     are ``want(record)`` (``{"moments": n, "apply": n}``) and no launch
-    follows the last record."""
+    follows the last record.  The counts are launches made: a replay of a
+    CUDA graph counts the launches its capture recorded, and the capture
+    none.  ``harvested``: train records reach the logger through the
+    harvest ring, after later steps launched, so the launches are checked
+    at each record of ``ANCHOR_RECORDS`` against the sum of ``want`` over
+    the records since the last check, and at the end."""
     prev = {"moments": 0, "apply": 0}
+    owed = dict(prev)
     for r in records:
+        owed = {k: owed[k] + want(r)[k] for k in owed}
+        if harvested and r["kind"] not in ANCHOR_RECORDS:
+            continue
         got = {k: r[f"{k}_launches"] - prev[k] for k in prev}
         prev = {k: r[f"{k}_launches"] for k in prev}
-        if got != want(r):
+        if got != owed:
             raise AssertionError(f"{r['kind']} at step {r['step']}: launches "
-                                 f"{got}, expected {want(r)}")
-    if prev != launches:
-        raise AssertionError(f"launches after the last record: {launches} vs {prev}")
+                                 f"{got}, expected {owed}")
+        owed = {k: 0 for k in owed}
+    if {k: launches[k] - prev[k] for k in prev} != owed:
+        raise AssertionError(f"launches after the last record: {launches} vs "
+                             f"{prev} and {owed} owed")
 
 
 # Records of the loops that launch no kernel: checkpoint bookkeeping.
@@ -1338,7 +1406,7 @@ def train_throughput(torch, loop, device):
     install_whiten_cache(model, make_whiten_cache(model))
     accum = make_accum_eval_step(model)
     counters = eval_counters(device)
-    eval_ms = cuda_ms(torch, lambda: accum(counters, x, y, mask), iters=5, warmup=1)
+    eval_ms = cuda_ms(torch, lambda: accum(counters, {"x": x[None], "y": y[None], "mask": mask[None]}), iters=5, warmup=1)
     install_whiten_cache(model, None)
     images = 3 * cfg.source_batch_size
     row = {"phase": "train_throughput", "images_per_step": images,
@@ -1539,15 +1607,15 @@ def folder_profile(torch, officehome, loop, device, root, step_ms):
     finally:
         batches.close()
         produce.close()
-    busy_ms = sum(ev["dur"] for ev in events) / 1e3 / PROFILED_STEPS
+    busy = busy_ms(events) / PROFILED_STEPS
     span_ms = (max(ev["ts"] + ev["dur"] for ev in events)
                - min(ev["ts"] for ev in events)) / 1e3 / PROFILED_STEPS
     row = {"phase": "folder_profile", "steps": PROFILED_STEPS,
            "device_ops_per_step": len(events) / PROFILED_STEPS,
-           "device_busy_ms_per_step": busy_ms,
+           "device_busy_ms_per_step": busy,
            "profiled_span_ms_per_step": span_ms,
-           "idle_share_in_profile": 1.0 - busy_ms / span_ms,
-           "idle_share": 1.0 - busy_ms / step_ms}
+           "idle_share_in_profile": 1.0 - busy / span_ms,
+           "idle_share": 1.0 - busy / step_ms}
     emit(row)
     del model, optimizer, state
     torch.cuda.empty_cache()
@@ -1791,7 +1859,7 @@ def digits_throughput(torch, loop, device):
     traced = trace_events(torch, lambda: step(state, batch), iters=window,
                           cats=DEVICE_CATS + ("cpu_op", "cuda_runtime"))
     events = [ev for ev in traced if ev["cat"] in DEVICE_CATS]
-    busy_ms = sum(ev["dur"] for ev in events) / 1e3 / window
+    busy = busy_ms(events) / window
     span_ms = (max(ev["ts"] + ev["dur"] for ev in events)
                - min(ev["ts"] for ev in events)) / 1e3 / window
     # Where the host's time goes: the outermost PyTorch operators by host
@@ -1814,16 +1882,16 @@ def digits_throughput(torch, loop, device):
     install_whiten_cache(model, make_whiten_cache(model))
     accum = make_accum_eval_step(model)
     counters = eval_counters(device)
-    eval_ms = cuda_ms(torch, lambda: accum(counters, x, y, mask), iters=20, warmup=2)
+    eval_ms = cuda_ms(torch, lambda: accum(counters, {"x": x[None], "y": y[None], "mask": mask[None]}), iters=20, warmup=2)
     install_whiten_cache(model, None)
     images = 2 * DIGITS_STREAM
     row = {"phase": "digits_throughput", "images_per_step": images,
            "step_ms": step_ms, "imgs_per_s": images / step_ms * 1e3,
            "device_ops_per_step": len(events) / window,
-           "device_busy_ms_per_step": busy_ms,
-           "idle_share": 1.0 - busy_ms / step_ms,
+           "device_busy_ms_per_step": busy,
+           "idle_share": 1.0 - busy / step_ms,
            "profiled_span_ms_per_step": span_ms,
-           "idle_share_in_profile": 1.0 - busy_ms / span_ms,
+           "idle_share_in_profile": 1.0 - busy / span_ms,
            "host_top_ops_ms_per_step_profiled": dict(sorted(
                host.items(), key=lambda kv: -kv[1])[:12]),
            "device_top_ms_per_step": dict(sorted(
@@ -1869,9 +1937,10 @@ class Cut(Exception):
 
 def counted_run(torch, cw, loader, run, cfg, phase, want, cut_at=None):
     """``run(cfg, logger)`` (a trainer loop) through ``run_counted``, its
-    launches checked record by record against ``want``; with ``cut_at``
-    the logger raises ``Cut`` after that step's train record, ending the
-    run.  Returns ``(records, launches, batch ids by stream)``."""
+    launches checked record by record against ``want`` (at the anchors
+    when the run harvests its records); with ``cut_at`` the logger raises
+    ``Cut`` after that step's train record, ending the run.  Returns
+    ``(records, launches, batch ids by stream)``."""
     def drive(logger):
         def cutting(kind, step, **fields):
             logger(kind, step, **fields)
@@ -1887,7 +1956,7 @@ def counted_run(torch, cw, loader, run, cfg, phase, want, cut_at=None):
         how, records, launches, _ = run_counted(torch, cw, drive, phase)
     if how != ("cut" if cut_at else "ended"):
         raise AssertionError(f"{phase}: the run {how}, cut_at={cut_at}")
-    check_record_launches(records, launches, want)
+    check_record_launches(records, launches, want, harvested=cfg.harvest_depth > 0)
     return records, launches, ids.ids
 
 
@@ -2731,6 +2800,589 @@ def convert_phase(torch, cw, officehome, loop, loader, root):
     return launches
 
 
+# ----------------------------------------------------------------- dispatch
+
+# k steps per dispatch: ResNet50-DWT at 3 (the eval and save cadence of 3
+# fills every chunk), LeNet-DWT and the folder path at 4.
+DISPATCH_K = {"resnet50": 3, "digits": 4, "folder": 4}
+# Timed ResNet50 runs: 9 steps without evals or saves; the window leaves out
+# the first 3 (the first step's builds, the capture).
+TIMED_FLAGS = ["--num_iters", "9", "--check_acc_step", "100", "--stat_collection_passes", "0"]
+TIMED_SKIP = 3
+# Timed folder runs: 16 steps without evals, the window after the first 4.
+FOLDER_TIMED_FLAGS = ["--num_iters", "16", "--check_acc_step", "100",
+                      "--stat_collection_passes", "0"]
+FOLDER_SKIP = 4
+FOLDER_TRACE_FROM = 12  # the last 4 steps traced, out of the step ms
+DIGITS_DISPATCH = {  # the digits comparison: every step eager, against chunks of 4
+    "k1": (1, ["--steps_per_dispatch", "1", "--harvest_depth", "0",
+               "--eval_steps_per_dispatch", "1"]),
+    "k1_depth2": (1, ["--steps_per_dispatch", "1", "--harvest_depth", "2",
+                      "--eval_steps_per_dispatch", "1"]),
+    "k4": (4, ["--steps_per_dispatch", "4", "--harvest_depth", "2",
+               "--eval_steps_per_dispatch", "8"]),
+}
+DIGITS_SKIP = 4  # per epoch: the window after each epoch's first 4 steps
+DIGITS_TRACE = {0: DIGITS_SKIP, 1: DIGITS_SKIP}  # a twin run traces those windows
+# Guard under harvest: digits, a NaN at step 4 in the chunk (3, 4).
+HARVEST_GUARD_FLAGS = DIGITS_BASE_FLAGS + [
+    "--guard_policy", "rollback", "--guard_interval", "2", "--harvest_depth", "2",
+    "--steps_per_dispatch", "2"]
+HARVEST_GUARD_NAN = 4
+GUARD_KINDS = ("divergence", "rollback", "lr_backoff", "lr_recover", "skip_step")
+# The loop's boundaries at 4 steps per dispatch: delta saves every epoch
+# (background in U, blocking in C), the watchdog armed, a SIGTERM at step
+# 10 (inside the chunk 9–12: the stop at 12, mid-epoch), C's resume.
+BOUNDARY_FLAGS = DIGITS_BASE_FLAGS + [
+    "--steps_per_dispatch", "4", "--ckpt_every_epochs", "1", "--ckpt_format", "delta",
+    "--watchdog_timeout", "300"]
+BOUNDARY_SIGTERM = 10
+
+
+class DispatchTimer:
+    """Replaces the trainer's ``prefetch_to_device`` for the runs inside
+    with a wrapper that records a CUDA event on the compute stream each
+    time the loop asks for its next batch (``k`` = 1) or chunk, when the
+    previous one's work is enqueued, and counts the steps each delivered.
+    ``step_ms(skip)`` is the device clock's milliseconds per step over each
+    stream's items after its first ``skip`` steps: from the loop asking for
+    an item to its asking for the next, the item's steps and boundary.
+
+    ``trace`` (``{stream index: step}``) profiles, in those streams, the
+    loop itself from its asking for the item after ``step`` steps to the
+    stream's end, where it waits for the card (:class:`WindowTrace`); the
+    traced items stay out of ``step_ms``.  ``window()`` sums the windows:
+    device busy ms per step (the union of the device events' intervals),
+    the traced span per step, device operations per step."""
+
+    def __init__(self, loop, k, trace=None):
+        self.loop, self.k, self.streams = loop, k, []
+        self.trace, self.windows = trace or {}, []
+
+    def __enter__(self):
+        import torch
+
+        inner = self.inner = self.loop.prefetch_to_device
+        streams, k, trace, windows = self.streams, self.k, self.trace, self.windows
+
+        def timed(*args, **kwargs):
+            it = inner(*args, **kwargs)
+            marks = []
+            from_step = trace.get(len(streams))
+            streams.append(marks)
+
+            def gen():
+                window, done = None, 0
+                try:
+                    while True:
+                        if window is None and from_step is not None and done >= from_step:
+                            window = WindowTrace(torch)
+                            window.__enter__()
+                        event = torch.cuda.Event(enable_timing=True)
+                        event.record()
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            marks.append((event, 0, window is not None))
+                            return
+                        n = next(iter(item.values())).shape[0] if k > 1 else 1
+                        marks.append((event, n, window is not None))
+                        done += n
+                        yield item
+                finally:
+                    if window is not None:
+                        window.__exit__(None, None, None)
+                        windows.append((window.result, done - from_step))
+                    it.close()
+
+            return gen()
+
+        self.loop.prefetch_to_device = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.prefetch_to_device = self.inner
+
+    def step_ms(self, skip):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = steps = 0
+        for marks in self.streams:
+            done = 0
+            for (event, n, traced), (following, _, _) in zip(marks, marks[1:]):
+                if done >= skip and not traced:
+                    ms += event.elapsed_time(following)
+                    steps += n
+                done += n
+        return ms / steps if steps else None
+
+    def window(self):
+        got = [(w, n) for w, n in self.windows if w is not None and n]
+        steps = sum(n for _, n in got)
+        if not steps:
+            return {"traced_steps": 0, "device_busy_ms_per_step": None,
+                    "span_ms_per_step": None, "device_ops_per_step": None}
+        return {"traced_steps": steps,
+                "device_busy_ms_per_step": sum(w["busy_ms"] for w, _ in got) / steps,
+                "span_ms_per_step": sum(w["span_ms"] for w, _ in got) / steps,
+                "device_ops_per_step": sum(w["ops"] for w, _ in got) / steps}
+
+
+def busy_ms(events, lo=None, hi=None) -> float:
+    """Milliseconds in which the card ran any of ``events`` (device events
+    of a trace, µs): the union of their intervals, clipped to ``[lo, hi]``,
+    so work that overlaps on two streams counts once."""
+    spans = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        a, b = max(a, lo if lo is not None else a), min(b, hi if hi is not None else b)
+        a = max(a, end)
+        if b > a:
+            total += b - a
+            end = b
+    return total / 1e3
+
+
+class WindowTrace:
+    """A ``torch.profiler`` session around part of a loop run, opened and
+    closed by the loop's own thread; its end waits for the card.  ``result``
+    is ``{"busy_ms", "span_ms", "ops"}``: the device's busy time
+    (:func:`busy_ms`) inside the span from the window's start on the host
+    to the card's finishing its work (a ``record_function`` range), and
+    the device operations in it; None when the trace holds no device
+    event (the profiler's dropped traces, PERF.md §7)."""
+
+    NAME = "dispatch_window"
+
+    def __init__(self, torch):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch, self.result = torch, None
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def __enter__(self):
+        self.prof.__enter__()
+        self.range = self.torch.profiler.record_function(self.NAME)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.range.__exit__(None, None, None)
+        self.prof.__exit__(None, None, None)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            self.prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f).get("traceEvents", [])
+        device = [ev for ev in trace if ev.get("cat") in DEVICE_CATS and "dur" in ev]
+        ranges = [ev for ev in trace if ev.get("name") == self.NAME
+                  and ev.get("cat") == "user_annotation" and "dur" in ev]
+        if not device:
+            return
+        lo, hi = ((ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]) if ranges else
+                  (min(ev["ts"] for ev in device),
+                   max(ev["ts"] + ev["dur"] for ev in device)))
+        inside = [ev for ev in device if ev["ts"] < hi and ev["ts"] + ev["dur"] > lo]
+        self.result = {"busy_ms": busy_ms(inside, lo, hi), "span_ms": (hi - lo) / 1e3,
+                       "ops": len(inside)}
+
+
+class HostSyncs:
+    """Counts, for the runs inside, the harvester's blocking rendezvous
+    (``AsyncMetricHarvester._wait``, the one countable sync of the record
+    path) and the entries each waited for."""
+
+    def __enter__(self):
+        from dwt_tpu_torch.train.harvest import AsyncMetricHarvester
+
+        self.cls, self.inner, self.waits = AsyncMetricHarvester, AsyncMetricHarvester._wait, []
+        inner, waits = self.inner, self.waits
+
+        def wait(h, entries):
+            waits.append(len(entries))
+            return inner(h, entries)
+
+        self.cls._wait = wait
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._wait = self.inner
+
+
+def graph_harness(torch, cw, loop, officehome, kind, device):
+    """A chunk of ``DISPATCH_K[kind]`` train steps through the scanned step
+    outside the loop (ResNet50-DWT at 3 × 18 × 224², or LeNet-DWT at 2 ×
+    32 × 28²): the first step eager, the capture, the replays.  The first
+    whitened site's kernels keep, from the capture, their inputs and
+    outputs alive, so the last replay's values stay there: each is held to
+    its plain version on the same input (apply ``TOL`` per element;
+    moments ``MEAN_TOL``, ``COV_RTOL``/``COV_ATOL``).  Then the graph's and
+    the eager step's ms (CUDA events over back-to-back dispatches) and
+    device busy ms and operations per step (``torch.profiler``), the
+    capture's ms and graph-pool bytes, and the launches it recorded."""
+    from dwt_tpu_torch.config import DigitsConfig
+    from dwt_tpu_torch.train import steps
+    from dwt_tpu_torch.train.optim import digits_tx, officehome_tx
+    from dwt_tpu_torch.train.state import TrainState
+
+    k = DISPATCH_K[kind]
+    if kind == "resnet50":
+        cfg = officehome.config_from_args(officehome.build_parser().parse_args(TRAIN_FLAGS))
+        model = loop.build_model(cfg).to(device, memory_format=torch.channels_last)
+        optimizer, schedules = officehome_tx(model, cfg)
+        step = steps.make_officehome_train_step(model, cfg.lambda_mec_loss)
+        batch = synthetic_batch(torch, loop, REFERENCE_STEP[0], REFERENCE_STEP[1],
+                                cfg.num_classes, 7, device)
+        iters = 2
+    else:
+        cfg = DigitsConfig(seed=4, group_size=4)
+        model = loop.build_digits_model(cfg).to(device, memory_format=torch.channels_last)
+        optimizer, schedules = digits_tx(model, cfg, DIGITS_STEPS_PER_EPOCH)
+        step = steps.make_digits_train_step(model, cfg.lambda_entropy_loss)
+        batch = digits_batch(torch, loop, 11, device)
+        iters = 20
+    state = TrainState(model, optimizer, schedules)
+    chunk = {key: torch.stack([v] * k) for key, v in batch.items()}
+    scanned = steps.make_scanned_step(step, k)
+    seen, real = {}, (cw.whiten_moments, cw.whiten_apply)
+
+    def moments(x, group_size):
+        out = real[0](x, group_size)
+        if torch.cuda.is_current_stream_capturing() and "moments" not in seen:
+            seen["moments"] = (x, *out)
+        return out
+
+    def apply(x, mean, w, out=None):
+        y = real[1](x, mean, w, out=out)
+        if torch.cuda.is_current_stream_capturing() and x.dim() == 3 and "apply" not in seen:
+            seen["apply"] = (x, mean, w, y)
+        return y
+
+    cw.whiten_moments, cw.whiten_apply = moments, apply
+    try:
+        scanned(state, chunk)
+    finally:
+        cw.whiten_moments, cw.whiten_apply = real
+    torch.cuda.synchronize()
+    x, mean, cov = seen["moments"]
+    ref_mean, ref_cov = cw.whiten_moments_plain(x, 4)
+    dm, dc, moments_ok = moments_errors(torch, mean, cov, ref_mean, ref_cov)
+    xa, ma, wa, ya = seen["apply"]
+    ref_y = cw.whiten_apply_plain(xa, ma, wa)
+    diff = (ya - ref_y).abs()
+    apply_ok = bool((diff <= TOL + TOL * ref_y.abs()).all())
+    graph = scanned.graph
+    row = {"model": kind, "k": k, "site_shape": list(x.shape),
+           "in_graph_moments_vs_plain": {"mean_max_abs_err": dm, "cov_max_abs_err": dc,
+                                         "ok": moments_ok},
+           "in_graph_apply_vs_plain": {"max_abs_err": float(diff.max()), "ok": apply_ok},
+           "capture_ms": graph.capture_ms, "graph_pool_bytes": graph.pool_bytes,
+           "recorded_launches": graph.recorded}
+    del seen, x, mean, cov, xa, ma, wa, ya, ref_y, diff
+    row["graph_step_ms"] = cuda_ms(torch, lambda: scanned(state, chunk), iters=iters,
+                                   warmup=1) / k
+    row["eager_step_ms"] = cuda_ms(torch, lambda: step(state, batch), iters=iters, warmup=1)
+    for name, fn, n in (("graph", lambda: scanned(state, chunk), k),
+                        ("eager", lambda: step(state, batch), 1)):
+        events = trace_events(torch, fn)
+        busy = busy_ms(events) / n
+        row[f"{name}_device_busy_ms_per_step"] = busy
+        row[f"{name}_device_ops_per_step"] = len(events) / n
+        row[f"{name}_idle_share"] = 1.0 - busy / row[f"{name}_step_ms"]
+        if name == "graph":
+            # The kernels' own device time inside the replays, per step.
+            row["in_graph_kernel_ms"] = {
+                part: sum(ev["dur"] for ev in events
+                          if any(m in ev["name"] for m in names)) / 1e3 / n or None
+                for part, names in (("apply", APPLY_KERNELS), ("moments", MOMENTS_KERNELS))}
+    row["replays"] = graph.replays
+    emit({"phase": "dispatch_harness", **row})
+    del scanned, state, model, optimizer, chunk, batch
+    torch.cuda.empty_cache()
+    if not (moments_ok and apply_ok):
+        raise AssertionError(f"{kind}: a kernel inside the replayed step is off its "
+                             f"plain version: {row}")
+    return row
+
+
+def dispatch_folder(torch, cw, officehome, loop, root):
+    """The folder path (``FOLDER_TIMED_FLAGS``, 4 loader threads per
+    stream) in three runs: k = 1 with a blocking readback every step
+    (harvest depth 0), k = 1 at depth 2 (the default), and k = 4 at depth 2,
+    so that the dispatch's and the readback's parts of a gain show apart.
+    Each run's step ms over steps ``FOLDER_SKIP``–``FOLDER_TRACE_FROM``;
+    from a trace of the same run's last steps, the card's busy ms per step,
+    its idle share against the untraced step ms and inside the traced span;
+    the launches checked."""
+    out = {}
+    k4 = DISPATCH_K["folder"]
+    for key, k, extra in (("k1_depth0", 1, SYNC_RECORDS),
+                          ("k1_depth2", 1, ["--harvest_depth", "2"]),
+                          (f"k{k4}_depth2", k4, ["--steps_per_dispatch", str(k4),
+                                                 "--harvest_depth", "2"])):
+        cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+            folder_flags(root) + FOLDER_TIMED_FLAGS + extra))
+        with DispatchTimer(loop, k, trace={0: FOLDER_TRACE_FROM}) as timer:
+            _, records, launches, seconds = run_counted(
+                torch, cw, lambda logger: loop.run_officehome(cfg, logger),
+                f"dispatch_folder_{key}")
+        check_record_launches(records, launches, officehome_want,
+                              harvested=extra != SYNC_RECORDS)
+        step_ms = timer.step_ms(FOLDER_SKIP)
+        out[key] = {"k": k, "flags": extra, "step_ms": step_ms, "seconds": seconds,
+                    "launches": launches, **idle_shares(timer.window(), step_ms)}
+    emit({"phase": "dispatch_folder", "flags": FOLDER_TIMED_FLAGS, **out})
+    return out
+
+
+def idle_shares(window, step_ms):
+    """A traced window (``DispatchTimer.window``) against the untraced
+    ``step_ms``: the card's idle share per step, and inside the traced span
+    (where the profiler slows the host)."""
+    busy = window["device_busy_ms_per_step"]
+    return {"window": window,
+            "idle_share": None if busy is None else 1.0 - busy / step_ms,
+            "idle_share_in_profile": (None if busy is None
+                                      else 1.0 - busy / window["span_ms_per_step"])}
+
+
+def dispatch_resnet50(torch, cw, officehome, loop, loader, root, a_records, a_dir):
+    """ResNet50-DWT at 3 steps per dispatch: run R (``CKPT_FLAGS``, k = 3,
+    harvest depth 2, under cuDNN's deterministic algorithms) bitwise equal
+    to run A in its records, parameters and stats; the launches checked at
+    the evals.  Then step ms (``TIMED_FLAGS``) at k = 1 with harvest depth
+    0 and 2 and at k = 3, in turns (each setup twice, the order mirrored),
+    and, on R's model, the eval pass ms at 1 and 8
+    batches per dispatch (equal counters) and the collection pass ms."""
+    from dwt_tpu_torch.train.evalpipe import EvalPipeline
+    from dwt_tpu_torch.train.state import TrainState
+
+    k = DISPATCH_K["resnet50"]
+    r_dir = os.path.join(root, "R")
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+        CKPT_FLAGS + ["--steps_per_dispatch", str(k), "--harvest_depth", "2",
+                      "--ckpt_dir", r_dir]))
+    model = loop.build_model(cfg)
+    with DeterministicCudnn(torch):
+        records, launches, _ = counted_run(
+            torch, cw, loader, lambda c, logger: loop.run_officehome(c, logger, model=model),
+            cfg, "dispatch_R", officehome_want)
+    n = cfg.num_iters
+    errs = {**record_errs(a_records, records, range(1, n + 1)),
+            **state_errs(torch, model, a_dir, r_dir)}
+    plain = lambda recs: [(r["kind"], r["step"]) for r in recs if r["kind"] not in QUIET_RECORDS]
+    same_sequence = plain(records) == plain(a_records)
+    # Three setups in turns: the blocking readback every step, the default
+    # (depth 2), and k steps per dispatch at depth 2.
+    setups = {"k1_depth0": (1, SYNC_RECORDS), "k1_depth2": (1, ["--harvest_depth", "2"]),
+              f"k{k}_depth2": (k, ["--steps_per_dispatch", str(k), "--harvest_depth", "2"])}
+    timed = {key: [] for key in setups}
+    for key in (*setups, *reversed(setups)):
+        kk, extra = setups[key]
+        tcfg = officehome.config_from_args(officehome.build_parser().parse_args(
+            TRAIN_BASE_FLAGS + TIMED_FLAGS + extra))
+        with DispatchTimer(loop, kk) as timer:
+            loop.run_officehome(tcfg, lambda *a, **f: None)
+        timed[key].append(timer.step_ms(TIMED_SKIP))
+    state = TrainState(model, None, ())
+    test_ds = loop._officehome_datasets(cfg)[2]
+    device = torch.device("cuda", 0)
+    evals, collect_ms = {}, {}
+    with DeterministicCudnn(torch):
+        for ek in (1, 8):
+            pipe = EvalPipeline(cfg.test_batch_size, device, 3, cfg.num_workers, eval_k=ek)
+            pipe.evaluate(state, test_ds)  # builds (and at 8 captures) the dispatch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = pipe.evaluate(state, test_ds)
+            torch.cuda.synchronize()
+            evals[ek] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         **{f: result[f] for f in ("loss", "accuracy", "count", "forwards")}}
+        for ek in (8, 1):
+            pipe = EvalPipeline(cfg.test_batch_size, device, 3, cfg.num_workers, eval_k=ek)
+            pipe.collect_stats(state, test_ds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forwards = pipe.collect_stats(state, test_ds)
+            torch.cuda.synchronize()
+            collect_ms[ek] = {"ms": (time.perf_counter() - t0) * 1e3, "forwards": forwards}
+    counters_equal = ({f: evals[1][f] for f in ("loss", "accuracy", "count")}
+                      == {f: evals[8][f] for f in ("loss", "accuracy", "count")})
+    row = {"k": k, "flags": CKPT_FLAGS, "R_vs_A": errs, "record_sequence_equal": same_sequence,
+           "launches": launches, "timed_flags": TIMED_FLAGS,
+           "step_ms": timed, "eval_pass": evals, "eval_counters_equal": counters_equal,
+           "collection_pass": collect_ms}
+    emit({"phase": "dispatch_resnet50", **row})
+    del model, state
+    torch.cuda.empty_cache()
+    check_resume("ResNet50 at k = 3", errs, errs)
+    if not (same_sequence and counters_equal):
+        raise AssertionError(f"ResNet50 dispatch: records {same_sequence}, counters "
+                             f"{counters_equal}: {evals}")
+    return row
+
+
+def digits_boundaries(torch, cw, usps_mnist, loop, loader, inject):
+    """``BOUNDARY_FLAGS`` under cuDNN's deterministic algorithms: run U
+    uninterrupted; run C with blocking saves and a SIGTERM at step
+    ``BOUNDARY_SIGTERM`` (its final save at the chunk's end, a ``preempt``
+    record), then C rerun: it resumes there with the exact data position,
+    and its train records and final parameters (digest) are U's."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    strip = lambda recs: [{f: v for f, v in r.items() if f not in (
+        "moments_launches", "apply_launches")} for r in recs if r["kind"] == "train"]
+    digest = lambda recs: [r["digest"] for r in recs if r["kind"] == "params_digest"]
+    with tempfile.TemporaryDirectory(prefix="boundaries-", dir=build) as root, \
+            DeterministicCudnn(torch):
+        def run(name, key, extra=()):
+            cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
+                BOUNDARY_FLAGS + ["--ckpt_dir", os.path.join(root, name), *extra]))
+            return counted_run(torch, cw, loader, loop.run_digits, cfg,
+                               f"dispatch_boundaries_{key}", digits_want)[:2]
+
+        u, u_launches = run("U", "U")
+        inject.arm(inject.FaultPlan(sigterm_at_step=BOUNDARY_SIGTERM))
+        try:
+            c1, c1_launches = run("C", "C_cut", ["--no-async_ckpt"])
+        finally:
+            inject.disarm()
+        c2, c2_launches = run("C", "C_resumed")
+        from dwt_tpu_torch.utils import checkpoint as ckpt
+
+        modes = {name: [json.load(open(os.path.join(root, name, str(step), "manifest.json")))
+                        .get("mode") for step in ckpt.valid_steps(os.path.join(root, name))]
+                 for name in ("U", "C")}
+    stop = -(-BOUNDARY_SIGTERM // 4) * 4
+    row = {"flags": BOUNDARY_FLAGS, "sigterm_at_step": BOUNDARY_SIGTERM,
+           "preempt": [(r["kind"], r["step"]) for r in c1 if r["kind"] == "preempt"],
+           "resume": {f: c2[0].get(f) for f in ("kind", "step", "data", "cursor")},
+           "train_records_equal": strip(c1) + strip(c2) == strip(u),
+           "digests_equal": digest(c2) == digest(u) and bool(digest(u)),
+           "manifest_modes": modes,
+           "launches": added(u_launches, c1_launches, c2_launches)}
+    if (row["preempt"] != [("preempt", stop)]
+            or (row["resume"]["kind"], row["resume"]["step"], row["resume"]["data"])
+            != ("resume", stop, "exact")
+            or not (row["train_records_equal"] and row["digests_equal"])):
+        raise AssertionError(f"digits boundaries at k = 4: {row}")
+    return row
+
+
+def dispatch_digits(torch, cw, usps_mnist, loop, loader, inject):
+    """LeNet-DWT at 4 steps per dispatch (harvest depth 2, eval 8 per
+    dispatch) against every step eager (depth 0, eval 1 per dispatch) and
+    every step eager at depth 2, under cuDNN's deterministic algorithms:
+    records bitwise equal, batch ids equal; step ms, the card's idle share
+    (from a traced twin of each run, over the timed windows), host syncs
+    per step (the harvester's rendezvous; no guard here); the loop's boundaries at k = 4
+    (:func:`digits_boundaries`).  Then the guard under harvest:
+    ``HARVEST_GUARD_FLAGS`` with a NaN at step ``HARVEST_GUARD_NAN``, on the
+    card and on the CPU with both rings held until they overflow (records,
+    guard events and batch ids of the card run against the CPU's), and on
+    the card as it runs (the detection lag, at most the depth in
+    dispatches)."""
+    import math
+
+    from dwt_tpu_torch.train import harvest
+
+    runs = {}
+    with DeterministicCudnn(torch):
+        for key, (k, extra) in DIGITS_DISPATCH.items():
+            cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
+                DIGITS_BASE_FLAGS + extra))
+            with DispatchTimer(loop, k) as timer, HostSyncs() as syncs:
+                records, launches, ids = counted_run(
+                    torch, cw, loader, loop.run_digits, cfg, f"dispatch_digits_{key}",
+                    digits_want)
+            steps = sum(r["kind"] == "train" for r in records)
+            step_ms = timer.step_ms(DIGITS_SKIP)
+            # A twin of the run, traced over the windows the timer timed.
+            with DispatchTimer(loop, k, trace=DIGITS_TRACE) as twin:
+                loop.run_digits(cfg, lambda *a, **f: None)
+            runs[key] = {"records": records, "ids": ids, "launches": launches,
+                         "step_ms": step_ms, **idle_shares(twin.window(), step_ms),
+                         "host_syncs_per_step": len(syncs.waits) / steps,
+                         "rendezvous": syncs.waits}
+    strip = lambda recs: [{f: v for f, v in r.items() if f not in (
+        "eval_s", "moments_launches", "apply_launches")} for r in recs]
+    records_equal = all(strip(runs["k1"]["records"]) == strip(v["records"])
+                        for v in runs.values())
+    ids_equal = all(runs["k1"]["ids"] == v["ids"] for v in runs.values())
+    guard = {}
+    for key, device_flags, held in (("card_held", [], True), ("cpu_held", ["--device", "cpu"], True),
+                                    ("card", [], False)):
+        cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
+            HARVEST_GUARD_FLAGS + device_flags))
+        ready = harvest._Entry.ready
+        if held:
+            harvest._Entry.ready = lambda entry: False
+        inject.arm(inject.FaultPlan(nan_at_step=HARVEST_GUARD_NAN))
+        try:
+            if device_flags:
+                recs = []
+                with BatchIds(loader) as ids:
+                    loop.run_digits(cfg, lambda kind, step, **f: recs.append(
+                        {"kind": kind, "step": step, **f}))
+                guard[key] = {"records": recs, "ids": ids.ids}
+            else:
+                recs, launches, ids = counted_run(torch, cw, loader, loop.run_digits, cfg,
+                                                  f"dispatch_guard_{key}", digits_want)
+                guard[key] = {"records": recs, "ids": ids, "launches": launches}
+        finally:
+            harvest._Entry.ready = ready
+            inject.disarm()
+    events = {key: [{f: v for f, v in r.items() if f not in ("moments_launches", "apply_launches")}
+                    for r in g["records"] if r["kind"] in GUARD_KINDS]
+              for key, g in guard.items()}
+    seq = {key: [(r["kind"], r["step"]) for r in g["records"] if r["kind"] in ("train", "test")]
+           for key, g in guard.items()}
+
+    def rel(a, b):
+        return 0.0 if (math.isnan(a) and math.isnan(b)) else abs(a - b) / max(abs(b), 1e-30)
+
+    pairs = [(a, b) for a, b in zip(guard["card_held"]["records"], guard["cpu_held"]["records"])
+             if a["kind"] == b["kind"] == "train"]
+    loss_err = max(rel(a[f], b[f]) for a, b in pairs for f in ("cls_loss", "entropy_loss"))
+    accs = {key: [r["accuracy"] for r in g["records"] if r["kind"] == "test"]
+            for key, g in guard.items()}
+    k_guard = 2
+    detected = [e for e in events["card"] if e["kind"] == "divergence"]
+    bad_hi = -(-HARVEST_GUARD_NAN // k_guard) * k_guard
+    lag = {"detected_at": detected[0]["detected_at"] if detected else None,
+           "bad_step": detected[0]["step"] if detected else None}
+    if detected:
+        lag["lag_steps"] = lag["detected_at"] - lag["bad_step"]
+        lag["lag_dispatches"] = (lag["detected_at"] - bad_hi) // k_guard
+    row = {"flags": DIGITS_BASE_FLAGS,
+           "runs": {key: {"flags": DIGITS_DISPATCH[key][1],
+                          **{f: v[f] for f in ("step_ms", "idle_share",
+                                               "idle_share_in_profile", "window",
+                                               "host_syncs_per_step", "rendezvous",
+                                               "launches")}}
+                    for key, v in runs.items()},
+           "records_equal": records_equal, "batch_ids_equal": ids_equal,
+           "guard": {"flags": HARVEST_GUARD_FLAGS, "nan_at_step": HARVEST_GUARD_NAN,
+                     "events": events, "card_vs_cpu_train_loss_rel_err": loss_err,
+                     "accuracies": accs, "detection": lag,
+                     "launches": {key: g.get("launches") for key, g in guard.items()}}}
+    row["boundaries"] = digits_boundaries(torch, cw, usps_mnist, loop, loader, inject)
+    emit({"phase": "dispatch_digits", **row})
+    if not (records_equal and ids_equal):
+        raise AssertionError(f"digits at k = 4: records equal {records_equal}, "
+                             f"batch ids equal {ids_equal}")
+    held_equal = (events["card_held"] == events["cpu_held"] and seq["card_held"] == seq["cpu_held"]
+                  and guard["card_held"]["ids"] == guard["cpu_held"]["ids"])
+    if not held_equal or not events["card_held"] or loss_err > DIGITS_LEAF_TOL * 10:
+        raise AssertionError(f"guard under harvest: the card run is off the CPU run: {row['guard']}")
+    if any(abs(a - b) > 100.0 / 128 for a, b in zip(accs["card_held"], accs["cpu_held"])):
+        raise AssertionError(f"guard under harvest: accuracies {accs}")
+    if not detected or not 0 <= lag["lag_dispatches"] <= 2:
+        raise AssertionError(f"guard under harvest: detection {lag}")
+    return row
+
+
 def bound_by(rows):
     return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations")
@@ -2747,6 +3399,22 @@ def digits_row(timing, path, part):
     keys += APPLY_EXTRA if part == "apply" else MOMENTS_EXTRA
     return {"ms": total("device_ms"), "bound_by": bound_by(rows),
             **{k: total(k) for k in keys}}
+
+
+def in_graph(harness, part, row):
+    """A graph row's numbers from ``graph_harness``'s replays: the kernel's
+    error against its plain version and its device ms per step (the eager
+    row's, ``ms_from``, when the trace of the replays held none of its
+    launches); no host time."""
+    errs = harness[f"in_graph_{part}_vs_plain"]
+    ms = harness["in_graph_kernel_ms"][part]
+    return {"max_abs_err": (errs["max_abs_err"] if part == "apply"
+                            else max(errs["mean_max_abs_err"], errs["cov_max_abs_err"])),
+            "ms": row["ms"] if ms is None else ms,
+            "ms_from": "eager" if ms is None else "replays",
+            "max_abs_err_from": f"dispatch_harness {harness['model']}, site "
+                                f"{harness['site_shape']}",
+            "host_us": None}
 
 
 def kernels_line(torch, r):
@@ -2870,7 +3538,26 @@ def kernels_line(torch, r):
                "path": "officehome_folder_train",
                "per": row["per"] + ", the images decoded from JPEG folders"}
               for row in rows if row["path"] == "train"]
-    rows = rows[:3] + folder + rows[3:]
+    # The graph paths (phase dispatch): the same shapes and kernels, each
+    # launch captured once and made by every replay; launches = captured
+    # launches × replays, plus the eager first step's.  The error and the
+    # kernel's ms are measured inside replays (graph_harness: the first
+    # whitened site against the plain version; the kernel's device time in
+    # a trace of the replays); the wrapper's host time does not apply to a
+    # replay; the plain version's, the bound's and the library's times are
+    # the eager path's at the same shapes (``carried_from``).
+    graphs = [{**row, "launches": r["graph_launches"][path][row["name"].split("_")[1]],
+               **in_graph(r["graph_harness"][path], row["name"].split("_")[1], row),
+               "path": path, "per": row["per"] + per, "carried_from": base}
+              for path, base, per in (
+                  ("train_graph", "train", ", each step a replay of one captured "
+                   "step at 3 steps per dispatch"),
+                  ("officehome_folder_train_graph", "train", ", the images decoded from "
+                   "JPEG folders, each step a replay at 4 steps per dispatch"),
+                  ("digits_train_graph", "digits_train", ", each step a replay of one "
+                   "captured step at 4 steps per dispatch"))
+              for row in rows if row["path"] == base]
+    rows = rows[:3] + folder + rows[3:] + graphs
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -2940,6 +3627,7 @@ def main() -> int:
     r["train_launches"], synthetic_timing = train(torch, cw, officehome, loop)
     train_reference(torch, cw, loop, device)
     train_throughput(torch, loop, device)
+    harness = graph_harness(torch, cw, loop, officehome, "resnet50", device)
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="folders-", dir=build) as root:
@@ -2949,6 +3637,7 @@ def main() -> int:
             torch, cw, officehome, loop, folder_flags(root), "folder_train")
         profiled = folder_profile(torch, officehome, loop, device, root,
                                   folder_timing["step_ms_median"])
+        folder_dispatch = dispatch_folder(torch, cw, officehome, loop, root)
     emit({"phase": "folder_vs_synthetic",
           "folder_step_ms_median": folder_timing["step_ms_median"],
           "synthetic_step_ms_median": synthetic_timing["step_ms_median"],
@@ -2961,6 +3650,8 @@ def main() -> int:
     r["digits_train_launches"] = digits_train(torch, cw, usps_mnist, loop)
     digits_reference(torch, cw, loop, device)
     digits_throughput(torch, loop, device)
+    digits_harness = graph_harness(torch, cw, loop, officehome, "digits", device)
+    digits_dispatch = dispatch_digits(torch, cw, usps_mnist, loop, loader, inject)
     r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
     with tempfile.TemporaryDirectory(prefix="ckpt-", dir=build) as root:
         ck = r["ckpt"] = {}
@@ -2977,6 +3668,35 @@ def main() -> int:
             torch, cw, usps_mnist, loop, loader, server, root, device)
         ck["convert"] = convert_phase(torch, cw, officehome, loop, loader, root)
         ck["chaos_digits"] = chaos_digits(torch, root)
+        resnet_dispatch = dispatch_resnet50(torch, cw, officehome, loop, loader, root,
+                                            a_records, a_dir)
+    k4 = DISPATCH_K["folder"]
+    r["graph_launches"] = {
+        "train_graph": resnet_dispatch["launches"],
+        "officehome_folder_train_graph": folder_dispatch[f"k{k4}_depth2"]["launches"],
+        "digits_train_graph": digits_dispatch["runs"]["k4"]["launches"]}
+    r["graph_harness"] = {"train_graph": harness,
+                          "officehome_folder_train_graph": harness,
+                          "digits_train_graph": digits_harness}
+    emit({"phase": "dispatch", "card": smi,
+          "digits": {key: {f: v[f] for f in ("step_ms", "idle_share", "idle_share_in_profile",
+                                             "host_syncs_per_step")}
+                     for key, v in digits_dispatch["runs"].items()},
+          "digits_harness": {f: digits_harness[f] for f in (
+              "graph_step_ms", "eager_step_ms", "graph_idle_share", "eager_idle_share",
+              "graph_device_ops_per_step", "eager_device_ops_per_step", "capture_ms",
+              "graph_pool_bytes")},
+          "resnet50_step_ms": resnet_dispatch["step_ms"],
+          "resnet50_harness": {f: harness[f] for f in (
+              "graph_step_ms", "eager_step_ms", "graph_idle_share", "eager_idle_share",
+              "graph_device_ops_per_step", "eager_device_ops_per_step", "capture_ms",
+              "graph_pool_bytes")},
+          "resnet50_eval_pass_ms": {k: v["ms"] for k, v in resnet_dispatch["eval_pass"].items()},
+          "resnet50_collection_pass_ms": {k: v["ms"] for k, v in
+                                          resnet_dispatch["collection_pass"].items()},
+          "folder": {key: {f: v[f] for f in ("step_ms", "idle_share", "idle_share_in_profile")}
+                     for key, v in folder_dispatch.items()},
+          "guard_detection": digits_dispatch["guard"]["detection"]})
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

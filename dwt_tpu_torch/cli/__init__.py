@@ -28,13 +28,13 @@ def add_resilience_args(p: argparse.ArgumentParser, d) -> None:
                    help="divergence guard on a non-finite loss or grad norm: halt, "
                         "revert to the last good in-memory state, or roll back "
                         "to the newest valid checkpoint with a reseeded data "
-                        "order.  The check reads one flag back every "
-                        "--guard_interval steps: the JAX package's guard at "
-                        "--harvest_depth 0 (the harvested guard, which detects "
-                        "at step + depth without a sync of its own, is not "
-                        "ported)")
+                        "order.  With --harvest_depth > 0 the guard reads the "
+                        "step's harvested finite flag, with no sync of its own, "
+                        "and acts at most depth steps late; at --harvest_depth "
+                        "0 it reads one flag back every --guard_interval steps")
     p.add_argument("--guard_interval", type=int, default=d.guard_interval,
-                   help="steps between guard checks (one host sync each)")
+                   help="steps between guard checks (at --harvest_depth 0 one "
+                        "host sync each; harvested: the snapshot refresh)")
     p.add_argument("--guard_max_rollbacks", type=int, default=d.guard_max_rollbacks,
                    help="rollbacks before the guard halts the run")
     p.add_argument("--guard_lr_backoff", type=float, default=d.guard_lr_backoff,
@@ -59,3 +59,30 @@ def add_resilience_args(p: argparse.ArgumentParser, d) -> None:
                    default=d.preempt_notice_metadata,
                    help="poll the GCE instance/preempted metadata key as a notice "
                         "source (URL from DWT_PREEMPT_METADATA_URL when set)")
+
+
+def add_dispatch_args(p: argparse.ArgumentParser, d) -> None:
+    """``--steps_per_dispatch``, ``--eval_steps_per_dispatch`` and
+    ``--harvest_depth``, with the defaults of the config ``d`` (the JAX
+    package's: 1, 8, 2)."""
+    p.add_argument("--steps_per_dispatch", type=int, default=d.steps_per_dispatch,
+                   help=">1: run k train steps per dispatch (on the card, replays "
+                        "of one captured CUDA graph step over k stacked batches; "
+                        "chunks cut at eval/checkpoint boundaries) — amortizes "
+                        "the host's launch cost; same numerics")
+    p.add_argument("--eval_steps_per_dispatch", type=int,
+                   default=d.eval_steps_per_dispatch,
+                   help="k eval/stat-collection batches per dispatch (on the card "
+                        "at k > 1, replays of a captured forward); eval counters "
+                        "stay device-resident across the whole pass (O(1) host "
+                        "fetches), ragged tails are pad-and-masked so counts "
+                        "stay exact")
+    p.add_argument("--harvest_depth", type=int, default=d.harvest_depth,
+                   help="async metric harvesting: depth of the bounded ring "
+                        "deferring the train-record host fetch (non-blocking "
+                        "device→host copies, drained once full — amortized "
+                        "1/depth syncs per step — or fully at eval/ckpt/"
+                        "preempt/rollback boundaries); records keep their "
+                        "original step stamps byte-identically, and the "
+                        "divergence guard reads the step's harvested finite flag "
+                        "with staleness <= depth.  0 = synchronous fetch")

@@ -11,8 +11,11 @@ resume), ``--init_ckpt``, the reference checkpoint at ``--resnet_path``
 parameters and stats), fresh weights from ``--seed``.  Saves run on a
 writer thread (``--no-async_ckpt``: blocking), in the ``full`` or the
 ``delta`` format; the guard, watchdog and preemption flags are the JAX
-CLI's (the guard at ``--harvest_depth 0``), and a SIGTERM ends the run
-with a final save and exit 0.
+CLI's, and a SIGTERM ends the run with a final save and exit 0.
+``--steps_per_dispatch`` (1), ``--eval_steps_per_dispatch`` (8) and
+``--harvest_depth`` (2) are the JAX CLI's too: on CUDA, k ≥ 2 replays a
+captured graph per step, and the train records and the guard's finite
+flags reach the host through the harvest ring.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
-from dwt_tpu_torch.cli import add_resilience_args
+from dwt_tpu_torch.cli import add_dispatch_args, add_resilience_args
 from dwt_tpu_torch.config import OfficeHomeConfig
 
 
@@ -85,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">0: every N iters also save an anchor checkpoint "
                         "under ckpt_dir/anchors, never pruned")
     add_resilience_args(p, d)
+    add_dispatch_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

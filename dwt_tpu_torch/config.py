@@ -1,10 +1,12 @@
 """Typed configs of the two trainers — the ported subsets of ``dwt_tpu.config``'s ``DigitsConfig`` and ``OfficeHomeConfig``.
 
 Every default is the JAX package's (which are the reference's); ``device``
-is the port's own.  The divergence guard is the JAX package's at
-``harvest_depth = 0`` (a synchronous readback every ``guard_interval``
-steps); the harvested guard waits for ``train/harvest.py`` (ROADMAP
-queue 1 item 4).
+is the port's own.  ``steps_per_dispatch`` and ``eval_steps_per_dispatch``
+are the train and eval batches per dispatch (on the card at k ≥ 2, replays
+of a captured CUDA graph); ``harvest_depth`` the ring of
+``train/harvest.py`` (0: a synchronous readback per record, and the
+divergence guard's own readback every ``guard_interval`` steps; above 0 the
+guard reads the harvested finite flags).
 """
 
 from __future__ import annotations
@@ -64,6 +66,12 @@ class DigitsConfig:
     watchdog_keep: int = 5
     preempt_notice_file: Optional[str] = None  # notice = this file exists
     preempt_notice_metadata: bool = False  # poll the GCE preempted key
+    # Dispatch and harvesting: train steps per dispatch (k ≥ 2 on the card:
+    # replays of one captured step), eval and collection batches per
+    # dispatch, the metric harvest ring's depth (0: synchronous readback).
+    steps_per_dispatch: int = 1
+    eval_steps_per_dispatch: int = 8
+    harvest_depth: int = 2
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -121,4 +129,10 @@ class OfficeHomeConfig:
     watchdog_keep: int = 5
     preempt_notice_file: Optional[str] = None  # notice = this file exists
     preempt_notice_metadata: bool = False  # poll the GCE preempted key
+    # Dispatch and harvesting: train steps per dispatch (k ≥ 2 on the card:
+    # replays of one captured step), eval and collection batches per
+    # dispatch, the metric harvest ring's depth (0: synchronous readback).
+    steps_per_dispatch: int = 1
+    eval_steps_per_dispatch: int = 8
+    harvest_depth: int = 2
     device: str = "cuda"  # "cpu" only when asked for

@@ -509,3 +509,16 @@ def prefetch_to_device(
         # right after.  _put polls ``stop`` every 0.1 s and one next() or
         # staging is bounded work.
         thread.join()
+
+
+def stage_into(static, batch) -> None:
+    """Copy ``batch`` (a tensor, or a dict of them) into the same-shaped
+    ``static`` buffers of a CUDA graph, on the current (compute) stream, one
+    fused launch per dtype: the device-to-device step between a prefetched
+    chunk and a replay, with no host copy.  ``prefetch_to_device`` made the
+    current stream wait for the batch's copies and recorded its tensors on
+    that stream, so their memory is not reused before these copies ran."""
+    if torch.is_tensor(static):
+        static.copy_(batch)
+    else:
+        torch._foreach_copy_([static[k] for k in batch], [batch[k] for k in batch])

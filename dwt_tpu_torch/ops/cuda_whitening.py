@@ -22,7 +22,10 @@ Dispatch, for both:
 * A CPU tensor takes the plain version.
 
 ``moments_launches`` and ``apply_launches`` count kernel launches, so a run
-can show that its main path went through the kernels.  Both kernels are
+can show that its main path went through the kernels.  Inside a CUDA graph
+capture a wrapper records its launch and makes none: the count goes to the
+open :func:`capture_launches` tally, and the graph's owner adds the tally
+once per replay (:func:`count_replay`), where the kernels do launch.  Both kernels are
 bound by HBM bytes; see the notes at the head of the ``.cu`` sources.
 
 :class:`TrainWhiten` is the autograd seam of train mode, the counterpart of
@@ -39,9 +42,10 @@ of the model's whitening sites.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -53,6 +57,43 @@ _STATS_PER_GROUP = 14  # moments partials per group: 4 sums + 10 products
 # Kernel launches since import (or since a caller reset them).
 apply_launches = 0
 moments_launches = 0
+# The launches the open CUDA graph capture recorded, by kernel (None: no
+# capture_launches block is open).
+_recorded: Optional[Dict[str, int]] = None
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel`` (``"apply"`` or ``"moments"``), or, inside
+    a graph capture, one recorded launch."""
+    global apply_launches, moments_launches
+    if torch.cuda.is_current_stream_capturing():
+        if _recorded is not None:
+            _recorded[kernel] += 1
+        return
+    if kernel == "apply":
+        apply_launches += 1
+    else:
+        moments_launches += 1
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields the tally of the launches the
+    capture records (``{"apply": n, "moments": n}``), filled on exit."""
+    global _recorded
+    _recorded = {"apply": 0, "moments": 0}
+    try:
+        yield _recorded
+    finally:
+        _recorded = None
+
+
+def count_replay(recorded: Dict[str, int], replays: int = 1) -> None:
+    """Count the launches of ``replays`` replays of a graph whose capture
+    recorded ``recorded``."""
+    global apply_launches, moments_launches
+    apply_launches += recorded["apply"] * replays
+    moments_launches += recorded["moments"] * replays
 
 
 # ------------------------------------------------------------------- apply
@@ -221,7 +262,6 @@ def whiten_apply(
     16-byte aligned, all on ``x``'s device.  One launch per call, whatever
     ``D``.  The result goes to ``out`` (shaped like ``x``) when given,
     else to a new tensor."""
-    global apply_launches
     if x.device.type == "cpu":
         return whiten_apply_plain(x, mean, w, out)
     if x.device.type != "cuda":
@@ -243,7 +283,7 @@ def whiten_apply(
             rc = _apply_launch()(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc:
         _raise_on_error(_library("whiten_apply"), rc, "whiten_apply")
-    apply_launches += 1
+    _count("apply")
     return y
 
 
@@ -335,7 +375,6 @@ def whiten_moments(
 
     Launches on the current stream.  Calls on two streams at once are not
     supported: all launches on a device share the arrival counters."""
-    global moments_launches
     if x.device.type == "cpu":
         return whiten_moments_plain(x, group_size)
     if x.device.type != "cuda":
@@ -357,7 +396,7 @@ def whiten_moments(
             _arrival_counter(device).data_ptr(), domains, m_rows, c, clusters,
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(lib, rc, "whiten_moments")
-    moments_launches += 1
+    _count("moments")
     if x.dim() == 2:
         return mean[0], cov[0]
     return mean, cov

@@ -7,24 +7,30 @@
   the serving engine builds its cache with the same function;
 * **device-resident counters**: the three eval counters stay on the device
   across the whole pass and are read back once at its end;
+* **k batches per dispatch** (``eval_steps_per_dispatch``): batches are
+  grouped into chunks of up to k (:func:`chunk_groups`), and on the card
+  with k ≥ 2 each batch of a chunk is a replay of one captured forward
+  (``steps.make_accum_eval_step``, ``steps.make_scanned_collect``); the
+  graphs live as long as the pipeline, and each pass's eval matrices are
+  copied into the ones the eval graph reads;
 * **exact counts**: eval batches are padded and masked, so the ragged
   tail adds nothing it should not;
 * **stat collection** (the OfficeHome protocol): un-padded batches —
   padding would perturb the batch moments the pass exists to estimate —
-  so the ragged tail is a forward of its own.
+  so the ragged tail is a chunk of its own, an eager forward (JAX's
+  ``_collect_tail``).
 
 Batches come from ``batch_iterator`` with the JAX pipeline's seeds,
 epochs and worker count (an item's random crop draws from its token
 ``(seed, epoch, index)``: ``(0, 0, i)`` in an eval pass, ``(seed, pass,
 i)`` in a collection pass) and reach the device through
-``prefetch_to_device``.  Mesh sharding and scanned dispatch are not
-ported yet.
+``prefetch_to_device``.  Mesh sharding is not ported yet.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,7 @@ from dwt_tpu_torch.train.state import TrainState
 from dwt_tpu_torch.train.steps import (
     eval_counters,
     make_accum_eval_step,
+    make_scanned_collect,
     make_stat_collection_step,
 )
 
@@ -94,18 +101,64 @@ def install_whiten_cache(
         install_eval_matrix(site, None if cache is None else cache[name])
 
 
+def chunk_groups(batches: Iterable, k: int) -> Iterator[List]:
+    """Group consecutive batches into lists of at most ``k`` of one batch
+    size, cutting early where the size changes (the un-padded collection
+    stream ends with a ragged tail, which becomes a chunk of its own)."""
+    buf: List = []
+    for b in batches:
+        if buf and (len(buf) == k or b[0].shape[0] != buf[0][0].shape[0]):
+            yield buf
+            buf = []
+        buf.append(b)
+    if buf:
+        yield buf
+
+
+def stack_eval_chunk(group) -> Dict[str, np.ndarray]:
+    """``[(x, y, mask), ...] -> {"x": [k, N, ...], "y": [k, N], "mask": [k,
+    N]}``, the accumulating eval step's chunk."""
+    xs, ys, ms = zip(*group)
+    return {"x": np.stack([np.asarray(x, np.float32) for x in xs]),
+            "y": np.stack([np.asarray(y, np.int64) for y in ys]),
+            "mask": np.stack([np.asarray(m, bool) for m in ms])}
+
+
 class EvalPipeline:
     """Eval and stat-collection passes over a dataset, on ``device``;
     ``num_domains`` is the model's domain branches, which a collection
-    forward fills with the same batch, and ``num_workers`` the loader's
-    item-loading threads."""
+    forward fills with the same batch, ``num_workers`` the loader's
+    item-loading threads and ``eval_k`` the batches per dispatch
+    (``eval_steps_per_dispatch``).  The dispatch functions, and their
+    graphs on the card, are built at a pass of a model and kept for the
+    next passes of the same model (``eval_graph``, ``collect_graph``)."""
 
     def __init__(self, test_batch_size: int, device: torch.device,
-                 num_domains: int, num_workers: int = 0):
+                 num_domains: int, num_workers: int = 0, eval_k: int = 1):
+        if eval_k < 1:
+            raise ValueError(f"eval_steps_per_dispatch must be >= 1, got {eval_k}")
         self.test_batch_size = int(test_batch_size)
         self.device = torch.device(device)
         self.num_domains = num_domains
         self.num_workers = int(num_workers)
+        self.eval_k = int(eval_k)
+        self._model = None
+        self._eval_fn = self._collect_step = self._collect_fn = None
+
+    def _dispatch(self, model: nn.Module) -> None:
+        if model is not self._model:
+            self._model = model
+            self._eval_fn = make_accum_eval_step(model, self.eval_k)
+            self._collect_step = make_stat_collection_step(model, self.num_domains)
+            self._collect_fn = make_scanned_collect(self._collect_step, self.eval_k)
+
+    @property
+    def eval_graph(self):
+        return None if self._eval_fn is None else self._eval_fn.graph
+
+    @property
+    def collect_graph(self):
+        return None if self._collect_fn is None else self._collect_fn.graph
 
     def evaluate(self, state: TrainState, dataset) -> dict:
         """Accumulate eval counters over ``dataset``; one host fetch.
@@ -115,24 +168,24 @@ class EvalPipeline:
         """
         t0 = time.perf_counter()
         model = state.model
-        step = make_accum_eval_step(model)
+        self._dispatch(model)
         counters = eval_counters(self.device)
         forwards = 0
         stream = batch_iterator(
             dataset, self.test_batch_size, shuffle=False, drop_last=False,
             num_workers=self.num_workers, pad_and_mask=True,
         )
-        batches = prefetch_to_device(
-            ((np.asarray(x, np.float32), np.asarray(y, np.int64), mask)
-             for x, y, mask in stream), device=self.device)
+        chunks = prefetch_to_device(
+            (stack_eval_chunk(g) for g in chunk_groups(stream, self.eval_k)),
+            device=self.device)
         install_whiten_cache(model, make_whiten_cache(model))
         try:
-            for x, y, mask in batches:
-                counters = step(counters, x, y, mask)
-                forwards += 1
+            for chunk in chunks:
+                counters = self._eval_fn(counters, chunk)
+                forwards += int(chunk["x"].shape[0])
         finally:
             install_whiten_cache(model, None)
-            batches.close()
+            chunks.close()
             stream.close()
         # The pass's ONE device→host fetch.
         loss_sum, correct, count = torch.stack(
@@ -151,20 +204,26 @@ class EvalPipeline:
         """One stat-collection pass (reference ``eval_pass_collect_stats``):
         gradient-free train-mode forwards over ``dataset`` that advance
         only the running stats; ``seed``/``epoch`` set the items' tokens.
-        Returns the number of forwards."""
-        collect = make_stat_collection_step(state.model, self.num_domains)
+        Full batches go ``eval_k`` per dispatch; the ragged tail is an
+        eager forward of its own.  Returns the number of forwards."""
+        self._dispatch(state.model)
         forwards = 0
         stream = batch_iterator(
             dataset, self.test_batch_size, shuffle=False, drop_last=False,
             seed=seed, epoch=epoch, num_workers=self.num_workers,
         )
-        batches = prefetch_to_device(
-            (np.asarray(b[0], np.float32) for b in stream), device=self.device)
+        chunks = prefetch_to_device(
+            (np.stack([np.asarray(b[0], np.float32) for b in g])
+             for g in chunk_groups(stream, self.eval_k)), device=self.device)
         try:
-            for x in batches:
-                collect(state, x)
-                forwards += 1
+            for xs in chunks:
+                if xs.shape[1] == self.test_batch_size:
+                    self._collect_fn(state, xs)
+                else:  # the ragged tail: eager forwards
+                    for x in xs:
+                        self._collect_step(state, x)
+                forwards += int(xs.shape[0])
         finally:
-            batches.close()
+            chunks.close()
             stream.close()
         return forwards

@@ -16,8 +16,28 @@ Both return the final target accuracy (%).  A trainer runs on CUDA unless
 the config asks for the CPU, and raises when CUDA is absent rather than
 choosing the CPU itself.  It turns TF32 off for cuDNN convolutions and
 cuBLAS matmuls, process-wide: the JAX reference's f32 train step is full
-f32.  The loops read values back to the host only at their log interval
-and once per eval pass.
+f32.
+
+Dispatch and harvesting, as the JAX loops': the batches are grouped
+into chunks of up to k = ``steps_per_dispatch`` (:func:`_chunk_stream`,
+cut where an eval or a save is due so the cadences land on chunk
+boundaries; a digits epoch's end ends its last chunk) and each chunk
+runs through ``steps.make_scanned_step`` — at k ≥ 2 on the card one
+replay of a captured CUDA graph per step, at k = 1 one eager step
+(:func:`_run_chunks`); the step boundary (guard, fault hooks,
+preemption) runs once per chunk, over its step range.  The digits loop
+at k = 1 keeps its per-step loop: its records carry the host's running
+step count, where the JAX loop's chunked path numbers the steps from
+``state.step`` at the epoch's start (the two part after a skipped step).  Records are stamped on the host and reach the
+logger through ``train.harvest.AsyncMetricHarvester`` (``harvest_depth``,
+default 2): non-blocking copies, drained when ready, on overflow, and
+fully before every eval, save, preemption exit, rollback and return, so
+the records are the synchronous path's, in order.  With a guard and a
+depth above 0 the guard reads the harvested ``finite`` flags
+(``check_harvested``: detection at most ``depth`` dispatches late, no
+readback of its own); at depth 0 it reads one flag back every
+``guard_interval`` steps.  Eval and collection passes run
+``eval_steps_per_dispatch`` batches per dispatch (``train.evalpipe``).
 
 Both loops read their streams through a ``DataPlane`` registered as the
 JAX loops register theirs, so they train on the JAX package's batches,
@@ -52,12 +72,11 @@ preemption flag and the notice), the guard's ladder (``lr_backoff``,
 ``skip_step``, ``rollback`` to the newest valid checkpoint with the data
 streams reseeded, ``halt``), a proactive ``notice_save`` on a preemption
 notice, and on SIGTERM a final save, a ``preempt`` record and a normal
-return (exit 0).  The guard is the JAX package's at ``--harvest_depth
-0``.
+return (exit 0).
 
-Not ported yet, in either loop (ROADMAP): metric harvesting and the
-harvested guard (queue 1 item 4), the metrics counters (item 9),
-scanned dispatch (item 5), bf16 compute and multi-host runs.
+Not ported yet, in either loop (ROADMAP): the metrics counters and the
+harvester's gauges (queue 1 item 9), ``mirror_recovery`` and multi-host
+runs (item 8), bf16 compute (item 6).
 """
 
 from __future__ import annotations
@@ -111,9 +130,15 @@ from dwt_tpu_torch.resilience.preemption import PreemptionHandler
 from dwt_tpu_torch.resilience.watchdog import HangWatchdog
 from dwt_tpu_torch.serve.engine import resolve_device
 from dwt_tpu_torch.train.evalpipe import EvalPipeline
+from dwt_tpu_torch.train.harvest import make_harvester
 from dwt_tpu_torch.train.optim import digits_tx, officehome_tx
 from dwt_tpu_torch.train.state import TrainState
-from dwt_tpu_torch.train.steps import make_digits_train_step, make_officehome_train_step
+from dwt_tpu_torch.train.steps import (
+    make_digits_train_step,
+    make_officehome_train_step,
+    make_scanned_step,
+    stack_batches,
+)
 from dwt_tpu_torch.utils.checkpoint import (
     MANIFEST,
     STATE_FILE,
@@ -285,33 +310,57 @@ def _make_guard(cfg, logger: Logger) -> Optional[DivergenceGuard]:
 
 
 class _StepBoundary:
-    """What the loops do once per step, as the JAX loops' ``_StepBoundary``
-    on one process: the watchdog's heartbeat, the fault plan's step
-    hooks, the guard's check (it may revert ``state`` in place, or raise
-    ``RollbackRequest``/``DivergenceError``), then the stop flag and, on
-    an otherwise clean boundary, the notice's proactive save, once
-    (``on_notice(state)`` returns the saved step, kept as
-    ``notice_step``).  Returns whether the run must stop; ``stop`` stays
-    set."""
+    """What the loops do once per step or chunk, as the JAX loops'
+    ``_StepBoundary`` on one process: the watchdog's heartbeat, the fault
+    plan's step hooks over the ``n_steps`` that just ran, the guard's
+    check (harvested flags with ``check_harvested``, else ``step``; it may
+    revert ``state`` in place, or raise ``RollbackRequest``/
+    ``DivergenceError``; a guard event fences the harvester's pending
+    flags), then the stop flag and, on an otherwise clean boundary, the
+    notice's proactive save, once (``on_notice(state)`` returns the saved
+    step, kept as ``notice_step``).  Returns whether the run must stop;
+    ``stop`` stays set."""
 
-    def __init__(self, guard, preempt, watchdog, notice_watcher):
+    def __init__(self, guard, preempt, watchdog, notice_watcher, harvester=None):
         self.guard = guard
         self.preempt = preempt
         self.watchdog = watchdog
         self.notice_watcher = notice_watcher
+        self.harvester = harvester
+        self._harvest_guard = (guard is not None and harvester is not None
+                               and harvester.async_mode)
         self.coord = Coordinator()
         self.on_notice = None
         self.notice_step: Optional[int] = None
         self._notice_handled = False
         self.stop = False
 
-    def __call__(self, state, metrics, gstep: int) -> bool:
+    def _check(self, state, metrics, n_steps: int, gstep: int) -> None:
+        recoveries = self.guard.recoveries
+        try:
+            if self._harvest_guard:
+                self.guard.check_harvested(state, n_steps, gstep)
+            else:
+                self.guard.step(state, metrics, n_steps, gstep)
+        except (RollbackRequest, DivergenceError):
+            self._fence()
+            raise
+        if self.guard.recoveries != recoveries:
+            self._fence()
+
+    def _fence(self) -> None:
+        # Pending entries predate the recovery: their records still emit,
+        # their flags must not re-trip the guard on the replayed segment.
+        if self.harvester is not None:
+            self.harvester.bump_generation()
+
+    def __call__(self, state, metrics, n_steps: int, gstep: int) -> bool:
         self.watchdog.heartbeat()
         # Between the heartbeat and the guard: a hang is measured from a
         # fresh beat, a SIGTERM is seen by this boundary's stop flag.
-        inject.at_step(gstep)
+        inject.at_step(gstep - n_steps + 1, gstep)
         if self.guard is not None:
-            self.guard.step(state, metrics, 1, gstep)
+            self._check(state, metrics, n_steps, gstep)
         decision = self.coord.decide(stop=self.preempt.should_stop,
                                      notice=self.notice_watcher.noticed)
         self.stop = self.stop or decision.stop
@@ -325,6 +374,47 @@ class _StepBoundary:
 # Seed stride between rollback attempts (the JAX loops'): the replayed
 # segment draws a new shuffle order from the same position.
 _ROLLBACK_SEED_STRIDE = 7919
+
+
+def _chunk_stream(batches, k: int, should_cut=None, start: int = 0):
+    """Group host batches into stacked ``[<= k, ...]`` chunks for the
+    k-steps-per-dispatch path.  ``should_cut(index)`` ends a chunk after
+    the batch at global index ``index``, so per-step cadences (evals,
+    saves) land on chunk boundaries; the stream's end yields the rest."""
+    chunk = []
+    i = start
+    for b in batches:
+        chunk.append(b)
+        if len(chunk) == k or (should_cut is not None and should_cut(i)):
+            yield stack_batches(chunk)
+            chunk = []
+        i += 1
+    if chunk:
+        yield stack_batches(chunk)
+
+
+def _run_chunks(chunks, scanned, state, on_steps) -> None:
+    """Drive the k-steps-per-dispatch path: each chunk through ``scanned``
+    (``steps.make_scanned_step``), then ``on_steps(n, stacked metrics)``
+    for the records and the boundary; it returns whether to stop."""
+    for chunk in chunks:
+        n = next(iter(chunk.values())).shape[0]
+        if on_steps(n, scanned(state, chunk)):
+            break
+
+
+def _train_emit(logger: Logger, keys, idxs) -> Callable:
+    """The emit closure of one harvested entry: for each ``(row, step,
+    fields)`` of ``idxs`` a ``train`` record at ``step`` with ``fields``
+    and the host copies of ``keys`` (row None: scalars; else that row of
+    a chunk's ``[n]``)."""
+
+    def emit(vals):
+        for row, step_no, fields in idxs:
+            logger("train", step_no, **fields,
+                   **{k: float(vals[k] if row is None else vals[k][row]) for k in keys})
+
+    return emit
 
 
 def _seek_data_plane(plane: DataPlane, ckpt_dir, source: str, step: int,
@@ -552,8 +642,11 @@ def run_digits(
     optimizer, schedules = digits_tx(model, cfg, steps_per_epoch)
     state = TrainState(model, optimizer, schedules)
     train_step = make_digits_train_step(model, cfg.lambda_entropy_loss)
+    k_dispatch = max(1, cfg.steps_per_dispatch)
+    scanned = make_scanned_step(train_step, k_dispatch) if k_dispatch > 1 else None
     evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=2,
-                         num_workers=cfg.num_workers)
+                         num_workers=cfg.num_workers,
+                         eval_k=cfg.eval_steps_per_dispatch)
     # Both streams roll over at the zip's length, so a stream's position
     # is a function of the step.
     plane = DataPlane(num_workers=cfg.num_workers,
@@ -591,14 +684,20 @@ def run_digits(
     step_aligned = data_mode != "epoch_boundary"
     gstep = state.step  # the host's step count: records and fault hooks
     acc = 0.0
+    harvester = make_harvester(cfg, guard)
+    flag_mode = guard is not None and harvester.async_mode
+    if flag_mode:
+        guard.enable_harvest(harvester.depth, gstep, floor_fn=harvester.pending_floor)
+    keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
     with _resilience(cfg, pipeline) as (preempt, wd, nw):
-        boundary = _StepBoundary(guard, preempt, wd, nw)
+        boundary = _StepBoundary(guard, preempt, wd, nw, harvester)
 
         def proactive_save(st):
             # A preemption notice: save now and keep training; the SIGTERM
             # that follows exits with this checkpoint already durable.
             if not cfg.ckpt_dir:
                 return None
+            harvester.drain()  # a checkpoint boundary: the records first
             with wd.suspended():
                 pipeline.save(cfg.ckpt_dir, st.step, st,
                               data_state=plane.snapshot(), **_keep_kwargs(cfg))
@@ -611,24 +710,59 @@ def run_digits(
             # epoch, from its own seed; the zip ends with the shorter one.
             source = plane.epoch_iterator(source_ds, "source", bs)
             target = plane.epoch_iterator(target_ds, "target", bs)
-            batches = prefetch_to_device(({
+            epoch_batches = ({
                 "source_x": np.asarray(sx, np.float32),
                 "source_y": np.asarray(sy, np.int64),
                 "target_x": np.asarray(tx_img, np.float32),
-            } for (sx, sy), (tx_img, _) in zip(source, target)), device=device)
+            } for (sx, sy), (tx_img, _) in zip(source, target))
+            batches = None
             try:
-                for i, batch in enumerate(batches):
-                    metrics = train_step(state, batch)
-                    gstep += 1
-                    plane.advance(1)
-                    state, metrics = inject.maybe_nan(state, metrics, gstep)
-                    if i % cfg.log_interval == 0:
-                        keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
-                        values = torch.stack([metrics[k].double() for k in keys]).tolist()
-                        logger("train", gstep, epoch=epoch, **dict(zip(keys, values)))
-                    if boundary(state, metrics, gstep):
-                        break
+                if scanned is None:
+                    batches = prefetch_to_device(epoch_batches, device=device)
+                    for i, batch in enumerate(batches):
+                        metrics = train_step(state, batch)
+                        gstep += 1
+                        plane.advance(1)
+                        state, metrics = inject.maybe_nan(state, metrics, gstep)
+                        values = emit = None
+                        if i % cfg.log_interval == 0:
+                            values = {k: metrics[k] for k in keys}
+                            emit = _train_emit(logger, keys, [(None, gstep, {"epoch": epoch})])
+                        harvester.put(gstep, gstep, values=values,
+                                      flag=metrics["finite"] if flag_mode else None, emit=emit)
+                        if boundary(state, metrics, 1, gstep):
+                            break
+                else:
+                    # k steps per dispatch: record steps from the host's
+                    # numbering at the epoch's start (JAX's chunked path),
+                    # the boundary once per chunk.
+                    pos, step0 = 0, state.step
+
+                    def on_steps(n, ms):
+                        nonlocal pos, gstep
+                        lo = gstep + 1
+                        gstep += n
+                        plane.advance(n)
+                        _, ms = inject.maybe_nan(state, ms, lo, gstep)
+                        idxs = [(j - pos, step0 + j + 1, {"epoch": epoch})
+                                for j in range(pos, pos + n) if j % cfg.log_interval == 0]
+                        values = emit = None
+                        if idxs:
+                            values = {k: ms[k] for k in keys}
+                            emit = _train_emit(logger, keys, idxs)
+                        harvester.put(lo, gstep, values=values,
+                                      flag=ms["finite"] if flag_mode else None, emit=emit)
+                        pos += n
+                        return boundary(state, ms, n, gstep)
+
+                    batches = prefetch_to_device(
+                        _chunk_stream(epoch_batches, k_dispatch), device=device)
+                    _run_chunks(batches, scanned, state, on_steps)
             except RollbackRequest as rb:
+                # The pending records narrate the steps into the divergence
+                # (their flags are fenced); the restore rewinds the numbering.
+                harvester.drain()
+                harvester.reset_stamps()
                 with wd.suspended():  # the join waits for the in-flight write
                     pipeline.close(raise_errors=False)
                 source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
@@ -642,7 +776,11 @@ def run_digits(
                 epoch = plane.streams["source"].epoch
                 continue
             finally:
-                batches.close()
+                # Every exit, a halt's included: each pending record emits
+                # once, in order, before any boundary record.
+                harvester.drain()
+                if batches is not None:
+                    batches.close()
                 source.close()
                 target.close()
             if boundary.stop:
@@ -795,8 +933,11 @@ def run_officehome(
     optimizer, schedules = officehome_tx(model, cfg)
     state = TrainState(model, optimizer, schedules)
     train_step = make_officehome_train_step(model, cfg.lambda_mec_loss)
+    k_dispatch = max(1, cfg.steps_per_dispatch)
+    scanned = make_scanned_step(train_step, k_dispatch)
     evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=3,
-                         num_workers=cfg.num_workers)
+                         num_workers=cfg.num_workers,
+                         eval_k=cfg.eval_steps_per_dispatch)
 
     # The initial state: a resume beats init_ckpt, which beats the
     # reference checkpoint, which beats fresh init.
@@ -832,6 +973,12 @@ def run_officehome(
     bump0 = plane.seed_bump
     step_aligned = data_mode != "epoch_boundary"
     acc = 0.0
+    harvester = make_harvester(cfg, guard)
+    flag_mode = guard is not None and harvester.async_mode
+    if flag_mode:
+        guard.enable_harvest(harvester.depth, state.step,
+                             floor_fn=harvester.pending_floor)
+    keys = ("loss", "cls_loss", "mec_loss", "grad_norm")
 
     def ckpt_targets(it):
         targets = []
@@ -841,12 +988,19 @@ def run_officehome(
             targets.append((anchor_dir(cfg.ckpt_dir), {}))
         return targets
 
+    def should_cut(it):
+        # Chunks end where an eval or a save is due, so the cadences are
+        # the per-step ones; the boundary and its actions run per chunk
+        # (at k = 1, per step).
+        return (it + 1) % cfg.check_acc_step == 0 or bool(ckpt_targets(it))
+
     with _resilience(cfg, pipeline) as (preempt, wd, nw):
-        boundary = _StepBoundary(guard, preempt, wd, nw)
+        boundary = _StepBoundary(guard, preempt, wd, nw, harvester)
 
         def proactive_save(st):
             if not cfg.ckpt_dir:
                 return None
+            harvester.drain()  # a checkpoint boundary: the records first
             with wd.suspended():
                 pipeline.save(cfg.ckpt_dir, st.step, st,
                               data_state=plane.snapshot(), **_keep_kwargs(cfg))
@@ -857,7 +1011,13 @@ def run_officehome(
             """The eval, the best-accuracy save and the cadence saves after
             the step at iteration ``it``."""
             nonlocal acc, best_acc
-            if (it + 1) % cfg.check_acc_step == 0:
+            do_eval = (it + 1) % cfg.check_acc_step == 0
+            targets = ckpt_targets(it)
+            if do_eval or targets:
+                # The train records land before the test and checkpoint
+                # records they precede.
+                harvester.drain()
+            if do_eval:
                 result = evalp.evaluate(state, test_ds)
                 wd.heartbeat()
                 acc = result["accuracy"]
@@ -875,7 +1035,6 @@ def run_officehome(
                         best_acc = acc
                         _write_best_record(cfg.ckpt_dir, acc, state.step)
                         logger("best", state.step, accuracy=acc)
-            targets = ckpt_targets(it)
             if targets:
                 data_state = plane.snapshot()
                 with wd.suspended():
@@ -891,25 +1050,37 @@ def run_officehome(
             step0 = state.step - start_iter
             produce = officehome_batches(plane, source_ds, target_ds,
                                          cfg.source_batch_size, cfg.num_iters - start_iter)
-            batches = prefetch_to_device(produce, device=device)
+            batches = None
             try:
-                for it, batch in enumerate(batches, start=start_iter):
-                    metrics = train_step(state, batch)
+                it = start_iter
+
+                def on_steps(n, ms):
+                    nonlocal it
                     # The plane's position is the next batch the loop trains
                     # on, whatever the prefetch thread has built: what a save
                     # records.
-                    plane.advance(1)
-                    gstep = step0 + it + 1
-                    state, metrics = inject.maybe_nan(state, metrics, gstep)
-                    if it % cfg.log_interval == 0:
-                        keys = ("loss", "cls_loss", "mec_loss", "grad_norm")
-                        values = torch.stack([metrics[k].double() for k in keys]).tolist()
-                        logger("train", gstep, iter=it, **dict(zip(keys, values)))
-                    stop = boundary(state, metrics, gstep)
-                    boundary_actions(it)
-                    if stop:
-                        break
+                    plane.advance(n)
+                    _, ms = inject.maybe_nan(state, ms, step0 + it + 1, step0 + it + n)
+                    idxs = [(j, step0 + it + j + 1, {"iter": it + j})
+                            for j in range(n) if (it + j) % cfg.log_interval == 0]
+                    values = emit = None
+                    if idxs:
+                        values = {k: ms[k] for k in keys}
+                        emit = _train_emit(logger, keys, idxs)
+                    harvester.put(step0 + it + 1, step0 + it + n, values=values,
+                                  flag=ms["finite"] if flag_mode else None, emit=emit)
+                    it += n
+                    stop = boundary(state, ms, n, step0 + it)
+                    boundary_actions(it - 1)
+                    return stop
+
+                batches = prefetch_to_device(
+                    _chunk_stream(produce, k_dispatch, should_cut, start=start_iter),
+                    device=device)
+                _run_chunks(batches, scanned, state, on_steps)
             except RollbackRequest as rb:
+                harvester.drain()
+                harvester.reset_stamps()  # the restore rewinds the numbering
                 with wd.suspended():
                     pipeline.close(raise_errors=False)
                 source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
@@ -921,7 +1092,9 @@ def run_officehome(
                 plane.seed_bump = bump0 + guard.rollbacks * _ROLLBACK_SEED_STRIDE
                 continue
             finally:
-                batches.close()
+                harvester.drain()  # every exit (digits' finally)
+                if batches is not None:
+                    batches.close()
                 produce.close()
             break
         if boundary.stop:

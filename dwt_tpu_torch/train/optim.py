@@ -21,6 +21,19 @@ the lr only multiplies the final update, so ``lr · s`` moves every
 parameter by ``s`` times the update at ``lr``, as optax's
 ``scale_by_backoff`` does.  At ``s = 1.0`` the lr is the schedule's,
 bit for bit.
+
+On the card every group's lr is a 0-d float32 tensor on the device, and
+both optimizers read it there: SGD through its fused kernel
+(``fused=True``), Adam ``capturable`` (its step count a device tensor
+too).  A Python-float lr would be a kernel argument frozen when a CUDA
+graph captures the step, so a replayed step would run the capture's lr
+forever, across a milestone or a backoff; SGD's ``foreach`` path reads a
+tensor lr with ``.item()``, which no capture takes.  Eager and replayed
+steps on the card run this one update rule, so k replayed steps are
+bitwise k eager steps.  :func:`set_learning_rates` writes the device lr
+(one small launch, only when the value changes) and keeps its value on
+the host in the group's ``lr_host``.  On the CPU the lrs stay floats and
+the optimizers their default paths.
 """
 
 from __future__ import annotations
@@ -57,6 +70,14 @@ def multistep_schedule(
     return schedule
 
 
+def _lr(device: torch.device):
+    """A param group's initial lr: a device tensor on the card, else 0.0
+    (the module docstring); :func:`set_learning_rates` sets it per step."""
+    if device.type == "cuda":
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return 0.0
+
+
 def sgd_two_group(
     model: nn.Module,
     momentum: float = 0.9,
@@ -70,10 +91,13 @@ def sgd_two_group(
     head, backbone = [], []
     for name, p in model.named_parameters():
         (head if name.split(".")[0] == head_key else backbone).append(p)
+    device = next(model.parameters()).device
+    # Each group its own lr (a device tensor on the card, not one shared).
     return torch.optim.SGD(
-        [{"params": head}, {"params": backbone}],
-        lr=0.0, momentum=momentum, dampening=0.0,
+        [{"params": head, "lr": _lr(device)}, {"params": backbone, "lr": _lr(device)}],
+        momentum=momentum, dampening=0.0,
         weight_decay=weight_decay, nesterov=False,
+        **({"fused": True} if device.type == "cuda" else {}),
     )
 
 
@@ -93,8 +117,11 @@ def adam_l2(model: nn.Module, weight_decay: float = 5e-4) -> torch.optim.Adam:
     """Adam with torch-style L2 weight decay on every parameter (the digits
     recipe, ``usps_mnist.py:389``: Adam(lr=1e-3, weight_decay=5e-4)); one
     param group, its lr set per step (:func:`set_learning_rates`)."""
-    return torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+    device = next(model.parameters()).device
+    return torch.optim.Adam(model.parameters(), lr=_lr(device), betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay,
+                            **({"capturable": True, "foreach": True}
+                               if device.type == "cuda" else {}))
 
 
 def digits_tx(model: nn.Module, cfg, steps_per_epoch: int
@@ -112,6 +139,13 @@ def set_learning_rates(
     scale: float = 1.0,
 ) -> None:
     """Set each param group's lr from its schedule at ``step``, times the
-    guard's backoff ``scale`` (1.0: the schedule's lr unchanged)."""
+    guard's backoff ``scale`` (1.0: the schedule's lr unchanged).  A device
+    lr is written in place, on the current stream, when its host value
+    ``lr_host`` changes."""
     for group, schedule in zip(optimizer.param_groups, schedules, strict=True):
-        group["lr"] = schedule(step) * scale
+        lr = schedule(step) * scale
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = lr
+        elif group.get("lr_host") != lr:
+            group["lr"].fill_(lr)
+            group["lr_host"] = lr

@@ -115,24 +115,40 @@ class StateSnapshot:
         return host
 
 
+# A param group's implementation flags: the live optimizer's stay.
+_IMPL_KEYS = ("fused", "foreach", "capturable", "differentiable")
+
+
 def _adopt_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict) -> None:
     """``optimizer.load_state_dict(saved)`` in place: each saved buffer is
     copied into the live one of its parameter when one of its shape
     exists (references held elsewhere stay valid), else created beside its
     parameter (a momentum re-laid like a channels_last weight); a
     parameter without saved state loses its live state, as a fresh
-    optimizer's; the groups' hyperparameters are the saved ones."""
+    optimizer's; the groups' hyperparameters are the saved ones, but for
+    the live optimizer's own implementation (``_IMPL_KEYS``, chosen per
+    device by ``train/optim.py``) and its device lr, so a state saved on
+    another device, or before the lr moved to the device, resumes into
+    the update rule a capture reads."""
     groups = optimizer.param_groups
     saved_groups = saved["param_groups"]
     if len(groups) != len(saved_groups) or any(
             len(g["params"]) != len(s["params"]) for g, s in zip(groups, saved_groups)):
         raise ValueError("the saved optimizer state has other param groups")
-    by_id = {}
+    by_id, group_of = {}, {}
     for group, sgroup in zip(groups, saved_groups):
         by_id.update(zip(sgroup["params"], group["params"]))
+        group_of.update((id(p), group) for p in group["params"])
+        device_lr = torch.is_tensor(group.get("lr"))
+        keep_live = _IMPL_KEYS + (("lr", "lr_host") if device_lr else ())
         # JSON (a delta manifest) turns a tuple (Adam's betas) into a list.
         group.update({k: tuple(v) if isinstance(group.get(k), tuple) else v
-                      for k, v in sgroup.items() if k != "params"})
+                      for k, v in sgroup.items()
+                      if k != "params" and k not in keep_live})
+        if device_lr:
+            # The device lr stays the tensor a captured step reads; the next
+            # set_learning_rates writes it.
+            group["lr_host"] = None
     keep = {by_id[int(i)] for i in saved["state"]}
     for p in [p for p in optimizer.state if p not in keep]:
         del optimizer.state[p]
@@ -151,8 +167,11 @@ def _adopt_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict) -> Non
                     current.copy_(value)
                 elif value.shape == p.shape:
                     live[key] = torch.empty_like(p).copy_(value)
-                else:  # Adam's step count: stays where the optimizer keeps it
-                    live[key] = value.detach().clone()
+                else:  # Adam's step count: on the device when capturable
+                    group = group_of[id(p)]
+                    on_device = group.get("capturable") or group.get("fused")
+                    live[key] = value.detach().clone().to(
+                        p.device if on_device else "cpu")
 
 
 def _copy_all(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
@@ -182,8 +201,13 @@ class TrainState:
     lr_scale: float = 1.0
 
     def _live(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        optimizer = self.optimizer.state_dict()
+        for group in optimizer["param_groups"]:
+            if torch.is_tensor(group.get("lr")):
+                # A device lr (train/optim.py) is saved as its host value.
+                lr = group.pop("lr_host", None)
+                group["lr"] = 0.0 if lr is None else lr
+        return {"model": self.model.state_dict(), "optimizer": optimizer}
 
     def state_dict(self) -> Dict[str, Any]:
         """``{"model", "optimizer", "step", "lr_scale"}``: the model's

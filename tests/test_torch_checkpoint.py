@@ -116,6 +116,48 @@ def test_train_state_round_trip_is_bitwise_and_digest_verified(tmp_path):
     _assert_same_state(state, fresh)
 
 
+def _fused_state(seed):
+    """``_state`` with the optimizer the card gets (``train/optim.py``):
+    fused SGD reading a 0-d tensor lr per group."""
+    state = _state(seed)
+    cfg = OfficeHomeConfig()
+    state.optimizer = torch.optim.SGD(
+        [{"params": g["params"], "lr": torch.zeros(())}
+         for g in state.optimizer.param_groups],
+        momentum=cfg.sgd_momentum, dampening=0.0, weight_decay=cfg.weight_decay,
+        nesterov=False, fused=True)
+    return state
+
+
+def test_resume_keeps_the_live_optimizer_implementation():
+    """A state saved by the default SGD (no fused flag, float lrs: a CPU
+    run, or a card run before its lrs moved to the device) resumes into
+    the fused SGD with tensor lrs, and back: each live group keeps its
+    own implementation flags and its lr tensor, takes the saved momentum
+    and hyperparameters, and the next update follows the uninterrupted
+    run's."""
+    plain = _trained_state()
+    fused = _fused_state(seed=5)
+    lrs = [g["lr"] for g in fused.optimizer.param_groups]
+    fused.load_state_dict(plain.state_dict())
+    for group, lr in zip(fused.optimizer.param_groups, lrs):
+        assert group["fused"] is True and group["foreach"] is None
+        assert group["lr"] is lr and group["lr_host"] is None
+        assert group["momentum"] == 0.9 and group["weight_decay"] == 5e-4
+    for s in (plain, fused):
+        make_officehome_train_step(s.model)(s, _batch(7))
+    assert [g["lr_host"] for g in fused.optimizer.param_groups] == \
+        [g["lr"] for g in plain.optimizer.param_groups]
+    for (name, p), q in zip(plain.model.named_parameters(), fused.model.parameters()):
+        torch.testing.assert_close(q, p, rtol=1e-6, atol=1e-7, msg=name)
+
+    back = _state(seed=5)
+    back.load_state_dict(fused.state_dict())
+    for group in back.optimizer.param_groups:
+        assert not group["fused"] and not torch.is_tensor(group["lr"])
+    make_officehome_train_step(back.model)(back, _batch(8))
+
+
 def test_load_clears_the_eval_cache_and_restores_the_lr_step():
     state = _trained_state(steps=1)
     site = next(iter(whitening_sites(state.model).values()))

@@ -262,15 +262,19 @@ def test_batched_moments_kernel_is_bitwise_repeatable(cuda_device):
 def test_batched_moments_kernel_replays_in_a_cuda_graph(cuda_device):
     """A launch captured in a CUDA graph and replayed twice gives the eager
     call's result bitwise: the arrival counter is zero again after every
-    launch, replays included."""
+    launch, replays included.  The capture records one launch and makes
+    none: the count moves by the replays."""
     x = _domains(3, 56448, 256, cuda_device, seed=6, offset=2.0)
     eager = cuda_whitening.whiten_moments(x, 4)  # also warms up the shape
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     before = cuda_whitening.moments_launches
-    with torch.cuda.graph(graph):
+    with cuda_whitening.capture_launches() as recorded, torch.cuda.graph(graph):
         captured = cuda_whitening.whiten_moments(x, 4)
-    assert cuda_whitening.moments_launches == before + 1
+    assert recorded == {"apply": 0, "moments": 1}
+    assert cuda_whitening.moments_launches == before
+    cuda_whitening.count_replay(recorded, 2)
+    assert cuda_whitening.moments_launches == before + 2
     for _ in range(2):
         captured[0].zero_()
         captured[1].zero_()
@@ -445,16 +449,18 @@ def test_batched_apply_kernel_is_bitwise_repeatable(cuda_device):
 @pytest.mark.cuda
 def test_batched_apply_kernel_replays_in_a_cuda_graph(cuda_device):
     """A launch captured in a CUDA graph and replayed twice writes the
-    eager call's result bitwise."""
+    eager call's result bitwise.  The capture records one launch and makes
+    none."""
     x, mean, w = _apply_domains(2, 6272, 48, cuda_device, seed=6)
     eager = cuda_whitening.whiten_apply(x, mean, w)  # also warms up the shape
     out = torch.empty_like(x)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     before = cuda_whitening.apply_launches
-    with torch.cuda.graph(graph):
+    with cuda_whitening.capture_launches() as recorded, torch.cuda.graph(graph):
         cuda_whitening.whiten_apply(x, mean, w, out=out)
-    assert cuda_whitening.apply_launches == before + 1
+    assert recorded == {"apply": 1, "moments": 0}
+    assert cuda_whitening.apply_launches == before
     for _ in range(2):
         out.zero_()
         graph.replay()
@@ -639,3 +645,255 @@ def test_guard_revert_on_the_card_copies_in_place(cuda_device):
     assert ptrs == [(p.data_ptr(), opt.state[p]["momentum_buffer"].data_ptr())
                     for p in model.parameters()]
     assert all(torch.equal(p.detach(), want[n]) for n, p in model.named_parameters())
+
+
+# ------------------------------------------- k steps per dispatch (graphs)
+
+
+def _digits_run_state(device, seed=1):
+    """LeNet-DWT on the card with the digits recipe's Adam (capturable, a
+    device lr), milestones at steps 2 and 4."""
+    from dwt_tpu_torch.config import DigitsConfig
+    from dwt_tpu_torch.nn.lenet import build_lenet
+    from dwt_tpu_torch.train.optim import digits_tx
+    from dwt_tpu_torch.train.state import TrainState
+
+    model = build_lenet(group_size=4, seed=seed).to(device, memory_format=torch.channels_last)
+    optimizer, schedules = digits_tx(model, DigitsConfig(lr_milestones=(2, 3)), 2)
+    return TrainState(model, optimizer, schedules)
+
+
+def _digits_chunk(n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"source_x": torch.from_numpy(rng.normal(size=(n, 32, 28, 28, 1))
+                                         .astype(np.float32)).to(device),
+            "source_y": torch.from_numpy(rng.integers(0, 10, size=(n, 32))).to(device),
+            "target_x": torch.from_numpy(rng.normal(size=(n, 32, 28, 28, 1))
+                                         .astype(np.float32)).to(device)}
+
+
+class _Deterministic:
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved
+
+
+def _assert_states_equal(a, b):
+    for (name, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(x, y), name
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        for key, value in a.optimizer.state[p].items():
+            assert torch.equal(value, b.optimizer.state[q][key]), key
+
+
+@pytest.mark.cuda
+def test_replayed_train_steps_are_bitwise_the_eager_steps(cuda_device):
+    """Five digits steps (Adam, the lr decaying at steps 2 and 4): one by
+    one eagerly, and as chunks of 3 + 2 through the scanned step (the first
+    step eager on the side stream, the capture, then 4 replays).  Metrics,
+    parameters, stats and Adam's moments bitwise equal; both kernels were
+    captured once each per site and counted once per replay."""
+    from dwt_tpu_torch.train import steps
+
+    with _Deterministic():
+        eager, graphed = _digits_run_state(cuda_device), _digits_run_state(cuda_device)
+        chunk = _digits_chunk(5, cuda_device)
+        step = steps.make_digits_train_step(eager.model)
+        rows = [step(eager, {k: v[i] for k, v in chunk.items()}) for i in range(5)]
+        scanned = steps.make_scanned_step(steps.make_digits_train_step(graphed.model), 3)
+        before = (cuda_whitening.moments_launches, cuda_whitening.apply_launches)
+        out = [scanned(graphed, {k: v[:3] for k, v in chunk.items()}),
+               scanned(graphed, {k: v[3:] for k, v in chunk.items()})]
+        torch.cuda.synchronize()
+    assert graphed.step == eager.step == 5
+    for key in rows[0]:
+        assert torch.equal(torch.cat([o[key] for o in out]),
+                           torch.stack([r[key] for r in rows])), key
+    _assert_states_equal(eager, graphed)
+    graph = scanned.graph
+    assert (graph.captures, graph.replays) == (1, 4)
+    assert graph.recorded == {"apply": 2, "moments": 2}
+    assert (cuda_whitening.moments_launches - before[0],
+            cuda_whitening.apply_launches - before[1]) == (10, 10)
+
+
+@pytest.mark.cuda
+def test_replayed_steps_read_the_lr_of_their_step(cuda_device):
+    """OfficeHome's two-group SGD (fused, device lrs) on LeNet-DWT: a
+    milestone inside a chunk and a backoff scale set between two chunks
+    reach the replays — the parameters follow the eager steps bitwise, and
+    differ from a run whose lr stayed the capture's."""
+    from dwt_tpu_torch.nn.lenet import build_lenet
+    from dwt_tpu_torch.train import steps
+    from dwt_tpu_torch.train.optim import multistep_schedule, sgd_two_group
+    from dwt_tpu_torch.train.state import TrainState
+
+    def state():
+        model = build_lenet(group_size=4, seed=1).to(cuda_device,
+                                                    memory_format=torch.channels_last)
+        return TrainState(model, sgd_two_group(model, head_key="fc4"),
+                          (multistep_schedule(1e-2, (3,)), multistep_schedule(1e-3, (3,))))
+
+    with _Deterministic():
+        eager, graphed, frozen = state(), state(), state()
+        chunk = _digits_chunk(6, cuda_device, seed=2)
+        step = steps.make_digits_train_step(eager.model)
+        for i in range(6):
+            if i == 3:
+                eager.lr_scale = 0.5
+            step(eager, {k: v[i] for k, v in chunk.items()})
+        scanned = steps.make_scanned_step(steps.make_digits_train_step(graphed.model), 3)
+        scanned(graphed, {k: v[:3] for k, v in chunk.items()})
+        graphed.lr_scale = 0.5
+        scanned(graphed, {k: v[3:] for k, v in chunk.items()})
+        frozen_step = steps.make_digits_train_step(frozen.model)
+        for i in range(6):  # every step at the first step's lrs
+            frozen.schedules = (lambda s: 1e-2, lambda s: 1e-3)
+            frozen_step(frozen, {k: v[i] for k, v in chunk.items()})
+        torch.cuda.synchronize()
+    assert [g["lr_host"] for g in graphed.optimizer.param_groups] == pytest.approx([5e-4, 5e-5])
+    assert [float(g["lr"]) for g in graphed.optimizer.param_groups] == pytest.approx([5e-4, 5e-5])
+    _assert_states_equal(eager, graphed)
+    assert not all(torch.equal(a, b) for a, b in zip(graphed.model.parameters(),
+                                                      frozen.model.parameters()))
+
+
+@pytest.mark.cuda
+def test_eval_graph_reads_each_pass_cache(cuda_device):
+    """Two eval passes at 8 batches per dispatch with a collection pass
+    between them (new running stats, a new eval-matrix cache installed):
+    the graph captured in the first pass gives each pass the counters of
+    the eager path (one batch per dispatch), bitwise; the second pass only
+    replays."""
+    from dwt_tpu_torch.data.datasets import ArrayDataset
+    from dwt_tpu_torch.train.evalpipe import EvalPipeline
+
+    rng = np.random.default_rng(3)
+    data = ArrayDataset(rng.normal(size=(250, 28, 28, 1)).astype(np.float32),
+                        rng.integers(0, 10, size=(250,)))
+    with _Deterministic():
+        state = _digits_run_state(cuda_device)
+        graphed = EvalPipeline(100, cuda_device, 2, eval_k=8)
+        eager = EvalPipeline(100, cuda_device, 2, eval_k=1)
+        passes = []
+        for _ in range(2):
+            passes.append([p.evaluate(state, data) for p in (graphed, eager)])
+            EvalPipeline(100, cuda_device, 2).collect_stats(state, data)
+    for ours, ref in passes:
+        ours.pop("eval_s"), ref.pop("eval_s")
+        assert ours == ref
+    assert passes[0][0] != passes[1][0]  # the stats moved between the passes
+    # 3 batches a pass: the first eager, then 2 replays; the second pass 3.
+    assert (graphed.eval_graph.captures, graphed.eval_graph.replays) == (1, 5)
+
+
+@pytest.mark.cuda
+def test_harvester_put_does_not_wait_for_the_copy(cuda_device, monkeypatch):
+    """A put behind a long queue of device work returns with its entry in
+    flight (its event not fired, no rendezvous); the drain waits once and
+    emits the device value."""
+    from dwt_tpu_torch.train.harvest import AsyncMetricHarvester
+
+    waits = []
+    real = AsyncMetricHarvester._wait
+    monkeypatch.setattr(AsyncMetricHarvester, "_wait",
+                        lambda self, e: waits.append(len(e)) or real(self, e))
+    big = torch.randn(4096, 4096, device=cuda_device)
+    for _ in range(30):
+        big = torch.sin(big @ big)  # bounded: the value below stays finite
+    value = big[0, 0] * 0 + 3.0
+    emitted = []
+    h = AsyncMetricHarvester(2)
+    h.put(1, 1, values={"v": value}, emit=lambda vals: emitted.append(float(vals["v"])))
+    assert h.pending == 1 and not h._ring[0].ready() and waits == []
+    h.drain()
+    assert waits == [1] and emitted == [3.0]
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
+    """A step whose body reads a value back cannot be captured: the chunk
+    raises with the reason after its one eager (warm-up) step, and no other
+    step runs eagerly in its place."""
+    from dwt_tpu_torch.train import steps
+
+    state = _digits_run_state(cuda_device)
+    inner = steps.make_digits_train_step(state.model).body
+
+    def body(st, batch):
+        metrics = inner(st, batch)
+        float(metrics["loss"])  # a host sync: refused inside a capture
+        return metrics
+
+    scanned = steps.make_scanned_step(steps._train_step(body), 3)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the train step failed"):
+        scanned(state, _digits_chunk(3, cuda_device))
+    assert state.step == 1 and scanned.graph.graph is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["adam", "sgd"])
+def test_a_cpu_checkpoint_resumes_into_the_captured_step(cuda_device, recipe):
+    """A state saved on the CPU (Adam neither capturable nor foreach, SGD
+    not fused, float lrs) resumes on the card into the card's update rule:
+    the live flags and device lrs stay, and two steps through the scanned
+    step (one eager, one replayed) are bitwise two eager steps of the same
+    resumed state."""
+    from dwt_tpu_torch.nn.lenet import build_lenet
+    from dwt_tpu_torch.train import steps
+    from dwt_tpu_torch.train.optim import multistep_schedule, sgd_two_group
+
+    def state(device):
+        if recipe == "adam":
+            return _digits_run_state(device)
+        from dwt_tpu_torch.train.state import TrainState
+        model = build_lenet(group_size=4, seed=1).to(device, memory_format=torch.channels_last)
+        return TrainState(model, sgd_two_group(model, head_key="fc4"),
+                          (multistep_schedule(1e-2, (3,)), multistep_schedule(1e-3, (3,))))
+
+    cpu = state(torch.device("cpu"))
+    chunk = _digits_chunk(3, torch.device("cpu"), seed=4)
+    steps.make_digits_train_step(cpu.model)(cpu, {k: v[0] for k, v in chunk.items()})
+    payload = cpu.state_dict()
+    flags = {"adam": {"capturable": True, "foreach": True}, "sgd": {"fused": True}}[recipe]
+    with _Deterministic():
+        eager, graphed = state(cuda_device), state(cuda_device)
+        for s in (eager, graphed):
+            s.load_state_dict(payload)
+            for group in s.optimizer.param_groups:
+                assert torch.is_tensor(group["lr"]) and group["lr"].is_cuda
+                assert {k: group[k] for k in flags} == flags
+        assert eager.step == graphed.step == 1
+        card = {k: v[1:].to(cuda_device) for k, v in chunk.items()}
+        step = steps.make_digits_train_step(eager.model)
+        for i in range(2):
+            step(eager, {k: v[i] for k, v in card.items()})
+        scanned = steps.make_scanned_step(steps.make_digits_train_step(graphed.model), 2)
+        scanned(graphed, card)
+        torch.cuda.synchronize()
+    assert (scanned.graph.captures, scanned.graph.replays) == (1, 1)
+    _assert_states_equal(eager, graphed)
+
+
+@pytest.mark.cuda
+def test_one_step_per_dispatch_runs_eagerly(cuda_device):
+    """At k = 1 the scanned step captures nothing: each one-batch chunk is
+    the eager step, bitwise, its metrics stacked [1]."""
+    from dwt_tpu_torch.train import steps
+
+    with _Deterministic():
+        eager, chunked = _digits_run_state(cuda_device), _digits_run_state(cuda_device)
+        chunk = _digits_chunk(2, cuda_device, seed=5)
+        step = steps.make_digits_train_step(eager.model)
+        rows = [step(eager, {k: v[i] for k, v in chunk.items()}) for i in range(2)]
+        scanned = steps.make_scanned_step(steps.make_digits_train_step(chunked.model), 1)
+        out = [scanned(chunked, {k: v[i:i + 1] for k, v in chunk.items()}) for i in range(2)]
+        torch.cuda.synchronize()
+    assert (scanned.graph.captures, scanned.graph.replays) == (0, 0)
+    for key in rows[0]:
+        assert torch.equal(torch.cat([o[key] for o in out]),
+                           torch.stack([r[key] for r in rows])), key
+    _assert_states_equal(eager, chunked)

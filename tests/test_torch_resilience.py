@@ -217,7 +217,7 @@ def _both_loops(tmp_path, monkeypatch, plan, flags):
             inject.arm(inject.FaultPlan.from_spec(plan))
             records = []
             try:
-                loop.run_digits(DigitsConfig(**cfg_flags, device="cpu"),
+                loop.run_digits(DigitsConfig(**cfg_flags, harvest_depth=0, device="cpu"),
                                 lambda kind, step, **f: records.append((kind, step, f)),
                                 model=_jax_lenet_init())
             except DivergenceError as e:

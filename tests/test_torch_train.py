@@ -211,8 +211,9 @@ def test_accum_eval_counters_match_jax_on_a_masked_batch(jax_setup):
     port = _port(state)
     install_whiten_cache(port, make_whiten_cache(port))
     ours = steps.make_accum_eval_step(port)(
-        steps.eval_counters(torch.device("cpu")), torch.from_numpy(x),
-        torch.from_numpy(y), torch.from_numpy(mask))
+        steps.eval_counters(torch.device("cpu")),
+        {"x": torch.from_numpy(x[None]), "y": torch.from_numpy(y[None]),
+         "mask": torch.from_numpy(mask[None])})
     np.testing.assert_allclose(float(ours["loss_sum"]), float(ref["loss_sum"]),
                                **METRIC_TOL)
     assert int(ours["correct"]) == int(ref["correct"])
