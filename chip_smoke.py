@@ -247,7 +247,43 @@ script exits non-zero without the final line:
                   collection pass.  Phases 7–25 read their records
                   synchronously (``--harvest_depth 0``) and run their
                   evals through the graph (8 batches per dispatch).
-27. ``kernels`` — the contract line: per kernel and path its TPU
+27. ``bf16_kernels`` / ``bf16_timing`` — both kernels' bf16 variants
+                  (``x`` bf16; ``mean``, ``w`` and the moments f32) at
+                  every site shape of the bf16 paths (ResNet50 train
+                  ``[3, M, C]``, bucket-128 serve ``[M, C]``, LeNet-DWT
+                  train ``[2, M, C]``) and at ragged shapes: one launch
+                  each, the moments within the f32 moments tolerances of
+                  the plain version and of a float64 two-pass reference,
+                  the apply at most one bf16 rounding step (``BF16_STEP``)
+                  from its plain version per element (and whether
+                  bitwise); at the train shapes one kernel per call,
+                  bitwise repeats and graph replays.  Times with L2 cold
+                  beside the bound (bf16 bytes), the plain version, the
+                  library call (``torch.addmm``/``baddbmm`` in bf16;
+                  ``torch.cov`` of the upcast tensor) and the host µs.
+28. ``bf16_train`` — the flagship CLI at ``--compute_dtype bf16``, 6
+                  steps at 3 steps per dispatch (graph replays, harvested
+                  records) with evals and a collection pass: 11 moments
+                  and 11 apply launches per step, parameters f32; the bf16
+                  and the f32 step ms at k = 3 in turns
+                  (``bf16_train_timing``); the digits CLI at bf16
+                  (``bf16_digits_train``, 2 and 2 per step).
+29. ``whiteners`` — the digits CLI with ``--whitener newton_schulz`` and
+                  ``swbn``, and the flagship CLI with ``--whitener swbn
+                  --stat_collection_passes 0`` (its skipped
+                  ``stat_collection`` record), each with its launch checks.
+30. ``bf16_serve`` — phase 12 at ``--serve_dtype bf16``: the bucket-1/8/
+                  32/128 forwards' logits against an f32 twin's (the same
+                  weights) within ``BF16_SERVE_TOL`` of their scale, the
+                  bucket-8 forward through the kernel against the plain
+                  version, forward ms of both per bucket.
+31. ``remat``   — one ResNet50 step with ``--remat`` against one without
+                  (same weights and batch, cuDNN's deterministic
+                  algorithms): running stats bitwise equal, losses at
+                  ``TRAIN_TOL``, 21 moments and 21 apply launches (11 and
+                  10 recomputed) against 11; step ms and peak device
+                  memory of 9-step runs with and without, in turns.
+32. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
                   ``phase_launches`` counts the launches of phases 18–25
@@ -256,7 +292,11 @@ script exits non-zero without the final line:
                   replay makes them (``cuda_whitening.count_replay``); the
                   graph paths (``*_graph``) are phase 26's runs, their
                   error and ``ms`` measured inside replays, ``host_us``
-                  null.
+                  null.  The bf16 variants' rows (``whiten_apply_bf16``,
+                  ``whiten_moments_bf16``) are the paths ``train_bf16``
+                  and ``digits_train_bf16`` (phase 28's runs) and
+                  ``serve_bf16`` (phase 30's), their errors and times from
+                  phase 27.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -777,7 +817,17 @@ SERVED = {  # per served model: flags, image shape, classes, whitened
         flags=["--model", "lenet"], shape=(28, 28, 1), classes=10, sites=2,
         phases=("digits_engine", "digits_serve", "digits_serve_reference",
                 "digits_serve_throughput")),
+    # The bf16 forward, held to its f32 twin (same weights) per bucket
+    # instead of to a CPU forward.
+    "resnet50_bf16": dict(
+        flags=["--model", "resnet50", "--num_classes", "65", "--image_size", "224",
+               "--serve_dtype", "bf16"],
+        shape=(224, 224, 3), classes=65, sites=11, f32_twin=True,
+        phases=("bf16_engine", "bf16_serve", "bf16_serve_reference",
+                "bf16_serve_throughput")),
 }
+# bf16 logits against their f32 twin's, max |a − b| / max |b| per bucket.
+BF16_SERVE_TOL = 5e-2
 
 
 def serve(torch, cw, server, model="resnet50"):
@@ -788,10 +838,11 @@ def serve(torch, cw, server, model="resnet50"):
     spec = SERVED[model]
     shape, classes, sites = spec["shape"], spec["classes"], spec["sites"]
     engine_phase, serve_phase, reference_phase, throughput_phase = spec["phases"]
-    args = server.build_parser().parse_args(spec["flags"] + [
+    args_list = spec["flags"] + [
         "--buckets", "1,8,32,128", "--init_random", "--seed", "0",
         "--host", "127.0.0.1", "--port", "0",
-    ])
+    ]
+    args = server.build_parser().parse_args(args_list)
     t0 = time.perf_counter()
     engine = server.build_engine(args)
     build_s = time.perf_counter() - t0
@@ -856,23 +907,42 @@ def serve(torch, cw, server, model="resnet50"):
         finally:
             cw.whiten_apply = kernel_fn
     kernel_vs_plain = norm_err(kernel_logits, plain_logits)
-    # The card's forward vs the same model on the CPU, one image.
-    cpu_model = copy.deepcopy(engine.model).cpu()
-    with torch.inference_mode():
-        cpu_logits = cpu_model(torch.from_numpy(inputs[0]))
-    gpu_vs_cpu = norm_err(torch.from_numpy(responses[0]), cpu_logits)
-    emit({"phase": reference_phase, "http_vs_infer": worst,
-          "kernel_vs_plain_bucket8": kernel_vs_plain,
-          "gpu_vs_cpu_bucket1": gpu_vs_cpu, "tolerance": FORWARD_TOL,
-          "logits_max_abs": float(np.abs(responses[-1]).max())})
-    if kernel_vs_plain > FORWARD_TOL or gpu_vs_cpu > FORWARD_TOL:
-        raise AssertionError("forward disagrees with its reference")
+    if spec.get("f32_twin"):
+        # The same weights served in f32: each bucket's bf16 logits against
+        # the twin's, relative to their scale.
+        twin = server.build_engine(server.build_parser().parse_args(
+            [f for f in args_list if f not in ("--serve_dtype", "bf16")]))
+        vs_f32 = {x.shape[0]: norm_err(torch.from_numpy(out),
+                                       torch.from_numpy(twin.infer(x)))
+                  for x, out in zip(inputs, responses)}
+        emit({"phase": reference_phase, "http_vs_infer": worst,
+              "kernel_vs_plain_bucket8": kernel_vs_plain, "bf16_vs_f32": vs_f32,
+              "tolerance": BF16_SERVE_TOL,
+              "logits_max_abs": float(np.abs(responses[-1]).max())})
+        if kernel_vs_plain > FORWARD_TOL or max(vs_f32.values()) > BF16_SERVE_TOL:
+            raise AssertionError("bf16 forward disagrees with its references")
+    else:
+        # The card's forward vs the same model on the CPU, one image.
+        twin = None
+        cpu_model = copy.deepcopy(engine.model).cpu()
+        with torch.inference_mode():
+            cpu_logits = cpu_model(torch.from_numpy(inputs[0]))
+        gpu_vs_cpu = norm_err(torch.from_numpy(responses[0]), cpu_logits)
+        emit({"phase": reference_phase, "http_vs_infer": worst,
+              "kernel_vs_plain_bucket8": kernel_vs_plain,
+              "gpu_vs_cpu_bucket1": gpu_vs_cpu, "tolerance": FORWARD_TOL,
+              "logits_max_abs": float(np.abs(responses[-1]).max())})
+        if kernel_vs_plain > FORWARD_TOL or gpu_vs_cpu > FORWARD_TOL:
+            raise AssertionError("forward disagrees with its reference")
 
     per_bucket = {}
     for b in engine.buckets:
         xb = engine.stage(np.zeros((b,) + shape, np.float32))
         ms = cuda_ms(torch, lambda: engine.forward(xb, b), iters=10, warmup=2)
         per_bucket[b] = {"forward_ms": ms, "imgs_per_s": b / ms * 1e3}
+        if twin is not None:  # the f32 twin's, in turn
+            per_bucket[b]["f32_twin_forward_ms"] = cuda_ms(
+                torch, lambda: twin.forward(xb, b), iters=10, warmup=2)
     emit({"phase": throughput_phase, "per_bucket": per_bucket,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches
@@ -1057,29 +1127,35 @@ QUIET_RECORDS = ("checkpoint", "best", "resume", "init_ckpt", "params_digest",
                  "notice_save", "preempt")
 
 
-def officehome_want(r):
-    """The launches an OfficeHome record must follow (ResNet50-DWT)."""
+def officehome_want(r, sites=None, recomputed=0):
+    """The launches an OfficeHome record must follow (ResNet50-DWT): one
+    moments and one apply launch per whitened site and train step (under
+    ``--remat`` also ``recomputed`` of each, the checkpointed blocks'
+    sites run again in the backward)."""
     n = r.get("forwards", 1)
-    if r["kind"] in QUIET_RECORDS:
+    sites = WHITENED_SITES if sites is None else sites
+    if r["kind"] in QUIET_RECORDS or r.get("skipped"):
         return {"moments": 0, "apply": 0}
     return {
-        "train": {"moments": WHITENED_SITES, "apply": WHITENED_SITES},
-        "stat_collection": {"moments": WHITENED_SITES * n,
-                            "apply": WHITENED_SITES * n},
-        "test": {"moments": 0, "apply": WHITENED_SITES * n},
-        "final_test": {"moments": 0, "apply": WHITENED_SITES * n},
+        "train": {"moments": sites + recomputed, "apply": sites + recomputed},
+        "stat_collection": {"moments": sites * n, "apply": sites * n},
+        "test": {"moments": 0, "apply": sites * n},
+        "final_test": {"moments": 0, "apply": sites * n},
     }[r["kind"]]
 
 
 def expected_kinds(cfg):
-    """The record sequence of ``run_officehome`` under ``cfg``."""
+    """The record sequence of ``run_officehome`` under ``cfg`` (an online
+    whitener, swbn, records its skipped collection at 0 passes)."""
     kinds = []
     for it in range(cfg.num_iters):
         if it % cfg.log_interval == 0:
             kinds.append("train")
         if (it + 1) % cfg.check_acc_step == 0:
             kinds.append("test")
-    return kinds + ["stat_collection"] * cfg.stat_collection_passes + ["final_test"]
+    passes = cfg.stat_collection_passes
+    skipped = cfg.whitener == "swbn" and passes == 0
+    return kinds + ["stat_collection"] * (passes or skipped) + ["final_test"]
 
 
 class TimedBatches:
@@ -1140,7 +1216,9 @@ class TimedBatches:
 
 def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
     """A train path through the CLI entry (by default the main synthetic
-    one); returns the kernels' launches on it and its step timing."""
+    one); returns the kernels' launches on it and its step timing.  A run
+    that harvests its records (``--harvest_depth`` above 0) has its
+    launches checked at the evals and collections."""
     import math
 
     cfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
@@ -1151,7 +1229,8 @@ def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
             torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
             f"{phase}_record")
 
-    check_record_launches(records, launches, officehome_want)
+    check_record_launches(records, launches, officehome_want,
+                          harvested=cfg.harvest_depth > 0)
     kinds = [r["kind"] for r in records if r["kind"] not in QUIET_RECORDS]
     if kinds != expected_kinds(cfg):
         raise AssertionError(f"unexpected record sequence {kinds}")
@@ -1174,7 +1253,10 @@ def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
     emit({"phase": phase, "flags": flags, "seconds": seconds,
           "accuracy": acc, "launches": launches,
           "whitening_sites": len(covs), "unmoved_params": unmoved,
-          "unmoved_covs": cov_unmoved, **timing})
+          "unmoved_covs": cov_unmoved,
+          "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}), **timing})
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("parameters left float32")
     if unmoved or cov_unmoved or len(covs) != WHITENED_SITES:
         raise AssertionError("training left parameters or stats unmoved")
     return launches, timing
@@ -1702,19 +1784,19 @@ def digits_want(r):
     }[r["kind"]]
 
 
-def digits_train(torch, cw, usps_mnist, loop):
-    """The digits main path, through the trainer's CLI entry: LeNet-DWT,
-    32 images per stream, 2 epochs of 8 steps, an eval after each; returns
-    the kernels' launches on it."""
+def digits_train(torch, cw, usps_mnist, loop, flags=DIGITS_TRAIN_FLAGS,
+                 phase="digits_train"):
+    """The digits main path, through the trainer's CLI entry (by default
+    the f32 Cholesky one): LeNet-DWT, 32 images per stream, 2 epochs of 8
+    steps, an eval after each; returns the kernels' launches on it."""
     import math
 
-    cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(
-        DIGITS_TRAIN_FLAGS))
+    cfg = usps_mnist.config_from_args(usps_mnist.build_parser().parse_args(flags))
     model = loop.build_digits_model(cfg)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     acc, records, launches, seconds = run_counted(
         torch, cw, lambda logger: loop.run_digits(cfg, logger, model=model),
-        "digits_train_record")
+        f"{phase}_record")
     check_record_launches(records, launches, digits_want)
     kinds = [r["kind"] for r in records]
     if kinds != (["train"] * 8 + ["test"]) * 2:
@@ -1736,12 +1818,14 @@ def digits_train(torch, cw, usps_mnist, loop):
                if torch.equal(p.detach().cpu(), init[k])]
     cov_unmoved = [f"{site}.cov[{d}]" for site, _, _ in DIGITS_SITES for d in range(2)
                    if torch.equal(state[f"{site}.cov"][d].cpu(), init[f"{site}.cov"][d])]
-    emit({"phase": "digits_train", "flags": DIGITS_TRAIN_FLAGS, "seconds": seconds,
+    emit({"phase": phase, "flags": flags, "seconds": seconds,
           "accuracy": acc, "launches": launches, "unmoved_params": unmoved,
           "unmoved_covs": cov_unmoved})
     if unmoved or cov_unmoved:
         raise AssertionError("training left parameters or stats unmoved")
-    return launches
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("parameters left float32")
+    return launches, acc
 
 
 def digits_batch(torch, loop, seed, device, dtype=None):
@@ -3383,6 +3467,272 @@ def dispatch_digits(torch, cw, usps_mnist, loop, loader, inject):
     return row
 
 
+# ---------------------------------------------------------- bf16 and numerics
+
+BF16_KERNELS = {"apply": ("whiten_apply_bf16_kernel",),
+                "moments": ("whiten_moments_bf16_kernel",)}
+# The bf16 variants at every site shape of the paths that run them: (path,
+# site, D or None for [M, C], M, C, launches per train step or forward).
+BF16_SHAPES = (
+    *(("train_bf16", name, DOMAINS, m, c, n) for name, m, c, n in TRAIN_SITES),
+    *(("serve_bf16", name, None, m, c, n) for name, m, c, n in RESNET50_SITES),
+    *(("digits_train_bf16", name, 2, DIGITS_STREAM * rows, c, 1)
+      for name, c, rows in DIGITS_SITES),
+)
+BF16_RAGGED = ((DOMAINS, RAGGED_M, 64), (1, 7, 32), (1, 1, 256), (2, RAGGED_M, 48))
+BF16_STEP = 2.0 ** -8  # one bf16 rounding step, relative to the larger magnitude
+BF16_TRAIN_K = 3  # the flagship bf16 run's steps per dispatch
+# --remat: the checkpointed stage-1 blocks hold 10 of the 11 whitened sites
+# (block 0: dn1-dn3 and the downsample's; blocks 1, 2: dn1-dn3), whose
+# moments and apply launch again when the backward recomputes them.
+REMAT_RECOMPUTED = 10
+
+
+def bf16_site(torch, d, m, c, gen, device):
+    """A bf16 ``x [d, m, c]`` (``[m, c]`` for ``d=None``): correlated
+    channels within a group, mean 1."""
+    x = moments_input(torch, d or 1, m, c, gen, device, 1.0).to(torch.bfloat16)
+    return x if d else x[0]
+
+
+def time_bf16(torch, cw, part, x, mean, w, rate):
+    """Times of the bf16 ``part`` kernel (``"apply"``: on ``x`` with
+    ``mean``, ``w``; ``"moments"``: of ``x``) with L2 cold: its device time
+    (``device_ms``; ``kernel_ms`` by CUDA events), the wrapper's host µs, its
+    plain version's ms, the library call's (apply: ``torch.addmm`` /
+    ``torch.baddbmm`` in bf16 with the block-diagonal matrix; moments:
+    ``torch.cov`` of the upcast tensor, once per domain), beside its bound
+    (bytes: bf16 ``x`` and ``y``, f32 ``mean``, ``w``, moments)."""
+    batched = x.dim() == 3
+    d, (m, c) = (x.shape[0] if batched else 1), x.shape[-2:]
+    groups = c // 4
+    if part == "apply":
+        w3, mean3 = (w, mean) if batched else (w[None], mean[None])
+        w_t = torch.stack([torch.block_diag(*wd).t() for wd in w3])
+        bias = (-(mean3[:, None, :] @ w_t)).to(torch.bfloat16)
+        w_t = w_t.to(torch.bfloat16).contiguous()
+        library = ((lambda xi, yi: torch.baddbmm(bias, xi, w_t, out=yi)) if batched else
+                   (lambda xi, yi: torch.addmm(bias[0, 0], xi, w_t[0], out=yi)))
+        nbytes = d * (2 * m * c * 2 + 5 * c * 4)
+        flops = d * m * c * 9
+        cold = cold_rotation(torch, (x,), out_like=(x,))
+        kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
+        plain = lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi)
+    else:
+        library = lambda xi: [torch.cov(xi[k].float().t(), correction=0) for k in range(d)]
+        nbytes = d * m * c * 2 + d * (c + groups * 16) * 4
+        flops = d * m * c * 6
+        cold = cold_rotation(torch, (x,))
+        kernel = lambda xi: cw.whiten_moments(xi, 4)
+        plain = lambda xi: cw.whiten_moments_plain(xi, 4)
+    bytes_ms, ops_ms = nbytes / rate * 1e3, flops / FP32_PEAK * 1e3
+    row = {"D": d if batched else None, "M": m, "C": c, "bytes": nbytes,
+           "rotation_buffers": len(cold),
+           "kernel_ms": cuda_ms(torch, kernel, cold),
+           "device_ms": device_ms(torch, kernel, BF16_KERNELS[part], cold),
+           "host_us": host_us(torch, kernel, cold),
+           "plain_ms": cuda_ms(torch, plain, cold, iters=5, warmup=1),
+           "library_ms": cuda_ms(torch, library, cold, iters=10),
+           "library_device_ms": device_ms(torch, library, None, cold, iters=10),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def bf16_parity(torch, cw, name, x, full=False):
+    """Both bf16 kernels against their plain versions on ``x`` (bf16):
+    one launch each; the moments (f32) within the f32 moments tolerances
+    of the plain version and of a float64 two-pass reference; the apply,
+    whitening ``x`` with those moments, at most one bf16 rounding step
+    from its plain version per element (and whether bitwise).  With
+    ``full``: a second call bitwise equal, two graph replays of each
+    bitwise equal, and one kernel and no other device operation in a
+    trace of a call.  Returns ``(row, mean, w)``."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    batched = x.dim() == 3
+    x3 = x if batched else x[None]
+    before = cw.moments_launches, cw.apply_launches
+    mean3, cov = cw.whiten_moments(x3, 4)
+    w3 = whitening_matrix(_shrink(cov, 1e-3))
+    mean, w = (mean3, w3) if batched else (mean3[0], w3[0])
+    y = cw.whiten_apply(x, mean, w)
+    launches = (cw.moments_launches - before[0], cw.apply_launches - before[1])
+    pm, pc, p_ok = moments_errors(torch, mean3, cov, *cw.whiten_moments_plain(x3, 4))
+    rm, rc, r_ok = moments_errors(torch, mean3, cov, *two_pass_f64(torch, x3.float()))
+    ref = cw.whiten_apply_plain(x, mean, w)
+    torch.cuda.synchronize()
+    a, b = y.double(), ref.double()
+    diff = (a - b).abs()
+    steps_ok = bool((diff <= BF16_STEP * torch.maximum(a.abs(), b.abs())).all())
+    row = {"shape": name, "D": x.shape[0] if batched else None, "M": x.shape[-2],
+           "C": x.shape[-1], "launches": {"moments": launches[0], "apply": launches[1]},
+           "y_dtype": str(y.dtype), "moments_dtype": str(cov.dtype),
+           "apply_vs_plain": {"max_abs_err": float(diff.max()),
+                              "bitwise": torch.equal(y, ref),
+                              "within_one_bf16_step": steps_ok},
+           "moments_vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
+           "moments_vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
+           "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL}
+    ok = (p_ok and r_ok and steps_ok and launches == (1, 1) and y.dtype == torch.bfloat16
+          and cov.dtype == torch.float32)
+    del ref, diff, a, b
+    if full:
+        again_mean, again_cov = cw.whiten_moments(x3, 4)
+        again_y = cw.whiten_apply(x, mean, w)
+        torch.cuda.synchronize()
+        row["repeat_bitwise"] = (torch.equal(again_mean, mean3) and torch.equal(again_cov, cov)
+                                 and torch.equal(again_y, y))
+        row["graph_replay_bitwise"] = (graph_replays(torch, cw, x3, (mean3, cov))
+                                       and apply_graph_replays(torch, cw, x, mean, w, y))
+        # A trace of TRACED_CALLS calls each (one call's can come back
+        # empty, see apply_parity): every device operation is the kernel, at
+        # most one per call.
+        ops = {part: [ev["name"][:80] for ev in trace_events(torch, fn, iters=TRACED_CALLS)]
+               for part, fn in (("moments", lambda: cw.whiten_moments(x3, 4)),
+                                ("apply", lambda: cw.whiten_apply(x, mean, w)))}
+        row["device_ops_per_call"] = {p: sorted(set(o)) for p, o in ops.items()}
+        row["device_ops_in_trace"] = {p: len(o) for p, o in ops.items()}
+        ok = (ok and row["repeat_bitwise"] and row["graph_replay_bitwise"]
+              and all(1 <= len(o) <= TRACED_CALLS and all(BF16_KERNELS[p][0] in n for n in o)
+                      for p, o in ops.items()))
+    row["ok"] = ok
+    return row, mean, w
+
+
+def bf16_kernels(torch, cw, device, rate):
+    """Phase ``bf16_kernels``: both bf16 variants against their plain
+    versions at every site shape of the bf16 paths (ResNet50 train sites
+    ``[3, M, C]``, bucket-128 serve sites ``[M, C]``, LeNet-DWT train
+    sites ``[2, M, C]``) and at ragged shapes; times at the path shapes
+    (the apply alone at the serve shapes)."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    parity, timing = [], {}
+    shapes = [(path, name, d, m, c) for path, name, d, m, c, _ in BF16_SHAPES]
+    shapes += [("ragged", f"ragged_d{d}_m{m}_c{c}", d, m, c) for d, m, c in BF16_RAGGED]
+    for path, name, d, m, c in shapes:
+        x = bf16_site(torch, d, m, c, gen, device)
+        row, mean, w = bf16_parity(torch, cw, name, x, full=path == "train_bf16")
+        row["path"] = path
+        parity.append(row)
+        emit({"phase": "bf16_kernels", **row})
+        if not row["ok"]:
+            raise AssertionError(f"a bf16 kernel disagrees with its plain version at "
+                                 f"{path} {name}: {row}")
+        if path == "ragged":
+            continue
+        parts = ("apply",) if path == "serve_bf16" else ("apply", "moments")
+        timing[(path, name)] = t = {part: time_bf16(torch, cw, part, x, mean, w, rate)
+                                    for part in parts}
+        emit({"phase": "bf16_timing", "path": path, "shape": name, **t})
+        del x
+        torch.cuda.empty_cache()
+    return parity, timing
+
+
+def bf16_train(torch, cw, officehome, usps_mnist, loop):
+    """Phase ``bf16_train``: the flagship CLI at ``--compute_dtype bf16``,
+    6 steps at ``BF16_TRAIN_K`` steps per dispatch (harvested records),
+    with evals and one collection pass — 11 moments and 11 apply launches
+    per step, the train's checks; the bf16 and the f32 step ms in turns
+    (``TIMED_FLAGS`` at the same k); the digits CLI at bf16 (2 and 2 per
+    step).  Returns the launches of both runs."""
+    k = ["--steps_per_dispatch", str(BF16_TRAIN_K)]
+    launches, _ = train(torch, cw, officehome, loop,
+                        TRAIN_BASE_FLAGS + ["--compute_dtype", "bf16"] + k, "bf16_train")
+    step_ms = {"f32": [], "bf16": []}
+    for key in ("f32", "bf16", "bf16", "f32"):
+        flags = TRAIN_BASE_FLAGS + TIMED_FLAGS + k + (
+            ["--compute_dtype", "bf16"] if key == "bf16" else [])
+        tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+        with DispatchTimer(loop, BF16_TRAIN_K) as timer:
+            loop.run_officehome(tcfg, lambda *a, **f: None)
+        step_ms[key].append(timer.step_ms(TIMED_SKIP))
+    digits_launches, digits_acc = digits_train(
+        torch, cw, usps_mnist, loop, DIGITS_TRAIN_FLAGS + ["--compute_dtype", "bf16"],
+        "bf16_digits_train")
+    emit({"phase": "bf16_train_timing", "card": nvidia_smi(), "k": BF16_TRAIN_K,
+          "timed_flags": TIMED_FLAGS, "step_ms": step_ms,
+          "bf16_over_f32": (sum(step_ms["bf16"]) / sum(step_ms["f32"])),
+          "digits_accuracy": digits_acc})
+    return launches, digits_launches
+
+
+def whiteners_phase(torch, cw, officehome, usps_mnist, loop):
+    """Phase ``whiteners``: the digits CLI with ``--whitener
+    newton_schulz`` and ``swbn`` (the digits checks: 2 and 2 launches per
+    step, finite losses, moved stats), and the flagship CLI with
+    ``--whitener swbn --stat_collection_passes 0`` (its skipped
+    ``stat_collection`` record, 11 and 11 per step)."""
+    out = {}
+    for name in ("newton_schulz", "swbn"):
+        out[f"digits_{name}"], acc = digits_train(
+            torch, cw, usps_mnist, loop, DIGITS_TRAIN_FLAGS + ["--whitener", name],
+            f"whiteners_digits_{name}")
+    out["officehome_swbn"], _ = train(
+        torch, cw, officehome, loop,
+        TRAIN_FLAGS + ["--whitener", "swbn", "--stat_collection_passes", "0"],
+        "whiteners_officehome_swbn")
+    return out
+
+
+def remat_phase(torch, cw, officehome, loop, device):
+    """Phase ``remat``: from the same weights and batch, one ResNet50 step
+    with ``--remat`` against one without (cuDNN's deterministic
+    algorithms): running stats bitwise equal, losses and gradient norm;
+    launches per step 11 + ``REMAT_RECOMPUTED`` each with remat; then step
+    ms and peak device memory of ``TIMED_FLAGS`` runs with and without, in
+    turns."""
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(TRAIN_FLAGS))
+    batch = synthetic_batch(torch, loop, 18, 224, 65, 5, device)
+    results = {}
+    with DeterministicCudnn(torch):
+        for remat in (False, True):
+            cfg.remat = remat
+            model = loop.build_model(cfg)
+            before = cw.moments_launches, cw.apply_launches
+            torch.cuda.reset_peak_memory_stats()
+            metrics, model = one_step(torch, cfg, model, batch, device)
+            results[remat] = {
+                "metrics": metrics, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "launches": {"moments": cw.moments_launches - before[0],
+                             "apply": cw.apply_launches - before[1]},
+                "stats": {k: v.detach().clone() for k, v in model.state_dict().items()
+                          if not k.endswith(("weight", "bias", "gamma", "beta"))}}
+            del model
+            torch.cuda.empty_cache()
+    stats_equal = all(torch.equal(v, results[True]["stats"][k])
+                      for k, v in results[False]["stats"].items())
+    timed = {"plain": [], "remat": []}
+    peak = {"plain": [], "remat": []}
+    for key in ("plain", "remat", "remat", "plain"):
+        flags = TRAIN_BASE_FLAGS + TIMED_FLAGS + (["--remat"] if key == "remat" else [])
+        tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with DispatchTimer(loop, 1) as timer:
+            loop.run_officehome(tcfg, lambda *a, **f: None)
+        timed[key].append(timer.step_ms(TIMED_SKIP))
+        peak[key].append(torch.cuda.max_memory_allocated())
+    row = {"card": nvidia_smi(), "stats_equal": stats_equal,
+           "one_step": {("remat" if k else "plain"): {f: v[f] for f in
+                                                     ("metrics", "peak_bytes", "launches")}
+                        for k, v in results.items()},
+           "timed_flags": TIMED_FLAGS, "step_ms": timed, "peak_bytes": peak}
+    emit({"phase": "remat", **row})
+    want = {True: WHITENED_SITES + REMAT_RECOMPUTED, False: WHITENED_SITES}
+    bad = [k for k, v in results.items() if v["launches"] != {"moments": want[k],
+                                                               "apply": want[k]}]
+    close = all(abs(results[True]["metrics"][m] - results[False]["metrics"][m])
+                <= TRAIN_TOL * abs(results[False]["metrics"][m])
+                for m in ("loss", "cls_loss", "mec_loss"))
+    if not stats_equal or bad or not close:
+        raise AssertionError(f"remat: stats equal {stats_equal}, launches {bad}, "
+                             f"losses close {close}")
+    return row
+
+
 def bound_by(rows):
     return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations")
@@ -3415,6 +3765,53 @@ def in_graph(harness, part, row):
             "max_abs_err_from": f"dispatch_harness {harness['model']}, site "
                                 f"{harness['site_shape']}",
             "host_us": None}
+
+
+BF16_PER = {
+    "train_bf16": "the 11 whitened sites of one ResNet50 train step at --compute_dtype "
+                  "bf16, one launch per site for its 3 domains, 18 images per stream "
+                  "at 224², each step a replay at 3 steps per dispatch",
+    "digits_train_bf16": "the 2 whitened sites of one LeNet-DWT train step at "
+                         "--compute_dtype bf16, one launch per site for its 2 domains, "
+                         "32 images per stream at 28²",
+    "serve_bf16": "the 11 whitened sites of one bucket-128 ResNet50 forward at 224², "
+                  "--serve_dtype bf16",
+}
+
+
+def bf16_rows(r, floor):
+    """The contract line's rows of the bf16 variants, per path: launches on
+    that path's run (``bf16_train``'s flagship and digits runs, the bf16
+    server's requests), the largest error against the plain version at
+    the path's shapes (``bf16_kernels``), and the times summed over one
+    step's (or one bucket-128 forward's) launches, each site's from
+    ``bf16_timing``."""
+    launches = {"train_bf16": r["bf16_train_launches"],
+                "digits_train_bf16": r["bf16_digits_launches"],
+                "serve_bf16": {"apply": r["bf16_serve_launches"]}}
+    rows = []
+    for path, per in BF16_PER.items():
+        shapes = [(name, n) for p, name, _, _, _, n in BF16_SHAPES if p == path]
+        for part in (("apply",) if path == "serve_bf16" else ("apply", "moments")):
+            timed = [(r["bf16_timing"][(path, name)][part], n) for name, n in shapes]
+            total = lambda key: sum(t[key] * n for t, n in timed)
+            parity = [p for p in r["bf16_parity"] if p["path"] == path]
+            err = (max(p["apply_vs_plain"]["max_abs_err"] for p in parity)
+                   if part == "apply" else
+                   max(max(p["moments_vs_plain"].values()) for p in parity))
+            rows.append({
+                "name": f"whiten_{part}_bf16", "route": "cuda",
+                "source": f"dwt_tpu_torch/csrc/whiten_{part}.cu",
+                "replaces": ("dwt_tpu/ops/pallas_whitening.py:143" if part == "apply"
+                             else "dwt_tpu/ops/pallas_whitening.py:68"),
+                "launches": launches[path][part], "max_abs_err": err,
+                "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"), "bound_by": bound_by([t for t, _ in timed]),
+                "library_ms": total("library_ms"),
+                "library_device_ms": total("library_device_ms"),
+                "host_us": total("host_us"), **(floor if part == "apply" else {}),
+                "path": path, "per": per})
+    return rows
 
 
 def kernels_line(torch, r):
@@ -3557,7 +3954,7 @@ def kernels_line(torch, r):
                   ("digits_train_graph", "digits_train", ", each step a replay of one "
                    "captured step at 4 steps per dispatch"))
               for row in rows if row["path"] == base]
-    rows = rows[:3] + folder + rows[3:] + graphs
+    rows = rows[:3] + folder + rows[3:] + graphs + bf16_rows(r, floor)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -3647,12 +4044,18 @@ def main() -> int:
     r["serve_launches"] = serve(torch, cw, server)
     r["d_apply_errs"], r["d_moments_errs"], r["d_timing"] = check_digits_kernels(
         torch, cw, device, rate)
-    r["digits_train_launches"] = digits_train(torch, cw, usps_mnist, loop)
+    r["digits_train_launches"], _ = digits_train(torch, cw, usps_mnist, loop)
     digits_reference(torch, cw, loop, device)
     digits_throughput(torch, loop, device)
     digits_harness = graph_harness(torch, cw, loop, officehome, "digits", device)
     digits_dispatch = dispatch_digits(torch, cw, usps_mnist, loop, loader, inject)
     r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
+    r["bf16_parity"], r["bf16_timing"] = bf16_kernels(torch, cw, device, rate)
+    r["bf16_train_launches"], r["bf16_digits_launches"] = bf16_train(
+        torch, cw, officehome, usps_mnist, loop)
+    r["whiteners"] = whiteners_phase(torch, cw, officehome, usps_mnist, loop)
+    r["bf16_serve_launches"] = serve(torch, cw, server, "resnet50_bf16")
+    r["remat"] = remat_phase(torch, cw, officehome, loop, device)
     with tempfile.TemporaryDirectory(prefix="ckpt-", dir=build) as root:
         ck = r["ckpt"] = {}
         ck["ckpt_resume"], a_records, a_ids, a_dir, a_step = ckpt_resume(

@@ -19,7 +19,9 @@ and served by the same server (``--model lenet``), through both kernels.
 Slices 6–8 add the data plane, checkpoints and exact resume, and the
 resilience plane (``dwt_tpu_torch.resilience``, ``dwt_tpu_torch.ckpt``):
 background and delta checkpoints, the divergence guard, preemption, the
-watchdog and the fault plans.
+watchdog and the fault plans.  Slice 9 adds k steps per dispatch as
+replays of captured CUDA graphs; slice 10 bf16 compute (both kernels'
+bf16 variants), the Newton–Schulz and SWBN whiteners and ``--remat``.
 """
 
 __version__ = "0.1.0"

@@ -86,3 +86,32 @@ def add_dispatch_args(p: argparse.ArgumentParser, d) -> None:
                         "original step stamps byte-identically, and the "
                         "divergence guard reads the step's harvested finite flag "
                         "with staleness <= depth.  0 = synchronous fetch")
+
+
+def add_numerics_args(p: argparse.ArgumentParser, d, remat: bool = False) -> None:
+    """``--whitener``, ``--bf16`` and ``--compute_dtype`` (and, with
+    ``remat``, OfficeHome's ``--remat``), with the JAX CLIs' choices and
+    the defaults of the config ``d``."""
+    p.add_argument("--whitener", choices=["cholesky", "newton_schulz", "swbn"],
+                   default=d.whitener,
+                   help="whitening numerics backend: cholesky (reference "
+                        "factorization, default), newton_schulz (fixed-K "
+                        "iteration of pure batched matmuls; DWT_NS_ITERS), swbn "
+                        "(online whitening-matrix tracking, no factorization; "
+                        "DWT_SWBN_ALPHA).  Checkpoints are per-backend")
+    p.add_argument("--bf16", action="store_true",
+                   help="legacy alias for --compute_dtype bf16")
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
+                   choices=("f32", "bf16"),
+                   help="training compute dtype: params/optimizer state "
+                        "stay f32; bf16 runs activations, backprop "
+                        "traffic, and the whitening apply in bf16 (each "
+                        "whitener backend's precision_policy decides "
+                        "whether its factorization promotes or runs "
+                        "natively — ops/whitening.py).  f32 (default) "
+                        "is bitwise the legacy path")
+    if remat:
+        p.add_argument("--remat", action="store_true",
+                       help="rematerialize bottleneck blocks in backward "
+                            "(less device memory, ~1/3 more FLOPs) for "
+                            "larger batches")

@@ -16,6 +16,8 @@ with a final save and exit 0.  ``--steps_per_dispatch`` (1),
 CLI's: on CUDA, k ≥ 2 replays a captured graph per step, and the train
 records and the guard's finite flags reach the host through the harvest
 ring.
+``--whitener`` and ``--compute_dtype`` (``--bf16``) are the JAX CLI's
+numerics flags.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
-from dwt_tpu_torch.cli import add_dispatch_args, add_resilience_args
+from dwt_tpu_torch.cli import (
+    add_dispatch_args,
+    add_numerics_args,
+    add_resilience_args,
+)
 from dwt_tpu_torch.config import DigitsConfig
 
 
@@ -65,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "under ckpt_dir/anchors, never pruned")
     add_resilience_args(p, d)
     add_dispatch_args(p, d)
+    add_numerics_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

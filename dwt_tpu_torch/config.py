@@ -6,7 +6,9 @@ are the train and eval batches per dispatch (on the card at k ≥ 2, replays
 of a captured CUDA graph); ``harvest_depth`` the ring of
 ``train/harvest.py`` (0: a synchronous readback per record, and the
 divergence guard's own readback every ``guard_interval`` steps; above 0 the
-guard reads the harvested finite flags).
+guard reads the harvested finite flags).  ``whitener``, ``compute_dtype``
+(``bf16`` its legacy alias, :func:`resolve_compute_dtype`) and
+OfficeHome's ``remat`` are the JAX configs' numerics knobs.
 """
 
 from __future__ import annotations
@@ -72,6 +74,15 @@ class DigitsConfig:
     steps_per_dispatch: int = 1
     eval_steps_per_dispatch: int = 8
     harvest_depth: int = 2
+    # Whitening numerics backend: cholesky (the reference), newton_schulz
+    # (fixed-K iteration of batched matmuls), swbn (online whitening-matrix
+    # tracking).
+    whitener: str = "cholesky"
+    bf16: bool = False  # legacy alias for compute_dtype="bf16"
+    # "f32" | "bf16": params, optimizer state and running stats stay f32;
+    # bf16 runs activations, backprop traffic and the whitening apply in
+    # bf16, each whitener factorizing in its precision policy's dtype.
+    compute_dtype: str = "f32"
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -135,4 +146,35 @@ class OfficeHomeConfig:
     steps_per_dispatch: int = 1
     eval_steps_per_dispatch: int = 8
     harvest_depth: int = 2
+    # Whitening backend — see DigitsConfig.whitener; "swbn" also makes
+    # --stat_collection_passes 0 the intended cadence.
+    whitener: str = "cholesky"
+    bf16: bool = False
+    compute_dtype: str = "f32"  # see DigitsConfig.compute_dtype
+    remat: bool = False  # recompute each bottleneck in the backward
     device: str = "cuda"  # "cpu" only when asked for
+
+
+COMPUTE_DTYPES = ("f32", "bf16")
+
+
+def resolve_compute_dtype(cfg) -> str:
+    """The run's compute dtype name ("f32" | "bf16") from the config:
+    ``compute_dtype``, with the legacy ``bf16`` boolean an alias for
+    "bf16" (``bf16=True`` turns the default "f32" into "bf16").  An
+    unknown name raises."""
+    name = getattr(cfg, "compute_dtype", "f32") or "f32"
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={name!r}: choose from {COMPUTE_DTYPES}")
+    if getattr(cfg, "bf16", False) and name == "f32":
+        name = "bf16"
+    return name
+
+
+def model_dtype(name: str):
+    """The models' ``dtype=`` for a compute dtype name: ``None`` for f32
+    (compute in the parameters' own dtype, no cast), ``torch.bfloat16``
+    for bf16."""
+    import torch
+
+    return {"f32": None, "bf16": torch.bfloat16}[name]

@@ -10,6 +10,7 @@ submodule names are the Flax scope names.  Layouts:
 * dense kernel ``[in, out]`` → ``weight [out, in]``, bias as is;
 * norm affine ``gamma``/``beta`` as is;
 * ``WhiteningStats`` → buffers ``mean [D, C]``, ``cov [D, G, g, g]``;
+  ``SWBNStats`` also ``w [D, G, g, g]`` (a site of the ``swbn`` backend);
 * ``BatchNormStats`` → buffers ``mean``/``var [D, C]``, ``count [D]``.
 
 The inverse of the key/layout scheme of
@@ -31,7 +32,7 @@ from dwt_tpu_torch.nn.norms import DomainBatchNorm, DomainWhiten
 Path = Tuple[str, ...]
 
 
-def _get(tree: Any, path: Path, what: str) -> np.ndarray:
+def _node(tree: Any, path: Path, what: str) -> Any:
     node = tree
     for i, key in enumerate(path):
         if isinstance(node, dict) and key in node:
@@ -43,7 +44,22 @@ def _get(tree: Any, path: Path, what: str) -> np.ndarray:
                 f"{what}: missing leaf {'/'.join(path)} "
                 f"(no {key!r} under {'/'.join(path[:i]) or '<root>'})"
             )
-    return np.asarray(node)
+    return node
+
+
+def _get(tree: Any, path: Path, what: str) -> np.ndarray:
+    return np.asarray(_node(tree, path, what))
+
+
+def _check_whitener(mod: DomainWhiten, stats: Any, scope: Path) -> None:
+    """Raise unless the site's stats in the tree are its backend's: swbn's
+    carry the tracked ``w``, the factorizing backends' do not."""
+    names = stats._fields if hasattr(stats, "_fields") else tuple(stats)
+    if ("w" in names) != ("w" in mod._stat_names):
+        held = "the swbn whitener" if "w" in names else "a factorizing whitener"
+        raise ValueError(
+            f"batch_stats: {'/'.join(scope)} holds the whitening stats of "
+            f"{held}, not those of the model's whitener {mod.whitener!r}")
 
 
 def _leaf_paths(tree: Any, prefix: Path = ()) -> List[Path]:
@@ -100,7 +116,9 @@ def load_jax_variables(
                 _copy(getattr(mod, leaf), take("params", params, path),
                       path, "params")
             if isinstance(mod, DomainWhiten):
-                stat_leaves = (("whitening", "mean"), ("whitening", "cov"))
+                _check_whitener(mod, _node(batch_stats, scope + ("whitening",),
+                                           "batch_stats"), scope)
+                stat_leaves = [("whitening", name) for name in mod._stat_names]
             else:
                 stat_leaves = (("bn", "mean"), ("bn", "var"), ("bn", "count"))
             for kind, leaf in stat_leaves:

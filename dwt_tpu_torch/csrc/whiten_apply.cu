@@ -1,5 +1,5 @@
-// Whitening apply for Hopper (sm_90a): per domain, y = (x − m) · W_bdᵀ, f32,
-// in ONE launch for all D domains of a whitened site.
+// Whitening apply for Hopper (sm_90a): per domain, y = (x − m) · W_bdᵀ, f32
+// or bf16 x, in ONE launch for all D domains of a whitened site.
 //
 // Replaces the TPU kernel dwt_tpu/ops/pallas_whitening.py::_apply_kernel
 // (line 143, launched by _apply_call at line 176): the apply of every
@@ -54,6 +54,17 @@
 // the bucket-1 shapes (tools/whiten_apply_ldg.cu; both times are in
 // PERF.md).
 //
+// The bf16 variant (whiten_apply_bf16_kernel) is the same kernel over
+// 16-byte chunks that hold 8 bf16 channels, two groups: one thread owns a
+// pair of groups (blocks are multiples of G/2 threads; C must be a
+// multiple of 8).  It computes what _apply_kernel computes for a bf16 x:
+// xn = bf16(f32(x) − m) with the f32 mean, w (f32 in memory) rounded to
+// bf16 once per thread, y = Σ_c bf16(w)·xn in f32 and one rounding to bf16
+// on the store.  The products of two bf16 values are exact in f32, so the
+// result depends only on the order of the 4-term sum (c = 0, 1, 2, 3), the
+// order of its plain version in cuda_whitening.py.  It moves half the f32
+// kernel's bytes.
+//
 // No float atomics, no shared state between launches, nothing allocated or
 // synchronised here: two launches give bitwise equal results, and the
 // launch can be captured in a CUDA graph.
@@ -65,6 +76,7 @@
 
 #include <atomic>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -135,18 +147,56 @@ __device__ inline float4 apply_group(const float4 v, const float4 m,
   return o;
 }
 
-// Grid: domains · blocks_per_domain blocks of block_threads(groups)
+__device__ inline float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ inline float4 round_bf16(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                     round_bf16(v.w));
+}
+
+// The bf16 channels of a 32-bit word (little-endian: the lower channel in
+// the low half), widened exactly to f32, and two f32 rounded to bf16
+// (round to nearest even) into one word.
+__device__ inline float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ inline float bf16_hi(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ inline unsigned pack_bf16(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+// The bf16 apply of one group, its 4 channels in words a (0, 1) and b
+// (2, 3): xn = bf16(x − m) with the f32 mean, then the bf16-rounded matrix
+// rows in f32; returns the 4 outputs rounded to bf16 in two words.
+__device__ inline uint2 apply_group_bf16(const unsigned a, const unsigned b,
+                                         const float4 m, const float4 w0,
+                                         const float4 w1, const float4 w2,
+                                         const float4 w3) {
+  const float4 xn = round_bf16(make_float4(
+      bf16_lo(a) - m.x, bf16_hi(a) - m.y, bf16_lo(b) - m.z, bf16_hi(b) - m.w));
+  const float4 o =
+      apply_group(xn, make_float4(0.f, 0.f, 0.f, 0.f), w0, w1, w2, w3);
+  return make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
+}
+
+// Grid: domains · blocks_per_domain blocks of block_threads(units)
 // threads and smem_bytes(threads) of dynamic shared memory; block b serves
-// domain b / blocks_per_domain.  x, y: [domains, chunks] float4 (chunks =
-// rows · groups); mean: [domains, groups] float4; w: [domains, groups, 4]
-// float4 (row k of group g's matrix).
-__global__ void __launch_bounds__(kMaxGroups)
-whiten_apply_f32_kernel(const float4* __restrict__ x,
-                        const float4* __restrict__ mean,
-                        const float4* __restrict__ w, float4* __restrict__ y,
-                        long long chunks, int groups, int blocks_per_domain) {
-  extern __shared__ __align__(128) float4 stage[];  // [kStages][tile]
-  __shared__ __align__(8) unsigned long long full[kStages];
+// domain b / blocks_per_domain.  x, y: [domains, chunks] 16-byte chunks
+// (chunks = rows · units; a chunk is one f32 group, or two bf16 groups);
+// mean: [domains, groups] float4; w: [domains, groups, 4] float4 (row k of
+// group g's matrix).
+template <bool kBf16>
+__device__ __forceinline__ void apply_body(
+    float4* stage, unsigned long long* full, const float4* __restrict__ x,
+    const float4* __restrict__ mean, const float4* __restrict__ w,
+    float4* __restrict__ y, long long chunks, int units,
+    int blocks_per_domain) {
+  constexpr int kPerChunk = kBf16 ? 2 : 1;  // groups per 16-byte chunk
+  const int groups = units * kPerChunk;
   const int tile = kPer * blockDim.x;
   const int d = blockIdx.x / blocks_per_domain;
   const long long local = blockIdx.x - d * blocks_per_domain;
@@ -169,12 +219,27 @@ whiten_apply_f32_kernel(const float4* __restrict__ x,
       if (local + s * blocks_per_domain < tiles)
         issue(local + s * blocks_per_domain, s);
   }
-  // 2. This thread's group (fixed: blockDim.x and every tile start are
-  //    multiples of groups), its mean and matrix rows into registers.
-  const long long dg = static_cast<long long>(d) * groups + threadIdx.x % groups;
-  const float4 m = __ldg(mean + dg);
-  const float4 w0 = __ldg(w + dg * kGroup), w1 = __ldg(w + dg * kGroup + 1);
-  const float4 w2 = __ldg(w + dg * kGroup + 2), w3 = __ldg(w + dg * kGroup + 3);
+  // 2. This thread's groups (fixed: blockDim.x and every tile start are
+  //    multiples of units), their means and matrix rows into registers;
+  //    the bf16 variant rounds the rows to bf16 here, once.
+  float4 m[kPerChunk], w0[kPerChunk], w1[kPerChunk], w2[kPerChunk],
+      w3[kPerChunk];
+#pragma unroll
+  for (int i = 0; i < kPerChunk; ++i) {
+    const long long dg = static_cast<long long>(d) * groups +
+                         (threadIdx.x % units) * kPerChunk + i;
+    m[i] = __ldg(mean + dg);
+    w0[i] = __ldg(w + dg * kGroup);
+    w1[i] = __ldg(w + dg * kGroup + 1);
+    w2[i] = __ldg(w + dg * kGroup + 2);
+    w3[i] = __ldg(w + dg * kGroup + 3);
+    if constexpr (kBf16) {
+      w0[i] = round_bf16(w0[i]);
+      w1[i] = round_bf16(w1[i]);
+      w2[i] = round_bf16(w2[i]);
+      w3[i] = round_bf16(w3[i]);
+    }
+  }
   __syncthreads();  // the barriers are initialised
 
   // 3. Per tile: wait for its stage, apply and store, free the stage for
@@ -189,8 +254,25 @@ whiten_apply_f32_kernel(const float4* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int idx = threadIdx.x + k * blockDim.x;
-      if (base + idx < chunks)
-        yd[base + idx] = apply_group(st[idx], m, w0, w1, w2, w3);
+      if (base + idx < chunks) {
+        if constexpr (kBf16) {
+          // Channels 0–3 (group 0) in words x, y; 4–7 (group 1) in z, w.
+          const float4 v = st[idx];
+          const uint2 g0 = apply_group_bf16(
+              __float_as_uint(v.x), __float_as_uint(v.y), m[0], w0[0], w1[0],
+              w2[0], w3[0]);
+          const uint2 g1 = apply_group_bf16(
+              __float_as_uint(v.z), __float_as_uint(v.w), m[kPerChunk - 1],
+              w0[kPerChunk - 1], w1[kPerChunk - 1], w2[kPerChunk - 1],
+              w3[kPerChunk - 1]);
+          yd[base + idx] =
+              make_float4(__uint_as_float(g0.x), __uint_as_float(g0.y),
+                          __uint_as_float(g1.x), __uint_as_float(g1.y));
+        } else {
+          yd[base + idx] = apply_group(st[idx], m[0], w0[0], w1[0], w2[0],
+                                       w3[0]);
+        }
+      }
     }
     __syncthreads();  // every thread is done with stage s
     if (threadIdx.x == 0 && j + kStages * blocks_per_domain < tiles)
@@ -202,19 +284,102 @@ whiten_apply_f32_kernel(const float4* __restrict__ x,
   }
 }
 
-// Allows the kernel the dynamic shared memory of its largest block on the
-// current device, once per device; returns the device's error, if any.
+// The f32 kernel: x, y [domains, rows · G] float4, units = G.
+__global__ void __launch_bounds__(kMaxGroups)
+whiten_apply_f32_kernel(const float4* __restrict__ x,
+                        const float4* __restrict__ mean,
+                        const float4* __restrict__ w, float4* __restrict__ y,
+                        long long chunks, int units, int blocks_per_domain) {
+  extern __shared__ __align__(128) float4 stage[];  // [kStages][tile]
+  __shared__ __align__(8) unsigned long long full[kStages];
+  apply_body<false>(stage, full, x, mean, w, y, chunks, units,
+                    blocks_per_domain);
+}
+
+// The bf16 kernel: x, y [domains, rows · G/2] chunks of 8 bf16, units = G/2.
+__global__ void __launch_bounds__(kMaxGroups)
+whiten_apply_bf16_kernel(const float4* __restrict__ x,
+                         const float4* __restrict__ mean,
+                         const float4* __restrict__ w, float4* __restrict__ y,
+                         long long chunks, int units, int blocks_per_domain) {
+  extern __shared__ __align__(128) float4 stage[];  // [kStages][tile]
+  __shared__ __align__(8) unsigned long long full[kStages];
+  apply_body<true>(stage, full, x, mean, w, y, chunks, units,
+                   blocks_per_domain);
+}
+
+// Allows both kernels the dynamic shared memory of their largest block on
+// the current device, once per device; returns the device's error, if any.
 cudaError_t prepare_device(int* device) {
   static std::atomic<bool> prepared[kMaxDevices];
   cudaError_t err = cudaGetDevice(device);
   if (err != cudaSuccess) return err;
   const bool cached = *device < kMaxDevices;
   if (cached && prepared[*device].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(whiten_apply_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes(kMaxGroups)));
-  if (err == cudaSuccess && cached) prepared[*device].store(true);
+  for (const void* kernel :
+       {reinterpret_cast<const void*>(whiten_apply_f32_kernel),
+        reinterpret_cast<const void*>(whiten_apply_bf16_kernel)}) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(kMaxGroups)));
+    if (err != cudaSuccess) return err;
+  }
+  if (cached) prepared[*device].store(true);
   return err;
+}
+
+// 16-byte chunks per row: C/4 for f32, C/8 for bf16 (0: C not a whole
+// number of chunks, or beyond the launcher's limit).
+int row_units(int channels, bool bf16) {
+  const int per_chunk = bf16 ? 8 : kGroup;
+  if (channels <= 0 || channels % per_chunk != 0 ||
+      channels > kGroup * kMaxGroups)
+    return 0;
+  return channels / per_chunk;
+}
+
+int apply_blocks(long long domains, long long rows, int channels, bool bf16) {
+  const int units = row_units(channels, bf16);
+  if (domains <= 0 || rows <= 0 || units <= 0) return 1;
+  const int threads = block_threads(units);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = prepare_device(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        reinterpret_cast<const void*>(bf16 ? whiten_apply_bf16_kernel
+                                           : whiten_apply_f32_kernel),
+        threads, smem_bytes(threads));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  long long per_domain = static_cast<long long>(sms) * per_sm / domains;
+  const long long tile = static_cast<long long>(kPer) * threads;
+  const long long tiles = (rows * units + tile - 1) / tile;
+  if (per_domain > tiles) per_domain = tiles;
+  return per_domain < 1 ? 1 : static_cast<int>(per_domain);
+}
+
+int apply_launch(const void* x, const void* mean, const void* w, void* y,
+                 long long domains, long long rows, int channels,
+                 int blocks_per_domain, void* stream, bool bf16) {
+  const int units = row_units(channels, bf16);
+  if (domains <= 0 || rows <= 0 || units <= 0 || blocks_per_domain < 1 ||
+      domains * blocks_per_domain > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  const cudaError_t err = prepare_device(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = block_threads(units);
+  void (*kernel)(const float4*, const float4*, const float4*, float4*,
+                 long long, int, int) =
+      bf16 ? whiten_apply_bf16_kernel : whiten_apply_f32_kernel;
+  kernel<<<static_cast<unsigned>(domains * blocks_per_domain), threads,
+           smem_bytes(threads), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<const float4*>(mean),
+      static_cast<const float4*>(w), static_cast<float4*>(y), rows * units,
+      units, blocks_per_domain);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -228,51 +393,35 @@ int dwt_whiten_apply_max_channels() { return kGroup * kMaxGroups; }
 // Blocks per domain for x [domains, rows, channels] on the current device:
 // the blocks that fit on the card at once, split over the domains, no more
 // than the domain has tiles, at least 1.  Returns the count, or
-// −cudaError_t on a failed query.
+// −cudaError_t on a failed query.  The _bf16 entry: the bf16 kernel's.
 int dwt_whiten_apply_blocks(long long domains, long long rows, int channels) {
-  const int groups = channels / kGroup;
-  if (domains <= 0 || rows <= 0 || groups <= 0 || groups > kMaxGroups) return 1;
-  const int threads = block_threads(groups);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = prepare_device(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, whiten_apply_f32_kernel, threads, smem_bytes(threads));
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  long long per_domain = static_cast<long long>(sms) * per_sm / domains;
-  const long long tile = static_cast<long long>(kPer) * threads;
-  const long long tiles = (rows * groups + tile - 1) / tile;
-  if (per_domain > tiles) per_domain = tiles;
-  return per_domain < 1 ? 1 : static_cast<int>(per_domain);
+  return apply_blocks(domains, rows, channels, false);
+}
+
+int dwt_whiten_apply_blocks_bf16(long long domains, long long rows,
+                                 int channels) {
+  return apply_blocks(domains, rows, channels, true);
 }
 
 // y[d] = (x[d] − mean[d]) · blockdiag(w[d])ᵀ for each of the `domains`
 // domains of x [domains, rows, C], mean [domains, C], w [domains, C/4, 4,
 // 4], y like x, all 16-byte aligned, on `stream`, in one launch of
-// domains · blocks_per_domain blocks.  Returns cudaSuccess,
-// cudaErrorInvalidValue for shapes the kernel does not take, or the
-// launch's error.
+// domains · blocks_per_domain blocks; x and y f32, mean and w f32.
+// Returns cudaSuccess, cudaErrorInvalidValue for shapes the kernel does
+// not take, or the launch's error.
 int dwt_whiten_apply_f32(const void* x, const void* mean, const void* w,
                          void* y, long long domains, long long rows,
                          int channels, int blocks_per_domain, void* stream) {
-  if (domains <= 0 || rows <= 0 || channels <= 0 || channels % kGroup != 0 ||
-      channels > dwt_whiten_apply_max_channels() || blocks_per_domain < 1 ||
-      domains * blocks_per_domain > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0;
-  const cudaError_t err = prepare_device(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = channels / kGroup;
-  const int threads = block_threads(groups);
-  whiten_apply_f32_kernel<<<static_cast<unsigned>(domains * blocks_per_domain),
-                            threads, smem_bytes(threads),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<const float4*>(mean),
-      static_cast<const float4*>(w), static_cast<float4*>(y), rows * groups,
-      groups, blocks_per_domain);
-  return static_cast<int>(cudaGetLastError());
+  return apply_launch(x, mean, w, y, domains, rows, channels,
+                      blocks_per_domain, stream, false);
+}
+
+// The same with x and y bf16 (C a multiple of 8), mean and w f32.
+int dwt_whiten_apply_bf16(const void* x, const void* mean, const void* w,
+                          void* y, long long domains, long long rows,
+                          int channels, int blocks_per_domain, void* stream) {
+  return apply_launch(x, mean, w, y, domains, rows, channels,
+                      blocks_per_domain, stream, true);
 }
 
 const char* dwt_cuda_error_string(int code) {

@@ -1,5 +1,6 @@
 // Whitening moments for Hopper (sm_90a): per domain, mean [C] and per-group
-// covariance [G, 4, 4] of x [D, M, C], f32 in and out, in ONE launch.
+// covariance [G, 4, 4] of x [D, M, C], f32 or bf16 in, f32 out, in ONE
+// launch.
 //
 // Replaces the TPU kernel dwt_tpu/ops/pallas_whitening.py::_moments_kernel
 // (line 68, launched by _moments_call), the batch statistics of every
@@ -63,6 +64,13 @@
 // does not change under a shift, and the shifted sums are small.  The
 // shift is added back to the mean in float64.
 //
+// The bf16 variant (whiten_moments_bf16_kernel) is the same kernel over a
+// bf16 x: a thread's group is one 8-byte load of 4 bf16 channels, widened
+// to f32 (exactly), and from there it accumulates as the f32 kernel does
+// (row-0 shift, f32 partials, float64 cluster and final sums), into f32
+// mean and cov.  It computes _moments_kernel's function on a bf16 x, which
+// that kernel reads as f32, and reads half the f32 kernel's bytes.
+//
 // The order of every sum is fixed by the grid, which is fixed per shape:
 // two launches give bitwise equal results.  No float atomics; nothing is
 // allocated or synchronised here, so the launch can be captured in a CUDA
@@ -75,6 +83,7 @@
 // checks the returned cudaError_t.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -133,21 +142,39 @@ struct Sums {
   }
 };
 
+// A thread's group of 4 channels, widened to f32: one float4 load of an
+// f32 x, one 8-byte load of a bf16 x (little-endian: channel 0 in the low
+// half of the first word).
+__device__ inline float4 load_group(const float4* p) { return __ldg(p); }
+__device__ inline float4 load_group(const uint2* p) {
+  const uint2 v = __ldg(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// Channel ch of row 0 of a domain's x, as f32.
+__device__ inline float row0_value(const float4* xd, int ch) {
+  return reinterpret_cast<const float*>(xd)[ch];
+}
+__device__ inline float row0_value(const uint2* xd, int ch) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(xd)[ch]);
+}
+
 // Grid: domains · clusters_per_domain clusters of kCluster blocks, each of
 // block_threads(groups) threads and smem_bytes(threads) of shared memory.
 // scratch (float64): [domains · clusters_per_domain, groups, kStats], the
 // cluster partials.
-__global__ void whiten_moments_f32_kernel(const float4* __restrict__ x,
-                                          long long rows, int groups,
-                                          int clusters_per_domain,
-                                          float* __restrict__ mean,
-                                          float* __restrict__ cov,
-                                          double* __restrict__ scratch,
-                                          int* __restrict__ counters) {
-  // [blockDim.x, kStats] per-thread sums; then its first groups · kStats
-  // floats hold the block's partial.
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int last_cluster;
+// In: float4 (f32 x) or uint2 (bf16 x), one group of one row.
+template <typename In>
+__device__ __forceinline__ void moments_body(
+    float* smem, int& last_cluster, const In* __restrict__ x, long long rows,
+    int groups, int clusters_per_domain, float* __restrict__ mean,
+    float* __restrict__ cov, double* __restrict__ scratch,
+    int* __restrict__ counters) {
+  // smem: [blockDim.x, kStats] per-thread sums; then its first groups ·
+  // kStats floats hold the block's partial.
   cg::cluster_group cluster = cg::this_cluster();
   const int t = threadIdx.x, threads = blockDim.x;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -164,24 +191,24 @@ __global__ void whiten_moments_f32_kernel(const float4* __restrict__ x,
   {
     const int g = t % groups;
     const int rows_per_pass = threads / groups;
-    const float4* xd = x + static_cast<long long>(d) * rows * groups;
-    const float4 k = __ldg(xd + g);  // the domain's row-0 values: the shift
+    const In* xd = x + static_cast<long long>(d) * rows * groups;
+    const float4 k = load_group(xd + g);  // the domain's row-0 values: the shift
     const long long r0 = local_block * rows / span_blocks;
     const long long r1 = (local_block + 1) * rows / span_blocks;
     long long row = r0 + t / groups;
-    const float4* p = xd + row * groups + g;
+    const In* p = xd + row * groups + g;
     Sums acc;
     for (; row + (kLoads - 1) * rows_per_pass < r1;
          row += kLoads * rows_per_pass) {
       float4 v[kLoads];
 #pragma unroll
-      for (int i = 0; i < kLoads; ++i) v[i] = __ldg(p + i * threads);
+      for (int i = 0; i < kLoads; ++i) v[i] = load_group(p + i * threads);
 #pragma unroll
       for (int i = 0; i < kLoads; ++i) acc.add(v[i], k);
       p += kLoads * threads;
     }
     for (; row < r1; row += rows_per_pass) {
-      acc.add(__ldg(p), k);
+      acc.add(load_group(p), k);
       p += threads;
     }
     acc.store(smem + t * kStats);
@@ -307,16 +334,43 @@ __global__ void whiten_moments_f32_kernel(const float4* __restrict__ x,
       cov[(static_cast<long long>(d) * groups + grp) * kGroup * kGroup + ce] =
           static_cast<float>(tot[product_index(c, e)] * inv - mc * me);
       if (e == 0) {
-        const float* row0 = reinterpret_cast<const float*>(
-            x + static_cast<long long>(d) * rows * groups);
         const int ch = grp * kGroup + c;
+        const float row0 =
+            row0_value(x + static_cast<long long>(d) * rows * groups, ch);
         mean[static_cast<long long>(d) * groups * kGroup + ch] =
-            static_cast<float>(static_cast<double>(row0[ch]) + mc);
+            static_cast<float>(static_cast<double>(row0) + mc);
       }
     }
     __syncthreads();  // the next chunk reuses the stage
   }
   MOMENTS_PHASE(6);
+}
+
+__global__ void whiten_moments_f32_kernel(const float4* __restrict__ x,
+                                          long long rows, int groups,
+                                          int clusters_per_domain,
+                                          float* __restrict__ mean,
+                                          float* __restrict__ cov,
+                                          double* __restrict__ scratch,
+                                          int* __restrict__ counters) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last_cluster;
+  moments_body(smem, last_cluster, x, rows, groups, clusters_per_domain, mean,
+               cov, scratch, counters);
+}
+
+// x: [domains, rows, C] bf16, as uint2 groups of 4 channels.
+__global__ void whiten_moments_bf16_kernel(const uint2* __restrict__ x,
+                                           long long rows, int groups,
+                                           int clusters_per_domain,
+                                           float* __restrict__ mean,
+                                           float* __restrict__ cov,
+                                           double* __restrict__ scratch,
+                                           int* __restrict__ counters) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last_cluster;
+  moments_body(smem, last_cluster, x, rows, groups, clusters_per_domain, mean,
+               cov, scratch, counters);
 }
 
 cudaLaunchConfig_t launch_config(long long clusters, int groups,
@@ -337,6 +391,51 @@ cudaLaunchConfig_t launch_config(long long clusters, int groups,
   return cfg;
 }
 
+// Clusters per domain for one of the two kernels (see the C entry).
+template <typename In>
+int moments_clusters(void (*kernel)(const In*, long long, int, int, float*,
+                                    float*, double*, int*),
+                     long long domains, long long rows, int channels) {
+  const int groups = channels / kGroup;
+  if (domains <= 0 || rows <= 0 || groups <= 0) return 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(1, groups, nullptr, &attr);
+  int fit = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  long long per_domain = fit / domains;
+  const long long rows_per_cluster =
+      static_cast<long long>(kCluster) * (cfg.blockDim.x / groups);
+  const long long useful = (rows + rows_per_cluster - 1) / rows_per_cluster;
+  if (per_domain > useful) per_domain = useful;
+  return per_domain < 1 ? 1 : static_cast<int>(per_domain);
+}
+
+// One launch of one of the two kernels (see the C entries).
+template <typename In>
+int moments_launch(void (*kernel)(const In*, long long, int, int, float*,
+                                  float*, double*, int*),
+                   const void* x, void* mean, void* cov, void* scratch,
+                   void* counters, long long domains, long long rows,
+                   int channels, int clusters_per_domain, void* stream) {
+  if (domains <= 0 || domains > kMaxDomains || rows <= 0 || channels <= 0 ||
+      channels % kGroup != 0 || channels > 2048 || clusters_per_domain < 1 ||
+      domains * clusters_per_domain * kCluster > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = channels / kGroup;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(domains * clusters_per_domain, groups,
+                    static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const In*>(x), rows, groups,
+      clusters_per_domain, static_cast<float*>(mean),
+      static_cast<float*>(cov), static_cast<double*>(scratch),
+      static_cast<int*>(counters));
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 }  // namespace
 
 extern "C" {
@@ -352,53 +451,41 @@ int dwt_whiten_moments_max_domains() { return kMaxDomains; }
 // Clusters per domain for x [domains, rows, channels] on the current
 // device: the clusters that fit on the card at once, split over the
 // domains, at most one per kCluster passes of rows, at least 1.  Returns
-// the count, or −cudaError_t on a failed query.
+// the count, or −cudaError_t on a failed query.  The _bf16 entry: the
+// bf16 kernel's.
 int dwt_whiten_moments_clusters(long long domains, long long rows,
                                 int channels) {
-  const int groups = channels / kGroup;
-  if (domains <= 0 || rows <= 0 || groups <= 0) return 1;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(1, groups, nullptr, &attr);
-  int fit = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &fit, whiten_moments_f32_kernel, &cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  long long per_domain = fit / domains;
-  const long long rows_per_cluster =
-      static_cast<long long>(kCluster) * (cfg.blockDim.x / groups);
-  const long long useful = (rows + rows_per_cluster - 1) / rows_per_cluster;
-  if (per_domain > useful) per_domain = useful;
-  return per_domain < 1 ? 1 : static_cast<int>(per_domain);
+  return moments_clusters(whiten_moments_f32_kernel, domains, rows, channels);
 }
 
-// mean [domains, C], cov [domains, C/4, 4, 4] of x [domains, rows, C] on
-// `stream`, through `scratch` (float64, domains · clusters_per_domain ·
-// C/4 · 14 elements) and `counters` (kMaxDomains int32, zero before the
-// first launch; every launch leaves them zero).  Returns cudaSuccess,
-// cudaErrorInvalidValue for shapes the kernel does not take, or the
-// launch's error.
+int dwt_whiten_moments_clusters_bf16(long long domains, long long rows,
+                                     int channels) {
+  return moments_clusters(whiten_moments_bf16_kernel, domains, rows,
+                          channels);
+}
+
+// mean [domains, C], cov [domains, C/4, 4, 4] (f32) of x [domains, rows, C]
+// (f32; bf16 for the _bf16 entry) on `stream`, through `scratch` (float64,
+// domains · clusters_per_domain · C/4 · 14 elements) and `counters`
+// (kMaxDomains int32, zero before the first launch; every launch leaves
+// them zero).  Returns cudaSuccess, cudaErrorInvalidValue for shapes the
+// kernel does not take, or the launch's error.
 int dwt_whiten_moments_f32(const void* x, void* mean, void* cov,
                            void* scratch, void* counters, long long domains,
                            long long rows, int channels,
                            int clusters_per_domain, void* stream) {
-  if (domains <= 0 || domains > kMaxDomains || rows <= 0 || channels <= 0 ||
-      channels % kGroup != 0 ||
-      channels > dwt_whiten_moments_max_channels() ||
-      clusters_per_domain < 1 ||
-      domains * clusters_per_domain * kCluster > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = channels / kGroup;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(domains * clusters_per_domain, groups,
-                    static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, whiten_moments_f32_kernel, static_cast<const float4*>(x), rows,
-      groups, clusters_per_domain,
-      static_cast<float*>(mean), static_cast<float*>(cov),
-      static_cast<double*>(scratch), static_cast<int*>(counters));
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return moments_launch(whiten_moments_f32_kernel, x, mean, cov, scratch,
+                        counters, domains, rows, channels, clusters_per_domain,
+                        stream);
+}
+
+int dwt_whiten_moments_bf16(const void* x, void* mean, void* cov,
+                            void* scratch, void* counters, long long domains,
+                            long long rows, int channels,
+                            int clusters_per_domain, void* stream) {
+  return moments_launch(whiten_moments_bf16_kernel, x, mean, cov, scratch,
+                        counters, domains, rows, channels, clusters_per_domain,
+                        stream);
 }
 
 const char* dwt_cuda_error_string(int code) {

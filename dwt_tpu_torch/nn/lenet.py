@@ -16,7 +16,8 @@ The public forward takes NHWC images like the JAX model: ``[2, N, 28, 28,
 1]`` in train mode (merged to ``[2·N, …]`` for the convs, logits split back
 to ``[2, N, 10]``), ``[N, 28, 28, 1]`` in eval mode.  Inside, convs run on
 ``[N, C, H, W]`` tensors in ``torch.channels_last`` memory format, so every
-whitened site sees a contiguous ``[N·H·W, C]`` view of its input.  The
+whitened site sees a contiguous ``[N·H·W, C]`` view of its input.
+``dtype`` and ``whitener`` are ResNet-DWT's (``nn.resnet``).  The
 flatten between the conv and dense stacks reads the ``[N, 7, 7, 48]``
 (NHWC) view, as the JAX model flattens, so ``fc3``'s weight is the Flax
 kernel transposed and nothing else.
@@ -36,7 +37,7 @@ from dwt_tpu_torch.nn.norms import (
     merge_domains,
     split_domains,
 )
-from dwt_tpu_torch.nn.resnet import _variance_scaling_
+from dwt_tpu_torch.nn.resnet import _variance_scaling_, cast_forward
 
 INPUT_SHAPE = (28, 28, 1)  # per image, NHWC
 
@@ -65,17 +66,22 @@ class LeNetDWT(nn.Module):
         eval_domain: int = 1,
         momentum: float = 0.1,
         whiten_eps: float = 1e-3,
+        dtype: Optional[torch.dtype] = None,
+        whitener: str = "cholesky",
     ):
         super().__init__()
         self.num_classes = num_classes
         self.num_domains = num_domains
         self.eval_domain = eval_domain
+        self.dtype = dtype
         norm_kw = dict(num_domains=num_domains, eval_domain=eval_domain,
                        momentum=momentum)
         self.conv1 = nn.Conv2d(1, 32, 5, padding=2)
-        self.dn1 = DomainWhiten(32, group_size, eps=whiten_eps, **norm_kw)
+        self.dn1 = DomainWhiten(32, group_size, eps=whiten_eps,
+                                whitener=whitener, **norm_kw)
         self.conv2 = nn.Conv2d(32, 48, 5, padding=2)
-        self.dn2 = DomainWhiten(48, group_size, eps=whiten_eps, **norm_kw)
+        self.dn2 = DomainWhiten(48, group_size, eps=whiten_eps,
+                                whitener=whitener, **norm_kw)
         self.fc3 = nn.Linear(7 * 7 * 48, 100)
         self.dn3 = DomainBatchNorm(100, **norm_kw)
         self.fc4 = nn.Linear(100, 100)
@@ -93,13 +99,14 @@ class LeNetDWT(nn.Module):
             x = merge_domains(x)
         # Conv block: conv → whiten → affine → relu → maxpool (the
         # reference's order, usps_mnist.py:238).
-        x = _channels_last(x.permute(0, 3, 1, 2))
-        x = F.max_pool2d(F.relu(self.dn1(_channels_last(self.conv1(x)))), 2)
-        x = F.max_pool2d(F.relu(self.dn2(_channels_last(self.conv2(x)))), 2)
+        dt = self.dtype
+        x = _channels_last((x if dt is None else x.to(dt)).permute(0, 3, 1, 2))
+        x = F.max_pool2d(F.relu(self.dn1(_channels_last(cast_forward(self.conv1, x, dt)))), 2)
+        x = F.max_pool2d(F.relu(self.dn2(_channels_last(cast_forward(self.conv2, x, dt)))), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC: [B, 2352]
-        x = F.relu(self.dn3(self.fc3(x)))
-        x = F.relu(self.dn4(self.fc4(x)))
-        x = self.dn5(self.fc5(x))
+        x = F.relu(self.dn3(cast_forward(self.fc3, x, dt)))
+        x = F.relu(self.dn4(cast_forward(self.fc4, x, dt)))
+        x = self.dn5(cast_forward(self.fc5, x, dt))
         if self.training:
             x = split_domains(x, self.num_domains)
         return x
@@ -123,9 +130,11 @@ def init_lenet_weights(model: LeNetDWT, seed: int = 0) -> LeNetDWT:
 
 def build_lenet(
     *, group_size: int = 4, seed: Optional[int] = None, momentum: float = 0.1,
+    dtype: Optional[torch.dtype] = None, whitener: str = "cholesky",
 ) -> LeNetDWT:
     """LeNet-DWT, freshly initialized from ``seed`` when one is given."""
-    model = LeNetDWT(group_size=group_size, momentum=momentum)
+    model = LeNetDWT(group_size=group_size, momentum=momentum, dtype=dtype,
+                     whitener=whitener)
     if seed is not None:
         init_lenet_weights(model, seed)
     return model

@@ -18,13 +18,27 @@ picks the path:
   and apply kernels on the card).
 * **eval**: the whole ``[N, C, H, W]`` batch goes through branch
   ``eval_domain``, the reference's target-branch eval routing.
+
+The whitening sites' buffers follow their whitener, as the JAX package's
+stats tree does: ``swbn`` adds the tracked matrices ``w [D, G, g, g]``, so
+checkpoints are per-backend artifacts.  Activations may be bf16; the stat
+buffers stay f32 and the sites return the activation dtype.
+
+**Rematerialization** (:func:`remat`, ResNet's ``--remat``): a block run
+under ``torch.utils.checkpoint`` runs its forward again in the backward.
+The statistics advance once per step and the recompute must see the
+stats of the step's start, so in the recompute the sites write no buffer,
+and an SWBN site reads the tracked matrix it read in the forward (a copy
+the forward keeps for it).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from dwt_tpu_torch.ops import cuda_whitening
@@ -34,11 +48,31 @@ from dwt_tpu_torch.ops.batch_norm import (
     domain_batch_norm,
     init_batch_norm_stats,
 )
-from dwt_tpu_torch.ops.whitening import (
-    WhiteningStats,
-    group_whiten,
-    init_whitening_stats,
-)
+from dwt_tpu_torch.ops.whitening import get_whitener, group_whiten
+
+# The phase of the checkpointed block running now: None (no remat),
+# "forward" (its first run) or "recompute" (its rerun in the backward).
+_remat_phase: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _phase(name: str) -> Iterator[None]:
+    global _remat_phase
+    outer, _remat_phase = _remat_phase, name
+    try:
+        yield
+    finally:
+        _remat_phase = outer
+
+
+def remat(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` with its activations recomputed in the backward instead of
+    kept (``torch.utils.checkpoint``, non-reentrant; the counterpart of
+    ``flax.linen.remat``), the norm sites inside told which run is which
+    (module docstring)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False,
+        context_fn=lambda: (_phase("forward"), _phase("recompute")))
 
 
 def merge_domains(x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +128,8 @@ class DomainWhiten(nn.Module):
     ``eval_matrix`` is the site's precomputed ``[G, g, g]`` eval matrix
     (``build_whiten_cache``, installed by the eval pipeline and the
     serving engine); ``None`` → factorize from the running stats per call.
+    ``whitener`` names the numerics backend (``--whitener``), whose stats
+    the buffers hold: ``mean``, ``cov`` and, for ``swbn``, ``w``.
     """
 
     def __init__(
@@ -104,6 +140,7 @@ class DomainWhiten(nn.Module):
         eval_domain: int = 1,
         momentum: float = 0.1,
         eps: float = 1e-3,
+        whitener: str = "cholesky",
     ):
         super().__init__()
         self.features = features
@@ -112,23 +149,37 @@ class DomainWhiten(nn.Module):
         self.eval_domain = eval_domain
         self.momentum = momentum
         self.eps = eps
-        proto = init_whitening_stats(features, group_size)
-        self.register_buffer("mean", proto.mean.repeat(num_domains, 1))
-        self.register_buffer("cov", proto.cov.repeat(num_domains, 1, 1, 1))
+        self.whitener = get_whitener(whitener).name
+        proto = get_whitener(whitener).init_stats(features, group_size)
+        self._stats_type, self._stat_names = type(proto), proto._fields
+        for name, value in zip(proto._fields, proto):
+            self.register_buffer(
+                name, value.repeat((num_domains,) + (1,) * value.dim()))
         self.gamma = nn.Parameter(torch.ones(features))
         self.beta = nn.Parameter(torch.zeros(features))
         self.register_buffer("eval_matrix", None, persistent=False)
+        self._remat_w: Optional[torch.Tensor] = None
 
-    def branch(self, domain) -> WhiteningStats:
-        return WhiteningStats(self.mean[domain], self.cov[domain])
+    def branch(self, domain):
+        """The stats of branch ``domain`` (an index, or ``slice(None)``
+        for the stacked ones): views of the buffers, in the backend's
+        stats type."""
+        return self._stats_type(*(getattr(self, n)[domain] for n in self._stat_names))
 
     def _train(self, x3: torch.Tensor) -> torch.Tensor:
+        stats = self.branch(slice(None))
+        if hasattr(stats, "w"):
+            if _remat_phase == "forward":
+                self._remat_w = self.w.clone()
+            elif _remat_phase == "recompute":
+                stats = stats._replace(w=self._remat_w)
         y3, new = cuda_whitening.cuda_group_whiten(
-            x3, self.branch(slice(None)), group_size=self.group_size,
-            train=True, momentum=self.momentum, eps=self.eps)
-        with torch.no_grad():
-            self.mean.copy_(new.mean)
-            self.cov.copy_(new.cov)
+            x3, stats, group_size=self.group_size, train=True,
+            momentum=self.momentum, eps=self.eps, whitener=self.whitener)
+        if _remat_phase != "recompute":
+            with torch.no_grad():
+                for name, value in zip(self._stat_names, new):
+                    getattr(self, name).copy_(value)
         return y3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +192,7 @@ class DomainWhiten(nn.Module):
                 group_size=self.group_size,
                 train=False,
                 eps=self.eps,
+                whitener=self.whitener,
                 eval_matrix=self.eval_matrix,
             )
         y = torch.addcmul(self.beta.to(y.dtype), y, self.gamma.to(y.dtype))
@@ -180,10 +232,11 @@ class DomainBatchNorm(nn.Module):
     def _train(self, x3: torch.Tensor) -> torch.Tensor:
         y3, new = domain_batch_norm(
             x3, self.branch(slice(None)), momentum=self.momentum, eps=self.eps)
-        with torch.no_grad():
-            self.mean.copy_(new.mean)
-            self.var.copy_(new.var)
-            self.count.copy_(new.count)
+        if _remat_phase != "recompute":
+            with torch.no_grad():
+                self.mean.copy_(new.mean)
+                self.var.copy_(new.var)
+                self.count.copy_(new.count)
         return y3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

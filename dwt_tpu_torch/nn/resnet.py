@@ -17,6 +17,15 @@ The public forward takes NHWC images like the JAX model: ``[D, N, H, W,
 back to ``[D, N, K]``), ``[N, H, W, 3]`` in eval mode.  Inside, convs run
 on ``[N, C, H, W]`` tensors in ``torch.channels_last`` memory format, so
 every norm site sees a contiguous ``[N·H·W, C]`` view of its input.
+
+``dtype`` is the compute dtype (``--compute_dtype``), as Flax's ``dtype=``:
+the parameters stay f32, each conv and dense casts its input and its
+parameters to ``dtype`` (:func:`cast_forward`), the norm sites keep f32
+statistics and return ``dtype``, and the logits come out in ``dtype``.
+``None`` (the default) computes in the parameters' own dtype, casting
+nothing (a model moved to float64 computes in float64).
+``whitener`` is every whitening site's backend; ``remat`` recomputes each
+bottleneck's activations in the backward (``nn.norms.remat``).
 """
 
 from __future__ import annotations
@@ -32,8 +41,23 @@ from dwt_tpu_torch.nn.norms import (
     DomainBatchNorm,
     DomainWhiten,
     merge_domains,
+    remat,
     split_domains,
 )
+
+
+def cast_forward(mod: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``mod(x)`` for a conv or dense ``mod`` with ``x`` and its parameters
+    cast to ``dtype`` — Flax's ``dtype=``; the parameters themselves stay
+    as they are, and their gradients come back in their own dtype.  At the
+    parameters' dtype, or ``dtype=None``, it is ``mod(x)``."""
+    if dtype is None or mod.weight.dtype == dtype:
+        return mod(x)
+    weight = mod.weight.to(dtype)
+    bias = None if mod.bias is None else mod.bias.to(dtype)
+    if isinstance(mod, nn.Conv2d):
+        return mod._conv_forward(x.to(dtype), weight, bias)
+    return F.linear(x.to(dtype), weight, bias)
 
 
 class BottleneckDWT(nn.Module):
@@ -52,14 +76,17 @@ class BottleneckDWT(nn.Module):
         num_domains: int = 3,
         eval_domain: int = 1,
         momentum: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
+        whitener: str = "cholesky",
     ):
         super().__init__()
         out_ch = planes * self.expansion
+        self.dtype = dtype
 
         def norm(features: int) -> nn.Module:
             if use_whitening:
                 return DomainWhiten(features, group_size, num_domains,
-                                    eval_domain, momentum)
+                                    eval_domain, momentum, whitener=whitener)
             return DomainBatchNorm(features, num_domains, eval_domain, momentum)
 
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
@@ -78,12 +105,13 @@ class BottleneckDWT(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
         identity = x
-        h = F.relu(self.dn1(self.conv1(x)))
-        h = F.relu(self.dn2(self.conv2(h)))
-        h = self.dn3(self.conv3(h))
+        h = F.relu(self.dn1(cast_forward(self.conv1, x, dt)))
+        h = F.relu(self.dn2(cast_forward(self.conv2, h, dt)))
+        h = self.dn3(cast_forward(self.conv3, h, dt))
         if self.downsample_conv is not None:
-            identity = self.downsample_dn(self.downsample_conv(x))
+            identity = self.downsample_dn(cast_forward(self.downsample_conv, x, dt))
         return F.relu(h + identity)
 
 
@@ -94,7 +122,8 @@ class ResNetDWT(nn.Module):
     → logits ``[3, N, num_classes]``, every branch's running stats
     advanced; eval input ``[N, H, W, 3]`` through the target branches
     only → logits ``[N, num_classes]``.  ``momentum`` is the EMA weight
-    of every norm site.
+    of every norm site; ``dtype``, ``whitener`` and ``remat`` as in the
+    module docstring.
     """
 
     def __init__(
@@ -106,16 +135,21 @@ class ResNetDWT(nn.Module):
         eval_domain: int = 1,
         pad_classes_to: int = 0,
         momentum: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
+        whitener: str = "cholesky",
+        remat: bool = False,
     ):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.num_classes = num_classes
         self.num_domains = num_domains
         self.eval_domain = eval_domain
+        self.dtype = dtype
+        self.remat = remat
 
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.dn1 = DomainWhiten(64, group_size, num_domains, eval_domain,
-                                momentum)
+                                momentum, whitener=whitener)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
         for stage, num_blocks in enumerate(self.stage_sizes, start=1):
@@ -131,6 +165,8 @@ class ResNetDWT(nn.Module):
                     num_domains=num_domains,
                     eval_domain=eval_domain,
                     momentum=momentum,
+                    dtype=dtype,
+                    whitener=whitener,
                 ))
                 inplanes = planes * BottleneckDWT.expansion
         self.fc_out = nn.Linear(
@@ -163,13 +199,16 @@ class ResNetDWT(nn.Module):
             x = merge_domains(x)
         # NHWC in; the permuted view IS channels_last memory for a
         # contiguous NHWC input.
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.dn1(self.conv1(x)))
+        x = F.relu(self.dn1(cast_forward(self.conv1, x, self.dtype)))
         x = self.maxpool(x)
+        checkpointed = self.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks():
-            x = block(x)
+            x = remat(block, x) if checkpointed else block(x)
         x = x.mean(dim=(2, 3))  # global average pool → [N, C]
-        x = self.fc_out(x)
+        x = cast_forward(self.fc_out, x, self.dtype)
         x = x[:, : self.num_classes]  # no-op unless the head is padded
         if self.training:
             x = split_domains(x, self.num_domains)
@@ -218,6 +257,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 def build_resnet(
     name: str, *, num_classes: int = 65, group_size: int = 4,
     seed: Optional[int] = None, momentum: float = 0.1,
+    dtype: Optional[torch.dtype] = None, whitener: str = "cholesky",
+    remat: bool = False,
 ) -> ResNetDWT:
     """``resnet50`` or ``tiny`` by name, freshly initialized from ``seed``
     when one is given."""
@@ -225,7 +266,8 @@ def build_resnet(
     if name not in ctors:
         raise ValueError(f"unknown model {name!r}; choose from {sorted(ctors)}")
     model = ctors[name](num_classes=num_classes, group_size=group_size,
-                        momentum=momentum)
+                        momentum=momentum, dtype=dtype, whitener=whitener,
+                        remat=remat)
     if seed is not None:
         init_weights(model, seed)
     return model

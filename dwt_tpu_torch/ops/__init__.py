@@ -8,7 +8,11 @@ from dwt_tpu_torch.ops.batch_norm import (
 )
 from dwt_tpu_torch.ops.whitening import (
     WHITEN_CACHE_COL,
+    WHITENER_NAMES,
     CholeskyWhitener,
+    NewtonSchulzWhitener,
+    SWBNStats,
+    SWBNWhitener,
     Whitener,
     WhiteningStats,
     build_whiten_cache,
@@ -16,12 +20,17 @@ from dwt_tpu_torch.ops.whitening import (
     group_cov,
     group_whiten,
     init_whitening_stats,
+    newton_schulz_inverse_sqrt,
     whitening_matrix,
 )
 
 __all__ = [
     "BatchNormStats",
     "CholeskyWhitener",
+    "NewtonSchulzWhitener",
+    "SWBNStats",
+    "SWBNWhitener",
+    "WHITENER_NAMES",
     "WHITEN_CACHE_COL",
     "Whitener",
     "WhiteningStats",
@@ -33,5 +42,6 @@ __all__ = [
     "group_whiten",
     "init_batch_norm_stats",
     "init_whitening_stats",
+    "newton_schulz_inverse_sqrt",
     "whitening_matrix",
 ]

@@ -5,8 +5,10 @@ injection" is passing different stats, and train mode returns new stats
 rather than mutating buffers.  Semantics, as the JAX op:
 
 * train mode normalizes with the batch mean and the biased one-pass
-  variance ``E[x²] − m²``; eval with the running mean and variance, in
-  the centered form ``(x − m) · rsqrt(var + eps)`` in float32;
+  variance ``E[x²] − m²`` (both f32 under bf16 activations); eval with the
+  running mean and variance; f32 activations in the centered form ``(x −
+  m) · rsqrt(var + eps)``, bf16 ones with the f32 scale and shift folded
+  into the activation dtype, ``x·s + (−m·s)`` (:func:`_normalize`);
 * the running-variance EMA accumulates the UNBIASED batch variance;
 * EMA convention ``running ← momentum·new + (1 − momentum)·running``;
   ``momentum=None`` selects the cumulative mode ``1/count``, with
@@ -44,6 +46,19 @@ def init_batch_norm_stats(
     )
 
 
+def _normalize(x: torch.Tensor, xf: torch.Tensor, m: torch.Tensor,
+               var: torch.Tensor, eps: float) -> torch.Tensor:
+    """``(x − m) · rsqrt(var + eps)`` with f32 statistics ``m``, ``var``
+    (broadcastable to ``x``): the exact centred form when ``x`` is at least
+    f32 (``xf`` is ``x``), else the per-channel f32 scale and shift cast to
+    ``x``'s dtype and applied there — the JAX op's folding, which keeps the
+    elementwise chain half-width."""
+    scale = torch.rsqrt(var + eps)
+    if x.dtype == xf.dtype:
+        return (xf - m) * scale
+    return x * scale.to(x.dtype) + (-(m * scale)).to(x.dtype)
+
+
 def domain_batch_norm(
     x: torch.Tensor,
     stats: BatchNormStats,
@@ -64,7 +79,7 @@ def domain_batch_norm(
     m = xf.mean(dim=reduce_axes)
     msq = torch.square(xf).mean(dim=reduce_axes)
     var = msq - torch.square(m)  # biased — used for normalization
-    y = (xf - m.view(bcast)) * torch.rsqrt(var + eps).view(bcast)
+    y = _normalize(x, xf, m.view(bcast), var.view(bcast), eps)
 
     count = stats.count + 1
     if momentum is None:
@@ -99,6 +114,5 @@ def batch_norm(
         )
         return y[0], BatchNormStats(*(s[0] for s in new))
     dtype = torch.promote_types(x.dtype, torch.float32)
-    scale = torch.rsqrt(stats.var.to(dtype) + eps)
-    y = (x.to(dtype) - stats.mean.to(dtype)) * scale
+    y = _normalize(x, x.to(dtype), stats.mean.to(dtype), stats.var.to(dtype), eps)
     return y.to(x.dtype), stats

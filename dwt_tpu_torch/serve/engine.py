@@ -18,6 +18,10 @@ domain-specific whitening at test time:
   request of any size pays no first-call set-up;
 * the forward itself is ``model(x)`` in eval mode under
   ``torch.inference_mode`` — ``dwt_tpu.train.steps.make_serve_forward``;
+  the model's compute dtype is the serving dtype (``--serve_dtype``): a
+  bf16 model computes in bf16 from f32 parameters, its whiten cache is
+  factorized in f32 and then rounded to bf16 once (the JAX engine's
+  ``cache_dtype`` cast), and the logits come back as f32;
 * **from a checkpoint**: :meth:`ServeEngine.from_checkpoint` restores the
   parameters and stats of the newest valid step (main directory and
   anchors) without an optimizer — a checkpoint the port trained, or one
@@ -120,11 +124,18 @@ class ServeEngine:
     @torch.no_grad()
     def build_state(self, model: nn.Module) -> nn.Module:
         """Factorize the whiten cache once from the frozen stats (on the
-        host, in f32), install it into the sites, then place the model on
+        host, in f32; then cast to a bf16 model's dtype), install it into
+        the sites, then place the model on
         the device in eval mode, conv weights in channels_last memory
         format like the activations."""
         model = model.eval()
-        install_whiten_cache(model, make_whiten_cache(model))
+        cache = make_whiten_cache(model)
+        dtype = getattr(model, "dtype", None)
+        if dtype not in (None, torch.float32):
+            # Factorized in f32, then cast to the serving dtype; held in f32
+            # storage, which is what the apply kernels read.
+            cache = {k: w.to(dtype).float() for k, w in cache.items()}
+        install_whiten_cache(model, cache)
         model = model.to(self.device)
         for mod in model.modules():
             if isinstance(mod, nn.Conv2d):
@@ -143,7 +154,7 @@ class ServeEngine:
 
     @torch.inference_mode()
     def forward(self, x_staged: torch.Tensor, bucket: int) -> torch.Tensor:
-        """Eval forward of one staged bucket batch → device logits."""
+        """Eval forward of one staged bucket batch → device logits (f32)."""
         if int(bucket) not in self.buckets:
             raise ValueError(
                 f"no warmed forward for bucket {bucket} (buckets: {self.buckets})"
@@ -153,7 +164,7 @@ class ServeEngine:
                 f"staged batch {tuple(x_staged.shape)} is not "
                 f"[{bucket}, {', '.join(map(str, self.input_shape))}]"
             )
-        return self.model(x_staged)
+        return self.model(x_staged).float()
 
     def infer(self, x: np.ndarray, bucket: Optional[int] = None) -> np.ndarray:
         """Synchronous pad → stage → forward → fetch; returns the

@@ -23,6 +23,8 @@ or the JAX package's host-shard format), or ``--init_random`` for fresh
 weights from ``--seed`` (``--model lenet`` serves the digits model at
 28×28×1; on CUDA, ``--device cpu`` for the CPU).  ``serve_ready``,
 ``/healthz`` and every ``/infer`` reply carry the checkpoint's ``step``.
+``--serve_dtype bf16`` (``--bf16``) serves in bf16 from the f32
+parameters; ``--whitener`` names the checkpoint's whitening backend.
 SIGTERM or
 SIGINT drains: in-flight requests complete, queued requests dispatch,
 new arrivals get 503 with ``Retry-After``, exit code 0.
@@ -46,6 +48,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dwt_tpu_torch.config import model_dtype
 from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.resnet import build_resnet
@@ -439,21 +442,30 @@ class HttpFront:
 # ------------------------------------------------------------------ CLI
 
 
+def resolve_serve_dtype(args) -> str:
+    """``--serve_dtype`` name ("f32" | "bf16"): given, it wins; else the
+    legacy ``--bf16`` boolean aliases bf16; else f32."""
+    name = getattr(args, "serve_dtype", None)
+    if name is None:
+        return "bf16" if getattr(args, "bf16", False) else "f32"
+    return name
+
+
 def build_model(args):
     """``(model, input_shape)`` for ``--model lenet|resnet50|tiny``; fresh
     weights from ``--seed`` under ``--init_random`` (and without it,
     weights a checkpoint replaces).  LeNet-DWT always has
     10 classes and takes 28×28×1 (``--num_classes`` and ``--image_size``
-    are the ResNets')."""
+    are the ResNets').  ``--serve_dtype`` sets only the compute dtype: the
+    parameters stay f32, so any checkpoint serves at either precision;
+    ``--whitener`` must be the checkpoint's."""
     seed = args.seed if args.init_random and not args.ckpt_dir else None
+    kw = dict(group_size=args.group_size, seed=seed,
+              dtype=model_dtype(resolve_serve_dtype(args)),
+              whitener=getattr(args, "whitener", "cholesky"))
     if args.model == "lenet":
-        return build_lenet(group_size=args.group_size, seed=seed), LENET_INPUT_SHAPE
-    model = build_resnet(
-        args.model,
-        num_classes=args.num_classes,
-        group_size=args.group_size,
-        seed=seed,
-    )
+        return build_lenet(**kw), LENET_INPUT_SHAPE
+    model = build_resnet(args.model, num_classes=args.num_classes, **kw)
     return model, (args.image_size, args.image_size, 3)
 
 
@@ -491,6 +503,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, default=224,
                    help="resnet input resolution (lenet takes 28)")
     p.add_argument("--group_size", type=int, default=4)
+    p.add_argument("--whitener",
+                   choices=["cholesky", "newton_schulz", "swbn"],
+                   default="cholesky",
+                   help="the checkpoint's whitening backend (its stats, and "
+                        "how the eval matrices are computed)")
+    p.add_argument("--bf16", action="store_true",
+                   help="legacy alias for --serve_dtype bf16")
+    p.add_argument("--serve_dtype", choices=["f32", "bf16"], default=None,
+                   help="forward compute dtype: bf16 runs the deployment "
+                        "forward's activations in bf16 and casts the "
+                        "(f32-factorized) whiten cache to bf16 once.  Params "
+                        "restore f32 either way.  Default: f32 (or bf16 when "
+                        "--bf16 is set)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--buckets", default="1,8,32,128",
                    help="comma-separated batch sizes warmed at start")

@@ -50,7 +50,8 @@ from dwt_tpu_torch.train.steps import (
 
 def whitening_stats_tree(model: nn.Module) -> Dict:
     """The model's whitening stats in the JAX ``batch_stats`` layout
-    (scope path → ``{"whitening": WhiteningStats}``, domain-stacked)."""
+    (scope path → ``{"whitening": stats}``, domain-stacked, in the sites'
+    backend's stats type)."""
     tree: Dict = {}
     for name, site in whitening_sites(model).items():
         node = tree
@@ -62,22 +63,24 @@ def whitening_stats_tree(model: nn.Module) -> Dict:
 
 @torch.no_grad()
 def make_whiten_cache(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Factorize every whitening site's eval matrix from the model's
-    frozen stats in one batched call; returns ``{site name: w}``.
+    """Every whitening site's eval matrix from the model's frozen stats,
+    in f32: factorized in one batched call (swbn: the tracked matrices);
+    returns ``{site name: w}``.
 
-    The shrinkage eps and the eval branch are read off the sites, so the
-    cache is what each site would factorize for itself."""
+    The whitener, the shrinkage eps and the eval branch are read off the
+    sites, so the cache is what each site would compute for itself."""
     sites = whitening_sites(model).values()
-    settings = {(site.eps, site.eval_domain) for site in sites}
+    settings = {(site.whitener, site.eps, site.eval_domain) for site in sites}
     if len(settings) > 1:
         raise ValueError(
-            f"whitening sites disagree on (eps, eval_domain): {sorted(settings)}"
+            "whitening sites disagree on (whitener, eps, eval_domain): "
+            f"{sorted(settings)}"
         )
     if not settings:
         return {}
-    ((eps, eval_domain),) = settings
+    ((whitener, eps, eval_domain),) = settings
     cache = build_whiten_cache(
-        whitening_stats_tree(model), eps=eps, eval_domain=eval_domain
+        whitening_stats_tree(model), whitener, eps=eps, eval_domain=eval_domain
     )
     out: Dict[str, torch.Tensor] = {}
 

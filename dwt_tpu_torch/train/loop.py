@@ -74,9 +74,17 @@ streams reseeded, ``halt``), a proactive ``notice_save`` on a preemption
 notice, and on SIGTERM a final save, a ``preempt`` record and a normal
 return (exit 0).
 
+Both loops build their model with the config's compute dtype
+(``--compute_dtype``/``--bf16``: bf16 activations, f32 parameters,
+optimizer state and running stats), whitener (``--whitener``) and, for
+OfficeHome, ``--remat``.  With ``--whitener swbn`` the OfficeHome loop
+records a skipped stat collection at ``--stat_collection_passes 0`` and
+warns when passes are asked for, as the JAX loop does (which records the
+skip for every whitener).
+
 Not ported yet, in either loop (ROADMAP): the metrics counters and the
 harvester's gauges (queue 1 item 9), ``mirror_recovery`` and multi-host
-runs (item 8), bf16 compute (item 6).
+runs (item 8).
 """
 
 from __future__ import annotations
@@ -92,7 +100,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from dwt_tpu_torch.config import DigitsConfig, OfficeHomeConfig
+from dwt_tpu_torch.config import (
+    DigitsConfig,
+    OfficeHomeConfig,
+    resolve_compute_dtype,
+    model_dtype,
+)
 from dwt_tpu_torch.data.datasets import (
     ArrayDataset,
     ImageFolderDataset,
@@ -117,6 +130,7 @@ from dwt_tpu_torch.data.transforms import (
 )
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.resnet import build_resnet
+from dwt_tpu_torch.ops.whitening import get_whitener
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
 from dwt_tpu_torch.resilience.coord import Coordinator
@@ -596,9 +610,12 @@ def _digits_datasets(cfg: DigitsConfig):
 
 
 def build_digits_model(cfg: DigitsConfig) -> nn.Module:
-    """The config's LeNet-DWT, freshly initialized from ``cfg.seed``."""
+    """The config's LeNet-DWT (its compute dtype and whitener), freshly
+    initialized from ``cfg.seed``."""
     return build_lenet(group_size=cfg.group_size, seed=cfg.seed,
-                       momentum=cfg.running_momentum)
+                       momentum=cfg.running_momentum,
+                       dtype=model_dtype(resolve_compute_dtype(cfg)),
+                       whitener=cfg.whitener)
 
 
 def run_digits(
@@ -900,10 +917,13 @@ def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
 
 
 def build_model(cfg: OfficeHomeConfig) -> nn.Module:
-    """The config's ResNet-DWT, freshly initialized from ``cfg.seed``."""
+    """The config's ResNet-DWT (its compute dtype, whitener and remat),
+    freshly initialized from ``cfg.seed``."""
     return build_resnet(
         cfg.arch, num_classes=cfg.num_classes, group_size=cfg.group_size,
         seed=cfg.seed, momentum=cfg.running_momentum,
+        dtype=model_dtype(resolve_compute_dtype(cfg)), whitener=cfg.whitener,
+        remat=cfg.remat,
     )
 
 
@@ -1109,6 +1129,20 @@ def run_officehome(
     # Post-training protocol: passes over the target TEST set with the
     # batch tiled into every domain slot re-estimate the target stats
     # (resnet50…py:380-389).
+    online = not get_whitener(cfg.whitener).needs_stat_collection
+    if online and cfg.stat_collection_passes == 0:
+        # The --whitener swbn cadence: the tracked matrices and the BN
+        # running stats are the eval estimates; recorded as skipped.  (The
+        # JAX loop writes this record for every whitener; the factorizing
+        # ones keep the port's record sequence.)
+        logger("stat_collection", state.step, skipped=True,
+               whitener=cfg.whitener)
+    elif online:
+        logger("warning", state.step,
+               message=f"--whitener {cfg.whitener} runs eval off its online "
+                       f"running estimates; --stat_collection_passes "
+                       f"{cfg.stat_collection_passes} re-estimation passes "
+                       "are unnecessary (pass 0 to skip the phase)")
     for p in range(cfg.stat_collection_passes):
         t0 = time.perf_counter()
         forwards = evalp.collect_stats(state, test_ds, seed=cfg.seed, epoch=p)

@@ -134,6 +134,19 @@ def digits_tx(model: nn.Module, cfg, steps_per_epoch: int
     return adam_l2(model, cfg.weight_decay), (schedule,)
 
 
+def grads_in_param_dtype(model: nn.Module) -> None:
+    """Each gradient cast to its parameter's dtype before the optimizer
+    reads it — the JAX package's ``--compute_dtype bf16`` contract: the
+    parameters, and so the optimizer's moments, stay f32, and a
+    reduced-precision gradient widens before the moments, not inside them.
+    Autograd already returns the gradient of a cast f32 parameter in f32,
+    so this is an identity in the port's models; kept as the contract's
+    one place."""
+    for p in model.parameters():
+        if p.grad is not None and p.grad.dtype != p.dtype:
+            p.grad = p.grad.to(p.dtype)
+
+
 def set_learning_rates(
     optimizer: torch.optim.Optimizer, schedules: Sequence[Schedule], step: int,
     scale: float = 1.0,

@@ -50,7 +50,7 @@ from dwt_tpu_torch.ops.losses import (
     nll_loss,
     softmax_cross_entropy,
 )
-from dwt_tpu_torch.train.optim import set_learning_rates
+from dwt_tpu_torch.train.optim import grads_in_param_dtype, set_learning_rates
 from dwt_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -68,6 +68,7 @@ def _finish_step(state: TrainState, loss: torch.Tensor,
     into ``metrics``, then the optimizer step at the lrs already set."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    grads_in_param_dtype(state.model)
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
     metrics["finite"] = _finite_flag(metrics)

@@ -437,6 +437,15 @@ def _check_weights(path: str, model: nn.Module, weights: dict,
     want = model.state_dict()
     missing = sorted(set(want) - set(weights))
     extra = sorted(set(weights) - set(want))
+    whiteners = {site.whitener for site in whitening_sites(model).values()}
+    tracked = [k for k in missing + extra if k.endswith(".w")]
+    if tracked and len(tracked) == len(missing + extra) and whiteners:
+        # Only the whitening sites' tracked matrices differ: the stats of
+        # another whitener (checkpoints are per-backend artifacts).
+        raise ValueError(
+            f"checkpoint {path} holds the whitening stats of "
+            f"{'a factorizing whitener' if extra == [] else 'the swbn whitener'}, "
+            f"not those of this run's --whitener {sorted(whiteners)[0]}")
     if missing or extra:
         raise ValueError(
             f"checkpoint {path} does not match {type(model).__name__}: "

@@ -897,3 +897,114 @@ def test_one_step_per_dispatch_runs_eagerly(cuda_device):
         assert torch.equal(torch.cat([o[key] for o in out]),
                            torch.stack([r[key] for r in rows])), key
     _assert_states_equal(eager, chunked)
+
+
+# The bf16 variants: x (and y) bf16, mean and w f32.  The apply is held
+# bitwise to its plain version (the products of two bf16 values are exact
+# in f32 and both sum the 4 terms in one order); the moments to the plain
+# version and a float64 two-pass reference at the f32 tolerances.
+BF16_SHAPES = [  # (D, M, C): ResNet50 train sites at 18 per stream, LeNet-DWT's, ragged
+    (3, 18 * 112 * 112, 64), (3, 18 * 56 * 56, 256), (2, 32 * 28 * 28, 32),
+    (2, 32 * 14 * 14, 48), (1, 1000, 48), (1, 7, 32), (1, 1, 64)]
+
+
+def _bf16_site(d, m, c, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(d, m, c, device=device, generator=g) * 2 + 1).to(torch.bfloat16)
+    mean = torch.randn(d, c, device=device, generator=g) * 0.5 + 1
+    a = torch.randn(d, c // 4, 4, 4, device=device, generator=g)
+    w = whitening_matrix(_shrink(a @ a.transpose(-1, -2) / 4 + 0.5 * torch.eye(4, device=device),
+                                 1e-3))
+    return x, mean, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,c", BF16_SHAPES)
+def test_bf16_kernels_match_their_plain_versions(cuda_device, d, m, c):
+    x, mean, w = _bf16_site(d, m, c, cuda_device, seed=m + c)
+    before = cuda_whitening.apply_launches, cuda_whitening.moments_launches
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, cuda_whitening.whiten_apply_plain(x, mean, w))
+    if d == 1:
+        assert torch.equal(cuda_whitening.whiten_apply(x[0], mean[0], w[0]), y[0])
+    got_mean, got_cov = cuda_whitening.whiten_moments(x, 4)
+    assert got_mean.dtype == got_cov.dtype == torch.float32
+    ref_mean, ref_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    torch.testing.assert_close(got_mean, ref_mean, **MEAN_TOL)
+    torch.testing.assert_close(got_cov, ref_cov, **COV_TOL)
+    for i in range(d):
+        m64, c64 = _two_pass_f64(x[i].float())
+        torch.testing.assert_close(got_mean[i].double(), m64, **MEAN_TOL)
+        torch.testing.assert_close(got_cov[i].double(), c64, **COV_TOL)
+    assert (cuda_whitening.apply_launches - before[0],
+            cuda_whitening.moments_launches - before[1]) == (1 + (d == 1), 1)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_replay_in_a_cuda_graph(cuda_device):
+    """Both bf16 launches captured in one graph and replayed twice give the
+    eager calls' results bitwise; the capture records a launch of each."""
+    x, mean, w = _bf16_site(3, 18 * 56 * 56, 64, cuda_device, seed=9)
+    eager_moments = cuda_whitening.whiten_moments(x, 4)
+    eager_y = cuda_whitening.whiten_apply(x, eager_moments[0], w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with cuda_whitening.capture_launches() as recorded, torch.cuda.graph(graph):
+        mean_c, cov_c = cuda_whitening.whiten_moments(x, 4)
+        y_c = cuda_whitening.whiten_apply(x, mean_c, w)
+    assert recorded == {"apply": 1, "moments": 1}
+    for _ in range(2):
+        for t in (mean_c, cov_c, y_c):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(mean_c, eager_moments[0]) and torch.equal(cov_c, eager_moments[1])
+        assert torch.equal(y_c, eager_y)
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """A bf16 tensor reaches the bf16 kernel or raises: never widened to
+    the f32 one.  The bf16 apply takes C a multiple of 8, f32 mean and w
+    and a bf16 out; an f16 tensor is refused by both wrappers."""
+    x, mean, w = _bf16_site(1, 100, 32, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_whitening.whiten_apply(x[0, :, :12].contiguous(), mean[0, :12], w[0, :3])
+    with pytest.raises(TypeError, match="mean must be float32"):
+        cuda_whitening.whiten_apply(x[0], mean[0].bfloat16(), w[0])
+    with pytest.raises(TypeError, match="w must be float32"):
+        cuda_whitening.whiten_apply(x[0], mean[0], w[0].bfloat16())
+    with pytest.raises(TypeError, match="out must be bfloat16"):
+        cuda_whitening.whiten_apply(x[0], mean[0], w[0], out=torch.empty_like(x[0], dtype=torch.float32))
+    for fn in (lambda t: cuda_whitening.whiten_apply(t, mean[0], w[0]),
+               lambda t: cuda_whitening.whiten_moments(t, 4)):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fn(x[0].half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whitener", ["cholesky", "newton_schulz", "swbn"])
+def test_bf16_train_site_on_the_card_matches_the_cpu(cuda_device, whitener):
+    """One bf16 train-mode site through both bf16 kernels on the card and
+    through their plain versions on the CPU, per whitener: outputs within
+    one bf16 rounding step, moments and the new stats at the f32
+    tolerances, input gradients at bf16's."""
+    from dwt_tpu_torch.ops import whitening
+
+    x, _, _ = _bf16_site(3, 2000, 64, cuda_device, seed=4)
+    r = torch.randn(3, 2000, 64, generator=torch.Generator().manual_seed(1))
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        xd = x.detach().to(device).requires_grad_(True)
+        stats = whitening.get_whitener(whitener).init_stats(64, 4, device=device)
+        stats = type(stats)(*(s.repeat((3,) + (1,) * s.dim()) for s in stats))
+        y, new = cuda_whitening.cuda_group_whiten(xd, stats, group_size=4, train=True,
+                                                  whitener=whitener)
+        (y.float() * r.to(device)).sum().backward()
+        results.append([t.detach().cpu() for t in (y, xd.grad, *new)])
+    (y_gpu, g_gpu, *new_gpu), (y_cpu, g_cpu, *new_cpu) = results
+    torch.testing.assert_close(y_gpu.float(), y_cpu.float(), rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(g_gpu.float(), g_cpu.float(), rtol=2e-2, atol=2e-2)
+    for ours, ref in zip(new_gpu, new_cpu):
+        torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-5)

@@ -331,8 +331,9 @@ def test_stacked_branches_match_one_call_per_domain():
 
 
 def test_unported_whiteners_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.get_whitener("newton_schulz")
+    """Every JAX whitener is ported now; an unknown name raises."""
+    assert tw.get_whitener("newton_schulz").name == "newton_schulz"
+    assert tw.WHITENER_NAMES == ("cholesky", "newton_schulz", "swbn")
     with pytest.raises(ValueError, match="unknown whitener"):
         tw.get_whitener("zca")
     assert tw.get_whitener(None) is tw.get_whitener("cholesky")

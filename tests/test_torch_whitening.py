@@ -106,12 +106,18 @@ def test_group_whiten_matches_jax_in_f64():
 
 def test_group_whiten_train_mode_is_next_slice():
     """Train mode landed with the port's second slice (its parity tests are
-    in ``test_torch_moments.py``); the whiteners other than Cholesky are
-    still to come, and raise."""
+    in ``test_torch_moments.py``); the whiteners other than Cholesky came
+    later (``test_torch_whiteners.py``), each with its own stats: SWBN's
+    carry the tracked matrix, which plain whitening stats lack."""
     stats = tw.init_whitening_stats(8, 4)
     y, new = tw.group_whiten(torch.randn(3, 8), stats, group_size=4, train=True)
     assert y.shape == (3, 8) and not torch.equal(new.cov, stats.cov)
-    with pytest.raises(NotImplementedError):
+    swbn = tw.get_whitener("swbn").init_stats(8, 4)
+    y, new = tw.group_whiten(torch.randn(3, 8), swbn, group_size=4, train=True,
+                             whitener="swbn")
+    assert y.shape == (3, 8) and isinstance(new, tw.SWBNStats)
+    assert not torch.equal(new.w, swbn.w)
+    with pytest.raises(AttributeError):
         tw.group_whiten(torch.zeros(3, 8), stats, group_size=4, train=True,
                         whitener="swbn")
 
