@@ -283,7 +283,40 @@ script exits non-zero without the final line:
                   ``TRAIN_TOL``, 21 moments and 21 apply launches (11 and
                   10 recomputed) against 11; step ms and peak device
                   memory of 9-step runs with and without, in turns.
-32. ``kernels`` — the contract line: per kernel and path its TPU
+32. ``group_kernels`` / ``group_timing`` — both kernels in f32 and bf16
+                  at every group size ``g`` of a grid: C = 32, 48 and 64 at
+                  every divisor of C, C = 256 at 1, 2, 4, …, 256, each at
+                  D = 1 and 3 with 1001 rows: one launch each, ``cov
+                  [D, C/g, g, g]``, the moments against the plain version
+                  and a float64 two-pass, the apply against the plain
+                  version (the f32 one also against float64; the bf16 one
+                  bitwise), within the tolerances of phases 3 and 5 (from
+                  g = 32 on, failing those, within twice the plain
+                  version's own distance from float64, printed beside
+                  it), a second call bitwise equal and two graph replays
+                  of each bitwise equal.  Then at the flagship's 11 train
+                  sites (3 domains) at g = 8, 16 and 64 in both dtypes:
+                  the same checks of one call of each kernel against its
+                  plain version and float64 (``group_site_parity``), and
+                  times, L2 cold, beside the bound (bytes, or FLOPs over
+                  the peak of the input's type: f32 outside the tensor
+                  cores, bf16 on them), the plain version, the library
+                  call (``torch.baddbmm`` with the block-diagonal matrix,
+                  ``torch.cov``) and the host µs.
+33. ``group_train`` — the flagship CLI at ``--group_size`` 8, 16 and 64,
+                  f32 and bf16, k = 3, with evals and a collection pass:
+                  11 moments and 11 apply launches per step, phase 7's
+                  checks, the f32 runs at 16 and 64 saving checkpoints;
+                  ``group_train_timing``: step ms and peak device memory
+                  at g = 4, 16 and 64 in mirrored turns.
+34. ``group_serve`` — the server on those checkpoints at ``--group_size``
+                  16 and 64, f32 and bf16, one request per bucket
+                  1/8/32/128: 11 apply launches a forward, logits held to
+                  the trainer's eval forward of the restored model.
+35. ``group_digits`` — the digits CLI at ``--group_size 16`` (dn1 G = 2,
+                  dn2 G = 3) and ``48`` (dn1 clamped to g = 32, dn2 g = 48),
+                  phase 14's checks.
+36. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
                   ``phase_launches`` counts the launches of phases 18–25
@@ -296,7 +329,10 @@ script exits non-zero without the final line:
                   ``whiten_moments_bf16``) are the paths ``train_bf16``
                   and ``digits_train_bf16`` (phase 28's runs) and
                   ``serve_bf16`` (phase 30's), their errors and times from
-                  phase 27.
+                  phase 27; the group-size rows (``group_size``, paths
+                  ``train_f32_g{g}``/``train_bf16_g{g}``) phase 33's
+                  launches (``launches_from``), with phase 32's errors
+                  and times at the train sites.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -392,6 +428,7 @@ F64_RATIO_TOL = 1.25
 TINY_LEAF_TOL = 2e-3
 STEP_METRICS = ("loss", "cls_loss", "mec_loss", "entropy_loss", "grad_norm")
 FP32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_PEAK = 989e12    # H100 SXM bf16 on the tensor cores, dense (data sheet)
 
 # The digits slice: LeNet-DWT, 2 domain branches, whitened sites in groups of 4.
 DIGITS_SITES = (("dn1", 32, 28 * 28), ("dn2", 48, 14 * 14))  # (site, C, rows per image)
@@ -958,12 +995,12 @@ def moments_input(torch, d, m, c, gen, device, offset=0.0):
     return x + 0.5 * x.roll(1, dims=2) + offset
 
 
-def two_pass_f64(torch, x):
-    """Per domain of ``x [D, M, C]``: mean and biased group cov in float64,
-    the cov from the centred input."""
+def two_pass_f64(torch, x, g=4):
+    """Per domain of ``x [D, M, C]``: mean and biased cov of groups of
+    ``g`` in float64, the cov from the centred input."""
     xd = x.double()
     mean = xd.mean(dim=1)
-    t = (xd - mean[:, None]).view(*x.shape[:2], -1, 4)
+    t = (xd - mean[:, None]).view(*x.shape[:2], -1, g)
     return mean, torch.einsum("kmgc,kmgd->kgcd", t, t) / x.shape[1]
 
 
@@ -975,13 +1012,14 @@ def moments_errors(torch, mean, cov, ref_mean, ref_cov):
     return float(dm.max()), float(dc.max()), ok
 
 
-def graph_replays(torch, cw, x, eager):
-    """Capture one moments launch in a CUDA graph, replay it twice over
-    zeroed outputs: is every replay bitwise the eager result?  (The
-    arrival counter must be zero again after each launch.)"""
+def graph_replays(torch, cw, x, eager, g=4):
+    """Capture one moments launch (group size ``g``) in a CUDA graph,
+    replay it twice over zeroed outputs: is every replay bitwise the eager
+    result?  (The arrival counters must be zero again after each
+    launch.)"""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = cw.whiten_moments(x, 4)
+        captured = cw.whiten_moments(x, g)
     same = []
     for _ in range(2):
         for t in captured:
@@ -1145,8 +1183,8 @@ def officehome_want(r, sites=None, recomputed=0):
 
 
 def expected_kinds(cfg):
-    """The record sequence of ``run_officehome`` under ``cfg`` (an online
-    whitener, swbn, records its skipped collection at 0 passes)."""
+    """The record sequence of ``run_officehome`` under ``cfg`` (at 0
+    passes, one skipped collection record)."""
     kinds = []
     for it in range(cfg.num_iters):
         if it % cfg.log_interval == 0:
@@ -1154,8 +1192,7 @@ def expected_kinds(cfg):
         if (it + 1) % cfg.check_acc_step == 0:
             kinds.append("test")
     passes = cfg.stat_collection_passes
-    skipped = cfg.whitener == "swbn" and passes == 0
-    return kinds + ["stat_collection"] * (passes or skipped) + ["final_test"]
+    return kinds + ["stat_collection"] * (passes or 1) + ["final_test"]
 
 
 class TimedBatches:
@@ -1240,8 +1277,8 @@ def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
                    if not math.isfinite(r[k])]
             if bad:
                 raise AssertionError(f"non-finite {bad} at step {r['step']}")
-    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0
-            and acc == records[-1]["accuracy"]):
+    final = [r for r in records if r["kind"] not in QUIET_RECORDS][-1]
+    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0 and acc == final["accuracy"]):
         raise AssertionError(f"bad accuracy {acc}")
     state = model.state_dict()
     unmoved = [k for k, p in model.named_parameters()
@@ -2874,7 +2911,7 @@ def convert_phase(torch, cw, officehome, loop, loader, root):
                    f"wrote {os.path.join(out, '0')}"]:
         raise AssertionError(f"convert printed {printed}")
     if [(r["kind"], r["step"]) for r in records] != [
-            ("init_ckpt", 0), ("train", 1), ("final_test", 1)]:
+            ("init_ckpt", 0), ("train", 1), ("stat_collection", 1), ("final_test", 1)]:
         raise AssertionError(f"records {[(r['kind'], r['step']) for r in records]}")
     if not all(loaded.values()) or len(loaded) != 2:
         raise AssertionError(f"init_ckpt did not load the converted weights: {loaded}")
@@ -3733,6 +3770,400 @@ def remat_phase(torch, cw, officehome, loop, device):
     return row
 
 
+# ------------------------------------------------------------- group sizes
+
+GROUP_CHANNELS = (32, 48, 64, 256)  # the models' whitened site widths
+GROUP_SIZES_C256 = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+GROUP_DOMAINS = (1, 3)
+GROUP_ROWS = 1001  # rows per domain of the grid: ragged against every tile
+# From this g on, a check that fails the tolerance above may pass within
+# twice the plain version's own largest distance from float64 at that point.
+GROUP_WIDE = 32
+GROUP_TIMED = (8, 16, 64)  # group sizes timed at the flagship's train sites
+GROUP_TIMING_ITERS = 20
+GROUP_TRACE_ROUNDS = 3
+GROUP_TRACE_AGREE = 0.25  # a kernel's traced device ms against its event ms
+GROUP_KERNELS = {"apply": ("whiten_apply_group_kernel",),
+                 "moments": ("whiten_moments_group_kernel",)}
+
+
+def group_grid():
+    """``(C, g, D)`` of phase ``group_kernels``: every divisor ``g`` of C
+    for C = 32, 48 and 64, the powers of two for C = 256, each at D = 1
+    and 3."""
+    for c in GROUP_CHANNELS:
+        sizes = (GROUP_SIZES_C256 if c == 256
+                 else [g for g in range(1, c + 1) if c % g == 0])
+        for g in sizes:
+            for d in GROUP_DOMAINS:
+                yield c, g, d
+
+
+def apply_f64(torch, x, mean, w):
+    """``(x − m)·W_bdᵀ`` per domain of ``x [D, M, C]`` in float64."""
+    d, m, c = x.shape
+    t = (x.double() - mean.double()[:, None]).view(d, m, -1, w.shape[-1])
+    return torch.einsum("kmgc,kgdc->kmgd", t, w.double()).reshape(d, m, c)
+
+
+def group_check(torch, got, plain, f64, rtol, atol, g):
+    """``got`` against its plain version and a float64 reference, per
+    element within ``atol + rtol·|ref|``; from ``GROUP_WIDE`` on, failing
+    that, within twice the plain version's own largest distance from
+    float64.  ``f64=None``: the plain version alone, within the
+    tolerance."""
+    a = got.double()
+    out = {"vs_plain": float((a - plain.double()).abs().max()), "rtol": rtol,
+           "atol": atol}
+    ok = {"plain": bool(((a - plain.double()).abs()
+                         <= atol + rtol * plain.double().abs()).all())}
+    if f64 is not None:
+        out["vs_f64"] = float((a - f64).abs().max())
+        out["plain_vs_f64"] = float((plain.double() - f64).abs().max())
+        ok["f64"] = bool(((a - f64).abs() <= atol + rtol * f64.abs()).all())
+        wide = g >= GROUP_WIDE
+        out["wide_bound"] = 2 * out["plain_vs_f64"] if wide else None
+        for key, err in (("plain", out["vs_plain"]), ("f64", out["vs_f64"])):
+            if not ok[key] and wide and err <= out["wide_bound"]:
+                ok[key] = "within twice the plain version's distance from float64"
+    out["ok"] = ok
+    return out, all(bool(v) for v in ok.values())
+
+
+def group_parity(torch, cw, x, g):
+    """Both kernels of ``x``'s dtype on ``x [D, M, C]`` at group size
+    ``g``, one launch each: the moments against the plain version and a
+    float64 two-pass; the apply (with the whitening matrix of those
+    moments) against the plain version, the f32 apply also against
+    float64, the bf16 apply bitwise.  Returns ``((mean, cov, w, y),
+    launches, row)``, ``row["ok"]`` the verdict of these checks."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    d, m, c = x.shape
+    before = cw.moments_launches, cw.apply_launches
+    mean, cov = cw.whiten_moments(x, g)
+    w = whitening_matrix(_shrink(cov, 1e-3))
+    y = cw.whiten_apply(x, mean, w)
+    launches = (cw.moments_launches - before[0], cw.apply_launches - before[1])
+    p_mean, p_cov = cw.whiten_moments_plain(x, g)
+    f_mean, f_cov = two_pass_f64(torch, x.float(), g)
+    p_y = cw.whiten_apply_plain(x, mean, w)
+    bf16 = x.dtype is torch.bfloat16
+    m_row, m_ok = group_check(torch, mean, p_mean, f_mean, MEAN_TOL, MEAN_TOL, g)
+    c_row, c_ok = group_check(torch, cov, p_cov, f_cov, COV_RTOL, COV_ATOL, g)
+    a_row, a_ok = group_check(torch, y, p_y, None if bf16 else apply_f64(torch, x, mean, w),
+                              TOL, TOL, g)
+    a_row["bitwise"] = torch.equal(y, p_y)
+    row = {"C": c, "g": g, "D": d, "M": m, "dtype": str(x.dtype).split(".")[1],
+           "cov_shape": list(cov.shape),
+           "launches": {"moments": launches[0], "apply": launches[1]},
+           "mean": m_row, "cov": c_row, "apply": a_row}
+    row["ok"] = (m_ok and c_ok and a_ok and launches == (1, 1)
+                 and list(cov.shape) == [d, c // g, g, g]
+                 and (a_row["bitwise"] or not bf16))
+    return (mean, cov, w, y), launches, row
+
+
+def group_point(torch, cw, c, g, d, dtype, gen, device):
+    """``group_parity`` at one grid point ``x [d, GROUP_ROWS, c]``, group
+    size ``g``, then a second call of each kernel bitwise equal, and two
+    replays of a CUDA graph that captured each."""
+    x = moments_input(torch, d, GROUP_ROWS, c, gen, device, 1.0).to(dtype)
+    (mean, cov, w, y), _, row = group_parity(torch, cw, x, g)
+    again = cw.whiten_moments(x, g) + (cw.whiten_apply(x, mean, w),)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(again, (mean, cov, y)))
+    replay = (graph_replays(torch, cw, x, (mean, cov), g)
+              and apply_graph_replays(torch, cw, x, mean, w, y))
+    row.update(repeat_bitwise=repeat, graph_replay_bitwise=replay,
+               ok=row["ok"] and repeat and replay)
+    return row
+
+
+def parity_err(row, part):
+    """The largest error against the plain version of ``part`` in a
+    ``group_parity`` row."""
+    return (row["apply"]["vs_plain"] if part == "apply"
+            else max(row["mean"]["vs_plain"], row["cov"]["vs_plain"]))
+
+
+def time_group(torch, cw, part, x, mean, w, g, rate):
+    """Times of the ``part`` kernel at group size ``g`` on ``x [D, M, C]``
+    (f32 or bf16; one launch for the D domains) with L2 cold: its device
+    time, the wrapper's host µs, the plain version's ms and the library
+    call's (apply: ``torch.baddbmm`` with the block-diagonal matrix, in
+    ``x``'s dtype; moments: ``torch.cov`` of each domain, upcast), beside
+    its bound: the larger of its bytes over the memory rate and its FLOPs
+    (apply: g FMAs and a subtraction per element; moments: g(g + 1)/2
+    FMAs and g additions per group and row) over the peak rate of ``x``'s
+    type (f32 outside the tensor cores, bf16 on them).  A bf16 row also
+    keeps its FLOPs over the f32 rate (``f32_fma_ms``): the floor of the
+    ordered f32 FMAs that the kernels keep for their precision."""
+    d, m, c = x.shape
+    esize = x.element_size()
+    if part == "apply":
+        w_t = torch.stack([torch.block_diag(*wd).t() for wd in w])
+        bias = (-(mean[:, None, :] @ w_t)).to(x.dtype)
+        w_t = w_t.to(x.dtype).contiguous()
+        library = lambda xi, yi: torch.baddbmm(bias, xi, w_t, out=yi)
+        nbytes = d * (2 * m * c * esize + (c + c * g) * 4)
+        flops = d * m * c * (2 * g + 1)
+        cold = cold_rotation(torch, (x,), out_like=(x,))
+        kernel = lambda xi, yi: cw.whiten_apply(xi, mean, w, out=yi)
+        plain = lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi)
+    else:
+        library = lambda xi: [torch.cov(xi[k].float().t(), correction=0) for k in range(d)]
+        nbytes = d * m * c * esize + d * (c + c * g) * 4
+        flops = d * m * c * (g + 2)
+        cold = cold_rotation(torch, (x,))
+        kernel = lambda xi: cw.whiten_moments(xi, g)
+        plain = lambda xi: cw.whiten_moments_plain(xi, g)
+    peak = BF16_PEAK if x.dtype is torch.bfloat16 else FP32_PEAK
+    bytes_ms, ops_ms = nbytes / rate * 1e3, flops / peak * 1e3
+    iters = GROUP_TIMING_ITERS
+
+    def traced_ms(fn, names, events_ms=None):
+        # The card's profiler now and then returns traces without the
+        # kernels (device_ms takes 3), or with some of a kernel's events
+        # dropped or doubled: more rounds, until the kernel's device time
+        # agrees with its CUDA-event time within GROUP_TRACE_AGREE.
+        for attempt in range(GROUP_TRACE_ROUNDS):
+            last = attempt == GROUP_TRACE_ROUNDS - 1
+            try:
+                ms = device_ms(torch, fn, names, cold, iters=iters)
+            except RuntimeError:
+                if last:
+                    raise
+                continue
+            if events_ms is None or abs(ms - events_ms) <= GROUP_TRACE_AGREE * events_ms or last:
+                return ms
+
+    kernel_ms = cuda_ms(torch, kernel, cold, iters=iters, warmup=3)
+    row = {"D": d, "M": m, "C": c, "g": g, "dtype": str(x.dtype).split(".")[1],
+           "bytes": nbytes, "flops": flops, "rotation_buffers": len(cold),
+           "kernel_ms": kernel_ms,
+           "device_ms": traced_ms(kernel, GROUP_KERNELS[part], kernel_ms),
+           "host_us": host_us(torch, kernel, cold),
+           "plain_ms": cuda_ms(torch, plain, cold, iters=3, warmup=1),
+           "library_ms": cuda_ms(torch, library, cold, iters=iters // 2, warmup=2),
+           "library_device_ms": traced_ms(library, None),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms, "f32_fma_ms": flops / FP32_PEAK * 1e3,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["device_over_events"] = row["device_ms"] / kernel_ms
+    if part == "moments":  # (clusters per domain and entry tile, scratch, counters)
+        row["plan"] = list(cw._moments_group_plan(x.device.index, d, m, c, g, x.dtype))
+    return row
+
+
+def group_kernels(torch, cw, device, rate, timed=GROUP_TIMED):
+    """Phase ``group_kernels``: both kernels in both dtypes over the grid
+    of ``group_grid`` (``group_point``; every failing point is printed
+    before the phase raises), then at the flagship's 11 train sites (3
+    site shapes, 3 domains) at each g of ``GROUP_TIMED``, both dtypes:
+    ``group_site_parity`` (``group_parity`` at the shapes the train step
+    gives the kernels) and ``group_timing`` (``time_group``, each row with
+    its kernel's largest error against the plain version at that site).
+    Returns the timing, keyed by ``(part, dtype, g)`` → ``{site: row}``."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, g, d in group_grid():
+            row = group_point(torch, cw, c, g, d, dtype, gen, device)
+            emit({"phase": "group_kernels", **row})
+            if not row["ok"]:
+                failed.append((row["dtype"], c, g, d))
+    if failed:
+        raise AssertionError(f"group_kernels: {len(failed)} grid points fail: {failed}")
+    timing = {}
+    for g in timed:
+        for dtype in (torch.float32, torch.bfloat16):
+            for site, m, c, _ in TRAIN_SITES:
+                x = moments_input(torch, DOMAINS, m, c, gen, device, 1.0).to(dtype)
+                (mean, cov, w, y), _, row = group_parity(torch, cw, x, g)
+                emit({"phase": "group_site_parity", "site": site, **row})
+                if not row["ok"]:
+                    failed.append((row["dtype"], site, g))
+                    continue
+                del y
+                for part in ("apply", "moments"):
+                    t = time_group(torch, cw, part, x, mean, w, g, rate)
+                    t["max_abs_err"] = parity_err(row, part)
+                    timing.setdefault((part, t["dtype"], g), {})[site] = t
+                    emit({"phase": "group_timing", "part": part, "site": site, **t})
+                del x, mean, cov, w
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"group_kernels: {len(failed)} train sites fail: {failed}")
+    return timing
+
+
+# The runs of phase group_train: (compute dtype, group size), each (dtype,
+# g) that group_timing times; the f32 runs at GROUP_SAVED save checkpoints
+# that group_serve serves.
+GROUP_TRAIN = tuple((dtype, g) for g in GROUP_TIMED for dtype in ("f32", "bf16"))
+GROUP_SAVED = (16, 64)
+GROUP_TRAIN_K = 3
+# group_train's timed runs in mirrored turns: (dtype, g).
+GROUP_TIMED_RUNS = (("f32", 4), ("f32", 16), ("f32", 64), ("f32", 64), ("f32", 16),
+                    ("f32", 4), ("bf16", 4), ("bf16", 16), ("bf16", 16), ("bf16", 4))
+GROUP_DIGITS = (16, 48)  # dn1 G = 2 and dn2 G = 3; dn1 clamped to g = 32, dn2 G = 1
+GROUP_SERVED = ((16, "f32"), (16, "bf16"), (64, "f32"), (64, "bf16"))
+GROUP_SERVE_SIZES = (1, 5, 32, 128)  # one request per bucket 1/8/32/128
+
+
+def group_flags(dtype, g):
+    return ["--group_size", str(g), "--compute_dtype", dtype]
+
+
+def group_train(torch, cw, officehome, loop, root):
+    """Phase ``group_train``: the flagship CLI at full width and the
+    reference recipe, k = 3, at each ``(dtype, g)`` of ``GROUP_TRAIN``
+    (``train``'s checks: 11 moments and 11 apply launches per step, the
+    records, moved parameters and stats; the f32 runs at ``GROUP_SAVED``
+    save under ``root``); then step ms and peak device memory of
+    ``TIMED_FLAGS`` runs at g = 4, 16 and 64 in mirrored turns
+    (``GROUP_TIMED_RUNS``).  Returns the launches per run and the
+    checkpoints ``{g: (directory, flags)}``."""
+    k = ["--steps_per_dispatch", str(GROUP_TRAIN_K)]
+    launches, ckpts = {}, {}
+    for dtype, g in GROUP_TRAIN:
+        flags = TRAIN_BASE_FLAGS + k + group_flags(dtype, g)
+        if dtype == "f32" and g in GROUP_SAVED:
+            ckpt_dir = os.path.join(root, f"group_g{g}")
+            flags = flags + ["--ckpt_dir", ckpt_dir, "--ckpt_every_iters", "3"]
+            ckpts[g] = (ckpt_dir, flags)
+        launches[(dtype, g)], _ = train(torch, cw, officehome, loop, flags,
+                                        f"group_train_{dtype}_g{g}")
+    step_ms, peak = {}, {}
+    for dtype, g in GROUP_TIMED_RUNS:
+        flags = TRAIN_BASE_FLAGS + TIMED_FLAGS + k + group_flags(dtype, g)
+        tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+        key = f"{dtype}_g{g}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with DispatchTimer(loop, GROUP_TRAIN_K) as timer:
+            loop.run_officehome(tcfg, lambda *a, **f: None)
+        step_ms.setdefault(key, []).append(timer.step_ms(TIMED_SKIP))
+        peak.setdefault(key, []).append(torch.cuda.max_memory_allocated())
+    emit({"phase": "group_train_timing", "card": nvidia_smi(), "k": GROUP_TRAIN_K,
+          "timed_flags": TIMED_FLAGS, "step_ms": step_ms, "peak_bytes": peak,
+          "over_g4": {key: sum(v) / sum(step_ms[key.split("_")[0] + "_g4"])
+                      for key, v in step_ms.items()}})
+    return launches, ckpts
+
+
+def group_digits(torch, cw, usps_mnist, loop):
+    """Phase ``group_digits``: the digits CLI at each ``--group_size`` of
+    ``GROUP_DIGITS`` (``digits_train``'s checks: 2 moments and 2 apply
+    launches per step, an eval after each epoch).  At 48 the eval's cache
+    holds dn1 ``[1, 32, 32]`` and dn2 ``[1, 48, 48]``."""
+    return {g: digits_train(torch, cw, usps_mnist, loop,
+                            DIGITS_TRAIN_FLAGS + ["--group_size", str(g)],
+                            f"group_digits_g{g}")[0]
+            for g in GROUP_DIGITS}
+
+
+def group_serve(torch, cw, server, officehome, loop, ckpts, device):
+    """Phase ``group_serve``: the server on each checkpoint of
+    ``group_train`` (``--group_size`` 16 and 64), f32 and bf16, answers one
+    request per bucket 1/8/32/128 over HTTP: 11 apply launches per forward,
+    the logits held to the trainer's eval forward of the restored model (f32
+    at ``FORWARD_TOL``, bf16 at ``BF16_SERVE_TOL`` of their scale); forward
+    ms per bucket.  Returns the apply launches per ``(g, dtype)``."""
+    import numpy as np
+
+    from dwt_tpu_torch.train.optim import officehome_tx
+
+    rng = np.random.default_rng(3)
+    refs, out = {}, {}
+    for g, dtype in GROUP_SERVED:
+        ckpt_dir, flags = ckpts[g]
+        if g not in refs:
+            cfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+            images = rng.normal(size=(max(GROUP_SERVE_SIZES),) + (cfg.img_crop_size,) * 2
+                                + (3,)).astype(np.float32)
+            refs[g] = trainer_eval_logits(torch, loop.build_model(cfg),
+                                          lambda m: officehome_tx(m, cfg), ckpt_dir,
+                                          images, device)
+        reference, step = refs[g]
+        args = server.build_parser().parse_args(
+            SERVED["resnet50"]["flags"] + [
+                "--group_size", str(g), "--serve_dtype", dtype, "--ckpt_dir", ckpt_dir,
+                "--buckets", "1,8,32,128", "--host", "127.0.0.1", "--port", "0"])
+        engine = server.build_engine(args)
+        client = server.ServeClient(engine, max_batch_delay_ms=args.max_batch_delay_ms,
+                                    max_queue_items=args.max_queue)
+        front = server.HttpFront(client, args.host, args.port)
+        http = server.HttpServeClient(args.host, front.port, timeout=300)
+        try:
+            status, health = http.healthz()
+            cw.apply_launches = 0
+            responses = [http.infer(images[:n], binary=True) for n in GROUP_SERVE_SIZES]
+            launches = cw.apply_launches
+            batches = client.batches
+        finally:
+            http.close()
+            front.close()
+        errs = {n: norm_err(torch.from_numpy(r), reference[:n])
+                for n, r in zip(GROUP_SERVE_SIZES, responses)}
+        tol = FORWARD_TOL if dtype == "f32" else BF16_SERVE_TOL
+        forward_ms = {}
+        for b in engine.buckets:
+            xb = engine.stage(np.zeros((b,) + images.shape[1:], np.float32))
+            forward_ms[b] = cuda_ms(torch, lambda: engine.forward(xb, b), iters=5, warmup=2)
+        row = {"g": g, "dtype": dtype, "engine_step": engine.step, "trainer_step": step,
+               "healthz": health, "batches_by_bucket": batches, "apply_launches": launches,
+               "served_vs_trainer": errs, "tolerance": tol, "forward_ms": forward_ms,
+               "logits_finite": all(bool(np.isfinite(r).all()) for r in responses)}
+        emit({"phase": "group_serve", **row})
+        if (status != 200 or engine.step != step or batches != {1: 1, 8: 1, 32: 1, 128: 1}
+                or launches != SERVED["resnet50"]["sites"] * 4 or max(errs.values()) > tol
+                or not row["logits_finite"]):
+            raise AssertionError(f"group_serve at g = {g}, {dtype}: {row}")
+        out[(g, dtype)] = launches
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def group_rows(r, floor):
+    """The contract line's rows of the group sizes ``GROUP_TIMED``, per
+    kernel, dtype and g: the times summed over one flagship train step's
+    11 launches and the largest error against the plain version over
+    those sites (``group_timing``), and the launches of the
+    ``group_train`` run at that dtype and g."""
+    rows = []
+    for (part, dtype, g), sites in sorted(r["group_timing"].items(),
+                                          key=lambda kv: (kv[0][1], kv[0][2], kv[0][0])):
+        timed = [(sites[name], n) for name, _, _, n in TRAIN_SITES]
+        total = lambda key: sum(t[key] * n for t, n in timed)
+        bf16 = dtype == "bfloat16"
+        short = "bf16" if bf16 else "f32"
+        bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
+        rows.append({
+            "name": f"whiten_{part}" + ("_bf16" if bf16 else ""), "route": "cuda",
+            "source": f"dwt_tpu_torch/csrc/whiten_{part}.cu",
+            "replaces": ("dwt_tpu/ops/pallas_whitening.py:143" if part == "apply"
+                         else "dwt_tpu/ops/pallas_whitening.py:68"),
+            "group_size": g,
+            "launches": r["group_train_launches"][(short, g)][part],
+            "launches_from": f"group_train_{short}_g{g}",
+            "max_abs_err": max(t["max_abs_err"] for t, _ in timed), "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "f32_fma_ms": total("f32_fma_ms"),
+            "bytes": total("bytes"),
+            "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
+            "host_us": total("host_us"), **(floor if part == "apply" else {}),
+            "path": f"train_{short}_g{g}",
+            "per": f"the 11 whitened sites of one ResNet50 train step at group size {g}, "
+                   f"one launch per site for its 3 domains, 18 images per stream at 224²"})
+    return rows
+
+
 def bound_by(rows):
     return ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations")
@@ -3954,7 +4385,8 @@ def kernels_line(torch, r):
                   ("digits_train_graph", "digits_train", ", each step a replay of one "
                    "captured step at 4 steps per dispatch"))
               for row in rows if row["path"] == base]
-    rows = rows[:3] + folder + rows[3:] + graphs + bf16_rows(r, floor)
+    rows = (rows[:3] + folder + rows[3:] + graphs + bf16_rows(r, floor)
+            + group_rows(r, floor))
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -4100,6 +4532,13 @@ def main() -> int:
           "folder": {key: {f: v[f] for f in ("step_ms", "idle_share", "idle_share_in_profile")}
                      for key, v in folder_dispatch.items()},
           "guard_detection": digits_dispatch["guard"]["detection"]})
+    r["group_timing"] = group_kernels(torch, cw, device, rate)
+    with tempfile.TemporaryDirectory(prefix="group-", dir=build) as root:
+        r["group_train_launches"], group_ckpts = group_train(torch, cw, officehome, loop,
+                                                             root)
+        r["group_serve_launches"] = group_serve(torch, cw, server, officehome, loop,
+                                                group_ckpts, device)
+    r["group_digits_launches"] = group_digits(torch, cw, usps_mnist, loop)
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

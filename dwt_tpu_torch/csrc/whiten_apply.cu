@@ -1,5 +1,8 @@
 // Whitening apply for Hopper (sm_90a): per domain, y = (x − m) · W_bdᵀ, f32
-// or bf16 x, in ONE launch for all D domains of a whitened site.
+// or bf16 x, in ONE launch for all D domains of a whitened site.  The
+// kernels below take the reference's group size 4; every other group
+// size g that divides C takes the general body at the end of this file
+// ("any group size"), w [D, G, g, g].
 //
 // Replaces the TPU kernel dwt_tpu/ops/pallas_whitening.py::_apply_kernel
 // (line 143, launched by _apply_call at line 176): the apply of every
@@ -382,6 +385,213 @@ int apply_launch(const void* x, const void* mean, const void* w, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------ any group size
+//
+// The general body, for every group size g ≠ 4 that divides C (g = 4 keeps
+// the TMA kernels above).  y[d, r, g·i + k] = Σ_c w[d, i, k, c] ·
+// (x[d, r, g·i + c] − m[d, g·i + c]), summed in the order c = 0, 1, …,
+// g − 1.  What bounds it moves with g: g FMAs per element against 8 bytes
+// (f32) or 4 (bf16), so on the H100 (67 TFLOP/s of f32 FMA outside the
+// tensor cores, 3.35 TB/s) bytes below g ≈ 80 in f32 and g ≈ 40 in bf16,
+// the FMAs above.
+// Design, simple first:
+//  * One block per tile of rows of one domain (blockIdx.y; up to 64 rows,
+//    a multiple of kGroupRows, at most kGroupTileFloats floats): the tile
+//    is one contiguous span of x, read with 16-byte loads, centred with the
+//    f32 mean (the bf16 variant rounds the centred value to bf16, as
+//    _apply_kernel rounds xn) and staged in shared memory as f32.
+//  * Each thread computes kGroupRows rows of one output channel: per c, one
+//    read of w[d, i, k, c] through the read-only path (__ldg; the bf16
+//    variant rounds it to bf16) serves kGroupRows FMAs, and the staged
+//    xn[r, g·i + c] reads are broadcasts (the threads of a warp are
+//    consecutive channels).  w is never staged: at g = C = 2048 it is 16 MB
+//    a domain, far over a block's shared memory, and L1/L2 hold the rows a
+//    block re-reads.
+//  * Vector reads of 4 consecutive c where g is a multiple of 4 (kVec = 4),
+//    else one at a time.
+// Measured on the H100 (PERF.md): ~60% of the bytes bound at g = 8 and
+// ~17% at g = 64, behind torch.baddbmm there; the lanes of a warp read w
+// rows g floats apart, 32 cache lines a warp load, so the FMAs wait on L1.
+// A register-tiled body (rows × output channels per thread, w staged per
+// chunk of c) is the redesign.
+// Each output is one f32 accumulator, started at −0 (x + (−0) = x, so the
+// first FMA gives the exact first product) and updated by FMAs in c order:
+// the bf16 products are exact in f32, so each FMA rounds as the add of
+// the plain version's running sum does and the bf16 variant is bitwise
+// equal to it.  No atomics, nothing allocated: two launches are bitwise
+// equal and a launch can be captured in a CUDA graph.
+
+constexpr int kGroupThreads = 256;
+constexpr int kGroupRows = 8;            // rows per thread (one channel)
+constexpr int kGroupTileFloats = 8192;   // staged tile budget (32 KB)
+constexpr int kGroupMaxTileRows = 64;
+constexpr int kGroupMaxChannels = 2048;
+
+// Rows per block for C channels: a multiple of kGroupRows, at most
+// kGroupTileFloats / C of them (kGroupRows at the least: 64 KB at C = 2048).
+int group_tile_rows(int channels) {
+  int rows = kGroupTileFloats / channels / kGroupRows * kGroupRows;
+  if (rows < kGroupRows) rows = kGroupRows;
+  return rows > kGroupMaxTileRows ? kGroupMaxTileRows : rows;
+}
+
+template <bool kBf16, int kVec>
+__global__ void __launch_bounds__(kGroupThreads)
+whiten_apply_group_kernel(const void* __restrict__ xv,
+                          const float* __restrict__ mean,
+                          const float* __restrict__ w, void* __restrict__ yv,
+                          long long rows, int channels, int group,
+                          int tile_rows) {
+  extern __shared__ __align__(16) float xs[];  // [tile_rows, channels]
+  const int d = blockIdx.y;
+  const long long r0 = static_cast<long long>(blockIdx.x) * tile_rows;
+  const int n_rows = static_cast<int>(
+      rows - r0 < tile_rows ? rows - r0 : static_cast<long long>(tile_rows));
+  const int groups = channels / group;
+  const float* md = mean + static_cast<long long>(d) * channels;
+  const float* wd = w + static_cast<long long>(d) * groups * group * group;
+  const long long base = (static_cast<long long>(d) * rows + r0) * channels;
+
+  // 1. Stage the tile's centred rows.
+  const int n = n_rows * channels;
+  if constexpr (kBf16) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(xv) + base);
+    for (int q = threadIdx.x; q < n / 8; q += blockDim.x) {
+      const uint4 v = __ldg(src + q);
+      const int c = (q * 8) % channels;
+      const float4 m0 = __ldg(reinterpret_cast<const float4*>(md + c));
+      const float4 m1 = __ldg(reinterpret_cast<const float4*>(md + c + 4));
+      float4* dst = reinterpret_cast<float4*>(xs + q * 8);
+      dst[0] = round_bf16(make_float4(bf16_lo(v.x) - m0.x, bf16_hi(v.x) - m0.y,
+                                      bf16_lo(v.y) - m0.z, bf16_hi(v.y) - m0.w));
+      dst[1] = round_bf16(make_float4(bf16_lo(v.z) - m1.x, bf16_hi(v.z) - m1.y,
+                                      bf16_lo(v.w) - m1.z, bf16_hi(v.w) - m1.w));
+    }
+  } else {
+    const float4* src =
+        reinterpret_cast<const float4*>(static_cast<const float*>(xv) + base);
+    for (int q = threadIdx.x; q < n / 4; q += blockDim.x) {
+      const float4 v = __ldg(src + q);
+      const float4 m =
+          __ldg(reinterpret_cast<const float4*>(md + (q * 4) % channels));
+      reinterpret_cast<float4*>(xs)[q] =
+          make_float4(v.x - m.x, v.y - m.y, v.z - m.z, v.w - m.w);
+    }
+  }
+  __syncthreads();
+
+  // 2. kGroupRows rows × one channel per item; consecutive threads take
+  //    consecutive channels.
+  const int row_blocks = (n_rows + kGroupRows - 1) / kGroupRows;
+  for (int item = threadIdx.x; item < row_blocks * channels;
+       item += blockDim.x) {
+    const int rb = item / channels, ch = item - rb * channels;
+    const int gi = ch / group, k = ch - gi * group;
+    const float* wr = wd + (static_cast<long long>(gi) * group + k) * group;
+    const float* xb = xs + rb * kGroupRows * channels + gi * group;
+    float acc[kGroupRows];
+#pragma unroll
+    for (int j = 0; j < kGroupRows; ++j) acc[j] = -0.f;
+    for (int c = 0; c < group; c += kVec) {
+      float wv[kVec];
+      if constexpr (kVec == 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(wr + c));
+        wv[0] = t.x; wv[1] = t.y; wv[2] = t.z; wv[3] = t.w;
+      } else {
+        wv[0] = __ldg(wr + c);
+      }
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) wv[v] = round_bf16(wv[v]);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroupRows; ++j) {
+        const float* xr = xb + j * channels + c;
+        if constexpr (kVec == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(xr);
+          acc[j] = fmaf(wv[0], t.x, acc[j]);
+          acc[j] = fmaf(wv[1], t.y, acc[j]);
+          acc[j] = fmaf(wv[2], t.z, acc[j]);
+          acc[j] = fmaf(wv[3], t.w, acc[j]);
+        } else {
+          acc[j] = fmaf(wv[0], xr[0], acc[j]);
+        }
+      }
+    }
+    const int valid = min(kGroupRows, n_rows - rb * kGroupRows);
+    const long long out = base + static_cast<long long>(rb) * kGroupRows *
+                                     channels + ch;
+#pragma unroll
+    for (int j = 0; j < kGroupRows; ++j) {
+      if (j < valid) {
+        if constexpr (kBf16) {
+          static_cast<__nv_bfloat16*>(yv)[out + j * channels] =
+              __float2bfloat16_rn(acc[j]);
+        } else {
+          static_cast<float*>(yv)[out + j * channels] = acc[j];
+        }
+      }
+    }
+  }
+}
+
+using GroupApplyKernel = void (*)(const void*, const float*, const float*,
+                                  void*, long long, int, int, int);
+
+GroupApplyKernel group_apply_kernel(bool bf16, int group) {
+  if (group % 4 == 0)
+    return bf16 ? whiten_apply_group_kernel<true, 4>
+                : whiten_apply_group_kernel<false, 4>;
+  return bf16 ? whiten_apply_group_kernel<true, 1>
+              : whiten_apply_group_kernel<false, 1>;
+}
+
+// Allows the four general kernels the shared memory of their largest tile
+// (64 KB at C = 2048), once per device.
+cudaError_t prepare_group_device() {
+  static std::atomic<bool> prepared[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool cached = device < kMaxDevices;
+  if (cached && prepared[device].load()) return cudaSuccess;
+  const int bytes = static_cast<int>(
+      group_tile_rows(kGroupMaxChannels) * kGroupMaxChannels * sizeof(float));
+  for (int bf16 = 0; bf16 < 2; ++bf16) {
+    for (int group : {4, 1}) {
+      err = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(group_apply_kernel(bf16, group)),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  if (cached) prepared[device].store(true);
+  return cudaSuccess;
+}
+
+int apply_group_launch(const void* x, const void* mean, const void* w, void* y,
+                       long long domains, long long rows, int channels,
+                       int group, void* stream, bool bf16) {
+  if (domains <= 0 || domains > 65535 || rows <= 0 || channels <= 0 ||
+      channels > kGroupMaxChannels || channels % (bf16 ? 8 : 4) != 0 ||
+      group <= 0 || group > channels || channels % group != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_rows = group_tile_rows(channels);
+  const long long tiles = (rows + tile_rows - 1) / tile_rows;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare_group_device();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  group_apply_kernel(bf16, group)<<<
+      dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(domains), 1),
+      kGroupThreads, static_cast<size_t>(tile_rows) * channels * sizeof(float),
+      static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<const float*>(mean), static_cast<const float*>(w), y,
+      rows, channels, group, tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,6 +632,26 @@ int dwt_whiten_apply_bf16(const void* x, const void* mean, const void* w,
                           int channels, int blocks_per_domain, void* stream) {
   return apply_launch(x, mean, w, y, domains, rows, channels,
                       blocks_per_domain, stream, true);
+}
+
+// Any group size g that divides C (g ≠ 4: the entries above): y[d] = (x[d]
+// − mean[d]) · blockdiag(w[d])ᵀ for x [domains, rows, C] (C a multiple of
+// 4; of 8 for bf16), mean [domains, C], w [domains, C/g, g, g], y like x,
+// all 16-byte aligned, on `stream`, in one launch of domains · ⌈rows /
+// tile rows⌉ blocks.  Returns cudaSuccess, cudaErrorInvalidValue for
+// shapes the kernel does not take, or the launch's error.
+int dwt_whiten_apply_group_f32(const void* x, const void* mean, const void* w,
+                               void* y, long long domains, long long rows,
+                               int channels, int group, void* stream) {
+  return apply_group_launch(x, mean, w, y, domains, rows, channels, group,
+                            stream, false);
+}
+
+int dwt_whiten_apply_group_bf16(const void* x, const void* mean, const void* w,
+                                void* y, long long domains, long long rows,
+                                int channels, int group, void* stream) {
+  return apply_group_launch(x, mean, w, y, domains, rows, channels, group,
+                            stream, true);
 }
 
 const char* dwt_cuda_error_string(int code) {

@@ -48,7 +48,7 @@ from dwt_tpu_torch.ops.batch_norm import (
     domain_batch_norm,
     init_batch_norm_stats,
 )
-from dwt_tpu_torch.ops.whitening import get_whitener, group_whiten
+from dwt_tpu_torch.ops.whitening import _resolve_groups, get_whitener, group_whiten
 
 # The phase of the checkpointed block running now: None (no remat),
 # "forward" (its first run) or "recompute" (its rerun in the backward).
@@ -264,7 +264,9 @@ def whitening_sites(model: nn.Module) -> "dict[str, DomainWhiten]":
 def install_eval_matrix(site: DomainWhiten, w: Optional[torch.Tensor]) -> None:
     """Set (or with ``None`` clear) a site's precomputed eval matrix."""
     if w is not None:
-        expect = (site.features // site.group_size, site.group_size, site.group_size)
+        # g resolved as the op resolves it: clamped to the site's width.
+        groups, g = _resolve_groups(site.features, site.group_size)
+        expect = (groups, g, g)
         if tuple(w.shape) != expect:
             raise ValueError(f"eval matrix {tuple(w.shape)} != {expect}")
     site.eval_matrix = w

@@ -4,36 +4,43 @@ Two kernels, each in an f32 and a bf16 variant, each beside its plain
 PyTorch version:
 
 * ``whiten_moments(x, group_size)`` → per domain of ``x [D, M, C]``,
-  ``(mean [D, C], cov [D, G, 4, 4])`` in f32, the biased batch moments of
+  ``(mean [D, C], cov [D, G, g, g])`` in f32, the biased batch moments of
   a whitened site's ``D`` domain branches in train mode, in one launch
   (``csrc/whiten_moments.cu``; replaces ``_moments_kernel``, launched by
-  ``_moments_call``; ``x [M, C]`` gives ``[C]`` and ``[G, 4, 4]``).  A
-  bf16 ``x`` is widened to f32 as it is read, as ``_moments_kernel``
-  reads it.
+  ``_moments_call``; ``x [M, C]`` gives ``[C]`` and ``[G, g, g]``), with
+  ``g = min(C, group_size)`` as the op resolves it.  A bf16 ``x`` is
+  widened to f32 as it is read, as ``_moments_kernel`` reads it.
 * ``whiten_apply(x, mean, w)`` → ``y = (x − m) · W_bdᵀ`` with ``W_bd`` the
-  block-diagonal expansion of ``w [G, 4, 4]``, for ``x [M, C]``, or per
-  domain of ``x [D, M, C]`` with ``mean [D, C]`` and ``w [D, G, 4, 4]``,
+  block-diagonal expansion of ``w [G, g, g]``, for ``x [M, C]``, or per
+  domain of ``x [D, M, C]`` with ``mean [D, C]`` and ``w [D, G, g, g]``,
   in one launch (``csrc/whiten_apply.cu``; replaces ``_apply_kernel``,
   launched by ``_apply_call``).  ``mean`` and ``w`` are f32; ``y`` has
   ``x``'s dtype.  For a bf16 ``x`` it rounds as ``_apply_kernel`` does:
   ``xn = bf16(f32(x) − m)``, ``w`` rounded to bf16, the products summed in
-  f32 and rounded once to bf16.
+  f32 in the order ``c = 0, 1, …`` and rounded once to bf16.
+
+Both take every group size ``g`` that divides C, up to C = 2048: ``g =
+4`` through the kernels designed for it (one group per 16-byte chunk),
+any other ``g`` through each source's general body (``*_group_*``
+entries).
 
 Dispatch, for both:
 
-* A CUDA tensor launches the kernel of its dtype (built with ``nvcc`` at
-  first use, loaded with ``ctypes``) on the current stream, or raises:
-  another dtype, group size, layout or device, a failed build and a
-  refused launch are errors, never a fallback, and a bf16 tensor is never
-  widened to reach the f32 kernel.
+* A CUDA tensor launches the kernel of its dtype and group size (built
+  with ``nvcc`` at first use, loaded with ``ctypes``) on the current
+  stream, or raises: another dtype, a ``g`` that does not divide C, a C
+  over the kernels' limit, a layout or device they do not take, a failed
+  build and a refused launch are errors, never a fallback, and a bf16
+  tensor is never widened to reach the f32 kernel.
 * A CPU tensor takes the plain version of its dtype.
 
 ``moments_launches`` and ``apply_launches`` count kernel launches, so a run
 can show that its main path went through the kernels.  Inside a CUDA graph
 capture a wrapper records its launch and makes none: the count goes to the
 open :func:`capture_launches` tally, and the graph's owner adds the tally
-once per replay (:func:`count_replay`), where the kernels do launch.  Both kernels are
-bound by HBM bytes; see the notes at the head of the ``.cu`` sources.
+once per replay (:func:`count_replay`), where the kernels do launch.  At
+``g = 4`` both kernels are bound by HBM bytes; at larger ``g`` their FMAs
+grow with ``g``; see the notes in the ``.cu`` sources.
 
 :class:`TrainWhiten` is the autograd seam of train mode, the counterpart of
 the JAX package's ``_train_whiten`` custom VJP: the moments kernel once
@@ -62,8 +69,8 @@ import torch
 
 from dwt_tpu_torch.ops import _build, whitening
 
-GROUP_SIZE = 4  # the only group size the kernels take (the reference's)
-_STATS_PER_GROUP = 14  # moments partials per group: 4 sums + 10 products
+KERNEL_GROUP = 4  # the group size of the kernels designed for it
+_STATS_PER_GROUP = 14  # their moments partials per group: 4 sums + 10 products
 
 # Kernel launches since import (or since a caller reset them).
 apply_launches = 0
@@ -168,6 +175,10 @@ def _library(name: str) -> ctypes.CDLL:
         for entry in (lib.dwt_whiten_apply_blocks, lib.dwt_whiten_apply_blocks_bf16):
             entry.argtypes = [i64, i64, i32]
             entry.restype = i32
+        for sfx in ("f32", "bf16"):
+            entry = getattr(lib, f"dwt_whiten_apply_group_{sfx}")
+            entry.argtypes = [v, v, v, v, i64, i64, i32, i32, v]
+            entry.restype = i32
         lib.dwt_whiten_apply_max_channels.argtypes = []
         lib.dwt_whiten_apply_max_channels.restype = i32
     else:
@@ -183,6 +194,15 @@ def _library(name: str) -> ctypes.CDLL:
         lib.dwt_whiten_moments_max_channels.restype = i32
         lib.dwt_whiten_moments_max_domains.argtypes = []
         lib.dwt_whiten_moments_max_domains.restype = i32
+        for sfx in ("f32", "bf16"):
+            entry = getattr(lib, f"dwt_whiten_moments_group_{sfx}")
+            entry.argtypes = [v, v, v, v, v, i64, i64, i32, i32, i32, v]
+            entry.restype = i32
+        lib.dwt_whiten_moments_group_plan.argtypes = [
+            i64, i64, i32, i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+        lib.dwt_whiten_moments_group_plan.restype = i32
+        lib.dwt_whiten_moments_group_max_counters.argtypes = []
+        lib.dwt_whiten_moments_group_max_counters.restype = i32
     lib.dwt_cuda_error_string.argtypes = [i32]
     lib.dwt_cuda_error_string.restype = ctypes.c_char_p
     lib._dwt_bound = True
@@ -207,12 +227,12 @@ def _check_apply_args(
     out: Optional[torch.Tensor],
 ) -> None:
     """Raise unless the kernel takes these arguments: ``x [M, C]`` with
-    ``mean [C]`` and ``w [C/4, 4, 4]``, or ``x [D, M, C]`` with ``mean
-    [D, C]`` and ``w [D, C/4, 4, 4]``; ``out`` shaped like ``x``; ``x`` and
-    ``out`` float32, or bfloat16 with C a multiple of 8, ``mean`` and ``w``
-    float32; all dense (a ``[D, M, C]`` whose domains are not one
-    contiguous block is refused, not copied), 16-byte aligned and on
-    ``x``'s device."""
+    ``mean [C]`` and ``w [C/g, g, g]``, or ``x [D, M, C]`` with ``mean
+    [D, C]`` and ``w [D, C/g, g, g]``, for a ``g`` that divides C; ``out``
+    shaped like ``x``; ``x`` and ``out`` float32 with C a multiple of 4,
+    or bfloat16 with C a multiple of 8, ``mean`` and ``w`` float32; all
+    dense (a ``[D, M, C]`` whose domains are not one contiguous block is
+    refused, not copied), 16-byte aligned and on ``x``'s device."""
     shape, w_shape = x.shape, w.shape
     if len(shape) not in (2, 3):
         raise ValueError(
@@ -221,13 +241,11 @@ def _check_apply_args(
     if len(w_shape) != len(shape) + 1 or w_shape[-1] != w_shape[-2]:
         raise ValueError(f"whiten_apply: w must be [{'D, ' if lead else ''}G, g, g] "
                          f"for x {tuple(shape)}, got {tuple(w_shape)}")
-    if w_shape[-1] != GROUP_SIZE:
+    g = w_shape[-1]
+    if g < 1 or c % g:
         raise ValueError(
-            f"whiten_apply: the CUDA kernel takes group size {GROUP_SIZE}, "
-            f"got {w_shape[-1]}"
-        )
-    if (c % GROUP_SIZE or w_shape[:-2] != (*lead, c // GROUP_SIZE)
-            or mean.shape != (*lead, c)):
+            f"whiten_apply: group size {g} does not divide C={c}")
+    if w_shape[:-2] != (*lead, c // g) or mean.shape != (*lead, c):
         raise ValueError(
             f"whiten_apply: shapes disagree: x {tuple(shape)}, "
             f"mean {tuple(mean.shape)}, w {tuple(w_shape)}"
@@ -240,9 +258,12 @@ def _check_apply_args(
         raise ValueError(
             f"whiten_apply: out is {tuple(out.shape)}, x {tuple(shape)}")
     _check_kernel_dtype("whiten_apply", x)
+    if c % 4:
+        raise ValueError(f"whiten_apply: the kernels take C a multiple of 4 "
+                         f"(16-byte chunks), got C={c}")
     if x.dtype is torch.bfloat16 and c % 8:
         raise ValueError(f"whiten_apply: the bf16 kernel takes C a multiple "
-                         f"of 8 (16-byte chunks of two groups), got C={c}")
+                         f"of 8 (16-byte chunks of 8 channels), got C={c}")
     # Dtype, device, density and alignment in one pass: this runs on every
     # launch, on the host's critical path.
     device = x.device
@@ -282,10 +303,12 @@ def _apply_grid(device_index: int, domains: int, m_rows: int, c: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _apply_launch(dtype: torch.dtype = torch.float32):
+def _apply_launch(dtype: torch.dtype = torch.float32, general: bool = False):
     """The ``dtype`` kernel's bound C entry (loaded, and built if needed,
-    once)."""
-    return getattr(_library("whiten_apply"), f"dwt_whiten_apply_{_SUFFIX[dtype]}")
+    once); ``general``: the entry of any group size but 4."""
+    infix = "group_" if general else ""
+    return getattr(_library("whiten_apply"),
+                   f"dwt_whiten_apply_{infix}{_SUFFIX[dtype]}")
 
 
 def whiten_apply(
@@ -294,8 +317,8 @@ def whiten_apply(
 ) -> torch.Tensor:
     """``(x − m) · W_bdᵀ``: the CUDA kernel of ``x``'s dtype for a CUDA
     ``x``, the plain version for a CPU one.  ``x [M, C]`` with ``mean [C]``
-    and ``w [C/4, 4, 4]`` (eval and serving: one site, one branch), or ``x
-    [D, M, C]`` with ``mean [D, C]`` and ``w [D, C/4, 4, 4]`` (train mode:
+    and ``w [C/g, g, g]`` (eval and serving: one site, one branch), or ``x
+    [D, M, C]`` with ``mean [D, C]`` and ``w [D, C/g, g, g]`` (train mode:
     all D domains of a site, each with its own moments and matrix); ``x``
     f32 or bf16, ``mean`` and ``w`` f32, dense, 16-byte aligned, all on
     ``x``'s device.  One launch per call, whatever ``D``.  The result, in
@@ -311,11 +334,14 @@ def whiten_apply(
         return y
     domains = x.shape[0] if x.dim() == 3 else 1
     m_rows, c = x.shape[-2:]
-    index = x.device.index
-    blocks = _apply_grid(index, domains, m_rows, c, x.dtype)
+    index, g = x.device.index, w.shape[-1]
+    # The g = 4 entry takes its blocks per domain; the general one takes g
+    # (its grid follows from the shape).
+    blocks_or_g = (_apply_grid(index, domains, m_rows, c, x.dtype)
+                   if g == KERNEL_GROUP else g)
     args = (x.data_ptr(), mean.data_ptr(), w.data_ptr(), y.data_ptr(),
-            domains, m_rows, c, blocks)
-    launch = _apply_launch(x.dtype)
+            domains, m_rows, c, blocks_or_g)
+    launch = _apply_launch(x.dtype, g != KERNEL_GROUP)
     if index == torch.cuda.current_device():
         rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
@@ -348,18 +374,19 @@ def whiten_moments_plain(
     return mean, whitening.group_cov(x - mean, num_groups, g)
 
 
-def _check_moments_args(x: torch.Tensor, group_size: int) -> None:
+def _check_moments_args(x: torch.Tensor, group_size: int) -> int:
+    """Raise unless the kernel takes ``x`` at ``group_size``; returns the
+    resolved ``g = min(C, group_size)``."""
     if x.dim() not in (2, 3):
         raise ValueError(
             f"whiten_moments: x must be [M, C] or [D, M, C], got {tuple(x.shape)}")
     m_rows, c = x.shape[-2:]
     if m_rows < 1 or x.numel() == 0:
         raise ValueError("whiten_moments: x has no rows")
-    if min(c, group_size) != GROUP_SIZE or c % GROUP_SIZE:
+    g = min(c, group_size)
+    if g < 1 or c % g:
         raise ValueError(
-            f"whiten_moments: the CUDA kernel takes group size {GROUP_SIZE}, "
-            f"got {group_size} for C={c}"
-        )
+            f"whiten_moments: group size {group_size} does not divide C={c}")
     _check_kernel_dtype("whiten_moments", x)
     # is_contiguous() of the whole tensor: a [D, M, C] whose domains lie
     # apart in memory (a strided view) is refused, not copied.
@@ -368,6 +395,7 @@ def _check_moments_args(x: torch.Tensor, group_size: int) -> None:
     if x.data_ptr() % 16:
         raise ValueError("whiten_moments: x must be 16-byte aligned "
                          "(16-byte loads)")
+    return g
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,6 +406,16 @@ def _moments_grid(device_index: int, domains: int, m_rows: int, c: int,
     query, asked once per shape.  Raises for a ``domains`` or ``c`` the
     kernel does not take."""
     lib = _library("whiten_moments")
+    _check_moments_size(lib, domains, c)
+    query = (lib.dwt_whiten_moments_clusters if dtype is torch.float32
+             else lib.dwt_whiten_moments_clusters_bf16)
+    with torch.cuda.device(device_index):
+        clusters = query(domains, m_rows, c)
+    _raise_on_error(lib, -min(clusters, 0), "whiten_moments")
+    return clusters, domains * clusters * (c // KERNEL_GROUP) * _STATS_PER_GROUP
+
+
+def _check_moments_size(lib: ctypes.CDLL, domains: int, c: int) -> None:
     if c > lib.dwt_whiten_moments_max_channels():
         raise ValueError(
             f"whiten_moments: C={c} exceeds the kernel's "
@@ -388,25 +426,39 @@ def _moments_grid(device_index: int, domains: int, m_rows: int, c: int,
             f"whiten_moments: D={domains} exceeds the kernel's "
             f"{lib.dwt_whiten_moments_max_domains()} domains"
         )
-    query = (lib.dwt_whiten_moments_clusters if dtype is torch.float32
-             else lib.dwt_whiten_moments_clusters_bf16)
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_group_plan(device_index: int, domains: int, m_rows: int, c: int,
+                        g: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(clusters per domain and entry tile, float64 scratch elements,
+    arrival counters)`` of the general kernel's launch for ``[domains,
+    m_rows, c]`` at group size ``g`` on a device, asked once per shape."""
+    lib = _library("whiten_moments")
+    _check_moments_size(lib, domains, c)
+    out = (ctypes.c_longlong * 3)()
     with torch.cuda.device(device_index):
-        clusters = query(domains, m_rows, c)
-    _raise_on_error(lib, -min(clusters, 0), "whiten_moments")
-    return clusters, domains * clusters * (c // GROUP_SIZE) * _STATS_PER_GROUP
+        rc = lib.dwt_whiten_moments_group_plan(
+            domains, m_rows, c, g, int(dtype is torch.bfloat16), out)
+    _raise_on_error(lib, rc, "whiten_moments")
+    return out[0], out[1], out[2]
 
 
-_arrival_counters: Dict[int, torch.Tensor] = {}
+_arrival_counters: Dict[Tuple[int, bool], torch.Tensor] = {}
 
 
-def _arrival_counter(device: torch.device) -> torch.Tensor:
-    """The kernel's arrival counters on ``device``, one int32 per domain it
-    takes, zeroed once here; every launch leaves them zero."""
-    counter = _arrival_counters.get(device.index)
+def _arrival_counter(device: torch.device, general: bool = False) -> torch.Tensor:
+    """The kernel's arrival counters on ``device``, zeroed once here; every
+    launch leaves them zero.  The g = 4 kernel keeps one int32 per domain
+    it takes, the general one (``general``) one per domain and entry
+    tile."""
+    counter = _arrival_counters.get((device.index, general))
     if counter is None:
-        counter = _arrival_counters[device.index] = torch.zeros(
-            _library("whiten_moments").dwt_whiten_moments_max_domains(),
-            dtype=torch.int32, device=device)
+        lib = _library("whiten_moments")
+        size = (lib.dwt_whiten_moments_group_max_counters() if general
+                else lib.dwt_whiten_moments_max_domains())
+        counter = _arrival_counters[(device.index, general)] = torch.zeros(
+            size, dtype=torch.int32, device=device)
     return counter
 
 
@@ -414,10 +466,11 @@ def whiten_moments(
     x: torch.Tensor, group_size: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The biased moments of ``x [D, M, C]`` per domain, ``(mean [D, C],
-    cov [D, C/4, 4, 4])`` (of ``x [M, C]``: ``(mean [C], cov [C/4, 4,
-    4])``), f32: the CUDA kernel of ``x``'s dtype for a CUDA ``x`` (f32 or
-    bf16, one contiguous block, group size 4), the plain version for a CPU
-    one.  One launch per call, whatever ``D``.
+    cov [D, C/g, g, g])`` with ``g = min(C, group_size)`` (of ``x [M,
+    C]``: ``(mean [C], cov [C/g, g, g])``), f32: the CUDA kernel of
+    ``x``'s dtype for a CUDA ``x`` (f32 or bf16, one contiguous block, a
+    ``g`` that divides C), the plain version for a CPU one.  One launch per
+    call, whatever ``D``.
 
     Launches on the current stream.  Calls on two streams at once are not
     supported: all launches on a device share the arrival counters."""
@@ -425,23 +478,33 @@ def whiten_moments(
         return whiten_moments_plain(x, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"whiten_moments: unsupported device {x.device}")
-    _check_moments_args(x, group_size)
+    g = _check_moments_args(x, group_size)
     domains = x.shape[0] if x.dim() == 3 else 1
     m_rows, c = x.shape[-2:]
-    groups, device = c // GROUP_SIZE, x.device
-    clusters, scratch_len = _moments_grid(device.index, domains, m_rows, c, x.dtype)
+    groups, device = c // g, x.device
+    general = g != KERNEL_GROUP
+    if general:
+        clusters, scratch_len, _ = _moments_group_plan(
+            device.index, domains, m_rows, c, g, x.dtype)
+    else:
+        clusters, scratch_len = _moments_grid(device.index, domains, m_rows, c, x.dtype)
     lib = _library("whiten_moments")
-    out = torch.empty(domains * (c + groups * GROUP_SIZE * GROUP_SIZE),
+    out = torch.empty(domains * (c + groups * g * g),
                       dtype=torch.float32, device=device)
     mean = out[: domains * c].view(domains, c)
-    cov = out[domains * c:].view(domains, groups, GROUP_SIZE, GROUP_SIZE)
+    cov = out[domains * c:].view(domains, groups, g, g)
     scratch = torch.empty(scratch_len, dtype=torch.float64, device=device)
-    launch = getattr(lib, f"dwt_whiten_moments_{_SUFFIX[x.dtype]}")
+    counters = _arrival_counter(device, general).data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = launch(
-            x.data_ptr(), mean.data_ptr(), cov.data_ptr(), scratch.data_ptr(),
-            _arrival_counter(device).data_ptr(), domains, m_rows, c, clusters,
-            torch.cuda.current_stream(device).cuda_stream)
+        if general:
+            rc = getattr(lib, f"dwt_whiten_moments_group_{_SUFFIX[x.dtype]}")(
+                x.data_ptr(), mean.data_ptr(), cov.data_ptr(), scratch.data_ptr(),
+                counters, domains, m_rows, c, g, clusters, stream)
+        else:
+            rc = getattr(lib, f"dwt_whiten_moments_{_SUFFIX[x.dtype]}")(
+                x.data_ptr(), mean.data_ptr(), cov.data_ptr(), scratch.data_ptr(),
+                counters, domains, m_rows, c, clusters, stream)
     _raise_on_error(lib, rc, "whiten_moments")
     _count("moments")
     if x.dim() == 2:

@@ -101,12 +101,53 @@ def _shrink(cov: torch.Tensor, eps: float) -> torch.Tensor:
     return (1.0 - eps) * cov + eps * eye
 
 
+# Above the reference's g = 4, the per-group products of group_cov and
+# apply_whitening go through batched matrix products over chunks of this
+# many rows: elementwise products would be M·C·g floats (3.7 GB a domain at
+# ResNet50's stem at g = 64), in the forward and again in the backward, and
+# one product over all M rows would make each weight-gradient or Gram
+# output an M-long loop on a few SMs; chunks give the card many products
+# at once.  Full f32: the callers on the card turn TF32 off (the trainer,
+# the engine), as the statistics feed a Cholesky.
+ROW_CHUNK = 4096
+
+
+def _row_chunks(t: torch.Tensor):
+    """``t [M, G, g]`` → ``(head [S, G, ROW_CHUNK, g], tail [G, M − S·ROW_CHUNK,
+    g])``, views of its whole chunks and of the rows left over."""
+    rows, groups, g = t.shape
+    n = rows // ROW_CHUNK * ROW_CHUNK
+    head = t[:n].reshape(-1, ROW_CHUNK, groups, g).permute(0, 2, 1, 3)
+    return head, t[n:].transpose(0, 1)
+
+
+def _group_gram(t: torch.Tensor) -> torch.Tensor:
+    """``Σ_m t[m, G]ᵀ t[m, G]`` of ``t [M, G, g]`` → ``[G, g, g]``: a
+    product per chunk of rows, summed over the chunks."""
+    head, tail = _row_chunks(t)
+    return (torch.matmul(head.transpose(-1, -2), head).sum(dim=0)
+            + torch.bmm(tail.transpose(1, 2), tail))
+
+
+def _group_apply(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y[m, G] = w[G] · t[m, G]`` of ``t [M, G, g]`` → ``[M, G, g]``: a
+    product per chunk of rows, so the gradient of ``w`` sums many small
+    products."""
+    head, tail = _row_chunks(t)
+    wt = w.transpose(-1, -2)
+    groups, g = w.shape[0], w.shape[1]
+    y_head = torch.matmul(head, wt).permute(0, 2, 1, 3).reshape(-1, groups, g)
+    return torch.cat([y_head, torch.bmm(tail, wt).transpose(0, 1)])
+
+
 def group_cov(xn: torch.Tensor, num_groups: int, group_size: int) -> torch.Tensor:
     """Biased per-group covariance ``[G, g, g]`` of centred, channels-last
     ``xn [..., C]`` (reduced over all leading axes), accumulated in at
     least float32 — the JAX op's einsum at ``Precision.HIGHEST``."""
     acc_dtype = torch.promote_types(xn.dtype, torch.float32)
     t = xn.reshape(-1, num_groups, group_size).to(acc_dtype)
+    if group_size > 4:
+        return _group_gram(t) / t.shape[0]
     # The per-group outer products summed over rows: an elementwise
     # product and a reduction.  The einsum "mgc,mgd->gcd" would be a
     # batched product with a g×g output per group and M-long sums, which
@@ -192,11 +233,12 @@ def apply_whitening(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Apply ``w [G, g, g]`` to centred ``xn [..., C]``:
-    ``y[m, G, d] = Σ_c w[G, d, c] · xn[m, G, c]``, as elementwise products
-    and a sum over the group's channels.  Not a matrix product: the weight
-    gradient of the grouped einsum (or of the block-diagonal matmul) is a
-    small output with M-long sums, which cuBLAS runs as one serial loop
-    over M on a few SMs; here it is a reduction.
+    ``y[m, G, d] = Σ_c w[G, d, c] · xn[m, G, c]``, up to g = 4 as
+    elementwise products and a sum over the group's channels.  Not one
+    matrix product: the weight gradient of the grouped einsum (or of the
+    block-diagonal matmul) is a small output with M-long sums, which cuBLAS
+    runs as one serial loop over M on a few SMs; here it is a reduction.
+    Above g = 4, products over chunks of rows (``ROW_CHUNK``).
 
     ``compute_dtype`` (default ``w``'s) is the dtype both operands are
     rounded to before the product, which accumulates in at least f32 — the
@@ -205,8 +247,12 @@ def apply_whitening(
     compute_dtype = compute_dtype or w.dtype
     acc_dtype = torch.promote_types(compute_dtype, torch.float32)
     num_groups, g = w.shape[0], w.shape[1]
+    w = w.to(compute_dtype).to(acc_dtype)
+    if g > 4:  # batched products over row chunks (ROW_CHUNK)
+        t = xn.reshape(-1, num_groups, g).to(compute_dtype).to(acc_dtype)
+        return _group_apply(t, w).reshape(xn.shape).to(xn.dtype)
     t = xn.reshape(-1, num_groups, 1, g).to(compute_dtype).to(acc_dtype)
-    y = (t * w.to(compute_dtype).to(acc_dtype)).sum(dim=-1)
+    y = (t * w).sum(dim=-1)
     return y.reshape(xn.shape).to(xn.dtype)
 
 

@@ -1130,11 +1130,10 @@ def run_officehome(
     # batch tiled into every domain slot re-estimate the target stats
     # (resnet50…py:380-389).
     online = not get_whitener(cfg.whitener).needs_stat_collection
-    if online and cfg.stat_collection_passes == 0:
-        # The --whitener swbn cadence: the tracked matrices and the BN
-        # running stats are the eval estimates; recorded as skipped.  (The
-        # JAX loop writes this record for every whitener; the factorizing
-        # ones keep the port's record sequence.)
+    if cfg.stat_collection_passes == 0:
+        # Recorded as skipped for every whitener, as the JAX loop records
+        # it (for swbn, its cadence: the tracked matrices and the BN
+        # running stats are the eval estimates).
         logger("stat_collection", state.step, skipped=True,
                whitener=cfg.whitener)
     elif online:

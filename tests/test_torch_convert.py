@@ -195,7 +195,7 @@ def test_the_cli_writes_a_step0_checkpoint_that_init_ckpt_trains_from(tmp_path, 
 
     loop.run_officehome(cfg, logger, model=model)
     assert seen == [True, ("init_ckpt", 0), ("train", 1), ("test", 1),
-                    ("final_test", 1)]
+                    ("stat_collection", 1), ("final_test", 1)]
 
     # --resnet_path converts the archive inline when the run reads image
     # folders.  The tiny model (one block per stage) takes the keys it has:

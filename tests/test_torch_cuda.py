@@ -111,10 +111,19 @@ def test_kernel_reads_a_channels_last_activation_in_place(cuda_device):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_group_size(cuda_device):
+    """A group size that does not divide C raises; g = 8, 16 and 48 (C =
+    48) launch the kernel."""
     x, mean, _ = _args(device=cuda_device)
-    w8 = torch.eye(8, device=cuda_device).repeat(8, 1, 1)
+    w24 = torch.eye(24, device=cuda_device).repeat(2, 1, 1)  # 2 × 24 ≠ 64
     with pytest.raises(ValueError, match="group size"):
-        cuda_whitening.whiten_apply(x, mean, w8)
+        cuda_whitening.whiten_apply(x, mean, w24)
+    for c, g in ((64, 8), (64, 16), (48, 48)):
+        x, mean, _ = _args(c, device=cuda_device)
+        w = torch.eye(g, device=cuda_device).repeat(c // g, 1, 1)
+        before = cuda_whitening.apply_launches
+        y = cuda_whitening.whiten_apply(x, mean, w)
+        assert cuda_whitening.apply_launches == before + 1
+        torch.testing.assert_close(y, x - mean, **TOL)
 
 
 @pytest.mark.cuda
@@ -208,7 +217,13 @@ def test_moments_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         cuda_whitening.whiten_moments(x.half(), 4)
     with pytest.raises(ValueError, match="group size"):
-        cuda_whitening.whiten_moments(x, 8)
+        cuda_whitening.whiten_moments(x, 24)  # does not divide C = 64
+    for c, g in ((64, 8), (64, 16), (48, 48)):
+        xc, _, _ = _args(c, device=cuda_device)
+        before = cuda_whitening.moments_launches
+        _, cov = cuda_whitening.whiten_moments(xc, g)
+        assert cuda_whitening.moments_launches == before + 1
+        assert cov.shape == (c // g, g, g)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_whitening.whiten_moments(torch.cat([x, x], dim=1)[:, ::2], 4)
     with pytest.raises(ValueError, match="no rows"):
@@ -484,9 +499,19 @@ def test_apply_wrapper_refuses_what_the_batched_kernel_does_not_take(cuda_device
         cuda_whitening.whiten_apply(x, mean, w[:2])
     with pytest.raises(ValueError, match=r"\[D, G, g, g\]"):
         cuda_whitening.whiten_apply(x, mean, w[0])
-    with pytest.raises(ValueError, match="group size"):
-        cuda_whitening.whiten_apply(x, mean, torch.eye(8, device=cuda_device)
-                                    .repeat(3, 8, 1, 1))
+    with pytest.raises(ValueError, match="group size"):  # 24 does not divide 64
+        cuda_whitening.whiten_apply(x, mean, torch.eye(24, device=cuda_device)
+                                    .repeat(3, 2, 1, 1))
+    for g in (8, 16):  # every g that divides C launches, one launch for D
+        before = cuda_whitening.apply_launches
+        cuda_whitening.whiten_apply(x, mean, torch.eye(g, device=cuda_device)
+                                    .repeat(3, 64 // g, 1, 1))
+        assert cuda_whitening.apply_launches == before + 1
+    x48, mean48, _ = _apply_domains(3, 100, 48, cuda_device)
+    before = cuda_whitening.apply_launches
+    cuda_whitening.whiten_apply(x48, mean48, torch.eye(48, device=cuda_device)
+                                .repeat(3, 1, 1, 1))
+    assert cuda_whitening.apply_launches == before + 1
     buf = torch.empty(x.numel() + 1, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte aligned"):
         cuda_whitening.whiten_apply(x, mean, w, out=buf[1:].view_as(x))
@@ -1008,3 +1033,99 @@ def test_bf16_train_site_on_the_card_matches_the_cpu(cuda_device, whitener):
     torch.testing.assert_close(g_gpu.float(), g_cpu.float(), rtol=2e-2, atol=2e-2)
     for ours, ref in zip(new_gpu, new_cpu):
         torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ other group sizes
+#
+# Both kernels at g other than 4 (each source's general body), f32 and
+# bf16: held to their plain versions at the tolerances above (the bf16
+# apply bitwise), and the moments also to a float64 two-pass of each
+# domain, at 1001 rows and at the rows a ResNet50 train step gives the stem
+# (C = 64) and stage 1 (C = 256); two calls and two replays of a captured
+# call bitwise equal.
+
+
+def _group_two_pass(x, g):
+    xd = x.double()
+    mean = xd.mean(dim=1)
+    t = (xd - mean[:, None]).view(*x.shape[:2], -1, g)
+    return mean, torch.einsum("kmgc,kmgd->kgcd", t, t) / x.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [8, 16, 64])
+@pytest.mark.parametrize("c,m", [
+    pytest.param(64, 1001, id="64"), pytest.param(256, 1001, id="256"),
+    pytest.param(64, 18 * 112 * 112, id="64-stem_rows"),
+    pytest.param(256, 18 * 56 * 56, id="256-stage1_rows")])
+def test_group_kernels_match_their_plain_versions(cuda_device, c, m, g, dtype):
+    x = _domains(3, m, c, cuda_device, seed=c + g, offset=0.5).to(dtype)
+    before = cuda_whitening.moments_launches, cuda_whitening.apply_launches
+    mean, cov = cuda_whitening.whiten_moments(x, g)
+    w = whitening_matrix(_shrink(cov, 1e-3))
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    torch.cuda.synchronize()
+    assert (cuda_whitening.moments_launches - before[0],
+            cuda_whitening.apply_launches - before[1]) == (1, 1)
+    assert cov.shape == (3, c // g, g, g) and y.dtype == dtype
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, g)
+    r_mean, r_cov = _group_two_pass(x.float(), g)
+    torch.testing.assert_close(mean, p_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov, p_cov, **COV_TOL)
+    torch.testing.assert_close(mean.double(), r_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov.double(), r_cov, **COV_TOL)
+    plain = cuda_whitening.whiten_apply_plain(x, mean, w)
+    if dtype is torch.bfloat16:
+        assert torch.equal(y, plain)
+    else:
+        torch.testing.assert_close(y, plain, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [8, 16, 64])
+def test_group_kernels_repeat_and_replay_bitwise(cuda_device, g, dtype):
+    """Two calls of each kernel, and two replays of one CUDA graph that
+    captured both (the moments' arrival counters zero after each
+    launch), bitwise equal."""
+    x = _domains(3, 18 * 56 * 56, 256, cuda_device, seed=g).to(dtype)
+    mean, cov = cuda_whitening.whiten_moments(x, g)
+    w = whitening_matrix(_shrink(cov, 1e-3))
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    again = cuda_whitening.whiten_moments(x, g)
+    assert torch.equal(again[0], mean) and torch.equal(again[1], cov)
+    assert torch.equal(cuda_whitening.whiten_apply(x, mean, w), y)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with cuda_whitening.capture_launches() as recorded, torch.cuda.graph(graph):
+        g_mean, g_cov = cuda_whitening.whiten_moments(x, g)
+        g_y = cuda_whitening.whiten_apply(x, mean, w)
+    assert recorded == {"apply": 1, "moments": 1}
+    for _ in range(2):
+        for t in (g_mean, g_cov, g_y):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_mean, mean) and torch.equal(g_cov, cov)
+        assert torch.equal(g_y, y)
+
+
+@pytest.mark.cuda
+def test_group_train_site_on_the_card_matches_the_cpu(cuda_device):
+    """A g = 16 train-mode site through both kernels on the card against
+    the same site on the CPU (the plain versions): output, new stats and
+    input gradients."""
+    from dwt_tpu_torch.ops import whitening
+
+    x = _domains(3, 2000, 64, "cpu", seed=7)
+    out = {}
+    for device in ("cpu", cuda_device):
+        xd = x.detach().clone().to(device).requires_grad_(True)
+        stats = whitening.WhiteningStats(torch.zeros(3, 64, device=device),
+                                         torch.eye(16, device=device).repeat(3, 4, 1, 1))
+        y, new = cuda_whitening.cuda_group_whiten(xd, stats, group_size=16, train=True)
+        (y * torch.arange(y.numel(), device=device).view_as(y).sin()).sum().backward()
+        out[str(device)] = [t.detach().cpu() for t in (y, new.mean, new.cov, xd.grad)]
+    for name, a, b in zip(("y", "mean", "cov", "grad"), out["cpu"], out[str(cuda_device)]):
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=5e-5, msg=name)
