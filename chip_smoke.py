@@ -14,7 +14,10 @@ script exits non-zero without the final line:
 2. ``build``    — ``nvcc`` builds every ``dwt_tpu_torch/csrc/*.cu`` (in
                   parallel) into ``build/kernels/``, then ``g++`` the data
                   path's native pixel passes (``dwt_tpu_torch/native/``)
-                  into ``build/native/``.
+                  into ``build/native/``.  ``build_general_kernels``: each
+                  general (any group size) kernel's registers, static
+                  shared memory and spills from ``-Xptxas -v``; more than
+                  ``GROUP_MOST_REGISTERS`` registers or any spill fails.
 3. ``parity``   — the whitening-apply kernel against its plain PyTorch
                   version, both on the card, at the three site shapes of a
                   bucket-128 ResNet50 forward at 224² (``x [M, C]``) and at
@@ -302,13 +305,17 @@ script exits non-zero without the final line:
                   the peak of the input's type: f32 outside the tensor
                   cores, bf16 on them), the plain version, the library
                   call (``torch.baddbmm`` with the block-diagonal matrix,
-                  ``torch.cov``) and the host µs.
+                  ``torch.cov``) and the host µs; each row also the
+                  kernel's launch geometry (``plan``).
+                  ``group_site_f64``: the site checks' largest distances
+                  from float64 per dtype, beside the earlier general
+                  bodies' (``GROUP_SITE_F64_BEFORE``).
 33. ``group_train`` — the flagship CLI at ``--group_size`` 8, 16 and 64,
                   f32 and bf16, k = 3, with evals and a collection pass:
                   11 moments and 11 apply launches per step, phase 7's
                   checks, the f32 runs at 16 and 64 saving checkpoints;
                   ``group_train_timing``: step ms and peak device memory
-                  at g = 4, 16 and 64 in mirrored turns.
+                  at g = 4, 16 and 64 in mirrored turns (f32 and bf16).
 34. ``group_serve`` — the server on those checkpoints at ``--group_size``
                   16 and 64, f32 and bf16, one request per bucket
                   1/8/32/128: 11 apply launches a forward, logits held to
@@ -3783,8 +3790,55 @@ GROUP_TIMED = (8, 16, 64)  # group sizes timed at the flagship's train sites
 GROUP_TIMING_ITERS = 20
 GROUP_TRACE_ROUNDS = 3
 GROUP_TRACE_AGREE = 0.25  # a kernel's traced device ms against its event ms
-GROUP_KERNELS = {"apply": ("whiten_apply_group_kernel",),
+GROUP_KERNELS = {"apply": ("whiten_apply_group",),  # the tiled body and the scalar one
                  "moments": ("whiten_moments_group_kernel",)}
+# The site checks' largest distances from float64 (mean, cov) of the
+# general bodies before their tiled redesign (NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's.
+GROUP_SITE_F64_BEFORE = {"float32": (8.6e-8, 7.6e-7), "bfloat16": (6.0e-8, 4.5e-6)}
+GROUP_MOST_REGISTERS = 128  # the general kernels' ceiling a thread, no spills
+
+
+def general_kernel_resources(logs):
+    """Registers, static shared memory and spills of each general (any
+    group size) kernel, from the ``-Xptxas -v`` lines of the build logs
+    ``{source: log}``, keyed by the kernel's name (demangled where the
+    toolkit's ``cu++filt`` is found)."""
+    import re
+
+    found, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = (re.search(r"Compiling entry function '(\S+)'", ln)
+                 or re.search(r"Function properties for (\S+)", ln))
+            if m:
+                name = m.group(1)
+                continue
+            if not name or not any(k in name for k in ("whiten_apply_group",
+                                                        "whiten_moments_group")):
+                continue
+            row = found.setdefault(name, {})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            if m:
+                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                row["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                row["static_smem"] = int(m.group(1)) if m else 0
+    names = list(found)
+    try:
+        from dwt_tpu_torch.ops import _build
+
+        tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "") for n in out]
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        pass
+    return {short: found[raw] for short, raw in zip(names, found)}
 
 
 def group_grid():
@@ -3954,6 +4008,10 @@ def time_group(torch, cw, part, x, mean, w, g, rate):
     row["device_over_events"] = row["device_ms"] / kernel_ms
     if part == "moments":  # (clusters per domain and entry tile, scratch, counters)
         row["plan"] = list(cw._moments_group_plan(x.device.index, d, m, c, g, x.dtype))
+    elif g % 4 == 0 and g >= 8:  # the tiled body's geometry
+        row["plan"] = dict(zip(("threads", "smem", "blocks", "nt", "kc", "stages",
+                                "transposed", "copy_bytes"),
+                               cw._apply_group_plan(x.device.index, d, m, c, g, x.dtype)))
     return row
 
 
@@ -3976,13 +4034,16 @@ def group_kernels(torch, cw, device, rate, timed=GROUP_TIMED):
                 failed.append((row["dtype"], c, g, d))
     if failed:
         raise AssertionError(f"group_kernels: {len(failed)} grid points fail: {failed}")
-    timing = {}
+    timing, site_f64 = {}, {}
     for g in timed:
         for dtype in (torch.float32, torch.bfloat16):
             for site, m, c, _ in TRAIN_SITES:
                 x = moments_input(torch, DOMAINS, m, c, gen, device, 1.0).to(dtype)
                 (mean, cov, w, y), _, row = group_parity(torch, cw, x, g)
                 emit({"phase": "group_site_parity", "site": site, **row})
+                for key in ("mean", "cov"):
+                    site_f64.setdefault(row["dtype"], {}).setdefault(key, []).append(
+                        row[key]["vs_f64"])
                 if not row["ok"]:
                     failed.append((row["dtype"], site, g))
                     continue
@@ -3996,6 +4057,11 @@ def group_kernels(torch, cw, device, rate, timed=GROUP_TIMED):
                 torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"group_kernels: {len(failed)} train sites fail: {failed}")
+    emit({"phase": "group_site_f64", "card": nvidia_smi(),
+          "largest": {dt: {"mean": max(site_f64[dt]["mean"]), "cov": max(site_f64[dt]["cov"])}
+                      for dt in site_f64},
+          "before": {dt: {"mean": v[0], "cov": v[1]}
+                     for dt, v in GROUP_SITE_F64_BEFORE.items()}})
     return timing
 
 
@@ -4007,7 +4073,8 @@ GROUP_SAVED = (16, 64)
 GROUP_TRAIN_K = 3
 # group_train's timed runs in mirrored turns: (dtype, g).
 GROUP_TIMED_RUNS = (("f32", 4), ("f32", 16), ("f32", 64), ("f32", 64), ("f32", 16),
-                    ("f32", 4), ("bf16", 4), ("bf16", 16), ("bf16", 16), ("bf16", 4))
+                    ("f32", 4), ("bf16", 4), ("bf16", 16), ("bf16", 64), ("bf16", 64),
+                    ("bf16", 16), ("bf16", 4))
 GROUP_DIGITS = (16, 48)  # dn1 G = 2 and dn2 G = 3; dn1 clamped to g = 32, dn2 G = 1
 GROUP_SERVED = ((16, "f32"), (16, "bf16"), (64, "f32"), (64, "bf16"))
 GROUP_SERVE_SIZES = (1, 5, 32, 128)  # one request per bucket 1/8/32/128
@@ -4448,6 +4515,15 @@ def main() -> int:
           "built": sorted(logs),
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
                     for k, v in logs.items()}})
+    general = general_kernel_resources(logs)
+    emit({"phase": "build_general_kernels", "most_registers": GROUP_MOST_REGISTERS,
+          "kernels": general})
+    over = {k: v for k, v in general.items()
+            if v.get("registers", 0) > GROUP_MOST_REGISTERS or v.get("spill_stores", 0)
+            or v.get("spill_loads", 0)}
+    if over:
+        raise AssertionError(f"general kernels over {GROUP_MOST_REGISTERS} registers "
+                             f"or spilling: {over}")
 
     device = torch.device("cuda", 0)
     r = {}

@@ -77,7 +77,11 @@
 // shape), allocates y, passes device pointers and the stream, and checks
 // the returned cudaError_t.
 
+#include <algorithm>
 #include <atomic>
+#include <mutex>
+#include <type_traits>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -388,39 +392,79 @@ int apply_launch(const void* x, const void* mean, const void* w, void* y,
 
 // ------------------------------------------------------------ any group size
 //
-// The general body, for every group size g ≠ 4 that divides C (g = 4 keeps
-// the TMA kernels above).  y[d, r, g·i + k] = Σ_c w[d, i, k, c] ·
+// The general bodies, for every group size g ≠ 4 that divides C (g = 4
+// keeps the TMA kernels above).  y[d, r, g·i + k] = Σ_c w[d, i, k, c] ·
 // (x[d, r, g·i + c] − m[d, g·i + c]), summed in the order c = 0, 1, …,
-// g − 1.  What bounds it moves with g: g FMAs per element against 8 bytes
-// (f32) or 4 (bf16), so on the H100 (67 TFLOP/s of f32 FMA outside the
-// tensor cores, 3.35 TB/s) bytes below g ≈ 80 in f32 and g ≈ 40 in bf16,
-// the FMAs above.
-// Design, simple first:
-//  * One block per tile of rows of one domain (blockIdx.y; up to 64 rows,
-//    a multiple of kGroupRows, at most kGroupTileFloats floats): the tile
-//    is one contiguous span of x, read with 16-byte loads, centred with the
-//    f32 mean (the bf16 variant rounds the centred value to bf16, as
-//    _apply_kernel rounds xn) and staged in shared memory as f32.
-//  * Each thread computes kGroupRows rows of one output channel: per c, one
-//    read of w[d, i, k, c] through the read-only path (__ldg; the bf16
-//    variant rounds it to bf16) serves kGroupRows FMAs, and the staged
-//    xn[r, g·i + c] reads are broadcasts (the threads of a warp are
-//    consecutive channels).  w is never staged: at g = C = 2048 it is 16 MB
-//    a domain, far over a block's shared memory, and L1/L2 hold the rows a
-//    block re-reads.
-//  * Vector reads of 4 consecutive c where g is a multiple of 4 (kVec = 4),
-//    else one at a time.
-// Measured on the H100 (PERF.md): ~60% of the bytes bound at g = 8 and
-// ~17% at g = 64, behind torch.baddbmm there; the lanes of a warp read w
-// rows g floats apart, 32 cache lines a warp load, so the FMAs wait on L1.
-// A register-tiled body (rows × output channels per thread, w staged per
-// chunk of c) is the redesign.
+// g − 1: per group a [rows, g] × [g, g] product.  What bounds it moves with
+// g: g FMAs per element against 8 bytes (f32) or 4 (bf16), so on the H100
+// (67 TFLOP/s of f32 FMA outside the tensor cores, 3.35 TB/s) bytes below
+// g ≈ 80 in f32 and g ≈ 40 in bf16, the FMAs above; and what feeds the
+// FMAs: a product read from shared memory costs a load per operand.
+//
 // Each output is one f32 accumulator, started at −0 (x + (−0) = x, so the
 // first FMA gives the exact first product) and updated by FMAs in c order:
 // the bf16 products are exact in f32, so each FMA rounds as the add of
 // the plain version's running sum does and the bf16 variant is bitwise
-// equal to it.  No atomics, nothing allocated: two launches are bitwise
-// equal and a launch can be captured in a CUDA graph.
+// equal to it.  A bf16 x is centred with the f32 mean and rounded to bf16
+// (xn = bf16(f32(x) − m), as _apply_kernel rounds it) and w rounded to
+// bf16.  No atomics, nothing allocated: two launches are bitwise equal and
+// a launch can be captured in a CUDA graph.
+//
+// Every g that is a multiple of 4 from 8 up takes the tiled body
+// (whiten_apply_group_tiled_kernel), built as a GEMM per group.  What held
+// the scalar body (below), which took every g before it, at 17% (f32) and
+// 9% (bf16) of its bytes bound at g = 64: each thread computed 8 rows of
+// one output channel, and
+// for every c waited on a __ldg of w whose lanes were g floats apart (32
+// L1 lines a warp load) to feed 8 FMAs.  The tiled body:
+//  * A block owns one (domain, column tile) and walks row tiles of
+//    kTileRows = 128 rows; the grid is persistent (the blocks that fit on
+//    the card at once, split over the domain × column-tile pairs).  A
+//    column tile is nt ≤ 64 output channels: whole groups where g ≤ 64 (8
+//    at g = 8, 1 at g = 64), else an nt-slice of one group.
+//  * Its w goes into shared memory transposed, wT[c][n], rounded to bf16
+//    there by the bf16 variant: once per block where g ≤ 64 (at most 64 ×
+//    64 floats), else one chunk of c at a time.
+//  * x moves in chunks of 128 rows × kc input channels (kc = nt where a
+//    tile holds several groups, else at most 16 (f32) or 32 (bf16), so
+//    that g = 64 streams 4 or 2 chunks and g = 2048 128 or 64) by 16-byte
+//    cp.async copies shared by the block's threads (8 bytes where a bf16
+//    chunk is not 16-byte aligned) into a ring of 2–4 stages.
+//  * A thread owns 8 rows × 8 output channels (× 4 where g is not a
+//    multiple of 8) in registers; each output keeps one accumulator across
+//    a row tile's chunks, so c still ascends.  The store is two 16-byte
+//    writes a row (f32), one (bf16).
+//  * One group a tile (g ≥ 32): a landed chunk is centred (and rounded)
+//    once into xnT[c][r] (f32, two buffers), one phase centring chunk
+//    u + 1 while chunk u is computed, one barrier a phase.  Per c, two
+//    16-byte reads of xnT (rows r0..r0+3 and r0+64..r0+67, shared by the 8
+//    threads of a row group) and two of wT (w is stored permuted so that a
+//    thread's 8 channels are two float4 nt/2 apart: one 128-byte run a
+//    quarter warp) feed 64 FMAs.
+//  * Several groups a tile (g ≤ 16, and 32 where C ≥ 64): the chunk is
+//    centred in place (the bf16 variant rounds it to bf16, which holds it
+//    exactly) and each thread reads its rows straight from it, 2 (f32) or
+//    4 (bf16) channels a read.
+//  * At most 128 registers a thread, no spills (__launch_bounds__(256,
+//    2)), and about 56 KB of shared memory a block (the ring takes what w
+//    and xnT leave): four blocks of 128 threads an SM.
+// What bounds it now: at g = 64 the shared-memory reads.  A thread reads
+// 64 bytes of operands per c for 64 FMAs; a warp's 16-byte reads go in
+// four quarter-warp passes, so a c costs a warp 16 passes of the SM's one
+// per clock against 64 FMA issues on one of its four schedulers: both at
+// their limit together, the FMAs at ~40% in practice.  Larger register
+// tiles would cut the reads per FMA but need more than 128 registers.
+// A g that is not a multiple of 4 (1, 2, 3, 6, …) keeps the scalar body
+// (whiten_apply_group_kernel): its groups straddle 16-byte chunks, and no
+// model of the repo runs one.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// group_timing, a flagship train step's 11 sites; PERF.md's kernel table):
+// device ms a step at g = 8/16/64, f32 0.989/1.035/1.707 (the scalar body
+// 1.106/1.286/3.898; bytes bound 0.673), bf16 0.529/0.620/1.493
+// (0.767/0.998/3.671; bytes bound 0.337, ordered f32 FMAs 0.54 at g = 64);
+// torch.baddbmm 3.75 (f32) and 1.21 ms (bf16) at g = 64.
+
+// ---- the scalar body: g not a multiple of 4
 
 constexpr int kGroupThreads = 256;
 constexpr int kGroupRows = 8;            // rows per thread (one channel)
@@ -436,7 +480,10 @@ int group_tile_rows(int channels) {
   return rows > kGroupMaxTileRows ? kGroupMaxTileRows : rows;
 }
 
-template <bool kBf16, int kVec>
+// One block per tile of rows of one domain (blockIdx.y), staged centred in
+// shared memory; each thread computes kGroupRows rows of one output
+// channel, reading w[d, i, k, c] through __ldg, one c at a time.
+template <bool kBf16>
 __global__ void __launch_bounds__(kGroupThreads)
 whiten_apply_group_kernel(const void* __restrict__ xv,
                           const float* __restrict__ mean,
@@ -494,31 +541,12 @@ whiten_apply_group_kernel(const void* __restrict__ xv,
     float acc[kGroupRows];
 #pragma unroll
     for (int j = 0; j < kGroupRows; ++j) acc[j] = -0.f;
-    for (int c = 0; c < group; c += kVec) {
-      float wv[kVec];
-      if constexpr (kVec == 4) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(wr + c));
-        wv[0] = t.x; wv[1] = t.y; wv[2] = t.z; wv[3] = t.w;
-      } else {
-        wv[0] = __ldg(wr + c);
-      }
-      if constexpr (kBf16) {
+    for (int c = 0; c < group; ++c) {
+      float wv = __ldg(wr + c);
+      if constexpr (kBf16) wv = round_bf16(wv);
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) wv[v] = round_bf16(wv[v]);
-      }
-#pragma unroll
-      for (int j = 0; j < kGroupRows; ++j) {
-        const float* xr = xb + j * channels + c;
-        if constexpr (kVec == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(xr);
-          acc[j] = fmaf(wv[0], t.x, acc[j]);
-          acc[j] = fmaf(wv[1], t.y, acc[j]);
-          acc[j] = fmaf(wv[2], t.z, acc[j]);
-          acc[j] = fmaf(wv[3], t.w, acc[j]);
-        } else {
-          acc[j] = fmaf(wv[0], xr[0], acc[j]);
-        }
-      }
+      for (int j = 0; j < kGroupRows; ++j)
+        acc[j] = fmaf(wv, xb[j * channels + c], acc[j]);
     }
     const int valid = min(kGroupRows, n_rows - rb * kGroupRows);
     const long long out = base + static_cast<long long>(rb) * kGroupRows *
@@ -537,19 +565,485 @@ whiten_apply_group_kernel(const void* __restrict__ xv,
   }
 }
 
-using GroupApplyKernel = void (*)(const void*, const float*, const float*,
-                                  void*, long long, int, int, int);
+// ---- the tiled body: g a multiple of 4, from 8 up
 
-GroupApplyKernel group_apply_kernel(bool bf16, int group) {
-  if (group % 4 == 0)
-    return bf16 ? whiten_apply_group_kernel<true, 4>
-                : whiten_apply_group_kernel<false, 4>;
-  return bf16 ? whiten_apply_group_kernel<true, 1>
-              : whiten_apply_group_kernel<false, 1>;
+
+constexpr int kTileRows = 128;             // rows of a row tile
+constexpr int kHalfRows = kTileRows / 2;
+constexpr int kRowGroups = kTileRows / 8;  // threads along the rows
+constexpr int kMaxTileCols = 64;           // output channels of a column tile
+constexpr int kTiledThreads = 256;         // most threads of a block
+constexpr int kTiledSmem = 56 * 1024;      // aimed at: four blocks an SM
+constexpr int kTiledSmemMost = 113 * 1024; // two blocks an SM, at least
+constexpr int kMaxRing = 4;
+constexpr int kF32Cv = 2;       // input channels an f32 row read covers (in place)
+constexpr int kChunkF32 = 16;   // most input channels of one group's chunk, f32
+constexpr int kChunkBf16 = 32;  // and bf16
+
+// A launch's geometry, filled on the host (make_apply_plan).
+struct ApplyPlan {
+  long long rows;     // rows per domain
+  int channels, group, groups;
+  int nt;             // output channels of a column tile
+  int gpt;            // whole groups per column tile (0: nt-slices of one group)
+  int tpg;            // column tiles per group (gpt = 0)
+  int col_tiles;      // column tiles per domain
+  int kc;             // input channels of a staged chunk
+  int chunks;         // chunks per row tile
+  long long row_tiles;
+  int transposed;     // chunks centred into xnT (one group a tile), else in place
+  int resident;       // the column tile's w staged once per block
+  int stages;         // ring of x chunks
+  int ncg;            // threads along the output channels: nt / kK
+  int vec;            // bytes per cp.async copy: 16, or 8
+  int threads;
+  int blocks_per;     // blocks per (domain, column tile)
+  int ldr, ldw, ldx;  // row pitches of a stage (x's elements), wT and xnT
+  int w_rows;         // rows of one wT: g (resident) or kc
+  int nmean;          // means staged: the tile's channels, or the group's
+  int off_w, off_x, off_raw, stage_bytes, smem;  // shared-memory layout, bytes
+};
+
+// The largest divisor of n that is a multiple of `step` and at most
+// `most` (step divides n).
+inline int divisor_at_most(int n, int step, int most) {
+  for (int v = most / step * step; v > step; v -= step)
+    if (n % v == 0) return v;
+  return step;
 }
 
-// Allows the four general kernels the shared memory of their largest tile
-// (64 KB at C = 2048), once per device.
+// False for a shape the tiled body does not take.
+bool make_apply_plan(long long rows, int channels, int group, bool bf16,
+                     ApplyPlan* p) {
+  if (rows <= 0 || channels <= 0 || channels > kGroupMaxChannels ||
+      group < 8 || group % 4 != 0 || channels % group != 0)
+    return false;
+  const int esize = bf16 ? 2 : 4;
+  const int kk = group % 8 == 0 ? 8 : 4;
+  const int most_chunk = bf16 ? kChunkBf16 : kChunkF32;
+  p->rows = rows;
+  p->channels = channels;
+  p->group = group;
+  p->groups = channels / group;
+  if (group <= kMaxTileCols) {
+    p->gpt = std::min(p->groups, kMaxTileCols / group);
+    p->nt = p->gpt * group;
+    p->tpg = 1;
+    p->col_tiles = (p->groups + p->gpt - 1) / p->gpt;
+    p->kc = p->gpt > 1 ? p->nt : divisor_at_most(group, 4, most_chunk);
+    p->resident = 1;
+  } else {
+    p->gpt = 0;
+    p->nt = divisor_at_most(group, kk, kMaxTileCols);
+    p->tpg = group / p->nt;
+    p->col_tiles = p->groups * p->tpg;
+    p->kc = divisor_at_most(group, 4, most_chunk);
+    p->resident = 0;
+  }
+  p->transposed = p->gpt <= 1;
+  p->w_rows = p->resident ? group : p->kc;
+  p->chunks = p->gpt > 1 ? 1 : group / p->kc;
+  p->row_tiles = (rows + kTileRows - 1) / kTileRows;
+  p->ncg = p->nt / kk;
+  p->threads = kRowGroups * p->ncg;
+  // Every chunk starts and ends at a multiple of g (several groups) or of
+  // kc (one group's): that unit's bytes decide the copies' width.
+  p->vec = (p->gpt > 1 ? group : p->kc) * esize % 16 == 0 ? 16 : 8;
+  p->ldr = p->kc + 16 / esize;
+  p->ldw = p->nt + 4;
+  p->ldx = kTileRows + 4;
+  p->nmean = p->gpt > 1 ? p->nt : group;
+  p->off_w = (p->nmean + 3) / 4 * 16;
+  p->off_x = p->off_w + (p->resident ? 1 : 2) * p->w_rows * p->ldw * 4;
+  p->off_raw = p->off_x + (p->transposed ? 2 * p->kc * p->ldx * 4 : 0);
+  p->stage_bytes = kTileRows * p->ldr * esize;
+  p->stages = 2;
+  for (int s = kMaxRing; s > 2; --s)
+    if (p->off_raw + s * p->stage_bytes <= kTiledSmem) {
+      p->stages = s;
+      break;
+    }
+  p->smem = p->off_raw + p->stages * p->stage_bytes;
+  if (p->smem > kTiledSmemMost || p->threads > kTiledThreads) return false;
+  p->blocks_per = 1;
+  return true;
+}
+
+__device__ inline void cp_async(void* dst, const void* src, int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most `pending` (< kMaxRing) of this thread's commit groups are
+// in flight.
+__device__ inline void cp_async_wait(int pending) {
+  if (pending <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (pending == 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
+
+// Position in wT of the tile's output channel n: a thread's 8 channels
+// (kK = 8) sit as two float4, at cg·4 and nt/2 + cg·4.
+template <int kK>
+__device__ inline int w_position(int n, int nt) {
+  if constexpr (kK == 8)
+    return ((n >> 2) & 1) * (nt >> 1) + (n >> 3) * 4 + (n & 3);
+  return n;
+}
+
+// Grid: (domains · col_tiles) · blocks_per blocks of p.threads threads,
+// p.smem bytes of shared memory: the means, wT [1 or 2][w_rows][ldw] f32,
+// xnT [2][kc][ldx] f32 (kT), then the ring
+// [stages][kTileRows][ldr] of x's type.
+template <bool kBf16, int kK, bool kT>
+__global__ void __launch_bounds__(kTiledThreads, 2)
+whiten_apply_group_tiled_kernel(const void* __restrict__ xv,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ w,
+                                void* __restrict__ yv, const ApplyPlan p) {
+  using T = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+  constexpr int kE = sizeof(T);
+  constexpr int kCv = kBf16 ? 4 : kF32Cv;  // input channels per row read
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ms = reinterpret_cast<float*>(smem);
+  float* wT = reinterpret_cast<float*>(smem + p.off_w);
+  float* xnT = reinterpret_cast<float*>(smem + p.off_x);
+  unsigned char* ring = smem + p.off_raw;
+  const int t = threadIdx.x, threads = blockDim.x;
+
+  const int pair = blockIdx.x / p.blocks_per;
+  const long long local = blockIdx.x - static_cast<long long>(pair) * p.blocks_per;
+  const int d = pair / p.col_tiles, e = pair - d * p.col_tiles;
+  // This column tile: groups gi0 … gi0 + ng − 1 (gpt > 0), or the slice
+  // [n0, n0 + nt) of group gi0; its first output channel col0 and the
+  // width kw of its chunks.
+  int gi0, ng, n0;
+  if (p.gpt > 0) {
+    gi0 = e * p.gpt;
+    ng = min(p.gpt, p.groups - gi0);
+    n0 = 0;
+  } else {
+    gi0 = e / p.tpg;
+    ng = 1;
+    n0 = (e - gi0 * p.tpg) * p.nt;
+  }
+  const int col0 = gi0 * p.group + n0;
+  const int kw = p.gpt > 1 ? ng * p.group : p.kc;
+  const long long C = p.channels;
+  const T* xd = static_cast<const T*>(xv) + static_cast<long long>(d) * p.rows * C +
+                gi0 * p.group;
+  const float* wd = w + (static_cast<long long>(d) * p.groups + gi0) * p.group * p.group;
+
+  // This thread: output channels cg·kK + j of the column tile; rows
+  // rg·4 + i and 64 + rg·4 + i (kT) or rg + 16·i (in place) of a row
+  // tile; consecutive threads on consecutive column slices.
+  const int cg = t % p.ncg, rg = t / p.ncg;
+  const int grp = p.gpt > 1 ? cg * kK / p.group : 0;  // its group in the tile
+  const bool active = grp < ng;
+  const int xo = p.gpt > 1 ? grp * p.group : 0;      // its first column
+  const int kt = p.gpt > 1 ? p.group : p.kc;          // c per chunk
+
+  // wT[c][position of n] = w of output channel n, input channel c0 + c.
+  auto stage_w = [&](float* wdst, int c0, int rows_c, int cols) {
+    for (int i = t; i < rows_c * cols; i += threads) {
+      const int c = i % rows_c, n = i / rows_c;
+      // Row n0 + n of the tile's first group's matrix is output channel n.
+      const float v = __ldg(wd + static_cast<long long>(n0 + n) * p.group + c0 + c);
+      wdst[c * p.ldw + w_position<kK>(n, p.nt)] = kBf16 ? round_bf16(v) : v;
+    }
+  };
+
+  const long long mine =
+      p.row_tiles > local ? (p.row_tiles - local + p.blocks_per - 1) / p.blocks_per : 0;
+  const long long units = mine * p.chunks;
+  const unsigned row_bytes = static_cast<unsigned>(kw * kE);
+  // Unit u: row tile local + (u / chunks)·blocks_per, chunk u % chunks.
+  auto unit_rows = [&](long long u, long long* r0) {
+    *r0 = (local + (u / p.chunks) * p.blocks_per) * kTileRows;
+    return static_cast<int>(min(static_cast<long long>(kTileRows), p.rows - *r0));
+  };
+  auto unit_src = [&](long long u, long long r0) {
+    return xd + r0 * C + (p.gpt > 1 ? 0 : static_cast<int>(u % p.chunks) * p.kc);
+  };
+  // Unit u's rows into its stage: copies of p.vec bytes shared by the
+  // block's threads (item i = t + k · threads is row i / per_row, piece
+  // i % per_row), one commit group per call (empty past the end).
+  const int per_row = static_cast<int>(row_bytes) / p.vec;
+  const int dr = threads / per_row, dv = threads % per_row;
+  auto issue = [&](long long u) {
+    if (u < units) {
+      long long r0;
+      const int nr = unit_rows(u, &r0);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(unit_src(u, r0));
+      unsigned char* dst = ring + static_cast<int>(u % p.stages) * p.stage_bytes;
+      int r = t / per_row, v = t % per_row;
+      while (r < nr) {
+        cp_async(dst + r * p.ldr * kE + v * p.vec, src + r * C * kE + v * p.vec, p.vec);
+        r += dr;
+        v += dv;
+        if (v >= per_row) {
+          v -= per_row;
+          ++r;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  {
+    const float* md = mean + static_cast<long long>(d) * C + gi0 * p.group;
+    for (int c = t; c < (p.gpt > 1 ? ng * p.group : p.group); c += threads) ms[c] = __ldg(md + c);
+  }
+  for (int s = 0; s < p.stages; ++s) issue(s);
+  if (p.resident) stage_w(wT, 0, p.group, p.gpt > 1 ? ng * p.group : p.nt);
+
+  float acc[8][kK];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kK; ++j) acc[i][j] = -0.f;
+
+  auto store = [&](long long r0, int nr) {
+    const long long ch = col0 + cg * kK;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = kT ? (i < 4 ? 0 : kHalfRows) + rg * 4 + (i & 3) : rg + i * kRowGroups;
+      if (r < nr) {
+        const long long o = (static_cast<long long>(d) * p.rows + r0 + r) * C + ch;
+        if constexpr (kBf16) {
+          if constexpr (kK == 8) {
+            *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(yv) + o) =
+                make_uint4(pack_bf16(acc[i][0], acc[i][1]), pack_bf16(acc[i][2], acc[i][3]),
+                           pack_bf16(acc[i][4], acc[i][5]), pack_bf16(acc[i][6], acc[i][7]));
+          } else {
+            *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(yv) + o) =
+                make_uint2(pack_bf16(acc[i][0], acc[i][1]), pack_bf16(acc[i][2], acc[i][3]));
+          }
+        } else {
+          float* yo = static_cast<float*>(yv) + o;
+          *reinterpret_cast<float4*>(yo) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          if constexpr (kK == 8)
+            *reinterpret_cast<float4*>(yo + 4) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kK; ++j) acc[i][j] = -0.f;
+    }
+  };
+
+  if constexpr (kT) {
+    // One group a tile.  Phase u: unit u + 1 is centred (and rounded) into
+    // xnT[(u + 1) & 1] while unit u is computed from xnT[u & 1]; unit
+    // u + stages moves into the stage that unit u left.  One barrier a
+    // phase.  A thread's items of the centring: item i = t + k · threads
+    // is row i % kTileRows, 4-channel column i / kTileRows (consecutive
+    // threads on consecutive rows).
+    auto centre = [&](long long u) {
+      if (u >= units) return;
+      long long r0;
+      const int nr = unit_rows(u, &r0);
+      const int q = static_cast<int>(u % p.chunks);
+      const T* raw = reinterpret_cast<const T*>(ring + static_cast<int>(u % p.stages) * p.stage_bytes);
+      float* x_t = xnT + (u & 1) * p.kc * p.ldx;
+      const float* mc = ms + q * p.kc;
+      int r = t % kTileRows, c = (t / kTileRows) * 4;
+      const int dr = threads % kTileRows, dc = (threads / kTileRows) * 4;
+      for (; c < p.kc; r += dr, c += dc) {
+        if (r >= kTileRows) {
+          r -= kTileRows;
+          c += 4;
+          if (c >= p.kc) break;
+        }
+        if (r < nr) {
+          const float4 m = *reinterpret_cast<const float4*>(mc + c);
+          float4 v;
+          if constexpr (kBf16) {
+            const uint2 h = *reinterpret_cast<const uint2*>(raw + r * p.ldr + c);
+            v = round_bf16(make_float4(bf16_lo(h.x) - m.x, bf16_hi(h.x) - m.y,
+                                       bf16_lo(h.y) - m.z, bf16_hi(h.y) - m.w));
+          } else {
+            const float4 h = *reinterpret_cast<const float4*>(raw + r * p.ldr + c);
+            v = make_float4(h.x - m.x, h.y - m.y, h.z - m.z, h.w - m.w);
+          }
+          x_t[(c + 0) * p.ldx + r] = v.x;
+          x_t[(c + 1) * p.ldx + r] = v.y;
+          x_t[(c + 2) * p.ldx + r] = v.z;
+          x_t[(c + 3) * p.ldx + r] = v.w;
+        }
+      }
+      if (!p.resident) stage_w(wT + (u & 1) * p.w_rows * p.ldw, q * p.kc, p.kc, p.nt);
+    };
+    cp_async_wait(p.stages - 1);
+    __syncthreads();  // unit 0 in; the means and w in place
+    centre(0);
+    for (long long u = 0; u < units; ++u) {
+      cp_async_wait(p.stages - 2);
+      __syncthreads();  // unit u centred, unit u + 1 in, unit u − 1 computed
+      issue(u + p.stages);
+      centre(u + 1);
+      if (active) {
+        const int q = static_cast<int>(u % p.chunks);
+        const float* xb = xnT + (u & 1) * p.kc * p.ldx + rg * 4;
+        const float* wb = (p.resident ? wT + q * p.kc * p.ldw
+                                      : wT + (u & 1) * p.w_rows * p.ldw) + cg * 4;
+        // Input channel c's 8 rows of xn and kK matrix entries.
+        auto load = [&](int c, float* xv8, float* wv) {
+          const float4 a0 = *reinterpret_cast<const float4*>(xb + c * p.ldx);
+          const float4 a1 = *reinterpret_cast<const float4*>(xb + c * p.ldx + kHalfRows);
+          xv8[0] = a0.x; xv8[1] = a0.y; xv8[2] = a0.z; xv8[3] = a0.w;
+          xv8[4] = a1.x; xv8[5] = a1.y; xv8[6] = a1.z; xv8[7] = a1.w;
+          const float4 b0 = *reinterpret_cast<const float4*>(wb + c * p.ldw);
+          wv[0] = b0.x; wv[1] = b0.y; wv[2] = b0.z; wv[3] = b0.w;
+          if constexpr (kK == 8) {
+            const float4 b1 = *reinterpret_cast<const float4*>(wb + c * p.ldw + (p.nt >> 1));
+            wv[4] = b1.x; wv[5] = b1.y; wv[6] = b1.z; wv[7] = b1.w;
+          }
+        };
+#pragma unroll 2
+        for (int c = 0; c < kt; ++c) {
+          float xv8[8], wv[kK];
+          load(c, xv8, wv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < kK; ++j) acc[i][j] = fmaf(xv8[i], wv[j], acc[i][j]);
+        }
+        if (q == p.chunks - 1) {
+          long long r0;
+          const int nr = unit_rows(u, &r0);
+          store(r0, nr);
+        }
+      }
+    }
+  } else {
+    // Several groups a tile, one chunk a row tile, centred in place (the
+    // bf16 variant rounds it to bf16, which holds it exactly).  A thread's
+    // items of the centring: item i = t + k · threads is row i / qpr,
+    // 4-channel column i % qpr.
+    const int qpr = kw / 4;
+    const int dr = threads / qpr, dq = threads % qpr;
+    for (long long u = 0; u < units; ++u) {
+      const int slot = static_cast<int>(u % p.stages);
+      long long r0;
+      const int nr = unit_rows(u, &r0);
+      T* st = reinterpret_cast<T*>(ring + slot * p.stage_bytes);
+      // Commit group k holds unit k: unit u is in once at most stages − 1
+      // (u = 0) or stages − 2 groups are still in flight.
+      cp_async_wait(u == 0 ? p.stages - 1 : p.stages - 2);
+      __syncthreads();  // unit u in; every thread is done with unit u − 1
+      if (u > 0) issue(u - 1 + p.stages);  // into unit u − 1's stage
+      {
+        int r = t / qpr, c = (t % qpr) * 4;
+        while (r < nr) {
+          const float4 m = *reinterpret_cast<const float4*>(ms + c);
+          T* cell = st + r * p.ldr + c;
+          if constexpr (kBf16) {
+            const uint2 h = *reinterpret_cast<const uint2*>(cell);
+            const float4 v = round_bf16(make_float4(bf16_lo(h.x) - m.x, bf16_hi(h.x) - m.y,
+                                                    bf16_lo(h.y) - m.z, bf16_hi(h.y) - m.w));
+            *reinterpret_cast<uint2*>(cell) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+          } else {
+            const float4 v = *reinterpret_cast<const float4*>(cell);
+            *reinterpret_cast<float4*>(cell) = make_float4(v.x - m.x, v.y - m.y, v.z - m.z, v.w - m.w);
+          }
+          r += dr;
+          c += dq * 4;
+          if (c >= kw) {
+            c -= kw;
+            ++r;
+          }
+        }
+      }
+      __syncthreads();  // the chunk is centred
+      if (active) {
+        const T* xb = st + rg * p.ldr + xo;
+        const float* wb = wT + cg * 4;
+        for (int c = 0; c < kt; c += kCv) {
+          // The thread's 8 rows at kCv input channels: f32 values, or bf16
+          // pairs widened where they are used.
+          float xr[8][kBf16 ? 1 : kCv];
+          uint2 xh[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const T* cell = xb + i * kRowGroups * p.ldr + c;
+            if constexpr (kBf16) {
+              xh[i] = *reinterpret_cast<const uint2*>(cell);
+            } else if constexpr (kCv == 4) {
+              const float4 v = *reinterpret_cast<const float4*>(cell);
+              xr[i][0] = v.x;
+              xr[i][1] = v.y;
+              xr[i][2] = v.z;
+              xr[i][3] = v.w;
+            } else {
+              const float2 v = *reinterpret_cast<const float2*>(cell);
+              xr[i][0] = v.x;
+              xr[i][1] = v.y;
+            }
+          }
+#pragma unroll
+          for (int cc = 0; cc < kCv; ++cc) {
+            float wv[kK];
+            const float4 b0 = *reinterpret_cast<const float4*>(wb + (c + cc) * p.ldw);
+            wv[0] = b0.x; wv[1] = b0.y; wv[2] = b0.z; wv[3] = b0.w;
+            if constexpr (kK == 8) {
+              const float4 b1 =
+                  *reinterpret_cast<const float4*>(wb + (c + cc) * p.ldw + (p.nt >> 1));
+              wv[4] = b1.x; wv[5] = b1.y; wv[6] = b1.z; wv[7] = b1.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              float xv;
+              if constexpr (kBf16) {
+                const unsigned word = cc < 2 ? xh[i].x : xh[i].y;
+                xv = (cc & 1) ? bf16_hi(word) : bf16_lo(word);
+              } else {
+                xv = xr[i][cc];
+              }
+#pragma unroll
+              for (int j = 0; j < kK; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+            }
+          }
+        }
+        store(r0, nr);
+      }
+    }
+  }
+}
+
+using TiledApplyKernel = void (*)(const void*, const float*, const float*,
+                                  void*, const ApplyPlan);
+
+template <bool kT>
+TiledApplyKernel tiled_apply_kernel_of(bool bf16, int group) {
+  if (group % 8 == 0)
+    return bf16 ? whiten_apply_group_tiled_kernel<true, 8, kT>
+                : whiten_apply_group_tiled_kernel<false, 8, kT>;
+  return bf16 ? whiten_apply_group_tiled_kernel<true, 4, kT>
+              : whiten_apply_group_tiled_kernel<false, 4, kT>;
+}
+
+// The tiled kernel for a plan: the transposed path where a column tile is
+// one group's, the in-place one where it holds several.
+TiledApplyKernel tiled_apply_kernel(bool bf16, int group, bool transposed) {
+  return transposed ? tiled_apply_kernel_of<true>(bf16, group)
+                    : tiled_apply_kernel_of<false>(bf16, group);
+}
+
+// Allows the general kernels the shared memory of their largest tile (64
+// KB for the scalar body at C = 2048, kTiledSmemMost for the tiled one), once
+// per device.
 cudaError_t prepare_group_device() {
   static std::atomic<bool> prepared[kMaxDevices];
   int device = 0;
@@ -559,16 +1053,71 @@ cudaError_t prepare_group_device() {
   if (cached && prepared[device].load()) return cudaSuccess;
   const int bytes = static_cast<int>(
       group_tile_rows(kGroupMaxChannels) * kGroupMaxChannels * sizeof(float));
+  for (const void* kernel :
+       {reinterpret_cast<const void*>(whiten_apply_group_kernel<false>),
+        reinterpret_cast<const void*>(whiten_apply_group_kernel<true>)}) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+  }
   for (int bf16 = 0; bf16 < 2; ++bf16) {
-    for (int group : {4, 1}) {
-      err = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(group_apply_kernel(bf16, group)),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return err;
+    for (int group : {8, 12}) {
+      for (bool transposed : {false, true}) {
+        err = cudaFuncSetAttribute(
+            reinterpret_cast<const void*>(tiled_apply_kernel(bf16, group, transposed)),
+            cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledSmemMost);
+        if (err != cudaSuccess) return err;
+      }
     }
   }
   if (cached) prepared[device].store(true);
   return cudaSuccess;
+}
+
+// The tiled body's plan of x [domains, rows, C] at group size g on the
+// current device, its blocks per (domain, column tile) from an occupancy
+// query (kept per device and shape); 0 or a CUDA error.
+int apply_plan(long long domains, long long rows, int channels, int group,
+               bool bf16, ApplyPlan* p) {
+  if (domains <= 0 || !make_apply_plan(rows, channels, group, bf16, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare_group_device();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  struct Fit {
+    int device, bf16, channels, group, per_sm, sms;
+  };
+  static std::mutex lock;
+  static std::vector<Fit> fits;
+  int device = 0, per_sm = -1, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (const Fit& f : fits)
+      if (f.device == device && f.bf16 == bf16 && f.channels == channels &&
+          f.group == group) {
+        per_sm = f.per_sm;
+        sms = f.sms;
+      }
+  }
+  if (per_sm < 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm,
+          reinterpret_cast<const void*>(tiled_apply_kernel(bf16, group, p->transposed)),
+          p->threads, p->smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    std::lock_guard<std::mutex> hold(lock);
+    fits.push_back({device, bf16, channels, group, per_sm, sms});
+  }
+  const long long pairs = domains * p->col_tiles;
+  long long per = static_cast<long long>(sms) * std::max(per_sm, 1) / pairs;
+  if (per > p->row_tiles) per = p->row_tiles;
+  p->blocks_per = per < 1 ? 1 : static_cast<int>(per);
+  if (pairs * p->blocks_per > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 int apply_group_launch(const void* x, const void* mean, const void* w, void* y,
@@ -578,12 +1127,22 @@ int apply_group_launch(const void* x, const void* mean, const void* w, void* y,
       channels > kGroupMaxChannels || channels % (bf16 ? 8 : 4) != 0 ||
       group <= 0 || group > channels || channels % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (group % 4 == 0) {
+    ApplyPlan p;
+    const int rc = apply_plan(domains, rows, channels, group, bf16, &p);
+    if (rc != 0) return rc;
+    tiled_apply_kernel(bf16, group, p.transposed)<<<
+        static_cast<unsigned>(domains * p.col_tiles * p.blocks_per), p.threads,
+        p.smem, static_cast<cudaStream_t>(stream)>>>(
+        x, static_cast<const float*>(mean), static_cast<const float*>(w), y, p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int tile_rows = group_tile_rows(channels);
   const long long tiles = (rows + tile_rows - 1) / tile_rows;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = prepare_group_device();
   if (err != cudaSuccess) return static_cast<int>(err);
-  group_apply_kernel(bf16, group)<<<
+  (bf16 ? whiten_apply_group_kernel<true> : whiten_apply_group_kernel<false>)<<<
       dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(domains), 1),
       kGroupThreads, static_cast<size_t>(tile_rows) * channels * sizeof(float),
       static_cast<cudaStream_t>(stream)>>>(
@@ -637,9 +1196,10 @@ int dwt_whiten_apply_bf16(const void* x, const void* mean, const void* w,
 // Any group size g that divides C (g ≠ 4: the entries above): y[d] = (x[d]
 // − mean[d]) · blockdiag(w[d])ᵀ for x [domains, rows, C] (C a multiple of
 // 4; of 8 for bf16), mean [domains, C], w [domains, C/g, g, g], y like x,
-// all 16-byte aligned, on `stream`, in one launch of domains · ⌈rows /
-// tile rows⌉ blocks.  Returns cudaSuccess, cudaErrorInvalidValue for
-// shapes the kernel does not take, or the launch's error.
+// all 16-byte aligned, on `stream`, in one launch (the tiled body's
+// persistent grid where g is a multiple of 4, else one block per tile of
+// rows and domain).  Returns cudaSuccess, cudaErrorInvalidValue for shapes
+// the kernel does not take, or the launch's error.
 int dwt_whiten_apply_group_f32(const void* x, const void* mean, const void* w,
                                void* y, long long domains, long long rows,
                                int channels, int group, void* stream) {
@@ -652,6 +1212,30 @@ int dwt_whiten_apply_group_bf16(const void* x, const void* mean, const void* w,
                                 int channels, int group, void* stream) {
   return apply_group_launch(x, mean, w, y, domains, rows, channels, group,
                             stream, true);
+}
+
+// The tiled body's geometry for x [domains, rows, C] at group size g on
+// the current device (g a multiple of 4 from 8 up; the _bf16 flag: the
+// bf16 kernel's): out = {threads, shared-memory bytes, blocks, output
+// channels per column tile, input channels per chunk, ring stages, 1 for
+// the transposed path, bytes per copy}.
+// Returns 0, cudaErrorInvalidValue for a shape it does not take, or a
+// failed query's error.
+int dwt_whiten_apply_group_plan(long long domains, long long rows,
+                                int channels, int group, int bf16,
+                                long long* out) {
+  ApplyPlan p;
+  const int rc = apply_plan(domains, rows, channels, group, bf16 != 0, &p);
+  if (rc != 0) return rc;
+  out[0] = p.threads;
+  out[1] = p.smem;
+  out[2] = domains * p.col_tiles * p.blocks_per;
+  out[3] = p.nt;
+  out[4] = p.kc;
+  out[5] = p.stages;
+  out[6] = p.transposed;
+  out[7] = p.vec;
+  return 0;
 }
 
 const char* dwt_cuda_error_string(int code) {

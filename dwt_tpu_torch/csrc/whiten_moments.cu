@@ -456,22 +456,49 @@ int moments_launch(void (*kernel)(const In*, long long, int, int, float*,
 // upper triangle of the T × T grid of units, T = g / kVec.  A unit keeps
 // kVec² products and the kVec sums of its row channels and of its column
 // channels (24 or 3 f32 statistics), so each unit finishes on its own.  A
-// thread owns one unit: per row, two reads of staged x (kVec floats each)
-// feed kVec² FMAs.  An entry tile is at most kUnitThreads units: whole
-// groups where a group has that few units, else a slice of one group's
-// units (at g = 256 a group has 2,080 units: the output is tiled over
-// blocks, never refused).  A tile with fewer units than threads runs
-// copies of its units on disjoint rows (replicas).
+// thread owns one unit: per row, two 16-byte reads of staged x feed kVec²
+// FMAs.  An entry tile is at most kUnitThreads units: whole groups where a
+// group has that few units (2 groups of 136 at g = 64), else a slice of
+// one group's units (at g = 256 a group has 2,080 units: the output is
+// tiled over blocks, never refused).  A block runs ⌊kBlockMost / units⌋
+// copies of its units on disjoint rows (replicas): at g = 64 and C = 64,
+// 2 × 136 threads share a tile's rows.
 //
-// A thread's f32 sums cover one staged tile of rows (at most kMaxTileRows)
-// and are then added to its float64 totals in shared memory.  Unlike the
-// g = 4 kernel, which spreads a block's rows over all its threads, a unit
-// here sees every row of its block (thousands at the train sites), and
-// one f32 sum over them drifts: with bf16 x, whose shifted values share
-// the low bits of the shift, every addition rounds the same way (one f32
-// sum per thread put the mean 3.4e-5 and the cov 1.6e-4 from float64 at
-// 3 × 56,448 rows, C = 256, g = 64; the tile sums 6.0e-8 and 4.5e-6;
-// chip_smoke.py's group_site_parity on an NVIDIA H100).
+// What held the earlier version of this body at 6–20% of its bound (NVIDIA
+// H100 80GB HBM3, 700 W), and what this one does instead:
+//  * The next tile staged through 32 registers (126 in all, two blocks of
+//    at most 256 threads an SM), and at g = 64 one replica of 136 threads.
+//    Now rows move with 16-byte cp.async copies shared by the block's
+//    threads into a ring of kStages raw tiles (two in flight); in each
+//    phase the landed tile it + 1 is shifted by the domain's row 0 (and
+//    widened, bf16) into one of two f32 tiles while tile it is summed, one
+//    barrier a phase.
+//  * A float64 read-modify-write in shared memory by every thread after
+//    every staged tile, behind two barriers: every 6 rows at g = 8 and
+//    C = 256.  Now a thread's f32 sums cover at most kRunRows rows (a tile
+//    is at most kRunRows a replica) and then go into float64 totals: the
+//    16 products' in registers, the 8 sums' in the thread's own slots of
+//    shared memory, with no barrier.  One f32 sum over thousands of rows
+//    drifts (with bf16 x, whose shifted values share the low bits of the
+//    shift, every addition rounds the same way: 3.4e-5 from float64 in
+//    the mean at 3 × 56,448 rows, C = 256, g = 64; runs of at most 64 rows
+//    gave 6.0e-8; chip_smoke.py's group_site_parity).
+//  * The last cluster's finish summed each unit's 24 statistics over the
+//    cluster partials one dependent load after another.  Now each (unit,
+//    statistic) is one thread's, with 8 loads in flight, in cluster order.
+// At most 96 registers a thread and no spills (__launch_bounds__(288, 2):
+// two blocks of 9 warps an SM).  Larger tiles per thread (8 × 8 units, 80
+// f32 sums) were weighed and left out: their float64 totals would not fit
+// that budget.  What bounds it now at g = 64: the shared-memory reads, two
+// 16-byte reads (8 quarter-warp passes a warp) per 24 FP32 instructions.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// group_timing, a flagship train step's 11 sites; PERF.md's kernel table):
+// device ms a step at g = 8/16/64, f32 0.754/0.85/1.589 (the earlier body
+// 1.702/1.711/2.872; bytes bound 0.337; g = 16 took 0.88 before its
+// C = 256 tiles were split to run three replicas), bf16 0.691/0.797/1.528
+// (1.796/1.780/2.893; bytes bound 0.169); the site checks' distances from
+// float64 as the earlier body's (mean 8.5e-8, cov 8.6e-7 in f32; 6.0e-8,
+// 4.5e-6 in bf16).
 //
 // Everything else is the g = 4 kernel's: f32 FMA accumulation with no
 // TF32 or tensor-core reduced precision (the precision rule; the
@@ -485,21 +512,23 @@ int moments_launch(void (*kernel)(const In*, long long, int, int, float*,
 // partials in float64 in cluster order and writes mean and cov.  One
 // launch per site for all D domains; the counters are left zero for the
 // next launch or a CUDA-graph replay; the order of every sum is fixed by
-// the shape, so two launches are bitwise equal.  Rows are staged in
-// shared memory a tile at a time (kTileFloats floats): where g is a
-// multiple of 4 in chunks of 4 channels, loaded into registers a tile
-// ahead so that the next tile's reads are in flight during this one's
-// FMAs; else one element at a time (an entry tile's channels need not
-// start at a 16-byte boundary then).
+// the shape, so two launches are bitwise equal.  Where g is not a
+// multiple of 4 an entry tile's channels need not start at a 16-byte
+// boundary: its rows are loaded one element at a time into the f32 tile.
 
-constexpr int kUnitThreads = 256;  // most units of an entry tile
+constexpr int kUnitThreads = 288;  // most units of an entry tile
+constexpr int kBlockMost = 288;    // most threads of a block
 constexpr int kMaxTiles = 4096;    // entry tiles per domain (C ≤ 2048)
-constexpr int kTileFloats = 4096;  // staged rows of an entry tile (16 KB)
-constexpr int kMaxTileRows = 64;
-// 16-byte chunks of a tile per thread: kTileFloats / 4 chunks over a
-// block's threads, of which there are at least 129 (units_tile ·
-// ⌊256 / units_tile⌋).
-constexpr int kStageChunks = 8;
+constexpr int kTileFloats = 4096;  // f32 values of a staged tile (16 KB)
+constexpr int kStages = 3;         // raw tiles in the ring
+constexpr int kRunRows = 64;       // most rows of one f32 sum
+// Dynamic shared memory of the largest shape: the row-0 shift (8 KB at
+// C = 2048), two f32 tiles, the ring's barriers and the ring (f32); the
+// float64 totals (24 × 288 × 8 bytes) reuse it.
+constexpr int kGroupStaged = 8192 + 2 * kTileFloats * 4 + kStages * kTileFloats * 4;
+constexpr int kGroupTotals = kUnitThreads * 24 * 8;
+constexpr int kGroupSmemMax =
+    (kGroupStaged > kGroupTotals ? kGroupStaged : kGroupTotals) + kBlockMost * 8 * 8;
 
 // An entry tile's geometry; the host fills it (make_group_shape) and the
 // kernel derives each tile's groups, channels and units from it.
@@ -516,6 +545,10 @@ struct GroupShape {
   int tile_rows;    // rows staged at a time
   int clusters;     // clusters per (domain, entry tile)
   int threads;      // block size: units_tile times its replicas
+  int fold_every;   // tiles per f32 sum (each at most kRunRows rows a thread)
+  int ring;         // rows by 16-byte cp.async copies into the ring (else
+                    // loaded one element at a time)
+  int off_xs, off_raw, stage_bytes, off_sums, smem;  // shared memory, bytes
 };
 
 __host__ __device__ inline int group_vec(int group) {
@@ -526,9 +559,9 @@ __host__ __device__ inline int group_stats(int vec) {
   return vec * vec + 2 * vec;
 }
 
-// False for a shape the kernel does not take.
+// False for a shape the kernel does not take; esize: bytes of x's type.
 bool make_group_shape(long long rows, int channels, int group, int clusters,
-                      GroupShape* s) {
+                      int esize, GroupShape* s) {
   if (rows <= 0 || channels <= 0 || channels > 2048 || group <= 0 ||
       group > channels || channels % group != 0)
     return false;
@@ -541,6 +574,13 @@ bool make_group_shape(long long rows, int channels, int group, int clusters,
   s->upg = s->t * (s->t + 1) / 2;
   if (s->upg <= kUnitThreads) {
     s->gpt = std::min(s->groups, kUnitThreads / s->upg);
+    // A tile of whole groups that would leave a block at under three
+    // quarters of kBlockMost threads with one replica takes half as many
+    // groups, so that two or more replicas share its rows (g = 16, C = 256:
+    // 80 units × 3 rather than 160 × 1).
+    if (s->gpt > 1 && s->gpt * s->upg * 4 < kBlockMost * 3 &&
+        s->gpt * s->upg * 2 > kBlockMost)
+      s->gpt = (s->gpt + 1) / 2;
     s->tpg = 1;
     s->tiles = (s->groups + s->gpt - 1) / s->gpt;
     s->units_tile = s->gpt * s->upg;
@@ -554,43 +594,29 @@ bool make_group_shape(long long rows, int channels, int group, int clusters,
   }
   if (s->tiles > kMaxTiles) return false;
   s->clusters = clusters;
-  s->threads = s->units_tile * std::max(1, kUnitThreads / s->units_tile);
-  s->tile_rows = std::max(1, std::min(kMaxTileRows, kTileFloats / s->nch_max));
-  // The chunked staging's registers hold a whole tile.
-  if (s->tile_rows * s->nch_max > kStageChunks * 4 * s->threads) return false;
-  return true;
+  const int reps = std::max(1, kBlockMost / s->units_tile);
+  s->threads = s->units_tile * reps;
+  s->tile_rows = std::max(1, std::min(kTileFloats / s->nch_max, kRunRows * reps));
+  const int per_tile = (s->tile_rows + reps - 1) / reps;  // rows a thread
+  s->fold_every = std::max(1, kRunRows / per_tile);
+  // An entry tile starts and ends at multiples of g: g's bytes decide
+  // whether its rows can move as 16-byte copies.
+  s->ring = vec == 4 && group * esize % 16 == 0;
+  s->off_xs = (s->nch_max + 3) / 4 * 16;
+  s->off_raw = s->off_xs + 2 * s->tile_rows * s->nch_max * 4;
+  s->stage_bytes = s->tile_rows * s->nch_max * esize;
+  const int staged = s->off_raw + (s->ring ? kStages * s->stage_bytes : 0);
+  // After the rows: the block's partial [units, stats] over the staging.
+  // The float64 totals of the row and column sums [2 kVec, threads] stay
+  // beside both (the product totals stay in registers).
+  const int partial = s->units_tile * group_stats(vec) * 8;
+  s->off_sums = std::max(staged, partial);
+  s->smem = s->off_sums + s->threads * 2 * vec * 8;
+  return s->smem <= kGroupSmemMax;
 }
-
-// Floats of a block's shared memory before its float64 totals: the row-0
-// shift and the staged rows, rounded up to 16 bytes.
-__host__ __device__ inline int group_staged_floats(const GroupShape& s) {
-  return ((s.nch_max + 3) / 4 * 4 + s.tile_rows * s.nch_max + 3) / 4 * 4;
-}
-
-// Shared memory of a block: the staged floats, then the per-thread float64
-// totals [stats, threads] (reused for the block's partial after the rows).
-size_t group_smem_bytes(const GroupShape& s) {
-  return static_cast<size_t>(group_staged_floats(s)) * sizeof(float) +
-         static_cast<size_t>(s.threads) * group_stats(group_vec(s.group)) *
-             sizeof(double);
-}
-
-// The most any shape asks for: 6,144 staged floats (C ≤ 2048, a tile of at
-// most 4,096) and 256 threads × 24 float64 totals.  Above the 48 KB a
-// launch gets by default, so each kernel is allowed this much first.
-constexpr int kGroupSmemMax = 6144 * 4 + kUnitThreads * 24 * 8;
 
 __device__ inline float widen(float v) { return v; }
 __device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Channels p[0..3] as f32: one 16-byte load of f32, one 8-byte load of
-// bf16 (p 4-channel aligned).
-__device__ inline float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ inline float4 load4(const __nv_bfloat16* p) {
-  return load_group(reinterpret_cast<const uint2*>(p));
-}
 
 // Unit `tri` of a group's upper triangle (row-major over a ≤ b) → (a, b).
 __device__ inline void unit_ab(int tri, int t, int* a, int* b) {
@@ -603,12 +629,45 @@ __device__ inline void unit_ab(int tri, int t, int* a, int* b) {
   *b = row + tri;
 }
 
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most `pending` (< kStages) of this thread's commit groups are
+// in flight.
+__device__ inline void cp_async_wait(int pending) {
+  if (pending <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (pending == 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
+
+// Four channels of a raw tile as f32: a float4 (f32), two words (bf16).
+__device__ inline float4 raw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ inline float4 raw4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
 // Grid: domains · tiles · clusters clusters of kCluster blocks, s.threads
-// threads each; cluster id = (d · tiles + e) · clusters + cluster.
-// scratch (float64): [domains · tiles · clusters, units_tile, stats].
-// counters: [domains · tiles].
+// threads and s.smem bytes each; cluster id = (d · tiles + e) · clusters +
+// cluster.  scratch (float64): [domains · tiles · clusters, units_tile,
+// stats].  counters: [domains · tiles].
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kUnitThreads)
+__global__ void __launch_bounds__(kBlockMost, 2)
 whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
                             float* __restrict__ mean, float* __restrict__ cov,
                             double* __restrict__ scratch,
@@ -647,14 +706,11 @@ whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
   const int off_a = base + a * kVec, off_b = base + b * kVec;
 
   const T* xd = x + static_cast<long long>(d) * s.rows * s.channels + c0;
-  float* shift = smem;                         // [nch]: the domain's row 0
-  float* xs = smem + (s.nch_max + 3) / 4 * 4;  // [tile_rows, nch]
-  // [kS, threads]: thread t's float64 totals at acc[i · threads + t].
-  double* acc = reinterpret_cast<double*>(smem + group_staged_floats(s));
+  float* shift = smem;  // [nch]: the domain's row 0
+  float* xs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + s.off_xs);
+  char* ring = reinterpret_cast<char*>(smem) + s.off_raw;  // [kStages] raw tiles
+  const int xs_floats = s.tile_rows * nch;
   for (int c = t; c < nch; c += threads) shift[c] = widen(xd[c]);
-#pragma unroll
-  for (int i = 0; i < kS; ++i) acc[i * threads + t] = 0.0;
-  __syncthreads();
 
   // 1. Stream this block's rows [r0, r1) of domain d, a tile at a time.
   const long long span_blocks = static_cast<long long>(s.clusters) * kCluster;
@@ -662,68 +718,118 @@ whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
       static_cast<long long>(cluster_id % s.clusters) * kCluster + rank;
   const long long r0 = local_block * s.rows / span_blocks;
   const long long r1 = (local_block + 1) * s.rows / span_blocks;
+  const int n_tiles = static_cast<int>((r1 - r0 + s.tile_rows - 1) / s.tile_rows);
+  auto tile_of = [&](int it) {
+    const long long rt = r0 + static_cast<long long>(it) * s.tile_rows;
+    return static_cast<int>(r1 - rt < s.tile_rows ? r1 - rt
+                                                  : static_cast<long long>(s.tile_rows));
+  };
+  // Tile `it` into its ring stage: 16-byte cp.async copies shared by the
+  // block's threads (item i = t + k · threads is row i / per_row, piece
+  // i % per_row), one commit group per call (empty past the end).
+  const int per_row = nch * static_cast<int>(sizeof(T)) / 16;
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      const char* src = reinterpret_cast<const char*>(
+          xd + (r0 + static_cast<long long>(it) * s.tile_rows) * s.channels);
+      char* dst = ring + (it % kStages) * s.stage_bytes;
+      const int n = tile_of(it) * per_row;
+      int r = t / per_row, v = t % per_row;
+      const int dr = threads / per_row, dv = threads % per_row;
+      for (int i = t; i < n; i += threads) {
+        cp_async16(dst + static_cast<long long>(i) * 16,
+                   src + static_cast<long long>(r) * s.channels * sizeof(T) + v * 16);
+        r += dr;
+        v += dv;
+        if (v >= per_row) {
+          v -= per_row;
+          ++r;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (s.ring)
+    for (int i = 0; i < kStages; ++i) issue(i);
+
   float prod[kVec * kVec], sum_a[kVec], sum_b[kVec];
+  double total[kVec * kVec];  // the products' float64 totals
+  // The sums' float64 totals: sums[i · threads + t], i < 2 kVec.
+  double* sums = reinterpret_cast<double*>(reinterpret_cast<char*>(smem) + s.off_sums);
+#pragma unroll
+  for (int i = 0; i < kVec * kVec; ++i) total[i] = 0.0;
+#pragma unroll
+  for (int i = 0; i < 2 * kVec; ++i) sums[i * threads + t] = 0.0;
 #pragma unroll
   for (int i = 0; i < kVec * kVec; ++i) prod[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) sum_a[i] = sum_b[i] = 0.f;
-  auto tile_of = [&](long long rt) {
-    return static_cast<int>(r1 - rt < s.tile_rows ? r1 - rt
-                                                  : static_cast<long long>(s.tile_rows));
-  };
-  // kVec = 4: every staged row segment starts at a multiple of 4 channels,
-  // so the tile moves in chunks of 4 (16 bytes of f32, 8 of bf16), at most
-  // kStageChunks a thread, loaded into registers one tile ahead: the next
-  // tile's loads are in flight while this one is computed.
-  const int per_row = nch / 4;
-  float4 ahead[kStageChunks];
-  auto fetch = [&](long long rt) {
-    const int n = tile_of(rt) * per_row;
-#pragma unroll
-    for (int i = 0; i < kStageChunks; ++i) {
-      const int q = t + i * threads;
-      if (q < n)
-        ahead[i] = load4(xd + (rt + q / per_row) * s.channels + (q % per_row) * 4);
-    }
-  };
-  if constexpr (kVec == 4) {
-    if (r0 < r1) fetch(r0);
-  }
-  for (long long rt = r0; rt < r1; rt += s.tile_rows) {
-    const int nr = tile_of(rt);
-    if constexpr (kVec == 4) {
-      const int n = nr * per_row;
-#pragma unroll
-      for (int i = 0; i < kStageChunks; ++i) {
-        const int q = t + i * threads;
-        if (q < n) {
-          const int r = q / per_row, c = (q % per_row) * 4;
-          const float4 k = *reinterpret_cast<const float4*>(shift + c);
-          *reinterpret_cast<float4*>(xs + r * nch + c) = make_float4(
-              ahead[i].x - k.x, ahead[i].y - k.y, ahead[i].z - k.z, ahead[i].w - k.w);
+
+  // Tile `it` shifted (and widened) into the f32 tile xs[it & 1]: from its
+  // ring stage, or (no ring) straight from x one element at a time.  A
+  // thread's items: item i = t + k · threads is row i / per, column i % per.
+  const int per = s.ring ? nch / 4 : nch;
+  const int dr = threads / per, dq = threads % per;
+  auto shift_tile = [&](int it) {
+    if (it >= n_tiles) return;
+    const int nr = tile_of(it);
+    float* x_t = xs + (it & 1) * xs_floats;
+    int r = t / per, q = t % per;
+    if (s.ring) {
+      const T* raw = reinterpret_cast<const T*>(ring + (it % kStages) * s.stage_bytes);
+      while (r < nr) {
+        const int c = q * 4, i = r * nch + c;
+        const float4 v = raw4(raw + i);
+        const float4 k = *reinterpret_cast<const float4*>(shift + c);
+        *reinterpret_cast<float4*>(x_t + i) =
+            make_float4(v.x - k.x, v.y - k.y, v.z - k.z, v.w - k.w);
+        r += dr;
+        q += dq;
+        if (q >= per) {
+          q -= per;
+          ++r;
         }
       }
-      __syncthreads();
-      if (rt + s.tile_rows < r1) fetch(rt + s.tile_rows);
     } else {
-      const T* src = xd + rt * s.channels;
-      for (int i = t; i < nr * nch; i += threads) {
-        const int r = i / nch, c = i - r * nch;
-        xs[i] = widen(src[static_cast<long long>(r) * s.channels + c]) - shift[c];
+      const T* src = xd + (r0 + static_cast<long long>(it) * s.tile_rows) * s.channels;
+      while (r < nr) {
+        x_t[r * nch + q] = widen(src[static_cast<long long>(r) * s.channels + q]) - shift[q];
+        r += dr;
+        q += dq;
+        if (q >= per) {
+          q -= per;
+          ++r;
+        }
       }
-      __syncthreads();
     }
+  };
+  // The pipeline: in phase it, tile it + 1 is shifted while tile it is
+  // summed (two f32 tiles), and tile it + kStages is on its way into the
+  // stage that tile it left; one barrier a phase.
+  if (s.ring) cp_async_wait(kStages - 1);
+  __syncthreads();  // the shift in place, tile 0 in
+  shift_tile(0);
+  int until_fold = s.fold_every;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (s.ring) cp_async_wait(kStages - 2);
+    __syncthreads();  // tile it shifted, tile it + 1 in, tile it − 1 summed
+    if (s.ring) issue(it + kStages);
+    shift_tile(it + 1);
     if (active) {
-      for (int r = rep; r < nr; r += reps) {
+      // This tile's rows rep, rep + reps, … into the f32 sums.
+      const int nr = tile_of(it);
+      const float* x_t = xs + (it & 1) * xs_floats;
+      for (int rr = rep; rr < nr; rr += reps) {
         float va[kVec], vb[kVec];
+        const float* row = x_t + rr * nch;
         if constexpr (kVec == 4) {
-          const float4 pa = *reinterpret_cast<const float4*>(xs + r * nch + off_a);
-          const float4 pb = *reinterpret_cast<const float4*>(xs + r * nch + off_b);
+          const float4 pa = *reinterpret_cast<const float4*>(row + off_a);
+          const float4 pb = *reinterpret_cast<const float4*>(row + off_b);
           va[0] = pa.x; va[1] = pa.y; va[2] = pa.z; va[3] = pa.w;
           vb[0] = pb.x; vb[1] = pb.y; vb[2] = pb.z; vb[3] = pb.w;
         } else {
-          va[0] = xs[r * nch + off_a];
-          vb[0] = xs[r * nch + off_b];
+          va[0] = row[off_a];
+          vb[0] = row[off_b];
         }
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
@@ -734,43 +840,49 @@ whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
             prod[i * kVec + j] = fmaf(va[i], vb[j], prod[i * kVec + j]);
         }
       }
-      // This tile's f32 sums into the thread's float64 totals.
+      if (--until_fold == 0) {
+        // At most kRunRows rows of f32 sums into the float64 totals.
 #pragma unroll
-      for (int i = 0; i < kVec * kVec; ++i) {
-        acc[i * threads + t] += prod[i];
-        prod[i] = 0.f;
-      }
+        for (int i = 0; i < kVec * kVec; ++i) {
+          total[i] += prod[i];
+          prod[i] = 0.f;
+        }
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        acc[(kVec * kVec + i) * threads + t] += sum_a[i];
-        acc[(kVec * kVec + kVec + i) * threads + t] += sum_b[i];
-        sum_a[i] = sum_b[i] = 0.f;
+        for (int i = 0; i < kVec; ++i) {
+          sums[i * threads + t] += sum_a[i];
+          sums[(kVec + i) * threads + t] += sum_b[i];
+          sum_a[i] = sum_b[i] = 0.f;
+        }
+        until_fold = s.fold_every;
       }
     }
-    __syncthreads();  // the stage is free for the next tile
   }
-
-  // 2. The block's partial [units, kS] (entry u · kS + i): each statistic
-  //    over its replicas in order, in float64, written over the totals.
-  const int per_block = units * kS;
-  {
-    double part[kS];  // per_block ≤ threads · kS
 #pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int idx = t + i * threads;
-      double v = 0.0;
-      if (idx < per_block) {
-        const int uu = idx / kS, st = idx - uu * kS;
-        for (int j = 0; j < reps; ++j) v += acc[st * threads + j * units + uu];
+  for (int i = 0; i < kVec * kVec; ++i) total[i] += prod[i];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    sums[i * threads + t] += sum_a[i];
+    sums[(kVec + i) * threads + t] += sum_b[i];
+  }
+  __syncthreads();  // the staging memory is free (every issued tile was consumed)
+
+  // 2. The block's partial [units, kS] (entry u · kS + i) over the staging
+  //    memory: each statistic over its replicas in order, in float64, one
+  //    replica a round.
+  const int per_block = units * kS;
+  double* part = reinterpret_cast<double*>(smem);
+  for (int j = 0; j < reps; ++j) {
+    if (rep == j) {
+      double* pu = part + u * kS;
+#pragma unroll
+      for (int i = 0; i < kVec * kVec; ++i) pu[i] = j == 0 ? total[i] : pu[i] + total[i];
+#pragma unroll
+      for (int i = 0; i < 2 * kVec; ++i) {
+        const double v = sums[i * threads + t];
+        pu[kVec * kVec + i] = j == 0 ? v : pu[kVec * kVec + i] + v;
       }
-      part[i] = v;
     }
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int idx = t + i * threads;
-      if (idx < per_block) acc[idx] = part[i];
-    }
   }
   cluster.sync();  // every block's partial is visible to the cluster
 
@@ -781,7 +893,7 @@ whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
        idx += kCluster * threads) {
     double v = 0.0;
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) v += *cluster.map_shared_rank(acc + idx, q);
+    for (int q = 0; q < kCluster; ++q) v += *cluster.map_shared_rank(part + idx, q);
     scratch[cluster_id * stride + idx] = v;
   }
   __threadfence();  // release this cluster's partial before its arrival
@@ -801,24 +913,35 @@ whiten_moments_group_kernel(const T* __restrict__ x, const GroupShape s,
   cluster.sync();
   if (!last_cluster) return;
 
-  // 5. The last cluster: rank r finishes units [r · per_rank, …), one per
-  //    thread, each statistic the float64 sum of the cluster partials in
-  //    cluster order; then its mean (diagonal units) and cov entries (both
-  //    triangles).
+  // 5. The last cluster: rank r finishes units [r · per_rank, …).  Each
+  //    (unit, statistic) is the float64 sum of the cluster partials in
+  //    cluster order, one thread an item with 8 loads in flight, into
+  //    shared memory (the block's partial is no longer read); then each
+  //    unit's mean (diagonal units) and cov entries (both triangles).
   const int per_rank = (units + kCluster - 1) / kCluster;
+  const int u_begin = min(units, rank * per_rank);
   const int u_end = min(units, (rank + 1) * per_rank);
   const double inv = 1.0 / static_cast<double>(s.rows);
   const double* partials =
       scratch + static_cast<long long>(de) * s.clusters * stride;
-  for (int uu = rank * per_rank + t; uu < u_end; uu += threads) {
-    double tot[kS];
+  double* fin = reinterpret_cast<double*>(smem);
+  for (int item = t; item < (u_end - u_begin) * kS; item += threads) {
+    const double* src = partials + u_begin * kS + item;
+    double v = 0.0;
+    int c = 0;
+    for (; c + 7 < s.clusters; c += 8) {
+      double l[8];
 #pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      double v = 0.0;
-      for (int c = 0; c < s.clusters; ++c)
-        v += __ldcg(partials + c * stride + uu * kS + i);
-      tot[i] = v;
+      for (int k = 0; k < 8; ++k) l[k] = __ldcg(src + (c + k) * stride);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v += l[k];
     }
+    for (; c < s.clusters; ++c) v += __ldcg(src + c * stride);
+    fin[item] = v;
+  }
+  __syncthreads();
+  for (int uu = u_begin + t; uu < u_end; uu += threads) {
+    const double* tot = fin + (uu - u_begin) * kS;
     int ua, ub;
     unit_ab(s.gpt > 0 ? uu % s.upg : tri0 + uu, s.t, &ua, &ub);
     const int gi = gi0 + (s.gpt > 0 ? uu / s.upg : 0);
@@ -869,7 +992,7 @@ cudaLaunchConfig_t group_launch_config(const GroupShape& s, long long clusters,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster), 1, 1);
   cfg.blockDim = dim3(s.threads, 1, 1);
-  cfg.dynamicSmemBytes = group_smem_bytes(s);
+  cfg.dynamicSmemBytes = s.smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kCluster;
@@ -887,7 +1010,8 @@ template <typename T>
 int group_clusters(long long domains, long long rows, int channels,
                    int group) {
   GroupShape s;
-  if (domains <= 0 || !make_group_shape(rows, channels, group, 1, &s))
+  if (domains <= 0 ||
+      !make_group_shape(rows, channels, group, 1, sizeof(T), &s))
     return 1;
   cudaError_t err = allow_group_smem<T>(group);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -910,7 +1034,7 @@ int group_launch(const void* x, void* mean, void* cov, void* scratch,
                  int channels, int group, int clusters, void* stream) {
   GroupShape s;
   if (domains <= 0 || domains > kMaxDomains || clusters < 1 ||
-      !make_group_shape(rows, channels, group, clusters, &s) ||
+      !make_group_shape(rows, channels, group, clusters, sizeof(T), &s) ||
       domains * s.tiles * clusters * kCluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t allowed = allow_group_smem<T>(group);
@@ -996,7 +1120,7 @@ int dwt_whiten_moments_group_plan(long long domains, long long rows,
                                   long long* out) {
   GroupShape s;
   if (domains <= 0 || domains > kMaxDomains ||
-      !make_group_shape(rows, channels, group, 1, &s))
+      !make_group_shape(rows, channels, group, 1, bf16 ? 2 : 4, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   const int clusters =
       bf16 ? group_clusters<__nv_bfloat16>(domains, rows, channels, group)

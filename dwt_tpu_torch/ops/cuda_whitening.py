@@ -179,6 +179,9 @@ def _library(name: str) -> ctypes.CDLL:
             entry = getattr(lib, f"dwt_whiten_apply_group_{sfx}")
             entry.argtypes = [v, v, v, v, i64, i64, i32, i32, v]
             entry.restype = i32
+        lib.dwt_whiten_apply_group_plan.argtypes = [
+            i64, i64, i32, i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+        lib.dwt_whiten_apply_group_plan.restype = i32
         lib.dwt_whiten_apply_max_channels.argtypes = []
         lib.dwt_whiten_apply_max_channels.restype = i32
     else:
@@ -309,6 +312,23 @@ def _apply_launch(dtype: torch.dtype = torch.float32, general: bool = False):
     infix = "group_" if general else ""
     return getattr(_library("whiten_apply"),
                    f"dwt_whiten_apply_{infix}{_SUFFIX[dtype]}")
+
+
+def _apply_group_plan(device_index: int, domains: int, m_rows: int, c: int,
+                      g: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """``(threads, shared-memory bytes, blocks, output channels per column
+    tile, input channels per chunk, ring stages, transposed path, bytes
+    per copy)`` of the tiled general
+    apply's launch for ``[domains, m_rows, c]`` at a group size ``g`` that
+    is a multiple of 4 from 8 up, on a device (the launcher asks the same
+    itself; this is for reports)."""
+    lib = _library("whiten_apply")
+    out = (ctypes.c_longlong * 8)()
+    with torch.cuda.device(device_index):
+        rc = lib.dwt_whiten_apply_group_plan(
+            domains, m_rows, c, g, int(dtype is torch.bfloat16), out)
+    _raise_on_error(lib, rc, "whiten_apply")
+    return tuple(out)
 
 
 def whiten_apply(
