@@ -323,7 +323,45 @@ script exits non-zero without the final line:
 35. ``group_digits`` — the digits CLI at ``--group_size 16`` (dn1 G = 2,
                   dn2 G = 3) and ``48`` (dn1 clamped to g = 32, dn2 g = 48),
                   phase 14's checks.
-36. ``kernels`` — the contract line: per kernel and path its TPU
+36. ``vit_kernels`` / ``vit_timing`` — both kernels at ViT-S/16's
+                  whitened token sites (C = 384), f32 and bf16, at g = 4, 16
+                  and 64: the train site ``[3, 3528, 384]`` (18 images × 196
+                  tokens a domain; phase 32's checks: the plain versions,
+                  float64, the bf16 apply bitwise, repeats and graph replays
+                  bitwise), and with its target branch's moments and matrix
+                  the apply at the eval (test batch 10) and serve (buckets
+                  1/8/32/128) sites ``[N·196, 384]``, the same checks.
+                  Times with L2 cold beside the bound, the plain version,
+                  ``torch.baddbmm``/``torch.cov`` and the host µs: the train
+                  site's kernels at every g, the apply at the eval and
+                  bucket-1/128 sites at g = 4.
+37. ``vit_train`` — ViT-S/16 through the OfficeHome CLI entry with
+                  ``--backbone vit_dwt`` (65 classes, 224², 3 × 18, 6 steps,
+                  an eval every 3, one collection pass, the final eval), f32
+                  and bf16: phase 7's checks with 4 moments and 4 apply
+                  launches a step; ``vit_reference``: phase 8's kernel step
+                  against the plain and the float64 step (the biases whose
+                  exact gradient is zero, ``VIT_ZERO_GRAD_BIASES``, held to be
+                  noise); ``vit_train_timing``: step ms and peak memory at k =
+                  1 and 3, f32 and bf16.
+38. ``vit_serve`` — phase 12 for a ``ServeEngine`` over ViT-S/16 (the
+                  server's ``--model`` offers none; the engine's Python API
+                  behind the same HTTP front end), f32 and bf16 (against its
+                  f32 twin): 4 apply launches a forward.
+39. ``visda_train`` / ``visda_serve`` — ``python -m
+                  dwt_tpu_torch.cli.visda``'s entry with ``--synthetic``
+                  (ResNet101, 12 classes, 224², 3 × 18, 6 steps, one
+                  collection pass), phase 7's checks with 11 + 11 launches,
+                  a checkpoint at step 6, step ms and peak memory at k = 1
+                  and 3 (``visda_train_timing``); the server CLI with
+                  ``--model resnet101 --num_classes 12 --ckpt_dir`` on it
+                  (phase 19's checks, the bucket-8 forward's ms), and the
+                  apply at that forward's 11 site shapes against its plain
+                  version, timed as in phase 1.
+40. ``resnet152_train`` — 3 steps of ``--backbone resnet152`` through the
+                  CLI entry, phase 7's checks (11 + 11), step ms (steps
+                  2-3) and peak memory.
+41. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
                   ``phase_launches`` counts the launches of phases 18–25
@@ -339,7 +377,14 @@ script exits non-zero without the final line:
                   phase 27; the group-size rows (``group_size``, paths
                   ``train_f32_g{g}``/``train_bf16_g{g}``) phase 33's
                   launches (``launches_from``), with phase 32's errors
-                  and times at the train sites.
+                  and times at the train sites; the registry's rows
+                  (``backbone_rows``): ``vit_train_*`` and ``vit_serve_*``
+                  with phase 36's times (the eval forward's, bucket 1's and
+                  g = 16/64's beside them), ``visda_train`` and
+                  ``resnet152_train`` with their launches and the ResNet50
+                  train rows' errors and times (the same 11 site shapes),
+                  ``visda_serve`` with its launches and phase 39's errors
+                  and times at its bucket-8 sites.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -869,6 +914,22 @@ SERVED = {  # per served model: flags, image shape, classes, whitened
         shape=(224, 224, 3), classes=65, sites=11, f32_twin=True,
         phases=("bf16_engine", "bf16_serve", "bf16_serve_reference",
                 "bf16_serve_throughput")),
+    # VisDA's ResNet101 (its checkpoint: phase visda_serve).
+    "resnet101": dict(
+        flags=["--model", "resnet101", "--num_classes", "12", "--image_size", "224"],
+        shape=(224, 224, 3), classes=12, sites=11),
+    # ViT-S/16, which the server's --model does not offer: a ServeEngine
+    # built through the Python API behind the same front end.
+    "vit_dwt": dict(
+        flags=["--image_size", "224"], shape=(224, 224, 3), classes=65, sites=4,
+        engine=lambda args: vit_engine(args, "f32"),
+        phases=("vit_engine", "vit_serve", "vit_serve_reference", "vit_serve_throughput")),
+    "vit_dwt_bf16": dict(
+        flags=["--image_size", "224"], shape=(224, 224, 3), classes=65, sites=4,
+        engine=lambda args: vit_engine(args, "bf16"),
+        twin=lambda args: vit_engine(args, "f32"), f32_twin=True,
+        phases=("vit_bf16_engine", "vit_bf16_serve", "vit_bf16_serve_reference",
+                "vit_bf16_serve_throughput")),
 }
 # bf16 logits against their f32 twin's, max |a − b| / max |b| per bucket.
 BF16_SERVE_TOL = 5e-2
@@ -888,7 +949,9 @@ def serve(torch, cw, server, model="resnet50"):
     ]
     args = server.build_parser().parse_args(args_list)
     t0 = time.perf_counter()
-    engine = server.build_engine(args)
+    # A model the server's --model does not offer is served through the
+    # engine's Python API (spec["engine"]).
+    engine = spec["engine"](args) if "engine" in spec else server.build_engine(args)
     build_s = time.perf_counter() - t0
     emit({"phase": engine_phase, "build_s": build_s, "warmup_s": engine.warmup_s,
           "device": str(engine.device),
@@ -954,8 +1017,9 @@ def serve(torch, cw, server, model="resnet50"):
     if spec.get("f32_twin"):
         # The same weights served in f32: each bucket's bf16 logits against
         # the twin's, relative to their scale.
-        twin = server.build_engine(server.build_parser().parse_args(
-            [f for f in args_list if f not in ("--serve_dtype", "bf16")]))
+        twin = (spec["twin"](args) if "twin" in spec else server.build_engine(
+            server.build_parser().parse_args(
+                [f for f in args_list if f not in ("--serve_dtype", "bf16")])))
         vs_f32 = {x.shape[0]: norm_err(torch.from_numpy(out),
                                        torch.from_numpy(twin.infer(x)))
                   for x, out in zip(inputs, responses)}
@@ -1258,22 +1322,29 @@ class TimedBatches:
                 "batch_wait_ms_max": max(waits[1:]) if len(waits) > 1 else None}
 
 
-def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
+def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train",
+          parser=None, sites=None):
     """A train path through the CLI entry (by default the main synthetic
-    one); returns the kernels' launches on it and its step timing.  A run
-    that harvests its records (``--harvest_depth`` above 0) has its
-    launches checked at the evals and collections."""
+    one; ``parser``: another entry's, e.g. VisDA's); returns the kernels'
+    launches on it and its step timing.  ``sites``: the model's whitened
+    sites, one moments and one apply launch each per step.  A run that
+    harvests its records (``--harvest_depth`` above 0) has its launches
+    checked at the evals and collections."""
     import math
 
-    cfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+    parser = parser or officehome.build_parser()
+    sites = WHITENED_SITES if sites is None else sites
+    cfg = officehome.config_from_args(parser.parse_args(flags))
     model = loop.build_model(cfg)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
     with TimedBatches(loop) as timed:
         acc, records, launches, seconds = run_counted(
             torch, cw, lambda logger: loop.run_officehome(cfg, logger, model=model),
             f"{phase}_record")
 
-    check_record_launches(records, launches, officehome_want,
+    check_record_launches(records, launches,
+                          functools.partial(officehome_want, sites=sites),
                           harvested=cfg.harvest_depth > 0)
     kinds = [r["kind"] for r in records if r["kind"] not in QUIET_RECORDS]
     if kinds != expected_kinds(cfg):
@@ -1298,10 +1369,11 @@ def train(torch, cw, officehome, loop, flags=TRAIN_FLAGS, phase="train"):
           "accuracy": acc, "launches": launches,
           "whitening_sites": len(covs), "unmoved_params": unmoved,
           "unmoved_covs": cov_unmoved,
-          "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}), **timing})
+          "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), **timing})
     if {p.dtype for p in model.parameters()} != {torch.float32}:
         raise AssertionError("parameters left float32")
-    if unmoved or cov_unmoved or len(covs) != WHITENED_SITES:
+    if unmoved or cov_unmoved or len(covs) != sites:
         raise AssertionError("training left parameters or stats unmoved")
     return launches, timing
 
@@ -1334,13 +1406,16 @@ def one_step(torch, cfg, model, batch, device):
 
 def float64_model(torch, model):
     """``model`` in float64, for a reference step.  The card's float64
-    convolutions return NCHW-contiguous activations; a pre-hook on every
-    norm site gives them the channels_last layout whose domain split is
-    a view (``apply_domain_norm`` takes no other)."""
+    convolutions return NCHW-contiguous activations (and so a ViT's patch
+    embed strided tokens); a pre-hook on every norm site gives them the
+    channels_last layout (tokens: contiguous) whose domain split is a view
+    (``apply_domain_norm`` takes no other)."""
     from dwt_tpu_torch.nn.norms import DomainBatchNorm, DomainWhiten
 
     def channels_last(_site, args):
         x = args[0]
+        if x.dim() == 3:
+            return (x.contiguous(),)
         if x.dim() != 4:
             return None
         return (x.contiguous(memory_format=torch.channels_last),)
@@ -1419,6 +1494,21 @@ def leaf_summary(errs):
     return {k: v for k, v in errs.items() if k != "by_leaf"}
 
 
+def checked_worst(errs, skip=()):
+    """The largest per-leaf readings that ``check_step`` holds to a limit:
+    per part (``head``: ``fc_out.*``; ``backbone``: the rest) and key, the
+    worst leaf outside ``skip`` and its error."""
+    out = {}
+    for leaf, e in errs["by_leaf"].items():
+        if leaf in skip:
+            continue
+        part = out.setdefault("head" if leaf.startswith("fc_out.") else "backbone", {})
+        for key in ("grad", "update_beyond_rounding"):
+            if key not in part or e[key] > part[key]["err"]:
+                part[key] = {"err": e[key], "leaf": leaf}
+    return out
+
+
 def check_step(name, errs, leaf_tol, head_tol=None, skip=()):
     """Raise unless the metrics and stats are within ``TRAIN_TOL`` (the
     grad norm ``TRAIN_GRAD_TOL``) and every parameter's gradient and
@@ -1441,13 +1531,14 @@ def check_step(name, errs, leaf_tol, head_tol=None, skip=()):
                              f"the largest: {worst}")
 
 
-def train_reference(torch, cw, loop, device):
-    from dwt_tpu_torch.config import OfficeHomeConfig
-
-    # Kernels vs their plain versions, both on the card, ResNet50 at 224².
-    n, size = REFERENCE_STEP
-    cfg = OfficeHomeConfig(seed=2, img_crop_size=size, source_batch_size=n)
-    batch = synthetic_batch(torch, loop, n, size, 65, 5, device)
+def reference_steps(torch, cw, loop, cfg, batch, device, zero_leaves=()):
+    """One train step of ``cfg``'s fresh model through the kernels, the
+    same step with both kernels swapped for their plain versions, and a
+    float64 step of the plain versions, all on the card, from the same
+    weights and batch: ``(kernel vs plain, kernel vs float64, plain vs
+    float64, the kernel step's (moments, apply) launches, noise)``;
+    ``noise``: per step, the ``noise_share`` of ``zero_leaves`` (leaves
+    whose exact gradient is zero), ``{}`` without any."""
     base = loop.build_model(cfg)
     init = {k: v.detach().clone() for k, v in base.state_dict().items()}
     kernels = (cw.whiten_moments, cw.whiten_apply)
@@ -1466,8 +1557,23 @@ def train_reference(torch, cw, loop, device):
     vs_plain = compare_steps(torch, kernel_step, plain_step, init)
     vs_f64 = compare_steps(torch, kernel_step, f64_step, init)
     plain_vs_f64 = compare_steps(torch, plain_step, f64_step, init)
+    noise = {name: noise_share(torch, st, zero_leaves) for name, st in (
+        ("kernels", kernel_step), ("plain", plain_step), ("float64", f64_step))
+        } if zero_leaves else {}
     del kernel_step, plain_step, f64_step, base
     torch.cuda.empty_cache()
+    return vs_plain, vs_f64, plain_vs_f64, kernel_launches, noise
+
+
+def train_reference(torch, cw, loop, device):
+    from dwt_tpu_torch.config import OfficeHomeConfig
+
+    # Kernels vs their plain versions, both on the card, ResNet50 at 224².
+    n, size = REFERENCE_STEP
+    cfg = OfficeHomeConfig(seed=2, img_crop_size=size, source_batch_size=n)
+    batch = synthetic_batch(torch, loop, n, size, 65, 5, device)
+    vs_plain, vs_f64, plain_vs_f64, kernel_launches, _ = reference_steps(
+        torch, cw, loop, cfg, batch, device)
 
     # The tiny model's step on the card vs on the CPU (8 images per
     # stream: fewer make its stage-4 BN ill-conditioned).
@@ -1902,12 +2008,13 @@ def digits_step(torch, cfg, model, batch, device):
     return {k: float(v) for k, v in metrics.items()}, model
 
 
-def noise_share(torch, step):
-    """The largest gradient of the biases that feed a normalization site
-    (their exact gradient is zero), relative to the step's gradient norm."""
+def noise_share(torch, step, leaves=DIGITS_NORMALIZED_BIASES):
+    """The largest gradient of ``leaves`` (parameters whose exact gradient
+    is zero, e.g. the biases that feed a normalization site), relative to
+    the step's gradient norm."""
     metrics, model = step
     grads = dict((k, p.grad) for k, p in model.named_parameters())
-    return max(float(grads[k].norm()) for k in DIGITS_NORMALIZED_BIASES) / metrics["grad_norm"]
+    return max(float(grads[k].norm()) for k in leaves) / metrics["grad_norm"]
 
 
 def digits_reference(torch, cw, loop, device):
@@ -2323,12 +2430,13 @@ def ckpt_resume(torch, cw, officehome, loop, loader, root):
 
 
 def served_checkpoint(torch, cw, server, spec, ckpt_dir, images, step, reference,
-                      phase):
+                      phase, time_forward=False):
     """Serve ``ckpt_dir`` through the CLI flags of ``spec`` (an entry of
     ``SERVED``) over HTTP, send ``images`` as one ``.npy`` request, and
     hold the logits to ``reference`` (the trainer's eval forward of the
     restored model) at ``FORWARD_TOL``; returns the apply launches of the
-    request."""
+    request.  ``time_forward``: also the forward's ms at the request's
+    bucket (CUDA events)."""
     import numpy as np
 
     args = server.build_parser().parse_args(spec["flags"] + [
@@ -2352,7 +2460,12 @@ def served_checkpoint(torch, cw, server, spec, ckpt_dir, images, step, reference
         http.close()
         front.close()
     err = norm_err(torch.from_numpy(logits), reference)
-    emit({"phase": phase, "restore_and_warm_s": restore_warm_s,
+    timed = {}
+    if time_forward:
+        xb = engine.stage(np.zeros((len(images),) + images.shape[1:], np.float32))
+        timed = {"forward_ms": cuda_ms(torch, lambda: engine.forward(xb, len(images)),
+                                       iters=10, warmup=2), "card": nvidia_smi()}
+    emit({"phase": phase, "restore_and_warm_s": restore_warm_s, **timed,
           "engine_step": engine.step, "source": engine.source,
           "healthz": health, "images": len(images), "batches_by_bucket": batches,
           "apply_launches": launches, "apply_launches_per_forward":
@@ -3918,12 +4031,15 @@ def group_parity(torch, cw, x, g):
     return (mean, cov, w, y), launches, row
 
 
-def group_point(torch, cw, c, g, d, dtype, gen, device):
-    """``group_parity`` at one grid point ``x [d, GROUP_ROWS, c]``, group
-    size ``g``, then a second call of each kernel bitwise equal, and two
-    replays of a CUDA graph that captured each."""
-    x = moments_input(torch, d, GROUP_ROWS, c, gen, device, 1.0).to(dtype)
+def group_point(torch, cw, c, g, d, dtype, gen, device, m=GROUP_ROWS, out=None):
+    """``group_parity`` at one grid point ``x [d, m, c]``, group size
+    ``g``, then a second call of each kernel bitwise equal, and two
+    replays of a CUDA graph that captured each.  ``out``: a dict that
+    receives the input and the kernels' results."""
+    x = moments_input(torch, d, m, c, gen, device, 1.0).to(dtype)
     (mean, cov, w, y), _, row = group_parity(torch, cw, x, g)
+    if out is not None:
+        out.update(x=x, mean=mean, cov=cov, w=w)
     again = cw.whiten_moments(x, g) + (cw.whiten_apply(x, mean, w),)
     torch.cuda.synchronize()
     repeat = all(torch.equal(a, b) for a, b in zip(again, (mean, cov, y)))
@@ -3941,7 +4057,7 @@ def parity_err(row, part):
             else max(row["mean"]["vs_plain"], row["cov"]["vs_plain"]))
 
 
-def time_group(torch, cw, part, x, mean, w, g, rate):
+def time_group(torch, cw, part, x, mean, w, g, rate, names=None):
     """Times of the ``part`` kernel at group size ``g`` on ``x [D, M, C]``
     (f32 or bf16; one launch for the D domains) with L2 cold: its device
     time, the wrapper's host µs, the plain version's ms and the library
@@ -3952,7 +4068,9 @@ def time_group(torch, cw, part, x, mean, w, g, rate):
     FMAs and g additions per group and row) over the peak rate of ``x``'s
     type (f32 outside the tensor cores, bf16 on them).  A bf16 row also
     keeps its FLOPs over the f32 rate (``f32_fma_ms``): the floor of the
-    ordered f32 FMAs that the kernels keep for their precision."""
+    ordered f32 FMAs that the kernels keep for their precision.  ``names``:
+    the kernels the trace reads (by default the general bodies')."""
+    names = names or GROUP_KERNELS[part]
     d, m, c = x.shape
     esize = x.element_size()
     if part == "apply":
@@ -3996,7 +4114,7 @@ def time_group(torch, cw, part, x, mean, w, g, rate):
     row = {"D": d, "M": m, "C": c, "g": g, "dtype": str(x.dtype).split(".")[1],
            "bytes": nbytes, "flops": flops, "rotation_buffers": len(cold),
            "kernel_ms": kernel_ms,
-           "device_ms": traced_ms(kernel, GROUP_KERNELS[part], kernel_ms),
+           "device_ms": traced_ms(kernel, names, kernel_ms),
            "host_us": host_us(torch, kernel, cold),
            "plain_ms": cuda_ms(torch, plain, cold, iters=3, warmup=1),
            "library_ms": cuda_ms(torch, library, cold, iters=iters // 2, warmup=2),
@@ -4006,7 +4124,7 @@ def time_group(torch, cw, part, x, mean, w, g, rate):
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
     row["device_over_events"] = row["device_ms"] / kernel_ms
-    if part == "moments":  # (clusters per domain and entry tile, scratch, counters)
+    if part == "moments" and g != 4:  # (clusters per domain and entry tile, scratch, counters)
         row["plan"] = list(cw._moments_group_plan(x.device.index, d, m, c, g, x.dtype))
     elif g % 4 == 0 and g >= 8:  # the tiled body's geometry
         row["plan"] = dict(zip(("threads", "smem", "blocks", "nt", "kc", "stages",
@@ -4192,6 +4310,383 @@ def group_serve(torch, cw, server, officehome, loop, ckpts, device):
         out[(g, dtype)] = launches
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ the backbone registry
+
+# ViT-S/16 (``--backbone vit_dwt``) at 224²: 196 tokens an image, 384 wide;
+# its whitened sites are the patch embed and blocks 0-2 (blocks 3-11 end in
+# domain BN), each a [3, 18·196, 384] train site (3,528 rows a domain) and
+# an [N·196, 384] eval or serve site.
+VIT_BACKBONE, VIT_IMAGE = "vit_dwt", 224
+VIT_TOKENS = 196
+VIT_WIDTH = 384
+VIT_SITES = 4
+VIT_TRAIN_M = 18 * VIT_TOKENS
+VIT_GROUPS = (4, 16, 64)  # 96 groups (the g = 4 kernels), 24 and 6 (tiled bodies)
+VIT_APPLY_SHAPES = (("eval", 10), ("serve_b1", 1), ("serve_b8", 8), ("serve_b32", 32),
+                    ("serve_b128", 128))  # (path, images) of the apply's [N·196, 384]
+VIT_TIMED_APPLY = ("eval", "serve_b1", "serve_b128")  # timed at g = 4
+VIT_TRAIN_BASE = TRAIN_BASE_FLAGS + ["--backbone", "vit_dwt"]
+VIT_TRAIN_FLAGS = VIT_TRAIN_BASE + SYNC_RECORDS
+VIT_TIMED_K = (1, 3)
+# Biases whose exact gradient is zero, in every block: attn_k's (a shift of
+# every key by one vector moves each query's scores by a constant, which
+# the softmax removes) and mlp_fc2's (a per-channel shift of the block's
+# output, which its norm site's batch mean removes).  Held to be noise —
+# at most VIT_NOISE_TOL of the step's gradient norm — not leaf by leaf.
+# Every other leaf's gradient and update (beyond rounding) is held at
+# VIT_LEAF_TOL, about 10 times the worst of tools/torch_step_sensitivity.py
+# --backbone vit_dwt on the H100 over 5 seeds (PERF.md): backbone leaves
+# ≤ 3.2e-6 and head ≤ 1.1e-6 from the plain and the float64 step (both f32
+# steps alike from float64: the kernels add nothing), zero-gradient biases
+# ≤ 1.6e-9 of the gradient norm.  A fresh ViT-S/16 step is well conditioned,
+# unlike ResNet50's (RESNET50_LEAF_TOL).
+VIT_ZERO_GRAD_BIASES = ("attn_k", "mlp_fc2")
+VIT_NOISE_TOL = 2e-8
+VIT_LEAF_TOL = (3e-5, 1e-5)  # (backbone, head)
+# VisDA-2017 (BASELINE.json configs[4]) through its own entry point: ResNet101,
+# 12 classes (the entry's defaults), the flagship's recipe and shapes; its
+# checkpoint at step 6 is served through --model resnet101.
+VISDA_BASE = [
+    "--synthetic", "--img_crop_size", "224", "--source_batch_size", "18",
+    "--num_iters", "6", "--check_acc_step", "3", "--stat_collection_passes", "1",
+    "--seed", "1", "--log_interval", "1", "--ckpt_every_iters", "6",
+]
+VISDA_FLAGS = VISDA_BASE + SYNC_RECORDS
+VISDA_TIMED_K = (1, 3)
+# The apply's sites in the served ResNet101's forward of its one request
+# (SERVED_IMAGES images at that bucket, 224²): ResNet50's 11 site shapes.
+VISDA_SERVE_SITES = tuple((name, m * SERVED_IMAGES // 128, c, n)
+                          for name, m, c, n in RESNET50_SITES)
+RESNET152_FLAGS = TRAIN_BASE_FLAGS + [
+    "--backbone", "resnet152", "--num_iters", "3", "--check_acc_step", "100",
+    "--stat_collection_passes", "0"] + SYNC_RECORDS
+
+
+def vit_zero_grad_leaves(depth):
+    """The ``VIT_ZERO_GRAD_BIASES`` of every block of a ``depth``-deep ViT."""
+    return tuple(f"blk{i}.{leaf}.bias" for i in range(depth)
+                 for leaf in VIT_ZERO_GRAD_BIASES)
+
+
+def vit_engine(args, dtype):
+    """A ``ServeEngine`` over a fresh ViT-S/16 (weights from ``--seed``) at
+    ``dtype``: the server's ``--model`` offers no ViT, so it is served
+    through the engine's Python API, as a user would."""
+    from dwt_tpu_torch.config import model_dtype
+    from dwt_tpu_torch.nn.registry import build_backbone
+    from dwt_tpu_torch.serve.engine import ServeEngine
+
+    model = build_backbone(VIT_BACKBONE, num_classes=65, image_size=VIT_IMAGE,
+                           seed=args.seed, dtype=model_dtype(dtype))
+    return ServeEngine(model, (VIT_IMAGE, VIT_IMAGE, 3), device=args.device,
+                       buckets=[int(b) for b in args.buckets.split(",")])
+
+
+def vit_apply_point(torch, cw, x, mean, w, g):
+    """The apply kernel on an eval or serve site ``x [M, C]``: one launch,
+    against its plain version (the f32 one also against float64, the bf16
+    one bitwise), a second call bitwise equal, two replays of a CUDA graph
+    that captured it bitwise equal."""
+    before = cw.apply_launches
+    y = cw.whiten_apply(x, mean, w)
+    launches = cw.apply_launches - before
+    plain = cw.whiten_apply_plain(x, mean, w)
+    bf16 = x.dtype is torch.bfloat16
+    f64 = None if bf16 else apply_f64(torch, x[None], mean[None], w[None])[0]
+    a_row, ok = group_check(torch, y, plain, f64, TOL, TOL, g)
+    a_row["bitwise"] = torch.equal(y, plain)
+    again = cw.whiten_apply(x, mean, w)
+    torch.cuda.synchronize()
+    row = {"C": x.shape[1], "g": g, "M": x.shape[0], "dtype": str(x.dtype).split(".")[1],
+           "launches": launches, "apply": a_row, "repeat_bitwise": torch.equal(again, y),
+           "graph_replay_bitwise": apply_graph_replays(torch, cw, x, mean, w, y)}
+    row["ok"] = (ok and launches == 1 and row["repeat_bitwise"]
+                 and row["graph_replay_bitwise"] and (a_row["bitwise"] or not bf16))
+    return row
+
+
+def vit_kernels(torch, cw, device, rate):
+    """Phase ``vit_kernels`` / ``vit_timing``: both kernels at ViT-S/16's
+    token sites, f32 and bf16, at g = 4, 16 and 64.  The train site ``[3,
+    3528, 384]`` (``group_point``: against the plain versions and float64,
+    the bf16 apply bitwise, repeats and graph replays bitwise); with its
+    target branch's moments and matrix, the apply at the eval (test batch
+    10) and serve (buckets 1/8/32/128) sites ``[N·196, 384]``
+    (``vit_apply_point``).  Times with L2 cold (``time_group``: beside the
+    bound, the plain version, ``torch.baddbmm`` and ``torch.cov`` per
+    domain, the host µs): the train site's two kernels at every g, the
+    apply at the eval and bucket-1/128 sites at g = 4.  Returns ``(parity
+    rows, {(dtype, g, path, part): timing row})``."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    parity, timing, failed = [], {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        short = "bf16" if dtype is torch.bfloat16 else "f32"
+        for g in VIT_GROUPS:
+            site = {}
+            row = group_point(torch, cw, VIT_WIDTH, g, DOMAINS, dtype, gen, device,
+                              m=VIT_TRAIN_M, out=site)
+            row.update(path="train", images=18)
+            parity.append(row)
+            emit({"phase": "vit_kernels", **row})
+            if not row["ok"]:
+                failed.append((short, g, "train"))
+                continue
+            x, mean, w = site["x"], site["mean"], site["w"]
+            served = {}
+            for path, n in VIT_APPLY_SHAPES:
+                x2 = moments_input(torch, 1, n * VIT_TOKENS, VIT_WIDTH, gen, device,
+                                   1.0)[0].to(dtype)
+                a_row = vit_apply_point(torch, cw, x2, mean[1], w[1], g)
+                a_row.update(path=path, images=n)
+                parity.append(a_row)
+                emit({"phase": "vit_kernels", **a_row})
+                if not a_row["ok"]:
+                    failed.append((short, g, path))
+                served[path] = (x2, a_row["apply"]["vs_plain"])
+            for part in ("apply", "moments"):
+                t = time_group(torch, cw, part, x, mean, w, g, rate, names=(f"whiten_{part}",))
+                t["max_abs_err"] = parity_err(row, part)
+                timing[(short, g, "train", part)] = t
+                emit({"phase": "vit_timing", "path": "train", "part": part, **t})
+            for path in VIT_TIMED_APPLY if g == 4 else ():
+                x2, err = served[path]
+                t = time_group(torch, cw, "apply", x2[None], mean[1:2], w[1:2], g, rate,
+                               names=("whiten_apply",))
+                t["max_abs_err"] = err
+                timing[(short, g, path, "apply")] = t
+                emit({"phase": "vit_timing", "path": path, "part": "apply", **t})
+            del x, mean, w, site, served
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"vit_kernels: {len(failed)} points fail: {failed}")
+    return parity, timing
+
+
+def vit_train(torch, cw, officehome, loop, device):
+    """Phase ``vit_train``: ViT-S/16 through the OfficeHome CLI entry with
+    ``--backbone vit_dwt`` (65 classes, 224², 3 × 18 images, 6 steps, an
+    eval every 3, one collection pass, the final eval), f32 and bf16, with
+    phase 7's checks at 4 moments and 4 apply launches a step;
+    ``vit_reference``: one kernel step against the plain step and a
+    float64 step (phase 8's check); ``vit_train_timing``: step ms (CUDA
+    events, ``TIMED_FLAGS``) and peak device memory at k = 1 and 3, f32
+    and bf16.  Returns the launches per dtype."""
+    from dwt_tpu_torch.config import OfficeHomeConfig
+
+    launches = {}
+    for dtype in ("f32", "bf16"):
+        launches[dtype], _ = train(torch, cw, officehome, loop,
+                                   VIT_TRAIN_FLAGS + ["--compute_dtype", dtype],
+                                   f"vit_train_{dtype}", sites=VIT_SITES)
+    n = REFERENCE_STEP[0]
+    cfg = OfficeHomeConfig(backbone=VIT_BACKBONE, seed=2, img_crop_size=VIT_IMAGE,
+                           source_batch_size=n)
+    batch = synthetic_batch(torch, loop, n, VIT_IMAGE, 65, 5, device)
+    zero = vit_zero_grad_leaves(loop.build_model(cfg).depth)
+    vs_plain, vs_f64, plain_vs_f64, kernel_launches, noise = reference_steps(
+        torch, cw, loop, cfg, batch, device, zero)
+    emit({"phase": "vit_reference", "kernel_vs_plain": leaf_summary(vs_plain),
+          "kernel_vs_f64": leaf_summary(vs_f64), "plain_vs_f64": leaf_summary(plain_vs_f64),
+          "checked_worst": {"kernel_vs_plain": checked_worst(vs_plain, zero),
+                            "kernel_vs_f64": checked_worst(vs_f64, zero)},
+          "kernel_launches": kernel_launches, "tolerance": TRAIN_TOL,
+          "grad_tolerance": TRAIN_GRAD_TOL,
+          "leaf_tolerance": dict(zip(("backbone", "head"), VIT_LEAF_TOL)),
+          "f64_ratio_tolerance": F64_RATIO_TOL, "zero_grad_bias_share": noise,
+          "noise_tolerance": VIT_NOISE_TOL})
+    if kernel_launches != (VIT_SITES, VIT_SITES):
+        raise AssertionError(f"ViT kernel step launched {kernel_launches}")
+    for what, errs in (("kernels vs plain", vs_plain), ("kernels vs float64", vs_f64)):
+        check_step(f"{what} (ViT-S/16)", errs, *VIT_LEAF_TOL, skip=zero)
+    if max(noise["kernels"], noise["plain"]) > VIT_NOISE_TOL:
+        raise AssertionError(f"the zero-gradient biases' gradients are not noise: {noise}")
+    if vs_f64["grad"] > F64_RATIO_TOL * plain_vs_f64["grad"]:
+        raise AssertionError(
+            f"the ViT kernel step's gradient is {vs_f64['grad']} from float64, "
+            f"over {F64_RATIO_TOL} times the plain step's {plain_vs_f64['grad']}")
+    step_ms, peak = {}, {}
+    for dtype in ("f32", "bf16"):
+        for k in VIT_TIMED_K:
+            flags = VIT_TRAIN_BASE + TIMED_FLAGS + ["--steps_per_dispatch", str(k),
+                                                    "--compute_dtype", dtype]
+            tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with DispatchTimer(loop, k) as timer:
+                loop.run_officehome(tcfg, lambda *a, **f: None)
+            step_ms[f"{dtype}_k{k}"] = timer.step_ms(TIMED_SKIP)
+            peak[f"{dtype}_k{k}"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "vit_train_timing", "card": nvidia_smi(), "timed_flags": TIMED_FLAGS,
+          "images_per_step": 3 * n, "step_ms": step_ms, "peak_bytes": peak,
+          "imgs_per_s": {key: 3 * n / ms * 1e3 for key, ms in step_ms.items()}})
+    return launches
+
+
+def visda_train(torch, cw, officehome, visda, loop, root):
+    """Phase ``visda_train``: ``dwt_tpu_torch.cli.visda`` (ResNet101, 12
+    classes) on synthetic data, phase 7's run and checks (11 moments and
+    11 apply launches a step), saving its step-6 checkpoint under
+    ``root``; ``visda_train_timing``: step ms (CUDA events,
+    ``TIMED_FLAGS``) and peak device memory at k = 1 and 3.  Returns the
+    launches and the flags."""
+    parser = visda.build_parser()
+    flags = VISDA_FLAGS + ["--ckpt_dir", os.path.join(root, "visda")]
+    launches, _ = train(torch, cw, officehome, loop, flags, "visda_train", parser=parser)
+    step_ms, peak = {}, {}
+    for k in VISDA_TIMED_K:
+        tcfg = officehome.config_from_args(parser.parse_args(
+            VISDA_BASE + TIMED_FLAGS + ["--steps_per_dispatch", str(k)]))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with DispatchTimer(loop, k) as timer:
+            loop.run_officehome(tcfg, lambda *a, **f: None)
+        step_ms[f"k{k}"] = timer.step_ms(TIMED_SKIP)
+        peak[f"k{k}"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "visda_train_timing", "card": nvidia_smi(), "timed_flags": TIMED_FLAGS,
+          "step_ms": step_ms, "peak_bytes": peak,
+          "imgs_per_s": {key: 3 * 18 / ms * 1e3 for key, ms in step_ms.items()}})
+    return launches, flags
+
+
+def visda_serve(torch, cw, server, officehome, visda, loop, flags, device, rate):
+    """Phase ``visda_serve``: the server CLI with ``--model resnet101
+    --num_classes 12 --ckpt_dir`` on ``visda_train``'s checkpoint answers 8
+    images as one ``.npy`` request: 11 apply launches, logits held to the
+    trainer's eval forward of the restored model (``served_checkpoint``);
+    ``visda_serve_parity`` / ``visda_serve_timing``: the apply at that
+    forward's site shapes (``VISDA_SERVE_SITES``) against its plain
+    version and timed as phase 1 times bucket 128's.  Returns ``(launches,
+    parity rows, {site: timing row})``."""
+    from dwt_tpu_torch.train.optim import officehome_tx
+
+    cfg = officehome.config_from_args(visda.build_parser().parse_args(flags))
+    images = loop._synthetic_classification_arrays(
+        cfg.synthetic_size // 2, (cfg.img_crop_size,) * 2 + (3,), cfg.num_classes,
+        cfg.seed + 2, 0.5)[0][:SERVED_IMAGES]
+    reference, step = trainer_eval_logits(
+        torch, loop.build_model(cfg), lambda m: officehome_tx(m, cfg), cfg.ckpt_dir,
+        images, device)
+    if step != cfg.num_iters:
+        raise AssertionError(f"the VisDA run saved step {step}, not {cfg.num_iters}")
+    launches = served_checkpoint(torch, cw, server, SERVED["resnet101"], cfg.ckpt_dir,
+                                 images, step, reference, "visda_serve", time_forward=True)
+    gen = torch.Generator(device=device).manual_seed(41)
+    cpu_gen = torch.Generator().manual_seed(41)
+    parity, timing = [], {}
+    for name, m, c, _ in VISDA_SERVE_SITES:
+        x, mean, w = site_inputs(torch, m, c, gen, cpu_gen, device)
+        row = apply_parity(torch, cw, name, x, mean, w)
+        parity.append(row)
+        emit({"phase": "visda_serve_parity", **row})
+        if not row["ok"]:
+            raise AssertionError(f"kernel disagrees with plain at {name}: {row}")
+        timing[name] = {"shape": name, **time_apply(torch, cw, x, mean, w, rate)}
+        emit({"phase": "visda_serve_timing", **timing[name]})
+    return launches, parity, timing
+
+
+def resnet152_train(torch, cw, officehome, loop):
+    """Phase ``resnet152_train``: 3 steps of ``--backbone resnet152``
+    through the CLI entry with phase 7's checks (11 + 11 launches a step);
+    its step ms over steps 2-3 (CUDA events at each batch the loop asks
+    for) and peak device memory.  Returns the launches."""
+    torch.cuda.empty_cache()
+    with DispatchTimer(loop, 1) as timer:
+        launches, _ = train(torch, cw, officehome, loop, RESNET152_FLAGS,
+                            "resnet152_train")
+    emit({"phase": "resnet152_train_timing", "card": nvidia_smi(),
+          "step_ms": timer.step_ms(1), "steps_timed": 2,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+def backbone_rows(r, floor, rows):
+    """The contract line's rows of the registry's paths.  ViT-S/16
+    (``vit_train_f32``/``_bf16``: launches of ``vit_train``'s runs, times
+    of one step's 4 train sites at g = 4 from ``vit_timing``, the eval
+    forward's and the other group sizes' beside them; ``vit_serve_f32``/
+    ``_bf16``: launches of ``vit_serve``'s 4 requests, times of one
+    bucket-128 forward's 4 sites, bucket 1's beside them).  ResNet101's
+    and ResNet152's train steps (``visda_train``, ``resnet152_train``)
+    whiten the same 11 site shapes as ResNet50's: their launches, and the
+    flagship train rows' errors and times (``carried_from``).
+    ``visda_serve``: its request's launches, and the errors and times of
+    ``visda_serve``'s own bucket-8 sites."""
+    timing = r["vit_timing"]
+
+    def site_times(dtype, g, path, part, n=VIT_SITES):
+        t = timing[(dtype, g, path, part)]
+        out = {k: t[k] * n for k in ("device_ms", "plain_ms", "bound_ms", "library_ms",
+                                     "library_device_ms", "host_us", "bytes")}
+        out["ms"] = out.pop("device_ms")
+        return {**out, "bound_by": t["bound_by"], "max_abs_err": t["max_abs_err"]}
+
+    out = []
+    for dtype in ("f32", "bf16"):
+        suffix = "_bf16" if dtype == "bf16" else ""
+        for part in ("apply", "moments"):
+            row = {
+                "name": f"whiten_{part}{suffix}", "route": "cuda",
+                "source": f"dwt_tpu_torch/csrc/whiten_{part}.cu",
+                "replaces": ("dwt_tpu/ops/pallas_whitening.py:143" if part == "apply"
+                             else "dwt_tpu/ops/pallas_whitening.py:68"),
+                "launches": r["vit_train_launches"][dtype][part],
+                **site_times(dtype, 4, "train", part), **(floor if part == "apply" else {}),
+                "path": f"vit_train_{dtype}",
+                "per": f"the 4 whitened token sites of one ViT-S/16 train step at "
+                       f"--compute_dtype {dtype}, one launch per site for its 3 domains, "
+                       f"18 images per stream at 224² (3 × 3,528 rows, C = 384)",
+                "group_sizes": {g: site_times(dtype, g, "train", part) for g in VIT_GROUPS
+                                if g != 4}}
+            if part == "apply":
+                row["eval"] = {"per": "one eval forward at the test batch of 10 "
+                                      "(1,960 rows a site)",
+                               **site_times(dtype, 4, "eval", "apply")}
+            out.append(row)
+        b128 = site_times(dtype, 4, "serve_b128", "apply")
+        out.append({
+            "name": f"whiten_apply{suffix}", "route": "cuda",
+            "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+            "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+            "launches": r["vit_serve_launches"][dtype],
+            **b128,
+            "max_abs_err": max(p["apply"]["vs_plain"] for p in r["vit_parity"]
+                               if p["path"].startswith("serve") and p["g"] == 4
+                               and p["dtype"] == ("bfloat16" if dtype == "bf16" else "float32")),
+            **floor, "path": f"vit_serve_{dtype}",
+            "per": f"the 4 whitened token sites of one bucket-128 ViT-S/16 forward at 224², "
+                   f"{dtype} (25,088 rows a site)",
+            "bucket1": {"per": "one bucket-1 forward (196 rows a site)",
+                        **site_times(dtype, 4, "serve_b1", "apply")}})
+    base = {row["path"] + "/" + row["name"]: row for row in rows}
+    for path, carried, launches, per in (
+            ("visda_train", "train", r["visda_launches"],
+             "the 11 whitened sites of one ResNet101-DWT train step (VisDA-2017, 12 "
+             "classes), one launch per site for its 3 domains, 18 images per stream at 224²"),
+            ("resnet152_train", "train", r["resnet152_launches"],
+             "the 11 whitened sites of one ResNet152-DWT train step, one launch per site "
+             "for its 3 domains, 18 images per stream at 224²")):
+        for part in ("apply", "moments"):
+            out.append({**base[f"{carried}/whiten_{part}"], "launches": launches[part],
+                        "path": path, "per": per, "carried_from": carried})
+    served = r["visda_serve_timing"]
+    total = lambda key: sum(served[s][key] * n for s, _, _, n in VISDA_SERVE_SITES)
+    out.append({
+        "name": "whiten_apply", "route": "cuda",
+        "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+        "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+        "launches": r["visda_serve_launches"],
+        "max_abs_err": max(p["max_abs_err"] for p in r["visda_serve_parity"]),
+        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": bound_by(served.values()),
+        "library_ms": total("library_ms"), "library_device_ms": total("library_device_ms"),
+        **{k: total(k) for k in APPLY_EXTRA}, "bytes": total("bytes"), **floor,
+        "path": "visda_serve",
+        "per": f"the 11 whitened sites of the served ResNet101's bucket-{SERVED_IMAGES} "
+               f"forward at 224² (its one request of {SERVED_IMAGES} images)"})
     return out
 
 
@@ -4454,6 +4949,7 @@ def kernels_line(torch, r):
               for row in rows if row["path"] == base]
     rows = (rows[:3] + folder + rows[3:] + graphs + bf16_rows(r, floor)
             + group_rows(r, floor))
+    rows += backbone_rows(r, floor, rows)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -4472,7 +4968,7 @@ def main() -> int:
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
     from dwt_tpu_torch import native
-    from dwt_tpu_torch.cli import officehome, usps_mnist
+    from dwt_tpu_torch.cli import officehome, usps_mnist, visda
     from dwt_tpu_torch.data import loader
     from dwt_tpu_torch.ops import _build, cuda_whitening as cw
     from dwt_tpu_torch.resilience import inject
@@ -4615,6 +5111,17 @@ def main() -> int:
         r["group_serve_launches"] = group_serve(torch, cw, server, officehome, loop,
                                                 group_ckpts, device)
     r["group_digits_launches"] = group_digits(torch, cw, usps_mnist, loop)
+    r["vit_parity"], r["vit_timing"] = vit_kernels(torch, cw, device, rate)
+    r["vit_train_launches"] = vit_train(torch, cw, officehome, loop, device)
+    r["vit_serve_launches"] = {"f32": serve(torch, cw, server, "vit_dwt"),
+                               "bf16": serve(torch, cw, server, "vit_dwt_bf16")}
+    with tempfile.TemporaryDirectory(prefix="visda-", dir=build) as root:
+        r["visda_launches"], visda_flags = visda_train(torch, cw, officehome, visda, loop,
+                                                       root)
+        (r["visda_serve_launches"], r["visda_serve_parity"],
+         r["visda_serve_timing"]) = visda_serve(torch, cw, server, officehome, visda, loop,
+                                                visda_flags, device, rate)
+    r["resnet152_launches"] = resnet152_train(torch, cw, officehome, loop)
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,7 @@ converts it once, into a checkpoint directory that the trainer's
 ``--init_ckpt`` starts from::
 
     python -m dwt_tpu_torch.cli.convert --torch_ckpt .../model_best_gr_4.pth.tar \\
-        --out_dir /ckpts/resnet50_dwt_init [--arch resnet50] \\
+        --out_dir /ckpts/resnet50_dwt_init [--arch resnet50|resnet101] \\
         [--num_classes 65] [--group_size 4]
 
 The model and its optimizer are built as ``run_officehome`` builds them
@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", required=True,
                    help="checkpoint directory, written at step 0; pass it "
                         "to the trainer as --init_ckpt")
-    p.add_argument("--arch", choices=["resnet50"], default="resnet50")
+    p.add_argument("--arch", choices=["resnet50", "resnet101"], default="resnet50")
     p.add_argument("--num_classes", type=int, default=65)
     p.add_argument("--group_size", type=int, default=4)
     return p

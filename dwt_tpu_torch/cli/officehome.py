@@ -17,7 +17,8 @@ CLI's, and a SIGTERM ends the run with a final save and exit 0.
 captured graph per step, and the train records and the guard's finite
 flags reach the host through the harvest ring.
 ``--whitener``, ``--compute_dtype`` (``--bf16``) and ``--remat`` are the
-JAX CLI's numerics flags.
+JAX CLI's numerics flags; ``--backbone`` (a registry name, which wins over
+``--arch``) and ``--pad_classes_to`` its model flags.
 """
 
 from __future__ import annotations
@@ -41,7 +42,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="train on generated data instead of the image folders")
     p.add_argument("--synthetic_size", type=int, default=d.synthetic_size)
-    p.add_argument("--arch", choices=["resnet50", "tiny"], default=d.arch)
+    p.add_argument("--arch", choices=["resnet50", "resnet101", "tiny"],
+                   default=d.arch)
+    p.add_argument("--backbone", type=str, default=d.backbone,
+                   help="backbone-registry entry (wins over --arch): "
+                        "resnet50|resnet101|resnet152|tiny|vit_dwt|vit_tiny "
+                        "(dwt_tpu_torch.nn.registry)")
+    p.add_argument("--pad_classes_to", type=int, default=d.pad_classes_to,
+                   help=">1: pad the classifier head's out dim up to a "
+                        "multiple of this; the padded logit columns are "
+                        "sliced off inside the forward, so the counters "
+                        "stay exact")
     p.add_argument("--num_classes", type=int, default=d.num_classes)
     p.add_argument("--num_workers", type=int, default=d.num_workers,
                    help="item-loading worker threads (decode+augment)")
@@ -110,13 +121,19 @@ def config_from_args(args: argparse.Namespace) -> OfficeHomeConfig:
     return OfficeHomeConfig(**kwargs)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> float:
+def run_from_args(args: argparse.Namespace) -> float:
+    """Train with the parsed flags; prints and returns the final target
+    accuracy (%)."""
     from dwt_tpu_torch.train.loop import run_officehome
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    acc = run_officehome(config_from_args(build_parser().parse_args(argv)))
+    acc = run_officehome(config_from_args(args))
     print(f"final target accuracy: {acc:.2f}%", flush=True)
     return acc
+
+
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    return run_from_args(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ of a captured CUDA graph); ``harvest_depth`` the ring of
 divergence guard's own readback every ``guard_interval`` steps; above 0 the
 guard reads the harvested finite flags).  ``whitener``, ``compute_dtype``
 (``bf16`` its legacy alias, :func:`resolve_compute_dtype`) and
-OfficeHome's ``remat`` are the JAX configs' numerics knobs.
+OfficeHome's ``remat`` are the JAX configs' numerics knobs; OfficeHome's
+``backbone`` (a registry name that wins over ``arch``) and
+``pad_classes_to`` its model knobs.
 """
 
 from __future__ import annotations
@@ -113,7 +115,14 @@ class OfficeHomeConfig:
     log_interval: int = 10
     seed: int = 1
     stat_collection_passes: int = 10  # eval_pass_collect_stats (:384)
-    arch: str = "resnet50"
+    arch: str = "resnet50"  # or "resnet101" (VisDA), "tiny"
+    # Backbone-registry name (dwt_tpu_torch.nn.registry.BACKBONES): when
+    # set, wins over arch.
+    backbone: Optional[str] = None
+    # >1: the fc_out head's out dim padded up to a multiple of this; the
+    # padded logit columns are sliced off inside the forward, so losses
+    # and counters are those of the unpadded head.
+    pad_classes_to: int = 0
     synthetic: bool = False
     synthetic_size: int = 64
     init_ckpt: Optional[str] = None  # a port checkpoint dir (cli/convert.py)

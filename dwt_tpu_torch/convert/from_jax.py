@@ -9,6 +9,9 @@ submodule names are the Flax scope names.  Layouts:
 * conv kernel HWIO → ``weight`` OIHW, bias (LeNet's convs) as is;
 * dense kernel ``[in, out]`` → ``weight [out, in]``, bias as is;
 * norm affine ``gamma``/``beta`` as is;
+* LayerNorm ``scale`` → ``weight``, ``bias`` as is;
+* a parameter of no conv, dense or norm module (ViT's ``pos_embed``) at
+  its module's scope under its own name, as is;
 * ``WhiteningStats`` → buffers ``mean [D, C]``, ``cov [D, G, g, g]``;
   ``SWBNStats`` also ``w [D, G, g, g]`` (a site of the ``swbn`` backend);
 * ``BatchNormStats`` → buffers ``mean``/``var [D, C]``, ``count [D]``.
@@ -110,6 +113,11 @@ def load_jax_variables(
             _copy(mod.weight, take("params", params, path).T, path, "params")
             path = scope + ("bias",)
             _copy(mod.bias, take("params", params, path), path, "params")
+        elif isinstance(mod, nn.LayerNorm):
+            for leaf, flax_leaf in (("weight", "scale"), ("bias", "bias")):
+                path = scope + (flax_leaf,)
+                _copy(getattr(mod, leaf), take("params", params, path),
+                      path, "params")
         elif isinstance(mod, (DomainWhiten, DomainBatchNorm)):
             for leaf in ("gamma", "beta"):
                 path = scope + (leaf,)
@@ -125,6 +133,10 @@ def load_jax_variables(
                 path = scope + (kind, leaf)
                 _copy(getattr(mod, leaf), take("batch_stats", batch_stats, path),
                       path, "batch_stats")
+        else:
+            for leaf, param in mod.named_parameters(recurse=False):
+                path = scope + (leaf,)
+                _copy(param, take("params", params, path), path, "params")
 
     for col, tree in (("params", params), ("batch_stats", batch_stats)):
         extra = [p for p in _leaf_paths(tree) if (col, p) not in used]

@@ -7,16 +7,18 @@ domain axis (buffers ``mean [D, C]``, ``cov [D, G, g, g]`` for whitening;
 picks the path:
 
 * **train**: the input is the merged ``[D·N, C, H, W]`` batch in
-  ``torch.channels_last`` memory format (or ``[D·N, C]``).  Its
-  ``[D, N·H·W, C]`` view is contiguous (:func:`apply_domain_norm`), so
-  each domain's ``[M_d, C]`` slice reaches the ops — and the CUDA kernels
-  — without a copy.  Branch ``d`` normalizes slice ``d`` with its batch
+  ``torch.channels_last`` memory format, the merged ``[D·N, L, C]``
+  tokens of a transformer (contiguous), or ``[D·N, C]``.  Its ``[D,
+  N·H·W, C]`` (tokens: ``[D, N·L, C]``) view is contiguous
+  (:func:`apply_domain_norm`), so each domain's ``[M_d, C]`` slice
+  reaches the ops — and the CUDA kernels — without a copy.  Branch ``d`` normalizes slice ``d`` with its batch
   moments, and its running stats advance IN PLACE, under
   ``torch.no_grad()``: the buffers are the JAX package's returned
   ``batch_stats``.  Whitening goes through
   :func:`~dwt_tpu_torch.ops.cuda_whitening.cuda_group_whiten` (the moments
   and apply kernels on the card).
-* **eval**: the whole ``[N, C, H, W]`` batch goes through branch
+* **eval**: the whole ``[N, C, H, W]`` batch (tokens: ``[N, L, C]``,
+  which the apply reads as ``[N·L, C]``) goes through branch
   ``eval_domain``, the reference's target-branch eval routing.
 
 The whitening sites' buffers follow their whitener, as the JAX package's
@@ -87,7 +89,8 @@ def split_domains(x: torch.Tensor, num_domains: int) -> torch.Tensor:
 
 def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
     """``[N, C, H, W]`` → the ``[N, H, W, C]`` view (contiguous when ``x``
-    is in channels_last memory format); ``[N, C]`` passes through."""
+    is in channels_last memory format); channels-last ``[N, L, C]`` tokens
+    and ``[N, C]`` pass through."""
     return x.permute(0, 2, 3, 1) if x.dim() == 4 else x
 
 
@@ -101,10 +104,12 @@ def apply_domain_norm(
     norm: Callable[[torch.Tensor], torch.Tensor],
 ) -> torch.Tensor:
     """Train-mode plumbing of a domain norm site: the merged batch ``x``
-    (``[D·N, C, H, W]``, or ``[D·N, C]``) → its ``[D, N·H·W, C]`` form →
-    ``norm`` → the result, channels-last ``[D·N, H, W, C]`` (or
-    ``[D·N, C]``).  ``x`` must be in channels_last memory format — what
-    the model's convs give — so that form is a view and each domain's
+    (``[D·N, C, H, W]``, tokens ``[D·N, L, C]``, or ``[D·N, C]``) → its
+    ``[D, N·H·W, C]`` form (tokens: ``[D, N·L, C]``, each domain's rows
+    its N images' L tokens) → ``norm`` → the result, channels-last ``[D·N,
+    H, W, C]`` (tokens ``[D·N, L, C]``, or ``[D·N, C]``).  An image ``x``
+    must be in channels_last memory format — what the model's convs give
+    — and tokens contiguous, so that form is a view and each domain's
     slice reaches the kernels without a copy; any other layout fails
     here rather than being copied.  The counterpart of the JAX package's
     split → normalize → merge."""

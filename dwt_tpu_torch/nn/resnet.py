@@ -116,7 +116,8 @@ class BottleneckDWT(nn.Module):
 
 
 class ResNetDWT(nn.Module):
-    """ResNet-50 with domain whitening (stem + stage 1) and domain BN.
+    """ResNet-DWT (``stage_sizes`` blocks per stage: ResNet50, 101, 152 or
+    the tiny one) with domain whitening (stem + stage 1) and domain BN.
 
     Train input ``[3, N, H, W, 3]`` (source, target, augmented target)
     → logits ``[3, N, num_classes]``, every branch's running stats
@@ -179,6 +180,17 @@ class ResNetDWT(nn.Module):
         return cls(stage_sizes=(3, 4, 6, 3), **kw)
 
     @classmethod
+    def resnet101(cls, **kw) -> "ResNetDWT":
+        """[3,4,23,3] — the VisDA-2017 variant (``BASELINE.json``
+        ``configs[4]``)."""
+        return cls(stage_sizes=(3, 4, 23, 3), **kw)
+
+    @classmethod
+    def resnet152(cls, **kw) -> "ResNetDWT":
+        """[3,8,36,3] — the deepest registered ResNet."""
+        return cls(stage_sizes=(3, 8, 36, 3), **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "ResNetDWT":
         """Full channel widths, one block per stage — the server's
         ``--model tiny``."""
@@ -236,14 +248,11 @@ def _variance_scaling_(w: torch.Tensor, scale: float, fan: int,
                           generator=generator)
 
 
-@torch.no_grad()
-def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Fresh weights from ``seed``, with the Flax model's initializers:
-    convs kaiming-normal fan_out (``variance_scaling(2, fan_out)``), the
-    head lecun-normal with a zero bias, norm affines γ=1, β=0, and the
-    fresh running stats the norm modules are built with.  The numbers
-    differ from ``jax.random``'s; the distributions are the same."""
-    gen = torch.Generator().manual_seed(seed)
+def init_modules_(model: nn.Module, gen: torch.Generator) -> None:
+    """Every conv and dense layer of ``model`` drawn from ``gen`` with the
+    Flax models' initializers: convs kaiming-normal fan_out
+    (``variance_scaling(2, fan_out)``), dense layers lecun-normal with a
+    zero bias."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             out_ch, _, kh, kw = mod.weight.shape
@@ -251,6 +260,15 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(mod, nn.Linear):
             _variance_scaling_(mod.weight, 1.0, mod.in_features, gen)
             mod.bias.zero_()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fresh weights from ``seed``, with the Flax model's initializers
+    (:func:`init_modules_`), norm affines γ=1, β=0, and the fresh running
+    stats the norm modules are built with.  The numbers differ from
+    ``jax.random``'s; the distributions are the same."""
+    init_modules_(model, torch.Generator().manual_seed(seed))
     return model
 
 
@@ -258,16 +276,17 @@ def build_resnet(
     name: str, *, num_classes: int = 65, group_size: int = 4,
     seed: Optional[int] = None, momentum: float = 0.1,
     dtype: Optional[torch.dtype] = None, whitener: str = "cholesky",
-    remat: bool = False,
+    remat: bool = False, pad_classes_to: int = 0,
 ) -> ResNetDWT:
-    """``resnet50`` or ``tiny`` by name, freshly initialized from ``seed``
-    when one is given."""
-    ctors = {"resnet50": ResNetDWT.resnet50, "tiny": ResNetDWT.tiny}
-    if name not in ctors:
-        raise ValueError(f"unknown model {name!r}; choose from {sorted(ctors)}")
-    model = ctors[name](num_classes=num_classes, group_size=group_size,
-                        momentum=momentum, dtype=dtype, whitener=whitener,
-                        remat=remat)
-    if seed is not None:
-        init_weights(model, seed)
+    """A ResNet-DWT of the backbone registry by name (``resnet50``,
+    ``resnet101``, ``resnet152``, ``tiny``), freshly initialized from
+    ``seed`` when one is given; another name raises."""
+    from dwt_tpu_torch.nn.registry import build_backbone
+
+    model = build_backbone(
+        name, num_classes=num_classes, group_size=group_size, seed=seed,
+        momentum=momentum, dtype=dtype, whitener=whitener, remat=remat,
+        pad_classes_to=pad_classes_to)
+    if not isinstance(model, ResNetDWT):
+        raise ValueError(f"{name!r} is not a ResNet backbone")
     return model

@@ -21,7 +21,10 @@ Run: ``python -m dwt_tpu_torch.serve.server --model resnet50 --ckpt_dir
 DIR`` to serve the newest valid checkpoint of a training run (the port's,
 or the JAX package's host-shard format), or ``--init_random`` for fresh
 weights from ``--seed`` (``--model lenet`` serves the digits model at
-28×28×1; on CUDA, ``--device cpu`` for the CPU).  ``serve_ready``,
+28×28×1, ``--model resnet101 --num_classes 12`` the VisDA model; on CUDA,
+``--device cpu`` for the CPU).  The ``--model`` choices are the JAX
+server's; a ViT-DWT is served through :class:`ServeEngine`'s Python API,
+which takes any registry backbone.  ``serve_ready``,
 ``/healthz`` and every ``/infer`` reply carry the checkpoint's ``step``.
 ``--serve_dtype bf16`` (``--bf16``) serves in bf16 from the f32
 parameters; ``--whitener`` names the checkpoint's whitening backend.
@@ -51,7 +54,7 @@ import torch
 from dwt_tpu_torch.config import model_dtype
 from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
 from dwt_tpu_torch.nn.lenet import build_lenet
-from dwt_tpu_torch.nn.resnet import build_resnet
+from dwt_tpu_torch.nn.registry import build_backbone
 from dwt_tpu_torch.serve.batcher import (
     Future,
     MicroBatcher,
@@ -452,7 +455,8 @@ def resolve_serve_dtype(args) -> str:
 
 
 def build_model(args):
-    """``(model, input_shape)`` for ``--model lenet|resnet50|tiny``; fresh
+    """``(model, input_shape)`` for ``--model lenet|tiny|resnet50|resnet101``
+    (the ResNets through the backbone registry); fresh
     weights from ``--seed`` under ``--init_random`` (and without it,
     weights a checkpoint replaces).  LeNet-DWT always has
     10 classes and takes 28×28×1 (``--num_classes`` and ``--image_size``
@@ -465,7 +469,8 @@ def build_model(args):
               whitener=getattr(args, "whitener", "cholesky"))
     if args.model == "lenet":
         return build_lenet(**kw), LENET_INPUT_SHAPE
-    model = build_resnet(args.model, num_classes=args.num_classes, **kw)
+    model = build_backbone(args.model, num_classes=args.num_classes,
+                           image_size=args.image_size, **kw)
     return model, (args.image_size, args.image_size, 3)
 
 
@@ -496,7 +501,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_random", action="store_true",
                    help="serve a freshly initialized model (weights from "
                         "--seed)")
-    p.add_argument("--model", choices=["lenet", "resnet50", "tiny"],
+    p.add_argument("--model", choices=["lenet", "tiny", "resnet50", "resnet101"],
                    default="resnet50")
     p.add_argument("--num_classes", type=int, default=65,
                    help="resnet head size (lenet is always 10)")

@@ -5,7 +5,8 @@
   every ``log_interval`` steps of an epoch and a ``test`` record after
   each epoch.  Data: ``--synthetic``, or the USPS pickle and the MNIST
   files under ``data_root`` (there is no download path).
-* :func:`run_officehome` trains ResNet-DWT with MEC: seeded source and
+* :func:`run_officehome` trains a registry backbone (ResNet-DWT, or
+  ViT-DWT through ``backbone``) with MEC: seeded source and
   target streams (the target carrying its augmented view), ``num_iters``
   steps, an eval every ``check_acc_step``, then the post-training
   protocol — ``stat_collection_passes`` gradient-free train-mode passes
@@ -129,7 +130,7 @@ from dwt_tpu_torch.data.transforms import (
     random_affine,
 )
 from dwt_tpu_torch.nn.lenet import build_lenet
-from dwt_tpu_torch.nn.resnet import build_resnet
+from dwt_tpu_torch.nn.registry import build_backbone
 from dwt_tpu_torch.ops.whitening import get_whitener
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
@@ -917,13 +918,16 @@ def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
 
 
 def build_model(cfg: OfficeHomeConfig) -> nn.Module:
-    """The config's ResNet-DWT (its compute dtype, whitener and remat),
-    freshly initialized from ``cfg.seed``."""
-    return build_resnet(
-        cfg.arch, num_classes=cfg.num_classes, group_size=cfg.group_size,
-        seed=cfg.seed, momentum=cfg.running_momentum,
+    """The config's backbone through the registry (``backbone`` wins over
+    ``arch``; its compute dtype, whitener, remat and padded head, and
+    ``pos_embed`` sized for the crop), freshly initialized from
+    ``cfg.seed``."""
+    return build_backbone(
+        cfg.backbone or cfg.arch, num_classes=cfg.num_classes,
+        group_size=cfg.group_size, seed=cfg.seed, momentum=cfg.running_momentum,
         dtype=model_dtype(resolve_compute_dtype(cfg)), whitener=cfg.whitener,
-        remat=cfg.remat,
+        remat=cfg.remat, pad_classes_to=cfg.pad_classes_to,
+        image_size=cfg.img_crop_size,
     )
 
 
@@ -932,8 +936,8 @@ def run_officehome(
     logger: Optional[Logger] = None,
     model: Optional[nn.Module] = None,
 ) -> float:
-    """Train ResNet-DWT with MEC; returns the final target test accuracy (%)
-    (the last eval's when a SIGTERM ends the run early).
+    """Train the config's backbone with MEC; returns the final target test
+    accuracy (%) (the last eval's when a SIGTERM ends the run early).
 
     ``model`` (default :func:`build_model`) is trained in place: it is
     moved to the device, its convs to channels_last memory format, and

@@ -1182,3 +1182,88 @@ def test_group_train_site_on_the_card_matches_the_cpu(cuda_device):
         out[str(device)] = [t.detach().cpu() for t in (y, new.mean, new.cov, xd.grad)]
     for name, a, b in zip(("y", "mean", "cov", "grad"), out["cpu"], out[str(cuda_device)]):
         torch.testing.assert_close(b, a, rtol=2e-3, atol=5e-5, msg=name)
+
+
+# ViT-S/16's whitened token sites (C = 384): a train site's [3, 18·196,
+# 384] (3,528 rows a domain, not a multiple of the apply's 128-row chunks)
+# and the [4·196, 384] rows of a bucket-4 forward, at g = 4 (the g = 4
+# kernels), 16 and 64 (the tiled general bodies, 24 and 6 groups).
+VIT_TOKENS = 196
+VIT_CASES = [pytest.param(d, m, g, id=f"D{d}-M{m}-g{g}")
+             for d, m in ((3, 18 * VIT_TOKENS), (None, 4 * VIT_TOKENS))
+             for g in (4, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,m,g", VIT_CASES)
+def test_kernels_at_the_vit_token_sites(cuda_device, d, m, g, dtype):
+    """Both kernels at ViT's token sites against their plain versions (the
+    moments also against float64; the bf16 apply bitwise), one launch
+    each; a second call of each and two replays of a CUDA graph that
+    captured both, bitwise equal.  ``d=None``: the eval and serve apply's
+    ``x [M, C]`` (its moments from the ``[1, M, C]`` view)."""
+    x = _domains(d or 1, m, 384, cuda_device, seed=g, offset=0.5).to(dtype)
+    before = cuda_whitening.moments_launches, cuda_whitening.apply_launches
+    mean, cov = cuda_whitening.whiten_moments(x, g)
+    w = _group_w(cov, m, cuda_device)
+    xa, ma, wa = (x, mean, w) if d else (x[0], mean[0], w[0])
+    y = cuda_whitening.whiten_apply(xa, ma, wa)
+    torch.cuda.synchronize()
+    assert (cuda_whitening.moments_launches - before[0],
+            cuda_whitening.apply_launches - before[1]) == (1, 1)
+    assert cov.shape == (d or 1, 384 // g, g, g) and y.shape == xa.shape
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, g)
+    r_mean, r_cov = _group_two_pass(x.float(), g)
+    _assert_group_moment(mean, p_mean, r_mean, MEAN_TOL, g)
+    _assert_group_moment(cov, p_cov, r_cov, COV_TOL, g)
+    plain = cuda_whitening.whiten_apply_plain(xa, ma, wa)
+    if dtype is torch.bfloat16:
+        assert torch.equal(y, plain)
+    else:
+        torch.testing.assert_close(y, plain, **TOL)
+    again = cuda_whitening.whiten_moments(x, g)
+    assert torch.equal(again[0], mean) and torch.equal(again[1], cov)
+    assert torch.equal(cuda_whitening.whiten_apply(xa, ma, wa), y)
+    graph = torch.cuda.CUDAGraph()
+    with cuda_whitening.capture_launches() as recorded, torch.cuda.graph(graph):
+        g_mean, g_cov = cuda_whitening.whiten_moments(x, g)
+        g_y = cuda_whitening.whiten_apply(xa, ma, wa)
+    assert recorded == {"apply": 1, "moments": 1}
+    for _ in range(2):
+        for t in (g_mean, g_cov, g_y):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_mean, mean) and torch.equal(g_cov, cov)
+        assert torch.equal(g_y, y)
+
+
+@pytest.mark.cuda
+def test_vit_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """vit_tiny's train forward (both kernels at its 2 whitened token
+    sites, one launch each per site for the 3 domains) and eval forward
+    (the apply kernel) on the card against the same model on the CPU:
+    logits and running stats.  Convolutions and matmuls in full f32."""
+    from dwt_tpu_torch.nn.registry import build_backbone
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 8, 16, 16, 3)).astype(np.float32))
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        model = build_backbone("vit_tiny", num_classes=5, image_size=16, seed=0)
+        model = model.to(device, memory_format=torch.channels_last)
+        before = (cuda_whitening.moments_launches, cuda_whitening.apply_launches)
+        with torch.no_grad():
+            train_logits = model.train()(x.to(device))
+            eval_logits = model.eval()(x[1].to(device))
+        launches = (cuda_whitening.moments_launches - before[0],
+                    cuda_whitening.apply_launches - before[1])
+        results.append([train_logits.cpu(), eval_logits.cpu(), model.dn_patch.cov.cpu(),
+                        model.blk0.dn.mean.cpu()])
+        if device.type == "cuda":
+            assert launches == (2, 2 + 2)
+    for ours, ref in zip(*results):
+        torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4 * float(ref.abs().max()))

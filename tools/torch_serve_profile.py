@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where a served forward's device time goes: ``torch.profiler`` over the
-PyTorch port's bucketed ResNet50-DWT forward on a CUDA GPU.
+PyTorch port's bucketed ResNet50-DWT (or another registry backbone's)
+forward on a CUDA GPU.
 
 Run from the root of a checkout on a machine with the card::
 
-    python3 tools/torch_serve_profile.py [--bucket 128]
+    python3 tools/torch_serve_profile.py [--bucket 128] [--model vit_dwt] [--bf16]
 
-Builds the engine as the server does (``--model resnet50 --init_random
---seed 0``, 224², 65 classes), warms it, then profiles five
+Builds the engine as the server builds ``--model resnet50 --init_random
+--seed 0`` (224², 65 classes): the ``--model`` backbone through the
+registry into a ``ServeEngine`` (the server's ``--model`` offers no ViT),
+at bf16 with ``--bf16``; warms it, then profiles five
 forwards of one bucket.  Prints one JSON line: the card (name and power
 limit from ``nvidia-smi``), forward ms (CUDA events, profiler off), and
 the profiled window's device time by kernel category and by kernel name,
@@ -35,10 +38,16 @@ CATEGORIES = (
     ("whiten_apply", "whitening apply (hand kernel)"),
     ("ToNhwc", "layout transpose (cuDNN)"),
     ("ToNchw", "layout transpose (cuDNN)"),
+    ("fprop", "convolution"),
+    ("dgrad", "convolution"),
     ("conv", "convolution"),
-    ("xmma", "convolution"),
     ("implicit", "convolution"),
+    # cuBLAS: sm80_xmma_gemm_*, cutlass *gemm*, nvjet_* (sm90, bf16).
     ("gemm", "matmul"),
+    ("nvjet", "matmul"),
+    ("xmma", "convolution"),
+    ("softmax", "softmax (attention)"),
+    ("layer_norm", "LayerNorm"),
     ("max_pool", "max pool"),
     ("reduce", "reduction (mean pool)"),
     ("elementwise", "elementwise (BN, affine, ReLU, add)"),
@@ -58,6 +67,9 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--bucket", type=int, default=128)
+    p.add_argument("--model", default="resnet50",
+                   choices=("resnet50", "resnet101", "resnet152", "vit_dwt"))
+    p.add_argument("--bf16", action="store_true", help="serve in bf16")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -67,16 +79,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA GPU", file=sys.stderr)
         return 2
-    from dwt_tpu_torch.serve import server
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    engine = server.build_engine(server.build_parser().parse_args([
-        "--model", "resnet50", "--init_random", "--seed", "0",
-        "--buckets", str(args.bucket),
-    ]))
+    from dwt_tpu_torch.config import model_dtype
+    from dwt_tpu_torch.nn.registry import build_backbone
+    from dwt_tpu_torch.serve.engine import ServeEngine
+
+    model = build_backbone(args.model, num_classes=65, image_size=224, seed=0,
+                           dtype=model_dtype("bf16" if args.bf16 else "f32"))
+    engine = ServeEngine(model, (224, 224, 3), buckets=[args.bucket])
     b = args.bucket
     x = engine.stage(np.random.default_rng(0).normal(
         size=(b,) + engine.input_shape).astype(np.float32))
@@ -121,6 +134,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": smi,
         "device": torch.cuda.get_device_name(0),
+        "model": args.model,
+        "serve_dtype": "bf16" if args.bf16 else "f32",
         "bucket": b,
         "forward_ms": forward_ms,
         "profiled_window_ms_per_forward": window_ms / ITERS,

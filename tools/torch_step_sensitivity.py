@@ -6,8 +6,11 @@ their plain versions and in float64, over several seeds, on a CUDA GPU.
 Run from the root of a checkout on a machine with the card::
 
     python3 tools/torch_step_sensitivity.py [--seeds 2,12,22] [--images 18]
-        [--size 224] [--out chiprun_out/step_sensitivity.json]
+        [--size 224] [--backbone vit_dwt] [--out chiprun_out/step_sensitivity.json]
 
+``--backbone`` takes any name of the backbone registry in place of
+``--arch`` (``vit_dwt``: ViT-S/16, the readings behind ``chip_smoke.py``'s
+``VIT_LEAF_TOL`` and ``VIT_NOISE_TOL``).
 ``--arch tiny --size 32 --images 8 --device cpu`` rehearses it on the
 CPU (where both "kernel" steps take the plain versions).
 
@@ -22,8 +25,11 @@ Per seed (weights from ``seed``, batch from ``seed + 3``, as
   ``[−1, 1]``) — how far the exact step moves for an input change of
   f32's size, with no f32 arithmetic at all.
 
-They are compared leaf by leaf with ``chip_smoke.compare_steps``.  Also
-per seed: how uniform the loss's gradient on the logits is across the
+They are compared leaf by leaf with ``chip_smoke.compare_steps``; per
+pair, ``checked_worst`` is the worst backbone and head leaf that
+``chip_smoke.check_step`` holds to a limit (a ViT's zero-gradient biases
+left out), and ``zero_grad_share`` each step's ``chip_smoke.noise_share``
+of those biases.  Also per seed: how uniform the loss's gradient on the logits is across the
 images of each stream (``logit_grad_spread``), the condition number of
 every whitening site's shrunk batch
 covariance (the worst group of each site and domain, recovered from the
@@ -100,6 +106,8 @@ def main(argv=None) -> int:
     p.add_argument("--images", type=int, default=18, help="images per stream")
     p.add_argument("--size", type=int, default=224)
     p.add_argument("--arch", default="resnet50", choices=("resnet50", "tiny"))
+    p.add_argument("--backbone", default=None,
+                   help="a backbone registry name; overrides --arch")
     p.add_argument("--lambda_mec", type=float, default=None,
                    help="the MEC loss weight (default: the trainer's)")
     p.add_argument("--device", default="cuda")
@@ -123,10 +131,11 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         _build.build_all()
     tables = []
+    small = (args.backbone or args.arch) in ("tiny", "vit_tiny")
     for seed in [int(s) for s in args.seeds.split(",")]:
-        cfg = OfficeHomeConfig(seed=seed, arch=args.arch, img_crop_size=args.size,
-                               source_batch_size=args.images,
-                               num_classes=65 if args.arch == "resnet50" else 5)
+        cfg = OfficeHomeConfig(seed=seed, arch=args.arch, backbone=args.backbone,
+                               img_crop_size=args.size, source_batch_size=args.images,
+                               num_classes=5 if small else 65)
         if args.lambda_mec is not None:
             cfg = dataclasses.replace(cfg, lambda_mec_loss=args.lambda_mec)
         batch = cs.synthetic_batch(torch, loop, args.images, args.size,
@@ -138,6 +147,8 @@ def main(argv=None) -> int:
                                              dtype=v.dtype) * 2 - 1) * 2.0 ** -24)
                      if v.is_floating_point() else v for k, v in f64_batch.items()}
         base = loop.build_model(cfg)
+        zero = (cs.vit_zero_grad_leaves(base.depth)
+                if cfg.backbone in ("vit_dwt", "vit_tiny") else ())
         init = {k: v.detach().clone() for k, v in base.state_dict().items()}
         steps = {"kernel": cs.one_step(torch, cfg, copy.deepcopy(base), batch, device)}
         kernels = (cw.whiten_moments, cw.whiten_apply)
@@ -183,6 +194,10 @@ def main(argv=None) -> int:
         conds = site_conditions(torch, f64_model, init, cfg.running_momentum)
         row = {"seed": seed, "batch_seed": seed + 3,
                **{name: cs.leaf_summary(e) for name, e in errs.items()},
+               "checked_worst": {name: cs.checked_worst(e, zero)
+                                 for name, e in errs.items()},
+               "zero_grad_share": {name: cs.noise_share(torch, st, zero)
+                                   for name, st in steps.items()} if zero else {},
                "leaves": leaves, "whitening_site_condition": conds,
                "lambda_mec": cfg.lambda_mec_loss, "logit_grad_spread": spread}
         cs.emit(row)
@@ -193,7 +208,7 @@ def main(argv=None) -> int:
     card = cs.nvidia_smi() if device.type == "cuda" else "cpu"
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": card, "arch": args.arch, "images": args.images,
+        json.dump({"card": card, "arch": args.backbone or args.arch, "images": args.images,
                    "size": args.size, "seeds": tables}, f)
     print(card, flush=True)
     return 0

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where a train step's device time goes: ``torch.profiler`` over the
-PyTorch port's ResNet50-DWT OfficeHome train step (or LeNet-DWT digits
-train step) on a CUDA GPU.
+PyTorch port's OfficeHome train step (ResNet50-DWT, or another backbone
+of the registry) or LeNet-DWT digits train step on a CUDA GPU.
 
 Run from the root of a checkout on a machine with the card::
 
     python3 tools/torch_train_profile.py [--images 18] [--size 224]
+    python3 tools/torch_train_profile.py --model vit_dwt --compute_dtype bf16
     python3 tools/torch_train_profile.py --model lenet [--images 32]
     python3 tools/torch_train_profile.py --package-root DIR
 
 Builds the model as the trainer does (``build_model``: seed 1, 65
-classes, momentum 0.1; ``--model lenet``: ``build_digits_model``, seed
-1, group size 4, Adam), takes two warm-up steps on one synthetic batch
+classes, momentum 0.1, ``--model`` the registry backbone, at
+``--compute_dtype``; ``--model lenet``: ``build_digits_model``, seed 1,
+group size 4, Adam), takes two warm-up steps on one synthetic batch
 of three streams (two for LeNet-DWT), times five steps with CUDA events
 (profiler off; twenty for LeNet-DWT, whose step is short), then
 profiles three.  Prints one JSON line: the card (name and power limit
@@ -46,15 +48,20 @@ CATEGORIES = (
     ("ToNchw", "layout transpose (cuDNN)"),
     ("wgrad", "convolution"),
     ("dgrad", "convolution"),
+    ("fprop", "convolution"),
     ("conv", "convolution"),
-    ("xmma", "convolution"),
     ("implicit", "convolution"),
     ("potrf", "factorization (torch.linalg)"),
     ("trsm", "factorization (torch.linalg)"),
     ("trsv", "factorization (torch.linalg)"),
     ("cholesky", "factorization (torch.linalg)"),
-    ("gemm", "matmul (einsum, block-diagonal apply, head)"),
-    ("gemv", "matmul (einsum, block-diagonal apply, head)"),
+    # cuBLAS: sm80_xmma_gemm_*, cutlass *gemm*, nvjet_* (sm90, bf16).
+    ("gemm", "matmul (dense layers, einsum, block-diagonal apply, head)"),
+    ("gemv", "matmul (dense layers, einsum, block-diagonal apply, head)"),
+    ("nvjet", "matmul (dense layers, einsum, block-diagonal apply, head)"),
+    ("xmma", "convolution"),
+    ("softmax", "softmax (attention)"),
+    ("layer_norm", "LayerNorm"),
     ("max_pool", "max pool"),
     ("reduce", "reduction (moments of BN, mean pool, norms)"),
     ("foreach", "optimizer (foreach SGD, grad norm)"),
@@ -75,10 +82,13 @@ def category(name: str) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("resnet50", "lenet"), default="resnet50")
+    p.add_argument("--model", default="resnet50",
+                   choices=("resnet50", "resnet101", "resnet152", "vit_dwt", "lenet"),
+                   help="an OfficeHome backbone of the registry, or lenet")
+    p.add_argument("--compute_dtype", choices=("f32", "bf16"), default="f32")
     p.add_argument("--images", type=int, default=None,
                    help="images per stream (default 18; LeNet-DWT 32)")
-    p.add_argument("--size", type=int, default=224, help="ResNet50 image size")
+    p.add_argument("--size", type=int, default=224, help="OfficeHome image size")
     p.add_argument("--package-root", default=None,
                    help="drive this checkout's dwt_tpu_torch")
     args = p.parse_args(argv)
@@ -110,13 +120,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     if lenet:
-        cfg = DigitsConfig(seed=1, group_size=4, source_batch_size=images)
+        cfg = DigitsConfig(seed=1, group_size=4, source_batch_size=images,
+                           compute_dtype=args.compute_dtype)
         model = loop.build_digits_model(cfg)
         optimizer, schedules = digits_tx(model, cfg, 256 // images)
         step = make_digits_train_step(model, cfg.lambda_entropy_loss)
         shape, classes, streams = (28, 28, 1), 10, 2
     else:
-        cfg = OfficeHomeConfig(img_crop_size=args.size, source_batch_size=images)
+        cfg = OfficeHomeConfig(img_crop_size=args.size, source_batch_size=images,
+                               backbone=args.model, compute_dtype=args.compute_dtype)
         model = loop.build_model(cfg)
         optimizer, schedules = officehome_tx(model, cfg)
         step = make_officehome_train_step(model, cfg.lambda_mec_loss)
@@ -172,6 +184,7 @@ def main(argv=None) -> int:
         "card": smi,
         "device": torch.cuda.get_device_name(0),
         "model": args.model,
+        "compute_dtype": args.compute_dtype,
         "package_root": args.package_root,
         "images_per_step": streams * images,
         "size": shape[0],
