@@ -361,7 +361,50 @@ script exits non-zero without the final line:
 40. ``resnet152_train`` — 3 steps of ``--backbone resnet152`` through the
                   CLI entry, phase 7's checks (11 + 11), step ms (steps
                   2-3) and peak memory.
-41. ``kernels`` — the contract line: per kernel and path its TPU
+41. ``int8_serve`` — the server CLI with ``--quantize_int8`` on run A's
+                  checkpoint (phase 18) answers 32 test images as ``.npy``:
+                  every resident parameter int8 (bytes by dtype beside the
+                  f32 engine's), f32 scales, 11 apply launches for the
+                  forward, finite logits whose argmax agrees with the f32
+                  server's for at least ``INT8_BAND`` of the images, the
+                  bucket-32 forward through the kernel against the plain
+                  apply; int8 and f32 forward ms per bucket; the apply at
+                  that forward's 11 site shapes against its plain version,
+                  timed as in phase 1.
+42. ``hot_swap`` — the server with ``--watch`` on a directory holding run
+                  A's step-3 checkpoint, under a steady load of 1- and
+                  5-image requests while the trainer (phase 18's flags on
+                  that directory) resumes and writes step 6: the swap
+                  lands, no request fails, every reply names step 3's or
+                  6's generation and every batch's access records one
+                  version; 11 apply launches per forward of the swapped
+                  generation (``serve_swap``).  Then a digest-valid
+                  candidate with NaN weights is refused by the canary, and
+                  a good one goes live, is made to serve errors and is
+                  rolled back.  The apply at the bucket-8 forward's 11
+                  site shapes against its plain version, timed as in
+                  phase 1.
+43. ``adapt_serve`` — the server with ``--adapt_every`` on run A's
+                  checkpoint and a seeded ``--canary_fixture``, fed 4
+                  requests of 32 images shifted by ``serve_drift_shift``,
+                  the adapter's iterations driven one per request: a thin
+                  window, then ``adapt_build``/``adapt_canary``/
+                  ``adapt_swap``; 11 moments and 11 apply launches per
+                  collect batch (``serve_adapt``); each collect batch's
+                  stats against the same collect through the plain
+                  versions, relative to the batch's update
+                  (``COLLECT_SITE_TOL`` at the whitened sites,
+                  ``COLLECT_TOL`` elsewhere); the adapted stats bitwise the fold of
+                  the collected window; ``/metrics`` valid, its
+                  ``dwt_serve_domain_shift`` above 0.
+44. ``adapt_kernels`` / ``adapt_timing`` — both kernels, f32 and bf16, at
+                  the collect forward's site shapes (``[3, 401,408, 64]``,
+                  ``[3, 100,352, 64]``, ``[3, 100,352, 256]``): the plain
+                  versions, float64 (phase 5's tolerances; the bf16 apply
+                  within one rounding step), one launch each; times with
+                  L2 cold beside the bound, the plain version and
+                  ``torch.baddbmm``/``torch.cov``, summed per collect batch.
+45. ``kernels`` — the contract line: per kernel and path its TPU
                   counterpart, launches on that path's run, error and
                   times (``ms`` is the kernel's device time); each row's
                   ``phase_launches`` counts the launches of phases 18–25
@@ -384,7 +427,12 @@ script exits non-zero without the final line:
                   ``resnet152_train`` with their launches and the ResNet50
                   train rows' errors and times (the same 11 site shapes),
                   ``visda_serve`` with its launches and phase 39's errors
-                  and times at its bucket-8 sites.
+                  and times at its bucket-8 sites; the serving plane's rows
+                  (``serving_rows``): ``serve_adapt`` (both kernels, phase
+                  43's launches, phase 44's f32 errors and times per collect
+                  batch), ``serve_int8`` and ``serve_swap`` (phases 41's and
+                  42's launches, errors and times at their bucket-32 and
+                  bucket-8 sites).
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -661,6 +709,20 @@ def device_ms(torch, fn, names, rotation=((),), iters: int = 20,
                for d in by_name.values()) / 1e3
 
 
+def kernel_device_ms(torch, fn, names, rotation, bytes_ms):
+    """``device_ms`` of a hand kernel over an L2-cold ``rotation``, traced
+    again (3 traces at most) while it reads below ``bytes_ms``, the time
+    its bytes take at the memory rate: with L2 cold no kernel moves its
+    bytes faster than memory, so such a reading is the profiler's (one
+    trace at a 26 MB site has read 0.58 of the bound).  Returns ``(ms,
+    traces)``."""
+    for traces in range(1, 4):
+        ms = device_ms(torch, fn, names, rotation)
+        if ms >= bytes_ms:
+            break
+    return ms, traces
+
+
 def cold_rotation(torch, tensors, out_like=()):
     """Argument tuples over distinct buffers, so that timing a kernel by
     cycling through them finds L2 cold: ``tensors`` and their copies, with
@@ -753,7 +815,8 @@ def time_apply(torch, cw, x, mean, w, rate):
         "D": d if batched else None, "M": m, "C": c, "bytes": nbytes,
         "rotation_buffers": len(cold),
         "kernel_ms": cuda_ms(torch, kernel, cold),
-        "device_ms": device_ms(torch, kernel, APPLY_KERNELS, cold),
+        **dict(zip(("device_ms", "device_traces"),
+                   kernel_device_ms(torch, kernel, APPLY_KERNELS, cold, bytes_ms))),
         "host_us": host_us(torch, kernel, cold),
         "plain_ms": cuda_ms(
             torch, lambda xi, yi: cw.whiten_apply_plain(xi, mean, w, out=yi),
@@ -794,7 +857,8 @@ def time_moments(torch, cw, x, rate):
     row = {
         "D": d, "M": m, "C": c, "bytes": nbytes, "rotation_buffers": len(cold),
         "kernel_ms": cuda_ms(torch, kernel, cold),
-        "device_ms": device_ms(torch, kernel, MOMENTS_KERNELS, cold),
+        **dict(zip(("device_ms", "device_traces"),
+                   kernel_device_ms(torch, kernel, MOMENTS_KERNELS, cold, bytes_ms))),
         "host_us": host_us(torch, kernel, cold),
         "plain_ms": cuda_ms(torch, lambda xi: cw.whiten_moments_plain(xi, 4),
                             cold, iters=10),
@@ -3686,7 +3750,8 @@ def time_bf16(torch, cw, part, x, mean, w, rate):
     row = {"D": d if batched else None, "M": m, "C": c, "bytes": nbytes,
            "rotation_buffers": len(cold),
            "kernel_ms": cuda_ms(torch, kernel, cold),
-           "device_ms": device_ms(torch, kernel, BF16_KERNELS[part], cold),
+           **dict(zip(("device_ms", "device_traces"),
+                      kernel_device_ms(torch, kernel, BF16_KERNELS[part], cold, bytes_ms))),
            "host_us": host_us(torch, kernel, cold),
            "plain_ms": cuda_ms(torch, plain, cold, iters=5, warmup=1),
            "library_ms": cuda_ms(torch, library, cold, iters=10),
@@ -4573,19 +4638,47 @@ def visda_serve(torch, cw, server, officehome, visda, loop, flags, device, rate)
         raise AssertionError(f"the VisDA run saved step {step}, not {cfg.num_iters}")
     launches = served_checkpoint(torch, cw, server, SERVED["resnet101"], cfg.ckpt_dir,
                                  images, step, reference, "visda_serve", time_forward=True)
-    gen = torch.Generator(device=device).manual_seed(41)
-    cpu_gen = torch.Generator().manual_seed(41)
+    return (launches, *served_apply_sites(torch, cw, VISDA_SERVE_SITES, 41, device, rate,
+                                          "visda_serve"))
+
+
+def served_apply_sites(torch, cw, sites, seed, device, rate, phase):
+    """Phases ``{phase}_parity`` / ``{phase}_timing``: the apply at one
+    served forward's site shapes ``sites`` (``(site, M, C, sites per
+    forward)``) on inputs from ``seed`` against its plain version, and
+    timed as phase 1 times bucket 128's.  Returns ``(parity rows, {site:
+    timing row})``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cpu_gen = torch.Generator().manual_seed(seed)
     parity, timing = [], {}
-    for name, m, c, _ in VISDA_SERVE_SITES:
+    for name, m, c, _ in sites:
         x, mean, w = site_inputs(torch, m, c, gen, cpu_gen, device)
         row = apply_parity(torch, cw, name, x, mean, w)
         parity.append(row)
-        emit({"phase": "visda_serve_parity", **row})
+        emit({"phase": f"{phase}_parity", **row})
         if not row["ok"]:
             raise AssertionError(f"kernel disagrees with plain at {name}: {row}")
         timing[name] = {"shape": name, **time_apply(torch, cw, x, mean, w, rate)}
-        emit({"phase": "visda_serve_timing", **timing[name]})
-    return launches, parity, timing
+        emit({"phase": f"{phase}_timing", **timing[name]})
+        del x
+    return parity, timing
+
+
+def served_apply_row(sites, parity, timing, launches, floor, path, per):
+    """A kernels-line row of the apply on a served path: ``launches`` from
+    the path's run, the largest error and the times summed over one
+    forward's ``sites`` from :func:`served_apply_sites`."""
+    total = lambda key: sum(timing[s][key] * n for s, _, _, n in sites)
+    return {
+        "name": "whiten_apply", "route": "cuda",
+        "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
+        "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
+        "launches": launches, "max_abs_err": max(p["max_abs_err"] for p in parity),
+        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": bound_by(timing.values()),
+        "library_ms": total("library_ms"), "library_device_ms": total("library_device_ms"),
+        **{k: total(k) for k in APPLY_EXTRA}, "bytes": total("bytes"), **floor,
+        "path": path, "per": per}
 
 
 def resnet152_train(torch, cw, officehome, loop):
@@ -4672,21 +4765,11 @@ def backbone_rows(r, floor, rows):
         for part in ("apply", "moments"):
             out.append({**base[f"{carried}/whiten_{part}"], "launches": launches[part],
                         "path": path, "per": per, "carried_from": carried})
-    served = r["visda_serve_timing"]
-    total = lambda key: sum(served[s][key] * n for s, _, _, n in VISDA_SERVE_SITES)
-    out.append({
-        "name": "whiten_apply", "route": "cuda",
-        "source": "dwt_tpu_torch/csrc/whiten_apply.cu",
-        "replaces": "dwt_tpu/ops/pallas_whitening.py:143",
-        "launches": r["visda_serve_launches"],
-        "max_abs_err": max(p["max_abs_err"] for p in r["visda_serve_parity"]),
-        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"), "bound_by": bound_by(served.values()),
-        "library_ms": total("library_ms"), "library_device_ms": total("library_device_ms"),
-        **{k: total(k) for k in APPLY_EXTRA}, "bytes": total("bytes"), **floor,
-        "path": "visda_serve",
-        "per": f"the 11 whitened sites of the served ResNet101's bucket-{SERVED_IMAGES} "
-               f"forward at 224² (its one request of {SERVED_IMAGES} images)"})
+    out.append(served_apply_row(
+        VISDA_SERVE_SITES, r["visda_serve_parity"], r["visda_serve_timing"],
+        r["visda_serve_launches"], floor, "visda_serve",
+        f"the 11 whitened sites of the served ResNet101's bucket-{SERVED_IMAGES} "
+        f"forward at 224² (its one request of {SERVED_IMAGES} images)"))
     return out
 
 
@@ -4724,6 +4807,577 @@ def group_rows(r, floor):
             "per": f"the 11 whitened sites of one ResNet50 train step at group size {g}, "
                    f"one launch per site for its 3 domains, 18 images per stream at 224²"})
     return rows
+
+
+# ---------------------------------------------------- the serving plane
+
+
+ADAPT_BATCH = 32  # --adapt_batch: images per collect forward, tiled into 3 domains
+ADAPT_SITES = tuple((name, ADAPT_BATCH * m // 18, c, n) for name, m, c, n in TRAIN_SITES)
+ADAPT_FLAGS = ["--buckets", "1,8,32", "--adapt_every", "0.01", "--adapt_min_samples",
+               str(2 * ADAPT_BATCH), "--adapt_batch", str(ADAPT_BATCH),
+               "--rollback_decide_s", "600"]
+ADAPT_DRIFT = {"at_request": 0, "offset": 0.5, "scale": 1.3}  # serve_drift_shift
+ADAPT_REQUESTS = 4  # requests of ADAPT_BATCH shifted images
+# The collect forward through the kernels against the same collect through
+# their plain versions, per stat tensor: max |kernel − plain| over max
+# |plain − input stats|, the error relative to the batch's own update (the
+# EMA's momentum does not dilute it).  The whitened sites' mean and cov,
+# which the moments kernel computes, and the other stats (the BN sites
+# downstream, which see the kernels' rounding through the network), each
+# about 10× the worst reading of tools/torch_collect_sensitivity.py over
+# seeds 2/12/22/32/42, 3 batches each (1.16e-6 and 3.17e-5).
+COLLECT_SITE_TOL = 1e-5
+COLLECT_TOL = 3e-4
+INT8_BAND = 0.75  # int8 argmax agreement with f32 (tests/test_int8_serve.py)
+INT8_IMAGES = 32
+INT8_SITES = tuple((name, m * INT8_IMAGES // 128, c, n) for name, m, c, n in RESNET50_SITES)
+SWAP_IMAGES = 8  # images per forward of the swapped generation
+SWAP_SITES = tuple((name, m * SWAP_IMAGES // 128, c, n) for name, m, c, n in RESNET50_SITES)
+SWAP_FLAGS = ["--buckets", "1,8", "--watch", "--reload_poll_s", "0.2",
+              "--rollback_min_requests", "8", "--rollback_decide_s", "600",
+              # Latency is not this phase's trip: the trainer shares the card
+              # with the server while the first swap lands.
+              "--rollback_p99_factor", "1000"]
+SWAP_WAIT_S = 180
+
+
+def f32_site_parity(torch, cw, name, x):
+    """Both f32 kernels at a collect site ``x [D, M, C]``: one launch
+    each, the moments within phase 5's tolerances of the plain version and
+    of a float64 two-pass reference, the apply (whitening each domain with
+    its own moments) within ``TOL`` of its plain version.  Returns ``(row,
+    mean, w)``."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    before = cw.moments_launches
+    mean, cov = cw.whiten_moments(x, 4)
+    launches = cw.moments_launches - before
+    w = whitening_matrix(_shrink(cov, 1e-3))
+    pm, pc, p_ok = moments_errors(torch, mean, cov, *cw.whiten_moments_plain(x, 4))
+    rm, rc, r_ok = moments_errors(torch, mean, cov, *two_pass_f64(torch, x))
+    a_row = apply_parity(torch, cw, name, x, mean, w)
+    row = {"shape": name, "D": x.shape[0], "M": x.shape[1], "C": x.shape[2],
+           "launches": {"moments": launches, "apply": a_row["launches"]},
+           "moments_vs_plain": {"mean_max_abs_err": pm, "cov_max_abs_err": pc},
+           "moments_vs_f64_two_pass": {"mean_max_abs_err": rm, "cov_max_abs_err": rc},
+           "apply_vs_plain": {"max_abs_err": a_row["max_abs_err"]},
+           "mean_tol": MEAN_TOL, "cov_rtol": COV_RTOL, "cov_atol": COV_ATOL, "tol": TOL}
+    row["ok"] = p_ok and r_ok and a_row["ok"] and launches == 1
+    return row, mean, w
+
+
+def adapt_kernels(torch, cw, device, rate):
+    """Phases ``adapt_kernels`` / ``adapt_timing``: both kernels, f32 and
+    bf16, at the 11 site shapes of a collect forward (``--adapt_batch 32``
+    tiled into 3 domains at 224²: the stem ``[3, 401,408, 64]``, stage 1
+    ``[3, 100,352, 64]`` and ``[3, 100,352, 256]``) against their plain
+    versions (and the moments against float64), then timed with L2 cold
+    beside the bound, the plain version and the library call."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    parity, timing = [], {}
+    for dtype in ("f32", "bf16"):
+        for name, m, c, _ in ADAPT_SITES:
+            if dtype == "f32":
+                x = moments_input(torch, DOMAINS, m, c, gen, device)
+                row, mean, w = f32_site_parity(torch, cw, name, x)
+            else:
+                x = bf16_site(torch, DOMAINS, m, c, gen, device)
+                row, mean, w = bf16_parity(torch, cw, name, x)
+            row["dtype"] = dtype
+            parity.append(row)
+            emit({"phase": "adapt_kernels", **row})
+            if not row["ok"]:
+                raise AssertionError(f"a kernel disagrees at the collect site {name} "
+                                     f"({dtype}): {row}")
+            if dtype == "f32":
+                t = {"moments": time_moments(torch, cw, x, rate),
+                     "apply": time_apply(torch, cw, x, mean, w, rate)}
+            else:
+                t = {part: time_bf16(torch, cw, part, x, mean, w, rate)
+                     for part in ("moments", "apply")}
+            timing[(dtype, name)] = t
+            emit({"phase": "adapt_timing", "dtype": dtype, "shape": name, **t})
+            del x
+            torch.cuda.empty_cache()
+    per_batch = {
+        dtype: {part: {key: sum(timing[(dtype, name)][part][key] * n
+                                for name, _, _, n in ADAPT_SITES)
+                       for key in ("device_ms", "plain_ms", "bound_ms", "library_ms")}
+                for part in ("moments", "apply")}
+        for dtype in ("f32", "bf16")}
+    emit({"phase": "adapt_timing", "per": "one collect batch: 11 sites, one launch "
+          "each per kernel for the 3 domains", "per_batch": per_batch,
+          "card": nvidia_smi()})
+    return parity, timing
+
+
+def serving_stack(server, args):
+    """The server CLI's own wiring of ``args`` in this process
+    (``server.build_stack``: engine, access log, client, deploy
+    controller, reloader, adapter, HTTP front; nothing started) and an
+    HTTP client of its front."""
+    stack = server.build_stack(args)
+    return stack, server.HttpServeClient(args.host, stack.front.port, timeout=300)
+
+
+def served_args(server, *flags):
+    return server.build_parser().parse_args(
+        SERVED["resnet50"]["flags"] + list(flags) + ["--host", "127.0.0.1", "--port", "0"])
+
+
+def lifecycle(path):
+    """The deploy lifecycle events of an access-log file, in order."""
+    with open(path) as f:
+        return [e for e in map(json.loads, f) if e["kind"] != "access"]
+
+
+def single_version_batches(path):
+    """Every access record's batch carries one version: ``{batch_seq:
+    version}``, raising on a mixed batch."""
+    seen = {}
+    with open(path) as f:
+        for rec in map(json.loads, f):
+            if rec["kind"] == "access" and "batch_seq" in rec:
+                if seen.setdefault(rec["batch_seq"], rec["version"]) != rec["version"]:
+                    raise AssertionError(f"batch {rec['batch_seq']} mixed versions")
+    return seen
+
+
+def int8_serve(torch, cw, server, loop, officehome, a_dir, a_step, device, rate):
+    """Phase ``int8_serve``: the server CLI with ``--quantize_int8`` on run
+    A's checkpoint answers 32 test images as ``.npy``: 11 apply launches
+    for the forward, every resident parameter int8 with an f32 scale,
+    finite logits whose argmax agrees with the f32 server's on the same
+    checkpoint for at least ``INT8_BAND`` of the images; the bucket-32
+    forward through the kernel against the same forward through the plain
+    apply; forward ms of the int8 and the f32 engine per bucket, in turns;
+    ``int8_serve_parity`` / ``int8_serve_timing``: the apply at that
+    bucket-32 forward's site shapes (``INT8_SITES``).  Returns ``(launches,
+    parity rows, {site: timing row})``."""
+    import numpy as np
+
+    cfg = officehome.config_from_args(officehome.build_parser().parse_args(CKPT_FLAGS))
+    images = loop._synthetic_classification_arrays(
+        cfg.synthetic_size, (cfg.img_crop_size,) * 2 + (3,), cfg.num_classes,
+        cfg.seed + 2, 0.5)[0][:INT8_IMAGES].astype(np.float32)
+    flags = ["--ckpt_dir", a_dir, "--buckets", "1,8,32,128"]
+    f32 = server.build_engine(served_args(server, *flags))
+    args = served_args(server, *flags, "--quantize_int8")
+    stack, http = serving_stack(server, args)
+    engine = stack.engine
+    try:
+        cw.apply_launches = 0
+        logits = http.infer(images, binary=True)
+        launches, batches = cw.apply_launches, stack.client.batches
+    finally:
+        http.close()
+        stack.front.close()
+    st = engine.state
+    resident = {}
+    for t in st.params.values():
+        resident[str(t.dtype)] = resident.get(str(t.dtype), 0) + t.numel() * t.element_size()
+    ref = f32.infer(images)
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).mean())
+    x32 = engine.stage(images)
+    with torch.inference_mode():
+        kernel_logits = engine.forward(x32, 32).clone()
+        kernel_fn, cw.whiten_apply = cw.whiten_apply, cw.whiten_apply_plain
+        try:
+            plain_logits = engine.forward(x32, 32)
+        finally:
+            cw.whiten_apply = kernel_fn
+    kernel_vs_plain = norm_err(kernel_logits, plain_logits)
+    per_bucket = {}
+    for b in engine.buckets:
+        xb = engine.stage(np.zeros((b,) + SERVED["resnet50"]["shape"], np.float32))
+        per_bucket[b] = {
+            "int8_forward_ms": cuda_ms(torch, lambda: engine.forward(xb, b), iters=10,
+                                       warmup=2),
+            "f32_forward_ms": cuda_ms(torch, lambda: f32.forward(xb, b), iters=10,
+                                      warmup=2)}
+    emit({"phase": "int8_serve", "engine_step": engine.step, "quantize": engine.quantize,
+          "batches_by_bucket": batches, "apply_launches": launches,
+          "resident_param_bytes": resident,
+          "f32_param_bytes": sum(t.numel() * t.element_size()
+                                 for t in f32.state.params.values()),
+          "scale_dtypes": sorted({str(s.dtype) for s in st.scales.values()}),
+          "argmax_agreement": agree, "band": INT8_BAND,
+          "int8_vs_f32": norm_err(torch.from_numpy(logits), torch.from_numpy(ref)),
+          "kernel_vs_plain_bucket32": kernel_vs_plain, "tolerance": FORWARD_TOL,
+          "per_bucket": per_bucket, "card": nvidia_smi()})
+    if engine.step != a_step or not engine.quantize or set(resident) != {"torch.int8"}:
+        raise AssertionError(f"the int8 engine holds {resident} at step {engine.step}")
+    if {str(s.dtype) for s in st.scales.values()} != {"torch.float32"}:
+        raise AssertionError("int8 scales are not f32")
+    if batches != {32: 1} or launches != SERVED["resnet50"]["sites"]:
+        raise AssertionError(f"{launches} apply launches for {batches}")
+    if not np.isfinite(logits).all() or agree < INT8_BAND or kernel_vs_plain > FORWARD_TOL:
+        raise AssertionError(f"int8 serving off its bands: agreement {agree}, kernel vs "
+                             f"plain {kernel_vs_plain}")
+    del f32, x32, kernel_logits, plain_logits
+    torch.cuda.empty_cache()
+    return (launches, *served_apply_sites(torch, cw, INT8_SITES, 43, device, rate,
+                                          "int8_serve"))
+
+
+def write_nan_checkpoint(torch, src, dst, step):
+    """A digest-valid checkpoint at ``dst/<step>`` with ``src``'s payload
+    and NaN parameters (``save_state`` refuses to write one)."""
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    payload, _ = ckpt.read_payload(src)
+    names = [k for k in payload["model"] if not k.endswith(
+        (".mean", ".cov", ".var", ".count", ".w"))]
+    for k in names:
+        payload["model"][k] = torch.full_like(payload["model"][k], float("nan"))
+    payload["step"] = step
+    tmp = os.path.join(dst, f".tmp-nan-{step}")
+    os.makedirs(tmp)
+    torch.save(payload, os.path.join(tmp, ckpt.STATE_FILE))
+    ckpt._write_manifest(tmp, step, ckpt.params_digest((n, payload["model"][n]) for n in names),
+                         {"format": ckpt.TORCH_FORMAT})
+    os.replace(tmp, os.path.join(dst, str(step)))
+
+
+def wait_for(predicate, what, timeout=SWAP_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def hot_swap(torch, cw, server, officehome, loop, root, a_dir, device, rate):
+    """Phase ``hot_swap``: the server with ``--watch`` on a directory that
+    holds run A's step-3 checkpoint, under a steady load of 1- and 5-image
+    requests, while the trainer (phase 18's flags on that directory)
+    resumes at 3 and writes step 6.  Checks: the watcher swaps 6 in, no
+    request fails, every reply names one generation (3's or 6's) and every
+    batch's access records carry one version; the swapped generation's
+    forwards launch the apply kernel 11 times each.  Then a digest-valid
+    checkpoint with NaN weights (step 9) is refused by the canary, and a
+    good one (step 12) goes live, is made to serve errors and is rolled
+    back to 6.  ``hot_swap_parity`` / ``hot_swap_timing``: the apply at
+    the bucket-8 forward's site shapes (``SWAP_SITES``).  Returns
+    ``(launches, parity rows, {site: timing row})``."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from dwt_tpu_torch.utils import checkpoint as ckpt
+
+    watched = os.path.join(root, "watched")
+    os.makedirs(watched)
+    shutil.copytree(os.path.join(a_dir, "3"), os.path.join(watched, "3"))
+    log_path = os.path.join(root, "swap_access.jsonl")
+    args = served_args(server, "--ckpt_dir", watched, "--access_log", log_path,
+                       *SWAP_FLAGS)
+    stack, http = serving_stack(server, args)
+    engine, access_log, client, controller, reloader, front = (
+        stack.engine, stack.access_log, stack.client, stack.controller, stack.reloader,
+        stack.front)
+    reloader.start()
+    v3 = engine.version.label
+    rng = np.random.default_rng(3)
+    shape = SERVED["resnet50"]["shape"]
+    load_inputs = [rng.normal(size=(n,) + shape).astype(np.float32) for n in (1, 5)]
+    replies, failures, stop = [], [], threading.Event()
+
+    def load():
+        client_http = server.HttpServeClient(args.host, front.port, timeout=300)
+        try:
+            for i in itertools.count():
+                if stop.is_set():
+                    return
+                x = load_inputs[i % 2]
+                try:
+                    reply = client_http.infer_reply(x, binary=True)
+                    out = np.asarray(reply["logits"], np.float32)
+                    if out.shape != (len(x), SERVED["resnet50"]["classes"]) or \
+                            not np.isfinite(out).all():
+                        failures.append(f"bad reply {out.shape}")
+                    replies.append(reply["version"])
+                except Exception as e:  # every failure is counted
+                    failures.append(f"{type(e).__name__}: {e}")
+        finally:
+            client_http.close()
+
+    loader = threading.Thread(target=load)
+    t0 = time.perf_counter()
+    try:
+        loader.start()
+        cfg = officehome.config_from_args(officehome.build_parser().parse_args(
+            CKPT_FLAGS + ["--ckpt_dir", watched]))
+        trained = []
+        loop.run_officehome(cfg, lambda kind, step, **f: trained.append((kind, step)))
+        train_s = time.perf_counter() - t0
+        wait_for(lambda: engine.version.step == cfg.num_iters, "the swap to step 6")
+        swap_s = time.perf_counter() - t0
+        served_before = len(replies)
+        wait_for(lambda: len(replies) >= served_before + 10, "requests on step 6")
+        stop.set()
+        loader.join(60)
+        v6 = engine.version.label
+        # The swapped generation's forwards, the load stopped.
+        x8 = rng.normal(size=(SWAP_IMAGES,) + shape).astype(np.float32)
+        cw.apply_launches = 0
+        before = dict(client.batches)
+        for _ in range(3):
+            if http.infer_reply(x8, binary=True)["version"] != v6:
+                raise AssertionError("a reply after the swap names another version")
+        launches = cw.apply_launches
+        forwards = sum(client.batches.values()) - sum(before.values())
+        # A candidate with NaN weights: refused by the canary.
+        write_nan_checkpoint(torch, os.path.join(watched, str(cfg.num_iters)), watched, 9)
+        wait_for(lambda: any(k[0] == 9 for k in reloader.rejected), "the NaN refusal")
+        nan_reason = next(v for k, v in reloader.rejected.items() if k[0] == 9)
+        version_after_nan = engine.version.label
+        # A good candidate that regresses once live: rolled back.
+        payload, _ = ckpt.read_payload(os.path.join(watched, str(cfg.num_iters)))
+        names = tuple(n for n in payload["model"] if not n.endswith(
+            (".mean", ".cov", ".var", ".count", ".w")))
+        for n in names:
+            payload["model"][n] = payload["model"][n] * (1 + 1e-3)
+        ckpt.save_state(watched, 12, ckpt.HostState({**payload, "step": 12}, names))
+        wait_for(lambda: engine.version.step == 12, "the swap to step 12")
+        v12 = engine.version.label
+        for _ in range(args.rollback_min_requests):
+            access_log.record("error", 1, version=v12, error="forced post-swap regression")
+        wait_for(lambda: controller.rollback_count == 1, "the rollback")
+        rolled_to = engine.version.label
+    finally:
+        stop.set()
+        loader.join(60)
+        reloader.stop()
+        http.close()
+        front.close()
+        access_log.close()
+    events = lifecycle(log_path)
+    batch_versions = single_version_batches(log_path)
+    kinds = [e["kind"] for e in events]
+    emit({"phase": "hot_swap", "versions": {"boot": v3, "trained": v6, "regressed": v12,
+                                            "rolled_back_to": rolled_to},
+          "train_s": train_s, "swap_after_s": swap_s, "trainer_records": len(trained),
+          "replies": len(replies), "replies_by_version": {
+              v: replies.count(v) for v in sorted(set(replies))},
+          "failures": failures[:5], "batches": len(batch_versions),
+          "batch_versions": sorted(set(batch_versions.values())),
+          "apply_launches_after_swap": launches, "forwards_after_swap": forwards,
+          "nan_refusal": nan_reason, "events": kinds,
+          "swap_count": controller.swap_count, "rollback_count": controller.rollback_count})
+    if failures or set(replies) != {v3, v6} or set(batch_versions.values()) - {v3, v6, v12}:
+        raise AssertionError(f"hot swap under load: {len(failures)} failures, replies on "
+                             f"{set(replies)}")
+    if launches != SERVED["resnet50"]["sites"] * forwards or forwards != 3:
+        raise AssertionError(f"{launches} apply launches for {forwards} forwards")
+    if "non-finite" not in nan_reason or version_after_nan != v6:
+        raise AssertionError(f"the NaN candidate: {nan_reason}, live {version_after_nan}")
+    if rolled_to != v6 or "rollback" not in kinds or kinds.count("swap") != 2:
+        raise AssertionError(f"the regressed candidate: live {rolled_to}, events {kinds}")
+    return (launches, *served_apply_sites(torch, cw, SWAP_SITES, 44, device, rate,
+                                          "hot_swap"))
+
+
+def worst_collect_errors(errs, sites):
+    """The worst of ``collect_errors``'s readings over the whitened sites'
+    stats (``sites``: their module names) and over the other stats:
+    ``{"whitened": {...}, "other": {...}}``, each its stat and error."""
+    out = {}
+    for part, keep in (("whitened", True), ("other", False)):
+        some = {k: v for k, v in errs.items() if (k.rpartition(".")[0] in sites) == keep}
+        k = max(some, key=some.get)
+        out[part] = {"stat": k, "err": some[k]}
+    return out
+
+
+def collect_errors(before, got, ref):
+    """Per stat tensor of one collect batch: max |got − ref| over max |ref
+    − before| (float64), ``got`` the collect through the kernels, ``ref``
+    the same collect through their plain versions, ``before`` the stats
+    both started from; the error relative to the batch's own update.  A
+    tensor the batch does not move must come out equal (0, else inf)."""
+    errs = {}
+    for k, b in before.items():
+        b, g, r = (t.detach().double().cpu() for t in (b, got[k], ref[k]))
+        step, diff = float((r - b).abs().max()), float((g - r).abs().max())
+        errs[k] = diff / step if step > 0 else (0.0 if diff == 0 else float("inf"))
+    return errs
+
+
+def adapt_serve(torch, cw, server, inject, root, a_dir):
+    """Phase ``adapt_serve``: the server with ``--adapt_every`` on run A's
+    checkpoint, a seeded canary fixture (``--canary_fixture``, 8 images),
+    and 4 requests of 32 images shifted by ``serve_drift_shift``.  The
+    phase drives the adapter's iterations itself, one after each request,
+    so that each collect batch's launches are read alone.  Checks: the
+    lifecycle (a thin window, then ``adapt_build``, ``adapt_canary``,
+    ``adapt_swap``), 11 moments and 11 apply launches per collect batch,
+    each collect batch's output stats against the same collect (same
+    generation, input stats and images) with both kernels swapped for
+    their plain versions (``collect_errors``: the whitened sites' stats
+    within ``COLLECT_SITE_TOL``, the others within ``COLLECT_TOL``), the
+    adapted generation's stats bitwise the fold of the window the kernels
+    collected, and ``/metrics`` valid with ``dwt_serve_domain_shift`` > 0."""
+    import numpy as np
+
+    from dwt_tpu_torch.nn.norms import whitening_sites
+    from dwt_tpu_torch.obs import prom
+    from dwt_tpu_torch.serve.adapt import make_collect_fn
+
+    rng = np.random.default_rng(7)
+    shape = SERVED["resnet50"]["shape"]
+    fixture = os.path.join(root, "canary_fixture.npz")
+    np.savez(fixture, x=rng.normal(size=(8,) + shape).astype(np.float32))
+    log_path = os.path.join(root, "adapt_access.jsonl")
+    args = served_args(server, "--ckpt_dir", a_dir, "--canary_fixture", fixture,
+                       "--access_log", log_path, *ADAPT_FLAGS)
+    stack, http = serving_stack(server, args)
+    engine, adapter = stack.engine, stack.adapter
+    base = engine.state
+    collected = []
+    collect = adapter._collect
+
+    def counted(state, stats, x):
+        before = (cw.moments_launches, cw.apply_launches)
+        inputs = {k: v.clone() for k, v in stats.items()}
+        out = collect(state, stats, x)
+        torch.cuda.synchronize()
+        collected.append({"moments": cw.moments_launches - before[0],
+                          "apply": cw.apply_launches - before[1], "x": x.copy(),
+                          "state": state, "in": inputs,
+                          "out": {k: v.clone() for k, v in out.items()}})
+        return out
+
+    adapter._collect = counted
+    inject.arm(inject.FaultPlan.from_spec({"serve_drift_shift": ADAPT_DRIFT}))
+    verdicts, finite = [], True
+    try:
+        cw.moments_launches = cw.apply_launches = 0
+        for i in range(ADAPT_REQUESTS):
+            x = inject.maybe_shift_request(
+                i, rng.normal(size=(ADAPT_BATCH,) + shape).astype(np.float32))
+            out = http.infer(x, binary=True)
+            finite = finite and bool(np.isfinite(out).all())
+            wait_for(lambda: adapter._queue_samples >= ADAPT_BATCH, "the batch hook")
+            verdicts.append(adapter.step())
+        moments_total = cw.moments_launches
+        text = http.metrics()
+        stats = http.stats()
+    finally:
+        inject.disarm()
+        http.close()
+        stack.front.close()
+        stack.access_log.close()
+    adapted = engine.state
+    # Each collect batch again, both kernels swapped for their plain versions.
+    plain_collect = make_collect_fn(engine)
+    kernels = (cw.whiten_moments, cw.whiten_apply)
+    cw.whiten_moments, cw.whiten_apply = cw.whiten_moments_plain, cw.whiten_apply_plain
+    try:
+        refs = [plain_collect(c["state"], c["in"], c["x"]) for c in collected]
+    finally:
+        cw.whiten_moments, cw.whiten_apply = kernels
+    sites = set(whitening_sites(base.model))
+    per_collect = [worst_collect_errors(collect_errors(c["in"], c["out"], ref), sites)
+                   for c, ref in zip(collected, refs)]
+    # The fold of the window the kernels collected (2 batches from the
+    # base generation's stats), as the adapter folds: float64, cast back.
+    m = adapter._effective_momentum()
+    fold_diff = 0.0
+    for k, live in base.batch_stats.items():
+        a = live.cpu().numpy()
+        want = (a + m * (collected[1]["out"][k].cpu().numpy().astype(np.float64) - a)
+                ).astype(a.dtype)
+        fold_diff = max(fold_diff, float(np.abs(
+            adapted.batch_stats[k].cpu().numpy().astype(np.float64) - want).max()))
+    chained = all(torch.equal(collected[1]["in"][k], collected[0]["out"][k])
+                  and torch.equal(collected[0]["in"][k], v)
+                  for k, v in base.batch_stats.items())
+    problems = prom.validate_exposition(text)
+    shift = prom.parse_exposition(text)["dwt_serve_domain_shift"].samples[0][2]
+    kinds = [e["kind"] for e in lifecycle(log_path)]
+    per_batch = [{k: c[k] for k in ("moments", "apply")} for c in collected]
+    worst = {part: max(p[part]["err"] for p in per_collect)
+             for part in ("whitened", "other")}
+    emit({"phase": "adapt_serve", "verdicts": verdicts, "events": kinds,
+          "base_version": base.version.label, "adapted_version": adapted.version.label,
+          "collect_batches": len(collected), "launches_per_collect_batch": per_batch,
+          "moments_launches": moments_total, "momentum": m,
+          "collect_vs_plain": per_collect,
+          "collect_tolerance": {"whitened": COLLECT_SITE_TOL, "other": COLLECT_TOL},
+          "window_chained": chained, "adapted_vs_fold_max_abs": fold_diff,
+          "domain_shift": shift, "metrics_problems": problems[:5],
+          "adaptation": stats["adaptation"], "logits_finite": finite})
+    if verdicts[:2] != ["thin_window", "swapped"] or adapted is base or \
+            adapted.version.label == base.version.label:
+        raise AssertionError(f"adaptation verdicts {verdicts}")
+    if kinds[:4] != ["adapt_build", "adapt_build", "adapt_canary", "adapt_swap"]:
+        raise AssertionError(f"adaptation lifecycle {kinds}")
+    want = {"moments": WHITENED_SITES, "apply": WHITENED_SITES}
+    if len(collected) != ADAPT_REQUESTS or any(p != want for p in per_batch) \
+            or moments_total != WHITENED_SITES * len(collected):
+        raise AssertionError(f"collect launches {per_batch}, {moments_total} in all")
+    if worst["whitened"] > COLLECT_SITE_TOL or worst["other"] > COLLECT_TOL:
+        raise AssertionError(f"a collect batch off its plain twin: {per_collect}")
+    if not chained or fold_diff != 0.0:
+        raise AssertionError(f"the adapted stats are not the fold of the collected "
+                             f"window (chained {chained}, max diff {fold_diff})")
+    if problems or not shift > 0 or not finite:
+        raise AssertionError(f"metrics {problems}, shift {shift}, finite {finite}")
+    return {"moments": moments_total, "apply": sum(p["apply"] for p in per_batch)}, worst
+
+
+SERVING_PER = {
+    "serve_adapt": "the 11 whitened sites of one collect forward: --adapt_batch 32 "
+                   "tiled into 3 domains at 224², one launch per site for the 3 "
+                   "domains",
+    "serve_int8": f"the 11 whitened sites of one bucket-{INT8_IMAGES} ResNet50 forward "
+                  f"at 224² over int8-resident weights (int8_serve's request of "
+                  f"{INT8_IMAGES} images)",
+    "serve_swap": f"the 11 whitened sites of one bucket-{SWAP_IMAGES} ResNet50 forward "
+                  f"at 224² of a generation the watcher swapped in (hot_swap's 3 "
+                  f"requests of {SWAP_IMAGES} images after the swap)",
+}
+
+
+def serving_rows(r, floor):
+    """The contract line's rows of the serving plane: ``serve_adapt``
+    (both kernels: the collect batches' launches in ``adapt_serve``, the
+    largest f32 error and the f32 times per collect batch from
+    ``adapt_kernels``), ``serve_int8`` and ``serve_swap`` (the apply:
+    their phases' launches, the errors and times at their forwards' own
+    site shapes, buckets 32 and 8)."""
+    timing = r["adapt_timing"]
+    out = []
+    for part in ("moments", "apply"):
+        sites = [(timing[("f32", name)][part], n) for name, _, _, n in ADAPT_SITES]
+        total = lambda key: sum(t[key] * n for t, n in sites)
+        errs = [p for p in r["adapt_parity"] if p["dtype"] == "f32"]
+        err = (max(p["apply_vs_plain"]["max_abs_err"] for p in errs) if part == "apply"
+               else max(max(p["moments_vs_plain"].values()) for p in errs))
+        out.append({
+            "name": f"whiten_{part}", "route": "cuda",
+            "source": f"dwt_tpu_torch/csrc/whiten_{part}.cu",
+            "replaces": ("dwt_tpu/ops/pallas_whitening.py:143" if part == "apply"
+                         else "dwt_tpu/ops/pallas_whitening.py:68"),
+            "launches": r["adapt_launches"][part], "max_abs_err": err,
+            "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": bound_by([t for t, _ in sites]),
+            "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
+            "host_us": total("host_us"), **(floor if part == "apply" else {}),
+            "bf16_ms": sum(timing[("bf16", name)][part]["device_ms"] * n
+                           for name, _, _, n in ADAPT_SITES),
+            "path": "serve_adapt", "per": SERVING_PER["serve_adapt"],
+            "collect_vs_plain": r["adapt_collect_err"],
+            "collect_tolerance": {"whitened": COLLECT_SITE_TOL, "other": COLLECT_TOL}})
+    for path, key, sites in (("serve_int8", "int8", INT8_SITES),
+                             ("serve_swap", "swap", SWAP_SITES)):
+        out.append(served_apply_row(sites, r[f"{key}_parity"], r[f"{key}_timing"],
+                                    r[f"{key}_launches"], floor, path, SERVING_PER[path]))
+    return out
 
 
 def bound_by(rows):
@@ -4950,6 +5604,7 @@ def kernels_line(torch, r):
     rows = (rows[:3] + folder + rows[3:] + graphs + bf16_rows(r, floor)
             + group_rows(r, floor))
     rows += backbone_rows(r, floor, rows)
+    rows += serving_rows(r, floor)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -5066,6 +5721,12 @@ def main() -> int:
             torch, cw, officehome, loop, loader, root)
         ck["ckpt_serve"] = {"apply": ckpt_serve(torch, cw, server, officehome, loop,
                                                 a_dir, a_step, device)}
+        r["int8_launches"], r["int8_parity"], r["int8_timing"] = int8_serve(
+            torch, cw, server, loop, officehome, a_dir, a_step, device, rate)
+        r["swap_launches"], r["swap_parity"], r["swap_timing"] = hot_swap(
+            torch, cw, server, officehome, loop, root, a_dir, device, rate)
+        r["adapt_launches"], r["adapt_collect_err"] = adapt_serve(
+            torch, cw, server, inject, root, a_dir)
         ck["guard"] = guard_phase(torch, cw, officehome, loop, loader, inject, root, a_ids)
         ck["delta"], ck["delta_serve"] = delta_phase(
             torch, cw, officehome, loop, loader, server, root, a_records, a_dir, device)
@@ -5122,6 +5783,7 @@ def main() -> int:
          r["visda_serve_timing"]) = visda_serve(torch, cw, server, officehome, visda, loop,
                                                 visda_flags, device, rate)
     r["resnet152_launches"] = resnet152_train(torch, cw, officehome, loop)
+    r["adapt_parity"], r["adapt_timing"] = adapt_kernels(torch, cw, device, rate)
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -63,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -72,9 +73,12 @@ from dwt_tpu_torch.ops import _build, whitening
 KERNEL_GROUP = 4  # the group size of the kernels designed for it
 _STATS_PER_GROUP = 14  # their moments partials per group: 4 sums + 10 products
 
-# Kernel launches since import (or since a caller reset them).
+# Kernel launches since import (or since a caller reset them).  The
+# serving dispatcher and the online adapter launch from two threads, so
+# every increment holds _count_lock.
 apply_launches = 0
 moments_launches = 0
+_count_lock = threading.Lock()
 # The launches the open CUDA graph capture recorded, by kernel (None: no
 # capture_launches block is open).
 _recorded: Optional[Dict[str, int]] = None
@@ -88,10 +92,11 @@ def _count(kernel: str) -> None:
         if _recorded is not None:
             _recorded[kernel] += 1
         return
-    if kernel == "apply":
-        apply_launches += 1
-    else:
-        moments_launches += 1
+    with _count_lock:
+        if kernel == "apply":
+            apply_launches += 1
+        else:
+            moments_launches += 1
 
 
 @contextlib.contextmanager
@@ -110,8 +115,9 @@ def count_replay(recorded: Dict[str, int], replays: int = 1) -> None:
     """Count the launches of ``replays`` replays of a graph whose capture
     recorded ``recorded``."""
     global apply_launches, moments_launches
-    apply_launches += recorded["apply"] * replays
-    moments_launches += recorded["moments"] * replays
+    with _count_lock:
+        apply_launches += recorded["apply"] * replays
+        moments_launches += recorded["moments"] * replays
 
 
 # ------------------------------------------------------------------- apply

@@ -27,6 +27,13 @@ real fault would strike, so every recovery path can be driven on demand:
   corrupt (always raise), hang their first access (``dead_worker_at``:
   the data pool's stall detection must respawn them) or stall their
   first access (``slow_item_at``).
+* ``maybe_shift_request(i, x)`` — applies ``serve_drift_shift``, an
+  affine input-distribution shift from request ``at_request`` on
+  (persistent: a shifted domain is a new steady state the online adapter
+  must keep seeing until it adapts); ``maybe_poison_request(i, x)``
+  applies ``serve_poison_requests`` — at each armed request index
+  (one-shot per index) a strided slice of a copy of the payload becomes
+  NaN, Inf or 1e6, cycling by index.  The two compose, drift first.
 
 All hooks are no-ops (one ``is None`` check) unless a plan is armed.  Arm
 with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
@@ -34,7 +41,7 @@ with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
 packages share.  Every fault fires at most once per arm (each element of a
 burst once).
 
-The JAX package's host-shard, sweep-supervisor, serving-traffic and fleet
+The JAX package's host-shard, sweep-supervisor and multi-replica fleet
 kinds are not ported: a plan naming one raises with the ROADMAP item that
 takes it, since a plan that silently injects nothing proves nothing.
 """
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import signal
 import threading
@@ -60,8 +68,6 @@ UNPORTED_KINDS = {
     "kill_supervisor_at_schedule": "item 9 (sweeps)",
     "sweep_preempt_pairs": "item 9 (sweeps)",
     "sweep_job_kill_mid_save": "item 9 (sweeps)",
-    "serve_poison_requests": "item 7 (serving)",
-    "serve_drift_shift": "item 7 (serving)",
     "traffic_spike": "item 7 (the fleet)",
     "replica_slow_at": "item 7 (the fleet)",
 }
@@ -140,6 +146,41 @@ def _role_items(spec: dict, field: str) -> Optional[Dict[str, List[int]]]:
     return out
 
 
+def _drift_shift(drift: Any) -> Optional[Dict[str, Any]]:
+    """A validated ``serve_drift_shift`` spec, normalized."""
+    if drift is None:
+        return None
+    if not isinstance(drift, dict):
+        raise ValueError(
+            f"{ENV_VAR}: serve_drift_shift must be an object like "
+            '{"at_request": N, "offset": f, "scale": f}; '
+            f"got {drift!r}")
+    bad_keys = sorted(set(drift) - {"at_request", "offset", "scale"})
+    if bad_keys:
+        raise ValueError(
+            f"{ENV_VAR}: unknown serve_drift_shift key(s) {bad_keys}; "
+            "valid: ['at_request', 'offset', 'scale']")
+    at = drift.get("at_request", 0)
+    if isinstance(at, bool) or not isinstance(at, int) or at < 0:
+        raise ValueError(
+            f"{ENV_VAR}: serve_drift_shift.at_request must be a 0-based "
+            f"request index >= 0; got {at!r}")
+    offset = drift.get("offset", 0.0)
+    scale = drift.get("scale", 1.0)
+    for name, v in (("offset", offset), ("scale", scale)):
+        if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                or not math.isfinite(v):
+            raise ValueError(
+                f"{ENV_VAR}: serve_drift_shift.{name} must be a finite "
+                f"number; got {v!r} — non-finite inputs are "
+                "serve_poison_requests' job, not a domain shift")
+    if float(scale) == 1.0 and float(offset) == 0.0:
+        raise ValueError(
+            f"{ENV_VAR}: serve_drift_shift with scale=1 and offset=0 is the "
+            "identity — a shift that moves nothing proves nothing")
+    return {"at_request": at, "offset": float(offset), "scale": float(scale)}
+
+
 @dataclasses.dataclass
 class FaultPlan:
     """One-shot fault schedule; every field defaults to "never fire".
@@ -159,6 +200,12 @@ class FaultPlan:
     notice_at_step: Optional[int] = None
     kill_mid_delta_promote: Any = None  # True = next promote; int = that step
     missing_parent_blob: Optional[int] = None
+    # 0-based request indices whose payload becomes garbage (NaN / Inf /
+    # out-of-band magnitude, cycling by index); one-shot per index.
+    serve_poison_requests: Optional[List[int]] = None
+    # {"at_request": N, "offset": f, "scale": f}: from request N on, inputs
+    # become x*scale + offset.  Persistent, not one-shot.
+    serve_drift_shift: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_spec(cls, spec: Dict[str, Any]) -> "FaultPlan":
@@ -214,6 +261,10 @@ class FaultPlan:
             raise ValueError(f"{ENV_VAR}: slow_item_s without slow_item_at arms "
                              "nothing — name the item the stall should hit")
         return cls(
+            serve_poison_requests=_as_step_list(
+                spec.get("serve_poison_requests"), "serve_poison_requests",
+                minimum=0),
+            serve_drift_shift=_drift_shift(spec.get("serve_drift_shift")),
             nan_at_step=nan, crash_in_save=crash, hang_at_step=hang,
             slow_step_at=slow, slow_step_s=slow_s, sigterm_at_step=sigterm,
             io_error_saves=io_saves,
@@ -442,3 +493,52 @@ class FlakyDataset:
         if seen == 0 and i in self.slow:
             time.sleep(self.slow_s)
         return self.base[i]
+
+
+def maybe_shift_request(i: int, x: Any) -> Any:
+    """Apply the armed ``serve_drift_shift`` to request ``i``'s payload.
+
+    From ``at_request`` onward every input becomes ``x*scale + offset``
+    — a synthetic target-domain shift.  Deliberately NOT one-shot: a
+    domain shift is a new steady state, not an event, and the online
+    adapter must keep seeing the shifted distribution until it adapts.
+    Returns a shifted copy (never mutates the caller's array)."""
+    plan = current()
+    if plan is None or plan.serve_drift_shift is None:
+        return x
+    shift = plan.serve_drift_shift
+    if int(i) < int(shift.get("at_request", 0)):
+        return x
+    import numpy as np
+
+    x = np.asarray(x)
+    return (x * float(shift.get("scale", 1.0))
+            + float(shift.get("offset", 0.0))).astype(x.dtype)
+
+
+def maybe_poison_request(i: int, x: Any) -> Any:
+    """Replace request ``i``'s payload with garbage when armed.
+
+    One-shot per armed index.  The poison cycles by index — ``i % 3``
+    picks NaN, Inf, or an out-of-band magnitude (1e6) — so one composed
+    plan exercises every branch of the serve-side sanitizer.  Values are
+    written to a strided slice of a COPY: part of the row stays
+    plausible, the way a half-corrupted payload looks in production.
+    Compose with :func:`maybe_shift_request` drift-first (the world
+    moved; the poison rides the drifted stream)."""
+    plan = current()
+    if plan is None or not plan.serve_poison_requests:
+        return x
+    if int(i) not in plan.serve_poison_requests:
+        return x
+    plan.serve_poison_requests = [
+        r for r in plan.serve_poison_requests if r != int(i)
+    ] or None
+    import numpy as np
+
+    x = np.array(x, copy=True)
+    if not np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float32)
+    val = (float("nan"), float("inf"), 1e6)[int(i) % 3]
+    x.reshape(-1)[::3] = val
+    return x

@@ -1,36 +1,48 @@
 """Serving front ends: dispatcher thread, in-process client, HTTP JSON lines.
 
-The port of ``dwt_tpu.serve.server``'s core::
+The port of ``dwt_tpu.serve.server``::
 
     submit()  ->  MicroBatcher (admission, coalescing, shedding)
                       |  PlannedBatch stream
                       v
               ServeEngine.stage (pinned H2D) -> ServeEngine.forward
-                      |  logits -> host
+                      |  logits -> host            (one engine.state
+                      v                             snapshot per batch)
+              per-request futures resolved + AccessLog records
+                      |
                       v
-              per-request futures resolved
+              DomainAdapter.offer (real rows only; --adapt_every)
 
 :class:`ServeClient` is the in-process form; :class:`HttpFront` puts a
 stdlib ``http.server`` front end over it (``POST /infer``, ``GET
-/healthz``, ``GET /stats``; one JSON line per response).  ``/infer``
-takes ``{"inputs": [...]}`` JSON, or a ``.npy`` body with
+/healthz``, ``GET /stats``, ``GET /metrics`` — the Prometheus text of
+the process-wide registry; one JSON line per JSON response).
+``/infer`` takes ``{"inputs": [...]}`` JSON, or a ``.npy`` body with
 ``Content-Type: application/x-npy`` — a 128-image batch at 224² is
-~77 MB as float32 and several hundred MB as JSON text.
+~77 MB as float32 and several hundred MB as JSON text.  Every ``/infer``
+reply carries the checkpoint ``step`` and the ``version`` of the
+generation that computed it.
 
 Run: ``python -m dwt_tpu_torch.serve.server --model resnet50 --ckpt_dir
 DIR`` to serve the newest valid checkpoint of a training run (the port's,
-or the JAX package's host-shard format), or ``--init_random`` for fresh
-weights from ``--seed`` (``--model lenet`` serves the digits model at
-28×28×1, ``--model resnet101 --num_classes 12`` the VisDA model; on CUDA,
-``--device cpu`` for the CPU).  The ``--model`` choices are the JAX
-server's; a ViT-DWT is served through :class:`ServeEngine`'s Python API,
-which takes any registry backbone.  ``serve_ready``,
-``/healthz`` and every ``/infer`` reply carry the checkpoint's ``step``.
-``--serve_dtype bf16`` (``--bf16``) serves in bf16 from the f32
-parameters; ``--whitener`` names the checkpoint's whitening backend.
-SIGTERM or
-SIGINT drains: in-flight requests complete, queued requests dispatch,
-new arrivals get 503 with ``Retry-After``, exit code 0.
+or the JAX package's host-shard or delta format), or ``--init_random``
+for fresh weights from ``--seed`` (``--model lenet`` serves the digits
+model at 28×28×1, ``--model resnet101 --num_classes 12`` the VisDA
+model; on CUDA, ``--device cpu`` for the CPU).  The ``--model`` choices
+are the JAX server's; a ViT-DWT is served through :class:`ServeEngine`'s
+Python API, which takes any registry backbone.  ``--serve_dtype bf16``
+(``--bf16``) serves in bf16 from the f32 parameters; ``--quantize_int8``
+keeps the weights resident as int8; ``--whitener`` names the
+checkpoint's whitening backend.
+
+The deployment plane (``dwt_tpu_torch.fleet``): ``--watch`` hot-reloads
+new checkpoints of ``--ckpt_dir``, ``--adapt_every S`` folds live
+traffic's whitening/BN moments into adapted generations; both submit
+through one canary gate (``--canary_fixture``), atomic swap and
+post-swap monitor (``--rollback_*``), with lifecycle events on the
+``--access_log`` JSONL stream.  SIGTERM or SIGINT drains: the reloader
+and the adapter stop, in-flight requests complete, queued requests
+dispatch, new arrivals get 503 with ``Retry-After``, exit code 0.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +67,7 @@ from dwt_tpu_torch.config import model_dtype
 from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.registry import build_backbone
+from dwt_tpu_torch.obs.registry import get_registry
 from dwt_tpu_torch.serve.batcher import (
     Future,
     MicroBatcher,
@@ -63,6 +76,8 @@ from dwt_tpu_torch.serve.batcher import (
     resolve_future,
 )
 from dwt_tpu_torch.serve.engine import ServeEngine
+from dwt_tpu_torch.serve.metrics import AccessLog
+from dwt_tpu_torch.utils.metrics import device_memory_stats
 
 log = logging.getLogger(__name__)
 
@@ -71,37 +86,71 @@ NPY_CONTENT_TYPE = "application/x-npy"
 
 class _Dispatcher(threading.Thread):
     """Drains the batcher through the engine; resolves request futures.
-    One thread owns all device work."""
+    One thread owns all serving device work."""
 
     # Idle poll period of the batch wait (bounds the heartbeat's age on
     # an idle server).
     POLL_S = 1.0
 
-    def __init__(self, engine: ServeEngine, batcher: MicroBatcher):
+    def __init__(self, engine: ServeEngine, batcher: MicroBatcher,
+                 access_log: AccessLog):
         super().__init__(name="dwt-serve-dispatch", daemon=True)
         self.engine = engine
         self.batcher = batcher
+        self.access_log = access_log
         self.error: Optional[BaseException] = None
         self._lock = threading.Lock()
         self.counts = collections.Counter()        # ok/error requests, imgs
         self.batches = collections.Counter()       # dispatched batches by bucket
         self._beat = time.monotonic()
+        # Optional per-batch observer ``fn(x, real_n)`` — the online
+        # adapter's harvest hook (``DomainAdapter.offer``).  None by
+        # default: a non-adaptive server pays one attribute read.  Called
+        # AFTER the batch's futures resolve, with the padded batch and
+        # its real-row count; it must be cheap and must not raise.
+        self.batch_hook = None
+        # Batch identity for the access records: every record of one
+        # dispatched batch carries the same batch_seq, so "no batch ever
+        # mixed versions" is checkable from the log alone.
+        self._batch_seq = 0
+        self._t_pull: Optional[float] = None  # the batch being served
 
     @property
     def heartbeat_age_s(self) -> float:
-        return time.monotonic() - self._beat
+        # With a batch in flight, its age since pull (a hung device call
+        # keeps growing it); idle, the time since the last poll wake.
+        t0 = self._t_pull
+        return time.monotonic() - (self._beat if t0 is None else t0)
+
+    @property
+    def in_flight_count(self) -> int:
+        """Batches pulled but not yet resolved (0 or 1)."""
+        return int(self._t_pull is not None)
 
     def _serve(self, pb: PlannedBatch) -> None:
+        engine = self.engine
+        # ONE state snapshot per batch — the hot-swap contract: a swap
+        # landing mid-batch flips the engine's reference, but this batch
+        # computes and is attributed entirely on the generation it took.
+        st = engine.state
+        version = st.version.label
+        self._batch_seq += 1
+        batch_seq = self._batch_seq
         try:
-            x = self.engine.stage(pb.x)
+            x = engine.stage(pb.x)
             t0 = time.perf_counter()
-            logits = self.engine.forward(x, pb.bucket).cpu().numpy()
+            logits = engine.forward(x, pb.bucket, state=st).cpu().numpy()
             seconds = time.perf_counter() - t0
         except Exception as e:  # resolve, don't strand waiters
             log.exception("batch of bucket %d failed", pb.bucket)
             with self._lock:
                 self.counts["error"] += len(pb.requests)
             for req in pb.requests:
+                self.access_log.record(
+                    "error", req.n, bucket=pb.bucket, req_id=req.req_id,
+                    version=version, batch_seq=batch_seq,
+                    error=f"{type(e).__name__}: {e}",
+                )
                 resolve_future(req.future, exc=e)
             return
         self.batcher.note_served(pb.real_n, seconds)
@@ -109,8 +158,23 @@ class _Dispatcher(threading.Thread):
             self.batches[pb.bucket] += 1
             self.counts["ok"] += len(pb.requests)
             self.counts["images"] += pb.real_n
+        now = self.batcher.clock()
         for req, (lo, hi) in zip(pb.requests, pb.slices):
+            # Record BEFORE resolving: a caller woken by the future finds
+            # its record already in the log.
+            self.access_log.record(
+                "ok", req.n, bucket=pb.bucket, batch_n=pb.bucket,
+                real_n=pb.real_n, req_id=req.req_id,
+                version=version, batch_seq=batch_seq,
+                queue_ms=(pb.dispatch_t - req.enqueue_t) * 1e3,
+                device_ms=seconds * 1e3,
+                e2e_ms=(now - req.enqueue_t) * 1e3,
+            )
+            req.future.version = version
             resolve_future(req.future, result=logits[lo:hi])
+        hook = self.batch_hook
+        if hook is not None:
+            hook(pb.x, pb.real_n)
 
     def run(self) -> None:
         try:
@@ -123,7 +187,9 @@ class _Dispatcher(threading.Thread):
                     if self.batcher.stopping and self.batcher.queued_items == 0:
                         return
                     continue
+                self._t_pull = time.monotonic()
                 self._serve(pb)
+                self._t_pull = None
                 self._beat = time.monotonic()
         except BaseException as e:
             # The dispatcher is dead: close admission and fail everything
@@ -142,7 +208,8 @@ class ServeClient:
     """In-process serving client: batcher + dispatcher around an engine.
 
     ``submit`` returns a :class:`Future` of the request's
-    ``[n, classes]`` logits; ``infer`` is the blocking form;
+    ``[n, classes]`` logits (its ``version`` attribute names the
+    generation that computed them); ``infer`` is the blocking form;
     ``close(drain=True)`` stops admissions, flushes the queue and joins
     the dispatcher.
     """
@@ -153,19 +220,64 @@ class ServeClient:
         *,
         max_batch_delay_ms: float = 5.0,
         max_queue_items: int = 1024,
+        access_log: Optional[AccessLog] = None,
+        max_request_share: float = 1.0,
     ):
         self.engine = engine
+        self.access_log = access_log or AccessLog()
         self.batcher = MicroBatcher(
             buckets=engine.buckets,
             max_batch_delay_ms=max_batch_delay_ms,
             max_queue_items=max_queue_items,
             sample_shape=engine.input_shape,
+            max_request_share=max_request_share,
         )
-        self._dispatcher = _Dispatcher(engine, self.batcher)
+        self._dispatcher = _Dispatcher(engine, self.batcher, self.access_log)
+        self.adapter = None  # attach_adapter (online domain adaptation)
         self._shed = 0
         self._shed_lock = threading.Lock()
         self._t0 = time.monotonic()
+        # Live metrics: callback gauges sampled at scrape time (the newest
+        # client in a process owns them).
+        reg = get_registry()
+        reg.gauge(
+            "dwt_serve_queue_depth", "samples queued for dispatch"
+        ).set_function(lambda: self.batcher.queued_items)
+        reg.gauge(
+            "dwt_serve_in_flight_batches",
+            "batches staged/computing but unresolved",
+        ).set_function(lambda: self._dispatcher.in_flight_count)
+        reg.gauge(
+            "dwt_serve_dispatcher_heartbeat_age_s",
+            "seconds since the dispatcher last showed liveness",
+        ).set_function(lambda: self.dispatcher_heartbeat_age_s)
+        reg.gauge(
+            "dwt_serve_uptime_s", "seconds since this client started"
+        ).set_function(lambda: time.monotonic() - self._t0)
+        self._m_version = reg.gauge(
+            "dwt_serve_version",
+            "currently served checkpoint generation (value is always 1)",
+            labelnames=("version",),
+        )
+        self._m_swaps = reg.gauge(
+            "dwt_serve_swap_count", "hot swaps since process start"
+        )
         self._dispatcher.start()
+
+    def attach_adapter(self, adapter) -> None:
+        """Wire a :class:`~dwt_tpu_torch.serve.adapt.DomainAdapter` into
+        this client: the dispatcher feeds it every dispatched bucket's
+        real rows, and ``/stats`` grows the adaptation fields.  ``None``
+        detaches."""
+        self.adapter = adapter
+        self._dispatcher.batch_hook = None if adapter is None else adapter.offer
+
+    def refresh_version_metrics(self) -> None:
+        """Re-stamp the served-version info gauge (scrape time: a swap
+        may have landed since the last scrape)."""
+        self._m_version.clear()
+        self._m_version.labels(version=self.engine.version.label).set(1)
+        self._m_swaps.set(self.engine.swap_count)
 
     @property
     def dispatcher_alive(self) -> bool:
@@ -176,14 +288,22 @@ class ServeClient:
         return self._dispatcher.error
 
     @property
+    def dispatcher_heartbeat_age_s(self) -> float:
+        return self._dispatcher.heartbeat_age_s
+
+    @property
     def batches(self) -> dict:
         """Dispatched batches by bucket size."""
         return self._dispatcher.snapshot()[1]
 
     def stats(self) -> dict:
-        """The ``/stats`` body."""
+        """The ``/stats`` body: the access log's summary (per-version
+        windows included), the request counts by outcome, the live
+        process view, the served version and, with an adapter attached,
+        its fields."""
         counts, batches = self._dispatcher.snapshot()
-        out = {
+        out = self.access_log.summary()
+        out.update({
             "ok_requests": counts.get("ok", 0),
             "error_requests": counts.get("error", 0),
             "shed_requests": self._shed,
@@ -191,24 +311,31 @@ class ServeClient:
             "batches_by_bucket": {str(b): n for b, n in sorted(batches.items())},
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "queued_items": self.batcher.queued_items,
+            "in_flight_batches": self._dispatcher.in_flight_count,
             "dispatcher_heartbeat_age_s": round(
                 self._dispatcher.heartbeat_age_s, 3),
             "device": str(self.engine.device),
-        }
+            "version": self.engine.version.label,
+            "swap_count": self.engine.swap_count,
+        })
+        if self.adapter is not None:
+            out["adaptation"] = self.adapter.stats()
         if self.engine.device.type == "cuda":
-            out["device_memory"] = {
-                "bytes_in_use": torch.cuda.memory_allocated(self.engine.device),
-                "peak_bytes_in_use":
-                    torch.cuda.max_memory_allocated(self.engine.device),
-            }
+            mem = device_memory_stats()
+            if mem is not None:
+                out["device_memory"] = mem
         return out
 
     def submit(self, x: np.ndarray) -> Future:
         try:
             return self.batcher.submit(x)
-        except ShedError:
+        except ShedError as e:
             with self._shed_lock:
                 self._shed += 1
+            self.access_log.record(
+                "shed", int(np.asarray(x).shape[0]),
+                retry_after_ms=e.retry_after_ms, queued=e.queued,
+            )
             raise
 
     def infer(self, x: np.ndarray, timeout: Optional[float] = 60.0):
@@ -244,13 +371,13 @@ class HttpServeClient:
             self._local.conn = conn
         return conn
 
-    def request(
+    def request_raw(
         self, method: str, path: str, body: Optional[bytes] = None,
         content_type: str = "application/json",
-    ) -> Tuple[int, dict]:
-        """One request → ``(status, parsed JSON body)``.  A broken
-        connection is dropped and the error raised: ``/infer`` is not
-        idempotent, so nothing is re-sent."""
+    ) -> Tuple[int, bytes]:
+        """One request → ``(status, body bytes)``.  A broken connection is
+        dropped and the error raised: ``/infer`` is not idempotent, so
+        nothing is re-sent."""
         headers = {"Content-Type": content_type} if body is not None else {}
         conn = self._conn()
         try:
@@ -260,11 +387,20 @@ class HttpServeClient:
         except (http.client.HTTPException, OSError):
             self.close()
             raise
-        return resp.status, (json.loads(data) if data else {})
+        return resp.status, data
 
-    def infer(self, x: np.ndarray, binary: bool = False) -> np.ndarray:
-        """Logits for ``x [n, ...sample]``, sent as JSON or, with
-        ``binary``, as a ``.npy`` body."""
+    def request(
+        self, method: str, path: str, body: Optional[bytes] = None,
+        content_type: str = "application/json",
+    ) -> Tuple[int, dict]:
+        """One request → ``(status, parsed JSON body)``."""
+        status, data = self.request_raw(method, path, body, content_type)
+        return status, (json.loads(data) if data else {})
+
+    def infer_reply(self, x: np.ndarray, binary: bool = False) -> dict:
+        """The whole ``/infer`` reply for ``x [n, ...sample]`` (logits,
+        pred, step, version), sent as JSON or, with ``binary``, as a
+        ``.npy`` body."""
         x = np.asarray(x, np.float32)
         if binary:
             buf = io.BytesIO()
@@ -275,10 +411,14 @@ class HttpServeClient:
             status, payload = self.request(
                 "POST", "/infer", json.dumps({"inputs": x.tolist()}).encode())
         if status == 200:
-            return np.asarray(payload["logits"], np.float32)
+            return payload
         if status in (429, 503) and "retry_after_ms" in payload:
             raise ShedError(payload["retry_after_ms"], 0)
         raise RuntimeError(f"/infer returned {status}: {payload.get('error', payload)}")
+
+    def infer(self, x: np.ndarray, binary: bool = False) -> np.ndarray:
+        """Logits for ``x [n, ...sample]`` (:meth:`infer_reply`)."""
+        return np.asarray(self.infer_reply(x, binary)["logits"], np.float32)
 
     def healthz(self) -> Tuple[int, dict]:
         return self.request("GET", "/healthz")
@@ -288,6 +428,13 @@ class HttpServeClient:
         if status != 200:
             raise RuntimeError(f"/stats returned {status}")
         return payload
+
+    def metrics(self) -> str:
+        """The ``/metrics`` Prometheus text."""
+        status, data = self.request_raw("GET", "/metrics")
+        if status != 200:
+            raise RuntimeError(f"/metrics returned {status}")
+        return data.decode()
 
     def close(self) -> None:
         conn = getattr(self._local, "conn", None)
@@ -299,13 +446,14 @@ class HttpServeClient:
 # ------------------------------------------------------------- HTTP front
 
 
-class _Handler(BaseHTTPRequestHandler):
-    """Keep-alive JSON-line handler: HTTP/1.1 persistent connections, a
-    drain-aware idle wait, and a body read on every POST branch (unread
-    bytes would parse as the next request on the connection)."""
+class DrainAwareHandler(BaseHTTPRequestHandler):
+    """Keep-alive JSON-line handler base: HTTP/1.1 persistent
+    connections, a drain-aware idle wait, and a body read on every POST
+    branch (a keep-alive error reply that left the body unread would
+    desynchronize the connection — the leftover bytes would parse as the
+    next request line)."""
 
-    client: ServeClient = None  # type: ignore[assignment]  # set by HttpFront
-    draining: threading.Event = None  # type: ignore[assignment]
+    draining: threading.Event = None  # type: ignore[assignment]  # set by the maker
     # Socket read timeout: handler threads are non-daemon and joined at
     # shutdown, so a stalled client must not hold exit hostage.
     timeout = 120.0
@@ -331,6 +479,12 @@ class _Handler(BaseHTTPRequestHandler):
                 return
         super().handle_one_request()
 
+    def read_body(self) -> bytes:
+        """Read the request body.  EVERY POST branch calls this before
+        replying — error replies included."""
+        length = int(self.headers.get("Content-Length", "0"))
+        return self.rfile.read(length) if length > 0 else b""
+
     def _reply(self, code: int, payload: dict, headers=()) -> None:
         body = (json.dumps(payload) + "\n").encode()  # one JSON line
         self.send_response(code)
@@ -340,6 +494,19 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
+
+    def _reply_text(self, code: int, body: str, content_type: str) -> None:
+        """Non-JSON reply (the /metrics Prometheus exposition)."""
+        data = body.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+class _Handler(DrainAwareHandler):
+    client: ServeClient = None  # type: ignore[assignment]  # set by HttpFront
 
     def do_GET(self):
         client = self.client
@@ -351,13 +518,25 @@ class _Handler(BaseHTTPRequestHandler):
                 "draining": self.draining.is_set(),
                 "buckets": list(client.engine.buckets),
                 "queued_items": client.batcher.queued_items,
+                "in_flight_batches": client._dispatcher.in_flight_count,
+                "served_requests": client.access_log.served_requests,
+                "dispatcher_heartbeat_age_s": round(
+                    client.dispatcher_heartbeat_age_s, 3),
                 "step": client.engine.step,
+                "version": client.engine.version.label,
                 "device": str(client.engine.device),
                 **({"dispatcher_error": f"{type(err).__name__}: {err}"}
                    if err is not None else {}),
             })
         elif self.path == "/stats":
             self._reply(200, client.stats())
+        elif self.path == "/metrics":
+            # The process-wide registry's Prometheus text; the version
+            # gauge is re-stamped so a swap since the last scrape shows.
+            from dwt_tpu_torch.obs import prom
+
+            client.refresh_version_metrics()
+            self._reply_text(200, prom.render(), prom.CONTENT_TYPE)
         else:
             self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -372,9 +551,8 @@ class _Handler(BaseHTTPRequestHandler):
         return x
 
     def do_POST(self):
-        length = int(self.headers.get("Content-Length", "0"))
-        body = self.rfile.read(length) if length > 0 else b""  # ALWAYS read
-        if self.path != "/infer":
+        body = self.read_body()  # ALWAYS, even on error paths (keep-alive)
+        if self.path not in ("/infer", "/v1/infer"):
             self._reply(404, {"error": f"unknown path {self.path}"})
             return
         try:
@@ -387,7 +565,8 @@ class _Handler(BaseHTTPRequestHandler):
                         headers=[("Retry-After", "1")])
             return
         try:
-            logits = self.client.submit(x).result(timeout=60.0)
+            future = self.client.submit(x)
+            logits = future.result(timeout=60.0)
         except ShedError as e:
             self._reply(429, {
                 "error": "overloaded", "retry_after_ms": e.retry_after_ms,
@@ -403,6 +582,7 @@ class _Handler(BaseHTTPRequestHandler):
             "logits": logits.tolist(),
             "pred": np.argmax(logits, axis=-1).tolist(),
             "step": self.client.engine.step,
+            "version": getattr(future, "version", None),
         })
 
 
@@ -483,11 +663,22 @@ def build_engine(args) -> ServeEngine:
         )
     model, input_shape = build_model(args)
     kwargs = dict(buckets=[int(b) for b in args.buckets.split(",")],
-                  device=args.device)
+                  device=args.device,
+                  quantize=bool(getattr(args, "quantize_int8", False)))
     if args.ckpt_dir:
         return ServeEngine.from_checkpoint(args.ckpt_dir, model, input_shape,
                                            **kwargs)
     return ServeEngine(model, input_shape, **kwargs)
+
+
+# Flags of the JAX server whose subsystems are not ported yet, with the
+# ROADMAP queue 1 item that takes each.
+UNPORTED_FLAGS = {
+    "obs_trace": "span tracing (ROADMAP queue 1 item 9)",
+    "data_parallel": "parallel serving (ROADMAP queue 1 item 8)",
+    "mesh_shape": "parallel serving (ROADMAP queue 1 item 8)",
+    "sharding_rules": "parallel serving (ROADMAP queue 1 item 8)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -521,6 +712,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(f32-factorized) whiten cache to bf16 once.  Params "
                         "restore f32 either way.  Default: f32 (or bf16 when "
                         "--bf16 is set)")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8 deployment format: per-tensor symmetric weight "
+                        "quantization when each generation is built; the "
+                        "forward dequantizes on the device.  Checkpoints on "
+                        "disk stay f32, and every candidate still passes the "
+                        "canary gate")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--buckets", default="1,8,32,128",
                    help="comma-separated batch sizes warmed at start")
@@ -528,6 +725,82 @@ def build_parser() -> argparse.ArgumentParser:
                    help="longest a queued request waits for batch-mates")
     p.add_argument("--max_queue", type=int, default=1024,
                    help="queued samples past which requests are shed (429)")
+    p.add_argument("--max_request_share", type=float, default=1.0,
+                   help="batching fairness: a single request may occupy at "
+                        "most this share of the largest bucket when sharing "
+                        "a batch (1.0 = off)")
+    # ---- continuous deployment (dwt_tpu_torch.fleet) ----
+    p.add_argument("--watch", action="store_true",
+                   help="hot reload: watch --ckpt_dir for new valid "
+                        "checkpoints, canary-gate each candidate, and swap it "
+                        "in atomically between dispatches (auto-rollback on "
+                        "post-swap regression)")
+    p.add_argument("--reload_poll_s", type=float, default=2.0,
+                   help="checkpoint watch poll period (seconds)")
+    p.add_argument("--canary_fixture", default=None,
+                   help=".npz with arrays x [n,...sample] and optional y [n]: "
+                        "the held-out batch every candidate must pass (finite "
+                        "logits; with y, accuracy within --canary_max_regress "
+                        "of the live version).  Default: a fixed noise batch "
+                        "(finiteness gate only)")
+    p.add_argument("--canary_batch", type=int, default=8,
+                   help="noise-fixture batch size when no --canary_fixture "
+                        "is given")
+    p.add_argument("--canary_max_regress", type=float, default=5.0,
+                   help="max fixture-accuracy regression (percentage points) "
+                        "vs the live version before a candidate is refused")
+    p.add_argument("--rollback_error_rate", type=float, default=0.1,
+                   help="post-swap: error rate above this over the new "
+                        "version's access window triggers auto-rollback")
+    p.add_argument("--rollback_p99_factor", type=float, default=3.0,
+                   help="post-swap: e2e p99 above this factor of the pre-swap "
+                        "baseline triggers auto-rollback")
+    p.add_argument("--rollback_min_requests", type=int, default=50,
+                   help="post-swap verdict window: requests the new version "
+                        "must serve before a latency verdict")
+    p.add_argument("--rollback_decide_s", type=float, default=30.0,
+                   help="post-swap grace period: with a thin window and no "
+                        "error trip, hold the version after this long")
+    p.add_argument("--rollback_rules", default=None,
+                   help="SLO rules JSON replacing the two built-in post-swap "
+                        "trip conditions (metrics: served, errors, "
+                        "error_rate, e2e_ms_p50, e2e_ms_p99)")
+    # ---- online domain adaptation (dwt_tpu_torch.serve.adapt) ----
+    p.add_argument("--adapt_every", type=float, default=0.0,
+                   help="online adaptation cadence (seconds): fold live "
+                        "traffic's whitening/BN moments into a candidate "
+                        "generation every N seconds, through the canary gate "
+                        "and the post-swap monitor.  0 (default) disables it")
+    p.add_argument("--no-adapt", "--no_adapt", action="store_true",
+                   dest="no_adapt",
+                   help="kill switch: never adapt, whatever --adapt_every says")
+    p.add_argument("--adapt_min_samples", type=int, default=64,
+                   help="minimum sanitized samples a window must hold before "
+                        "it may fold")
+    p.add_argument("--adapt_momentum", type=float, default=0.25,
+                   help="EMA momentum folding the traffic window into the "
+                        "live stats (clamped by --adapt_max_momentum)")
+    p.add_argument("--adapt_max_momentum", type=float, default=0.5,
+                   help="hard clamp on the fold momentum")
+    p.add_argument("--adapt_batch", type=int, default=32,
+                   help="collect-forward batch size (sanitized rows buffer "
+                        "until a full batch)")
+    p.add_argument("--adapt_max_abs", type=float, default=1e3,
+                   help="sanitization amplitude band: a row with any |value| "
+                        "beyond this never enters the accumulator")
+    p.add_argument("--adapt_freeze_s", type=float, default=30.0,
+                   help="adaptation freeze after a rolled-back adapted "
+                        "generation; doubles per consecutive rollback")
+    p.add_argument("--alert_rules", default=None,
+                   help="SLO alert rules JSON evaluated against the live "
+                        "registry; while any rule fires, adaptation freezes")
+    p.add_argument("--access_log", default=None,
+                   help="JSONL access-record file (schema: serve/metrics.py)")
+    # ---- the JAX server's flags of later slices: refused by name ----
+    p.add_argument("--obs_trace", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--data_parallel", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh_shape", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--sharding_rules", default=None, help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without CUDA) or cpu")
     p.add_argument("--host", default="127.0.0.1")
@@ -535,16 +808,154 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    logging.basicConfig(level=logging.INFO)
-    args = build_parser().parse_args(argv)
+def refuse_unported(args) -> None:
+    """Raise ``SystemExit`` naming the later slice for a flag of the JAX
+    server whose subsystem the port does not have yet."""
+    for flag, what in UNPORTED_FLAGS.items():
+        if getattr(args, flag, None):
+            raise SystemExit(
+                f"dwt_tpu_torch serve: --{flag} is not ported yet: {what}")
+
+
+def load_canary_fixture(args, input_shape):
+    """The held-out batch every candidate must pass: ``--canary_fixture``
+    .npz (x + optional y) or a FIXED seeded-noise batch (finiteness gate
+    only — noise labels would make the accuracy bar meaningless)."""
+    if args.canary_fixture:
+        data = np.load(args.canary_fixture)
+        x = np.asarray(data["x"], np.float32)
+        y = np.asarray(data["y"]) if "y" in data else None
+        return x, y
+    rng = np.random.default_rng(args.seed)
+    x = rng.normal(
+        size=(max(1, args.canary_batch),) + tuple(input_shape)
+    ).astype(np.float32)
+    return x, None
+
+
+def build_deploy_controller(args, engine, access_log):
+    """The shared canary-gate → swap → monitor pipeline both deploy
+    producers (``--watch`` hot reload, ``--adapt_every`` online
+    adaptation) submit through."""
+    from dwt_tpu_torch.fleet import CanaryGate, DeployController, PostSwapMonitor
+
+    rollback_rules = None
+    if getattr(args, "rollback_rules", None):
+        from dwt_tpu_torch.obs.rules import load_rules
+
+        rollback_rules = load_rules(args.rollback_rules)
+    x, y = load_canary_fixture(args, engine.input_shape)
+    return DeployController(
+        engine,
+        access_log=access_log,
+        canary=CanaryGate(engine, x, y, max_regress_pp=args.canary_max_regress),
+        monitor=PostSwapMonitor(
+            access_log,
+            error_rate_threshold=args.rollback_error_rate,
+            p99_factor=args.rollback_p99_factor,
+            min_requests=args.rollback_min_requests,
+            decide_after_s=args.rollback_decide_s,
+            rules=rollback_rules,
+        ),
+    )
+
+
+def build_reloader(args, engine, access_log, controller=None):
+    """--watch wiring: checkpoint watcher over the shared deploy
+    controller (pass ``controller=`` to share one with the adapter)."""
+    from dwt_tpu_torch.fleet import HotReloader
+
+    if controller is None:
+        controller = build_deploy_controller(args, engine, access_log)
+    return HotReloader(engine, args.ckpt_dir, access_log=access_log,
+                       poll_s=args.reload_poll_s, controller=controller)
+
+
+def adapt_enabled(args) -> bool:
+    """Online adaptation runs only on an explicit cadence AND without
+    the kill switch — the default is a bitwise-inert serving path."""
+    return (getattr(args, "adapt_every", 0.0) or 0.0) > 0 \
+        and not getattr(args, "no_adapt", False)
+
+
+def build_adapter(args, engine, access_log, controller=None):
+    """--adapt_every wiring: the online stat accumulator over the shared
+    deploy controller, with the optional --alert_rules freeze feed."""
+    from dwt_tpu_torch.serve.adapt import DomainAdapter
+
+    if controller is None:
+        controller = build_deploy_controller(args, engine, access_log)
+    alert_engine = None
+    if getattr(args, "alert_rules", None):
+        from dwt_tpu_torch.obs.rules import AlertEngine, load_rules
+
+        alert_engine = AlertEngine(load_rules(args.alert_rules))
+    return DomainAdapter(
+        engine, controller,
+        access_log=access_log,
+        adapt_every_s=args.adapt_every,
+        min_samples=args.adapt_min_samples,
+        momentum=args.adapt_momentum,
+        max_momentum=args.adapt_max_momentum,
+        collect_batch=args.adapt_batch,
+        max_abs=args.adapt_max_abs,
+        freeze_base_s=args.adapt_freeze_s,
+        alert_engine=alert_engine,
+    )
+
+
+class ServeStack(NamedTuple):
+    """One server process's parts, as :func:`build_stack` wires them.
+    ``controller``, ``reloader`` and ``adapter`` are None when neither
+    ``--watch`` nor adaptation asks for them; the reloader and the
+    adapter are built but not started."""
+
+    engine: ServeEngine
+    access_log: AccessLog
+    client: "ServeClient"
+    controller: Any
+    reloader: Any
+    adapter: Any
+    front: "HttpFront"
+
+
+def build_stack(args) -> ServeStack:
+    """The server's wiring of ``args``: the engine, the ``--access_log``
+    stream, the client with its batcher, one deploy controller shared by
+    both producers (checkpoint reloads and adapted generations serialize
+    through one canary baseline and one last-good rollback buffer), the
+    reloader, the adapter attached to the client, and the HTTP front."""
+    refuse_unported(args)
+    if args.watch and not args.ckpt_dir:
+        raise SystemExit("dwt_tpu_torch serve: --watch requires --ckpt_dir")
     engine = build_engine(args)
+    access_log = AccessLog(args.access_log)
     client = ServeClient(
         engine,
         max_batch_delay_ms=args.max_batch_delay_ms,
         max_queue_items=args.max_queue,
+        access_log=access_log,
+        max_request_share=args.max_request_share,
     )
+    controller = reloader = adapter = None
+    if args.watch or adapt_enabled(args):
+        controller = build_deploy_controller(args, engine, access_log)
+    if args.watch:
+        reloader = build_reloader(args, engine, access_log, controller=controller)
+    if adapt_enabled(args):
+        adapter = build_adapter(args, engine, access_log, controller=controller)
+        client.attach_adapter(adapter)
     front = HttpFront(client, args.host, args.port)
+    return ServeStack(engine, access_log, client, controller, reloader, adapter, front)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    engine, access_log, client, _, reloader, adapter, front = build_stack(args)
+    for producer in (reloader, adapter):
+        if producer is not None:
+            producer.start()
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         # Flag-only handler; the main thread runs the drain.
@@ -553,12 +964,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "kind": "serve_ready", "host": args.host, "port": front.port,
         "buckets": list(engine.buckets), "device": str(engine.device),
         "step": engine.step, "source": engine.source,
+        "version": engine.version.label,
+        "watch": bool(args.watch), "adapt": adapter is not None,
+        "quantize_int8": engine.quantize,
         "warmup_s": engine.warmup_s,
     }), flush=True)
     stop.wait()
     log.info("drain: signal received; completing in-flight work")
+    # Stop deploying before draining: a swap mid-drain would be harmless
+    # (in-flight batches pin their snapshot) but would muddy the summary.
+    if reloader is not None:
+        reloader.stop()
+    if adapter is not None:
+        adapter.stop()
     front.close()
     print(json.dumps({"kind": "serve_summary", **client.stats()}), flush=True)
+    access_log.close()
     return 0
 
 

@@ -462,6 +462,23 @@ def _check_weights(path: str, model: nn.Module, weights: dict,
             f"({got[:12]}… != manifest {str(digest)[:12]}…)")
 
 
+def load_weights(path: str, model: nn.Module, weights: dict,
+                 digest: Optional[str]) -> None:
+    """Load a port payload's model state dict ``weights`` into ``model``
+    once it has exactly the model's entries and shapes and its parameters
+    hash to ``digest``; ``ValueError`` otherwise (``path`` names the
+    payload in the message)."""
+    _check_weights(path, model, weights, digest)
+    model.load_state_dict(weights)
+
+
+def is_jax_checkpoint(path: str) -> bool:
+    """Is ``path`` a host-shard or cas checkpoint the JAX package wrote?"""
+    manifest = _read_manifest(path)
+    return (manifest is not None and _refusal(path, manifest) is None
+            and _is_jax_checkpoint(manifest))
+
+
 def _restore_state_at(path: str, state, jax_params: bool = False) -> int:
     """Restore ``path`` into ``state``; with ``jax_params`` a JAX
     checkpoint loads its parameters and stats only (the optimizer stays
@@ -535,8 +552,7 @@ def restore_model(path: str, model: nn.Module) -> Optional[int]:
         step = tree.get("step")
     else:
         payload, digest = read_payload(path)
-        _check_weights(path, model, payload["model"], digest)
-        model.load_state_dict(payload["model"])
+        load_weights(path, model, payload["model"], digest)
         step = payload["step"]
     for site in whitening_sites(model).values():
         install_eval_matrix(site, None)

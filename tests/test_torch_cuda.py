@@ -1267,3 +1267,81 @@ def test_vit_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
             assert launches == (2, 2 + 2)
     for ours, ref in zip(*results):
         torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4 * float(ref.abs().max()))
+
+
+# The serving adapter's collect forward (``--adapt_batch 32`` tiled into
+# ResNet50-DWT's 3 domains at 224²): 401,408 rows a domain at the stem and
+# 100,352 in stage 1, 1.78× a train step's.  The grids and the moments'
+# arrival counters size from the rows and D; both kernels, f32 and bf16,
+# are held to their plain versions and the moments to float64 there.
+COLLECT_SITES = [(3, 32 * 112 * 112, 64), (3, 32 * 56 * 56, 64), (3, 32 * 56 * 56, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,c", COLLECT_SITES)
+def test_both_kernels_at_the_collect_sites_in_f32(cuda_device, d, m, c):
+    g = torch.Generator(device=cuda_device).manual_seed(m + c)
+    x = torch.randn(d, m, c, device=cuda_device, generator=g) * 1.5 + 0.5
+    before = cuda_whitening.moments_launches, cuda_whitening.apply_launches
+    mean, cov = cuda_whitening.whiten_moments(x, 4)
+    w = whitening_matrix(_shrink(cov, 1e-3))
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    torch.cuda.synchronize()
+    assert (cuda_whitening.moments_launches - before[0],
+            cuda_whitening.apply_launches - before[1]) == (1, 1)
+    p_mean, p_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    torch.testing.assert_close(mean, p_mean, **MEAN_TOL)
+    torch.testing.assert_close(cov, p_cov, **COV_TOL)
+    for i in range(d):
+        r_mean, r_cov = _two_pass_f64(x[i])
+        torch.testing.assert_close(mean[i].double(), r_mean, **MEAN_TOL)
+        torch.testing.assert_close(cov[i].double(), r_cov, **COV_TOL)
+    torch.testing.assert_close(y, cuda_whitening.whiten_apply_plain(x, mean, w), **TOL)
+    again = cuda_whitening.whiten_moments(x, 4)
+    assert torch.equal(again[0], mean) and torch.equal(again[1], cov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,c", COLLECT_SITES)
+def test_both_kernels_at_the_collect_sites_in_bf16(cuda_device, d, m, c):
+    x, mean, w = _bf16_site(d, m, c, cuda_device, seed=m + c + 1)
+    y = cuda_whitening.whiten_apply(x, mean, w)
+    assert torch.equal(y, cuda_whitening.whiten_apply_plain(x, mean, w))
+    got_mean, got_cov = cuda_whitening.whiten_moments(x, 4)
+    ref_mean, ref_cov = cuda_whitening.whiten_moments_plain(x, 4)
+    torch.testing.assert_close(got_mean, ref_mean, **MEAN_TOL)
+    torch.testing.assert_close(got_cov, ref_cov, **COV_TOL)
+    m64, c64 = _two_pass_f64(x[0].float())
+    torch.testing.assert_close(got_mean[0].double(), m64, **MEAN_TOL)
+    torch.testing.assert_close(got_cov[0].double(), c64, **COV_TOL)
+
+
+@pytest.mark.cuda
+def test_the_adapter_collect_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The serving adapter's collect forward (``serve.adapt``) on the tiny
+    ResNet-DWT: one moments and one apply launch per whitened site for the
+    3 domains, the advanced stats equal to the same collect on the CPU; the
+    int8 engine's logits on the card equal its CPU twin's."""
+    from dwt_tpu_torch.nn.registry import build_backbone
+    from dwt_tpu_torch.serve.adapt import make_collect_fn
+    from dwt_tpu_torch.serve.engine import ServeEngine
+
+    x = np.random.default_rng(0).normal(size=(8, 32, 32, 3)).astype(np.float32) * 1.3 + 0.4
+    results = []
+    for device in ("cuda", "cpu"):
+        engine = ServeEngine(build_backbone("tiny", num_classes=5, seed=0), (32, 32, 3),
+                             buckets=(8,), device=device, quantize=True)
+        before = (cuda_whitening.moments_launches, cuda_whitening.apply_launches)
+        stats = make_collect_fn(engine)(engine.state, engine.state.batch_stats, x)
+        launches = (cuda_whitening.moments_launches - before[0],
+                    cuda_whitening.apply_launches - before[1])
+        if device == "cuda":
+            assert launches == (5, 5)
+        assert {t.dtype for t in engine.state.params.values()} == {torch.int8}
+        results.append(({k: v.cpu() for k, v in stats.items()}, engine.infer(x)))
+    (ours, ours_logits), (ref, ref_logits) = results
+    for k in ref:
+        scale = float(ref[k].abs().max()) or 1.0
+        torch.testing.assert_close(ours[k], ref[k], rtol=2e-4, atol=2e-4 * scale)
+    np.testing.assert_allclose(ours_logits, ref_logits, rtol=2e-4,
+                               atol=2e-4 * float(np.abs(ref_logits).max()))

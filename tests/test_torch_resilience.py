@@ -119,6 +119,15 @@ PLAN_SPECS = [
     {"missing_parent_blob": 12},
     {"missing_parent_blob": True},
     {"hang_at_stp": 3},
+    {"serve_poison_requests": [0, 3, 9]},
+    {"serve_poison_requests": 4},
+    {"serve_poison_requests": [-1]},
+    {"serve_drift_shift": {"at_request": 2, "offset": 0.5, "scale": 1.5}},
+    {"serve_drift_shift": {"offset": 1}},
+    {"serve_drift_shift": {"scale": 1.0, "offset": 0.0}},
+    {"serve_drift_shift": {"at_request": 1, "shift": 2.0}},
+    {"serve_drift_shift": {"offset": float("inf")}},
+    {"serve_drift_shift": [1, 2]},
 ]
 
 
@@ -143,7 +152,7 @@ def test_fault_plan_accepts_and_refuses_what_the_jax_plan_does(spec):
     ("kill_writer_mid_shard", 8, "item 8"),
     ("kill_supervisor_at_schedule", 1, "item 9"),
     ("sweep_preempt_pairs", ["Art2Clipart"], "item 9"),
-    ("serve_poison_requests", [1], "item 7"),
+    ("sweep_job_kill_mid_save", ["Art2Clipart"], "item 9"),
     ("traffic_spike", {"at_request": 1, "factor": 2.0}, "item 7"),
     ("replica_slow_at", {"rid": 0, "sleep_s": 0.1}, "item 7"),
 ])

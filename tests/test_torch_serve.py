@@ -188,6 +188,18 @@ from dwt_tpu_torch.resilience.preemption import PreemptionHandler
 from dwt_tpu_torch.resilience.notice import NoticeWatcher
 from dwt_tpu_torch.resilience.watchdog import HangWatchdog
 from dwt_tpu_torch.resilience.coord import Coordinator
+# The serving deployment plane by name: the metrics plane, the fleet and
+# online adaptation.
+from dwt_tpu_torch.obs import get_registry
+from dwt_tpu_torch.obs.prom import render, validate_exposition
+from dwt_tpu_torch.obs.rules import AlertEngine, rule_fires
+from dwt_tpu_torch.utils.metrics import percentile_summary, device_memory_stats
+from dwt_tpu_torch.fleet import CanaryGate, DeployController, HotReloader, PostSwapMonitor
+from dwt_tpu_torch.fleet.watcher import CheckpointWatcher
+from dwt_tpu_torch.serve.adapt import DomainAdapter, make_collect_fn
+from dwt_tpu_torch.serve.quant import quantize_int8
+from dwt_tpu_torch.serve.metrics import AccessLog
+from dwt_tpu_torch.serve.engine import EngineState, Version
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
