@@ -432,7 +432,51 @@ script exits non-zero without the final line:
                   43's launches, phase 44's f32 errors and times per collect
                   batch), ``serve_int8`` and ``serve_swap`` (phases 41's and
                   42's launches, errors and times at their bucket-32 and
-                  bucket-8 sites).
+                  bucket-8 sites), ``serve_fleet`` (phase 47's replicas: the
+                  apply launches of the straggler window as the replicas'
+                  own counters report them in ``/stats``, the errors and
+                  times per forward at the window's bucket mix, timed here
+                  after the drain, and the replicas' devices, pids on the
+                  card and replies against the in-process engine).
+46. ``train_run_plane`` — the digits CLI entry (``usps_mnist.main``) at
+                  the full width with phase 26's k = 4 flags and
+                  ``--metrics_jsonl``, ``--heartbeat_every 4``,
+                  ``--metrics_port 0``, ``--alert_rules`` (``RUN_PLANE_RULES``)
+                  and ``--expect_accuracy 101``: exit 1 after the
+                  ``accuracy_check`` record, the JSONL's kinds, heartbeats at
+                  8, 12 and 16, a ``/metrics`` scrape mid-run valid,
+                  ``dwt_train_steps_total`` +16, the harvester's host syncs
+                  per step those of phase 26's k = 4 run, 2 + 2 launches a
+                  step; then a met ``--expect_accuracy`` exits 0 (runs after
+                  ``dispatch_digits``).
+47. ``fleet``   — ``python -m dwt_tpu_torch.fleet.balancer`` (``FLEET_FLAGS``:
+                  2 replicas, ``--respawn_max 2``, autoscaling 2–3) over run
+                  A's checkpoint at 224², f32, buckets 1/8/32, the replicas on
+                  CUDA (inside the checkpoint block, after ``adapt_serve``):
+                  each replica's ``/healthz`` says ``cuda``, ``nvidia-smi``
+                  lists both pids with their memory and not the balancer's;
+                  seeded 1- and 8-image requests to each replica through the
+                  balancer within ``FORWARD_TOL`` of the in-process engine,
+                  argmax equal; under a light open load replica 0 is
+                  SIGKILLed: ejected, respawned
+                  (``dwt_fleet_respawns_total{rid="0"} 1``), serving again,
+                  no request without an answer, the card's memory back; the
+                  merged ``/metrics`` valid; spawn-to-ready and respawn
+                  seconds.  ``fleet_autoscale``: one replica's sustained rate
+                  of 1-image requests (16 closed-loop clients for 5 s), the
+                  balancer's p50/p99 against the replica's (one client, 300
+                  requests each way, alternating),
+                  ``tools/torch_serve_bench.py --ramp`` from 0.5× to 3× it: a
+                  ``scale_up`` to 3 (``ramp_scale_lag_s``,
+                  ``ramp_lost_total`` 0), the autoscaled replica a straggler
+                  (``replica_slow_at``, its replies ≥ half its sleep slower
+                  than its peers'; each replica's share of a load at 2×
+                  recorded; the window's apply launches, 11 a forward in every
+                  replica, counted by the replicas), idle a ``scale_down`` to
+                  2 whose ``scale_retired`` rc is 0.  ``fleet_drain``:
+                  SIGTERM, every replica and the fleet exit 0, no replica
+                  left on the card.  ``fleet_b{bucket}_parity`` /
+                  ``_timing``: the apply at the window's buckets' sites.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -440,14 +484,17 @@ The last two lines are the card's ``nvidia-smi`` name/power limit and
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import itertools
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 RESNET50_SITES = (  # (site, M at bucket 128 and 224², C, sites per forward)
@@ -1294,10 +1341,12 @@ def check_record_launches(records, launches, want, harvested=False):
                              f"{prev} and {owed} owed")
 
 
-# Records of the loops that launch no kernel: checkpoint bookkeeping.
+# Records of the loops that launch no kernel: checkpoint bookkeeping and the
+# run plane's records.
 QUIET_RECORDS = ("checkpoint", "best", "resume", "init_ckpt", "params_digest",
                  "divergence", "rollback", "lr_backoff", "lr_recover", "skip_step",
-                 "notice_save", "preempt")
+                 "notice_save", "preempt", "heartbeat", "metrics_exporter", "alert_rules",
+                 "alert", "accuracy_check")
 
 
 def officehome_want(r, sites=None, recomputed=0):
@@ -5329,6 +5378,736 @@ def adapt_serve(torch, cw, server, inject, root, a_dir):
     return {"moments": moments_total, "apply": sum(p["apply"] for p in per_batch)}, worst
 
 
+# ------------------------------------------------------------ the fleet
+
+# The fleet phases run one fleet process (``python -m dwt_tpu_torch.fleet.
+# balancer``) over run A's checkpoint: two replicas at first, a third when
+# the ramp's pressure holds, back to two when idle.  The autoscaled replica
+# (rid 2) is the straggler: its dispatcher sleeps FLEET_SLOW_S a batch.
+FLEET_BUCKETS = "1,8,32"
+FLEET_DEVICE = "cuda"
+FLEET_SLOW_RID, FLEET_SLOW_S = 2, 0.3
+FLEET_FLAGS = ["--replicas", "2", "--respawn_max", "2", "--respawn_backoff_s", "0.2",
+               "--health_interval_s", "0.3", "--min_replicas", "2", "--max_replicas", "3",
+               "--scale_interval_s", "0.5", "--scale_pressure", "6",
+               "--scale_pressure_for_s", "2", "--scale_idle", "0.1",
+               "--scale_idle_for_s", "5", "--scale_cooldown_s", "3"]
+FLEET_REQUESTS = (1, 8)  # images per seeded request, to each first replica
+FLEET_LOAD = (1.0, 15.0)  # the light open load around the SIGKILL: req/s, seconds
+FLEET_KILL_AFTER_S = 2.0
+FLEET_MEMORY_SLACK = 1.10  # the card's memory after a respawn, against before
+# One replica's sustained rate: its completions per second with
+# FLEET_SATURATE_CLIENTS closed-loop clients for FLEET_SATURATE_S.  A request
+# waits in the replica's HTTP threads (the JSON decoding), never in its
+# batcher's bounded queue, so no offered rate sheds: the rate it sustains with
+# shed_rate 0 is the rate it completes when saturated.
+FLEET_SATURATE_CLIENTS = 16
+FLEET_SATURATE_S = 5.0
+FLEET_EXTRA_LEVELS = 3  # 3× levels after the ramp while no scale-up has landed
+# The balancer against one replica: one client, one request at a time,
+# alternately through the balancer and straight to replica 0,
+# FLEET_COMPARE_REQUESTS each way (no load to queue behind, no scale event).
+FLEET_COMPARE_REQUESTS = 300
+FLEET_RAMP_STEP_S = 8.0  # 4 levels: the scale-up lands inside the ramp
+FLEET_WAIT_S = 180
+
+
+def gpu_apps():
+    """``{pid: MiB}`` of the processes holding the card, as ``nvidia-smi
+    --query-compute-apps`` reports them.  Where the processes run in a pid
+    namespace of their own, every one reads as pid 1, so the phases record
+    this and hold processes to :func:`cuda_context`."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mib = (v.strip() for v in line.split(","))
+        apps[int(pid)] = float(mib)
+    return apps
+
+
+def cuda_context(pid):
+    """Whether process ``pid`` holds a CUDA context: a descriptor open on
+    an NVIDIA device node (``/dev/nvidia*``, which a context keeps open)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def gpu_memory_used():
+    """MiB in use on the card (``nvidia-smi --query-gpu=memory.used``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def http_json(port, path="/healthz", body=None, timeout=120):
+    """One request to ``127.0.0.1:port``: ``(status, parsed body,
+    headers)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        text = data.decode()
+        parsed = json.loads(text) if text.startswith("{") else text
+        return resp.status, parsed, dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def serve_bench_tool():
+    """``tools/torch_serve_bench.py`` as a module (its ``run_ramp``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_bench", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          "tools", "torch_serve_bench.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def saturate(port, shape, seconds=FLEET_SATURATE_S, clients=FLEET_SATURATE_CLIENTS):
+    """``clients`` closed-loop clients sending 1-image requests to ``port``
+    for ``seconds``: completions per second, their p50/p99 ms, and the
+    requests that got another answer than 200 or none (a dropped
+    connection: the client opens a new one)."""
+    import http.client
+
+    import numpy as np
+
+    # The ramp's payload (``run_ramp``: seeded normal noise): a JSON body's
+    # decoding, the replica's cost, grows with the digits of its numbers.
+    x = np.random.default_rng(0).normal(size=(1,) + tuple(shape)).astype(np.float32)
+    body = json.dumps({"inputs": x.tolist()}).encode()
+    deadline = time.perf_counter() + seconds
+    done, other, lock = [], [], threading.Lock()
+
+    def client():
+        conn = None
+        while time.perf_counter() < deadline:
+            t0 = time.perf_counter()
+            try:
+                conn = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                conn.request("POST", "/infer", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                status = resp.status
+            except (OSError, http.client.HTTPException):
+                conn, status = None, None  # a dropped connection: a new one
+            with lock:
+                (done if status == 200 else other).append(
+                    (time.perf_counter(), (time.perf_counter() - t0) * 1e3))
+        if conn is not None:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    elapsed = time.perf_counter() - t0
+    ms = sorted(v for _, v in done)
+    return {"clients": clients, "seconds": elapsed, "completed": len(done),
+            "req_per_s": len(done) / elapsed, "not_200_or_dropped": len(other),
+            "e2e_ms_p50": ms[len(ms) // 2] if ms else None,
+            "e2e_ms_p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))] if ms else None}
+
+
+def paired_latency(through_port, direct_port, shape, n=FLEET_COMPARE_REQUESTS):
+    """One closed-loop client: ``n`` 1-image requests through the balancer
+    (``through_port``) and ``n`` straight to a replica (``direct_port``),
+    alternating, each on a new connection, the body (``run_ramp``'s seeded
+    noise) encoded once.  Each side's p50/p99/mean e2e ms, the median of
+    the paired differences (through − direct) and the answers other than
+    200."""
+    import http.client
+
+    import numpy as np
+
+    x = np.random.default_rng(0).normal(size=(1,) + tuple(shape)).astype(np.float32)
+    body = json.dumps({"inputs": x.tolist()}).encode()
+    ms = {"through_balancer": [], "direct": []}
+    other = 0
+    for _ in range(n):
+        for side, port in (("through_balancer", through_port), ("direct", direct_port)):
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", "/infer", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                other += resp.status != 200
+            finally:
+                conn.close()
+            ms[side].append((time.perf_counter() - t0) * 1e3)
+    pct = lambda v, q: sorted(v)[min(len(v) - 1, int(q * len(v)))]
+    out = {side: {"p50": pct(v, 0.5), "p99": pct(v, 0.99), "mean": sum(v) / len(v)}
+           for side, v in ms.items()}
+    diffs = [a - b for a, b in zip(ms["through_balancer"], ms["direct"])]
+    return {"requests_a_side": n, **out, "paired_diff_ms_p50": pct(diffs, 0.5),
+            "not_200": other}
+
+
+def replica_counters(replicas):
+    """``{rid: (apply launches, moments launches, {bucket: forwards})}``
+    from each replica's ``/stats``; a replica retired meanwhile is left
+    out."""
+    out = {}
+    for r in replicas:
+        try:
+            st = http_json(r["port"], "/stats")[1]
+        except OSError:
+            continue
+        launches = st["kernel_launches"]
+        out[str(r["rid"])] = (launches["apply"], launches["moments"],
+                              {int(b): n for b, n in st["batches_by_bucket"].items()})
+    return out
+
+
+def ramp_level(bench, port, rate, seconds, shape, seed=0):
+    """One open-loop level of ``rate`` 1-image requests a second for
+    ``seconds`` against ``port`` through the tool's ``run_ramp``: its
+    ``serve_ramp`` record and ``elapsed_s`` (until the last reply)."""
+    import argparse
+
+    args = argparse.Namespace(
+        target_url=f"http://127.0.0.1:{port}", ramp=f"{rate}:{rate}:{seconds}",
+        input_shape=",".join(map(str, shape)), request_n=1, seed=seed, ramp_workers=32)
+    t0 = time.perf_counter()
+    record = bench.run_ramp(args)
+    record["elapsed_s"] = time.perf_counter() - t0
+    return record
+
+
+class FleetEvents:
+    """The fleet's stdout after its ready line, read on a thread: the
+    autoscaler's ``scale_*`` events and the ``fleet_summary``, each with
+    the host clock it arrived at."""
+
+    def __init__(self, proc):
+        self.events = []
+        self.thread = threading.Thread(target=self._read, args=(proc,), daemon=True)
+        self.thread.start()
+
+    def _read(self, proc):
+        for line in proc.stdout:
+            if line.startswith("{"):
+                self.events.append({**json.loads(line), "t": time.perf_counter()})
+
+    def of(self, kind):
+        return [e for e in list(self.events) if e["kind"] == kind]
+
+
+def fleet_sites(bucket):
+    """The 11 whitened sites of one ResNet50 forward at ``bucket`` images,
+    224² (``RESNET50_SITES`` scaled from bucket 128)."""
+    return tuple((name, m * bucket // 128, c, n) for name, m, c, n in RESNET50_SITES)
+
+
+def fleet_serve_flags(a_dir):
+    return (SERVED["resnet50"]["flags"] + ["--ckpt_dir", a_dir, "--buckets", FLEET_BUCKETS,
+                                           "--device", FLEET_DEVICE])
+
+
+def start_fleet(a_dir):
+    """The fleet process on run A's checkpoint: ``(proc, ready line,
+    events, seconds to the ready line)``.  Its replicas start from its
+    environment, with the straggler's plan (``replica_slow_at``)."""
+    from dwt_tpu_torch.resilience import inject
+
+    env = dict(os.environ)
+    env[inject.ENV_VAR] = json.dumps(
+        {"replica_slow_at": {"rid": FLEET_SLOW_RID, "sleep_s": FLEET_SLOW_S}})
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dwt_tpu_torch.fleet.balancer", "--port", "0",
+         *FLEET_FLAGS, "--", *fleet_serve_flags(a_dir)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    seconds = time.perf_counter() - t0
+    if not line:
+        raise AssertionError(f"the fleet exited before ready: {proc.stderr.read()[-3000:]}")
+    ready = json.loads(line)
+    return proc, ready, FleetEvents(proc), seconds
+
+
+def fleet_phase(torch, server, a_dir, proc, ready, ready_s, card_before):
+    """Phase ``fleet``: the fleet's two replicas on the card (each
+    ``/healthz`` reports ``cuda`` and each process holds a CUDA context,
+    the balancer none: :func:`cuda_context`; the card's memory in
+    ``nvidia-smi`` grew by the replicas', ``card_before`` against after
+    the fleet started); seeded 1- and 8-image requests through
+    the balancer, to each replica, held to the in-process engine on the
+    same checkpoint (``FORWARD_TOL`` of the logits' scale, argmax equal);
+    under a light open load (the tool's ramp at ``FLEET_LOAD``) replica 0
+    is SIGKILLed: ejected, respawned (``dwt_fleet_respawns_total{rid="0"}
+    1``), serving again, no request without an answer, its memory back
+    (the card's within ``FLEET_MEMORY_SLACK``); the merged ``/metrics``
+    valid.  Returns the row, with the replicas' forwards."""
+    import numpy as np
+
+    from dwt_tpu_torch.obs import prom
+
+    port = ready["port"]
+    replicas = {r["rid"]: r for r in ready["replicas"]}
+    devices = {rid: http_json(r["port"])[1]["device"] for rid, r in replicas.items()}
+    apps = gpu_apps()
+    contexts = {rid: cuda_context(r["pid"]) for rid, r in replicas.items()}
+    balancer_context = cuda_context(proc.pid)
+    card_fleet = gpu_memory_used()
+    allocator = {rid: http_json(r["port"], "/stats")[1].get("device_memory")
+                 for rid, r in replicas.items()}
+    if not all(d.startswith(FLEET_DEVICE) for d in devices.values()):
+        raise AssertionError(f"fleet replicas not on the card: {devices}")
+    if not all(contexts.values()) or balancer_context:
+        raise AssertionError(f"CUDA contexts: replicas {contexts}, balancer "
+                             f"{balancer_context}")
+    args = server.build_parser().parse_args(fleet_serve_flags(a_dir))
+    engine = server.build_engine(args)
+    shape = SERVED["resnet50"]["shape"]
+    rng = np.random.default_rng(15)
+    replies, worst, answered = [], 0.0, set()
+    for n in FLEET_REQUESTS:
+        x = rng.normal(size=(n,) + shape).astype(np.float32)
+        body = json.dumps({"inputs": x.tolist()}).encode()
+        ref = engine.infer(x)
+        for _ in replicas:  # ties break round-robin: one to each replica
+            status, reply, headers = http_json(port, "/infer", body, timeout=300)
+            got = np.asarray(reply["logits"], np.float32)
+            err = norm_err(torch.from_numpy(got), torch.from_numpy(ref))
+            same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+            rid = headers.get("X-DWT-Replica")
+            answered.add(rid)
+            replies.append({"images": n, "status": status, "replica": rid,
+                            "rel_err": err, "argmax_equal": same})
+            worst = max(worst, err)
+            if status != 200 or err > FORWARD_TOL or not same:
+                raise AssertionError(f"fleet reply off the engine: {replies[-1]}")
+    if answered != {str(rid) for rid in replicas}:
+        raise AssertionError(f"replies came from {answered}, not every replica")
+    del engine
+    torch.cuda.empty_cache()
+
+    bench = serve_bench_tool()
+    used_before = gpu_memory_used()
+    victim = replicas[0]["pid"]
+    load = {}
+    loader = threading.Thread(target=lambda: load.update(ramp_level(
+        bench, port, FLEET_LOAD[0], FLEET_LOAD[1], shape)), daemon=True)
+    loader.start()
+    time.sleep(FLEET_KILL_AFTER_S)
+    t_kill = time.perf_counter()
+    os.kill(victim, signal.SIGKILL)
+
+    def respawned():
+        h = http_json(port)[1]
+        r0 = next(r for r in h["replicas"] if r["rid"] == 0)
+        return h["healthy_replicas"] == 2 and r0["respawns"] == 1 and r0["healthy"]
+
+    wait_for(respawned, "the SIGKILLed replica's respawn", FLEET_WAIT_S)
+    respawn_s = time.perf_counter() - t_kill
+    loader.join(timeout=FLEET_WAIT_S)
+    health = http_json(port)[1]
+    fresh = next(r for r in health["replicas"] if r["rid"] == 0)
+    victim_gone = not os.path.exists(f"/proc/{victim}")
+    fresh_context = cuda_context(fresh["pid"])
+    used_after = gpu_memory_used()
+    one = json.dumps({"inputs": rng.normal(size=(1,) + shape).astype(np.float32).tolist()})
+    # Through the balancer (the weighted router may favour the survivor),
+    # and to the respawned replica directly.
+    again = [http_json(port, "/infer", one.encode()) for _ in range(4)]
+    direct = http_json(fresh["port"], "/infer", one.encode())
+    text = http_json(port, "/metrics")[1]
+    problems = prom.validate_exposition(text)
+    row = {"phase": "fleet", "card": nvidia_smi(), "flags": FLEET_FLAGS,
+           "serve_flags": fleet_serve_flags("<run A>"), "ready_s": ready_s,
+           "spawn_to_ready_s_per_replica": ready_s / len(replicas),
+           "devices": devices, "replica_pids": {r: v["pid"] for r, v in replicas.items()},
+           "balancer_pid": proc.pid, "replica_cuda_context": contexts,
+           "balancer_cuda_context": balancer_context,
+           "card_memory_mib_fleet": {"before": card_before, "with_fleet": card_fleet,
+                                     "per_replica": (card_fleet - card_before)
+                                     / len(replicas)},
+           "replica_allocator": allocator, "nvidia_smi_apps": apps,
+           "replies": replies, "reply_vs_engine": worst,
+           "tolerance": FORWARD_TOL, "load": {k: load.get(k) for k in (
+               "requests", "served", "ramp_shed_total", "ramp_lost_total",
+               "ramp_e2e_ms_p50", "ramp_e2e_ms_p99", "replica_requests")},
+           "respawn_s": respawn_s, "victim_pid": victim, "fresh_pid": fresh["pid"],
+           "victim_gone": victim_gone, "fresh_cuda_context": fresh_context,
+           "card_memory_mib": {"before_kill": used_before, "after_respawn": used_after},
+           "served_after_respawn": [(s, h.get("X-DWT-Replica")) for s, _, h in again],
+           "respawned_replica_direct": direct[0],
+           "metrics_problems": problems,
+           "respawns_total": [ln for ln in text.splitlines()
+                              if ln.startswith("dwt_fleet_respawns_total")]}
+    emit(row)
+    if not load or load["ramp_lost_total"] != 0:
+        raise AssertionError(f"requests without an answer around the SIGKILL: {load}")
+    if not victim_gone or not fresh_context or fresh["pid"] == victim:
+        raise AssertionError(f"the respawn on the card: victim {victim} gone {victim_gone}, "
+                             f"fresh {fresh['pid']} context {fresh_context}")
+    if used_after > used_before * FLEET_MEMORY_SLACK:
+        raise AssertionError(f"card memory {used_before} → {used_after} MiB after a respawn")
+    if any(s != 200 for s, _, _ in again) or direct[0] != 200 or not fresh["healthy"]:
+        raise AssertionError(f"the respawned replica does not serve: {row}")
+    if problems or 'dwt_fleet_respawns_total{rid="0"} 1' not in text:
+        raise AssertionError(f"merged /metrics: {problems} {row['respawns_total']}")
+    return row
+
+
+def fleet_autoscale(proc, ready, events):
+    """Phase ``fleet_autoscale``: one replica's sustained rate of 1-image
+    requests (:func:`saturate` on replica 0 directly); the balancer's
+    p50/p99 against replica 0's (:func:`paired_latency`, every answer
+    200); ``tools/torch_serve_bench.py --target_url … --ramp`` from 0.5× to
+    3× the rate: a ``scale_up`` to 3 (the autoscaled replica is the
+    straggler), ``ramp_lost_total`` 0; a load at 2× the rate over three
+    replicas: the straggler's median reply (3 idle requests straight to
+    each replica) at least half its sleep above every peer's, the
+    straggler served and nothing lost, each replica's share of the routed
+    requests recorded, and the window's apply launches counted by the
+    replicas (their ``/stats``), 11 a forward in each; idle, a
+    ``scale_down`` to 2 whose ``scale_retired`` rc is 0."""
+    port = ready["port"]
+    shape = SERVED["resnet50"]["shape"]
+    bench = serve_bench_tool()
+    direct = http_json(port)[1]["replicas"]
+    r0_port = next(r["port"] for r in direct if r["rid"] == 0)
+    probes = saturate(r0_port, shape)
+    rate = round(probes["req_per_s"], 1)
+    if rate <= 0:
+        raise AssertionError(f"one replica saturated: {probes}")
+    compare = paired_latency(port, r0_port, shape)
+    if compare["not_200"]:
+        raise AssertionError(f"the balancer against one replica: {compare}")
+    lo, hi = rate / 2, 3 * rate
+    t_ramp = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "tools/torch_serve_bench.py", "--target_url",
+         f"http://127.0.0.1:{port}", "--ramp", f"{lo}:{hi}:{FLEET_RAMP_STEP_S}",
+         "--input_shape", ",".join(map(str, shape))],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=FLEET_WAIT_S * 2)
+    if out.returncode != 0:
+        raise AssertionError(f"torch_serve_bench --ramp: {out.stderr[-3000:]}")
+    ramp = json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"phase": "fleet_ramp", "saturated": probes, "sustained_rate_req_per_s": rate,
+          "balancer_against_direct": compare, **ramp})
+    # The probe's rate is an estimate: while the scale-up has not landed,
+    # hold the ramp's top level longer (recorded, and lost requests counted).
+    extra = []
+    while (len(extra) < FLEET_EXTRA_LEVELS and not events.of("scale_up")
+           and http_json(port)[1]["target_replicas"] < 3):
+        extra.append(ramp_level(bench, port, hi, FLEET_RAMP_STEP_S, shape, seed=2 + len(extra)))
+    wait_for(lambda: http_json(port)[1]["target_replicas"] == 3
+             and http_json(port)[1]["healthy_replicas"] == 3, "the scale-up to 3",
+             FLEET_WAIT_S)
+    up = events.of("scale_up")
+    # Each replica's reply time on its own, idle: 3 requests straight to it.
+    three = http_json(port)[1]["replicas"]
+    one = json.dumps({"inputs": [[[[0.0] * shape[2]] * shape[1]] * shape[0]]}).encode()
+    e2e_p50 = {}
+    for r in three:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            http_json(r["port"], "/infer", one)
+            times.append((time.perf_counter() - t0) * 1e3)
+        e2e_p50[str(r["rid"])] = sorted(times)[1]
+    # The window's kernel launches and forwards, counted by the replicas.
+    before = replica_counters(three)
+    straggle = ramp_level(bench, port, 2 * rate, FLEET_RAMP_STEP_S, shape, seed=1)
+    window_end = time.perf_counter()
+    after_window = replica_counters(three)
+    shares = {rid: n / max(straggle["served"], 1)
+              for rid, n in straggle["replica_requests"].items()}
+    window = {}
+    for rid, (apply_n, moments_n, batches) in after_window.items():
+        apply0, moments0, batches0 = before.get(rid, (0, 0, {}))
+        window[rid] = {"apply": apply_n - apply0, "moments": moments_n - moments0,
+                       "forwards": {b: n - batches0.get(b, 0) for b, n in batches.items()
+                                    if n > batches0.get(b, 0)}}
+    forwards_by_bucket = collections.Counter()
+    for w in window.values():
+        forwards_by_bucket.update(w["forwards"])
+    after = lambda kind: [e for e in events.of(kind) if e["t"] >= window_end]
+    wait_for(lambda: after("scale_retired"), "the idle scale-down", FLEET_WAIT_S)
+    down, retired = events.of("scale_down"), events.of("scale_retired")
+    row = {"phase": "fleet_autoscale", "card": nvidia_smi(), "saturated": probes,
+           "sustained_rate_req_per_s": rate, "ramp": ramp,
+           "extra_levels": [{k: e.get(k) for k in ("ramp", "requests", "served",
+                                                  "ramp_lost_total", "ramp_e2e_ms_p99")}
+                            for e in extra],
+           "ramp_scale_lag_s": ramp.get("ramp_scale_lag_s"),
+           "scale_up_after_ramp_start_s": (up[-1]["t"] - t_ramp) if up else None,
+           "scale_up": [{k: e[k] for k in e if k != "t"} for e in up],
+           "scale_down": [{k: e[k] for k in e if k != "t"} for e in down],
+           "scale_retired": [{k: e[k] for k in e if k != "t"} for e in retired],
+           "spawn_to_ready_s_autoscaled": [e.get("ready_wait_s") for e in up],
+           "balancer_against_direct": compare,
+           "straggler": {"rid": FLEET_SLOW_RID, "sleep_s": FLEET_SLOW_S,
+                         "rate": 2 * rate, "shares": shares,
+                         "replica_direct_ms_median": e2e_p50,
+                         "lost": straggle["ramp_lost_total"]},
+           "pids_at_three": [r["pid"] for r in three], "window_launches": window,
+           "window_forwards_by_bucket": dict(forwards_by_bucket)}
+    emit(row)
+    lost = ramp["ramp_lost_total"] + sum(e["ramp_lost_total"] for e in extra)
+    if not up or up[0]["target"] != 3 or lost:
+        raise AssertionError(f"the ramp: scale-up {up}, lost {lost}")
+    if (not after("scale_down") or after("scale_down")[0]["target"] != 2
+            or any(e["rc"] != 0 for e in retired)):
+        raise AssertionError(f"the idle scale-down (after the window): {down} {retired}")
+    # The straggler is slower in every reply (its dispatcher sleeps each
+    # batch), served through the window and lost nothing.  Its share is
+    # recorded, not held below its peers': the router's drain-rate weight
+    # (1/gap between completions, the JAX design) grows with the straggler's
+    # batches, whose replies land together, so it took from 30% to 59% of
+    # the window in four runs on an H100 (PERF.md §6).
+    slow_id = str(FLEET_SLOW_RID)
+    peer_p50 = [v for k, v in e2e_p50.items() if k != slow_id]
+    slower = slow_id in e2e_p50 and e2e_p50[slow_id] >= max(peer_p50) + 500 * FLEET_SLOW_S
+    if straggle["ramp_lost_total"] or not slower or shares.get(slow_id, 0.0) <= 0:
+        raise AssertionError(f"the straggler: {row['straggler']}")
+    # Every replica of the window launched the apply 11 times a forward and
+    # the moments never (no --adapt_every), and the window launched some.
+    sites = SERVED["resnet50"]["sites"]
+    if (len(window) < 2 or not sum(w["apply"] for w in window.values())
+            or any(w["apply"] != sites * sum(w["forwards"].values()) or w["moments"]
+                   for w in window.values())):
+        raise AssertionError(f"the replicas' kernel launches in the window: {window}")
+    return row
+
+
+def drain_fleet_process(proc, events, replica_pids, card_before):
+    """SIGTERM the fleet: every replica drains and exits, then the fleet,
+    0; the summary reports no unclean drain, no replica process is left
+    and the card's memory is back to ``card_before`` (within
+    ``FLEET_MEMORY_SLACK``)."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=FLEET_WAIT_S)
+    events.thread.join(timeout=10)
+    summary = events.of("fleet_summary")
+    alive = lambda: sorted(p for p in replica_pids if os.path.exists(f"/proc/{p}"))
+    deadline = time.monotonic() + 30
+    while alive() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left, card_after = alive(), gpu_memory_used()
+    emit({"phase": "fleet_drain", "rc": rc, "summary": summary[-1] if summary else None,
+          "replicas_left": left, "card_memory_mib": {"before_fleet": card_before,
+                                                     "after_drain": card_after}})
+    if (rc != 0 or not summary or summary[-1]["unclean_drains"] != 0 or left
+            or card_after > card_before * FLEET_MEMORY_SLACK):
+        raise AssertionError(f"fleet drain: rc {rc}, {summary}, left {left}, card "
+                             f"{card_before} → {card_after} MiB, "
+                             f"{proc.stderr.read()[-3000:]}")
+    return summary[-1]
+
+
+def stop_fleet(proc, port):
+    """After a failed phase: drain the fleet (SIGTERM) if it still runs,
+    kill it if the drain hangs, then kill any replica left behind (a
+    killed balancer cannot drain its replicas)."""
+    if proc.poll() is None:
+        replicas = []
+        try:
+            replicas = [r["pid"] for r in http_json(port, timeout=10)[1]["replicas"]]
+        except Exception:
+            pass
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        for pid in replicas:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def fleet(torch, cw, server, a_dir, device, rate):
+    """Phases ``fleet``, ``fleet_autoscale`` and ``fleet_drain`` on one
+    fleet process, then, with the card to itself again,
+    ``fleet_b{bucket}_parity`` / ``_timing``: the apply at the sites of
+    each bucket the straggler window's forwards used.  Returns the
+    evidence of the kernels line's ``serve_fleet`` row: the replicas'
+    devices and pids on the card, the reply error against the in-process
+    engine, the window's apply launches and forwards by bucket as the
+    replicas counted them, and those buckets' parity and timing rows."""
+    card_before = gpu_memory_used()
+    proc, ready, events, ready_s = start_fleet(a_dir)
+    try:
+        row = fleet_phase(torch, server, a_dir, proc, ready, ready_s, card_before)
+        auto = fleet_autoscale(proc, ready, events)
+        known = (set(row["replica_pids"].values()) | {row["fresh_pid"]}
+                 | set(auto["pids_at_three"]))
+        summary = drain_fleet_process(proc, events, known, card_before)
+    finally:
+        stop_fleet(proc, ready["port"])
+    buckets = {}
+    for b, forwards in sorted(auto["window_forwards_by_bucket"].items()):
+        sites = fleet_sites(b)
+        buckets[b] = (forwards, sites, *served_apply_sites(
+            torch, cw, sites, 47 + b, device, rate, f"fleet_b{b}"))
+    return {"devices": row["devices"], "replica_cuda_context": row["replica_cuda_context"],
+            "balancer_cuda_context": row["balancer_cuda_context"],
+            "card_memory_mib_per_replica": row["card_memory_mib_fleet"]["per_replica"],
+            "replica_pids": row["replica_pids"], "balancer_pid": row["balancer_pid"],
+            "reply_vs_engine": row["reply_vs_engine"], "tolerance": FORWARD_TOL,
+            "launches": sum(w["apply"] for w in auto["window_launches"].values()),
+            "window_launches": auto["window_launches"], "buckets": buckets,
+            "ramp_scale_lag_s": auto["ramp_scale_lag_s"],
+            "unclean_drains": summary["unclean_drains"]}
+
+
+# ------------------------------------------------------- the trainers' run plane
+
+RUN_PLANE_RULES = [
+    {"name": "train_started", "metric": "dwt_train_steps_total", "op": ">",
+     "threshold": 0, "severity": "info"},
+    {"name": "loss_diverged", "metric": "dwt_train_loss", "op": ">",
+     "threshold": 1e6, "severity": "critical"},
+]
+RUN_PLANE_HEARTBEAT = 4
+RUN_PLANE_KINDS = ("metrics_exporter", "alert_rules", "alert", "train", "heartbeat", "test",
+                   "accuracy_check")
+
+
+def train_run_plane(torch, cw, usps_mnist, root, k4_syncs):
+    """Phase ``train_run_plane``: the digits CLI at its full width with the
+    dispatch phase's k = 4 flags (harvest depth 2) and the run plane on —
+    ``--metrics_jsonl``, ``--heartbeat_every 4``, ``--metrics_port 0``,
+    ``--alert_rules`` (``RUN_PLANE_RULES``) — and ``--expect_accuracy
+    101``: exit 1 after the ``accuracy_check`` record; the JSONL's kinds
+    (``RUN_PLANE_KINDS``); ``heartbeat`` records every 4 steps from the
+    first chunk boundary (8, 12, 16); a
+    ``/metrics`` scrape during the run valid; ``dwt_train_steps_total``
+    moved by the 16 steps run; the harvester's blocking syncs per step
+    those of ``dispatch_digits``' k = 4 run (``k4_syncs``), the launches 2 +
+    2 a step.  Then the same run with ``--expect_accuracy`` at the first
+    run's accuracy: exit 0 (cuDNN's deterministic algorithms: the
+    accuracy repeats)."""
+    from dwt_tpu_torch.obs import prom
+    from dwt_tpu_torch.obs.registry import get_registry
+
+    rules = os.path.join(root, "rules.json")
+    with open(rules, "w") as f:
+        json.dump(RUN_PLANE_RULES, f)
+    jsonl = os.path.join(root, "run.jsonl")
+    flags = DIGITS_BASE_FLAGS + DIGITS_DISPATCH["k4"][1] + [
+        "--metrics_jsonl", jsonl, "--heartbeat_every", str(RUN_PLANE_HEARTBEAT),
+        "--metrics_port", "0", "--alert_rules", rules]
+    steps = DIGITS_STEPS_PER_EPOCH * 2
+    reg = get_registry()
+    steps0 = reg.value("dwt_train_steps_total") or 0.0
+    scrapes, done = [], threading.Event()
+
+    def scrape():
+        import urllib.request
+
+        while not done.is_set():
+            port = prom.exporter_port()
+            if port is not None:
+                try:
+                    text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                                  timeout=5).read().decode()
+                    if (reg.value("dwt_train_steps_total") or 0.0) > steps0:
+                        scrapes.append(text)
+                except OSError:
+                    pass
+            time.sleep(0.05)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    launches0 = (cw.moments_launches, cw.apply_launches)
+
+    def run(extra):
+        try:
+            usps_mnist.main(flags + extra)
+        except SystemExit as e:
+            return e.code
+        return 0
+
+    try:
+        with DeterministicCudnn(torch), HostSyncs() as syncs:
+            t0 = time.perf_counter()
+            rc_missed = run(["--expect_accuracy", "101"])
+            seconds = time.perf_counter() - t0
+    finally:
+        done.set()
+        scraper.join(timeout=10)
+    launches = (cw.moments_launches - launches0[0], cw.apply_launches - launches0[1])
+    steps_moved = (reg.value("dwt_train_steps_total") or 0.0) - steps0
+    with open(jsonl) as f:
+        records = [json.loads(line) for line in f]
+    check = [r for r in records if r["kind"] == "accuracy_check"]
+    acc = [r["accuracy"] for r in records if r["kind"] == "test"][-1]
+    with DeterministicCudnn(torch):
+        rc_met = run(["--expect_accuracy", str(acc), "--metrics_jsonl",
+                      os.path.join(root, "met.jsonl")])
+    prom.stop_exporter()
+    kinds = sorted({r["kind"] for r in records})
+    heartbeats = [r["step"] for r in records if r["kind"] == "heartbeat"]
+    syncs_per_step = len(syncs.waits) / steps
+    problems = [prom.validate_exposition(t) for t in scrapes[:1] + scrapes[-1:]]
+    evals = sum(r.get("forwards", 0) for r in records if r["kind"] == "test")
+    row = {"phase": "train_run_plane", "card": nvidia_smi(), "flags": flags,
+           "seconds": seconds, "rc_missed": rc_missed, "rc_met": rc_met,
+           "kinds": kinds, "records": len(records), "heartbeat_steps": heartbeats,
+           "heartbeats": [{k: v for k, v in r.items() if k not in ("kind", "elapsed_s")}
+                          for r in records if r["kind"] == "heartbeat"],
+           "alerts": [r for r in records if r["kind"] == "alert"],
+           "accuracy_check": check, "scrapes": len(scrapes),
+           "scrape_problems": problems, "steps_total_moved": steps_moved,
+           "host_syncs_per_step": syncs_per_step, "k4_host_syncs_per_step": k4_syncs,
+           "launches": {"moments": launches[0], "apply": launches[1]},
+           "eval_forwards": evals}
+    emit(row)
+    # The boundary runs once per chunk of k steps (an epoch's end cuts its
+    # last chunk); the first boundary starts the heartbeat's window.
+    k, spe = DISPATCH_K["digits"], DIGITS_STEPS_PER_EPOCH
+    bounds = [e * spe + min(j + k, spe) for e in range(2) for j in range(0, spe, k)]
+    want_hb, last = [], bounds[0]
+    for b in bounds[1:]:
+        if b - last >= RUN_PLANE_HEARTBEAT:
+            want_hb.append(b)
+            last = b
+    sites = len(DIGITS_SITES)
+    if (rc_missed, rc_met) != (1, 0) or not check or check[-1]["ok"]:
+        raise AssertionError(f"--expect_accuracy exit codes {rc_missed}, {rc_met}: {check}")
+    if set(RUN_PLANE_KINDS) - set(kinds) or heartbeats != want_hb:
+        raise AssertionError(f"run plane records: kinds {kinds}, heartbeats {heartbeats}")
+    if not scrapes or any(problems) or steps_moved != steps:
+        raise AssertionError(f"/metrics during the run: {len(scrapes)} scrapes, "
+                             f"{problems}, steps moved {steps_moved}")
+    if syncs_per_step != k4_syncs:
+        raise AssertionError(f"host syncs per step {syncs_per_step} with the run plane on, "
+                             f"{k4_syncs} without")
+    if launches != (sites * steps, sites * (steps + evals)):
+        raise AssertionError(f"run plane launches {launches}: {sites} + {sites} a step, "
+                             f"{evals} eval forwards")
+    return row
+
+
 SERVING_PER = {
     "serve_adapt": "the 11 whitened sites of one collect forward: --adapt_batch 32 "
                    "tiled into 3 domains at 224², one launch per site for the 3 "
@@ -5339,6 +6118,12 @@ SERVING_PER = {
     "serve_swap": f"the 11 whitened sites of one bucket-{SWAP_IMAGES} ResNet50 forward "
                   f"at 224² of a generation the watcher swapped in (hot_swap's 3 "
                   f"requests of {SWAP_IMAGES} images after the swap)",
+    "serve_fleet": f"the 11 whitened sites of one ResNet50 forward at 224² in a fleet "
+                   f"replica (python -m dwt_tpu_torch.fleet.balancer over run A's "
+                   f"checkpoint, buckets {FLEET_BUCKETS}), averaged over the buckets of "
+                   f"the straggler window's forwards; launches: the window's, counted by "
+                   f"the replicas' own launch counters (their /stats); errors and times: "
+                   f"the apply in this process at those buckets' sites, the fleet drained",
 }
 
 
@@ -5348,7 +6133,9 @@ def serving_rows(r, floor):
     largest f32 error and the f32 times per collect batch from
     ``adapt_kernels``), ``serve_int8`` and ``serve_swap`` (the apply:
     their phases' launches, the errors and times at their forwards' own
-    site shapes, buckets 32 and 8)."""
+    site shapes, buckets 32 and 8), and ``serve_fleet`` (the apply in the
+    fleet's replicas: the launches they counted in the straggler window,
+    the errors and the times per forward at the window's bucket mix)."""
     timing = r["adapt_timing"]
     out = []
     for part in ("moments", "apply"):
@@ -5377,6 +6164,31 @@ def serving_rows(r, floor):
                              ("serve_swap", "swap", SWAP_SITES)):
         out.append(served_apply_row(sites, r[f"{key}_parity"], r[f"{key}_timing"],
                                     r[f"{key}_launches"], floor, path, SERVING_PER[path]))
+    # The fleet's replicas: the launches they counted, and per forward the
+    # errors and times at the sites of the window's buckets, weighted by
+    # the window's forwards at each, with the replicas' evidence (device,
+    # pids on the card, replies against the in-process engine).
+    fl = r["fleet"]
+    per_bucket = {b: (n, served_apply_row(sites, parity, timing, fl["launches"], floor,
+                                          "serve_fleet", SERVING_PER["serve_fleet"]))
+                  for b, (n, sites, parity, timing) in fl["buckets"].items()}
+    forwards = sum(n for n, _ in per_bucket.values())
+    row = dict(next(iter(per_bucket.values()))[1])
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+                *APPLY_EXTRA, "bytes"):
+        row[key] = sum(n * b_row[key] for n, b_row in per_bucket.values()) / forwards
+    row["max_abs_err"] = max(b_row["max_abs_err"] for _, b_row in per_bucket.values())
+    row["bound_by"] = bound_by([b_row for _, b_row in per_bucket.values()])
+    out.append({**row, "window_forwards_by_bucket": {b: n for b, (n, _) in
+                                                     per_bucket.items()},
+                "window_launches_by_replica": fl["window_launches"],
+                "replica_devices": fl["devices"],
+                "replica_pids": fl["replica_pids"], "balancer_pid": fl["balancer_pid"],
+                "replica_cuda_context": fl["replica_cuda_context"],
+                "balancer_cuda_context": fl["balancer_cuda_context"],
+                "card_memory_mib_per_replica": fl["card_memory_mib_per_replica"],
+                "reply_vs_engine": fl["reply_vs_engine"],
+                "reply_tolerance": fl["tolerance"]})
     return out
 
 
@@ -5708,6 +6520,9 @@ def main() -> int:
     digits_throughput(torch, loop, device)
     digits_harness = graph_harness(torch, cw, loop, officehome, "digits", device)
     digits_dispatch = dispatch_digits(torch, cw, usps_mnist, loop, loader, inject)
+    with tempfile.TemporaryDirectory(prefix="runplane-", dir=build) as root:
+        r["run_plane"] = train_run_plane(torch, cw, usps_mnist, root,
+                                         digits_dispatch["runs"]["k4"]["host_syncs_per_step"])
     r["digits_serve_launches"] = serve(torch, cw, server, "lenet")
     r["bf16_parity"], r["bf16_timing"] = bf16_kernels(torch, cw, device, rate)
     r["bf16_train_launches"], r["bf16_digits_launches"] = bf16_train(
@@ -5727,6 +6542,7 @@ def main() -> int:
             torch, cw, server, officehome, loop, root, a_dir, device, rate)
         r["adapt_launches"], r["adapt_collect_err"] = adapt_serve(
             torch, cw, server, inject, root, a_dir)
+        r["fleet"] = fleet(torch, cw, server, a_dir, device, rate)
         ck["guard"] = guard_phase(torch, cw, officehome, loop, loader, inject, root, a_ids)
         ck["delta"], ck["delta_serve"] = delta_phase(
             torch, cw, officehome, loop, loader, server, root, a_records, a_dir, device)

@@ -1,8 +1,12 @@
-"""Command-line entry points of the port."""
+"""Command-line entry points of the port, and what the trainers' CLIs share:
+their flag groups and :func:`run_cli`, the run plane around a training run
+(the ``--metrics_jsonl`` logger, ``--debug_nans``, ``--expect_accuracy``)."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import logging
 
 
 def add_resilience_args(p: argparse.ArgumentParser, d) -> None:
@@ -115,3 +119,105 @@ def add_numerics_args(p: argparse.ArgumentParser, d, remat: bool = False) -> Non
                        help="rematerialize bottleneck blocks in backward "
                             "(less device memory, ~1/3 more FLOPs) for "
                             "larger batches")
+
+
+def add_run_plane_args(p: argparse.ArgumentParser, d) -> None:
+    """The JAX trainers' run-plane flags, with the defaults of the config
+    ``d``: the JSONL record file, the heartbeat, ``/metrics`` and the alert
+    rules, the repro assertion, ``--debug_nans``, the loader's stall budget,
+    and the two JAX lowering switches, which the port accepts and ignores."""
+    p.add_argument("--data_stall_timeout", type=float, default=d.data_stall_timeout,
+                   help="data-pipeline head-of-window stall budget (seconds): a "
+                        "worker silent past this is logged and its item "
+                        "re-submitted to a fresh worker.  0 disables detection")
+    p.add_argument("--metrics_jsonl", type=str, default=None,
+                   help="append every record of the run to this JSONL file")
+    p.add_argument("--heartbeat_every", type=int, default=d.heartbeat_every,
+                   help=">0: a heartbeat record (steps/s EWMA, host RSS MB, device "
+                        "memory, background-writer depth, harvest ring) every N "
+                        "steps.  0 disables")
+    p.add_argument("--metrics_port", type=int, default=d.metrics_port,
+                   help="serve the Prometheus text exposition at /metrics on this "
+                        "port (a daemon thread; 0 = ephemeral, the port logged as "
+                        "a metrics_exporter record)")
+    p.add_argument("--alert_rules", type=str, default=d.alert_rules,
+                   help="SLO alert rules JSON evaluated at each step boundary "
+                        "against the live registry; transitions emit 'alert' "
+                        "records and the dwt_alerts_firing gauge")
+    p.add_argument("--expect_accuracy", type=float, default=None,
+                   help="repro assertion: exit 1 unless the final target accuracy "
+                        "is within --tolerance of this (see baselines/)")
+    p.add_argument("--tolerance", type=float, default=0.3,
+                   help="±%% band for --expect_accuracy (BASELINE north star: 0.3)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="fail fast at the module whose output holds a NaN, and "
+                        "at the backward function that returns one (autograd's "
+                        "anomaly mode); needs eager steps: --steps_per_dispatch 1 "
+                        "(on CUDA also --eval_steps_per_dispatch 1)")
+    p.add_argument("--pallas_whiten", action="store_true",
+                   help="accepted for the JAX CLI's sake; changes nothing here "
+                        "(the port always runs its CUDA kernels)")
+    p.add_argument("--apply_lowering", choices=["auto", "grouped", "blockdiag"],
+                   default=d.apply_lowering,
+                   help="accepted for the JAX CLI's sake; changes nothing here "
+                        "(the port's apply is one hand-written kernel)")
+
+
+def _nan_hook(module, inputs, output) -> None:
+    outputs = output if isinstance(output, (tuple, list)) else (output,)
+    import torch
+
+    for t in outputs:
+        if torch.is_tensor(t) and t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(
+                f"--debug_nans: NaN in the output of {type(module).__name__}")
+
+
+@contextlib.contextmanager
+def debug_nans(cfg, enabled: bool):
+    """``--debug_nans``: every module's output is checked for NaN (a
+    ``FloatingPointError`` names the module) and autograd's anomaly mode
+    checks every backward function's.  Both read the device back inside
+    the step, which a CUDA graph capture cannot do: the flag refuses the
+    captured dispatch instead of skipping the checks there."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    if cfg.steps_per_dispatch > 1 or (
+            cfg.device != "cpu" and cfg.eval_steps_per_dispatch > 1):
+        raise SystemExit(
+            "--debug_nans checks every op on the host, which a CUDA graph capture "
+            "cannot do: pass --steps_per_dispatch 1 (on CUDA also "
+            "--eval_steps_per_dispatch 1) so that every step runs eagerly")
+    anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    handle = torch.nn.modules.module.register_module_forward_hook(_nan_hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+        torch.autograd.set_detect_anomaly(*anomaly)
+
+
+def run_cli(run, cfg, args: argparse.Namespace) -> float:
+    """A trainer CLI's run, as the JAX CLIs': one ``MetricLogger`` (the
+    ``--metrics_jsonl`` file; each record also logged as a JSON line)
+    handed to ``run(cfg, logger)`` and closed on every exit; then the
+    final accuracy printed and, with ``--expect_accuracy``, the
+    ``accuracy_check`` record and exit 1 on a miss."""
+    from dwt_tpu_torch.utils.metrics import MetricLogger
+    from dwt_tpu_torch.utils.repro import check_cli_accuracy
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    logger = MetricLogger(jsonl_path=args.metrics_jsonl, stream=None)
+    try:
+        with debug_nans(cfg, args.debug_nans):
+            acc = run(cfg, logger)
+        print(f"final target accuracy: {acc:.2f}%", flush=True)
+        if not check_cli_accuracy(acc, args.expect_accuracy, args.tolerance, logger):
+            raise SystemExit(1)
+        return acc
+    finally:
+        logger.close()

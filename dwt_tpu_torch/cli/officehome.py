@@ -18,19 +18,26 @@ captured graph per step, and the train records and the guard's finite
 flags reach the host through the harvest ring.
 ``--whitener``, ``--compute_dtype`` (``--bf16``) and ``--remat`` are the
 JAX CLI's numerics flags; ``--backbone`` (a registry name, which wins over
-``--arch``) and ``--pad_classes_to`` its model flags.
+``--arch``) and ``--pad_classes_to`` its model flags.  The run plane's
+flags are the JAX CLI's: ``--metrics_jsonl``, ``--heartbeat_every``,
+``--metrics_port``, ``--alert_rules``, ``--expect_accuracy``/
+``--tolerance`` (exit 1 on a miss), ``--debug_nans`` and
+``--data_stall_timeout``; ``--pallas_whiten``, ``--apply_lowering``,
+``--target_batch_size`` and ``--lr_change_step`` are accepted and change
+nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Optional, Sequence
 
 from dwt_tpu_torch.cli import (
     add_dispatch_args,
     add_numerics_args,
     add_resilience_args,
+    add_run_plane_args,
+    run_cli,
 )
 from dwt_tpu_torch.config import OfficeHomeConfig
 
@@ -57,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=d.num_workers,
                    help="item-loading worker threads (decode+augment)")
     p.add_argument("--source_batch_size", type=int, default=d.source_batch_size)
+    p.add_argument("--target_batch_size", type=int, default=d.target_batch_size,
+                   help="accepted for parity; the loaders use --source_batch_size, "
+                        "as the reference's (:565)")
     p.add_argument("--test_batch_size", type=int, default=d.test_batch_size)
     p.add_argument("--s_dset_path", type=str, default=d.s_dset_path,
                    help="source domain: one directory of images per class")
@@ -66,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img_crop_size", type=int, default=d.img_crop_size)
     p.add_argument("--num_iters", type=int, default=d.num_iters)
     p.add_argument("--check_acc_step", type=int, default=d.check_acc_step)
+    p.add_argument("--lr_change_step", type=int, default=d.lr_change_step,
+                   help="accepted for parity; the milestone is --lr_milestones, "
+                        "as the reference's hardcoded 6000 (:398)")
     p.add_argument("--log_interval", type=int, default=d.log_interval)
     p.add_argument("--lr", type=float, default=d.lr)
     p.add_argument("--lr_milestones", type=int, nargs="+",
@@ -107,6 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_resilience_args(p, d)
     add_dispatch_args(p, d)
     add_numerics_args(p, d, remat=True)
+    add_run_plane_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p
@@ -122,14 +136,11 @@ def config_from_args(args: argparse.Namespace) -> OfficeHomeConfig:
 
 
 def run_from_args(args: argparse.Namespace) -> float:
-    """Train with the parsed flags; prints and returns the final target
-    accuracy (%)."""
+    """Train with the parsed flags (the run plane: :func:`~dwt_tpu_torch.
+    cli.run_cli`); prints and returns the final target accuracy (%)."""
     from dwt_tpu_torch.train.loop import run_officehome
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    acc = run_officehome(config_from_args(args))
-    print(f"final target accuracy: {acc:.2f}%", flush=True)
-    return acc
+    return run_cli(run_officehome, config_from_args(args), args)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:

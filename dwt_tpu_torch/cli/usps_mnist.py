@@ -17,19 +17,24 @@ CLI's: on CUDA, k ≥ 2 replays a captured graph per step, and the train
 records and the guard's finite flags reach the host through the harvest
 ring.
 ``--whitener`` and ``--compute_dtype`` (``--bf16``) are the JAX CLI's
-numerics flags.
+numerics flags.  The run plane's flags are the JAX CLI's too:
+``--metrics_jsonl``, ``--heartbeat_every``, ``--metrics_port``,
+``--alert_rules``, ``--expect_accuracy``/``--tolerance`` (exit 1 on a
+miss), ``--debug_nans`` and ``--data_stall_timeout``; ``--pallas_whiten``
+and ``--apply_lowering`` are accepted and change nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Optional, Sequence
 
 from dwt_tpu_torch.cli import (
     add_dispatch_args,
     add_numerics_args,
     add_resilience_args,
+    add_run_plane_args,
+    run_cli,
 )
 from dwt_tpu_torch.config import DigitsConfig
 
@@ -72,6 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_resilience_args(p, d)
     add_dispatch_args(p, d)
     add_numerics_args(p, d)
+    add_run_plane_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p
@@ -85,10 +91,8 @@ def config_from_args(args: argparse.Namespace) -> DigitsConfig:
 def main(argv: Optional[Sequence[str]] = None) -> float:
     from dwt_tpu_torch.train.loop import run_digits
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    acc = run_digits(config_from_args(build_parser().parse_args(argv)))
-    print(f"final target accuracy: {acc:.2f}%", flush=True)
-    return acc
+    args = build_parser().parse_args(argv)
+    return run_cli(run_digits, config_from_args(args), args)
 
 
 if __name__ == "__main__":

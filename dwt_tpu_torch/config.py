@@ -10,7 +10,14 @@ guard reads the harvested finite flags).  ``whitener``, ``compute_dtype``
 (``bf16`` its legacy alias, :func:`resolve_compute_dtype`) and
 OfficeHome's ``remat`` are the JAX configs' numerics knobs; OfficeHome's
 ``backbone`` (a registry name that wins over ``arch``) and
-``pad_classes_to`` its model knobs.
+``pad_classes_to`` its model knobs.  The run plane's knobs are the JAX
+configs': ``heartbeat_every`` (a ``heartbeat`` record every N steps),
+``metrics_port`` (the ``/metrics`` exporter) and ``alert_rules`` (the
+rules the step boundary evaluates), ``data_stall_timeout`` (the loader
+pools' stall budget).  ``pallas_whiten`` and ``apply_lowering`` select JAX
+lowerings and OfficeHome's ``target_batch_size`` and ``lr_change_step``
+are dead in the reference: the port accepts them and logs that they
+change nothing (``INERT_FIELDS``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ class DigitsConfig:
     target_batch_size: int = 32
     test_batch_size: int = 100
     num_workers: int = 2  # item-loading worker threads (reference :332)
+    # Loader pools' head-of-window stall budget, seconds: a worker silent
+    # past it is logged and its item re-submitted to a fresh thread; 0 off.
+    data_stall_timeout: float = 60.0
     epochs: int = 120
     lr: float = 1e-3
     weight_decay: float = 5e-4
@@ -85,6 +95,15 @@ class DigitsConfig:
     # bf16 runs activations, backprop traffic and the whitening apply in
     # bf16, each whitener factorizing in its precision policy's dtype.
     compute_dtype: str = "f32"
+    # The JAX package's lowering switches (the Pallas kernels, the apply's
+    # matmul lowering): accepted, inert in the port.
+    pallas_whiten: bool = False
+    apply_lowering: str = "auto"
+    # The run plane: a heartbeat record every N steps (0 off), the /metrics
+    # exporter's port (0 = ephemeral, None = off), SLO alert rules (JSON).
+    heartbeat_every: int = 100
+    metrics_port: Optional[int] = None
+    alert_rules: Optional[str] = None
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -93,8 +112,10 @@ class OfficeHomeConfig:
     """OfficeHome experiment — reference ``resnet50…py:498-519``."""
 
     source_batch_size: int = 18
+    target_batch_size: int = 18  # dead in the reference (its loader uses source's)
     test_batch_size: int = 10
     num_workers: int = 2  # item-loading worker threads (reference :499)
+    data_stall_timeout: float = 60.0  # as DigitsConfig.data_stall_timeout
     s_dset_path: str = "../data/OfficeHomeDataset_10072016/Art"
     t_dset_path: str = "../data/OfficeHomeDataset_10072016/Clipart"
     resnet_path: str = "../data/models/model_best_gr_4.pth.tar"
@@ -102,6 +123,7 @@ class OfficeHomeConfig:
     img_crop_size: int = 224
     num_iters: int = 10_000
     check_acc_step: int = 100
+    lr_change_step: int = 1000  # dead in the reference (milestone at 6000)
     lr: float = 1e-2
     lr_milestones: Tuple[int, ...] = (6000,)
     lr_gamma: float = 0.1
@@ -161,7 +183,26 @@ class OfficeHomeConfig:
     bf16: bool = False
     compute_dtype: str = "f32"  # see DigitsConfig.compute_dtype
     remat: bool = False  # recompute each bottleneck in the backward
+    pallas_whiten: bool = False  # as DigitsConfig.pallas_whiten (inert)
+    apply_lowering: str = "auto"  # as DigitsConfig.apply_lowering (inert)
+    heartbeat_every: int = 100  # as DigitsConfig: the run plane
+    metrics_port: Optional[int] = None
+    alert_rules: Optional[str] = None
     device: str = "cuda"  # "cpu" only when asked for
+
+
+# Fields accepted for the JAX CLIs' sake that change nothing in the port:
+# the name and why, per config class.
+INERT_FIELDS = {
+    "pallas_whiten": "selects the JAX package's Pallas whitening kernels; the "
+                     "port always runs its CUDA kernels",
+    "apply_lowering": "selects the JAX apply's matmul lowering; the port's "
+                      "apply is one hand-written kernel",
+    "target_batch_size": "dead in the reference: the target loader uses "
+                         "--source_batch_size",
+    "lr_change_step": "dead in the reference: the lr milestone is "
+                      "--lr_milestones",
+}
 
 
 COMPUTE_DTYPES = ("f32", "bf16")

@@ -34,7 +34,7 @@ from typing import Callable, Dict, FrozenSet, Iterable, Iterator, Optional, Tupl
 import numpy as np
 import torch
 
-from dwt_tpu_torch.data.pipeline import OrderedWorkerPool
+from dwt_tpu_torch.data.pipeline import DEFAULT_STALL_TIMEOUT_S, OrderedWorkerPool
 from dwt_tpu_torch.data.sampler import SeekableSampler
 from dwt_tpu_torch.data.transforms import set_item_seed
 
@@ -196,6 +196,7 @@ def batch_iterator(
     on_substitute: Optional[Callable[[], None]] = None,
     quarantine_registry: Optional[QuarantineRegistry] = None,
     quarantine_key: str = "items",
+    stall_timeout: float = DEFAULT_STALL_TIMEOUT_S,
 ) -> Iterator[Tuple[np.ndarray, ...]]:
     """Yield tuples of stacked numpy batches from an indexable dataset.
 
@@ -221,6 +222,8 @@ def batch_iterator(
       ``on_substitute`` is called once per substituted sample;
     * ``on_batch_ids``: called with the dataset indices of every yielded
       batch (after substitution);
+    * ``stall_timeout``: the worker pool's head-of-window stall budget in
+      seconds (0 disables the detection);
     * ``quarantine_registry``/``quarantine_key``: persist quarantined ids
       under the key (the stream role), and skip the ids already recorded
       without an access attempt — with the same drop or substitute
@@ -273,7 +276,7 @@ def batch_iterator(
     load = lambda i: _load_item(dataset, i, token_of(i), quarantine,
                                 known_bad, on_quarantine)
     if num_workers and num_workers > 1:
-        items_iter = OrderedWorkerPool(num_workers).imap(load, indices)
+        items_iter = OrderedWorkerPool(num_workers, stall_timeout).imap(load, indices)
     else:
         items_iter = (load(i) for i in indices)
 

@@ -88,9 +88,13 @@ class DataPlane:
     """
 
     def __init__(self, *, num_workers: int = 0, seed_bump: int = 0,
-                 quarantine_registry=None):
+                 quarantine_registry=None,
+                 stall_timeout: float = DEFAULT_STALL_TIMEOUT_S):
         self.streams: Dict[str, StreamPos] = {}
         self.num_workers = int(num_workers)
+        # The loader pools' head-of-window stall budget (--data_stall_timeout;
+        # 0 disables the detection).
+        self.stall_timeout = float(stall_timeout)
         self.seed_bump = int(seed_bump)
         # A loader.QuarantineRegistry, keyed by stream role; None keeps
         # quarantine in memory for the run.
@@ -224,6 +228,7 @@ class DataPlane:
             quarantine_registry=self.quarantine_registry,
             quarantine_key=role,
             on_substitute=lambda: self.note_substitution(role),
+            stall_timeout=self.stall_timeout,
         )
 
     def stream(self, dataset, role: str, batch_size: int) -> Iterator:

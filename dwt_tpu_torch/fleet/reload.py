@@ -350,6 +350,18 @@ class HotReloader:
         (first deploy of a fresh server — keep serving, keep alarming)."""
         return self.controller.rollback(reason)
 
+    def reload_newest(self, *, force: bool = False) -> bool:
+        """Deploy the newest valid checkpoint directly (the bench's and an
+        operator's lever).  ``force`` redeploys even the live version (a
+        same-checkpoint swap: numerically a no-op, operationally the
+        swap-cost probe)."""
+        cand = newest_candidate(self.ckpt_dir)
+        if cand is None:
+            return False
+        if not force and self._is_live(cand):
+            return False
+        return self.deploy(cand)
+
     # -------------------------------------------------------------- loop
 
     def step(self) -> None:

@@ -15,38 +15,30 @@
   (``DWT_FAULT_PLAN``) that drive every path above.
 
 Not ported: the multi-host writers and consensus (ROADMAP queue 1 item 8).
+
+The names are exported lazily (:func:`~dwt_tpu_torch._lazy.lazy_exports`):
+the fleet's balancer reads :mod:`~dwt_tpu_torch.resilience.inject` and
+must not import torch, which the checkpoint writer and the guard need.
 """
 
-from dwt_tpu_torch.resilience import inject
-from dwt_tpu_torch.resilience.async_ckpt import (
-    AsyncCheckpointer,
-    DeltaAsyncCheckpointer,
-    snapshot_state,
-)
-from dwt_tpu_torch.resilience.coord import Coordinator, Decision
-from dwt_tpu_torch.resilience.guard import (
-    POLICIES,
-    DivergenceError,
-    DivergenceGuard,
-    RollbackRequest,
-)
-from dwt_tpu_torch.resilience.notice import NoticeWatcher
-from dwt_tpu_torch.resilience.preemption import PreemptionHandler
-from dwt_tpu_torch.resilience.watchdog import WATCHDOG_EXIT_CODE, HangWatchdog
+from dwt_tpu_torch._lazy import lazy_exports
 
-__all__ = [
-    "AsyncCheckpointer",
-    "DeltaAsyncCheckpointer",
-    "NoticeWatcher",
-    "snapshot_state",
-    "Coordinator",
-    "Decision",
-    "DivergenceError",
-    "DivergenceGuard",
-    "HangWatchdog",
-    "POLICIES",
-    "PreemptionHandler",
-    "RollbackRequest",
-    "WATCHDOG_EXIT_CODE",
-    "inject",
-]
+_EXPORTS = {
+    "AsyncCheckpointer": "async_ckpt",
+    "DeltaAsyncCheckpointer": "async_ckpt",
+    "snapshot_state": "async_ckpt",
+    "Coordinator": "coord",
+    "Decision": "coord",
+    "DivergenceError": "guard",
+    "DivergenceGuard": "guard",
+    "POLICIES": "guard",
+    "RollbackRequest": "guard",
+    "NoticeWatcher": "notice",
+    "PreemptionHandler": "preemption",
+    "HangWatchdog": "watchdog",
+    "WATCHDOG_EXIT_CODE": "watchdog",
+}
+
+__all__ = sorted(_EXPORTS) + ["inject"]
+
+__getattr__ = lazy_exports(__name__, _EXPORTS)

@@ -34,6 +34,15 @@ real fault would strike, so every recovery path can be driven on demand:
   applies ``serve_poison_requests`` — at each armed request index
   (one-shot per index) a strided slice of a copy of the payload becomes
   NaN, Inf or 1e6, cycling by index.  The two compose, drift first.
+* the fleet kinds: ``traffic_spike()`` — the load generator
+  (``tools/torch_serve_bench.py``) divides its Poisson gaps by ``factor``
+  from request ``at_request`` on (persistent: a demand step is the new
+  steady state); ``take_replica_slow(rid)`` yields, once, the
+  ``DWT_FAULT_PLAN`` the fleet puts in replica ``rid``'s spawn
+  environment, and inside that replica ``maybe_replica_slow()`` sleeps
+  the dispatcher ``sleep_s`` per batch — a straggler that answers probes
+  and serves slowly, so the weighted router, not the prober, must starve
+  it.
 
 All hooks are no-ops (one ``is None`` check) unless a plan is armed.  Arm
 with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
@@ -41,8 +50,7 @@ with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
 packages share.  Every fault fires at most once per arm (each element of a
 burst once).
 
-The JAX package's host-shard, sweep-supervisor and multi-replica fleet
-kinds are not ported: a plan naming one raises with the ROADMAP item that
+The JAX package's host-shard and sweep-supervisor kinds are not ported: a plan naming one raises with the ROADMAP item that
 takes it, since a plan that silently injects nothing proves nothing.
 """
 
@@ -57,8 +65,6 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-import torch
-
 ENV_VAR = "DWT_FAULT_PLAN"
 
 # Kinds of the JAX package's plans that the port does not inject yet, with
@@ -68,8 +74,6 @@ UNPORTED_KINDS = {
     "kill_supervisor_at_schedule": "item 9 (sweeps)",
     "sweep_preempt_pairs": "item 9 (sweeps)",
     "sweep_job_kill_mid_save": "item 9 (sweeps)",
-    "traffic_spike": "item 7 (the fleet)",
-    "replica_slow_at": "item 7 (the fleet)",
 }
 
 
@@ -181,6 +185,67 @@ def _drift_shift(drift: Any) -> Optional[Dict[str, Any]]:
     return {"at_request": at, "offset": float(offset), "scale": float(scale)}
 
 
+def _traffic_spike(spike: Any) -> Optional[Dict[str, Any]]:
+    """Validate a ``traffic_spike`` spec (the JAX plan's messages)."""
+    if spike is None:
+        return None
+    if not isinstance(spike, dict):
+        raise ValueError(
+            f"{ENV_VAR}: traffic_spike must be an object like "
+            '{"at_request": N, "factor": f}; '
+            f"got {spike!r}")
+    bad_keys = sorted(set(spike) - {"at_request", "factor"})
+    if bad_keys:
+        raise ValueError(
+            f"{ENV_VAR}: unknown traffic_spike key(s) {bad_keys}; "
+            "valid: ['at_request', 'factor']")
+    at = spike.get("at_request", 0)
+    if isinstance(at, bool) or not isinstance(at, int) or at < 0:
+        raise ValueError(
+            f"{ENV_VAR}: traffic_spike.at_request must be a "
+            f"0-based request index >= 0; got {at!r}")
+    factor = spike.get("factor")
+    if isinstance(factor, bool) or not isinstance(
+            factor, (int, float)) or not math.isfinite(factor) or factor <= 0:
+        raise ValueError(
+            f"{ENV_VAR}: traffic_spike.factor must be a finite "
+            f"number > 0; got {factor!r}")
+    if float(factor) == 1.0:
+        raise ValueError(
+            f"{ENV_VAR}: traffic_spike with factor=1 is the "
+            "identity — a rate step that steps nowhere proves nothing")
+    return {"at_request": at, "factor": float(factor)}
+
+
+def _replica_slow(slow: Any) -> Optional[Dict[str, Any]]:
+    """Validate a ``replica_slow_at`` spec (the JAX plan's messages)."""
+    if slow is None:
+        return None
+    if not isinstance(slow, dict):
+        raise ValueError(
+            f"{ENV_VAR}: replica_slow_at must be an object like "
+            '{"rid": R, "sleep_s": s}; '
+            f"got {slow!r}")
+    bad_keys = sorted(set(slow) - {"rid", "sleep_s"})
+    if bad_keys:
+        raise ValueError(
+            f"{ENV_VAR}: unknown replica_slow_at key(s) "
+            f"{bad_keys}; valid: ['rid', 'sleep_s']")
+    rid = slow.get("rid")
+    if isinstance(rid, bool) or not isinstance(rid, int) or rid < 0:
+        raise ValueError(
+            f"{ENV_VAR}: replica_slow_at.rid must be a replica "
+            f"id >= 0; got {rid!r}")
+    sleep_s = slow.get("sleep_s")
+    if isinstance(sleep_s, bool) or not isinstance(
+            sleep_s, (int, float)) or not math.isfinite(sleep_s) or sleep_s <= 0:
+        raise ValueError(
+            f"{ENV_VAR}: replica_slow_at.sleep_s must be a finite "
+            f"number > 0 (a zero-second straggler is a silent "
+            f"no-op); got {sleep_s!r}")
+    return {"rid": rid, "sleep_s": float(sleep_s)}
+
+
 @dataclasses.dataclass
 class FaultPlan:
     """One-shot fault schedule; every field defaults to "never fire".
@@ -206,6 +271,13 @@ class FaultPlan:
     # {"at_request": N, "offset": f, "scale": f}: from request N on, inputs
     # become x*scale + offset.  Persistent, not one-shot.
     serve_drift_shift: Optional[Dict[str, Any]] = None
+    # {"at_request": N, "factor": f}: from request N on, the load
+    # generator's Poisson gaps divide by f.  Persistent, not one-shot.
+    traffic_spike: Optional[Dict[str, Any]] = None
+    # {"rid": R, "sleep_s": s}: replica R's dispatcher sleeps s per batch.
+    # The fleet takes it once, at R's spawn (a respawn runs clean); inside
+    # the replica the sleep is persistent.
+    replica_slow_at: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_spec(cls, spec: Dict[str, Any]) -> "FaultPlan":
@@ -265,6 +337,8 @@ class FaultPlan:
                 spec.get("serve_poison_requests"), "serve_poison_requests",
                 minimum=0),
             serve_drift_shift=_drift_shift(spec.get("serve_drift_shift")),
+            traffic_spike=_traffic_spike(spec.get("traffic_spike")),
+            replica_slow_at=_replica_slow(spec.get("replica_slow_at")),
             nan_at_step=nan, crash_in_save=crash, hang_at_step=hang,
             slow_step_at=slow, slow_step_s=slow_s, sigterm_at_step=sigterm,
             io_error_saves=io_saves,
@@ -345,6 +419,8 @@ def maybe_nan(state, metrics, lo: int, hi: Optional[int] = None) -> Tuple[Any, A
     if not hit:
         return state, metrics
     plan.nan_at_step = [s for s in steps if s not in hit] or None
+    import torch
+
     with torch.no_grad():
         for p in state.model.parameters():
             if p.is_floating_point():
@@ -542,3 +618,39 @@ def maybe_poison_request(i: int, x: Any) -> Any:
     val = (float("nan"), float("inf"), 1e6)[int(i) % 3]
     x.reshape(-1)[::3] = val
     return x
+
+
+def traffic_spike() -> Optional[Dict[str, Any]]:
+    """The armed ``traffic_spike`` spec, or None: the load generator
+    divides its Poisson gaps by ``factor`` from request ``at_request`` on.
+    Persistent (not one-shot): a demand step is the new steady state."""
+    plan = current()
+    if plan is None:
+        return None
+    return plan.traffic_spike
+
+
+def take_replica_slow(rid: int) -> Optional[Dict[str, Any]]:
+    """The fault plan (a ``DWT_FAULT_PLAN`` object) the fleet puts in
+    replica ``rid``'s spawn environment, or None.  One-shot per arm: a
+    respawn of the straggler runs clean, so what a test proves is the
+    router starving the straggler, not the prober reaping it."""
+    plan = current()
+    if plan is None or not plan.replica_slow_at:
+        return None
+    if int(plan.replica_slow_at["rid"]) != int(rid):
+        return None
+    spec = dict(plan.replica_slow_at)
+    plan.replica_slow_at = None
+    return {"replica_slow_at": spec}
+
+
+def maybe_replica_slow() -> None:
+    """Sleep the armed ``replica_slow_at.sleep_s`` once per call.  The
+    serve dispatcher calls it at the top of every batch; inside a replica
+    the plan arrives through its own environment (the fleet matched the
+    rid), so the sleep is unconditional while armed."""
+    plan = current()
+    if plan is None or not plan.replica_slow_at:
+        return
+    time.sleep(float(plan.replica_slow_at["sleep_s"]))

@@ -10,35 +10,31 @@ in-process and HTTP front ends with graceful SIGTERM drain
 (:mod:`~dwt_tpu_torch.serve.metrics`) and guarded online adaptation of
 the whitening statistics to live traffic
 (:mod:`~dwt_tpu_torch.serve.adapt`).
+
+The names are exported lazily (:func:`~dwt_tpu_torch._lazy.lazy_exports`),
+so that :mod:`~dwt_tpu_torch.serve.http`, the handler base the fleet's
+balancer shares, imports without torch.
 """
 
-from dwt_tpu_torch.serve.adapt import DomainAdapter
-from dwt_tpu_torch.serve.batcher import (
-    DEFAULT_BUCKETS,
-    Future,
-    MicroBatcher,
-    PlannedBatch,
-    ShedError,
-    bucket_for,
-    plan_dispatch,
-)
-from dwt_tpu_torch.serve.engine import EngineState, ServeEngine, Version
-from dwt_tpu_torch.serve.metrics import AccessLog
-from dwt_tpu_torch.serve.server import HttpServeClient, ServeClient
+from dwt_tpu_torch._lazy import lazy_exports
 
-__all__ = [
-    "DomainAdapter",
-    "DEFAULT_BUCKETS",
-    "Future",
-    "MicroBatcher",
-    "PlannedBatch",
-    "ShedError",
-    "bucket_for",
-    "plan_dispatch",
-    "EngineState",
-    "ServeEngine",
-    "Version",
-    "AccessLog",
-    "HttpServeClient",
-    "ServeClient",
-]
+_EXPORTS = {
+    "DomainAdapter": "adapt",
+    "DEFAULT_BUCKETS": "batcher",
+    "Future": "batcher",
+    "MicroBatcher": "batcher",
+    "PlannedBatch": "batcher",
+    "ShedError": "batcher",
+    "bucket_for": "batcher",
+    "plan_dispatch": "batcher",
+    "EngineState": "engine",
+    "ServeEngine": "engine",
+    "Version": "engine",
+    "AccessLog": "metrics",
+    "HttpServeClient": "server",
+    "ServeClient": "server",
+}
+
+__all__ = list(_EXPORTS)
+
+__getattr__ = lazy_exports(__name__, _EXPORTS)

@@ -53,11 +53,10 @@ import http.client
 import io
 import json
 import logging
-import select
 import signal
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +67,8 @@ from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.registry import build_backbone
 from dwt_tpu_torch.obs.registry import get_registry
+from dwt_tpu_torch.ops import cuda_whitening
+from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.serve.batcher import (
     Future,
     MicroBatcher,
@@ -76,6 +77,7 @@ from dwt_tpu_torch.serve.batcher import (
     resolve_future,
 )
 from dwt_tpu_torch.serve.engine import ServeEngine
+from dwt_tpu_torch.serve.http import DrainAwareHandler
 from dwt_tpu_torch.serve.metrics import AccessLog
 from dwt_tpu_torch.utils.metrics import device_memory_stats
 
@@ -128,6 +130,10 @@ class _Dispatcher(threading.Thread):
         return int(self._t_pull is not None)
 
     def _serve(self, pb: PlannedBatch) -> None:
+        # An injected straggler (replica_slow_at): the sleep lands in the
+        # batch's service time, so e2e latency and the balancer's drain-rate
+        # EWMA see a slow replica, not a dead one (probes still answer).
+        inject.maybe_replica_slow()
         engine = self.engine
         # ONE state snapshot per batch — the hot-swap contract: a swap
         # landing mid-batch flips the engine's reference, but this batch
@@ -299,8 +305,9 @@ class ServeClient:
     def stats(self) -> dict:
         """The ``/stats`` body: the access log's summary (per-version
         windows included), the request counts by outcome, the live
-        process view, the served version and, with an adapter attached,
-        its fields."""
+        process view, the served version, with an adapter attached its
+        fields and, on a card, the device memory and the kernels'
+        launches."""
         counts, batches = self._dispatcher.snapshot()
         out = self.access_log.summary()
         out.update({
@@ -324,6 +331,10 @@ class ServeClient:
             mem = device_memory_stats()
             if mem is not None:
                 out["device_memory"] = mem
+            # The process's hand-kernel launches so far: how a fleet shows
+            # that its replicas ran the kernels (a CPU engine launches none).
+            out["kernel_launches"] = {"apply": cuda_whitening.apply_launches,
+                                      "moments": cuda_whitening.moments_launches}
         return out
 
     def submit(self, x: np.ndarray) -> Future:
@@ -444,65 +455,6 @@ class HttpServeClient:
 
 
 # ------------------------------------------------------------- HTTP front
-
-
-class DrainAwareHandler(BaseHTTPRequestHandler):
-    """Keep-alive JSON-line handler base: HTTP/1.1 persistent
-    connections, a drain-aware idle wait, and a body read on every POST
-    branch (a keep-alive error reply that left the body unread would
-    desynchronize the connection — the leftover bytes would parse as the
-    next request line)."""
-
-    draining: threading.Event = None  # type: ignore[assignment]  # set by the maker
-    # Socket read timeout: handler threads are non-daemon and joined at
-    # shutdown, so a stalled client must not hold exit hostage.
-    timeout = 120.0
-    protocol_version = "HTTP/1.1"
-
-    def log_message(self, fmt, *args):  # route through logging, not stderr
-        log.debug("http: " + fmt, *args)
-
-    def handle_one_request(self):
-        # Idle keep-alive wait in short select slices, so a parked
-        # connection neither blocks the drain nor outlives the timeout.
-        idle_deadline = time.monotonic() + self.timeout
-        while True:
-            try:
-                ready, _, _ = select.select([self.connection], [], [], 0.5)
-            except (OSError, ValueError):  # connection torn down
-                self.close_connection = True
-                return
-            if ready:
-                break
-            if self.draining.is_set() or time.monotonic() > idle_deadline:
-                self.close_connection = True
-                return
-        super().handle_one_request()
-
-    def read_body(self) -> bytes:
-        """Read the request body.  EVERY POST branch calls this before
-        replying — error replies included."""
-        length = int(self.headers.get("Content-Length", "0"))
-        return self.rfile.read(length) if length > 0 else b""
-
-    def _reply(self, code: int, payload: dict, headers=()) -> None:
-        body = (json.dumps(payload) + "\n").encode()  # one JSON line
-        self.send_response(code)
-        self.send_header("Content-Type", "application/jsonl")
-        self.send_header("Content-Length", str(len(body)))
-        for k, v in headers:
-            self.send_header(k, v)
-        self.end_headers()
-        self.wfile.write(body)
-
-    def _reply_text(self, code: int, body: str, content_type: str) -> None:
-        """Non-JSON reply (the /metrics Prometheus exposition)."""
-        data = body.encode()
-        self.send_response(code)
-        self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(data)))
-        self.end_headers()
-        self.wfile.write(data)
 
 
 class _Handler(DrainAwareHandler):

@@ -32,9 +32,10 @@ Contracts the loops rely on:
   entries of the poisoned trajectory; :meth:`bump_generation` makes their
   flags inert (their records still emit: those steps ran).
 
-Tensors on the CPU are trivially ready.  ``lag_steps`` and ``pending`` are
-plain attributes; the JAX package's gauges and spans wait for the metrics
-plane (ROADMAP queue 1 item 9).
+Tensors on the CPU are trivially ready.  ``pending`` and ``lag_steps``
+also feed the registry's ``dwt_harvest_ring_depth`` and
+``dwt_harvest_lag_steps`` (host integers; the heartbeat mirrors them); the
+JAX package's spans wait for the span tracer (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -120,6 +121,19 @@ class AsyncMetricHarvester:
         # from when drains happened (the guard's prune floor).
         self._lo_history: "collections.deque[int]" = collections.deque(
             maxlen=max(self.depth, 1))
+        # The metrics plane's two gauges, host-side integers the put and
+        # drain sites already hold: no device read (the heartbeat mirrors
+        # them).
+        from dwt_tpu_torch.obs.registry import get_registry
+
+        reg = get_registry()
+        self._g_ring = reg.gauge("dwt_harvest_ring_depth",
+                                 "metric-harvest entries in flight (ring occupancy)")
+        self._g_lag = reg.gauge(
+            "dwt_harvest_lag_steps",
+            "staleness of the oldest harvested metrics at the last drain, in steps")
+        self._g_ring.set(0)
+        self._g_lag.set(0)
 
     @property
     def async_mode(self) -> bool:
@@ -161,7 +175,7 @@ class AsyncMetricHarvester:
             # The device is more than `depth` record-bearing dispatches
             # behind: ONE rendezvous for every pending entry.
             self.drain()
-        self._note_lag()
+        self._note_gauges()
 
     def drain(self) -> None:
         """Flush the ring: ONE blocking rendezvous for every pending entry
@@ -175,12 +189,16 @@ class AsyncMetricHarvester:
         self._ring.clear()
         if self._last_put_hi is not None:
             self.lag_steps = self._last_put_hi - entries[0].lo
+            self._g_lag.set(self.lag_steps)
         for e, host in zip(entries, self._wait(entries)):
             self._emit(e, host)
+        self._note_gauges()
 
-    def _note_lag(self) -> None:
+    def _note_gauges(self) -> None:
+        self._g_ring.set(len(self._ring))
         if self._ring and self._last_put_hi is not None:
             self.lag_steps = self._last_put_hi - self._ring[0].lo
+            self._g_lag.set(self.lag_steps)
 
     def pending_floor(self) -> Optional[int]:
         """The oldest step a still-pending flag could cover (None until

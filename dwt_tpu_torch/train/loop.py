@@ -83,9 +83,19 @@ records a skipped stat collection at ``--stat_collection_passes 0`` and
 warns when passes are asked for, as the JAX loop does (which records the
 skip for every whitener).
 
-Not ported yet, in either loop (ROADMAP): the metrics counters and the
-harvester's gauges (queue 1 item 9), ``mirror_recovery`` and multi-host
-runs (item 8).
+Both loops run the JAX loops' run plane: a ``heartbeat`` record every
+``heartbeat_every`` steps at the step boundary (steps/s, host RSS, the
+writer's in-flight depth, the card's allocator stats and the harvester's
+gauges — host-side numbers only), the ``--metrics_port`` exporter
+(``metrics_exporter`` record) and the ``--alert_rules`` engine evaluated
+at every boundary (``alert_rules`` and ``alert`` records), and the
+registry's ``dwt_train_steps_total``, ``dwt_guard_events_total{event}``,
+``dwt_train_loss{loss}``, ``dwt_eval_accuracy``, ``dwt_ckpt_saves_total
+{mode}`` and ``dwt_ckpt_stall_ms``.  None of them reads a device tensor:
+the losses are fed from the harvested host copies.
+
+Not ported yet, in either loop (ROADMAP): span tracing (queue 1 item 9),
+``mirror_recovery`` and multi-host runs (item 8).
 """
 
 from __future__ import annotations
@@ -102,6 +112,7 @@ import torch
 from torch import nn
 
 from dwt_tpu_torch.config import (
+    INERT_FIELDS,
     DigitsConfig,
     OfficeHomeConfig,
     resolve_compute_dtype,
@@ -131,6 +142,7 @@ from dwt_tpu_torch.data.transforms import (
 )
 from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.registry import build_backbone
+from dwt_tpu_torch.obs.registry import get_registry
 from dwt_tpu_torch.ops.whitening import get_whitener
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
@@ -168,6 +180,7 @@ from dwt_tpu_torch.utils.checkpoint import (
     restore_state,
     save_state,
 )
+from dwt_tpu_torch.utils.metrics import HeartbeatEmitter
 
 log = logging.getLogger(__name__)
 
@@ -197,6 +210,56 @@ def _saved_bytes(path: str) -> int:
     return written + os.path.getsize(manifest)
 
 
+# --------------------------------------------------- live metrics plane
+
+
+def _note_losses(**losses) -> None:
+    """Feed the last logged training losses into the registry: called
+    from the train records' emit, with the harvested host copies — no
+    device read."""
+    gauge = get_registry().gauge("dwt_train_loss", "last logged training loss",
+                                 labelnames=("loss",))
+    for name, value in losses.items():
+        gauge.labels(loss=name).set(float(value))
+
+
+def _note_accuracy(acc: float) -> None:
+    get_registry().gauge("dwt_eval_accuracy",
+                         "last eval-pass target accuracy (%)").set(float(acc))
+
+
+def _setup_metrics_plane(cfg, logger: Logger):
+    """The run's live metrics surface, as the JAX loops': start the
+    ``metrics_port`` exporter thread (0 = ephemeral; the bound port is
+    logged as a ``metrics_exporter`` record) and build the ``alert_rules``
+    engine the step boundary evaluates.  Returns the engine (or None)."""
+    if cfg.metrics_port is not None:
+        from dwt_tpu_torch.obs import prom
+
+        exporter = prom.start_exporter(int(cfg.metrics_port))
+        logger("metrics_exporter", 0, port=exporter.server_address[1])
+    if not cfg.alert_rules:
+        return None
+    from dwt_tpu_torch.obs import rules as obs_rules
+
+    engine = obs_rules.AlertEngine(obs_rules.load_rules(cfg.alert_rules))
+    logger("alert_rules", 0, rules=len(engine.rules), path=cfg.alert_rules)
+    return engine
+
+
+def _note_inert(cfg) -> None:
+    """One log line for each inert flag the run was given (a value other
+    than the config's default): it changes nothing in the port."""
+    names = ["pallas_whiten", "apply_lowering"]
+    if isinstance(cfg, OfficeHomeConfig):
+        names += ["target_batch_size", "lr_change_step"]
+    default = type(cfg)()
+    for name in names:
+        if getattr(cfg, name) != getattr(default, name):
+            log.warning("--%s=%s changes nothing in the port: %s", name,
+                        getattr(cfg, name), INERT_FIELDS[name])
+
+
 class _CkptPipeline:
     """One save/flush facade per run, as the JAX loops': the background
     writer (``AsyncCheckpointer``, or ``DeltaAsyncCheckpointer`` with
@@ -210,10 +273,18 @@ class _CkptPipeline:
     written — an async save at the next save or flush that joins it:
     ``dir``, ``seconds`` (the loop's stall: the snapshot and the enqueue,
     or the whole blocking save), ``writer_s`` (the write's wall seconds),
-    ``bytes`` and ``sync``."""
+    ``bytes`` and ``sync``.  The registry's ``dwt_ckpt_saves_total{mode}``
+    counts the saves, ``dwt_ckpt_stall_ms`` the loop's stall per save."""
 
     def __init__(self, cfg, logger: Logger):
         self._logger = logger
+        reg = get_registry()
+        self._m_saves = reg.counter("dwt_ckpt_saves_total", "checkpoint saves initiated",
+                                    labelnames=("mode",))
+        self._m_stall = reg.histogram(
+            "dwt_ckpt_stall_ms",
+            "hot-path stall per checkpoint save (async: snapshot + enqueue incl. "
+            "backpressure; sync: the full blocking save)")
         self._fmt = cfg.ckpt_format
         if self._fmt not in ("full", "delta"):
             raise ValueError(f"--ckpt_format must be 'full' or 'delta'; got {self._fmt!r}")
@@ -271,14 +342,20 @@ class _CkptPipeline:
                 self._acp.save_multi(targets, step, state)
             finally:
                 self._report()
-            self._pending = (self._acp.seq, int(step), [d for d, _ in targets],
-                             time.perf_counter() - t0)
+            seconds = time.perf_counter() - t0
+            self._pending = (self._acp.seq, int(step), [d for d, _ in targets], seconds)
+            self._note(seconds)
             return
         paths = self._blocking_save_multi(targets, step, state)
         seconds = time.perf_counter() - t0
+        self._note(seconds)
         for (directory, _), path in zip(targets, paths):
             if path is not None:
                 self._log(step, directory, path, seconds, seconds, True)
+
+    def _note(self, seconds: float) -> None:
+        self._m_saves.labels(mode="async" if self._acp is not None else "sync").inc()
+        self._m_stall.observe(seconds * 1e3)
 
     def save_sync(self, ckpt_dir: str, step: int, state, **kwargs) -> Optional[str]:
         """Join any in-flight save, then save on this thread; returns the
@@ -334,9 +411,13 @@ class _StepBoundary:
     flags), then the stop flag and, on an otherwise clean boundary, the
     notice's proactive save, once (``on_notice(state)`` returns the saved
     step, kept as ``notice_step``).  Returns whether the run must stop;
-    ``stop`` stays set."""
+    ``stop`` stays set.  Before the fault hooks, the run plane: the
+    ``dwt_train_steps_total`` counter, the heartbeat and the alert rules
+    (host-side numbers only); a guard event counts in
+    ``dwt_guard_events_total{event}``."""
 
-    def __init__(self, guard, preempt, watchdog, notice_watcher, harvester=None):
+    def __init__(self, guard, preempt, watchdog, notice_watcher, harvester=None,
+                 logger: Optional[Logger] = None, heartbeat=None, alerts=None):
         self.guard = guard
         self.preempt = preempt
         self.watchdog = watchdog
@@ -345,6 +426,15 @@ class _StepBoundary:
         self._harvest_guard = (guard is not None and harvester is not None
                                and harvester.async_mode)
         self.coord = Coordinator()
+        self.logger = logger
+        self.heartbeat = heartbeat
+        self.alerts = alerts
+        reg = get_registry()
+        self._m_steps = reg.counter("dwt_train_steps_total", "optimizer steps completed")
+        self._m_guard = reg.counter(
+            "dwt_guard_events_total",
+            "divergence-guard events by rung (local or remote-mirrored)",
+            labelnames=("event",))
         self.on_notice = None
         self.notice_step: Optional[int] = None
         self._notice_handled = False
@@ -357,10 +447,13 @@ class _StepBoundary:
                 self.guard.check_harvested(state, n_steps, gstep)
             else:
                 self.guard.step(state, metrics, n_steps, gstep)
-        except (RollbackRequest, DivergenceError):
+        except (RollbackRequest, DivergenceError) as e:
+            self._m_guard.labels(
+                event="rollback" if isinstance(e, RollbackRequest) else "halt").inc()
             self._fence()
             raise
         if self.guard.recoveries != recoveries:
+            self._m_guard.labels(event="recovered").inc()
             self._fence()
 
     def _fence(self) -> None:
@@ -369,8 +462,25 @@ class _StepBoundary:
         if self.harvester is not None:
             self.harvester.bump_generation()
 
+    def _evaluate_alerts(self, gstep: int) -> None:
+        """Fire/clear transitions as ``alert`` records; an engine failure
+        degrades to a warning, never takes training down."""
+        try:
+            events = self.alerts.maybe_evaluate()
+        except Exception as e:
+            log.warning("alert evaluation failed: %s", e)
+            return
+        if self.logger is not None:
+            for ev in events:
+                self.logger("alert", gstep, **ev.record_fields())
+
     def __call__(self, state, metrics, n_steps: int, gstep: int) -> bool:
         self.watchdog.heartbeat()
+        self._m_steps.inc(n_steps)
+        if self.heartbeat is not None:
+            self.heartbeat.step(gstep)
+        if self.alerts is not None:
+            self._evaluate_alerts(gstep)
         # Between the heartbeat and the guard: a hang is measured from a
         # fresh beat, a SIGTERM is seen by this boundary's stop flag.
         inject.at_step(gstep - n_steps + 1, gstep)
@@ -422,12 +532,14 @@ def _train_emit(logger: Logger, keys, idxs) -> Callable:
     """The emit closure of one harvested entry: for each ``(row, step,
     fields)`` of ``idxs`` a ``train`` record at ``step`` with ``fields``
     and the host copies of ``keys`` (row None: scalars; else that row of
-    a chunk's ``[n]``)."""
+    a chunk's ``[n]``); the record's ``*_loss`` values also feed the
+    ``dwt_train_loss`` gauge."""
 
     def emit(vals):
         for row, step_no, fields in idxs:
-            logger("train", step_no, **fields,
-                   **{k: float(vals[k] if row is None else vals[k][row]) for k in keys})
+            values = {k: float(vals[k] if row is None else vals[k][row]) for k in keys}
+            logger("train", step_no, **fields, **values)
+            _note_losses(**{k: v for k, v in values.items() if k.endswith("_loss")})
 
     return emit
 
@@ -631,6 +743,8 @@ def run_digits(
     ``model`` (default :func:`build_digits_model`) is trained in place: it
     is moved to the device, its convs to channels_last memory format."""
     logger = logger or _log_record
+    alert_engine = _setup_metrics_plane(cfg, logger)
+    _note_inert(cfg)
     if cfg.group_size == 32:
         # The reference's argparse default (usps_mnist.py:348), kept; every
         # published digits accuracy uses 4 (its README), and 32 does not
@@ -668,7 +782,8 @@ def run_digits(
     # Both streams roll over at the zip's length, so a stream's position
     # is a function of the step.
     plane = DataPlane(num_workers=cfg.num_workers,
-                      quarantine_registry=_quarantine_registry(cfg))
+                      quarantine_registry=_quarantine_registry(cfg),
+                      stall_timeout=cfg.data_stall_timeout)
     plane.register("source", seed=cfg.seed, epoch_len=steps_per_epoch)
     plane.register("target", seed=cfg.seed + 1, epoch_len=steps_per_epoch)
 
@@ -686,6 +801,7 @@ def run_digits(
         # Resumed from a finished run: report the restored model's
         # accuracy instead of training.
         result = evalp.evaluate(state, test_ds)
+        _note_accuracy(result["accuracy"])
         logger("test", state.step, epoch=epoch, **result)
         logger("params_digest", state.step,
                digest=params_digest(model.named_parameters()))
@@ -708,7 +824,10 @@ def run_digits(
         guard.enable_harvest(harvester.depth, gstep, floor_fn=harvester.pending_floor)
     keys = ("loss", "cls_loss", "entropy_loss", "grad_norm")
     with _resilience(cfg, pipeline) as (preempt, wd, nw):
-        boundary = _StepBoundary(guard, preempt, wd, nw, harvester)
+        boundary = _StepBoundary(
+            guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
+            heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
+                                       pipeline.in_flight_depth))
 
         def proactive_save(st):
             # A preemption notice: save now and keep training; the SIGTERM
@@ -810,6 +929,7 @@ def run_digits(
             result = evalp.evaluate(state, test_ds)
             wd.heartbeat()  # an eval is progress, not a stall
             acc = result["accuracy"]
+            _note_accuracy(acc)
             logger("test", state.step, epoch=epoch, **result)
             if cfg.ckpt_dir:
                 data_state = plane.snapshot()
@@ -909,7 +1029,8 @@ def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
     if min(source_len, target_len) == 0:
         raise ValueError("datasets smaller than one batch")
     plane = DataPlane(num_workers=cfg.num_workers,
-                      quarantine_registry=_quarantine_registry(cfg))
+                      quarantine_registry=_quarantine_registry(cfg),
+                      stall_timeout=cfg.data_stall_timeout)
     plane.register("source", seed=cfg.seed, epoch_len=source_len)
     plane.register("target", seed=cfg.seed + 1, epoch_len=target_len)
     plane.register("target_aug", seed=cfg.seed + 1, epoch_len=target_len,
@@ -943,6 +1064,8 @@ def run_officehome(
     moved to the device, its convs to channels_last memory format, and
     a resume, ``init_ckpt`` or ``resnet_path`` loads into it."""
     logger = logger or _log_record
+    alert_engine = _setup_metrics_plane(cfg, logger)
+    _note_inert(cfg)
     device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1019,7 +1142,10 @@ def run_officehome(
         return (it + 1) % cfg.check_acc_step == 0 or bool(ckpt_targets(it))
 
     with _resilience(cfg, pipeline) as (preempt, wd, nw):
-        boundary = _StepBoundary(guard, preempt, wd, nw, harvester)
+        boundary = _StepBoundary(
+            guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
+            heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
+                                       pipeline.in_flight_depth))
 
         def proactive_save(st):
             if not cfg.ckpt_dir:
@@ -1045,6 +1171,7 @@ def run_officehome(
                 result = evalp.evaluate(state, test_ds)
                 wd.heartbeat()
                 acc = result["accuracy"]
+                _note_accuracy(acc)
                 logger("test", state.step, iter=it, **result)
                 if cfg.ckpt_dir and acc > best_acc:
                     # The reference's model_best_gr_N: the highest target
@@ -1155,6 +1282,7 @@ def run_officehome(
                seconds=round(time.perf_counter() - t0, 3))
     result = evalp.evaluate(state, test_ds)
     acc = result["accuracy"]
+    _note_accuracy(acc)
     logger("final_test", state.step, **result)
     if cfg.ckpt_dir:
         # The post-collection state is the run's deployable artifact.

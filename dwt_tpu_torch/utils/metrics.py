@@ -3,17 +3,31 @@
 Emits both a human-readable line (same quantities the reference prints —
 cls/entropy/MEC losses and test accuracy, ``usps_mnist.py:305-308,323-325``)
 and a machine-parseable JSON record, to stdout and optionally a JSONL file.
+A :class:`MetricLogger` is also the trainers' ``logger(kind, step,
+**fields)`` callable: the port's loops and resilience plane log through
+that contract.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
 import sys
 import time
 from typing import IO, Callable, Iterable, Optional, Sequence
+
+log = logging.getLogger(__name__)
+
+# The kinds the JAX loops log with ``sync=True`` (flushed and fsynced):
+# the records that narrate a preemption, a divergence and its recovery,
+# and an alert.  A call through ``MetricLogger.__call__`` syncs these.
+DURABLE_KINDS = frozenset({
+    "preempt", "notice_save", "rollback", "alert", "divergence", "lr_backoff",
+    "lr_recover", "skip_step",
+})
 
 
 def percentile(values: Sequence[float], q: float) -> float:
@@ -81,8 +95,12 @@ class MetricLogger:
     ``sync=True`` kinds exist to cover.
     """
 
-    def __init__(self, jsonl_path: Optional[str] = None, stream: IO = sys.stdout,
+    def __init__(self, jsonl_path: Optional[str] = None,
+                 stream: Optional[IO] = sys.stdout,
                  flush_every_n: int = 20, flush_interval_s: float = 2.0):
+        """``stream=None``: each record goes to this module's ``logging`` at
+        INFO as one JSON line (the port's trainers' console form) instead
+        of the human-readable line."""
         self.stream = stream
         self._file = open(jsonl_path, "a") if jsonl_path else None
         self._t0 = time.time()
@@ -109,6 +127,17 @@ class MetricLogger:
         (heartbeats) that must be READABLE immediately (a hang means no
         later log() ever runs the cadence flush) but need not survive an
         OS crash."""
+        self._emit(kind, step, values, sync, flush)
+
+    def __call__(self, kind: str, step: int, **fields) -> None:
+        """The loops' ``logger(kind, step, **fields)`` contract: every
+        field is a record field (a ``checkpoint`` record's ``sync`` one
+        included); the JAX loops' ``sync=True`` kinds (``DURABLE_KINDS``)
+        are fsynced and heartbeats flushed, as there."""
+        self._emit(kind, step, fields, kind in DURABLE_KINDS, kind == "heartbeat")
+
+    def _emit(self, kind: str, step: int, values: dict, sync: bool,
+              flush: bool) -> None:
         record = {
             "kind": kind,
             "step": int(step),
@@ -119,12 +148,15 @@ class MetricLogger:
                    else float(v) if hasattr(v, "__float__") else v)
                for k, v in values.items()},
         }
-        pretty = " ".join(
-            f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in record.items()
-            if k not in ("kind",)
-        )
-        print(f"[{kind}] {pretty}", file=self.stream, flush=True)
+        if self.stream is None:
+            log.info(json.dumps(record))
+        else:
+            pretty = " ".join(
+                f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in record.items()
+                if k not in ("kind",)
+            )
+            print(f"[{kind}] {pretty}", file=self.stream, flush=True)
         if self._file:
             self._file.write(json.dumps(record) + "\n")
             self._unflushed += 1
@@ -224,10 +256,12 @@ class HeartbeatEmitter:
     Every ``every`` steps emits a ``heartbeat`` record with a steps/s
     EWMA, the host RSS, and the async-checkpoint in-flight depth — the
     always-on signal an operator reads.  ``every <= 0`` disables; the per-step
-    cost is then one int compare.
+    cost is then one int compare.  ``logger`` is the loops' ``logger(kind,
+    step, **fields)`` callable (a :class:`MetricLogger` flushes the record
+    at once).
     """
 
-    def __init__(self, logger: "MetricLogger", every: int,
+    def __init__(self, logger: Callable[..., None], every: int,
                  in_flight_fn: Optional[Callable[[], int]] = None):
         self.every = int(every or 0)
         self._logger = logger
@@ -321,4 +355,4 @@ class HeartbeatEmitter:
         # operator greps DURING a hang — buffered, the newest one would
         # sit in userspace through exactly that window (no later log()
         # runs the cadence flush, and a watchdog os._exit skips close()).
-        self._logger.log("heartbeat", gstep, flush=True, **values)
+        self._logger("heartbeat", gstep, **values)

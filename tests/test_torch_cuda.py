@@ -17,7 +17,9 @@ two-pass computation of each domain: mean ``rtol = atol = 1e-6``, cov
 replays of a CUDA graph that captured one, are bitwise equal.  The data
 plane's ``prefetch_to_device`` delivers batches on the card bitwise equal
 to their numpy sources, through its reused pinned buffers and when closed
-mid-stream.  The CPU-side
+mid-stream.  A one-replica fleet serving on the card leaves the
+balancer process without a CUDA context (no ``/dev/nvidia*`` descriptor
+open, where the replica has one).  The CPU-side
 tests check the dispatch rules: a CPU tensor takes the plain version,
 any other device raises, and ``chip_smoke.py`` refuses to run without
 CUDA.
@@ -1345,3 +1347,48 @@ def test_the_adapter_collect_forward_on_the_card_matches_the_cpu(cuda_device):
         torch.testing.assert_close(ours[k], ref[k], rtol=2e-4, atol=2e-4 * scale)
     np.testing.assert_allclose(ours_logits, ref_logits, rtol=2e-4,
                                atol=2e-4 * float(np.abs(ref_logits).max()))
+
+
+def _holds_cuda_context(pid):
+    """A descriptor of ``pid`` open on an NVIDIA device node: a CUDA
+    context keeps ``/dev/nvidia*`` open.  (``nvidia-smi``'s compute-apps
+    pids cannot tell the processes apart where they run in a pid
+    namespace of their own: every one reads as pid 1.)"""
+    fds = f"/proc/{pid}/fd"
+    for fd in os.listdir(fds):
+        try:
+            if os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+@pytest.mark.cuda
+def test_fleet_balancer_holds_no_cuda_context(cuda_device):
+    """``python -m dwt_tpu_torch.fleet.balancer`` with one replica serving
+    LeNet-DWT on the card: the replica reports ``cuda`` and holds a CUDA
+    context; the balancer, which imports no torch, holds none; SIGTERM
+    drains both to exit 0."""
+    import json
+    import signal
+    import urllib.request
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dwt_tpu_torch.fleet.balancer", "--port", "0",
+         "--replicas", "1", "--no-autoscale", "--", "--model", "lenet",
+         "--init_random", "--buckets", "1,4"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = json.loads(proc.stdout.readline())
+        replica = ready["replicas"][0]
+        with urllib.request.urlopen(f"http://127.0.0.1:{replica['port']}/healthz",
+                                    timeout=30) as resp:
+            assert json.loads(resp.read())["device"].startswith("cuda")
+        assert _holds_cuda_context(replica["pid"])
+        assert not _holds_cuda_context(proc.pid)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()

@@ -153,8 +153,6 @@ def test_fault_plan_accepts_and_refuses_what_the_jax_plan_does(spec):
     ("kill_supervisor_at_schedule", 1, "item 9"),
     ("sweep_preempt_pairs", ["Art2Clipart"], "item 9"),
     ("sweep_job_kill_mid_save", ["Art2Clipart"], "item 9"),
-    ("traffic_spike", {"at_request": 1, "factor": 2.0}, "item 7"),
-    ("replica_slow_at", {"rid": 0, "sleep_s": 0.1}, "item 7"),
 ])
 def test_fault_plan_refuses_the_kinds_it_does_not_port(kind, value, item):
     jax_inject.FaultPlan.from_spec({kind: value})  # a kind the JAX plan takes

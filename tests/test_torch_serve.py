@@ -159,7 +159,7 @@ def test_batcher_copy_plans_like_the_reference():
 
 def test_port_imports_no_jax_and_no_dwt_tpu():
     code = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 import dwt_tpu_torch
 for mod in pkgutil.walk_packages(dwt_tpu_torch.__path__, "dwt_tpu_torch."):
     importlib.import_module(mod.name)
@@ -198,6 +198,15 @@ from dwt_tpu_torch.fleet import CanaryGate, DeployController, HotReloader, PostS
 from dwt_tpu_torch.fleet.watcher import CheckpointWatcher
 from dwt_tpu_torch.serve.adapt import DomainAdapter, make_collect_fn
 from dwt_tpu_torch.serve.quant import quantize_int8
+# The trainers' run plane and the replica fleet by name, and the port's load
+# generator.
+from dwt_tpu_torch.fleet.balancer import HealthProber, ReplicaSet, Respawner, main
+from dwt_tpu_torch.fleet.autoscale import Autoscaler, ScaleDecision
+from dwt_tpu_torch.fleet.retry import RespawnBudget
+from dwt_tpu_torch.utils.repro import check_cli_accuracy, sweep_verdicts
+from dwt_tpu_torch.cli import run_cli, debug_nans
+spec = importlib.util.spec_from_file_location("torch_serve_bench", "tools/torch_serve_bench.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dwt_tpu_torch.serve.metrics import AccessLog
 from dwt_tpu_torch.serve.engine import EngineState, Version
 import chip_smoke
