@@ -477,6 +477,38 @@ script exits non-zero without the final line:
                   SIGTERM, every replica and the fleet exit 0, no replica
                   left on the card.  ``fleet_b{bucket}_parity`` /
                   ``_timing``: the apply at the window's buckets' sites.
+48. ``train_trace`` — span tracing on the flagship (the last phases,
+                  after ``adapt_kernels``): the OfficeHome CLI's config at
+                  ``TRACE_FLAGS`` (ResNet50-DWT, 3 × 18 images at 224², 9
+                  steps at k = 3, harvest depth 2, one collection pass and
+                  the final eval) untraced, then with ``--obs_trace``: the
+                  export a valid Chrome trace holding ``TRACE_SPANS``,
+                  ``step_dispatch`` 3 spans of ``n`` 3, ``tools/
+                  torch_obs_report.py`` accounting for 100% of the loop's wall
+                  time (its TOTAL row), both runs' launches (11 + 11 a step,
+                  checked record by record) and the harvester's host syncs
+                  per step equal; step ms (device clock, the first chunk
+                  skipped) of both beside the report's top phases.  The
+                  same A/B for the digits CLI at phase 26's k = 4 flags in
+                  mirrored turns (untraced, traced, traced, untraced; 2 + 2
+                  launches a step, checked at the evals).
+49. ``serve_trace`` — the ResNet50-DWT server's own wiring with
+                  ``--obs_trace``, buckets 1/8/32 and the adapter: 3 rounds of
+                  one ``.npy`` request per bucket, one adapter iteration (one
+                  collect batch of 32) after the first: the export valid,
+                  ``stage``/``device``/``resolve`` one each per batch carrying
+                  the batch's ``req_ids`` (those of the access log's records
+                  of that batch), one ``adapt_collect``; 11 apply launches a
+                  forward, 11 moments and 11 apply for the collect; each
+                  bucket's ``device`` spans (p50) beside the access log's
+                  ``device_ms``, the forward alone on the same engine (CUDA
+                  events) and the requests' e2e.
+50. ``flight_recorder`` — the digits CLI in a subprocess (after
+                  ``serve_trace``, alone on the card) with ``DWT_OBS_TRACE=1``,
+                  ``hang_at_step`` 4 and ``--watchdog_timeout 8``: exit 113,
+                  ``stacks-*`` and a valid ``spans-*`` in ``ckpt_dir/
+                  watchdog`` whose spans include ``step_dispatch`` or
+                  ``boundary``.
 
 The last two lines are the card's ``nvidia-smi`` name/power limit and
 ``{"ok": true, "device": {...}}``.
@@ -659,8 +691,51 @@ CKPT_PHASES = {  # the kernels line's path → the checkpoint phases on its shap
     "digits_serve": ("digits_ckpt_serve",)}
 
 
+EMITTED = []  # the phase of every row printed, in order
+
+
 def emit(obj) -> None:
+    EMITTED.append(obj.get("phase"))
     print(json.dumps(obj), flush=True)
+
+
+# The warning of autograd's engine when a leaf's gradient accumulates on a
+# stream other than the one that produced it: the smoke fails on it.
+STREAM_WARNING = "AccumulateGrad node's stream does not match"
+
+
+class PhaseWarnings:
+    """Every warning shown while inside, with the rows printed just before
+    and just after it (the phase that raised it ends with the latter) and
+    the Python stack it was raised from; each is still shown as before."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        self.module, self.inner = warnings, warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            self.seen.append({"after": EMITTED[-1] if EMITTED else None,
+                              "at_row": len(EMITTED), "category": category.__name__,
+                              "message": str(message)[:400], "where": f"{filename}:{lineno}",
+                              "stack": [ln.strip() for ln in traceback.format_stack()[-14:-1]]})
+            self.inner(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        return self
+
+    def __exit__(self, *exc):
+        self.module.showwarning = self.inner
+
+    def rows(self):
+        """The warnings with the phase row that followed each."""
+        return [{**{k: v for k, v in w.items() if k != "at_row"},
+                 "before": EMITTED[w["at_row"]] if w["at_row"] < len(EMITTED) else None}
+                for w in self.seen]
 
 
 def nvidia_smi() -> str:
@@ -2062,7 +2137,7 @@ def digits_train(torch, cw, usps_mnist, loop, flags=DIGITS_TRAIN_FLAGS,
         f"{phase}_record")
     check_record_launches(records, launches, digits_want)
     kinds = [r["kind"] for r in records]
-    if kinds != (["train"] * 8 + ["test"]) * 2:
+    if kinds != (["train"] * 8 + ["test"]) * 2 + ["params_digest"]:
         raise AssertionError(f"unexpected record sequence {kinds}")
     for r in records:
         if r["kind"] == "train":
@@ -2070,11 +2145,11 @@ def digits_train(torch, cw, usps_mnist, loop, flags=DIGITS_TRAIN_FLAGS,
                    if not math.isfinite(r[k])]
             if bad:
                 raise AssertionError(f"non-finite {bad} at step {r['step']}")
-        elif r["forwards"] != 2 or r["count"] != 128:
+        elif r["kind"] == "test" and (r["forwards"] != 2 or r["count"] != 128):
             raise AssertionError(f"eval of {r['count']} images in {r['forwards']} "
                                  "forwards, not 128 in 2")
     if not (math.isfinite(acc) and 0.0 <= acc <= 100.0
-            and acc == records[-1]["accuracy"]):
+            and acc == records[-2]["accuracy"]):
         raise AssertionError(f"bad accuracy {acc}")
     state = model.state_dict()
     unmoved = [k for k, p in model.named_parameters()
@@ -2269,6 +2344,7 @@ class BatchIds:
 
         def recording(*args, **kwargs):
             role = kwargs.get("quarantine_key")
+            kwargs.pop("on_batch_ids", None)  # the plane's trail hook (off)
             return inner(*args, on_batch_ids=ids.setdefault(role, []).append,
                          **kwargs)
 
@@ -3144,7 +3220,8 @@ def convert_phase(torch, cw, officehome, loop, loader, root):
                    f"wrote {os.path.join(out, '0')}"]:
         raise AssertionError(f"convert printed {printed}")
     if [(r["kind"], r["step"]) for r in records] != [
-            ("init_ckpt", 0), ("train", 1), ("stat_collection", 1), ("final_test", 1)]:
+            ("init_ckpt", 0), ("train", 1), ("stat_collection", 1), ("final_test", 1),
+            ("params_digest", 1)]:
         raise AssertionError(f"records {[(r['kind'], r['step']) for r in records]}")
     if not all(loaded.values()) or len(loaded) != 2:
         raise AssertionError(f"init_ckpt did not load the converted weights: {loaded}")
@@ -3402,16 +3479,21 @@ def graph_harness(torch, cw, loop, officehome, kind, device):
     scanned = steps.make_scanned_step(step, k)
     seen, real = {}, (cw.whiten_moments, cw.whiten_apply)
 
+    # The capture's tensors are kept detached: a reference to one with a
+    # grad_fn would keep the captured step's autograd graph alive, its
+    # AccumulateGrad nodes (made on the capture's side stream) with it, and
+    # the eager step timed below would accumulate its gradients across
+    # streams.
     def moments(x, group_size):
         out = real[0](x, group_size)
         if torch.cuda.is_current_stream_capturing() and "moments" not in seen:
-            seen["moments"] = (x, *out)
+            seen["moments"] = tuple(t.detach() for t in (x, *out))
         return out
 
     def apply(x, mean, w, out=None):
         y = real[1](x, mean, w, out=out)
         if torch.cuda.is_current_stream_capturing() and x.dim() == 3 and "apply" not in seen:
-            seen["apply"] = (x, mean, w, y)
+            seen["apply"] = tuple(t.detach() for t in (x, mean, w, y))
         return y
 
     cw.whiten_moments, cw.whiten_apply = moments, apply
@@ -3587,7 +3669,7 @@ def digits_boundaries(torch, cw, usps_mnist, loop, loader, inject):
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     strip = lambda recs: [{f: v for f, v in r.items() if f not in (
         "moments_launches", "apply_launches")} for r in recs if r["kind"] == "train"]
-    digest = lambda recs: [r["digest"] for r in recs if r["kind"] == "params_digest"]
+    digest = lambda recs: [r["sha256"] for r in recs if r["kind"] == "params_digest"]
     with tempfile.TemporaryDirectory(prefix="boundaries-", dir=build) as root, \
             DeterministicCudnn(torch):
         def run(name, key, extra=()):
@@ -3660,7 +3742,8 @@ def dispatch_digits(torch, cw, usps_mnist, loop, loader, inject):
                          "host_syncs_per_step": len(syncs.waits) / steps,
                          "rendezvous": syncs.waits}
     strip = lambda recs: [{f: v for f, v in r.items() if f not in (
-        "eval_s", "moments_launches", "apply_launches")} for r in recs]
+        "eval_s", "eval_imgs_per_s", "dispatch_ms_p50", "dispatch_ms_p99",
+        "moments_launches", "apply_launches")} for r in recs]
     records_equal = all(strip(runs["k1"]["records"]) == strip(v["records"])
                         for v in runs.values())
     ids_equal = all(runs["k1"]["ids"] == v["ids"] for v in runs.values())
@@ -5400,8 +5483,11 @@ FLEET_MEMORY_SLACK = 1.10  # the card's memory after a respawn, against before
 # FLEET_SATURATE_CLIENTS closed-loop clients for FLEET_SATURATE_S.  A request
 # waits in the replica's HTTP threads (the JSON decoding), never in its
 # batcher's bounded queue, so no offered rate sheds: the rate it sustains with
-# shed_rate 0 is the rate it completes when saturated.
-FLEET_SATURATE_CLIENTS = 16
+# shed_rate 0 is the rate it completes when saturated.  12 clients queue at
+# most 12 images, 6 a replica over the fleet's 2: never above --scale_pressure
+# 6, so the probe cannot scale the fleet up.  (With 16, one run in four did:
+# the straggler, replica 2, spawned then, was retired idle before the ramp.)
+FLEET_SATURATE_CLIENTS = 12
 FLEET_SATURATE_S = 5.0
 FLEET_EXTRA_LEVELS = 3  # 3× levels after the ramp while no scale-up has landed
 # The balancer against one replica: one client, one request at a time,
@@ -5797,6 +5883,9 @@ def fleet_autoscale(proc, ready, events):
     compare = paired_latency(port, r0_port, shape)
     if compare["not_200"]:
         raise AssertionError(f"the balancer against one replica: {compare}")
+    if events.of("scale_up"):
+        # The ramp's scale-up must spawn the straggler (FLEET_SLOW_RID).
+        raise AssertionError(f"scaled before the ramp: {events.of('scale_up')}")
     lo, hi = rate / 2, 3 * rate
     t_ramp = time.perf_counter()
     out = subprocess.run(
@@ -6105,6 +6194,267 @@ def train_run_plane(torch, cw, usps_mnist, root, k4_syncs):
     if launches != (sites * steps, sites * (steps + evals)):
         raise AssertionError(f"run plane launches {launches}: {sites} + {sites} a step, "
                              f"{evals} eval forwards")
+    return row
+
+
+# ------------------------------------------------------------ span tracing
+
+# The flagship traced: 9 steps at k = 3 (the first chunk captures the
+# step's graph and stays out of the step ms), no mid-run eval, one
+# collection pass and the final eval.
+TRACE_FLAGS = TRAIN_BASE_FLAGS + ["--num_iters", "9", "--check_acc_step", "100",
+                                  "--steps_per_dispatch", str(DISPATCH_K["resnet50"]),
+                                  "--harvest_depth", "2"]
+# The loop, harvest, eval and data spans every traced flagship run holds
+# (tests/test_torch_obs_report.py's LOOP_SPANS and the collection pass's);
+# whether a drain blocks (metric_host_fetch) depends on when the copies land.
+TRACE_SPANS = {"batch_wait", "step_dispatch", "boundary", "metric_copy_start",
+               "harvest_drain", "eval_pass", "whiten_cache_build", "eval_batch_wait",
+               "eval_dispatch", "eval_host_fetch", "stat_collection", "collect_batch_wait",
+               "collect_dispatch", "batch_build", "h2d_stage"}
+TRACE_SERVE_SIZES = (1, 8, 32)  # one request per bucket of ADAPT_FLAGS' buckets, a round
+TRACE_SERVE_ROUNDS = 3  # the adapter steps after the first
+FLIGHT_PLAN = {"hang_at_step": 4}
+FLIGHT_FLAGS = DIGITS_CKPT_FLAGS + ["--epochs", "1", "--watchdog_timeout", "8"]
+
+
+def obs_report_tool():
+    """``tools/torch_obs_report.py`` of this checkout, imported."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    sys.path.insert(0, tools)
+    try:
+        import torch_obs_report
+    finally:
+        sys.path.remove(tools)
+    return torch_obs_report
+
+
+def trace_spans(path):
+    """The complete events of an exported trace, and its problems."""
+    from dwt_tpu_torch import obs
+
+    with open(path) as f:
+        trace = json.load(f)
+    return [e for e in trace["traceEvents"] if e["ph"] == "X"], obs.validate_chrome_trace(trace)
+
+
+def traced_pair(torch, cw, loader, loop, cli, run, flags, want, k, path, phase,
+                turns=("untraced", "traced")):
+    """``run`` (a trainer loop) on ``cli``'s config of ``flags``, untraced
+    and with ``--obs_trace path``, in the order of ``turns``: each run's
+    launches (checked record by record against ``want``), step ms (device
+    clock, each stream's first ``k`` steps skipped), seconds and the
+    harvester's host syncs a step, by arm; every run of both arms must
+    launch the same kernels and sync as often."""
+    from dwt_tpu_torch import obs
+
+    runs = {"untraced": [], "traced": []}
+    for key in turns:
+        extra = ["--obs_trace", path] if key == "traced" else []
+        cfg = cli.config_from_args(cli.build_parser().parse_args(flags + extra))
+        obs.disable()
+        try:
+            with HostSyncs() as syncs, DispatchTimer(loop, k) as timer:
+                t0 = time.perf_counter()
+                _, launches, _ = counted_run(torch, cw, loader, run, cfg,
+                                             f"{phase}_{key}", want)
+                seconds = time.perf_counter() - t0
+            step_ms = timer.step_ms(k)
+        finally:
+            obs.disable()
+        steps = cfg.num_iters if hasattr(cfg, "num_iters") else \
+            cfg.epochs * DIGITS_STEPS_PER_EPOCH
+        runs[key].append({"launches": launches, "step_ms": step_ms, "seconds": seconds,
+                          "host_syncs_per_step": len(syncs.waits) / steps, "steps": steps})
+    what = {(str(r["launches"]), r["host_syncs_per_step"]) for arm in runs.values() for r in arm}
+    if len(what) != 1:
+        raise AssertionError(f"{phase}: tracing changed what runs: {runs}")
+    return runs
+
+
+def train_trace(torch, cw, officehome, usps_mnist, loop, loader, root):
+    """Phase ``train_trace`` (module docstring, phase 48); returns the
+    runs' launches."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    k = DISPATCH_K["resnet50"]
+    path = os.path.join(root, "train.trace.json")
+    runs = traced_pair(torch, cw, loader, loop, officehome, loop.run_officehome, TRACE_FLAGS,
+                       officehome_want, k, path, "train_trace")
+    kd, digits_flags = DIGITS_DISPATCH["k4"]
+    digits = traced_pair(torch, cw, loader, loop, usps_mnist, loop.run_digits,
+                         DIGITS_BASE_FLAGS + digits_flags, digits_want, kd,
+                         os.path.join(root, "digits.trace.json"), "train_trace_digits",
+                         turns=("untraced", "traced", "traced", "untraced"))
+    events, problems = trace_spans(path)
+    tool = obs_report_tool()
+    report = tool.build_report([path], [])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = tool.main([path])
+    total = [ln for ln in printed.getvalue().splitlines() if ln.startswith("TOTAL")]
+    tb = report["processes"]["0"]["train"]
+    loop_tid = next(e["tid"] for e in events if e["name"] == "step_dispatch")
+    dispatches = [e for e in events if e["name"] == "step_dispatch" and e["tid"] == loop_tid]
+    names = {e["name"] for e in events}
+    top = sorted(tb["phases"].items(), key=lambda kv: -kv[1]["share"])[:6]
+    steps = runs["traced"][0]["steps"]
+    row = {"phase": "train_trace", "card": nvidia_smi(), "seconds": time.perf_counter() - t0,
+           "flags": TRACE_FLAGS,
+           "runs": runs, "digits_flags": DIGITS_BASE_FLAGS + digits_flags, "digits": digits,
+           "spans": len(events), "names": sorted(names),
+           "problems": problems[:5], "report_rc": rc, "report_total": total,
+           "loop_wall_s": tb["wall_s"], "loop_ms_per_step": tb["wall_s"] * 1e3 / steps,
+           "unattributed_share": tb["unattributed_share"],
+           "top_phases": {n: {"count": p["count"], "self_s": p["self_s"], "share": p["share"],
+                              "ms_per_step": p["self_s"] * 1e3 / steps} for n, p in top},
+           "step_dispatch": {"count": len(dispatches),
+                             "n": [e["args"].get("n") for e in dispatches]},
+           "dropped_spans": report.get("dropped_spans")}
+    emit(row)
+    shares = sum(p["share"] for p in tb["phases"].values()) + tb["unattributed_share"]
+    if problems or rc != 0 or not total or "100.0%" not in total[0] \
+            or abs(shares - 1.0) > 1e-4:
+        raise AssertionError(f"train trace: problems {problems[:5]}, report rc {rc}, "
+                             f"total {total}, shares {shares}")
+    if TRACE_SPANS - names:
+        raise AssertionError(f"train trace lacks {sorted(TRACE_SPANS - names)}")
+    if len(dispatches) * k != steps or sum(e["args"]["n"] for e in dispatches) != steps:
+        raise AssertionError(f"step_dispatch spans {row['step_dispatch']} for {steps} "
+                             f"steps at k = {k}")
+    return {"flagship": runs, "digits": digits}
+
+
+def serve_trace(torch, cw, server, root):
+    """Phase ``serve_trace`` (module docstring, phase 49); returns the
+    launches."""
+    import numpy as np
+
+    from dwt_tpu_torch import obs
+
+    t0 = time.perf_counter()
+    path = os.path.join(root, "serve.trace.json")
+    log_path = os.path.join(root, "serve_access.jsonl")
+    args = served_args(server, "--init_random", "--seed", "0", "--obs_trace", path,
+                       "--access_log", log_path, *ADAPT_FLAGS)
+    shape = SERVED["resnet50"]["shape"]
+    rng = np.random.default_rng(3)
+    obs.disable()
+    obs.maybe_enable(args.obs_trace)  # as the server's main, before the stack
+    e2e_ms, verdict = {}, None
+    try:
+        stack, http = serving_stack(server, args)
+        engine, adapter = stack.engine, stack.adapter
+        try:
+            cw.moments_launches = cw.apply_launches = 0
+            for rnd in range(TRACE_SERVE_ROUNDS):
+                for n in TRACE_SERVE_SIZES:
+                    x = rng.normal(size=(n,) + shape).astype(np.float32)
+                    t = time.perf_counter()
+                    out = http.infer(x, binary=True)
+                    e2e_ms.setdefault(n, []).append((time.perf_counter() - t) * 1e3)
+                    if out.shape != (n, SERVED["resnet50"]["classes"]) or \
+                            not np.isfinite(out).all():
+                        raise AssertionError(f"bucket {n}: logits {out.shape}")
+                if rnd == 0:
+                    wait_for(lambda: adapter._queue_samples >= ADAPT_BATCH, "the batch hook")
+                    verdict = adapter.step()
+            torch.cuda.synchronize()
+            launches = {"moments": cw.moments_launches, "apply": cw.apply_launches}
+            batches = dict(stack.client.batches)
+        finally:
+            http.close()
+            stack.front.close()
+            stack.access_log.close()
+        exported = obs.export()
+    finally:
+        obs.disable()
+    # The forward alone on the same engine (CUDA events, back to back).
+    staged = {n: engine.stage(rng.normal(size=(n,) + shape).astype(np.float32))
+              for n in TRACE_SERVE_SIZES}
+    forward_ms = {n: cuda_ms(torch, lambda n=n: engine.forward(staged[n], n), iters=10,
+                             warmup=2) for n in TRACE_SERVE_SIZES}
+    events, problems = trace_spans(exported)
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e["name"], []).append(e)
+    with open(log_path) as f:
+        ok = [r for r in map(json.loads, f) if r["kind"] == "access" and r["status"] == "ok"]
+    joined, device = {}, {}
+    for name in ("stage", "device", "resolve"):
+        for b in TRACE_SERVE_SIZES:
+            spans = [e for e in by_name.get(name, []) if e["args"]["bucket"] == b]
+            ids = sorted(i for e in spans for i in e["args"]["req_ids"])
+            one_batch = all(len({r["batch_seq"] for r in ok if r["req_id"] in e["args"]["req_ids"]})
+                            == 1 for e in spans)
+            joined[f"{name}_b{b}"] = one_batch and ids == sorted(
+                r["req_id"] for r in ok if r["bucket"] == b) != []
+    for b in TRACE_SERVE_SIZES:
+        durs = sorted(e["dur"] / 1e3 for e in by_name.get("device", [])
+                      if e["args"]["bucket"] == b)
+        device[b] = {"span_ms": durs, "span_ms_p50": durs[(len(durs) - 1) // 2] if durs else None,
+                     "access_device_ms": sorted(r["device_ms"] for r in ok if r["bucket"] == b),
+                     "forward_ms": forward_ms[b], "e2e_ms": e2e_ms.get(b)}
+    sites = SERVED["resnet50"]["sites"]
+    forwards = sum(batches.values())
+    collects = by_name.get("adapt_collect", [])
+    row = {"phase": "serve_trace", "card": nvidia_smi(), "seconds": time.perf_counter() - t0,
+           "spans": len(events),
+           "names": sorted(by_name), "problems": problems[:5], "batches": batches,
+           "launches": launches, "adapt_verdict": verdict,
+           "adapt_collect": [e["args"] for e in collects], "req_ids_joined": joined,
+           "device_by_bucket": device}
+    emit(row)
+    if problems or batches != {n: TRACE_SERVE_ROUNDS for n in TRACE_SERVE_SIZES}:
+        raise AssertionError(f"serve trace: problems {problems[:5]}, batches {batches}")
+    if not all(joined.values()):
+        raise AssertionError(f"serve spans' req_ids against the access log: {joined}")
+    if [c["args"]["batches"] for c in collects] != [1]:
+        raise AssertionError(f"adapt_collect spans {[c['args'] for c in collects]}")
+    if launches != {"moments": sites, "apply": sites * (forwards + 1)}:
+        raise AssertionError(f"serve trace launches {launches}: {sites} apply a forward "
+                             f"({forwards}), {sites} + {sites} for the collect")
+    return launches
+
+
+def flight_recorder(root):
+    """Phase ``flight_recorder`` (module docstring, phase 50): the hung
+    child alone on the card, after every timed phase."""
+    from dwt_tpu_torch.resilience import WATCHDOG_EXIT_CODE, inject
+
+    t0 = time.perf_counter()
+    ck = os.path.join(root, "flight")
+    env = {**os.environ, inject.ENV_VAR: json.dumps(FLIGHT_PLAN), "DWT_OBS_TRACE": "1"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", CHAOS_CHILD, *FLIGHT_FLAGS,
+                             "--ckpt_dir", ck], cwd=here, env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wd = os.path.join(ck, "watchdog")
+    files = sorted(os.listdir(wd)) if os.path.isdir(wd) else []
+    dumps = [f for f in files if f.startswith("spans-") and f.endswith(".json")]
+    names, problems, reason = set(), ["no spans dump"], None
+    if dumps:
+        events, problems = trace_spans(os.path.join(wd, dumps[0]))
+        names = {e["name"] for e in events}
+        with open(os.path.join(wd, dumps[0])) as f:
+            reason = json.load(f)["otherData"].get("flight_reason")
+    row = {"phase": "flight_recorder", "seconds": time.perf_counter() - t0,
+           "rc": proc.returncode, "files": files, "flight_reason": reason,
+           "span_names": sorted(names), "problems": problems[:5],
+           "stderr_tail": err[-600:]}
+    emit(row)
+    if proc.returncode != WATCHDOG_EXIT_CODE or not any(f.startswith("stacks-") for f in files):
+        raise AssertionError(f"flight recorder: rc {proc.returncode}, files {files}")
+    if problems or not {"step_dispatch", "boundary"} & names:
+        raise AssertionError(f"flight recorder: problems {problems[:5]}, spans {names}")
     return row
 
 
@@ -6442,6 +6792,7 @@ def main() -> int:
     from dwt_tpu_torch.serve import server
     from dwt_tpu_torch.train import loop
 
+    caught = PhaseWarnings().__enter__()  # for the whole run
     tf32_defaults = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     torch.backends.cudnn.allow_tf32 = False
@@ -6600,6 +6951,15 @@ def main() -> int:
                                                 visda_flags, device, rate)
     r["resnet152_launches"] = resnet152_train(torch, cw, officehome, loop)
     r["adapt_parity"], r["adapt_timing"] = adapt_kernels(torch, cw, device, rate)
+    with tempfile.TemporaryDirectory(prefix="trace-", dir=build) as root:
+        r["train_trace"] = train_trace(torch, cw, officehome, usps_mnist, loop, loader, root)
+        r["serve_trace"] = serve_trace(torch, cw, server, root)
+        r["flight_recorder"] = flight_recorder(root)
+    shown = caught.rows()
+    emit({"phase": "warnings", "warnings": shown})
+    stream = [w for w in shown if STREAM_WARNING in w["message"]]
+    if stream:
+        raise AssertionError(f"a gradient accumulated across streams: {stream}")
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

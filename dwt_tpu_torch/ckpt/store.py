@@ -89,8 +89,16 @@ def blob_store_root(ckpt_dir: str) -> str:
     return os.path.join(_root(ckpt_dir), BLOBS_DIR)
 
 
+def _count_delta_bytes(mode: str, nbytes: int) -> None:
+    # Deferred: utils.checkpoint imports this module.
+    from dwt_tpu_torch.utils.checkpoint import count_ckpt_bytes
+
+    count_ckpt_bytes(mode, nbytes)
+
+
 def tree_bytes(path: str) -> int:
-    """Total bytes of all files under ``path``."""
+    """Total bytes of all files under ``path`` (the ``dwt_ckpt_dir_bytes``
+    gauge)."""
     total = 0
     for sub, _, names in os.walk(path):
         for name in names:
@@ -341,6 +349,7 @@ def stage_delta(
             f.flush()
             os.fsync(f.fileno())
         os.replace(mtmp, os.path.join(tmp, MANIFEST))
+        _count_delta_bytes(mode, written + os.path.getsize(os.path.join(tmp, MANIFEST)))
         return manifest
 
     return _with_retries(_write, f"delta save @{step}")

@@ -123,7 +123,7 @@ def add_numerics_args(p: argparse.ArgumentParser, d, remat: bool = False) -> Non
 
 def add_run_plane_args(p: argparse.ArgumentParser, d) -> None:
     """The JAX trainers' run-plane flags, with the defaults of the config
-    ``d``: the JSONL record file, the heartbeat, ``/metrics`` and the alert
+    ``d``: the JSONL record file, span tracing, the heartbeat, ``/metrics`` and the alert
     rules, the repro assertion, ``--debug_nans``, the loader's stall budget,
     and the two JAX lowering switches, which the port accepts and ignores."""
     p.add_argument("--data_stall_timeout", type=float, default=d.data_stall_timeout,
@@ -132,6 +132,12 @@ def add_run_plane_args(p: argparse.ArgumentParser, d) -> None:
                         "re-submitted to a fresh worker.  0 disables detection")
     p.add_argument("--metrics_jsonl", type=str, default=None,
                    help="append every record of the run to this JSONL file")
+    p.add_argument("--obs_trace", type=str, default=d.obs_trace,
+                   help="span tracing: write a Chrome trace-event JSON of the run's "
+                        "per-phase spans (batch wait, step dispatch, harvest, eval, "
+                        "checkpoint, data) to this path; open it in Perfetto or feed "
+                        "tools/torch_obs_report.py.  DWT_OBS_TRACE is the flagless "
+                        "form.  Off by default; a disabled span costs one global read")
     p.add_argument("--heartbeat_every", type=int, default=d.heartbeat_every,
                    help=">0: a heartbeat record (steps/s EWMA, host RSS MB, device "
                         "memory, background-writer depth, harvest ring) every N "

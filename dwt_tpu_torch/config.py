@@ -11,7 +11,8 @@ guard reads the harvested finite flags).  ``whitener``, ``compute_dtype``
 OfficeHome's ``remat`` are the JAX configs' numerics knobs; OfficeHome's
 ``backbone`` (a registry name that wins over ``arch``) and
 ``pad_classes_to`` its model knobs.  The run plane's knobs are the JAX
-configs': ``heartbeat_every`` (a ``heartbeat`` record every N steps),
+configs': ``obs_trace`` (span tracing's Chrome-trace path),
+``heartbeat_every`` (a ``heartbeat`` record every N steps),
 ``metrics_port`` (the ``/metrics`` exporter) and ``alert_rules`` (the
 rules the step boundary evaluates), ``data_stall_timeout`` (the loader
 pools' stall budget).  ``pallas_whiten`` and ``apply_lowering`` select JAX
@@ -99,6 +100,10 @@ class DigitsConfig:
     # matmul lowering): accepted, inert in the port.
     pallas_whiten: bool = False
     apply_lowering: str = "auto"
+    # Span tracing (dwt_tpu_torch.obs): write the run's spans as a Chrome
+    # trace-event JSON to this path (tools/torch_obs_report.py reads it).
+    # None = off unless DWT_OBS_TRACE is set; disabled spans are near-free.
+    obs_trace: Optional[str] = None
     # The run plane: a heartbeat record every N steps (0 off), the /metrics
     # exporter's port (0 = ephemeral, None = off), SLO alert rules (JSON).
     heartbeat_every: int = 100
@@ -185,6 +190,7 @@ class OfficeHomeConfig:
     remat: bool = False  # recompute each bottleneck in the backward
     pallas_whiten: bool = False  # as DigitsConfig.pallas_whiten (inert)
     apply_lowering: str = "auto"  # as DigitsConfig.apply_lowering (inert)
+    obs_trace: Optional[str] = None  # as DigitsConfig: span tracing
     heartbeat_every: int = 100  # as DigitsConfig: the run plane
     metrics_port: Optional[int] = None
     alert_rules: Optional[str] = None

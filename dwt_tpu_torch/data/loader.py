@@ -34,6 +34,7 @@ from typing import Callable, Dict, FrozenSet, Iterable, Iterator, Optional, Tupl
 import numpy as np
 import torch
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.data.pipeline import DEFAULT_STALL_TIMEOUT_S, OrderedWorkerPool
 from dwt_tpu_torch.data.sampler import SeekableSampler
 from dwt_tpu_torch.data.transforms import set_item_seed
@@ -477,8 +478,20 @@ def prefetch_to_device(
             else:
                 stage = lambda batch: (_map(
                     lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch), None)
-            for item in iterator:
-                if not _put(stage(item)):
+            # The JAX producer's spans, on this thread's ring: batch_build
+            # waits on the source iterator (assembly, augmentation),
+            # h2d_stage is the staging call, so a trace tells a consumer
+            # starved for data from one starved for staging.
+            it = iter(iterator)
+            while True:
+                with obs.span("batch_build", "data"):
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        break
+                with obs.span("h2d_stage", "data"):
+                    staged = stage(item)
+                if not _put(staged):
                     return
         except BaseException as e:  # re-raised in the consumer below
             _put((sentinel, e))

@@ -17,21 +17,30 @@
   and its item re-submitted to a fresh thread, instead of silently
   wedging the epoch).
 
-Not ported yet: the pool's gauges and decode-time histogram, its
-``reassembly`` spans and the ``DWT_DATA_TRAIL`` batch-id trail (they need
-the metrics plane, ROADMAP queue 1 item 9) and the per-process
-``shard`` split (with DDP, item 8).
+The pool feeds the JAX pool's instruments into the registry
+(``dwt_data_pipeline_depth``, ``dwt_data_worker_busy``, the
+``dwt_data_decode_ms`` histogram, ``dwt_data_stalls_total``,
+``dwt_data_worker_respawns_total``) and opens its ``reassembly`` span over
+a stall's wait; ``DWT_DATA_TRAIL=DIR`` appends one JSONL line per batch
+per stream to ``DIR/<role>.jsonl`` (role, epoch, cursor, dataset ids), as
+the JAX plane does.  Not ported yet: the per-process ``shard`` split
+(with DDP, ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import logging
+import os
 import queue
 import threading
+import time
 from concurrent.futures import FIRST_COMPLETED, Future, wait
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional
+
+from dwt_tpu_torch import obs
 
 log = logging.getLogger(__name__)
 
@@ -40,6 +49,10 @@ log = logging.getLogger(__name__)
 # mismatched version is refused instead of silently seeking into a
 # different permutation.
 DATA_STATE_VERSION = 1
+
+# Batch-id trail hook (chaos/e2e proof): a directory to append one JSONL
+# line per produced batch per stream.  Off (None/empty) in production.
+TRAIL_ENV = "DWT_DATA_TRAIL"
 
 # Default head-of-window stall budget: generous enough for a cold NFS
 # read, small enough that a dead worker is found within a minute.
@@ -99,6 +112,7 @@ class DataPlane:
         # A loader.QuarantineRegistry, keyed by stream role; None keeps
         # quarantine in memory for the run.
         self.quarantine_registry = quarantine_registry
+        self._trail_dir = os.environ.get(TRAIL_ENV) or None
 
     # -------------------------------------------------------- registration
 
@@ -210,6 +224,24 @@ class DataPlane:
 
     # ----------------------------------------------------------- iterators
 
+    def _trail_writer(self, role: str, epoch: int, start: int):
+        """Per-iterator batch-id trail hook (None when disabled)."""
+        if not self._trail_dir:
+            return None
+        os.makedirs(self._trail_dir, exist_ok=True)
+        path = os.path.join(self._trail_dir, f"{role}.jsonl")
+        cursor = [int(start)]
+
+        def on_batch_ids(ids) -> None:
+            with open(path, "a") as f:
+                f.write(json.dumps({
+                    "role": role, "epoch": int(epoch),
+                    "cursor": cursor[0], "ids": [int(i) for i in ids],
+                }) + "\n")
+            cursor[0] += 1
+
+        return on_batch_ids
+
     def epoch_iterator(self, dataset, role: str, batch_size: int, *,
                        epoch: Optional[int] = None,
                        start_batch: Optional[int] = None) -> Iterator:
@@ -229,6 +261,7 @@ class DataPlane:
             quarantine_key=role,
             on_substitute=lambda: self.note_substitution(role),
             stall_timeout=self.stall_timeout,
+            on_batch_ids=self._trail_writer(role, epoch, start),
         )
 
     def stream(self, dataset, role: str, batch_size: int) -> Iterator:
@@ -258,6 +291,66 @@ class DataPlane:
 # ------------------------------------------------- ordered worker pipeline
 
 
+_metrics_lock = threading.Lock()
+_metrics = None
+
+
+def _pool_metrics():
+    """Lazy singleton of the pool's live-registry instruments."""
+    global _metrics
+    if _metrics is None:
+        with _metrics_lock:
+            if _metrics is None:
+                from dwt_tpu_torch.obs.registry import get_registry
+
+                reg = get_registry()
+                _metrics = (
+                    reg.gauge(
+                        "dwt_data_pipeline_depth",
+                        "in-flight items in the ordered-reassembly window",
+                    ),
+                    reg.gauge(
+                        "dwt_data_worker_busy",
+                        "data worker threads currently decoding",
+                    ),
+                    reg.histogram(
+                        "dwt_data_decode_ms",
+                        "per-item decode+augment wall time (worker thread)",
+                    ),
+                    reg.counter(
+                        "dwt_data_stalls_total",
+                        "head-of-window stall detections (dead/slow worker)",
+                    ),
+                    reg.counter(
+                        "dwt_data_worker_respawns_total",
+                        "speculative re-submissions after a stalled item",
+                    ),
+                )
+    return _metrics
+
+
+class _SharedLevel:
+    """Process-wide level behind a gauge.  The busy/depth gauges are
+    process-global but several pools run concurrently (both train loops
+    zip a source and a target stream, each with its own pool): per-pool
+    ``set()`` would be last-writer-wins, under-reporting to whichever
+    pool wrote last.  Contributions aggregate here instead."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._total = 0
+
+    def add(self, delta: int, gauge) -> int:
+        with self._lock:
+            self._total += int(delta)
+            gauge.set(self._total)
+            return self._total
+
+
+_BUSY_LEVEL = _SharedLevel()
+_DEPTH_LEVEL = _SharedLevel()
+
+
 class OrderedWorkerPool:
     """Order-preserving decode pool with a bounded window and stall
     detection (module doc).
@@ -280,13 +373,18 @@ class OrderedWorkerPool:
         self._busy_lock = threading.Lock()
 
     def _wrap(self, fn: Callable, arg) -> Any:
+        _, busy_g, decode_h, _, _ = _pool_metrics()
         with self._busy_lock:
-            self._busy += 1  # the stall log message's count
+            self._busy += 1  # per-pool count (the stall log message)
+        _BUSY_LEVEL.add(1, busy_g)
+        t0 = time.perf_counter()
         try:
             return fn(arg)
         finally:
+            decode_h.observe((time.perf_counter() - t0) * 1e3)
             with self._busy_lock:
                 self._busy -= 1
+            _BUSY_LEVEL.add(-1, busy_g)
 
     def _run_future(self, fn: Callable, arg, fut: Future) -> None:
         if not fut.set_running_or_notify_cancel():
@@ -321,30 +419,38 @@ class OrderedWorkerPool:
         replacement pool worker (capped), so a dead worker costs one
         timeout, not one per remaining item.  One respawn per item: an
         item that stalls its replacement too is wedged, and from there the
-        periodic warnings are the surfacing.
+        periodic warnings are the surfacing.  Each detection counts in
+        ``dwt_data_stalls_total``, the respawn in
+        ``dwt_data_worker_respawns_total``, and the ``reassembly`` span
+        covers the wait after the detection, so a trace attributes the
+        stall to the data plane.
         """
+        _, _, _, stall_c, respawn_c = _pool_metrics()
         done, _ = wait(futures, timeout=self.stall_timeout,
                        return_when=FIRST_COMPLETED)
-        if done:
+        if done:  # fast path: no stall, no span
             return self._pick_done(done)
         waited = self.stall_timeout
         respawned = False
-        while True:
-            log.warning(
-                "data pipeline stalled %.1fs waiting for item %r "
-                "(dead or wedged %s worker; %d busy)",
-                waited, arg, self.name, self._busy,
-            )
-            if not respawned:
-                futures = set(futures)
-                futures.add(self._respawn(fn, arg))
-                spawn_worker(cap=3 * self.num_workers)
-                respawned = True
-            done, _ = wait(futures, timeout=self.stall_timeout,
-                           return_when=FIRST_COMPLETED)
-            if done:
-                return self._pick_done(done)
-            waited += self.stall_timeout
+        with obs.span("reassembly", "data", stalled_item=str(arg)):
+            while True:
+                stall_c.inc()
+                log.warning(
+                    "data pipeline stalled %.1fs waiting for item %r "
+                    "(dead or wedged %s worker; %d busy)",
+                    waited, arg, self.name, self._busy,
+                )
+                if not respawned:
+                    futures = set(futures)
+                    futures.add(self._respawn(fn, arg))
+                    spawn_worker(cap=3 * self.num_workers)
+                    respawn_c.inc()
+                    respawned = True
+                done, _ = wait(futures, timeout=self.stall_timeout,
+                               return_when=FIRST_COMPLETED)
+                if done:
+                    return self._pick_done(done)
+                waited += self.stall_timeout
 
     def imap(self, fn: Callable, items) -> Iterator:
         """Ordered map of ``fn`` over ``items`` on the worker pool.
@@ -354,6 +460,7 @@ class OrderedWorkerPool:
         exit.  Closing the generator stops the live workers within one
         poll tick; only a wedged thread is abandoned.
         """
+        depth_g = _pool_metrics()[0]
         window = max(2 * self.num_workers, 8)
         it = iter(items)
         tasks: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -386,6 +493,7 @@ class OrderedWorkerPool:
             return fut
 
         watched = self.stall_timeout > 0
+        depth_contrib = 0  # this pool's share of the process-wide depth gauge
         try:
             pending: "collections.deque" = collections.deque()
             for arg in it:
@@ -394,6 +502,8 @@ class OrderedWorkerPool:
                     break
             while pending:
                 arg, fut = pending.popleft()
+                _DEPTH_LEVEL.add(len(pending) - depth_contrib, depth_g)
+                depth_contrib = len(pending)
                 if watched:
                     item = self._await_head(fn, arg, {fut}, spawn_worker)
                 else:
@@ -404,3 +514,4 @@ class OrderedWorkerPool:
                 yield item
         finally:
             stop.set()
+            _DEPTH_LEVEL.add(-depth_contrib, depth_g)

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.serve.engine import EngineState, ServeEngine
 
 log = logging.getLogger(__name__)
@@ -105,29 +106,30 @@ class CanaryGate:
 
     def check(self, candidate: EngineState) -> CanaryVerdict:
         """Gate one built candidate state; NEVER swaps it live."""
-        try:
-            metrics = self._fixture_metrics(candidate)
-        except Exception as e:
-            return CanaryVerdict(
-                False, f"fixture eval raised {type(e).__name__}: {e}"
-            )
-        if not metrics["finite"]:
-            return CanaryVerdict(
-                False, "non-finite logits on the fixture batch",
-                metrics,
-            )
-        base = self.baseline()
-        if base is not None:
-            metrics["baseline_accuracy"] = base
-            if metrics["accuracy"] < base - self.max_regress_pp:
+        with obs.span("canary", "fleet", version=candidate.version.label):
+            try:
+                metrics = self._fixture_metrics(candidate)
+            except Exception as e:
                 return CanaryVerdict(
-                    False,
-                    f"fixture accuracy {metrics['accuracy']:.2f} "
-                    f"regressed more than {self.max_regress_pp} pp "
-                    f"below live {base:.2f}",
+                    False, f"fixture eval raised {type(e).__name__}: {e}"
+                )
+            if not metrics["finite"]:
+                return CanaryVerdict(
+                    False, "non-finite logits on the fixture batch",
                     metrics,
                 )
-        return CanaryVerdict(True, "ok", metrics)
+            base = self.baseline()
+            if base is not None:
+                metrics["baseline_accuracy"] = base
+                if metrics["accuracy"] < base - self.max_regress_pp:
+                    return CanaryVerdict(
+                        False,
+                        f"fixture accuracy {metrics['accuracy']:.2f} "
+                        f"regressed more than {self.max_regress_pp} pp "
+                        f"below live {base:.2f}",
+                        metrics,
+                    )
+            return CanaryVerdict(True, "ok", metrics)
 
 
 class PostSwapMonitor:

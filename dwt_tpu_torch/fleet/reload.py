@@ -56,6 +56,7 @@ import logging
 import threading
 from typing import Callable, List, Optional, Tuple
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.fleet.canary import CanaryGate, PostSwapMonitor
 from dwt_tpu_torch.fleet.watcher import Candidate, CheckpointWatcher, newest_candidate
 from dwt_tpu_torch.serve.engine import EngineState, ServeEngine, Version
@@ -152,7 +153,8 @@ class DeployController:
                 baseline_p99 = self.access_log.version_stats(
                     old_label
                 ).get("e2e_ms_p99")
-            prev = self.engine.swap(state)
+            with obs.span("swap", "fleet", version=label):
+                prev = self.engine.swap(state)
             self.swap_count += 1
             self.last_good = prev
             self._last_good_label = old_label
@@ -183,7 +185,9 @@ class DeployController:
                 self._event("rollback", origin, version=bad.label,
                             ok=False, reason=reason)
                 return False
-            self.engine.swap(self.last_good)
+            with obs.span("swap", "fleet",
+                          version=self.last_good.version.label, rollback=1):
+                self.engine.swap(self.last_good)
             self.rollback_count += 1
             self._event("rollback", origin, version=bad.label,
                         to_version=self.last_good.version.label,

@@ -19,6 +19,15 @@ delta manifests record the same whole-params digest), which together
 are the version identity the whole fleet speaks — the dedup key is
 unchanged, and a delta save whose digest moved IS a new candidate
 (:class:`~dwt_tpu_torch.serve.engine.Version`).
+
+One deviation from the JAX watcher: a same-step re-save (the trainer's
+post-collection save over its last periodic one) moves the finalized step
+aside for a moment (``utils.checkpoint._finalize_rename``), and a poll in
+that window sees the step before it as the newest.  The JAX watcher emits
+that older step at once, and its reloader deploys it and then the re-saved
+step again.  Here a candidate older than the last one emitted is emitted
+only when the next poll sees it newest too: a step an operator deleted is
+still rolled back to, one poll later.
 """
 
 from __future__ import annotations
@@ -86,13 +95,15 @@ class CheckpointWatcher:
 
     The watcher dedups on ``(step, digest)``, so a torn poll can never
     emit the same artifact twice, while a same-step re-save (digest
-    moved) IS a new candidate.
+    moved) IS a new candidate.  A step older than the last one emitted
+    must be the newest on two polls in a row (the module docstring).
     """
 
     def __init__(self, ckpt_dir: str, poll_s: float = 2.0):
         self.ckpt_dir = ckpt_dir
         self.poll_s = float(poll_s)
         self._last_key = None
+        self._held_key = None  # an older step seen newest once
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -108,7 +119,14 @@ class CheckpointWatcher:
             log.warning("checkpoint watch poll failed: %s", e)
             return None
         if cand is None or cand.key == self._last_key:
+            self._held_key = None
             return None
+        if (self._last_key is not None and cand.step < self._last_key[0]
+                and cand.key != self._held_key):
+            # The newer step may be mid-replace: wait one poll.
+            self._held_key = cand.key
+            return None
+        self._held_key = None
         self._last_key = cand.key
         return cand
 

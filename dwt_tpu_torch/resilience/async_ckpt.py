@@ -32,8 +32,10 @@ The JAX docstring's three rules hold here too:
 * **errors surface** — a writer exception is raised on the next
   :meth:`save`/:meth:`flush`.
 
-``MultiHostAsyncCheckpointer`` waits for multi-process training (ROADMAP
-queue 1 item 8).
+Each target's write is the writer thread's ``ckpt_write`` span, as in the
+JAX writer.  ``MultiHostAsyncCheckpointer`` (and with it the
+``shard_write``, ``ckpt_host_fetch`` and ``ckpt_promote`` spans) waits
+for multi-process training (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.resilience.coord import WRITER_THREAD_PREFIX
 
 log = logging.getLogger(__name__)
@@ -94,7 +97,10 @@ class AsyncCheckpointer:
             host = HostState(snapshot.host_payload(self._stream), names)
             paths = []
             for ckpt_dir, kwargs in targets:
-                path = self._save_target(ckpt_dir, step, host, kwargs)
+                # The writer thread's span: one background save (digest,
+                # write, rename), what the loop no longer pays.
+                with obs.span("ckpt_write", "ckpt", step=int(step)):
+                    path = self._save_target(ckpt_dir, step, host, kwargs)
                 paths.append(path)
                 if path is not None:  # None: refused (non-finite), no artifact
                     self._last_path = path

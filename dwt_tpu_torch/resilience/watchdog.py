@@ -13,7 +13,10 @@ from the training loops.  When no heartbeat arrives for
 ``keep`` dumps (``--watchdog_keep``), so a relaunch loop (113 → resume →
 hang again) cannot fill the disk — (``faulthandler`` — exactly the
 evidence a post-mortem needs: *which* collective/syscall every thread is
-blocked in), (2) writes one unbuffered line to stderr naming the dump,
+blocked in), (1b) with span tracing on, writes the flight recorder's
+``spans-<pid>-<ts>.json`` beside it (the trailing window of spans, reaching
+back past the stall: what every thread had been *doing*), (2) writes one
+unbuffered line to stderr naming the dump,
 and (3) hard-exits with :data:`WATCHDOG_EXIT_CODE` — distinct from both
 a clean preemption exit (0) and an ordinary crash (1), so schedulers can
 recognize "hang, relaunch me" and the relaunch lands in the existing
@@ -42,6 +45,8 @@ import sys
 import threading
 import time
 from typing import Callable, Optional
+
+from dwt_tpu_torch.obs.export import FLIGHT_WINDOW_S, flight_dump
 
 # "Hang detected" — distinct from 0 (clean preempt save) and 1 (error),
 # outside the shell's 126/127/128+N conventions, documented in README's
@@ -84,6 +89,7 @@ class HangWatchdog:
         self._suspended = 0
         self.fired = False  # observable by injected-_exit unit tests
         self.stacks_path: Optional[str] = None
+        self.spans_path: Optional[str] = None  # flight-recorder dump
 
     # ------------------------------------------------------------------ API
 
@@ -144,7 +150,8 @@ class HangWatchdog:
     def _prune_dumps(self, d: str, keep: int) -> None:
         """Cap ``stacks-*.txt`` files to the newest ``keep`` (oldest
         mtime first out) — relaunch loops must not fill the disk with
-        dumps."""
+        dumps.  The flight recorder's span dumps have the same retention,
+        applied inside ``obs.flight_dump``."""
         try:
             dumps = [
                 os.path.join(d, name)
@@ -183,9 +190,33 @@ class HangWatchdog:
         except OSError:
             return None  # a dead ckpt mount must not stop the exit
 
+    def _flight_dump(self, stalled: float) -> Optional[str]:
+        """Flight recorder: the stacks say where every thread IS; the
+        last seconds of spans say what they had been DOING.  Dumped next
+        to the stack file, same retention cap; never blocks the exit.
+
+        The window reaches BACK PAST the stall: by the time the watchdog
+        fires, the wedged threads have recorded nothing for ``stalled``
+        seconds.  The dump is pure Python and file I/O (the span rings'
+        lock is only polled): it touches no CUDA API and takes no lock
+        the wedged main thread can hold, and its import happened at
+        module load, not here."""
+        if not self._ckpt_dir:
+            return None
+        try:
+            d = os.path.join(self._ckpt_dir, "watchdog")
+            return flight_dump(
+                d, reason=f"watchdog_stall {stalled:.1f}s",
+                last_s=stalled + FLIGHT_WINDOW_S,
+                keep=self.keep,  # flight_dump prunes spans-*.json itself
+            )
+        except Exception:  # noqa: BLE001 — nothing may block the exit
+            return None
+
     def _fire(self, stalled: float) -> None:
         self.fired = True
         self.stacks_path = self._dump_stacks(stalled)
+        self.spans_path = self._flight_dump(stalled)
         try:
             # Unbuffered, signal-handler-grade write: the process state is
             # unknown (that is the premise), so no logging machinery here.

@@ -64,6 +64,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.serve.engine import EngineState, ServeEngine, Version, to_channels_last
 from dwt_tpu_torch.serve.quant import dequantize_tensor
 from dwt_tpu_torch.utils.checkpoint import params_digest
@@ -353,11 +354,15 @@ class DomainAdapter:
             # window.
             self._win_stats = live.batch_stats
         stats = self._win_stats
-        for i in range(n_full):
-            xb = pool[
-                i * self.collect_batch: (i + 1) * self.collect_batch
-            ]
-            stats = self._collect(live, stats, xb)
+        # The span wraps the collect forwards' kernel launches (it times
+        # their enqueue: nothing here waits for the card).
+        with obs.span("adapt_collect", "serve",
+                      batches=n_full, n=n_full * self.collect_batch):
+            for i in range(n_full):
+                xb = pool[
+                    i * self.collect_batch: (i + 1) * self.collect_batch
+                ]
+                stats = self._collect(live, stats, xb)
         self._win_stats = stats
         self._win_samples += n_full * self.collect_batch
         rest = pool[n_full * self.collect_batch:]

@@ -1,7 +1,7 @@
 """Admission queue + deadline micro-batching into fixed buckets.
 
 A copy of ``dwt_tpu.serve.batcher`` (framework-free; the port imports
-nothing of ``dwt_tpu``) without its tracing spans.  The serving engine
+nothing of ``dwt_tpu``), its tracing spans included.  The serving engine
 warms one forward per bucket shape (1/8/32/128 by default), so a
 batch of any other size would pay first-call set-up on the hot path.
 The batcher therefore turns an arbitrary request arrival process into a
@@ -39,11 +39,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from dwt_tpu_torch import obs
+
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 
-# Process-wide request ids: every admitted request gets one.
-# itertools.count.next is atomic under the GIL — no lock needed across
-# batcher instances.
+# Process-wide request ids: every admitted request gets one, stamped into
+# its access records AND the serving spans (``req_id`` attr), so a trace
+# timeline row and an access-log line join on it.  itertools.count.next
+# is atomic under the GIL — no lock needed across batcher instances.
 _REQ_IDS = itertools.count(1)
 
 
@@ -320,19 +323,24 @@ class MicroBatcher:
                 f"request of {n} samples exceeds the largest bucket "
                 f"{self.buckets[-1]}; split it client-side"
             )
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("batcher is closed")
-            if (self._draining
-                    or self._queued_items + n > self.max_queue_items):
-                raise ShedError(self._retry_after_ms(), self._queued_items)
-            req = _Request(
-                x=x, n=n, enqueue_t=self._clock(), req_id=next(_REQ_IDS)
-            )
-            self._queue.append(req)
-            self._queued_items += n
-            self._cond.notify_all()
-        return req.future
+        # The admission span covers validation + the queue insert; its
+        # req_id attr is the join key against this request's access
+        # records (and the shed path's, via the raised ShedError).
+        with obs.span("admission", "serve") as sp:
+            with self._cond:
+                if self._closed:
+                    raise RuntimeError("batcher is closed")
+                if (self._draining
+                        or self._queued_items + n > self.max_queue_items):
+                    raise ShedError(self._retry_after_ms(), self._queued_items)
+                req = _Request(
+                    x=x, n=n, enqueue_t=self._clock(), req_id=next(_REQ_IDS)
+                )
+                self._queue.append(req)
+                self._queued_items += n
+                self._cond.notify_all()
+            sp.add(req_id=req.req_id, n=n)
+            return req.future
 
     # ------------------------------------------------------------- dispatch
 
@@ -368,19 +376,21 @@ class MicroBatcher:
         # Runs WITHOUT the condition lock: the concatenate+pad is the
         # batch-sized copy (tens of MB at large buckets) and holding the
         # lock through it would stall every concurrent submit().
-        real_n = sum(r.n for r in reqs)
-        bucket = bucket_for(real_n, self.buckets)
-        x = pad_to_bucket(np.concatenate([r.x for r in reqs]), bucket)
-        mask = np.zeros(bucket, bool)
-        mask[:real_n] = True
-        slices, start = [], 0
-        for r in reqs:
-            slices.append((start, start + r.n))
-            start += r.n
-        return PlannedBatch(
-            bucket=bucket, x=x, mask=mask, real_n=real_n,
-            requests=reqs, slices=slices, dispatch_t=self._clock(),
-        )
+        with obs.span("build_batch", "serve") as sp:
+            real_n = sum(r.n for r in reqs)
+            bucket = bucket_for(real_n, self.buckets)
+            x = pad_to_bucket(np.concatenate([r.x for r in reqs]), bucket)
+            mask = np.zeros(bucket, bool)
+            mask[:real_n] = True
+            slices, start = [], 0
+            for r in reqs:
+                slices.append((start, start + r.n))
+                start += r.n
+            sp.add(bucket=bucket, n=real_n)
+            return PlannedBatch(
+                bucket=bucket, x=x, mask=mask, real_n=real_n,
+                requests=reqs, slices=slices, dispatch_t=self._clock(),
+            )
 
     def next_batch(self, timeout: Optional[float] = None) -> Optional[PlannedBatch]:
         """Block until a batch is ready (or ``timeout``); ``None`` when
@@ -394,8 +404,16 @@ class MicroBatcher:
         with self._cond:
             while True:
                 if self._queue:
+                    t_plan = time.perf_counter()
                     take = self._plan_locked()
                     if take:
+                        # Only dispatching plans are recorded — the
+                        # keep-waiting wakes would flood the ring with
+                        # sub-µs spans under sustained load.
+                        obs.record_complete(
+                            "plan", "serve",
+                            time.perf_counter() - t_plan, take=take,
+                        )
                         return self._pop_locked(take)
                 elif self._closed or self._draining:
                     return None

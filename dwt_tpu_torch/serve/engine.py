@@ -71,6 +71,7 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.nn.norms import whitening_sites
 from dwt_tpu_torch.serve.batcher import DEFAULT_BUCKETS, bucket_for, pad_to_bucket
 from dwt_tpu_torch.serve.quant import dequantize_tensor, quantize_tensor
@@ -319,12 +320,14 @@ class ServeEngine:
         device in eval mode, conv weights in channels_last memory format
         like the activations.  Touches nothing of the live generation, so
         it is safe off the dispatcher thread."""
-        model = model.eval()
-        install_whiten_cache(model, self._factorize_cache(model))
-        to_channels_last(model)
-        if self.quantize:
-            _quantize_module(model)
-        model = model.to(self.device)
+        with obs.span("build_state", "fleet",
+                      version=version.label if version else "fresh"):
+            model = model.eval()
+            install_whiten_cache(model, self._factorize_cache(model))
+            to_channels_last(model)
+            if self.quantize:
+                _quantize_module(model)
+            model = model.to(self.device)
         return self._state_of(model, version or Version())
 
     @torch.no_grad()
@@ -342,16 +345,18 @@ class ServeEngine:
             raise ValueError(
                 f"adapted stats have keys {sorted(batch_stats)[:3]}…, not the "
                 f"model's {sorted(self._stat_names)[:3]}…")
-        stats = {k: v.detach().cpu() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-                 for k, v in batch_stats.items()}
-        with self._shell_lock:
+        with obs.span("build_state", "fleet", version=version.label, adapt=1):
+            stats = {k: v.detach().cpu() if torch.is_tensor(v)
+                     else torch.from_numpy(np.asarray(v))
+                     for k, v in batch_stats.items()}
+            with self._shell_lock:
+                for k, v in stats.items():
+                    self._shell.get_buffer(k).copy_(v)
+                cache = self._factorize_cache(self._shell)
+            model = copy.deepcopy(base.model, {id(p): p for p in base.model.parameters()})
             for k, v in stats.items():
-                self._shell.get_buffer(k).copy_(v)
-            cache = self._factorize_cache(self._shell)
-        model = copy.deepcopy(base.model, {id(p): p for p in base.model.parameters()})
-        for k, v in stats.items():
-            model.get_buffer(k).copy_(v)
-        install_whiten_cache(model, {k: w.to(self.device) for k, w in cache.items()})
+                model.get_buffer(k).copy_(v)
+            install_whiten_cache(model, {k: w.to(self.device) for k, w in cache.items()})
         return self._state_of(model, version)
 
     def build_state_from_tree(self, tree: dict, *, digest: Optional[str],
@@ -381,13 +386,19 @@ class ServeEngine:
         with its manifest's digest, a JAX package's through
         :func:`~dwt_tpu_torch.utils.checkpoint.restore_model` into a fresh
         copy of the template.  Raises ``ValueError``/``OSError`` for a
-        candidate that does not restore."""
+        candidate that does not restore.  The read is the ``reload_restore``
+        span (the JAX reloader's), the build the ``build_state`` span after
+        it."""
+        restore = obs.span("reload_restore", "fleet",
+                           step=None if version is None else version.step)
         if not is_jax_checkpoint(path):
-            payload, digest = read_payload(path)
+            with restore:
+                payload, digest = read_payload(path)
             return self.build_state_from_tree(payload, digest=digest, version=version,
                                               what=path)
         model = self.fresh_model()
-        step = restore_model(path, model)
+        with restore:
+            step = restore_model(path, model)
         if version is None:
             digest = (_read_manifest(path) or {}).get("params_digest")
             version = Version(step, digest or params_digest(model.named_parameters()))

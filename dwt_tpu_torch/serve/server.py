@@ -40,7 +40,11 @@ new checkpoints of ``--ckpt_dir``, ``--adapt_every S`` folds live
 traffic's whitening/BN moments into adapted generations; both submit
 through one canary gate (``--canary_fixture``), atomic swap and
 post-swap monitor (``--rollback_*``), with lifecycle events on the
-``--access_log`` JSONL stream.  SIGTERM or SIGINT drains: the reloader
+``--access_log`` JSONL stream.  ``--obs_trace PATH`` (or
+``DWT_OBS_TRACE``) records the serving spans — ``admission``, ``plan``
+and ``build_batch`` in the batcher, ``stage``, ``device`` and ``resolve``
+here, each carrying the batch's ``req_ids`` — and writes them as a Chrome
+trace at the drain.  SIGTERM or SIGINT drains: the reloader
 and the adapter stop, in-flight requests complete, queued requests
 dispatch, new arrivals get 503 with ``Retry-After``, exit code 0.
 """
@@ -62,6 +66,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.config import model_dtype
 from dwt_tpu_torch.nn.lenet import INPUT_SHAPE as LENET_INPUT_SHAPE
 from dwt_tpu_torch.nn.lenet import build_lenet
@@ -142,10 +147,18 @@ class _Dispatcher(threading.Thread):
         version = st.version.label
         self._batch_seq += 1
         batch_seq = self._batch_seq
+        # The spans' req_ids join them to this batch's access records.
+        req_ids = [r.req_id for r in pb.requests]
         try:
-            x = engine.stage(pb.x)
+            with obs.span("stage", "serve", bucket=pb.bucket, req_ids=req_ids):
+                x = engine.stage(pb.x)
             t0 = time.perf_counter()
-            logits = engine.forward(x, pb.bucket, state=st).cpu().numpy()
+            # The dispatcher's one sync: the copy to the host waits for the
+            # forward, so the span is the batch's device time (tracing adds
+            # no wait of its own).
+            with obs.span("device", "serve", bucket=pb.bucket, n=pb.real_n,
+                          req_ids=req_ids):
+                logits = engine.forward(x, pb.bucket, state=st).cpu().numpy()
             seconds = time.perf_counter() - t0
         except Exception as e:  # resolve, don't strand waiters
             log.exception("batch of bucket %d failed", pb.bucket)
@@ -165,19 +178,21 @@ class _Dispatcher(threading.Thread):
             self.counts["ok"] += len(pb.requests)
             self.counts["images"] += pb.real_n
         now = self.batcher.clock()
-        for req, (lo, hi) in zip(pb.requests, pb.slices):
-            # Record BEFORE resolving: a caller woken by the future finds
-            # its record already in the log.
-            self.access_log.record(
-                "ok", req.n, bucket=pb.bucket, batch_n=pb.bucket,
-                real_n=pb.real_n, req_id=req.req_id,
-                version=version, batch_seq=batch_seq,
-                queue_ms=(pb.dispatch_t - req.enqueue_t) * 1e3,
-                device_ms=seconds * 1e3,
-                e2e_ms=(now - req.enqueue_t) * 1e3,
-            )
-            req.future.version = version
-            resolve_future(req.future, result=logits[lo:hi])
+        with obs.span("resolve", "serve", bucket=pb.bucket, n=pb.real_n,
+                      req_ids=req_ids):
+            for req, (lo, hi) in zip(pb.requests, pb.slices):
+                # Record BEFORE resolving: a caller woken by the future finds
+                # its record already in the log.
+                self.access_log.record(
+                    "ok", req.n, bucket=pb.bucket, batch_n=pb.bucket,
+                    real_n=pb.real_n, req_id=req.req_id,
+                    version=version, batch_seq=batch_seq,
+                    queue_ms=(pb.dispatch_t - req.enqueue_t) * 1e3,
+                    device_ms=seconds * 1e3,
+                    e2e_ms=(now - req.enqueue_t) * 1e3,
+                )
+                req.future.version = version
+                resolve_future(req.future, result=logits[lo:hi])
         hook = self.batch_hook
         if hook is not None:
             hook(pb.x, pb.real_n)
@@ -626,7 +641,6 @@ def build_engine(args) -> ServeEngine:
 # Flags of the JAX server whose subsystems are not ported yet, with the
 # ROADMAP queue 1 item that takes each.
 UNPORTED_FLAGS = {
-    "obs_trace": "span tracing (ROADMAP queue 1 item 9)",
     "data_parallel": "parallel serving (ROADMAP queue 1 item 8)",
     "mesh_shape": "parallel serving (ROADMAP queue 1 item 8)",
     "sharding_rules": "parallel serving (ROADMAP queue 1 item 8)",
@@ -748,8 +762,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "registry; while any rule fires, adaptation freezes")
     p.add_argument("--access_log", default=None,
                    help="JSONL access-record file (schema: serve/metrics.py)")
+    p.add_argument("--obs_trace", default=None,
+                   help="span tracing: write a Chrome trace-event JSON of "
+                        "the serving path's spans (admission → plan → "
+                        "build_batch → stage → device → resolve, req_id-"
+                        "correlated with access records) to this path at "
+                        "drain; DWT_OBS_TRACE env is the flagless form")
     # ---- the JAX server's flags of later slices: refused by name ----
-    p.add_argument("--obs_trace", default=None, help=argparse.SUPPRESS)
     p.add_argument("--data_parallel", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh_shape", default=None, help=argparse.SUPPRESS)
     p.add_argument("--sharding_rules", default=None, help=argparse.SUPPRESS)
@@ -904,6 +923,7 @@ def build_stack(args) -> ServeStack:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    obs.maybe_enable(args.obs_trace)
     engine, access_log, client, _, reloader, adapter, front = build_stack(args)
     for producer in (reloader, adapter):
         if producer is not None:
@@ -932,6 +952,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     front.close()
     print(json.dumps({"kind": "serve_summary", **client.stats()}), flush=True)
     access_log.close()
+    obs.export()  # flush the serving trace inside the grace window
     return 0
 
 

@@ -24,7 +24,10 @@ Batches come from ``batch_iterator`` with the JAX pipeline's seeds,
 epochs and worker count (an item's random crop draws from its token
 ``(seed, epoch, index)``: ``(0, 0, i)`` in an eval pass, ``(seed, pass,
 i)`` in a collection pass) and reach the device through
-``prefetch_to_device``.  Mesh sharding is not ported yet.
+``prefetch_to_device``.  The passes open the JAX pipeline's spans
+(``whiten_cache_build``, ``eval_batch_wait``, ``eval_dispatch``,
+``eval_host_fetch``, ``collect_batch_wait``, ``collect_dispatch``).  Mesh
+sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.data.loader import batch_iterator, prefetch_to_device
 from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
 from dwt_tpu_torch.ops.whitening import WHITEN_CACHE_COL, build_whiten_cache
 from dwt_tpu_torch.train.state import TrainState
+from dwt_tpu_torch.utils.metrics import percentile_summary
 from dwt_tpu_torch.train.steps import (
     eval_counters,
     make_accum_eval_step,
@@ -167,7 +172,10 @@ class EvalPipeline:
         """Accumulate eval counters over ``dataset``; one host fetch.
 
         Returns the reference ``test()`` quantities (loss, accuracy %,
-        count), the number of forwards and the pass's wall time.
+        count), the number of forwards, the pass's wall time and
+        throughput, and with two or more chunks the p50/p99 of the
+        host-side intervals between chunk dispatches (``dispatch_ms_p*``),
+        as the JAX pipeline's.
         """
         t0 = time.perf_counter()
         model = state.model
@@ -181,25 +189,45 @@ class EvalPipeline:
         chunks = prefetch_to_device(
             (stack_eval_chunk(g) for g in chunk_groups(stream, self.eval_k)),
             device=self.device)
-        install_whiten_cache(model, make_whiten_cache(model))
+        # The span times the factorization's enqueue (on the card its
+        # device time lands in the first eval_dispatch).
+        with obs.span("whiten_cache_build", "eval"):
+            install_whiten_cache(model, make_whiten_cache(model))
+        dispatch_intervals = []  # host-side gaps between chunk dispatches
         try:
-            for chunk in chunks:
-                counters = self._eval_fn(counters, chunk)
+            t_prev = None
+            for chunk in obs.traced_iter(chunks, "eval_batch_wait", "eval"):
+                with obs.span("eval_dispatch", "eval"):
+                    counters = self._eval_fn(counters, chunk)
                 forwards += int(chunk["x"].shape[0])
+                t_now = time.perf_counter()
+                if t_prev is not None:
+                    # The first dispatch pays the pass's set-up (a graph
+                    # capture on the card): not an interval.
+                    dispatch_intervals.append(t_now - t_prev)
+                t_prev = t_now
         finally:
             install_whiten_cache(model, None)
             chunks.close()
             stream.close()
         # The pass's ONE device→host fetch.
-        loss_sum, correct, count = torch.stack(
-            [v.double() for v in counters.values()]).tolist()
+        with obs.span("eval_host_fetch", "eval"):
+            loss_sum, correct, count = torch.stack(
+                [v.double() for v in counters.values()]).tolist()
         count = int(count)
+        seconds = time.perf_counter() - t0
         return {
             "loss": loss_sum / max(count, 1),
             "accuracy": 100.0 * correct / max(count, 1),
             "count": count,
             "forwards": forwards,
-            "eval_s": round(time.perf_counter() - t0, 3),
+            "eval_s": round(seconds, 3),
+            "eval_imgs_per_s": round(count / max(seconds, 1e-9), 1),
+            # The host-side interval between consecutive chunk dispatches
+            # (staging wait + dispatch, not device latency): a fat p99
+            # means the prefetch pipeline stalled.
+            **percentile_summary([v * 1e3 for v in dispatch_intervals], (50.0, 99.0),
+                                 prefix="dispatch_ms_p"),
         }
 
     def collect_stats(self, state: TrainState, dataset, *, seed: int = 0,
@@ -219,12 +247,13 @@ class EvalPipeline:
             (np.stack([np.asarray(b[0], np.float32) for b in g])
              for g in chunk_groups(stream, self.eval_k)), device=self.device)
         try:
-            for xs in chunks:
-                if xs.shape[1] == self.test_batch_size:
-                    self._collect_fn(state, xs)
-                else:  # the ragged tail: eager forwards
-                    for x in xs:
-                        self._collect_step(state, x)
+            for xs in obs.traced_iter(chunks, "collect_batch_wait", "eval"):
+                with obs.span("collect_dispatch", "eval"):
+                    if xs.shape[1] == self.test_batch_size:
+                        self._collect_fn(state, xs)
+                    else:  # the ragged tail: eager forwards
+                        for x in xs:
+                            self._collect_step(state, x)
                 forwards += int(xs.shape[0])
         finally:
             chunks.close()

@@ -35,7 +35,10 @@ Contracts the loops rely on:
 Tensors on the CPU are trivially ready.  ``pending`` and ``lag_steps``
 also feed the registry's ``dwt_harvest_ring_depth`` and
 ``dwt_harvest_lag_steps`` (host integers; the heartbeat mirrors them); the
-JAX package's spans wait for the span tracer (ROADMAP queue 1 item 9).
+spans are the JAX package's: ``metric_copy_start`` (the copies' enqueue),
+``harvest_drain`` with ``n`` and, nested in it (or alone at depth 0), the
+blocking ``metric_host_fetch`` — the one span that waits for the card,
+at the rendezvous the harvester already makes.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ import collections
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from dwt_tpu_torch import obs
 
 
 class _Entry:
@@ -157,20 +162,23 @@ class AsyncMetricHarvester:
             return
         self.puts += 1
         self._last_put_hi = int(hi)
-        host_values, host_flag, event = _host_copies(values or {}, flag)
-        e = _Entry(int(lo), int(hi), host_values, host_flag, event, emit,
-                   self.generation)
         if self.depth == 0:
             # The synchronous readback: wait and emit in place.
-            self._emit(e, self._wait([e])[0])
+            e = self._entry(lo, hi, values, flag, emit)
+            with obs.span("metric_host_fetch"):
+                host = self._wait([e])
+            self._emit(e, host[0])
             return
-        self._ring.append(e)
-        self._lo_history.append(e.lo)
+        with obs.span("metric_copy_start"):
+            e = self._entry(lo, hi, values, flag, emit)
+            self._ring.append(e)
+            self._lo_history.append(e.lo)
         # Entries whose copies landed emit now, without a rendezvous; only
         # the ready prefix, so records never pass an older entry in flight.
         while self._ring and self._ring[0].ready():
             entry = self._ring.popleft()
-            self._emit(entry, self._materialize(entry))
+            with obs.span("harvest_drain", n=1):
+                self._emit(entry, self._materialize(entry))
         if len(self._ring) > self.depth:
             # The device is more than `depth` record-bearing dispatches
             # behind: ONE rendezvous for every pending entry.
@@ -190,9 +198,18 @@ class AsyncMetricHarvester:
         if self._last_put_hi is not None:
             self.lag_steps = self._last_put_hi - entries[0].lo
             self._g_lag.set(self.lag_steps)
-        for e, host in zip(entries, self._wait(entries)):
-            self._emit(e, host)
+        with obs.span("harvest_drain", n=len(entries)):
+            with obs.span("metric_host_fetch"):
+                hosts = self._wait(entries)
+            for e, host in zip(entries, hosts):
+                self._emit(e, host)
         self._note_gauges()
+
+    def _entry(self, lo: int, hi: int, values, flag, emit) -> _Entry:
+        """Start the entry's host copies (non-blocking) and wrap them."""
+        host_values, host_flag, event = _host_copies(values or {}, flag)
+        return _Entry(int(lo), int(hi), host_values, host_flag, event, emit,
+                      self.generation)
 
     def _note_gauges(self) -> None:
         self._g_ring.set(len(self._ring))

@@ -78,10 +78,10 @@ return (exit 0).
 Both loops build their model with the config's compute dtype
 (``--compute_dtype``/``--bf16``: bf16 activations, f32 parameters,
 optimizer state and running stats), whitener (``--whitener``) and, for
-OfficeHome, ``--remat``.  With ``--whitener swbn`` the OfficeHome loop
-records a skipped stat collection at ``--stat_collection_passes 0`` and
-warns when passes are asked for, as the JAX loop does (which records the
-skip for every whitener).
+OfficeHome, ``--remat``.  At ``--stat_collection_passes 0`` the OfficeHome
+loop records a skipped stat collection for every whitener, and with an
+online whitener (``swbn``) it warns when passes are asked for, as the JAX
+loop does.
 
 Both loops run the JAX loops' run plane: a ``heartbeat`` record every
 ``heartbeat_every`` steps at the step boundary (steps/s, host RSS, the
@@ -94,8 +94,24 @@ registry's ``dwt_train_steps_total``, ``dwt_guard_events_total{event}``,
 {mode}`` and ``dwt_ckpt_stall_ms``.  None of them reads a device tensor:
 the losses are fed from the harvested host copies.
 
-Not ported yet, in either loop (ROADMAP): span tracing (queue 1 item 9),
-``mirror_recovery`` and multi-host runs (item 8).
+Both loops open the JAX loops' spans (``dwt_tpu_torch.obs``; ``--obs_trace``
+or ``DWT_OBS_TRACE``): ``batch_wait`` over the prefetched batches or
+chunks, ``step_dispatch`` (with ``n`` on the chunked path) around the
+dispatch — a span wraps a graph's replays from outside, never inside a
+capture, and times their enqueue — ``boundary`` with the nested
+``guard_check``, the checkpoint pipeline's ``ckpt_enqueue`` and
+``ckpt_sync_save``, ``eval_pass`` (``imgs``) and ``stat_collection``
+(``pass_index``); a guard event dumps the trailing span window into
+``ckpt_dir/watchdog`` (the flight recorder), and every return path exports
+the trace.  Every run ends with a ``params_digest`` record: ``digest`` is
+the JAX loops' Σ|p| in float64 over the parameters; runs with a
+checkpoint directory add ``sha256``, the parameters' SHA-256, which the
+resume checks compare bitwise.  ``dwt_ckpt_bytes_written_total
+{mode}`` and the ``dwt_ckpt_dir_bytes`` gauge feed the heartbeat's
+checkpoint fields.
+
+Not ported yet, in either loop (ROADMAP): ``mirror_recovery`` and
+multi-host runs (queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -111,6 +127,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.config import (
     INERT_FIELDS,
     DigitsConfig,
@@ -124,7 +141,7 @@ from dwt_tpu_torch.data.datasets import (
     load_mnist,
     load_usps,
 )
-from dwt_tpu_torch.ckpt.store import blob_store_root, save_delta
+from dwt_tpu_torch.ckpt.store import blob_store_root, save_delta, tree_bytes
 from dwt_tpu_torch.convert import convert_resnet_state_dict, load_pytorch_checkpoint
 from dwt_tpu_torch.data.loader import QuarantineRegistry, prefetch_to_device
 from dwt_tpu_torch.data.pipeline import DataPlane
@@ -208,6 +225,23 @@ def _saved_bytes(path: str) -> int:
     with open(manifest) as f:
         written = int(json.load(f).get("bytes_written", 0))
     return written + os.path.getsize(manifest)
+
+
+def _params_digest(model: nn.Module) -> float:
+    """The JAX loops' digest: Σ|p| in float64 over the parameters, one
+    host read (a healthy run's replicas log the identical value)."""
+    sums = [p.detach().abs().sum(dtype=torch.float64) for p in model.parameters()]
+    return float(torch.stack(sums).sum().item()) if sums else 0.0
+
+
+def _log_params_digest(logger: Logger, step: int, model: nn.Module,
+                       ckpt_dir: Optional[str]) -> None:
+    """JAX's ``digest`` on every run; with a checkpoint directory, whose
+    resumes are checked bitwise, also the parameters' ``sha256``."""
+    fields = {"digest": _params_digest(model)}
+    if ckpt_dir:
+        fields["sha256"] = params_digest(model.named_parameters())
+    logger("params_digest", step, **fields)
 
 
 # --------------------------------------------------- live metrics plane
@@ -294,6 +328,12 @@ class _CkptPipeline:
         if cfg.ckpt_dir and self._fmt == "delta":
             self._store_root = (os.path.abspath(os.path.expanduser(cfg.blob_store))
                                 if cfg.blob_store else blob_store_root(cfg.ckpt_dir))
+        if cfg.ckpt_dir:
+            # Sampled at scrape and heartbeat time: the checkpoint tree's
+            # footprint on disk.
+            reg.gauge("dwt_ckpt_dir_bytes",
+                      "total bytes under --ckpt_dir (sampled at scrape)").set_function(
+                lambda root=cfg.ckpt_dir: float(tree_bytes(root)))
         self._acp = None
         if cfg.ckpt_dir and cfg.async_ckpt:
             self._acp = (DeltaAsyncCheckpointer(self._store_root, self._delta_max_chain,
@@ -335,18 +375,22 @@ class _CkptPipeline:
 
     def save_multi(self, targets, step: int, state) -> None:
         """``targets = [(dir, kwargs), ...]`` from one snapshot in one
-        writer task (async), or written here (sync)."""
+        writer task (async), or written here (sync).  The ``ckpt_enqueue``
+        span is the loop's whole cost of the save: the snapshot and the
+        enqueue (and any backpressure join), or the blocking save."""
         t0 = time.perf_counter()
         if self._acp is not None:
             try:
-                self._acp.save_multi(targets, step, state)
+                with obs.span("ckpt_enqueue", step=int(step)):
+                    self._acp.save_multi(targets, step, state)
             finally:
                 self._report()
             seconds = time.perf_counter() - t0
             self._pending = (self._acp.seq, int(step), [d for d, _ in targets], seconds)
             self._note(seconds)
             return
-        paths = self._blocking_save_multi(targets, step, state)
+        with obs.span("ckpt_enqueue", step=int(step)):
+            paths = self._blocking_save_multi(targets, step, state)
         seconds = time.perf_counter() - t0
         self._note(seconds)
         for (directory, _), path in zip(targets, paths):
@@ -361,9 +405,10 @@ class _CkptPipeline:
         """Join any in-flight save, then save on this thread; returns the
         path, or None when the save was refused (non-finite parameters) —
         for a save whose outcome gates what follows (``best.json``)."""
-        self.flush()
-        t0 = time.perf_counter()
-        path = self._blocking_save_multi([(ckpt_dir, kwargs)], step, state)[0]
+        with obs.span("ckpt_sync_save", step=int(step)):
+            self.flush()
+            t0 = time.perf_counter()
+            path = self._blocking_save_multi([(ckpt_dir, kwargs)], step, state)[0]
         if path is not None:
             seconds = time.perf_counter() - t0
             self._log(step, ckpt_dir, path, seconds, seconds, True)
@@ -414,10 +459,14 @@ class _StepBoundary:
     ``stop`` stays set.  Before the fault hooks, the run plane: the
     ``dwt_train_steps_total`` counter, the heartbeat and the alert rules
     (host-side numbers only); a guard event counts in
-    ``dwt_guard_events_total{event}``."""
+    ``dwt_guard_events_total{event}`` and, with ``flight_dir``, dumps the
+    trailing span window there before any recovery runs (the flight
+    recorder).  The whole call is the ``boundary`` span, the guard's
+    check the nested ``guard_check``."""
 
     def __init__(self, guard, preempt, watchdog, notice_watcher, harvester=None,
-                 logger: Optional[Logger] = None, heartbeat=None, alerts=None):
+                 logger: Optional[Logger] = None, heartbeat=None, alerts=None,
+                 flight_dir: Optional[str] = None):
         self.guard = guard
         self.preempt = preempt
         self.watchdog = watchdog
@@ -429,6 +478,7 @@ class _StepBoundary:
         self.logger = logger
         self.heartbeat = heartbeat
         self.alerts = alerts
+        self.flight_dir = flight_dir
         reg = get_registry()
         self._m_steps = reg.counter("dwt_train_steps_total", "optimizer steps completed")
         self._m_guard = reg.counter(
@@ -440,20 +490,30 @@ class _StepBoundary:
         self._notice_handled = False
         self.stop = False
 
+    def _flight(self, reason: str) -> None:
+        """Dump the trailing span window into ``flight_dir`` under the
+        watchdog's retention (``--watchdog_keep``): what led up to a guard
+        event, before the recovery mutates the run."""
+        if self.flight_dir:
+            obs.flight_dump(self.flight_dir, reason, keep=self.watchdog.keep)
+
     def _check(self, state, metrics, n_steps: int, gstep: int) -> None:
         recoveries = self.guard.recoveries
         try:
-            if self._harvest_guard:
-                self.guard.check_harvested(state, n_steps, gstep)
-            else:
-                self.guard.step(state, metrics, n_steps, gstep)
+            with obs.span("guard_check", "detail"):
+                if self._harvest_guard:
+                    self.guard.check_harvested(state, n_steps, gstep)
+                else:
+                    self.guard.step(state, metrics, n_steps, gstep)
         except (RollbackRequest, DivergenceError) as e:
             self._m_guard.labels(
                 event="rollback" if isinstance(e, RollbackRequest) else "halt").inc()
+            self._flight(f"guard_event_step{gstep}")
             self._fence()
             raise
         if self.guard.recoveries != recoveries:
             self._m_guard.labels(event="recovered").inc()
+            self._flight(f"guard_event_step{gstep}")
             self._fence()
 
     def _fence(self) -> None:
@@ -475,6 +535,10 @@ class _StepBoundary:
                 self.logger("alert", gstep, **ev.record_fields())
 
     def __call__(self, state, metrics, n_steps: int, gstep: int) -> bool:
+        with obs.span("boundary"):
+            return self._run(state, metrics, n_steps, gstep)
+
+    def _run(self, state, metrics, n_steps: int, gstep: int) -> bool:
         self.watchdog.heartbeat()
         self._m_steps.inc(n_steps)
         if self.heartbeat is not None:
@@ -521,10 +585,14 @@ def _chunk_stream(batches, k: int, should_cut=None, start: int = 0):
 def _run_chunks(chunks, scanned, state, on_steps) -> None:
     """Drive the k-steps-per-dispatch path: each chunk through ``scanned``
     (``steps.make_scanned_step``), then ``on_steps(n, stacked metrics)``
-    for the records and the boundary; it returns whether to stop."""
-    for chunk in chunks:
+    for the records and the boundary; it returns whether to stop.  The
+    ``step_dispatch`` span wraps the whole dispatch from outside (on the
+    card the graph's replays: a capture never runs a span's Python)."""
+    for chunk in obs.traced_iter(chunks, "batch_wait"):
         n = next(iter(chunk.values())).shape[0]
-        if on_steps(n, scanned(state, chunk)):
+        with obs.span("step_dispatch", n=n):
+            ms = scanned(state, chunk)
+        if on_steps(n, ms):
             break
 
 
@@ -743,6 +811,7 @@ def run_digits(
     ``model`` (default :func:`build_digits_model`) is trained in place: it
     is moved to the device, its convs to channels_last memory format."""
     logger = logger or _log_record
+    obs.maybe_enable(cfg.obs_trace)
     alert_engine = _setup_metrics_plane(cfg, logger)
     _note_inert(cfg)
     if cfg.group_size == 32:
@@ -803,8 +872,8 @@ def run_digits(
         result = evalp.evaluate(state, test_ds)
         _note_accuracy(result["accuracy"])
         logger("test", state.step, epoch=epoch, **result)
-        logger("params_digest", state.step,
-               digest=params_digest(model.named_parameters()))
+        _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
+        obs.export()
         return result["accuracy"]
 
     guard = _make_guard(cfg, logger)
@@ -827,7 +896,8 @@ def run_digits(
         boundary = _StepBoundary(
             guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
             heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
-                                       pipeline.in_flight_depth))
+                                       pipeline.in_flight_depth),
+            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None)
 
         def proactive_save(st):
             # A preemption notice: save now and keep training; the SIGTERM
@@ -856,8 +926,9 @@ def run_digits(
             try:
                 if scanned is None:
                     batches = prefetch_to_device(epoch_batches, device=device)
-                    for i, batch in enumerate(batches):
-                        metrics = train_step(state, batch)
+                    for i, batch in enumerate(obs.traced_iter(batches, "batch_wait")):
+                        with obs.span("step_dispatch"):
+                            metrics = train_step(state, batch)
                         gstep += 1
                         plane.advance(1)
                         state, metrics = inject.maybe_nan(state, metrics, gstep)
@@ -925,8 +996,10 @@ def run_digits(
                 resume_step = _preempt_exit(cfg, pipeline, wd, boundary, state, plane)
                 logger("preempt", state.step, epoch=epoch,
                        **({} if resume_step is None else {"resume_step": resume_step}))
+                obs.export()  # the spans survive the exit (grace window)
                 return acc
-            result = evalp.evaluate(state, test_ds)
+            with obs.span("eval_pass", imgs=len(test_ds)):
+                result = evalp.evaluate(state, test_ds)
             wd.heartbeat()  # an eval is progress, not a stall
             acc = result["accuracy"]
             _note_accuracy(acc)
@@ -945,9 +1018,8 @@ def run_digits(
             epoch += 1
         with wd.suspended():
             pipeline.flush()  # a writer failure surfaces while the run can fail
-    if cfg.ckpt_dir:
-        logger("params_digest", state.step,
-               digest=params_digest(model.named_parameters()))
+    _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
+    obs.export()  # the normal exit's trace (a no-op when tracing is off)
     return acc
 
 
@@ -1064,6 +1136,7 @@ def run_officehome(
     moved to the device, its convs to channels_last memory format, and
     a resume, ``init_ckpt`` or ``resnet_path`` loads into it."""
     logger = logger or _log_record
+    obs.maybe_enable(cfg.obs_trace)
     alert_engine = _setup_metrics_plane(cfg, logger)
     _note_inert(cfg)
     device = resolve_device(cfg.device)
@@ -1145,7 +1218,8 @@ def run_officehome(
         boundary = _StepBoundary(
             guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
             heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
-                                       pipeline.in_flight_depth))
+                                       pipeline.in_flight_depth),
+            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None)
 
         def proactive_save(st):
             if not cfg.ckpt_dir:
@@ -1168,7 +1242,8 @@ def run_officehome(
                 # records they precede.
                 harvester.drain()
             if do_eval:
-                result = evalp.evaluate(state, test_ds)
+                with obs.span("eval_pass", imgs=len(test_ds)):
+                    result = evalp.evaluate(state, test_ds)
                 wd.heartbeat()
                 acc = result["accuracy"]
                 _note_accuracy(acc)
@@ -1253,6 +1328,7 @@ def run_officehome(
             resume_step = _preempt_exit(cfg, pipeline, wd, boundary, state, plane)
             logger("preempt", state.step,
                    **({} if resume_step is None else {"resume_step": resume_step}))
+            obs.export()  # the spans survive the exit (grace window)
             return acc
         with wd.suspended():
             pipeline.flush()
@@ -1275,20 +1351,24 @@ def run_officehome(
                        "are unnecessary (pass 0 to skip the phase)")
     for p in range(cfg.stat_collection_passes):
         t0 = time.perf_counter()
-        forwards = evalp.collect_stats(state, test_ds, seed=cfg.seed, epoch=p)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        logger("stat_collection", state.step, pass_index=p, forwards=forwards,
-               seconds=round(time.perf_counter() - t0, 3))
-    result = evalp.evaluate(state, test_ds)
+        with obs.span("stat_collection", pass_index=p):
+            forwards = evalp.collect_stats(state, test_ds, seed=cfg.seed, epoch=p)
+            if device.type == "cuda":
+                # The phase's own rendezvous (the record times the work,
+                # not its enqueue); the span only observes it.
+                torch.cuda.synchronize(device)
+        logger("stat_collection", state.step, pass_index=p, imgs=len(test_ds),
+               forwards=forwards, seconds=round(time.perf_counter() - t0, 3))
+    with obs.span("eval_pass", imgs=len(test_ds)):
+        result = evalp.evaluate(state, test_ds)
     acc = result["accuracy"]
     _note_accuracy(acc)
     logger("final_test", state.step, **result)
+    _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
     if cfg.ckpt_dir:
         # The post-collection state is the run's deployable artifact.
-        logger("params_digest", state.step,
-               digest=params_digest(model.named_parameters()))
         pipeline.save(cfg.ckpt_dir, state.step, state,
                       data_state=plane.snapshot(), **_keep_kwargs(cfg))
         pipeline.flush()
+    obs.export()  # the normal exit's trace (a no-op when tracing is off)
     return acc

@@ -169,7 +169,9 @@ def host_params_finite(host: HostState) -> bool:
 
 
 def _write_manifest(path: str, step: int, digest: Optional[str],
-                    extra: dict) -> None:
+                    extra: dict) -> int:
+    """Write ``path``'s manifest over the files already there; returns
+    their bytes."""
     files = {}
     for sub, _, names in os.walk(path):
         for name in names:
@@ -181,6 +183,21 @@ def _write_manifest(path: str, step: int, digest: Optional[str],
         json.dump(manifest, f, indent=1)
         f.flush()
         os.fsync(f.fileno())
+    return sum(files.values())
+
+
+def count_ckpt_bytes(mode: str, nbytes: int) -> None:
+    """Live-metrics feed: ``dwt_ckpt_bytes_written_total{mode=full|delta}``,
+    as the JAX package's (the heartbeat's ``ckpt_bytes_written``).  A
+    full-format save counts its manifest's files; the delta store labels
+    each save by its manifest's mode."""
+    from dwt_tpu_torch.obs.registry import get_registry
+
+    get_registry().counter(
+        "dwt_ckpt_bytes_written_total",
+        "checkpoint bytes written to disk, by save mode",
+        labelnames=("mode",),
+    ).labels(mode=mode).inc(int(nbytes))
 
 
 def _read_manifest(path: str) -> Optional[dict]:
@@ -366,14 +383,15 @@ def save_state(
 
     try:
         _with_retries(_write, f"checkpoint save @{step}")
-        _write_manifest(tmp, step, digest,
-                        {"format": TORCH_FORMAT, "data_state": data_state})
+        nbytes = _write_manifest(tmp, step, digest,
+                                 {"format": TORCH_FORMAT, "data_state": data_state})
         # A kill landing here leaves only the unfinalized tmp directory.
         inject.maybe_crash_mid_save(step)
         _finalize_rename(root, tmp, final, step)
     except OSError:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    count_ckpt_bytes("full", nbytes)
     _sweep_stale_tmp(root)
     if keep is not None:
         prune_checkpoints(root, keep)

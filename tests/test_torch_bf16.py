@@ -316,7 +316,8 @@ def test_default_numerics_flags_are_the_default_run():
         cfg = usps_mnist.config_from_args(args)
         model, records = loop.build_digits_model(cfg), []
         loop.run_digits(cfg, lambda k, s, **f: records.append(
-            (k, s, {a: b for a, b in f.items() if a != "eval_s"})), model=model)
+            (k, s, {a: b for a, b in f.items() if a not in (
+                "eval_s", "eval_imgs_per_s", "dispatch_ms_p50", "dispatch_ms_p99")})), model=model)
         return records, [p.detach().clone() for p in model.parameters()]
 
     (r0, p0), (r1, p1) = run([]), run(["--compute_dtype", "f32", "--whitener", "cholesky"])

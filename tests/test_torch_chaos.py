@@ -62,7 +62,7 @@ def _kinds(records):
 
 
 def _digest(records):
-    return [r["digest"] for r in records if r["kind"] == "params_digest"][-1]
+    return [r["sha256"] for r in records if r["kind"] == "params_digest"][-1]
 
 
 def _no_torn_steps(ck):

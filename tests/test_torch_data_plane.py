@@ -360,7 +360,7 @@ def test_run_digits_streams_the_jax_loops_batches():
     loop.run_digits(DigitsConfig(**flags, device="cpu"),
                     lambda kind, step, **f: ours.append((kind, step, f)),
                     model=model)
-    assert [k for k, _, _ in ours] == ["train", "train", "test"]
+    assert [k for k, _, _ in ours] == ["train", "train", "test", "params_digest"]
     _compare_records(ours, ref.records, ("cls_loss", "entropy_loss"))
 
 
@@ -396,7 +396,7 @@ def test_run_officehome_trains_from_image_folders_as_the_jax_loop(tmp_path, monk
                         lambda kind, step, **f: ours.append((kind, step, f)),
                         model=model)
     assert [k for k, _, _ in ours] == [
-        "train", "train", "test", "stat_collection", "final_test"]
+        "train", "train", "test", "stat_collection", "final_test", "params_digest"]
     assert ours[2][2]["count"] == 16 and ours[3][2]["forwards"] == 2
     _compare_records(ours, ref.records, ("cls_loss", "mec_loss"))
     # The CLI on the same folders, through --device cpu.

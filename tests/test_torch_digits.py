@@ -397,11 +397,11 @@ def test_run_digits_records_and_refusals():
     # over 32 test images in one padded forward of the test batch (100).
     assert [(k, s) for k, s, _ in records] == [
         ("train", 1), ("train", 2), ("test", 2), ("train", 3), ("train", 4),
-        ("test", 4)]
+        ("test", 4), ("params_digest", 4)]
     assert all(np.isfinite(f[k]) for k, _, f in records if k == "train"
                for k in METRIC_KEYS)
-    assert [f["epoch"] for _, _, f in records] == [0, 0, 0, 1, 1, 1]
-    test = records[-1][2]
+    assert [f["epoch"] for _, _, f in records[:-1]] == [0, 0, 0, 1, 1, 1]
+    test = records[-2][2]
     assert test["accuracy"] == acc and 0.0 <= acc <= 100.0
     assert test["count"] == 32 and test["forwards"] == 1
 

@@ -66,5 +66,5 @@ def test_officehome_chunked_and_harvested_matches_the_jax_loop(tmp_path):
                         lambda kind, step, **f: ours.append((kind, step, f)),
                         model=model)
     assert [k for k, _, _ in ours] == ["train"] * 2 + ["test", "stat_collection",
-                                                       "final_test"]
+                                                       "final_test", "params_digest"]
     _compare(ours, ref.records, ("cls_loss", "mec_loss"))

@@ -20,6 +20,7 @@ import io
 import json
 import os
 import random
+import shutil
 import signal
 import subprocess
 import sys
@@ -252,6 +253,36 @@ def test_watcher_sees_only_valid_finalized_steps(tmp_path, tied):
     assert nxt.step == 5 and nxt.digest != first.digest
 
 
+def test_watcher_holds_an_older_step_while_the_newest_is_resaved(tmp_path, tied):
+    """A same-step re-save moves the finalized step aside for a moment
+    (``_finalize_rename``): a poll in that window sees the step before it
+    as the newest.  The watcher emits an older step only when two polls in
+    a row see it newest, so a re-save never redeploys the step before it,
+    while a step that is really gone is still rolled back to."""
+    _, _, params, stats = tied
+    d = str(tmp_path / "ck")
+    _save_port(d, params, stats, 3)
+    _save_port(d, params, stats, 6, perturb=0.01)
+    w = CheckpointWatcher(d, poll_s=0.01)
+    assert w.poll_once().step == 6
+    # The window inside _finalize_rename: step 6 aside, the new one not yet in.
+    final, aside = os.path.join(d, "6"), os.path.join(d, ".tmp-replaced-6")
+    os.replace(final, aside)
+    assert newest_candidate(d).step == 3 and w.poll_once() is None
+    os.replace(aside, final)
+    assert w.poll_once() is None
+    _save_port(d, params, stats, 6, perturb=0.01)  # the whole re-save
+    assert w.poll_once() is None
+    # Step 6 deleted: the next two polls see 3, the second emits it.
+    shutil.rmtree(final)
+    assert w.poll_once() is None
+    back = w.poll_once()
+    assert back.step == 3 and w.poll_once() is None
+    # A newer step is emitted on its first poll, as before.
+    _save_port(d, params, stats, 9, perturb=0.02)
+    assert w.poll_once().step == 9
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_delta_candidates_deploy_like_full_ones(tmp_path, tied, writer):
     """A delta-format step (the port's, or the JAX package's cas_delta) is
@@ -454,7 +485,7 @@ def test_serve_watch_hot_reload_over_http(tmp_path, tied):
 
 
 @pytest.mark.parametrize("flag,later", [
-    (["--obs_trace", "t.json"], "item 9"),
+    (["--sharding_rules", "model"], "item 8"),
     (["--mesh_shape", "1,1,1"], "item 8"),
     (["--data_parallel"], "item 8"),
 ])

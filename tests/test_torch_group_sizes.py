@@ -450,4 +450,4 @@ def test_zero_collection_passes_record_the_skipped_phase_for_every_whitener():
         loop.run_officehome(cfg, lambda k, s, **f: out.append((k, s, f)))
         kinds = [k for k, _, _ in out]
         assert ("stat_collection", 1, {"skipped": True, "whitener": name}) in out
-        assert kinds[-2:] == ["stat_collection", "final_test"], kinds
+        assert kinds[-3:] == ["stat_collection", "final_test", "params_digest"], kinds

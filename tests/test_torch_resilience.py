@@ -424,7 +424,8 @@ def _digits_run(tmp_path, name, **flags):
 def test_async_saves_equal_sync_saves_bitwise(tmp_path):
     a = _digits_run(tmp_path, "async")
     s = _digits_run(tmp_path, "sync", async_ckpt=False)
-    timing = ("seconds", "writer_s", "eval_s", "sync", "dir")
+    timing = ("seconds", "writer_s", "eval_s", "eval_imgs_per_s", "dispatch_ms_p50",
+              "dispatch_ms_p99", "sync", "dir")
 
     def strip(recs):
         return [(k, st, {n: v for n, v in f.items() if n not in timing}) for k, st, f in recs]

@@ -81,7 +81,8 @@ def _run_digits(ckpt_dir, epochs, model=None):
 
 
 def _without_timings(records):
-    drop = ("eval_s", "seconds", "restore_s", "dir")
+    drop = ("eval_s", "eval_imgs_per_s", "dispatch_ms_p50", "dispatch_ms_p99", "seconds",
+            "restore_s", "dir")
     return [(k, s, {n: v for n, v in f.items() if n not in drop})
             for k, s, f in records if k not in ("checkpoint", "resume")]
 
@@ -162,6 +163,7 @@ def _run_officehome(ckpt_dir, monkeypatch, cut_at=None):
 
     def recording(*args, **kwargs):
         role = kwargs.get("quarantine_key")
+        kwargs.pop("on_batch_ids", None)  # the plane's trail hook (off)
         return inner(*args, on_batch_ids=ids.setdefault(role, []).append, **kwargs)
 
     monkeypatch.setattr(loader, "batch_iterator", recording)

@@ -32,7 +32,9 @@ from dwt_tpu.cli import officehome as jax_officehome
 from dwt_tpu.cli import usps_mnist as jax_usps_mnist
 from dwt_tpu.nn import LeNetDWT as JaxLeNetDWT
 from dwt_tpu.nn import ResNetDWT as JaxResNetDWT
+from dwt_tpu.obs import registry as jax_registry
 from dwt_tpu.train import loop as jax_loop
+from dwt_tpu.utils import checkpoint as jax_checkpoint
 from dwt_tpu_torch.cli import officehome, usps_mnist
 from dwt_tpu_torch.convert import load_jax_variables
 from dwt_tpu_torch.data import pipeline
@@ -41,24 +43,19 @@ from dwt_tpu_torch.nn.resnet import ResNetDWT
 from dwt_tpu_torch.obs import prom, registry
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.train import loop
+from dwt_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(2)
 
 LOSS_TOL = 1e-4       # train losses, relative (tests/test_torch_dispatch.py)
 EVAL_LOSS_TOL = 1e-2  # eval losses, relative (tests/test_torch_dispatch.py)
-# Fields and kinds the packages' records differ in, all from earlier
-# slices: the port's train records also carry ``loss`` and ``grad_norm``
-# and its eval records ``forwards`` (extra fields are allowed); its eval
-# records have no ``eval_imgs_per_s``; its ``stat_collection`` records
-# count ``forwards`` where JAX's count ``imgs``; the port logs
-# ``params_digest`` (a hash, not JAX's float checksum) only with
-# ``--ckpt_dir``.  A JAX heartbeat carries ``ckpt_bytes_written`` and
-# ``ckpt_dir_bytes`` once any JAX checkpoint was written in the process
-# (process-wide counters), which the port's checkpoints do not feed yet.
-KNOWN_DIFFERENCES = {"test": {"eval_imgs_per_s"}, "final_test": {"eval_imgs_per_s"},
-                     "stat_collection": {"imgs"},
-                     "heartbeat": {"ckpt_bytes_written", "ckpt_dir_bytes"}}
-JAX_ONLY_KINDS = {"params_digest"}
+DIGEST_TOL = 1e-6     # the params_digest record's Σ|p|, relative
+# Fields and kinds the packages' records differ in: none.  (The port's
+# records may carry more: ``loss`` and ``grad_norm`` in train records,
+# ``forwards`` in eval and stat-collection records, ``sha256`` in
+# ``params_digest`` with a checkpoint directory.)
+KNOWN_DIFFERENCES = {}
+JAX_ONLY_KINDS = set()
 ALWAYS_RULE = [{"name": "train_started", "metric": "dwt_train_steps_total",
                 "op": ">", "threshold": 0, "severity": "info"}]
 
@@ -107,11 +104,26 @@ def _run(main, argv, expect_exit=None):
         return None
 
 
+def _same_checkpoint_history(dir_bytes=lambda: 1.0):
+    """Both packages' registries as after one checkpoint write of one byte
+    to a one-byte directory: a heartbeat's checkpoint fields read these
+    process-wide series, which earlier tests in the process may have fed
+    in one package and not the other.  ``dir_bytes=None`` unsets the
+    directory gauge again."""
+    for reg, count_bytes in ((jax_registry.get_registry(), jax_checkpoint.count_ckpt_bytes),
+                             (registry.get_registry(), checkpoint.count_ckpt_bytes)):
+        if dir_bytes is not None:
+            count_bytes("full", 1)
+        reg.gauge("dwt_ckpt_dir_bytes",
+                  "total bytes under --ckpt_dir (sampled at scrape)").set_function(dir_bytes)
+
+
 @pytest.fixture(scope="module")
 def digits_runs(tmp_path_factory):
     """Both digits CLIs, same weights, with the whole run plane on and a
     missed ``--expect_accuracy`` (exit 1 after the ``accuracy_check``
     record); the port's run scraped while it trains."""
+    _same_checkpoint_history()
     tmp = tmp_path_factory.mktemp("digits")
     rules = tmp / "rules.json"
     rules.write_text(json.dumps(ALWAYS_RULE))
@@ -147,6 +159,7 @@ def digits_runs(tmp_path_factory):
         mp.undo()
         done.set()
         scraper.join(timeout=10)
+        _same_checkpoint_history(None)
     return {"jax": _records(tmp / "jax.jsonl"), "port": _records(tmp / "port.jsonl"),
             "scrapes": scrapes, "steps": _steps_total() - steps0}
 
@@ -154,14 +167,16 @@ def digits_runs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def officehome_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("officehome")
-    jax_officehome.main(OFFICEHOME_ARGS + ["--metrics_jsonl", str(tmp / "jax.jsonl")])
+    _same_checkpoint_history()
     mp = pytest.MonkeyPatch()
     mp.setattr(loop, "build_model", lambda cfg: _tiny_from_jax())
     try:
+        jax_officehome.main(OFFICEHOME_ARGS + ["--metrics_jsonl", str(tmp / "jax.jsonl")])
         officehome.main(OFFICEHOME_ARGS + ["--metrics_jsonl", str(tmp / "port.jsonl"),
                                            "--device", "cpu"])
     finally:
         mp.undo()
+        _same_checkpoint_history(None)
     return {"jax": _records(tmp / "jax.jsonl"), "port": _records(tmp / "port.jsonl")}
 
 
@@ -192,6 +207,11 @@ def _compare_jsonl(ours, ref, loss_keys):
             elif kind in ("test", "final_test"):
                 assert (x["accuracy"], x["count"]) == (y["accuracy"], y["count"])
                 np.testing.assert_allclose(x["loss"], y["loss"], rtol=EVAL_LOSS_TOL)
+            elif kind == "params_digest":
+                np.testing.assert_allclose(x["digest"], y["digest"], rtol=DIGEST_TOL)
+            elif kind == "stat_collection":
+                keys = ("imgs", "pass_index", "skipped", "whitener")
+                assert {k: x[k] for k in keys if k in y} == {k: y[k] for k in keys if k in y}
             elif kind == "accuracy_check":
                 assert {k: x[k] for k in ("expected", "tolerance", "ok")} == \
                     {k: y[k] for k in ("expected", "tolerance", "ok")}
@@ -211,6 +231,12 @@ def test_digits_jsonl_matches_the_jax_cli(digits_runs):
     assert [r["step"] for r in ours if r["kind"] == "heartbeat"] == [3, 5, 7]
     for hb in (r for r in ours if r["kind"] == "heartbeat"):
         assert hb["steps_per_s"] > 0 and hb["rss_mb"] > 0 and hb["ckpt_in_flight"] == 0
+        assert hb["ckpt_bytes_written"] >= 1 and hb["ckpt_dir_bytes"] == 1
+    # Every run ends with the parameters' digest, JAX's float; the hash
+    # comes only with a checkpoint directory (this run has none).
+    digest = [r for r in ours if r["kind"] == "params_digest"]
+    assert [r["step"] for r in digest] == [8] and isinstance(digest[0]["digest"], float)
+    assert "sha256" not in digest[0]
     # The exit path: the verdict record is the last, after the accuracy.
     check = ours[-1]
     assert check["kind"] == "accuracy_check" and not check["ok"]
@@ -221,7 +247,7 @@ def test_officehome_jsonl_matches_the_jax_cli(officehome_runs):
     ours, ref = officehome_runs["port"], officehome_runs["jax"]
     _compare_jsonl(ours, ref, ("cls_loss", "mec_loss"))
     assert [r["kind"] for r in ours if r["kind"] != "heartbeat"] == \
-        ["train", "train", "test", "stat_collection", "final_test"]
+        ["train", "train", "test", "stat_collection", "final_test", "params_digest"]
     assert [r["step"] for r in ours if r["kind"] == "heartbeat"] == [2]
 
 
@@ -337,7 +363,8 @@ def test_debug_nans_fails_at_the_module_and_refuses_graphs(monkeypatch):
 
         with debug_nans(cfg, "--debug_nans" in extra):
             loop.run_digits(cfg, lambda kind, step, **f: got.append(
-                (kind, step, {k: v for k, v in f.items() if k != "eval_s"})))
+                (kind, step, {k: v for k, v in f.items() if k not in (
+                    "eval_s", "eval_imgs_per_s", "dispatch_ms_p50", "dispatch_ms_p99")})))
         return got
 
     assert records(["--debug_nans"]) == records([])

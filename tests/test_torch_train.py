@@ -242,14 +242,15 @@ def test_cli_trains_evaluates_and_collects_on_cpu():
         (kind, step, f)))
     assert np.isfinite(acc) and 0.0 <= acc <= 100.0
     kinds = [r[0] for r in records]
-    assert kinds == ["train", "train", "test", "stat_collection", "final_test"]
+    assert kinds == ["train", "train", "test", "stat_collection", "final_test",
+                     "params_digest"]
     assert all(np.isfinite(r[2][k]) for r in records[:2]
                for k in ("loss", "cls_loss", "mec_loss", "grad_norm"))
-    assert records[-1][2]["accuracy"] == acc
+    assert records[-2][2]["accuracy"] == acc
     # 32 synthetic test images at the default test batch of 10: three
     # full batches and a ragged one, padded for eval and left ragged to
     # collect.
-    assert records[-1][2]["count"] == 32 and records[-1][2]["forwards"] == 4
+    assert records[-2][2]["count"] == 32 and records[-2][2]["forwards"] == 4
     assert records[3][2]["forwards"] == 4
     assert cli.main(CLI_ARGS + ["--device", "cpu", "--num_iters", "1",
                                 "--stat_collection_passes", "0"]) >= 0.0

@@ -560,7 +560,12 @@ def main(argv=None) -> int:
         print(json.dumps(run_ramp(args)), flush=True)
         return 0
 
-    refuse_unported(args)  # --obs_trace: the span tracer is not ported
+    refuse_unported(args)  # the parallel-serving flags (ROADMAP queue 1 item 8)
+    # Inherited --obs_trace (server parser): every bench run can emit a
+    # bucket-attributed serving trace for tools/torch_obs_report.py.
+    from dwt_tpu_torch import obs
+
+    obs.maybe_enable(args.obs_trace)
     client, input_shape = _build_client(args)
     reloader = None
     if args.reload_every > 0:
@@ -635,6 +640,7 @@ def main(argv=None) -> int:
         if adapter is not None:
             adapter.stop()  # no adapted swap mid-drain
         client.close(drain=True)
+        obs.export()  # no-op unless --obs_trace/DWT_OBS_TRACE
     return rc
 
 
