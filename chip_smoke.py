@@ -166,8 +166,8 @@ script exits non-zero without the final line:
                   checkpoint of the tensors' bytes (≈ 2 × the parameters,
                   the momentum, plus the stats).  Prints each save's loop
                   stall and writer time (async and sync) and the
-                  restore's ms; then 20 steps with a background save every
-                  10 and no eval, each step's time after the first 2
+                  restore's ms; then 12 steps with a background save every
+                  6 and no eval, each step's time after the first 2
                   split by whether a write was in flight (``overlap``).
 19. ``ckpt_serve`` — the server with ``--ckpt_dir`` on run A
                   (``--model resnet50``, bucket 8) answers 8 test images
@@ -224,9 +224,9 @@ script exits non-zero without the final line:
                   3 and 5); the graph's and the eager step's ms and device
                   busy ms and operations per step, the capture's ms and
                   pool bytes, the kernels' device ms in the replays.
-                  ``dispatch_folder`` (in phase 11's folders): 16 steps at
+                  ``dispatch_folder`` (in phase 11's folders): 12 steps at
                   k = 1 with harvest depth 0, k = 1 at depth 2 and k = 4
-                  at depth 2; step ms over steps 4–12 (CUDA events at
+                  at depth 2; step ms over steps 4–8 (CUDA events at
                   each batch or chunk) and the idle share from a trace of
                   the run's last 4 steps (the union of the device's busy
                   intervals).  ``dispatch_digits``: the digits CLI at k =
@@ -244,7 +244,7 @@ script exits non-zero without the final line:
                   events, record steps and batch ids) and on the card as
                   it runs (the detection lag).  ``dispatch_resnet50``: run
                   R (phase 18's flags at k = 3) bitwise equal to run A;
-                  step ms at k = 1 (depth 0 and 2) and k = 3 in turns;
+                  step ms at k = 1 (depth 0 and 2) and k = 3, one run each;
                   the eval pass at 1 and
                   8 batches per dispatch (equal counters) and the
                   collection pass.  Phases 7–25 read their records
@@ -268,7 +268,7 @@ script exits non-zero without the final line:
                   steps at 3 steps per dispatch (graph replays, harvested
                   records) with evals and a collection pass: 11 moments
                   and 11 apply launches per step, parameters f32; the bf16
-                  and the f32 step ms at k = 3 in turns
+                  and the f32 step ms at k = 3, one run each
                   (``bf16_train_timing``); the digits CLI at bf16
                   (``bf16_digits_train``, 2 and 2 per step).
 29. ``whiteners`` — the digits CLI with ``--whitener newton_schulz`` and
@@ -285,7 +285,7 @@ script exits non-zero without the final line:
                   algorithms): running stats bitwise equal, losses at
                   ``TRAIN_TOL``, 21 moments and 21 apply launches (11 and
                   10 recomputed) against 11; step ms and peak device
-                  memory of 9-step runs with and without, in turns.
+                  memory of a 9-step run with and one without.
 32. ``group_kernels`` / ``group_timing`` — both kernels in f32 and bf16
                   at every group size ``g`` of a grid: C = 32, 48 and 64 at
                   every divisor of C, C = 256 at 1, 2, 4, …, 256, each at
@@ -315,7 +315,7 @@ script exits non-zero without the final line:
                   11 moments and 11 apply launches per step, phase 7's
                   checks, the f32 runs at 16 and 64 saving checkpoints;
                   ``group_train_timing``: step ms and peak device memory
-                  at g = 4, 16 and 64 in mirrored turns (f32 and bf16).
+                  at g = 4 and 64, one run each (f32 and bf16).
 34. ``group_serve`` — the server on those checkpoints at ``--group_size``
                   16 and 64, f32 and bf16, one request per bucket
                   1/8/32/128: 11 apply launches a forward, logits held to
@@ -343,7 +343,7 @@ script exits non-zero without the final line:
                   against the plain and the float64 step (the biases whose
                   exact gradient is zero, ``VIT_ZERO_GRAD_BIASES``, held to be
                   noise); ``vit_train_timing``: step ms and peak memory at k =
-                  1 and 3, f32 and bf16.
+                  3, f32 and bf16.
 38. ``vit_serve`` — phase 12 for a ``ServeEngine`` over ViT-S/16 (the
                   server's ``--model`` offers none; the engine's Python API
                   behind the same HTTP front end), f32 and bf16 (against its
@@ -352,8 +352,8 @@ script exits non-zero without the final line:
                   dwt_tpu_torch.cli.visda``'s entry with ``--synthetic``
                   (ResNet101, 12 classes, 224², 3 × 18, 6 steps, one
                   collection pass), phase 7's checks with 11 + 11 launches,
-                  a checkpoint at step 6, step ms and peak memory at k = 1
-                  and 3 (``visda_train_timing``); the server CLI with
+                  a checkpoint at step 6, step ms and peak memory at k = 3
+                  (``visda_train_timing``); the server CLI with
                   ``--model resnet101 --num_classes 12 --ckpt_dir`` on it
                   (phase 19's checks, the bucket-8 forward's ms), and the
                   apply at that forward's 11 site shapes against its plain
@@ -464,8 +464,8 @@ script exits non-zero without the final line:
                   merged ``/metrics`` valid; spawn-to-ready and respawn
                   seconds.  ``fleet_autoscale``: one replica's sustained rate
                   of 1-image requests (16 closed-loop clients for 5 s), the
-                  balancer's p50/p99 against the replica's (one client, 300
-                  requests each way, alternating),
+                  balancer's p50/p99 against the replica's (one client,
+                  ``FLEET_COMPARE_REQUESTS`` requests each way, alternating),
                   ``tools/torch_serve_bench.py --ramp`` from 0.5× to 3× it: a
                   ``scale_up`` to 3 (``ramp_scale_lag_s``,
                   ``ramp_lost_total`` 0), the autoscaled replica a straggler
@@ -503,15 +503,59 @@ script exits non-zero without the final line:
                   bucket's ``device`` spans (p50) beside the access log's
                   ``device_ms``, the forward alone on the same engine (CUDA
                   events) and the requests' e2e.
-50. ``flight_recorder`` — the digits CLI in a subprocess (after
-                  ``serve_trace``, alone on the card) with ``DWT_OBS_TRACE=1``,
+50. ``flight_recorder`` — the digits CLI in a subprocess (beside
+                  ``chaos_digits``' four children, its row after theirs; no
+                  timed phase runs then) with ``DWT_OBS_TRACE=1``,
                   ``hang_at_step`` 4 and ``--watchdog_timeout 8``: exit 113,
                   ``stacks-*`` and a valid ``spans-*`` in ``ckpt_dir/
                   watchdog`` whose spans include ``step_dispatch`` or
                   ``boundary``.
+51. ``sweep``   — the sweep control plane at full width (the last phase):
+                  ``python -m dwt_tpu_torch.sweep.cli`` in a subprocess
+                  (``SWEEP_FLAGS``: the pairs ``Art:Clipart,Clipart:Art``, 2
+                  slots, GC every 5 polls at a 10 s age guard, ``/metrics`` on
+                  an ephemeral port) over two ResNet50-DWT jobs on the card
+                  (``SWEEP_JOB_FLAGS``: phase 18's flags, each job ``python -m
+                  dwt_tpu_torch.cli.officehome_sweep`` through ``SWEEP_JOB``,
+                  which sets cuDNN's deterministic algorithms and writes the
+                  job's launches and clock stamps at exit).  A calm sweep;
+                  the same sweep under ``SWEEP_CHAOS`` (Art2Clipart's first
+                  job killed inside a save, Clipart2Art preempted, the
+                  supervisor SIGKILLed at its third scheduling event, its
+                  journal unsettled); the relaunch, exit 0.  Checks: every
+                  pair's final ``params_digest`` SHA-256 and accuracy equal
+                  the calm sweep's, ``preempt_resumes`` ``{"Clipart2Art":
+                  1}`` and ``respawns`` ``{"Art2Clipart": 1}``,
+                  ``tools/torch_ckpt_fsck.py --store`` 0 blobs missing, a
+                  valid ``/metrics`` scrape with ``dwt_sweep_pairs`` and each
+                  job's ``dwt_train_steps_total{pair=…}``, the jobs on the
+                  card (``nvidia-smi``; each holds a CUDA context) and the
+                  supervisor never, no job process and no job on the card
+                  after, the card's memory back, each calm job's launches
+                  equal phase 7's; each job's spawn-to-first-record and wall
+                  seconds.
 
-The last two lines are the card's ``nvidia-smi`` name/power limit and
-``{"ok": true, "device": {...}}``.
+Every phase row carries ``phase_s``, the wall seconds since the row before;
+the ``budget`` row, before the kernels line, gives the script's total
+seconds and its ``BUDGET_HEAVIEST`` heaviest phases.
+
+Depth cut to make room for ``sweep`` (each phase's ``phase_s`` summed,
+before → after the cuts, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+§4): ``FLEET_COMPARE_REQUESTS`` 300 → 40 (``fleet_ramp`` 124.4 →
+62.3 s); ``GROUP_TIMED_RUNS`` 12 → 4, g = 16 and the mirrored turns
+dropped (``group_train_timing`` 49.3 → 12.9 s); the flight recorder's
+child beside ``chaos_digits``' (``flight_recorder`` 35.4 → 0.0 s); the
+``chaos_digits`` hang's ``--watchdog_timeout`` 20 → 10 (44.2 → 35.2 s,
+the flight child included); ``dispatch_resnet50``'s timed runs 6 → 3
+(26.3 → 11.2 s); ``remat``'s 4 → 2 (18.0 → 9.2 s); ``bf16_train``'s 4 →
+2 (``bf16_digits_train_record`` 15.1 → 7.5 s); ``VIT_TIMED_K`` and
+``VISDA_TIMED_K`` (1, 3) → (3,) (13.7 → 6.0 s, 9.8 → 5.1 s);
+``OVERLAP_FLAGS`` 20 steps, a save every 10 → 12, every 6 (9.4 → 9.0 s);
+``FOLDER_TIMED_FLAGS`` 16 → 12 steps (the three ``dispatch_folder`` runs
+26.9 → 19.4 s).  The whole script: 954.5 s with ``sweep`` (125.8 s)
+before the cuts, 703.1 s after (``sweep`` 109.0 s).  The last two lines
+are the card's ``nvidia-smi`` name/power limit and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -654,11 +698,11 @@ RESUME_KEYS = ("train_loss", "eval_loss", "params", "stats")
 SERVED_IMAGES = 8  # test images sent to a server restored from a checkpoint
 # The resilience phases.  The main train path's saves run on the background
 # writer (A, A2, B); run S saves on the loop's thread and is held to A
-# bitwise.  OVERLAP_FLAGS: 20 steps with a save every 10 and no eval, whose
+# bitwise.  OVERLAP_FLAGS: 12 steps with a save every 6 and no eval, whose
 # steps after the first OVERLAP_WARMUP are timed with and without a write
 # in flight (a write lasts ~4 steps, so each kind has several).
-OVERLAP_FLAGS = TRAIN_FLAGS + ["--num_iters", "20", "--check_acc_step", "100",
-                               "--stat_collection_passes", "0", "--ckpt_every_iters", "10"]
+OVERLAP_FLAGS = TRAIN_FLAGS + ["--num_iters", "12", "--check_acc_step", "100",
+                               "--stat_collection_passes", "0", "--ckpt_every_iters", "6"]
 OVERLAP_WARMUP = 2
 # guard: a NaN injected after step 4, a check every 2 steps, saves every 3:
 # a rollback from 4 to the step-3 checkpoint, then (with --guard_lr_backoff)
@@ -675,7 +719,7 @@ PREEMPT_STEP = 4  # a SIGTERM at this step's boundary
 # chaos_digits: the digits CLI in subprocesses, one fault each (8 steps an
 # epoch, a save after each).
 CHAOS_DIGITS = {
-    "hang": ({"hang_at_step": 10}, ["--epochs", "3", "--watchdog_timeout", "20"],
+    "hang": ({"hang_at_step": 10}, ["--epochs", "3", "--watchdog_timeout", "10"],
              {"rc": 113, "steps": [8]}),
     "crash_in_save": ({"crash_in_save": 16}, ["--epochs", "3"],
                       {"rc": 1, "steps": [8], "stderr": "injected crash"}),
@@ -692,11 +736,39 @@ CKPT_PHASES = {  # the kernels line's path → the checkpoint phases on its shap
 
 
 EMITTED = []  # the phase of every row printed, in order
+# Wall seconds per printed row since the row before (``phase_s``), from the
+# script's start: the budget row sums them by phase.
+PHASE_S = []
+_LAST_ROW = [time.perf_counter()]
 
 
 def emit(obj) -> None:
+    """Print one row.  A phase's row carries ``phase_s``, the wall seconds
+    since the previous row (other fields named ``seconds`` keep their own
+    meanings); the contract lines (``kernels``, ``ok``) print as they are."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - _LAST_ROW[0]}
+        _LAST_ROW[0] = now
+        PHASE_S.append((obj["phase"], obj["phase_s"]))
     EMITTED.append(obj.get("phase"))
     print(json.dumps(obj), flush=True)
+
+
+BUDGET_HEAVIEST = 10  # phases named in the budget row, heaviest first
+
+
+def budget_row(started):
+    """The ``budget`` row: the script's wall seconds so far and the
+    ``BUDGET_HEAVIEST`` phases that took most of them (each phase's rows'
+    ``phase_s`` summed)."""
+    by_phase = collections.Counter()
+    for phase, seconds in PHASE_S:
+        by_phase[phase] += seconds
+    return {"phase": "budget", "total_s": time.perf_counter() - started,
+            "rows": len(PHASE_S),
+            "heaviest": [{"phase": k, "seconds": v}
+                         for k, v in by_phase.most_common(BUDGET_HEAVIEST)]}
 
 
 # The warning of autograd's engine when a leaf's gradient accumulates on a
@@ -2507,7 +2579,7 @@ def save_records(records):
 
 
 def overlap_run(torch, cw, officehome, loop, loader, root):
-    """20 steps with a background save every 10 and no eval: each step's
+    """12 steps with a background save every 6 and no eval: each step's
     time (batch to batch) after the first OVERLAP_WARMUP, split by whether
     a write was in flight in it."""
     import statistics
@@ -3240,11 +3312,12 @@ DISPATCH_K = {"resnet50": 3, "digits": 4, "folder": 4}
 # the first 3 (the first step's builds, the capture).
 TIMED_FLAGS = ["--num_iters", "9", "--check_acc_step", "100", "--stat_collection_passes", "0"]
 TIMED_SKIP = 3
-# Timed folder runs: 16 steps without evals, the window after the first 4.
-FOLDER_TIMED_FLAGS = ["--num_iters", "16", "--check_acc_step", "100",
+# Timed folder runs: 12 steps without evals (16 before the smoke's depth
+# cut), the window after the first 4.
+FOLDER_TIMED_FLAGS = ["--num_iters", "12", "--check_acc_step", "100",
                       "--stat_collection_passes", "0"]
 FOLDER_SKIP = 4
-FOLDER_TRACE_FROM = 12  # the last 4 steps traced, out of the step ms
+FOLDER_TRACE_FROM = 8  # the last 4 steps traced, out of the step ms
 DIGITS_DISPATCH = {  # the digits comparison: every step eager, against chunks of 4
     "k1": (1, ["--steps_per_dispatch", "1", "--harvest_depth", "0",
                "--eval_steps_per_dispatch", "1"]),
@@ -3610,12 +3683,13 @@ def dispatch_resnet50(torch, cw, officehome, loop, loader, root, a_records, a_di
             **state_errs(torch, model, a_dir, r_dir)}
     plain = lambda recs: [(r["kind"], r["step"]) for r in recs if r["kind"] not in QUIET_RECORDS]
     same_sequence = plain(records) == plain(a_records)
-    # Three setups in turns: the blocking readback every step, the default
-    # (depth 2), and k steps per dispatch at depth 2.
+    # Three setups, one run each (mirrored turns before the depth cut): the
+    # blocking readback every step, the default (depth 2), and k steps per
+    # dispatch at depth 2.
     setups = {"k1_depth0": (1, SYNC_RECORDS), "k1_depth2": (1, ["--harvest_depth", "2"]),
               f"k{k}_depth2": (k, ["--steps_per_dispatch", str(k), "--harvest_depth", "2"])}
     timed = {key: [] for key in setups}
-    for key in (*setups, *reversed(setups)):
+    for key in setups:
         kk, extra = setups[key]
         tcfg = officehome.config_from_args(officehome.build_parser().parse_args(
             TRAIN_BASE_FLAGS + TIMED_FLAGS + extra))
@@ -3996,7 +4070,7 @@ def bf16_train(torch, cw, officehome, usps_mnist, loop):
     launches, _ = train(torch, cw, officehome, loop,
                         TRAIN_BASE_FLAGS + ["--compute_dtype", "bf16"] + k, "bf16_train")
     step_ms = {"f32": [], "bf16": []}
-    for key in ("f32", "bf16", "bf16", "f32"):
+    for key in ("f32", "bf16"):  # mirrored turns before the depth cut
         flags = TRAIN_BASE_FLAGS + TIMED_FLAGS + k + (
             ["--compute_dtype", "bf16"] if key == "bf16" else [])
         tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
@@ -4060,7 +4134,7 @@ def remat_phase(torch, cw, officehome, loop, device):
                       for k, v in results[False]["stats"].items())
     timed = {"plain": [], "remat": []}
     peak = {"plain": [], "remat": []}
-    for key in ("plain", "remat", "remat", "plain"):
+    for key in ("plain", "remat"):  # mirrored turns before the depth cut
         flags = TRAIN_BASE_FLAGS + TIMED_FLAGS + (["--remat"] if key == "remat" else [])
         tcfg = officehome.config_from_args(officehome.build_parser().parse_args(flags))
         torch.cuda.empty_cache()
@@ -4386,10 +4460,9 @@ def group_kernels(torch, cw, device, rate, timed=GROUP_TIMED):
 GROUP_TRAIN = tuple((dtype, g) for g in GROUP_TIMED for dtype in ("f32", "bf16"))
 GROUP_SAVED = (16, 64)
 GROUP_TRAIN_K = 3
-# group_train's timed runs in mirrored turns: (dtype, g).
-GROUP_TIMED_RUNS = (("f32", 4), ("f32", 16), ("f32", 64), ("f32", 64), ("f32", 16),
-                    ("f32", 4), ("bf16", 4), ("bf16", 16), ("bf16", 64), ("bf16", 64),
-                    ("bf16", 16), ("bf16", 4))
+# group_train's timed runs, (dtype, g): one run each of g = 4 and 64
+# (mirrored turns at g = 4, 16 and 64 before the depth cut).
+GROUP_TIMED_RUNS = (("f32", 4), ("f32", 64), ("bf16", 4), ("bf16", 64))
 GROUP_DIGITS = (16, 48)  # dn1 G = 2 and dn2 G = 3; dn1 clamped to g = 32, dn2 G = 1
 GROUP_SERVED = ((16, "f32"), (16, "bf16"), (64, "f32"), (64, "bf16"))
 GROUP_SERVE_SIZES = (1, 5, 32, 128)  # one request per bucket 1/8/32/128
@@ -4405,8 +4478,7 @@ def group_train(torch, cw, officehome, loop, root):
     (``train``'s checks: 11 moments and 11 apply launches per step, the
     records, moved parameters and stats; the f32 runs at ``GROUP_SAVED``
     save under ``root``); then step ms and peak device memory of
-    ``TIMED_FLAGS`` runs at g = 4, 16 and 64 in mirrored turns
-    (``GROUP_TIMED_RUNS``).  Returns the launches per run and the
+    ``TIMED_FLAGS`` runs at g = 4 and 64 (``GROUP_TIMED_RUNS``).  Returns the launches per run and the
     checkpoints ``{g: (directory, flags)}``."""
     k = ["--steps_per_dispatch", str(GROUP_TRAIN_K)]
     launches, ckpts = {}, {}
@@ -4527,7 +4599,7 @@ VIT_APPLY_SHAPES = (("eval", 10), ("serve_b1", 1), ("serve_b8", 8), ("serve_b32"
 VIT_TIMED_APPLY = ("eval", "serve_b1", "serve_b128")  # timed at g = 4
 VIT_TRAIN_BASE = TRAIN_BASE_FLAGS + ["--backbone", "vit_dwt"]
 VIT_TRAIN_FLAGS = VIT_TRAIN_BASE + SYNC_RECORDS
-VIT_TIMED_K = (1, 3)
+VIT_TIMED_K = (3,)  # (1, 3) before the depth cut
 # Biases whose exact gradient is zero, in every block: attn_k's (a shift of
 # every key by one vector moves each query's scores by a constant, which
 # the softmax removes) and mlp_fc2's (a per-channel shift of the block's
@@ -4552,7 +4624,7 @@ VISDA_BASE = [
     "--seed", "1", "--log_interval", "1", "--ckpt_every_iters", "6",
 ]
 VISDA_FLAGS = VISDA_BASE + SYNC_RECORDS
-VISDA_TIMED_K = (1, 3)
+VISDA_TIMED_K = (3,)  # (1, 3) before the depth cut
 # The apply's sites in the served ResNet101's forward of its one request
 # (SERVED_IMAGES images at that bucket, 224²): ResNet50's 11 site shapes.
 VISDA_SERVE_SITES = tuple((name, m * SERVED_IMAGES // 128, c, n)
@@ -4669,8 +4741,8 @@ def vit_train(torch, cw, officehome, loop, device):
     phase 7's checks at 4 moments and 4 apply launches a step;
     ``vit_reference``: one kernel step against the plain step and a
     float64 step (phase 8's check); ``vit_train_timing``: step ms (CUDA
-    events, ``TIMED_FLAGS``) and peak device memory at k = 1 and 3, f32
-    and bf16.  Returns the launches per dtype."""
+    events, ``TIMED_FLAGS``) and peak device memory at ``VIT_TIMED_K``,
+    f32 and bf16.  Returns the launches per dtype."""
     from dwt_tpu_torch.config import OfficeHomeConfig
 
     launches = {}
@@ -4727,7 +4799,7 @@ def visda_train(torch, cw, officehome, visda, loop, root):
     classes) on synthetic data, phase 7's run and checks (11 moments and
     11 apply launches a step), saving its step-6 checkpoint under
     ``root``; ``visda_train_timing``: step ms (CUDA events,
-    ``TIMED_FLAGS``) and peak device memory at k = 1 and 3.  Returns the
+    ``TIMED_FLAGS``) and peak device memory at ``VISDA_TIMED_K``.  Returns the
     launches and the flags."""
     parser = visda.build_parser()
     flags = VISDA_FLAGS + ["--ckpt_dir", os.path.join(root, "visda")]
@@ -5493,24 +5565,29 @@ FLEET_EXTRA_LEVELS = 3  # 3× levels after the ramp while no scale-up has landed
 # The balancer against one replica: one client, one request at a time,
 # alternately through the balancer and straight to replica 0,
 # FLEET_COMPARE_REQUESTS each way (no load to queue behind, no scale event).
-FLEET_COMPARE_REQUESTS = 300
+FLEET_COMPARE_REQUESTS = 40  # 300 before the smoke's depth cut
 FLEET_RAMP_STEP_S = 8.0  # 4 levels: the scale-up lands inside the ramp
 FLEET_WAIT_S = 180
 
 
-def gpu_apps():
-    """``{pid: MiB}`` of the processes holding the card, as ``nvidia-smi
+def gpu_app_list():
+    """``[(pid, MiB)]``, one per process holding the card, as ``nvidia-smi
     --query-compute-apps`` reports them.  Where the processes run in a pid
     namespace of their own, every one reads as pid 1, so the phases record
-    this and hold processes to :func:`cuda_context`."""
+    this and hold processes to :func:`cuda_context` (and count them)."""
     out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
                           "--format=csv,noheader,nounits"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    apps = {}
+    apps = []
     for line in out.strip().splitlines():
         pid, mib = (v.strip() for v in line.split(","))
-        apps[int(pid)] = float(mib)
+        apps.append((int(pid), float(mib)))
     return apps
+
+
+def gpu_apps():
+    """``{pid: MiB}`` of :func:`gpu_app_list`."""
+    return dict(gpu_app_list())
 
 
 def cuda_context(pid):
@@ -6419,18 +6496,26 @@ def serve_trace(torch, cw, server, root):
     return launches
 
 
-def flight_recorder(root):
-    """Phase ``flight_recorder`` (module docstring, phase 50): the hung
-    child alone on the card, after every timed phase."""
-    from dwt_tpu_torch.resilience import WATCHDOG_EXIT_CODE, inject
+def start_flight_recorder(root):
+    """Start phase ``flight_recorder``'s hung child (module docstring,
+    phase 50); :func:`flight_recorder` waits for it and checks it."""
+    from dwt_tpu_torch.resilience import inject
 
-    t0 = time.perf_counter()
     ck = os.path.join(root, "flight")
     env = {**os.environ, inject.ENV_VAR: json.dumps(FLIGHT_PLAN), "DWT_OBS_TRACE": "1"}
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen([sys.executable, "-c", CHAOS_CHILD, *FLIGHT_FLAGS,
                              "--ckpt_dir", ck], cwd=here, env=env,
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, ck, time.perf_counter()
+
+
+def flight_recorder(started):
+    """Phase ``flight_recorder`` (module docstring, phase 50): the hung
+    child ``started`` by :func:`start_flight_recorder`."""
+    from dwt_tpu_torch.resilience import WATCHDOG_EXIT_CODE
+
+    proc, ck, t0 = started
     try:
         _, err = proc.communicate(timeout=300)
     finally:
@@ -6456,6 +6541,335 @@ def flight_recorder(root):
     if problems or not {"step_dispatch", "boundary"} & names:
         raise AssertionError(f"flight recorder: problems {problems[:5]}, spans {names}")
     return row
+
+
+# The sweep phase: the port's sweep supervisor (``python -m
+# dwt_tpu_torch.sweep.cli`` through SWEEP_SUPERVISOR, a launcher written
+# under the phase's directory) over the flagship's two OfficeHome pairs, two
+# ResNet50-DWT jobs sharing the card.  The jobs start through SWEEP_JOB,
+# which sets cuDNN's deterministic algorithms (and TF32 off, as this
+# script does) before it runs ``dwt_tpu_torch.cli.officehome_sweep``, and
+# writes the job's kernel launches and clock stamps beside its run at exit;
+# the run directory stays on the job's command line, so the supervisor's
+# adoption check (pid and cmdline token) reads it as before.
+SWEEP_PAIRS = "Art:Clipart,Clipart:Art"
+SWEEP_TAGS = ("Art2Clipart", "Clipart2Art")
+SWEEP_JOB_FLAGS = TRAIN_FLAGS + ["--ckpt_every_iters", "3", "--device", "cuda"]
+# A crash respawn waits 10 s: the preempted pair's free reschedule comes
+# first, so the supervisor dies (schedule event 3) with the crash charged.
+# GC spares blobs younger than 10 s: a save writes its blobs before its
+# staged manifest (~2 s for ResNet50-DWT's 190 MB), and at a 2 s guard the
+# supervisor's GC swept a save in flight, whose promote then failed.
+SWEEP_FLAGS = ["--pairs", SWEEP_PAIRS, "--slots", "2", "--gc_every_polls", "5",
+               "--gc_min_age_s", "10", "--metrics_port", "0", "--poll_interval_s", "0.2",
+               "--job_backoff_s", "10"]
+SWEEP_CHAOS = {"sweep_job_kill_mid_save": ["Art2Clipart"],
+               "sweep_preempt_pairs": ["Clipart2Art"], "kill_supervisor_at_schedule": 3}
+SWEEP_WAIT_S = 300  # one supervisor run's limit
+SWEEP_MEMORY_SLACK_MIB = 512  # the card's memory after the phase, against before
+SWEEP_JOB = """\
+import atexit, json, os, runpy, sys, time
+STARTED = time.time()
+sys.path.insert(0, {repo!r})
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from dwt_tpu_torch.ops import cuda_whitening as cw
+from dwt_tpu_torch.utils import metrics
+first, first_train = [], []
+emit = metrics.MetricLogger._emit
+def stamped(self, kind, *args, **kwargs):
+    for seen, wanted in ((first, True), (first_train, kind == "train")):
+        if wanted and not seen:
+            seen.append(time.time())
+    return emit(self, kind, *args, **kwargs)
+metrics.MetricLogger._emit = stamped
+args = sys.argv[1:]
+run_dir = os.path.dirname(args[args.index("--results_json") + 1])
+def dump():
+    with open(os.path.join(run_dir, "job-%d.json" % os.getpid()), "w") as f:
+        json.dump({{"pid": os.getpid(), "started": STARTED,
+                    "first_record": first[0] if first else None,
+                    "first_train": first_train[0] if first_train else None, "ended": time.time(),
+                    "moments": cw.moments_launches, "apply": cw.apply_launches}}, f)
+atexit.register(dump)
+sys.argv = [args[1]] + args[2:]
+runpy.run_module(args[1], run_name="__main__", alter_sys=True)
+"""
+SWEEP_SUPERVISOR = """\
+import sys
+sys.path.insert(0, {repo!r})
+from dwt_tpu_torch.sweep import cli
+make = cli.make_argv_fn
+def make_argv_fn(job_argv, blob_store, python=sys.executable):
+    build = make(job_argv, blob_store, python)
+    return lambda spec: [python, {job!r}] + build(spec)[1:]
+cli.make_argv_fn = make_argv_fn
+sys.exit(cli.main())
+"""
+
+
+def sweep_processes(token):
+    """Pids of the live processes whose command line holds ``token`` (the
+    phase's directory: the supervisor and every job)."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmdline = f.read().decode("utf-8", "replace")
+            with open(f"/proc/{name}/stat") as f:
+                zombie = f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except OSError:
+            continue
+        if token in cmdline and not zombie:
+            pids.append(int(name))
+    return pids
+
+
+def sweep_jobs(root):
+    """Each job's exit stamps and launches (``SWEEP_JOB``'s files), by pair."""
+    out = {}
+    for tag in SWEEP_TAGS:
+        run = os.path.join(root, tag)
+        for name in sorted(os.listdir(run)) if os.path.isdir(run) else []:
+            if name.startswith("job-") and name.endswith(".json"):
+                with open(os.path.join(run, name)) as f:
+                    out.setdefault(tag, []).append(json.load(f))
+    return out
+
+
+def sweep_records(root, tag, kind):
+    path = os.path.join(root, tag, f"metrics.{tag}.jsonl")
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+class SupervisorRun:
+    """One supervisor process over ``root`` (its output in
+    ``<root>-supervisor.log``) and the watch that samples it."""
+
+    def __init__(self, launcher, root, watch, plan=None):
+        from dwt_tpu_torch.resilience import inject
+
+        env = {k: v for k, v in os.environ.items() if k != inject.ENV_VAR}
+        if plan is not None:
+            env[inject.ENV_VAR] = json.dumps(plan)
+        self.watch, self.seconds = watch, None
+        self.log_path = root + "-supervisor.log"
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "ab") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, launcher, "--sweep_root", root, *SWEEP_FLAGS, "--",
+                 *SWEEP_JOB_FLAGS], stdout=log, stderr=subprocess.STDOUT, env=env)
+
+    def tail(self):
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+
+def supervise(run):
+    """Sample ``run``'s supervisor every 0.25 s until it exits; past
+    ``SWEEP_WAIT_S`` the phase fails (the caller kills what is left)."""
+    while run.proc.poll() is None:
+        if time.perf_counter() - run.t0 > SWEEP_WAIT_S:
+            raise AssertionError(f"sweep supervisor over {SWEEP_WAIT_S} s: {run.tail()}")
+        run.watch(run.proc)
+        time.sleep(0.25)
+    run.seconds = time.perf_counter() - run.t0
+
+
+class SweepWatch:
+    """What the phase samples while a supervisor runs: the processes
+    ``nvidia-smi`` lists (and whether the supervisor holds a CUDA context),
+    the card's memory, and, given the supervisor's ``/metrics`` port, its
+    aggregated scrape."""
+
+    def __init__(self, root, scrape=False):
+        self.root, self.scrape = root, scrape
+        self.card_pids, self.supervisor_context, self.card_mib = set(), False, []
+        self.card_apps = []  # processes nvidia-smi lists, per sample
+        self.job_contexts, self.port, self.scrapes = {}, None, []
+        self.supervisor_pid = None
+
+    def __call__(self, proc):
+        self.supervisor_pid = proc.pid
+        apps = gpu_app_list()
+        self.card_pids |= {pid for pid, _ in apps}
+        self.card_apps.append(len(apps))
+        self.card_mib.append(gpu_memory_used())
+        self.supervisor_context |= cuda_context(proc.pid)
+        for pid in sweep_processes(self.root):
+            if pid != proc.pid:
+                try:
+                    self.job_contexts[pid] = self.job_contexts.get(pid) or cuda_context(pid)
+                except OSError:
+                    pass
+        if self.scrape:
+            self._scrape(proc)
+
+    def _scrape(self, proc):
+        import re
+        import urllib.request
+
+        from dwt_tpu_torch.obs import prom
+
+        if self.port is None:
+            with open(self.root + "-supervisor.log") as f:
+                found = re.search(r"aggregated /metrics on port (\d+)", f.read())
+            self.port = int(found.group(1)) if found else None
+        if self.port is None:
+            return
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/metrics",
+                                        timeout=2) as resp:
+                text = resp.read().decode()
+        except OSError:
+            return
+        pairs = sorted(t for t in SWEEP_TAGS
+                       if f'dwt_train_steps_total{{pair="{t}"}}' in text)
+        self.scrapes.append({"pairs": pairs, "problems": prom.validate_exposition(text)[:3],
+                             "sweep_pairs": "dwt_sweep_pairs{" in text})
+
+
+def sweep_phase(root, train_launches):
+    """Phase ``sweep`` (module docstring, phase 51).  Returns the calm
+    jobs' launches per kernel, summed over the pairs."""
+    smi = nvidia_smi()
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = os.path.join(root, "sweep_job.py")
+    launcher = os.path.join(root, "sweep_supervisor.py")
+    with open(job, "w") as f:
+        f.write(SWEEP_JOB.format(repo=here))
+    with open(launcher, "w") as f:
+        f.write(SWEEP_SUPERVISOR.format(repo=here, job=job))
+    calm, chaos = os.path.join(root, "calm"), os.path.join(root, "chaos")
+    card_before, apps_before = gpu_memory_used(), len(gpu_app_list())
+    t0 = time.perf_counter()
+    leftover = []
+    try:
+        watch, chaos_watch = SweepWatch(calm, scrape=True), SweepWatch(chaos)
+        calm_run = SupervisorRun(launcher, calm, watch)
+        supervise(calm_run)
+        if calm_run.proc.returncode != 0:
+            raise AssertionError(f"calm sweep rc {calm_run.proc.returncode}: "
+                                 f"{calm_run.tail()}")
+        chaos_run = SupervisorRun(launcher, chaos, chaos_watch, SWEEP_CHAOS)
+        supervise(chaos_run)
+        rc1 = chaos_run.proc.returncode
+        if rc1 != -signal.SIGKILL:
+            raise AssertionError(f"chaos sweep rc {rc1}, not SIGKILL: {chaos_run.tail()}")
+        from dwt_tpu_torch.sweep.journal import JOURNAL_NAME, SweepJournal
+
+        if SweepJournal.load(os.path.join(chaos, JOURNAL_NAME)).all_settled():
+            raise AssertionError("the chaos supervisor died with its journal settled")
+        adopted_alive = sweep_processes(chaos)
+        relaunch = SupervisorRun(launcher, chaos, chaos_watch)
+        supervise(relaunch)
+        rc2 = relaunch.proc.returncode
+        if rc2 != 0:
+            raise AssertionError(f"relaunch rc {rc2}: {relaunch.tail()}")
+        calm_s, chaos_s, relaunch_s = calm_run.seconds, chaos_run.seconds, relaunch.seconds
+    finally:
+        for token in (calm, chaos):  # any supervisor or job still alive
+            for pid in sweep_processes(token):
+                leftover.append(pid)
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    time.sleep(2.0)  # the killed jobs' CUDA contexts are torn down
+    card_after, apps_after = gpu_memory_used(), gpu_app_list()
+    with open(os.path.join(calm, "results.json")) as f:
+        calm_res = json.load(f)
+    with open(os.path.join(chaos, "results.json")) as f:
+        chaos_res = json.load(f)
+    digests = {name: {tag: sweep_records(r, tag, "params_digest")[-1] for tag in SWEEP_TAGS}
+               for name, r in (("calm", calm), ("chaos", chaos))}
+    trees = [os.path.join(chaos, tag, "ckpt", tag) for tag in SWEEP_TAGS]
+    fsck = subprocess.run([sys.executable, os.path.join(here, "tools", "torch_ckpt_fsck.py"),
+                           "--store", os.path.join(chaos, "blobs"), *trees, "--json"],
+                          capture_output=True, text=True, timeout=120)
+    report = json.loads(fsck.stdout)
+    jobs = {name: sweep_jobs(r) for name, r in (("calm", calm), ("chaos", chaos))}
+    calm_launches = {tag: [{"moments": j["moments"], "apply": j["apply"]} for j in js]
+                     for tag, js in jobs["calm"].items()}
+    since = lambda j, key: j[key] - j["started"] if j[key] else None
+    timing = {name: {tag: [{"spawn_to_first_record_s": since(j, "first_record"),
+                            "spawn_to_first_train_s": since(j, "first_train"),
+                            "wall_s": j["ended"] - j["started"]} for j in js]
+                     for tag, js in by.items()} for name, by in jobs.items()}
+    job_pids = set(watch.job_contexts)
+    row = {"phase": "sweep", "card": smi, "seconds": time.perf_counter() - t0,
+           "supervisor_s": {"calm": calm_s, "chaos": chaos_s, "relaunch": relaunch_s},
+           "rc": {"calm": 0, "chaos": rc1, "relaunch": rc2},
+           "pairs": {"calm": calm_res["pairs"], "chaos": chaos_res["pairs"]},
+           "params_sha256": {name: {tag: d["sha256"] for tag, d in by.items()}
+                             for name, by in digests.items()},
+           "respawns": chaos_res["respawns"], "preempt_resumes": chaos_res["preempt_resumes"],
+           "quarantined": chaos_res["quarantined"], "gc_swept_bytes": chaos_res["gc_swept_bytes"],
+           "jobs_alive_at_relaunch": len(adopted_alive),
+           "fsck": {k: report[k] for k in ("blobs_on_disk", "blobs_referenced",
+                                           "blobs_missing", "blobs_orphaned",
+                                           "valid_candidates", "torn_candidates")},
+           "fsck_rc": fsck.returncode, "launches": calm_launches,
+           "train_launches": train_launches, "jobs": timing,
+           "metrics_scrapes": len(watch.scrapes),
+           "metrics_pairs": sorted({t for sc in watch.scrapes for t in sc["pairs"]}),
+           "metrics_problems": [sc["problems"] for sc in watch.scrapes if sc["problems"]][:3],
+           "card_pids_seen": sorted(watch.card_pids | chaos_watch.card_pids),
+           "card_apps": {"before": apps_before, "most_in_calm": max(watch.card_apps),
+                         "most_in_chaos": max(chaos_watch.card_apps),
+                         "after": len(apps_after)},
+           "job_contexts": {str(k): v for k, v in sorted(watch.job_contexts.items())},
+           "supervisor_context": watch.supervisor_context or chaos_watch.supervisor_context,
+           "card_mib": {"before": card_before, "after": card_after,
+                        "peak": max(watch.card_mib + chaos_watch.card_mib)},
+           "leftover_pids": leftover}
+    emit(row)
+    problems = []
+    if calm_res["completed"] != 2 or chaos_res["completed"] != 2 or chaos_res["quarantined"]:
+        problems.append("a pair did not complete")
+    if row["params_sha256"]["calm"] != row["params_sha256"]["chaos"]:
+        problems.append("chaos parameters differ from calm")
+    if calm_res["pairs"] != chaos_res["pairs"]:
+        problems.append("chaos accuracies differ from calm")
+    if chaos_res["preempt_resumes"] != {"Clipart2Art": 1}:
+        problems.append(f"preempt_resumes {chaos_res['preempt_resumes']}")
+    if chaos_res["respawns"] != {"Art2Clipart": 1}:
+        problems.append(f"respawns {chaos_res['respawns']}")
+    if report["blobs_missing"] != 0 or report["blobs_on_disk"] <= 0:
+        problems.append(f"store audit {row['fsck']}")
+    if not watch.scrapes or row["metrics_pairs"] != sorted(SWEEP_TAGS) or \
+            row["metrics_problems"] or not all(sc["sweep_pairs"] for sc in watch.scrapes):
+        problems.append("the supervisor's /metrics")
+    if row["supervisor_context"] or watch.supervisor_pid in row["card_pids_seen"]:
+        problems.append("the supervisor held a CUDA context")
+    if not job_pids or not all(watch.job_contexts.values()):
+        problems.append(f"job contexts {row['job_contexts']}")
+    # nvidia-smi lists the jobs beside this process while they run (by pid,
+    # or, in a pid namespace of their own, each as pid 1: then by count) and
+    # none after the phase.
+    if not job_pids & set(row["card_pids_seen"]) and (
+            set(row["card_pids_seen"]) != {1} or max(watch.card_apps) < apps_before + 2):
+        problems.append(f"nvidia-smi listed no job: {row['card_apps']}")
+    if {pid for pid, _ in apps_after} & (job_pids | set(chaos_watch.job_contexts)) or \
+            len(apps_after) > apps_before:
+        problems.append(f"a job is still on the card: {row['card_apps']}")
+    if card_after > card_before + SWEEP_MEMORY_SLACK_MIB:
+        problems.append(f"card memory {card_before} -> {card_after} MiB")
+    if leftover:
+        problems.append(f"processes left running: {leftover}")
+    for tag in SWEEP_TAGS:
+        if calm_launches.get(tag) != [dict(train_launches)]:
+            problems.append(f"{tag} launches {calm_launches.get(tag)} != {train_launches}")
+    if problems:
+        raise AssertionError(f"sweep: {problems}")
+    return {part: sum(js[0][part] for js in calm_launches.values())
+            for part in ("moments", "apply")}
 
 
 SERVING_PER = {
@@ -6767,6 +7181,15 @@ def kernels_line(torch, r):
             + group_rows(r, floor))
     rows += backbone_rows(r, floor, rows)
     rows += serving_rows(r, floor)
+    # The sweep's calm jobs run the flagship train path's shapes in their own
+    # processes: their launches (each job's own counters), the train rows'
+    # errors and times.
+    base = {row["path"] + "/" + row["name"]: row for row in rows}
+    rows += [{**base[f"train/whiten_{part}"], "launches": r["sweep_launches"][part],
+              "path": "sweep", "carried_from": "train",
+              "per": base[f"train/whiten_{part}"]["per"] + ", in the two supervised "
+                     "jobs of the calm sweep (python -m dwt_tpu_torch.sweep.cli)"}
+             for part in ("apply", "moments")]
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -6778,6 +7201,7 @@ def kernels_line(torch, r):
 
 
 def main() -> int:
+    started = _LAST_ROW[0] = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -6902,7 +7326,11 @@ def main() -> int:
         ck["digits_ckpt"], ck["digits_ckpt_serve"] = digits_ckpt(
             torch, cw, usps_mnist, loop, loader, server, root, device)
         ck["convert"] = convert_phase(torch, cw, officehome, loop, loader, root)
+        # The flight recorder's hung child runs beside chaos_digits' four
+        # (its own phase row, after theirs): no timed phase runs then.
+        flight = start_flight_recorder(root)
         ck["chaos_digits"] = chaos_digits(torch, root)
+        r["flight_recorder"] = flight_recorder(flight)
         resnet_dispatch = dispatch_resnet50(torch, cw, officehome, loop, loader, root,
                                             a_records, a_dir)
     k4 = DISPATCH_K["folder"]
@@ -6954,12 +7382,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="trace-", dir=build) as root:
         r["train_trace"] = train_trace(torch, cw, officehome, usps_mnist, loop, loader, root)
         r["serve_trace"] = serve_trace(torch, cw, server, root)
-        r["flight_recorder"] = flight_recorder(root)
+    torch.cuda.empty_cache()  # the sweep's jobs share the card with this process
+    with tempfile.TemporaryDirectory(prefix="sweep-", dir=build) as root:
+        r["sweep_launches"] = sweep_phase(root, r["train_launches"])
     shown = caught.rows()
     emit({"phase": "warnings", "warnings": shown})
     stream = [w for w in shown if STREAM_WARNING in w["message"]]
     if stream:
         raise AssertionError(f"a gradient accumulated across streams: {stream}")
+    emit(budget_row(started))
     emit({"kernels": kernels_line(torch, r)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

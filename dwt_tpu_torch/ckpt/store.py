@@ -22,6 +22,9 @@ store writes, per save, only the leaves whose content moved:
   root references, sparing blobs younger than ``GC_MIN_AGE_S``; pruning is
   chain-aware (``utils.checkpoint.prune_checkpoints``).
 
+Chain resolution, validation and GC read no torch: they live in
+``dwt_tpu_torch.ckpt.layout`` and are re-exported here under their names.
+
 The port writes the leaves of ``TrainState.state_dict()`` under their
 paths (``['model']['conv1.weight']``, ``['optimizer']['state'][0]
 ['momentum_buffer']``), every tensor as its contiguous CPU copy — a
@@ -46,12 +49,22 @@ import logging
 import os
 import shutil
 import time
-from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from dwt_tpu_torch.ckpt.layout import (  # noqa: F401 — re-exported, torch-free
+    BLOBS_DIR,
+    GC_MIN_AGE_S,
+    ResolvedChain,
+    _blob_path,
+    _blobs_invalid_reason,
+    _iter_manifest_dirs,
+    cas_invalid_reason,
+    gc_blobs,
+    resolve_leaves,
+)
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.utils.checkpoint import (
     CAS_FORMAT,
@@ -71,14 +84,8 @@ from dwt_tpu_torch.utils.checkpoint import (
 
 log = logging.getLogger(__name__)
 
-BLOBS_DIR = "blobs"
 _CAS_TMP = _TMP_PREFIX + "cas-"  # still .tmp-*: invisible to valid_steps
 DEFAULT_DELTA_MAX_CHAIN = 8
-# A blob younger than this is never swept, referenced or not: it may belong
-# to a save whose manifest has not finalized yet, or have just been reused.
-GC_MIN_AGE_S = 3600.0
-# Ceiling on chain walks: a corrupted parent_step cycle ends as invalid.
-_CHAIN_HARD_CAP = 512
 # The manifest key that marks a chain the port wrote.
 TORCH_META = "torch_meta"
 
@@ -115,10 +122,6 @@ def _leaf_digest(dtype: np.dtype, shape: Tuple[int, ...], raw: bytes) -> str:
     h.update(repr(tuple(int(s) for s in shape)).encode())
     h.update(raw)
     return h.hexdigest()
-
-
-def _blob_path(store_root: str, digest: str) -> str:
-    return os.path.join(store_root, digest[:2], digest + ".bin")
 
 
 def _write_blob(store_root: str, digest: str, raw: bytes) -> int:
@@ -182,84 +185,6 @@ def _payload_from_leaves(arrays: Dict[str, np.ndarray], meta: dict) -> Dict[str,
     return {"model": model,
             "optimizer": {"state": state, "param_groups": meta["param_groups"]},
             "step": int(meta["step"]), "lr_scale": float(meta.get("lr_scale", 1.0))}
-
-
-# ------------------------------------------------------- chain resolution
-
-
-@dataclass
-class ResolvedChain:
-    """One candidate's fully resolved leaf table."""
-
-    manifest: dict                        # the newest (candidate) manifest
-    entries: Dict[str, Tuple[dict, str]]  # key path -> (entry, store)
-    chain_dirs: List[str]                 # candidate-first manifest dirs
-
-
-def resolve_leaves(step_dir: str, manifest: Optional[dict] = None) -> ResolvedChain:
-    """Resolve ``step_dir``'s leaf table through its parent chain (sibling
-    step directories; a ``.tmp-cas-*`` stage resolves as a promoted one).
-    Raises ``ValueError`` naming the first broken link.  Blob existence is
-    :func:`cas_invalid_reason`'s second phase."""
-    entries: Dict[str, Tuple[dict, str]] = {}
-    chain_dirs: List[str] = []
-    cur_dir = os.path.abspath(step_dir)
-    cur = manifest if manifest is not None else _read_manifest(cur_dir)
-    newest = cur
-    hops = 0
-    while True:
-        if cur is None:
-            raise ValueError(f"unreadable manifest at {cur_dir}"
-                             + (" (torn/pruned parent of the chain)" if hops else ""))
-        if cur.get("format") != CAS_FORMAT:
-            raise ValueError(f"{cur_dir} is not a {CAS_FORMAT} checkpoint — a delta "
-                             "cannot chain onto a whole-tree-format parent")
-        store = os.path.normpath(os.path.join(cur_dir, cur.get("blob_root", "../" + BLOBS_DIR)))
-        for entry in cur.get("leaves", []):
-            entries.setdefault(entry["path"], (entry, store))
-        chain_dirs.append(cur_dir)
-        parent = cur.get("parent_step")
-        if cur.get("mode") == "full":
-            break
-        if parent is None:
-            raise ValueError(f"delta manifest at {cur_dir} has no parent_step")
-        if int(parent) >= int(cur.get("step", -1)):
-            raise ValueError(f"manifest at {cur_dir} chains to parent step {parent} "
-                             ">= its own step (cycle)")
-        hops += 1
-        if hops > _CHAIN_HARD_CAP:
-            raise ValueError(f"delta chain under {step_dir} exceeds {_CHAIN_HARD_CAP} links")
-        cur_dir = os.path.join(os.path.dirname(cur_dir), str(int(parent)))
-        cur = _read_manifest(cur_dir)
-    want = newest.get("leaf_count")
-    if want is not None and len(entries) != int(want):
-        raise ValueError(f"chain under {step_dir} resolves {len(entries)} leaves; the "
-                         f"manifest expects {want} (incomplete/mismatched chain)")
-    return ResolvedChain(manifest=newest, entries=entries, chain_dirs=chain_dirs)
-
-
-def _blobs_invalid_reason(resolved: ResolvedChain) -> Optional[str]:
-    for path, (entry, store) in resolved.entries.items():
-        blob = _blob_path(store, entry["digest"])
-        try:
-            size = os.path.getsize(blob)
-        except OSError:
-            return (f"missing blob {entry['digest'][:12]}… for leaf {path} "
-                    "(torn or swept parent blob)")
-        if size != int(entry["nbytes"]):
-            return (f"truncated blob {entry['digest'][:12]}… for leaf {path} "
-                    f"({size} bytes on disk, manifest says {entry['nbytes']})")
-    return None
-
-
-def cas_invalid_reason(step_dir: str, manifest: Optional[dict] = None) -> Optional[str]:
-    """None when ``step_dir`` is a restorable cas checkpoint (chain and
-    every blob at its size), else a one-line reason."""
-    try:
-        resolved = resolve_leaves(step_dir, manifest)
-    except ValueError as e:
-        return str(e)
-    return _blobs_invalid_reason(resolved)
 
 
 # ------------------------------------------------------------------ saving
@@ -419,85 +344,6 @@ def save_delta(ckpt_dir: str, step: int, state, *,
     stage_delta(ckpt_dir, step, leaves, digest=digest, extra=extra,
                  store_root=store_root, delta_max_chain=delta_max_chain)
     return promote_delta(ckpt_dir, step, keep=keep, store_root=store_root, gc=gc)
-
-
-# -------------------------------------------------------------------- GC
-
-
-def _iter_manifest_dirs(root: str) -> Iterable[str]:
-    """Every directory under ``root`` (depth <= 2) holding a manifest: main
-    steps, ``.tmp-*`` stages, ``anchors/`` and ``best_gr_*/`` steps."""
-    try:
-        names = os.listdir(root)
-    except OSError:
-        return
-    for name in names:
-        p = os.path.join(root, name)
-        if name == BLOBS_DIR or not os.path.isdir(p):
-            continue
-        if os.path.exists(os.path.join(p, MANIFEST)):
-            yield p
-            continue
-        try:
-            subnames = os.listdir(p)
-        except OSError:
-            continue
-        for sub in subnames:
-            q = os.path.join(p, sub)
-            if os.path.isdir(q) and os.path.exists(os.path.join(q, MANIFEST)):
-                yield q
-
-
-def gc_blobs(store_root: str, min_age_s: float = GC_MIN_AGE_S,
-             manifest_roots: Optional[List[str]] = None) -> Tuple[int, int]:
-    """Sweep blobs referenced by no cas manifest under the store's parent
-    (or under every one of ``manifest_roots``); returns ``(files, bytes)``
-    swept.  Blobs younger than ``min_age_s`` stay.  With no manifest at
-    all it sweeps nothing (a store sited away from its manifests)."""
-    store = os.path.abspath(store_root)
-    roots = ([os.path.abspath(os.path.expanduser(r)) for r in manifest_roots]
-             if manifest_roots is not None else [os.path.dirname(store)])
-    referenced = set()
-    for root in roots:
-        for d in _iter_manifest_dirs(root):
-            manifest = _read_manifest(d)
-            if manifest is None or manifest.get("format") != CAS_FORMAT:
-                continue
-            referenced.update(e["digest"] for e in manifest.get("leaves", []))
-    if not referenced:
-        log.warning("blob GC skipped: no cas manifests found under %s", ", ".join(roots))
-        return 0, 0
-    swept = swept_bytes = 0
-    now = time.time()
-    try:
-        shards = os.listdir(store)
-    except OSError:
-        return 0, 0
-    for shard in shards:
-        sdir = os.path.join(store, shard)
-        if not os.path.isdir(sdir):
-            continue
-        for name in os.listdir(sdir):
-            if name.endswith(".bin") and name[:-4] in referenced:
-                continue
-            blob = os.path.join(sdir, name)
-            try:
-                st = os.stat(blob)
-                if now - st.st_mtime < min_age_s:
-                    continue
-                os.remove(blob)
-                swept += 1
-                swept_bytes += st.st_size
-            except OSError:
-                continue
-        try:
-            os.rmdir(sdir)  # an empty fan-out directory
-        except OSError:
-            pass
-    if swept:
-        log.info("checkpoint blob GC: swept %d unreferenced blobs (%d bytes) under %s",
-                 swept, swept_bytes, store)
-    return swept, swept_bytes
 
 
 # ----------------------------------------------------------------- restore

@@ -43,6 +43,14 @@ real fault would strike, so every recovery path can be driven on demand:
   the dispatcher ``sleep_s`` per batch — a straggler that answers probes
   and serves slowly, so the weighted router, not the prober, must starve
   it.
+* the sweep kinds, which the sweep supervisor (``dwt_tpu_torch.sweep``)
+  consults: ``maybe_kill_supervisor_at_schedule(event)`` SIGKILLs the
+  supervisor inside its Nth scheduling event, after the journal records
+  the spawn and before it happens; ``take_sweep_preempt(tag)`` says, once
+  per armed pair tag, to preempt that pair's running job (notice file,
+  then SIGTERM); ``take_sweep_job_fault(tag)`` yields, once per armed tag,
+  the ``DWT_FAULT_PLAN`` the supervisor puts in that pair's next spawn
+  environment (``kill_mid_delta_promote``: the job dies inside a save).
 
 All hooks are no-ops (one ``is None`` check) unless a plan is armed.  Arm
 with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
@@ -50,8 +58,9 @@ with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
 packages share.  Every fault fires at most once per arm (each element of a
 burst once).
 
-The JAX package's host-shard and sweep-supervisor kinds are not ported: a plan naming one raises with the ROADMAP item that
-takes it, since a plan that silently injects nothing proves nothing.
+The JAX package's host-shard kind is not ported: a plan naming it raises
+with the ROADMAP item that takes it, since a plan that silently injects
+nothing proves nothing.
 """
 
 from __future__ import annotations
@@ -71,9 +80,6 @@ ENV_VAR = "DWT_FAULT_PLAN"
 # the ROADMAP queue 1 item that takes each.
 UNPORTED_KINDS = {
     "kill_writer_mid_shard": "item 8 (multi-host host-shard writes)",
-    "kill_supervisor_at_schedule": "item 9 (sweeps)",
-    "sweep_preempt_pairs": "item 9 (sweeps)",
-    "sweep_job_kill_mid_save": "item 9 (sweeps)",
 }
 
 
@@ -148,6 +154,26 @@ def _role_items(spec: dict, field: str) -> Optional[Dict[str, List[int]]]:
                              f"'target'; got {role!r}")
         out[role] = _as_step_list(ids, f"{field}[{role!r}]", minimum=0)
     return out
+
+
+def _tag_list(spec: dict, field: str) -> Optional[List[str]]:
+    """A validated pair-tag list spec (a scalar string allowed)."""
+    value = spec.get(field)
+    if value is None:
+        return None
+    items = value if isinstance(value, list) else [value]
+    if not items:
+        raise ValueError(f"{ENV_VAR}: {field} must name at least one pair tag "
+                         "— an empty list injects nothing")
+    tags = []
+    for v in items:
+        if not isinstance(v, str) or not v:
+            raise ValueError(f"{ENV_VAR}: {field} entries must be non-empty "
+                             f"pair tags like 'Art2Clipart'; got {v!r}")
+        tags.append(v)
+    if len(set(tags)) != len(tags):
+        raise ValueError(f"{ENV_VAR}: duplicate tags in {field}: {tags}")
+    return tags
 
 
 def _drift_shift(drift: Any) -> Optional[Dict[str, Any]]:
@@ -265,6 +291,13 @@ class FaultPlan:
     notice_at_step: Optional[int] = None
     kill_mid_delta_promote: Any = None  # True = next promote; int = that step
     missing_parent_blob: Optional[int] = None
+    # The sweep supervisor's kinds: SIGKILL the supervisor inside its Nth
+    # scheduling event (1-based), between the journal write and the spawn;
+    # the pair tags preempted (notice, then SIGTERM) the first time each is
+    # seen running; the pair tags whose first spawn dies inside a save.
+    kill_supervisor_at_schedule: Optional[int] = None
+    sweep_preempt_pairs: Optional[List[str]] = None
+    sweep_job_kill_mid_save: Optional[List[str]] = None
     # 0-based request indices whose payload becomes garbage (NaN / Inf /
     # out-of-band magnitude, cycling by index); one-shot per index.
     serve_poison_requests: Optional[List[int]] = None
@@ -348,6 +381,9 @@ class FaultPlan:
             notice_at_step=notice,
             kill_mid_delta_promote=_true_or_step(spec, "kill_mid_delta_promote"),
             missing_parent_blob=_opt_int(spec, "missing_parent_blob"),
+            kill_supervisor_at_schedule=_opt_int(spec, "kill_supervisor_at_schedule"),
+            sweep_preempt_pairs=_tag_list(spec, "sweep_preempt_pairs"),
+            sweep_job_kill_mid_save=_tag_list(spec, "sweep_job_kill_mid_save"),
         )
 
     @classmethod
@@ -654,3 +690,45 @@ def maybe_replica_slow() -> None:
     if plan is None or not plan.replica_slow_at:
         return
     time.sleep(float(plan.replica_slow_at["sleep_s"]))
+
+
+def maybe_kill_supervisor_at_schedule(event: int) -> None:
+    """SIGKILL the sweep supervisor if armed for its ``event``-th scheduling
+    event (1-based).  Called between the journal update that records the
+    pair as scheduled and the job's spawn — the ordering that leaves the
+    journal claiming a job that never started: the relaunched supervisor
+    must reschedule it, not wait on a ghost."""
+    plan = current()
+    if plan is None or plan.kill_supervisor_at_schedule is None:
+        return
+    if int(plan.kill_supervisor_at_schedule) == int(event):
+        plan.kill_supervisor_at_schedule = None
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def take_sweep_preempt(tag: str) -> bool:
+    """True (once per tag) when the supervisor should preempt the running
+    job of ``tag``: its notice file, then a SIGTERM on the next poll — the
+    scheduler reclaiming a slot."""
+    plan = current()
+    if plan is None or not plan.sweep_preempt_pairs:
+        return False
+    if tag not in plan.sweep_preempt_pairs:
+        return False
+    plan.sweep_preempt_pairs = [t for t in plan.sweep_preempt_pairs if t != tag] or None
+    return True
+
+
+def take_sweep_job_fault(tag: str) -> Optional[Dict[str, Any]]:
+    """The fault plan (a ``DWT_FAULT_PLAN`` object) the supervisor puts in
+    ``tag``'s next spawn environment, or None.  One-shot per tag: the
+    respawn of a job killed inside a save runs clean, so what a test proves
+    is the resume, not the quarantine budget."""
+    plan = current()
+    if plan is None or not plan.sweep_job_kill_mid_save:
+        return None
+    if tag not in plan.sweep_job_kill_mid_save:
+        return None
+    plan.sweep_job_kill_mid_save = [
+        t for t in plan.sweep_job_kill_mid_save if t != tag] or None
+    return {"kill_mid_delta_promote": True}

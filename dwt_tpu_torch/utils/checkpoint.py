@@ -1,7 +1,10 @@
 """Atomic, validated checkpoints of a ``TrainState`` — the single-process subset of ``dwt_tpu.utils.checkpoint``.
 
 This module is the one authority on what a valid checkpoint is, on
-walking the candidates of a run and on restoring them.  The JAX package's
+walking the candidates of a run and on restoring them; the validity
+checks and ``latest_step`` read no torch and live in
+``dwt_tpu_torch.ckpt.layout`` (the sweep supervisor's and the auditor's
+import), re-exported here under their names.  The JAX package's
 three defenses, with its function names:
 
 * **atomic finalize** — a save writes ``<ckpt_dir>/.tmp-<step>/`` and
@@ -69,24 +72,31 @@ import numpy as np
 import torch
 from torch import nn
 
+# The torch-free layout: manifests, validity and the newest valid step
+# (the sweep supervisor and the auditor read them without torch).
+from dwt_tpu_torch.ckpt.layout import (  # noqa: F401
+    ANCHOR_SUBDIR,
+    CAS_FORMAT,
+    HOST_SHARD_FORMAT,
+    MANIFEST,
+    STATE_FILE,
+    TORCH_FORMAT,
+    _TMP_PREFIX,
+    _read_manifest,
+    _root,
+    checkpoint_invalid_reason,
+    is_valid_checkpoint,
+    latest_step,
+    valid_steps,
+)
 from dwt_tpu_torch.convert.from_jax import load_jax_variables
 from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
 from dwt_tpu_torch.resilience import inject
 
 log = logging.getLogger(__name__)
 
-MANIFEST = "manifest.json"
-STATE_FILE = "state.pt"
-TORCH_FORMAT = "torch_full"
-HOST_SHARD_FORMAT = "host_shards"
-CAS_FORMAT = "cas_delta"
 SHARD_MANIFEST = "shard_manifest.json"
 _LEAVES_FILE = "leaves.bin"
-_TMP_PREFIX = ".tmp-"
-# Anchor checkpoints (--anchor_every) live in a subdirectory that nothing
-# prunes, so the distance back to a valid step stays bounded by the
-# anchor cadence even when every main-directory checkpoint is torn.
-ANCHOR_SUBDIR = "anchors"
 
 # Transient-I/O retry policy of checkpoint reads and writes.
 IO_RETRIES = 3
@@ -107,10 +117,6 @@ class Restored(NamedTuple):
     step: Optional[int]
     source: str
     path: str
-
-
-def _root(ckpt_dir: str) -> str:
-    return os.path.abspath(os.path.expanduser(ckpt_dir))
 
 
 def _with_retries(fn: Callable[[], Any], what: str) -> Any:
@@ -198,73 +204,6 @@ def count_ckpt_bytes(mode: str, nbytes: int) -> None:
         "checkpoint bytes written to disk, by save mode",
         labelnames=("mode",),
     ).labels(mode=mode).inc(int(nbytes))
-
-
-def _read_manifest(path: str) -> Optional[dict]:
-    try:
-        with open(os.path.join(path, MANIFEST)) as f:
-            manifest = json.load(f)
-    except (OSError, ValueError):
-        return None
-    return manifest if isinstance(manifest, dict) else None
-
-
-def checkpoint_invalid_reason(path: str) -> Optional[str]:
-    """None when ``path`` is a finalized checkpoint whose manifest checks
-    out (a cas chain: every link and blob), else a one-line reason.
-    Unfinalized ``.tmp-`` directories are never valid.  A directory
-    without a manifest is a legacy Orbax artifact of the JAX package:
-    valid here, refused by the readers."""
-    if not os.path.isdir(path):
-        return "not a directory"
-    if os.path.basename(path).startswith(_TMP_PREFIX):
-        return "unfinalized tmp directory"
-    if not os.path.exists(os.path.join(path, MANIFEST)):
-        return None
-    manifest = _read_manifest(path)
-    if manifest is None:
-        return "unreadable manifest"
-    if manifest.get("format") == CAS_FORMAT:
-        from dwt_tpu_torch.ckpt.store import cas_invalid_reason
-
-        return cas_invalid_reason(path, manifest)
-    for rel, size in manifest.get("files", {}).items():
-        full = os.path.join(path, rel)
-        if not os.path.exists(full):
-            return f"manifest-listed file {rel} missing"
-        if os.path.getsize(full) != size:
-            return (f"manifest-listed file {rel} truncated "
-                    f"({os.path.getsize(full)} bytes, manifest says {size})")
-    return None
-
-
-def is_valid_checkpoint(path: str) -> bool:
-    """A finalized checkpoint whose manifest checks out."""
-    return checkpoint_invalid_reason(path) is None
-
-
-def valid_steps(ckpt_dir: str) -> List[int]:
-    """Ascending steps of the valid checkpoints under ``ckpt_dir``; each
-    invalid candidate is logged with its reason."""
-    root = _root(ckpt_dir)
-    if not os.path.isdir(root):
-        return []
-    out = []
-    for d in os.listdir(root):
-        if not d.isdigit():
-            continue
-        reason = checkpoint_invalid_reason(os.path.join(root, d))
-        if reason is None:
-            out.append(int(d))
-        else:
-            log.warning("skipping checkpoint candidate %s: %s",
-                        os.path.join(root, d), reason)
-    return sorted(out)
-
-
-def latest_step(ckpt_dir: str) -> Optional[int]:
-    steps = valid_steps(ckpt_dir)
-    return steps[-1] if steps else None
 
 
 def _sweep_stale_tmp(root: str) -> None:

@@ -209,6 +209,12 @@ spec = importlib.util.spec_from_file_location("torch_serve_bench", "tools/torch_
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dwt_tpu_torch.serve.metrics import AccessLog
 from dwt_tpu_torch.serve.engine import EngineState, Version
+# The sweep control plane, its job and the port's checkpoint auditor.
+from dwt_tpu_torch.sweep import JobSpec, SweepJournal, SweepSupervisor
+from dwt_tpu_torch.sweep.cli import make_argv_fn
+from dwt_tpu_torch.cli import officehome_sweep
+spec = importlib.util.spec_from_file_location("torch_ckpt_fsck", "tools/torch_ckpt_fsck.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
