@@ -535,6 +535,40 @@ script exits non-zero without the final line:
                   equal phase 7's; each job's spawn-to-first-record and wall
                   seconds.
 
+52. ``data_parallel`` — replica data parallelism across processes (after
+                  ``sweep``): two ranks of each trainer's CLI entry with
+                  ``--distributed --data_parallel`` (the DWT_* variables; gloo,
+                  the two ranks sharing the card), each through ``DP_JOB``
+                  (its launches counted in its own process, its CUDA-tensor
+                  collectives counted as host syncs, its records' clock
+                  stamps, its peak memory, and at exit both kernels against
+                  their plain versions at its half-row shapes), beside a
+                  one-process run of the same recipe.  (a) Digits
+                  (``DP_DIGITS_FLAGS``: 32 images a stream, 16 a rank, 2
+                  epochs of 8 steps, ``--steps_per_dispatch 2``, async saves
+                  into one directory): every record equal across the ranks,
+                  the eval counters equal to the one-process run's, step 1's
+                  losses within ``DP_STEP1_TOL`` of it and the later steps'
+                  within ``DP_LATER_TOL``; equal digests; the host-shard step
+                  (``shard_0``, ``shard_1``, ``process_count`` 2); each rank's
+                  launches, 2 moments and 2 applies a step plus 2 applies an
+                  eval forward; then ``sigterm_at_step`` on rank 1 of a second
+                  pair: both save the step and exit 0.  (b) The flagship
+                  (``DP_TRAIN_FLAGS``: ResNet50-DWT, 3 × 18 images, 9 a rank,
+                  3 steps, one eval, one collection pass): step 1's losses
+                  against the one-process run within ``DP_STEP1_TOL``, the
+                  later steps within the backbone tolerance; 11 moments and
+                  11 applies a step on each rank, 11 applies a forward; each
+                  rank's kernels against plain at ``3 × 112,896 × 64`` and the
+                  stage-1 shapes; peak memory per process.  (c) A one-rank
+                  NCCL group (``DP_CAPTURE``): the replica digits step at k = 4
+                  captured and replayed, bitwise equal to the same steps
+                  eager.  The row prints, with the card, each rank's step ms
+                  against the one-process step (no scaling claim: the ranks
+                  share one card), host syncs per step and each process's
+                  spawn-to-first-record; the kernels line gains the per-rank
+                  rows, timed in this process at the per-rank shapes.
+
 Every phase row carries ``phase_s``, the wall seconds since the row before;
 the ``budget`` row, before the kernels line, gives the script's total
 seconds and its ``BUDGET_HEAVIEST`` heaviest phases.
@@ -567,6 +601,7 @@ import itertools
 import json
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -7037,6 +7072,435 @@ def bf16_rows(r, floor):
     return rows
 
 
+# ------------------------------------------------------------ data_parallel
+
+DP_WORLD = 2
+DP_DIGITS_FLAGS = DIGITS_TRAIN_FLAGS + ["--steps_per_dispatch", "2",
+                                        "--ckpt_every_epochs", "1"]
+DP_TRAIN_FLAGS = TRAIN_FLAGS + ["--num_iters", "3"]
+DP_DIGITS_SHAPES = [(f"rank_{site}", 2, DIGITS_STREAM // DP_WORLD * hw, c)
+                    for site, c, hw in DIGITS_SITES]
+DP_TRAIN_SHAPES = [(f"rank_{name}", DOMAINS, m // DP_WORLD, c)
+                   for name, m, c, _ in TRAIN_SITES]
+DP_SIGTERM_STEP = 3
+# Step 1 of a replica run differs from the one-process step only by the
+# order of its sums (the moments and gradients added over the ranks):
+# losses within 1e-4 (FORWARD_TOL).  Later steps pass through updated
+# weights: Adam maps a near-zero gradient to ±lr, whose sign the order of
+# the sums may flip, and a fresh ResNet50's backbone gradients are
+# ill-conditioned (ROADMAP queue 3 fact 5), so they are held at the
+# backbone leaves' 5e-2.
+DP_STEP1_TOL = FORWARD_TOL
+DP_LATER_TOL = RESNET50_LEAF_TOL[0]
+DP_JOB = """\
+import atexit, json, os, runpy, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+from dwt_tpu_torch.ops import cuda_whitening as cw
+from dwt_tpu_torch.utils import metrics
+marks, syncs = [], [0]
+all_reduce = dist.all_reduce
+def counted(tensor, *args, **kwargs):
+    if tensor.is_cuda:  # gloo stages a CUDA tensor through the host: a sync
+        syncs[0] += 1
+    return all_reduce(tensor, *args, **kwargs)
+dist.all_reduce = counted
+emit = metrics.MetricLogger._emit
+def stamped(self, kind, step, *args, **kwargs):
+    marks.append([kind, int(step), time.time(), syncs[0],
+                  cw.moments_launches, cw.apply_launches])
+    return emit(self, kind, step, *args, **kwargs)
+metrics.MetricLogger._emit = stamped
+def dump():
+    out = {{"launches": {{"moments": cw.moments_launches, "apply": cw.apply_launches}},
+           "marks": marks, "ended": time.time(),
+           "peak_bytes": torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0}}
+    shapes = json.loads(os.environ.get("DWT_DP_SHAPES", "[]"))
+    if shapes:  # both kernels at this rank's shapes, after the counted run
+        import chip_smoke as cs
+        from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+        device = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=device).manual_seed(7)
+        out["parity"] = []
+        for name, d, m, c in shapes:
+            x = cs.moments_input(torch, d, m, c, gen, device)
+            mean, cov = cw.whiten_moments(x, 4)
+            pm, pc, ok = cs.moments_errors(torch, mean, cov, *cw.whiten_moments_plain(x, 4))
+            a = cs.apply_parity(torch, cw, name, x, mean, whitening_matrix(_shrink(cov, 1e-3)))
+            out["parity"].append({{"shape": name, "D": d, "M": m, "C": c,
+                                  "moments_vs_plain": {{"mean_max_abs_err": pm,
+                                                       "cov_max_abs_err": pc, "ok": ok}},
+                                  "apply_vs_plain": a}})
+            del x
+    with open(os.environ["DWT_DP_OUT"], "w") as f:
+        json.dump(out, f)
+atexit.register(dump)
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+DP_CAPTURE = """\
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as cs
+from dwt_tpu_torch import parallel
+from dwt_tpu_torch.config import DigitsConfig
+from dwt_tpu_torch.nn.lenet import build_lenet
+from dwt_tpu_torch.ops import cuda_whitening as cw
+from dwt_tpu_torch.train import loop, steps
+from dwt_tpu_torch.train.optim import digits_tx
+from dwt_tpu_torch.train.state import TrainState
+info = parallel.initialize_distributed("127.0.0.1:%s" % sys.argv[1], 1, 0, device="cuda")
+mesh = parallel.make_mesh()
+plan = parallel.ShardingPlan.replica(mesh)
+device = torch.device(info.device)
+k = 4
+batches = [cs.digits_batch(torch, loop, seed, device) for seed in range(1, 2 * k + 1)]
+chunks = [{{key: torch.stack([b[key] for b in batches[i:i + k]]) for key in batches[0]}}
+          for i in (0, k)]
+runs = {{}}
+for name in ("graph", "eager"):
+    model = build_lenet(group_size=4, seed=1, group=mesh).to(
+        device, memory_format=torch.channels_last)
+    optimizer, schedules = digits_tx(model, DigitsConfig(), 8)
+    state = TrainState(model, optimizer, schedules)
+    raw = steps.make_digits_train_step(model, 0.1, group=mesh)
+    scanned = (plan.make_scanned_step(raw, k) if name == "graph"
+               else steps.make_scanned_step(raw, k, capture=False))
+    before = cw.moments_launches, cw.apply_launches
+    losses = [scanned(state, chunk)["loss"].tolist() for chunk in chunks]
+    torch.cuda.synchronize()
+    runs[name] = {{"state": {{n: v.detach().clone() for n, v in model.state_dict().items()}},
+                  "losses": losses, "captures": scanned.graph.captures,
+                  "replays": scanned.graph.replays,
+                  "launches": {{"moments": cw.moments_launches - before[0],
+                               "apply": cw.apply_launches - before[1]}}}}
+g, e = runs["graph"], runs["eager"]
+diff = max(float((g["state"][n].double() - e["state"][n].double()).abs().max())
+           for n in g["state"])
+print(json.dumps({{"backend": info.backend, "capturable": plan.capture,
+                  "bitwise": all(torch.equal(g["state"][n], e["state"][n]) for n in g["state"]),
+                  "max_abs_diff": diff, "losses_equal": g["losses"] == e["losses"],
+                  "captures": g["captures"], "replays": g["replays"],
+                  "graph_launches": g["launches"], "eager_launches": e["launches"]}}))
+parallel.shutdown_distributed()
+"""
+
+
+def dp_spawn(script, module, flags, root, name, world, shapes=(), plans=None):
+    """``world`` ranks (or, at ``world`` 1, one plain process) of ``module``
+    with ``flags`` through ``script``; returns ``(return codes, outputs,
+    the jobs' dumps, their metrics records)``."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("DWT_", "MASTER_"))}
+        env.update(DWT_DP_OUT=os.path.join(root, f"{name}_{rank}.json"),
+                   DWT_DP_SHAPES=json.dumps(list(shapes)), DWT_DIST_TIMEOUT_S="300")
+        argv = list(flags) + ["--metrics_jsonl", os.path.join(root, f"{name}_{rank}.jsonl")]
+        if world > 1:
+            env.update(DWT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       DWT_NUM_PROCESSES=str(world), DWT_PROCESS_ID=str(rank))
+            argv += ["--distributed", "--data_parallel"]
+        if plans and plans[rank]:
+            env["DWT_FAULT_PLAN"] = json.dumps(plans[rank])
+        procs.append((time.time(), subprocess.Popen(
+            [sys.executable, script, module, *argv], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    outs = []
+    try:
+        for _, p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+    jobs, records = [], []
+    for rank, (spawned, p) in enumerate(procs):
+        path = os.path.join(root, f"{name}_{rank}.json")
+        job = json.load(open(path)) if os.path.exists(path) else {}
+        job["spawned"] = spawned
+        jobs.append(job)
+        jsonl = os.path.join(root, f"{name}_{rank}.jsonl")
+        records.append([json.loads(line) for line in open(jsonl) if line.strip()]
+                       if os.path.exists(jsonl) else [])
+    return [p.returncode for _, p in procs], outs, jobs, records
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_marks(job, kind):
+    return [m for m in job["marks"] if m[0] == kind]
+
+
+def dp_job_stats(job, steps_in):
+    """One process's step ms (train records' clock stamps over the steps of
+    ``steps_in``: ``[(first, last), ...]`` windows, median), its host syncs
+    per train step (CUDA-tensor collectives between those records), its
+    seconds from spawn to its first record (a rank's is ``distributed``)
+    and to its first train record, its wall seconds and its peak memory."""
+    at = {m[1]: m for m in dp_marks(job, "train")}
+    ms, syncs = [], []
+    for lo, hi in steps_in:
+        ms.append((at[hi][2] - at[lo][2]) * 1e3 / (hi - lo))
+        syncs.append((at[hi][3] - at[lo][3]) / (hi - lo))
+    return {"step_ms": statistics.median(ms), "host_syncs_per_step": statistics.median(syncs),
+            "spawn_to_first_record_s": job["marks"][0][2] - job["spawned"],
+            "first_record": job["marks"][0][0],
+            "spawn_to_first_train_s": dp_marks(job, "train")[0][2] - job["spawned"],
+            "wall_s": job["ended"] - job["spawned"],
+            "peak_mib": job["peak_bytes"] / 2 ** 20}
+
+
+def dp_check_records(name, rank_records, single, keys, launches_of, jobs):
+    """The replica ranks' records against each other and the one-process
+    run's (module docstring, phase 52); returns the largest relative loss
+    difference from the one-process run at step 1 and after."""
+    trains = lambda recs: {r["step"]: r for r in recs if r["kind"] == "train"}
+    counters = lambda recs: [(r["kind"], r["step"], r["count"]) for r in recs
+                             if r["kind"] in ("test", "final_test")]
+    problems = []
+    for recs in rank_records[1:]:
+        if trains(recs) != trains(rank_records[0]) and any(
+                {k: v for k, v in a.items() if k != "elapsed_s"}
+                != {k: v for k, v in b.items() if k != "elapsed_s"}
+                for a, b in zip(trains(recs).values(), trains(rank_records[0]).values())):
+            problems.append("train records differ across ranks")
+        evals = lambda rs: [(r["kind"], r["step"], r["count"], r["accuracy"], r["loss"])
+                            for r in rs if r["kind"] in ("test", "final_test")]
+        if evals(recs) != evals(rank_records[0]):
+            problems.append("eval records differ across ranks")
+        digests = lambda rs: [r["digest"] for r in rs if r["kind"] == "params_digest"]
+        if digests(recs) != digests(rank_records[0]) or not digests(recs):
+            problems.append("params_digest differs across ranks")
+    if counters(rank_records[0]) != counters(single):
+        problems.append(f"eval counters {counters(rank_records[0])} != one process's "
+                        f"{counters(single)}")
+    ours, theirs = trains(rank_records[0]), trains(single)
+    if sorted(ours) != sorted(theirs):
+        problems.append(f"train steps {sorted(ours)} != {sorted(theirs)}")
+    rel = {"step1": 0.0, "later": 0.0}
+    for step in sorted(set(ours) & set(theirs)):
+        for key in keys:
+            a, b = ours[step][key], theirs[step][key]
+            err = abs(a - b) / max(abs(b), 1e-12)
+            which = "step1" if step == min(theirs) else "later"
+            rel[which] = max(rel[which], err)
+    if rel["step1"] > DP_STEP1_TOL or rel["later"] > DP_LATER_TOL:
+        problems.append(f"losses against the one-process run {rel}")
+    for rank, (recs, job) in enumerate(zip(rank_records, jobs)):
+        want = launches_of(recs)
+        if job.get("launches") != want:
+            problems.append(f"rank {rank} launches {job.get('launches')} != {want}")
+        for row in job.get("parity", []):
+            if not (row["moments_vs_plain"]["ok"] and row["apply_vs_plain"]["ok"]):
+                problems.append(f"rank {rank} kernels disagree at {row['shape']}")
+    if problems:
+        raise AssertionError(f"data_parallel {name}: {problems}")
+    return rel
+
+
+def dp_timing(torch, cw, shapes, device, rate):
+    """Both kernels' times, L2 cold, at the per-rank shapes (``time_moments``
+    and ``time_apply``)."""
+    from dwt_tpu_torch.ops.whitening import _shrink, whitening_matrix
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    out = {}
+    for name, d, m, c in shapes:
+        x = moments_input(torch, d, m, c, gen, device)
+        mean, cov = cw.whiten_moments(x, 4)
+        w = whitening_matrix(_shrink(cov, 1e-3))
+        out[name] = {"moments": time_moments(torch, cw, x, rate),
+                     "apply": time_apply(torch, cw, x, mean, w, rate)}
+        emit({"phase": "data_parallel_timing", "shape": name, **out[name]})
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def data_parallel(torch, cw, root, device, rate):
+    """Phase ``data_parallel`` (module docstring, phase 52).  Returns the
+    per-rank launches, parity and times for the kernels line."""
+    smi = nvidia_smi()
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = os.path.join(root, "dp_job.py")
+    with open(job, "w") as f:
+        f.write(DP_JOB.format(repo=here))
+    capture = os.path.join(root, "dp_capture.py")
+    with open(capture, "w") as f:
+        f.write(DP_CAPTURE.format(repo=here))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stages = {}
+    sites = len(DIGITS_SITES)
+
+    # (a) Digits: the replica pair, then the one-process run.
+    ck = os.path.join(root, "digits_ck")
+    rcs, outs, d_jobs, d_recs = dp_spawn(
+        job, "dwt_tpu_torch.cli.usps_mnist", DP_DIGITS_FLAGS + ["--ckpt_dir", ck], root,
+        "digits", DP_WORLD, DP_DIGITS_SHAPES)
+    if rcs != [0] * DP_WORLD:
+        raise AssertionError(f"data_parallel digits ranks rc {rcs}: {outs[0][-2000:]} "
+                             f"{outs[1][-2000:]}")
+    rcs1, outs1, d1_jobs, d1_recs = dp_spawn(job, "dwt_tpu_torch.cli.usps_mnist",
+                                             DP_DIGITS_FLAGS, root, "digits_one", 1)
+    if rcs1 != [0]:
+        raise AssertionError(f"data_parallel digits one-process rc {rcs1}: {outs1[0][-2000:]}")
+
+    def digits_launches(recs):
+        steps = len([r for r in recs if r["kind"] == "train"])
+        forwards = sum(r["forwards"] for r in recs if r["kind"] == "test")
+        return {"moments": sites * steps, "apply": sites * (steps + forwards)}
+
+    d_rel = dp_check_records("digits", d_recs, d1_recs[0],
+                             ("loss", "cls_loss", "entropy_loss"), digits_launches, d_jobs)
+    final = max(r["step"] for r in d_recs[0] if r["kind"] == "test")
+    step_dir = os.path.join(ck, str(final))
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    shards = sorted(d for d in os.listdir(step_dir) if d.startswith("shard_"))
+    if (manifest.get("format") != "host_shards" or manifest.get("process_count") != DP_WORLD
+            or shards != [f"shard_{r}" for r in range(DP_WORLD)]):
+        raise AssertionError(f"data_parallel digits checkpoint {step_dir}: {manifest}, {shards}")
+    windows = [(DIGITS_STEPS_PER_EPOCH * e + 2, DIGITS_STEPS_PER_EPOCH * (e + 1))
+               for e in range(2)]
+    stages["digits_s"] = time.perf_counter() - t0
+
+    # (b) The flagship: the replica pair, then the one-process run.
+    rcs, outs, t_jobs, t_recs = dp_spawn(job, "dwt_tpu_torch.cli.officehome",
+                                         DP_TRAIN_FLAGS, root, "flagship", DP_WORLD,
+                                         DP_TRAIN_SHAPES)
+    if rcs != [0] * DP_WORLD:
+        raise AssertionError(f"data_parallel flagship ranks rc {rcs}: {outs[0][-2000:]} "
+                             f"{outs[1][-2000:]}")
+    rcs1, outs1, t1_jobs, t1_recs = dp_spawn(job, "dwt_tpu_torch.cli.officehome",
+                                             DP_TRAIN_FLAGS, root, "flagship_one", 1)
+    if rcs1 != [0]:
+        raise AssertionError(f"data_parallel flagship one-process rc {rcs1}: "
+                             f"{outs1[0][-2000:]}")
+
+    def flagship_launches(recs):
+        steps = len([r for r in recs if r["kind"] == "train"])
+        evals = sum(r["forwards"] for r in recs if r["kind"] in ("test", "final_test"))
+        collect = sum(r.get("forwards", 0) for r in recs if r["kind"] == "stat_collection")
+        return {"moments": WHITENED_SITES * (steps + collect),
+                "apply": WHITENED_SITES * (steps + evals + collect)}
+
+    t_rel = dp_check_records("flagship", t_recs, t1_recs[0],
+                             ("loss", "cls_loss", "mec_loss"), flagship_launches, t_jobs)
+    stages["flagship_s"] = time.perf_counter() - t0 - stages["digits_s"]
+
+    # (c) NCCL capture, beside the SIGTERM pair.
+    cap = subprocess.Popen([sys.executable, capture, str(free_port())],
+                           env={k: v for k, v in os.environ.items()
+                                if not k.startswith(("DWT_", "MASTER_"))},
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ck2 = os.path.join(root, "sigterm_ck")
+    rcs, outs, _, s_recs = dp_spawn(job, "dwt_tpu_torch.cli.usps_mnist",
+                                    DP_DIGITS_FLAGS + ["--ckpt_dir", ck2], root, "sigterm",
+                                    DP_WORLD, plans=[None, {"sigterm_at_step": DP_SIGTERM_STEP}])
+    cap_out, cap_err = cap.communicate(timeout=600)
+    if rcs != [0] * DP_WORLD:
+        raise AssertionError(f"data_parallel sigterm ranks rc {rcs}: {outs[1][-2000:]}")
+    preempt = [[r["step"] for r in recs if r["kind"] == "preempt"] for recs in s_recs]
+    from dwt_tpu_torch.ckpt.layout import valid_steps
+
+    saved = valid_steps(ck2)
+    if len(set(map(tuple, preempt))) != 1 or len(preempt[0]) != 1 or saved != preempt[0]:
+        raise AssertionError(f"data_parallel sigterm: preempt records {preempt}, "
+                             f"saved steps {saved}")
+    if cap.returncode != 0:
+        raise AssertionError(f"data_parallel capture rc {cap.returncode}: {cap_err[-3000:]}")
+    captured = json.loads(cap_out.strip().splitlines()[-1])
+    if not (captured["backend"] == "nccl" and captured["capturable"] and captured["bitwise"]
+            and captured["captures"] >= 1 and captured["replays"] >= 1
+            and captured["graph_launches"] == captured["eager_launches"]):
+        raise AssertionError(f"data_parallel capture: {captured}")
+
+    stages["sigterm_and_capture_s"] = (time.perf_counter() - t0 - stages["digits_s"]
+                                       - stages["flagship_s"])
+    t1 = time.perf_counter()
+    timing = {"digits": dp_timing(torch, cw, DP_DIGITS_SHAPES, device, rate),
+              "train": dp_timing(torch, cw, DP_TRAIN_SHAPES, device, rate)}
+    stages["kernel_timing_s"] = time.perf_counter() - t1
+    stats = {
+        "digits": {"ranks": [dp_job_stats(j, windows) for j in d_jobs],
+                   "one_process": dp_job_stats(d1_jobs[0], windows)},
+        "flagship": {"ranks": [dp_job_stats(j, [(2, 3)]) for j in t_jobs],
+                     "one_process": dp_job_stats(t1_jobs[0], [(2, 3)])},
+    }
+    row = {"phase": "data_parallel", "card": smi, "seconds": time.perf_counter() - t0,
+           "stages": stages, "world": DP_WORLD, "backend": d_recs[0][0].get("backend"),
+           "stats": stats, "loss_rel_vs_one_process": {"digits": d_rel, "flagship": t_rel},
+           "step1_tol": DP_STEP1_TOL, "later_tol": DP_LATER_TOL,
+           "launches": {"digits": [j["launches"] for j in d_jobs],
+                        "flagship": [j["launches"] for j in t_jobs]},
+           "parity": {"digits": [j["parity"] for j in d_jobs],
+                      "flagship": [j["parity"] for j in t_jobs]},
+           "checkpoint": {"step": final, "shards": shards, "format": manifest["format"]},
+           "sigterm": {"preempt_steps": preempt, "saved": saved}, "capture": captured}
+    emit(row)
+    return {"launches": row["launches"], "parity": row["parity"], "timing": timing}
+
+
+def dp_rows(r, floor):
+    """The kernels line's rows of phase ``data_parallel``: per rank and
+    kernel, that rank's launches on its run (counted in its process) and
+    its kernels' largest error against plain at its shapes, with the times
+    per train step at the per-rank shapes (one launch per site)."""
+    dp = r["data_parallel"]
+    rows = []
+    for path, shapes, counts, per in (
+            ("digits", DP_DIGITS_SHAPES, {s: 1 for s, *_ in DP_DIGITS_SHAPES},
+             "the 2 whitened sites of one LeNet-DWT train step on one of 2 ranks "
+             "(gloo, one card), one launch per site for its 2 domains, 16 images "
+             "per stream at 28²"),
+            ("train", DP_TRAIN_SHAPES,
+             {f"rank_{name}": n for name, _, _, n in TRAIN_SITES},
+             "the 11 whitened sites of one ResNet50 train step on one of 2 ranks "
+             "(gloo, one card), one launch per site for its 3 domains, 9 images "
+             "per stream at 224²")):
+        launches = dp["launches"]["digits" if path == "digits" else "flagship"]
+        parity = dp["parity"]["digits" if path == "digits" else "flagship"]
+        timing = dp["timing"][path]
+        for part in ("apply", "moments"):
+            total = lambda key: sum(timing[name][part][key] * counts[name]
+                                    for name, *_ in shapes)
+            for rank in range(DP_WORLD):
+                errs = [(p["apply_vs_plain"]["max_abs_err"] if part == "apply"
+                         else max(p["moments_vs_plain"]["mean_max_abs_err"],
+                                  p["moments_vs_plain"]["cov_max_abs_err"]))
+                        for p in parity[rank]]
+                rows.append({
+                    "name": f"whiten_{part}", "route": "cuda",
+                    "source": f"dwt_tpu_torch/csrc/whiten_{part}.cu",
+                    "replaces": ("dwt_tpu/ops/pallas_whitening.py:143" if part == "apply"
+                                 else "dwt_tpu/ops/pallas_whitening.py:68"),
+                    "launches": launches[rank][part], "max_abs_err": max(errs),
+                    "bytes": total("bytes"),
+                    "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+                    "bound_ms": total("bound_ms"),
+                    "bound_by": bound_by([timing[n][part] for n, *_ in shapes]),
+                    "library_ms": total("library_ms"),
+                    "library_device_ms": total("library_device_ms"),
+                    **({"host_us": total("host_us")}),
+                    **(floor if part == "apply" else {}),
+                    "path": f"data_parallel_{path}_rank{rank}", "per": per})
+    return rows
+
+
 def kernels_line(torch, r):
     """The contract line's rows: per kernel and path, its launches on that
     path's run, its largest error against its plain version, and its
@@ -7190,6 +7654,7 @@ def kernels_line(torch, r):
               "per": base[f"train/whiten_{part}"]["per"] + ", in the two supervised "
                      "jobs of the calm sweep (python -m dwt_tpu_torch.sweep.cli)"}
              for part in ("apply", "moments")]
+    rows += dp_rows(r, floor)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -7385,6 +7850,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # the sweep's jobs share the card with this process
     with tempfile.TemporaryDirectory(prefix="sweep-", dir=build) as root:
         r["sweep_launches"] = sweep_phase(root, r["train_launches"])
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory(prefix="dp-", dir=build) as root:
+        r["data_parallel"] = data_parallel(torch, cw, root, device, rate)
     shown = caught.rows()
     emit({"phase": "warnings", "warnings": shown})
     stream = [w for w in shown if STREAM_WARNING in w["message"]]

@@ -36,9 +36,13 @@ key paths, no ``torch_meta``) are read too, with numpy, into the
 ``params``/``batch_stats`` trees the weight bridge loads: a TPU run saved
 with ``--ckpt_format delta`` serves on the card and initializes a trainer.
 
-Not ported: the sharded, memory-mapped restore (``restore_cas_state`` onto
-a sharding) and the multi-host stage/promote split (ROADMAP queue 1
-item 8).
+A multi-process run stages and promotes in two steps
+(``resilience.async_ckpt.MultiHostDeltaAsyncCheckpointer``): rank 0
+stages the blobs and the manifest for every rank (the state is
+replicated) and promotes once the consensus says every rank's writer is
+done; a blocking save is rank 0's, followed by a barrier.  Not ported:
+the sharded, memory-mapped restore (``restore_cas_state`` onto a
+sharding; ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations

@@ -92,6 +92,37 @@ def add_dispatch_args(p: argparse.ArgumentParser, d) -> None:
                         "with staleness <= depth.  0 = synchronous fetch")
 
 
+def add_parallel_args(p: argparse.ArgumentParser, d) -> None:
+    """The JAX trainers' five parallel flags, with the defaults of the
+    config ``d``.  One process per device: launch the same command once per
+    rank (torchrun, or the DWT_* variables) with ``--distributed``."""
+    p.add_argument("--data_parallel", action="store_true",
+                   help="replica data parallelism over every rank of the process "
+                        "group: each rank trains on 1/N of every batch, the norm "
+                        "sites' moments, the gradients and the eval counters "
+                        "reduced over the ranks (global-batch numerics)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process bring-up: join the torch.distributed group "
+                        "from DWT_COORDINATOR_ADDRESS/DWT_NUM_PROCESSES/"
+                        "DWT_PROCESS_ID, else torchrun's MASTER_ADDR/MASTER_PORT/"
+                        "RANK/WORLD_SIZE; launch the same command on every rank "
+                        "(gloo on the CPU or where ranks share a GPU, NCCL where "
+                        "each rank owns one)")
+    p.add_argument("--dcn_slices", type=int, default=d.dcn_slices,
+                   help=">1: 2-D (dcn, data) rank grid — reductions within a "
+                        "slice first, then across slices")
+    p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
+                   help="mesh as 'dcn,data,model' sizes (e.g. 2,2); '4' and '2,4' "
+                        "shorthands pad the missing axes to 1.  It must cover "
+                        "every rank; the model axis must be 1 (the dp rules).  "
+                        "Unset keeps the single/--data_parallel decision")
+    p.add_argument("--sharding_rules", type=str, default=d.sharding_rules,
+                   help="rules table of the state's placement: 'dp' (replicate "
+                        "every state tensor); 'model', 'fsdp' and rules files "
+                        "are the gspmd mode, not ported (ROADMAP queue 1 item "
+                        "8b) — they raise")
+
+
 def add_numerics_args(p: argparse.ArgumentParser, d, remat: bool = False) -> None:
     """``--whitener``, ``--bf16`` and ``--compute_dtype`` (and, with
     ``remat``, OfficeHome's ``--remat``), with the JAX CLIs' choices and

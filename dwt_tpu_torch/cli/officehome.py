@@ -24,7 +24,9 @@ flags are the JAX CLI's: ``--metrics_jsonl``, ``--heartbeat_every``,
 ``--tolerance`` (exit 1 on a miss), ``--debug_nans`` and
 ``--data_stall_timeout``; ``--pallas_whiten``, ``--apply_lowering``,
 ``--target_batch_size`` and ``--lr_change_step`` are accepted and change
-nothing.
+nothing.  Data parallelism: one process per device with ``--distributed
+--data_parallel`` (the DWT_* variables or torchrun); ``--dcn_slices``,
+``--mesh_shape`` and ``--sharding_rules dp`` are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Optional, Sequence
 from dwt_tpu_torch.cli import (
     add_dispatch_args,
     add_numerics_args,
+    add_parallel_args,
     add_resilience_args,
     add_run_plane_args,
     run_cli,
@@ -121,6 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_dispatch_args(p, d)
     add_numerics_args(p, d, remat=True)
     add_run_plane_args(p, d)
+    add_parallel_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

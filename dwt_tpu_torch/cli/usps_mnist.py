@@ -21,7 +21,11 @@ numerics flags.  The run plane's flags are the JAX CLI's too:
 ``--metrics_jsonl``, ``--heartbeat_every``, ``--metrics_port``,
 ``--alert_rules``, ``--expect_accuracy``/``--tolerance`` (exit 1 on a
 miss), ``--debug_nans`` and ``--data_stall_timeout``; ``--pallas_whiten``
-and ``--apply_lowering`` are accepted and change nothing.
+and ``--apply_lowering`` are accepted and change nothing.  Data
+parallelism: launch one process per device with ``--distributed
+--data_parallel`` (``DWT_COORDINATOR_ADDRESS``, ``DWT_NUM_PROCESSES``,
+``DWT_PROCESS_ID``, or torchrun); ``--dcn_slices``, ``--mesh_shape`` and
+``--sharding_rules dp`` are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Optional, Sequence
 from dwt_tpu_torch.cli import (
     add_dispatch_args,
     add_numerics_args,
+    add_parallel_args,
     add_resilience_args,
     add_run_plane_args,
     run_cli,
@@ -78,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_dispatch_args(p, d)
     add_numerics_args(p, d)
     add_run_plane_args(p, d)
+    add_parallel_args(p, d)
     p.add_argument("--device", default=d.device,
                    help="cuda (default; fails without CUDA) or cpu")
     return p

@@ -15,7 +15,9 @@ configs': ``obs_trace`` (span tracing's Chrome-trace path),
 ``heartbeat_every`` (a ``heartbeat`` record every N steps),
 ``metrics_port`` (the ``/metrics`` exporter) and ``alert_rules`` (the
 rules the step boundary evaluates), ``data_stall_timeout`` (the loader
-pools' stall budget).  ``pallas_whiten`` and ``apply_lowering`` select JAX
+pools' stall budget).  ``data_parallel``, ``distributed``,
+``dcn_slices``, ``mesh_shape`` and ``sharding_rules`` are the JAX
+configs' parallel knobs (``dwt_tpu_torch.parallel``).  ``pallas_whiten`` and ``apply_lowering`` select JAX
 lowerings and OfficeHome's ``target_batch_size`` and ``lr_change_step``
 are dead in the reference: the port accepts them and logs that they
 change nothing (``INERT_FIELDS``).
@@ -109,6 +111,17 @@ class DigitsConfig:
     heartbeat_every: int = 100
     metrics_port: Optional[int] = None
     alert_rules: Optional[str] = None
+    # Data parallelism (dwt_tpu_torch.parallel): one process per rank over
+    # torch.distributed (--distributed joins the group from the DWT_* or
+    # torchrun variables); --data_parallel runs the replica step over every
+    # rank; --dcn_slices S > 1 the 2-D (dcn, data) rank grid; --mesh_shape
+    # "dcn,data[,model]" sizes; --sharding_rules "dp" (the only table the
+    # port runs: the others wait for ROADMAP queue 1 item 8b).
+    data_parallel: bool = False
+    distributed: bool = False
+    dcn_slices: int = 0
+    mesh_shape: Optional[str] = None
+    sharding_rules: str = "dp"
     device: str = "cuda"  # "cpu" only when asked for
 
 
@@ -194,6 +207,17 @@ class OfficeHomeConfig:
     heartbeat_every: int = 100  # as DigitsConfig: the run plane
     metrics_port: Optional[int] = None
     alert_rules: Optional[str] = None
+    # Data parallelism (dwt_tpu_torch.parallel): one process per rank over
+    # torch.distributed (--distributed joins the group from the DWT_* or
+    # torchrun variables); --data_parallel runs the replica step over every
+    # rank; --dcn_slices S > 1 the 2-D (dcn, data) rank grid; --mesh_shape
+    # "dcn,data[,model]" sizes; --sharding_rules "dp" (the only table the
+    # port runs: the others wait for ROADMAP queue 1 item 8b).
+    data_parallel: bool = False
+    distributed: bool = False
+    dcn_slices: int = 0
+    mesh_shape: Optional[str] = None
+    sharding_rules: str = "dp"
     device: str = "cuda"  # "cpu" only when asked for
 
 

@@ -18,8 +18,11 @@ A :class:`QuarantineRegistry` persists quarantined ids under the
 checkpoint directory (``quarantine.json``), so a resumed run skips
 known-bad items without reading them.
 
-Not ported yet: the per-process ``shard=(index, count)`` split (with DDP,
-ROADMAP queue 1 item 8).
+``shard=(index, count)`` is the multi-process data split of a
+data-parallel run, bitwise the JAX loader's: each process takes every
+``count``-th position of the epoch's order, the epoch cut (train) or
+padded (eval) to a multiple of ``count * batch_size`` first, so every
+process yields the same number of batches.
 """
 
 from __future__ import annotations
@@ -188,6 +191,7 @@ def batch_iterator(
     drop_last: bool = True,
     seed: int = 0,
     epoch: int = 0,
+    shard: Optional[Tuple[int, int]] = None,
     num_workers: int = 0,
     quarantine: bool = True,
     pad_and_mask: bool = False,
@@ -205,6 +209,13 @@ def batch_iterator(
       split relies on it);
     * ``seed``/``epoch`` set the epoch's order (``SeekableSampler``) and
       every item's seed token ``(seed, epoch, index)``;
+    * ``shard=(index, count)``: this process sees every ``count``-th
+      position of the epoch's order, starting at ``index``.  With
+      ``drop_last`` the epoch is first cut to a multiple of ``count *
+      batch_size``, so every process yields the same number of batches (a
+      ragged tail would give one process an extra collective step and
+      hang the group); a quarantined item is replaced by the nearest good
+      one rather than dropped, for the same reason;
     * ``num_workers > 1``: items load on a thread pool, in order;
     * ``quarantine``: a failing item is retried once, then logged and
       dropped (a later batch boundary moves by one sample);
@@ -212,8 +223,11 @@ def batch_iterator(
     * ``pad_and_mask=True`` (eval): every tuple gains a trailing boolean
       ``mask`` and the ragged tail is padded to ``batch_size`` by
       repeating its last item with ``mask=False``, so masked counters stay
-      exact; a quarantined item is substituted and masked out.  Requires
-      ``shuffle=False, drop_last=False``;
+      exact; a quarantined item is substituted and masked out.  Under
+      ``shard`` the epoch is padded to a multiple of ``count *
+      batch_size`` first, so every process yields the same number of
+      batches and the ``mask=True`` rows of all processes are each real
+      item exactly once.  Requires ``shuffle=False, drop_last=False``;
     * ``start_batch=k``: open the epoch at batch cursor ``k``; the prefix
       is never generated or loaded, and the batches are bitwise the suffix
       of an epoch opened at 0 (train path only);
@@ -249,25 +263,34 @@ def batch_iterator(
                 "pad_and_mask eval contract always starts at 0"
             )
         order = sampler.positions()
-        target = -(-n // batch_size) * batch_size
+        span = batch_size * (shard[1] if shard is not None else 1)
+        target = -(-n // span) * span
         mask = np.ones(target, bool)
         if target > n:
             mask[n:] = False
             pad_src = order[-1:] if n else np.zeros(1, order.dtype)
             order = np.concatenate([order, np.repeat(pad_src, target - n)])
+        if shard is not None:
+            order = order[shard[0]::shard[1]]
+            mask = mask[shard[0]::shard[1]]
         indices = order
     else:
         # Pure position arithmetic, then one seekable map of exactly the
         # remaining positions: a start_batch seek never generates (or
         # loads) the skipped prefix.
-        stop = n - n % batch_size if drop_last else n
+        index, count = shard if shard is not None else (0, 1)
+        usable = n - n % (count * batch_size) if drop_last else n
+        per_process = (usable - index + count - 1) // count if usable > index else 0
+        stop = per_process - (per_process % batch_size if drop_last else 0)
         first = start_batch * batch_size
-        indices = sampler.take(np.arange(first, stop, dtype=np.int64))
-        # The positions before the cursor, newest first: the substitution
-        # walk below needs them so that a quarantined item at the cursor
-        # substitutes the item the uninterrupted epoch used.
+        indices = sampler.take(np.arange(index + count * first, index + count * stop,
+                                         count, dtype=np.int64))
+        # This process's positions before the cursor, newest first: the
+        # substitution walk below needs them so that a quarantined item at
+        # the cursor substitutes the item the uninterrupted epoch used.
         if first:
-            prior_positions = np.arange(first, dtype=np.int64)[::-1]
+            prior_positions = np.arange(index, index + count * first, count,
+                                        dtype=np.int64)[::-1]
     token_of = lambda i: (seed, epoch, int(i))
     known_bad: FrozenSet[int] = frozenset()
     on_quarantine = None
@@ -325,10 +348,11 @@ def batch_iterator(
         item_id = int(indices[pos])
         bit = bool(mask[pos]) if masked else True
         if item is QUARANTINED:
-            if not masked and not substitute:
+            if shard is None and not masked and not substitute:
                 continue
-            # Masked or substitute: replace instead of dropping; a masked
-            # slot counts as absent, an unmasked one as a substitution.
+            # Sharded, masked or substitute: replace instead of dropping; a
+            # masked slot counts as absent, an unmasked one as a
+            # substitution.
             if masked:
                 bit = False
             if last_good is None and not prefix_walked:

@@ -23,8 +23,10 @@ The pool feeds the JAX pool's instruments into the registry
 ``dwt_data_worker_respawns_total``) and opens its ``reassembly`` span over
 a stall's wait; ``DWT_DATA_TRAIL=DIR`` appends one JSONL line per batch
 per stream to ``DIR/<role>.jsonl`` (role, epoch, cursor, dataset ids), as
-the JAX plane does.  Not ported yet: the per-process ``shard`` split
-(with DDP, ROADMAP queue 1 item 8).
+the JAX plane does.  ``shard=(index, count)`` is a data-parallel run's
+per-process split, handed to every stream's ``batch_iterator``: each
+stream's cursor then counts this process's batches, the same on every
+rank, and a ``data_state`` snapshot is the same on every rank.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Future, wait
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 from dwt_tpu_torch import obs
 
@@ -102,8 +104,10 @@ class DataPlane:
 
     def __init__(self, *, num_workers: int = 0, seed_bump: int = 0,
                  quarantine_registry=None,
-                 stall_timeout: float = DEFAULT_STALL_TIMEOUT_S):
+                 stall_timeout: float = DEFAULT_STALL_TIMEOUT_S,
+                 shard: Optional[Tuple[int, int]] = None):
         self.streams: Dict[str, StreamPos] = {}
+        self.shard = shard
         self.num_workers = int(num_workers)
         # The loader pools' head-of-window stall budget (--data_stall_timeout;
         # 0 disables the detection).
@@ -254,7 +258,7 @@ class DataPlane:
         start = pos.cursor if start_batch is None else int(start_batch)
         return batch_iterator(
             dataset, batch_size, shuffle=True,
-            seed=pos.seed + self.seed_bump, epoch=epoch,
+            seed=pos.seed + self.seed_bump, epoch=epoch, shard=self.shard,
             num_workers=self.num_workers, start_batch=start,
             substitute=True,
             quarantine_registry=self.quarantine_registry,

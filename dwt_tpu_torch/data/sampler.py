@@ -155,14 +155,17 @@ class SeekableSampler:
         return self.take(np.arange(start, stop, dtype=np.uint64))
 
 
-def epoch_batch_count(n: int, batch_size: int, drop_last: bool = True) -> int:
+def epoch_batch_count(n: int, batch_size: int, drop_last: bool = True,
+                      shard_count: int = 1) -> int:
     """Batches per epoch of a train-path stream, as ``batch_iterator``
-    counts them.  With quarantine substitution (the train loops) this
-    count is fixed for the whole run, which makes stream positions pure
-    functions of the step and mid-epoch seeks exact.  (The JAX package's
-    ``shard_count`` waits for the port's DDP.)"""
+    counts them — per process under a ``shard_count``-way split, whose
+    epoch is first cut to a multiple of ``shard_count * batch_size``.
+    With quarantine substitution (the train loops) this count is fixed
+    for the whole run, which makes stream positions pure functions of the
+    step and mid-epoch seeks exact."""
     if batch_size <= 0:
         raise ValueError(f"batch_size must be > 0; got {batch_size}")
+    span = batch_size * max(1, int(shard_count))
     if drop_last:
-        return int(n) // batch_size
-    return (int(n) + batch_size - 1) // batch_size
+        return int(n) // span
+    return (int(n) + span - 1) // span

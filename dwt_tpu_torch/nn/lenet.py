@@ -35,6 +35,7 @@ from dwt_tpu_torch.nn.norms import (
     DomainBatchNorm,
     DomainWhiten,
     merge_domains,
+    set_group,
     split_domains,
 )
 from dwt_tpu_torch.nn.resnet import _variance_scaling_, cast_forward
@@ -131,10 +132,13 @@ def init_lenet_weights(model: LeNetDWT, seed: int = 0) -> LeNetDWT:
 def build_lenet(
     *, group_size: int = 4, seed: Optional[int] = None, momentum: float = 0.1,
     dtype: Optional[torch.dtype] = None, whitener: str = "cholesky",
+    group=None,
 ) -> LeNetDWT:
-    """LeNet-DWT, freshly initialized from ``seed`` when one is given."""
+    """LeNet-DWT, freshly initialized from ``seed`` when one is given; its
+    norm sites reduce their train-mode moments over ``group`` (the JAX
+    model's ``axis_name``; None: one process)."""
     model = LeNetDWT(group_size=group_size, momentum=momentum, dtype=dtype,
                      whitener=whitener)
     if seed is not None:
         init_lenet_weights(model, seed)
-    return model
+    return set_group(model, group)

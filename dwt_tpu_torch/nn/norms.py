@@ -26,6 +26,14 @@ stats tree does: ``swbn`` adds the tracked matrices ``w [D, G, g, g]``, so
 checkpoints are per-backend artifacts.  Activations may be bf16; the stat
 buffers stay f32 and the sites return the activation dtype.
 
+**Data parallelism** (:func:`set_group`): a site's ``group`` (None, or
+the run's :class:`~dwt_tpu_torch.parallel.mesh.Mesh`; the JAX modules'
+``axis_name``) makes its train-mode moments the global batch's over the
+group's ranks, each rank holding its slice of every domain.  Eval mode
+reads running stats only and takes no collective.  :func:`local_moments`
+lifts the group for a forward every rank runs on the same rows (the
+stat-collection pass's ragged tail).
+
 **Rematerialization** (:func:`remat`, ResNet's ``--remat``): a block run
 under ``torch.utils.checkpoint`` runs its forward again in the backward.
 The statistics advance once per step and the recompute must see the
@@ -164,6 +172,7 @@ class DomainWhiten(nn.Module):
         self.beta = nn.Parameter(torch.zeros(features))
         self.register_buffer("eval_matrix", None, persistent=False)
         self._remat_w: Optional[torch.Tensor] = None
+        self.group = None
 
     def branch(self, domain):
         """The stats of branch ``domain`` (an index, or ``slice(None)``
@@ -180,7 +189,8 @@ class DomainWhiten(nn.Module):
                 stats = stats._replace(w=self._remat_w)
         y3, new = cuda_whitening.cuda_group_whiten(
             x3, stats, group_size=self.group_size, train=True,
-            momentum=self.momentum, eps=self.eps, whitener=self.whitener)
+            momentum=self.momentum, eps=self.eps, whitener=self.whitener,
+            group=self.group)
         if _remat_phase != "recompute":
             with torch.no_grad():
                 for name, value in zip(self._stat_names, new):
@@ -230,13 +240,15 @@ class DomainBatchNorm(nn.Module):
         self.register_buffer("count", proto.count.repeat(num_domains))
         self.gamma = nn.Parameter(torch.ones(features))
         self.beta = nn.Parameter(torch.zeros(features))
+        self.group = None
 
     def branch(self, domain) -> BatchNormStats:
         return BatchNormStats(self.mean[domain], self.var[domain], self.count[domain])
 
     def _train(self, x3: torch.Tensor) -> torch.Tensor:
         y3, new = domain_batch_norm(
-            x3, self.branch(slice(None)), momentum=self.momentum, eps=self.eps)
+            x3, self.branch(slice(None)), momentum=self.momentum, eps=self.eps,
+            group=self.group)
         if _remat_phase != "recompute":
             with torch.no_grad():
                 self.mean.copy_(new.mean)
@@ -254,6 +266,34 @@ class DomainBatchNorm(nn.Module):
             )
         y = torch.addcmul(self.beta.to(y.dtype), y, self.gamma.to(y.dtype))
         return _from_channels_last(y)
+
+
+def norm_sites(model: nn.Module):
+    """Every :class:`DomainWhiten` and :class:`DomainBatchNorm` of ``model``."""
+    return [m for m in model.modules() if isinstance(m, (DomainWhiten, DomainBatchNorm))]
+
+
+def set_group(model: nn.Module, group) -> nn.Module:
+    """Give every norm site of ``model`` the process ``group`` (None: one
+    process) its train-mode moments reduce over; returns ``model``."""
+    for site in norm_sites(model):
+        site.group = group
+    return model
+
+
+@contextlib.contextmanager
+def local_moments(model: nn.Module) -> Iterator[None]:
+    """Within the block, every site of ``model`` takes the moments of its
+    own rows: for a forward each rank runs on the same rows."""
+    sites = norm_sites(model)
+    saved = [site.group for site in sites]
+    try:
+        for site in sites:
+            site.group = None
+        yield
+    finally:
+        for site, group in zip(sites, saved):
+            site.group = group
 
 
 def whitening_sites(model: nn.Module) -> "dict[str, DomainWhiten]":

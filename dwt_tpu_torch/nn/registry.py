@@ -10,9 +10,10 @@ downstream special-cases the architecture.
 Every entry takes the same keyword arguments: ``num_classes``,
 ``group_size``, ``momentum``, ``dtype``, ``whitener``, ``remat``,
 ``pad_classes_to``, ``image_size`` (the ViTs size ``pos_embed`` from it;
-the ResNets pool globally and take any size) and ``seed`` (fresh weights
+the ResNets pool globally and take any size), ``seed`` (fresh weights
 from it; ``None`` leaves the constructor's, for weights a checkpoint
-replaces).  :func:`register_backbone` adds an entry, for example a test's
+replaces) and ``group`` (the process group of a data-parallel run, which
+every norm site reduces its moments over).  :func:`register_backbone` adds an entry, for example a test's
 stub.
 """
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, Optional
 
 from torch import nn
 
+from dwt_tpu_torch.nn.norms import set_group
 from dwt_tpu_torch.nn.resnet import ResNetDWT, init_weights
 from dwt_tpu_torch.nn.vit import ViTDWT, init_vit_weights
 
@@ -56,8 +58,10 @@ BACKBONES: Dict[str, Callable[..., nn.Module]] = {
 }
 
 
-def build_backbone(name: str, **kwargs) -> nn.Module:
-    """Construct the named backbone, or raise listing what is registered."""
+def build_backbone(name: str, group=None, **kwargs) -> nn.Module:
+    """Construct the named backbone, or raise listing what is registered;
+    its norm sites reduce their train-mode moments over ``group`` (the JAX
+    models' ``axis_name``; None: one process)."""
     try:
         ctor = BACKBONES[name]
     except KeyError:
@@ -65,7 +69,7 @@ def build_backbone(name: str, **kwargs) -> nn.Module:
             f"unknown backbone {name!r}; registered: "
             f"{', '.join(sorted(BACKBONES))}"
         ) from None
-    return ctor(**kwargs)
+    return set_group(ctor(**kwargs), group)
 
 
 def register_backbone(name: str, ctor: Callable[..., nn.Module]) -> None:

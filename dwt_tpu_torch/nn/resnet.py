@@ -276,7 +276,7 @@ def build_resnet(
     name: str, *, num_classes: int = 65, group_size: int = 4,
     seed: Optional[int] = None, momentum: float = 0.1,
     dtype: Optional[torch.dtype] = None, whitener: str = "cholesky",
-    remat: bool = False, pad_classes_to: int = 0,
+    remat: bool = False, pad_classes_to: int = 0, group=None,
 ) -> ResNetDWT:
     """A ResNet-DWT of the backbone registry by name (``resnet50``,
     ``resnet101``, ``resnet152``, ``tiny``), freshly initialized from
@@ -286,7 +286,7 @@ def build_resnet(
     model = build_backbone(
         name, num_classes=num_classes, group_size=group_size, seed=seed,
         momentum=momentum, dtype=dtype, whitener=whitener, remat=remat,
-        pad_classes_to=pad_classes_to)
+        pad_classes_to=pad_classes_to, group=group)
     if not isinstance(model, ResNetDWT):
         raise ValueError(f"{name!r} is not a ResNet backbone")
     return model

@@ -31,9 +31,11 @@ Span categories (the report tool groups by these):
   drain site), and the nested ``metric_host_fetch`` — the one
   genuinely BLOCKING materialization (the harvester's event wait).
 * ``eval`` — eval/stat-collection pipeline internals.
-* ``ckpt`` — checkpoint pipeline (writer-thread writes; the host fetch,
-  promotion and barrier spans belong to the multi-process writers,
-  ROADMAP queue 1 item 8).
+* ``ckpt`` — checkpoint pipeline (writer-thread writes; the
+  multi-process writers' ``ckpt_host_fetch``, ``shard_write``,
+  ``ckpt_promote`` and ``ckpt_barrier``).  The ``shard`` category's
+  placement, gather and restore spans wait for the gspmd mode (ROADMAP
+  queue 1 item 8b).
 * ``data`` — prefetch producer thread (batch assembly, H2D staging).
 * ``serve`` — serving path (admission → plan → build → stage → device →
   resolve), spans carrying ``bucket``/``req_id`` attrs that correlate

@@ -65,10 +65,16 @@ def domain_batch_norm(
     *,
     momentum: Optional[float] = 0.1,
     eps: float = 1e-5,
+    group=None,
 ) -> Tuple[torch.Tensor, BatchNormStats]:
     """Train mode of ``D`` branches: ``x [D, ..., C]`` with stats of
     leading shape ``[D]``; branch ``d`` normalizes ``x[d]`` with its own
-    batch moments and advances its own stats.  Returns ``(y, new_stats)``."""
+    batch moments and advances its own stats.  Returns ``(y, new_stats)``.
+
+    ``group`` (a :class:`~dwt_tpu_torch.parallel.mesh.Mesh`, the JAX op's
+    ``axis_name``): ``x`` is this rank's slice; ``m`` and ``E[x²]`` are
+    averaged over the ranks (one differentiable all-reduce) and the count
+    is the global one."""
     dtype = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(dtype)
     reduce_axes = tuple(range(1, x.dim() - 1))
@@ -78,6 +84,10 @@ def domain_batch_norm(
     bcast = (x.shape[0],) + (1,) * len(reduce_axes) + (x.shape[-1],)
     m = xf.mean(dim=reduce_axes)
     msq = torch.square(xf).mean(dim=reduce_axes)
+    if group is not None:
+        both = group.psum(torch.stack([m, msq])) / group.size
+        m, msq = both[0], both[1]
+        n *= group.size
     var = msq - torch.square(m)  # biased — used for normalization
     y = _normalize(x, xf, m.view(bcast), var.view(bcast), eps)
 

@@ -559,6 +559,48 @@ def _pure_train_y(x2d: torch.Tensor, group_size: int, eps: float,
     return y
 
 
+def _pure_train_y_group(x: torch.Tensor, group_size: int, eps: float, whitener,
+                        w_prev: Optional[torch.Tensor], group) -> torch.Tensor:
+    """The group-aware plain op's train-mode output for all ``D`` domains of
+    ``x [D, M, C]`` (this rank's rows) — the recompute of the backward
+    under a process group: each domain's mean averaged over the ranks, its
+    centred covariance summed over them with the global count
+    (``whitening.group_whiten(..., group=)``'s numerics, one differentiable
+    all-reduce for all domains' means and one for their covariances), so
+    its gradient is the global batch's."""
+    whitener = whitening.get_whitener(whitener)
+    d, _, c = x.shape
+    groups, g = whitening._resolve_groups(c, group_size)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    m = group.psum(xf.mean(dim=1)) / group.size
+    xn = xf - m[:, None, :]
+    t = xn.reshape(d, -1, groups, g)
+    cov = group.psum(torch.stack([whitening.group_cov_sum(t[i]) for i in range(d)]))
+    cov = cov / (t.shape[1] * group.size)
+    stats = None if w_prev is None else whitening.SWBNStats(None, None, w_prev)
+    w, _ = whitener.train_matrix(cov.to(whitener.precision_policy(x.dtype)), stats, eps)
+    return torch.stack([whitening.apply_whitening(xn[i], w[i], compute_dtype=x.dtype)
+                        for i in range(d)]).to(x.dtype)
+
+
+def combine_moments(means: torch.Tensor, covs: torch.Tensor, group
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global batch's moments from each rank's ``(means [D, C], covs
+    [D, G, g, g])`` of an equal number of rows, in float64 with one
+    all-reduce: ``μ = E_r[μ_r]`` and, per group block, ``Σ = E_r[Σ_r +
+    μ_r μ_rᵀ] − μ μᵀ`` (Chan's combination); returned in f32."""
+    d, c = means.shape
+    groups, g = covs.shape[1], covs.shape[2]
+    mu = means.double().view(d, groups, g)
+    second = covs.double() + mu.unsqueeze(-1) * mu.unsqueeze(-2)
+    buf = torch.cat([mu.reshape(-1), second.reshape(-1)])
+    group.psum_(buf)
+    buf /= group.size
+    gmu = buf[: d * c].view(d, groups, g)
+    gcov = buf[d * c:].view(d, groups, g, g) - gmu.unsqueeze(-1) * gmu.unsqueeze(-2)
+    return gmu.reshape(d, c).float(), gcov.float()
+
+
 class TrainWhiten(torch.autograd.Function):
     """Train-mode whitening of ``x [D, M, C]`` (f32 or bf16), each domain
     ``d`` with the batch moments of its own slice ``x[d]``.
@@ -580,13 +622,22 @@ class TrainWhiten(torch.autograd.Function):
     reads a copy of ``w_prev`` taken in the forward (the site overwrites
     its buffer in place after the forward).  The recompute never touches
     running stats, so they advance once per forward.
+
+    Under a process ``group`` (a :class:`~dwt_tpu_torch.parallel.mesh.Mesh`)
+    ``x`` is this rank's rows: the moments kernel runs on them, one launch
+    as ever, and :func:`combine_moments` makes the global batch's moments
+    of them with one float64 all-reduce per site; the train matrix and the
+    apply kernel then use the global moments.  The backward recomputes the
+    group-aware plain op (:func:`_pure_train_y_group`), whose gradient is
+    the global batch's.
     """
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group_size: int, eps: float,
-                whitener=None, w_prev: Optional[torch.Tensor] = None):
+                whitener=None, w_prev: Optional[torch.Tensor] = None, group=None):
         whitener = whitening.get_whitener(whitener)
         ctx.group_size, ctx.eps, ctx.whitener = group_size, eps, whitener
+        ctx.group = group
         ctx.w_prev = None if w_prev is None else w_prev.detach().clone()
         ctx.save_for_backward(x)
         y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -594,6 +645,8 @@ class TrainWhiten(torch.autograd.Function):
         # because nothing below may record a graph.
         with torch.no_grad():
             means, covs = whiten_moments(x, group_size)
+            if group is not None:
+                means, covs = combine_moments(means, covs, group)
             # A train matrix reads no running stat but SWBN's tracked w.
             stats = (None if ctx.w_prev is None
                      else whitening.SWBNStats(None, None, ctx.w_prev))
@@ -611,11 +664,17 @@ class TrainWhiten(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         with torch.enable_grad():
             xr = x.detach().requires_grad_(True)
-            ys = [_pure_train_y(xr[d], ctx.group_size, ctx.eps, ctx.whitener,
-                                None if ctx.w_prev is None else ctx.w_prev[d])
-                  for d in range(x.shape[0])]
-            (dx,) = torch.autograd.grad(ys, xr, list(gy.to(x.dtype)))
-        return dx, None, None, None, None
+            if ctx.group is not None:
+                ys = [_pure_train_y_group(xr, ctx.group_size, ctx.eps, ctx.whitener,
+                                          ctx.w_prev, ctx.group)]
+                gys = [gy.to(x.dtype)]
+            else:
+                ys = [_pure_train_y(xr[d], ctx.group_size, ctx.eps, ctx.whitener,
+                                    None if ctx.w_prev is None else ctx.w_prev[d])
+                      for d in range(x.shape[0])]
+                gys = list(gy.to(x.dtype))
+            (dx,) = torch.autograd.grad(ys, xr, gys)
+        return dx, None, None, None, None, None
 
 
 def cuda_group_whiten(
@@ -627,6 +686,7 @@ def cuda_group_whiten(
     momentum: float = 0.1,
     eps: float = 1e-3,
     whitener=None,
+    group=None,
 ):
     """Drop-in for :func:`dwt_tpu_torch.ops.whitening.group_whiten` through
     the kernels (single device, any whitener) — ``pallas_group_whiten``'s
@@ -640,7 +700,9 @@ def cuda_group_whiten(
     and domain ``d`` is whitened with the batch moments of ``x[d]`` and
     advances branch ``d`` — what :class:`~dwt_tpu_torch.nn.norms.DomainWhiten`
     calls.  Eval mode applies the f32 eval matrix and the f32 running mean
-    (the JAX kernel path's ``pallas_group_whiten``)."""
+    (the JAX kernel path's ``pallas_group_whiten``).  ``group`` (train
+    mode): ``x`` is this rank's rows and the moments the global batch's
+    (:class:`TrainWhiten`)."""
     c = x.shape[-1]
     _, g = whitening._resolve_groups(c, group_size)
     whitener = whitening.get_whitener(whitener)
@@ -650,7 +712,7 @@ def cuda_group_whiten(
         if w_prev is not None and not stacked:
             w_prev = w_prev[None]
         y, mean, cov, *aux = TrainWhiten.apply(
-            x.view(x.shape[0] if stacked else 1, -1, c), g, eps, whitener, w_prev)
+            x.view(x.shape[0] if stacked else 1, -1, c), g, eps, whitener, w_prev, group)
         aux = aux[0] if aux else None
         if not stacked:
             mean, cov = mean[0], cov[0]

@@ -140,20 +140,34 @@ def _group_apply(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat([y_head, torch.bmm(tail, wt).transpose(0, 1)])
 
 
-def group_cov(xn: torch.Tensor, num_groups: int, group_size: int) -> torch.Tensor:
-    """Biased per-group covariance ``[G, g, g]`` of centred, channels-last
-    ``xn [..., C]`` (reduced over all leading axes), accumulated in at
-    least float32 — the JAX op's einsum at ``Precision.HIGHEST``."""
-    acc_dtype = torch.promote_types(xn.dtype, torch.float32)
-    t = xn.reshape(-1, num_groups, group_size).to(acc_dtype)
-    if group_size > 4:
-        return _group_gram(t) / t.shape[0]
+def group_cov_sum(t: torch.Tensor) -> torch.Tensor:
+    """``Σ_m t[m, G] t[m, G]ᵀ`` of ``t [M, G, g]`` → ``[G, g, g]``."""
+    if t.shape[-1] > 4:
+        return _group_gram(t)
     # The per-group outer products summed over rows: an elementwise
     # product and a reduction.  The einsum "mgc,mgd->gcd" would be a
     # batched product with a g×g output per group and M-long sums, which
-    # cuBLAS runs as one serial loop over M on a few SMs (milliseconds
-    # per call at the train shapes).
-    return (t.unsqueeze(-1) * t.unsqueeze(-2)).sum(dim=0) / t.shape[0]
+    # cuBLAS runs as one serial loop over M on a few SMs (milliseconds per
+    # call at the train shapes).
+    return (t.unsqueeze(-1) * t.unsqueeze(-2)).sum(dim=0)
+
+
+def group_cov(xn: torch.Tensor, num_groups: int, group_size: int,
+              group=None) -> torch.Tensor:
+    """Biased per-group covariance ``[G, g, g]`` of centred, channels-last
+    ``xn [..., C]`` (reduced over all leading axes), accumulated in at
+    least float32 — the JAX op's einsum at ``Precision.HIGHEST``.  With
+    ``group`` (a :class:`~dwt_tpu_torch.parallel.mesh.Mesh`; JAX's
+    ``axis_name``) the sums are added over its ranks and divided by the
+    global row count."""
+    acc_dtype = torch.promote_types(xn.dtype, torch.float32)
+    t = xn.reshape(-1, num_groups, group_size).to(acc_dtype)
+    rows = t.shape[0]
+    total = group_cov_sum(t)
+    if group is not None:
+        total = group.psum(total)
+        rows *= group.size
+    return total / rows
 
 
 def whitening_matrix(cov_shrunk: torch.Tensor) -> torch.Tensor:
@@ -430,6 +444,7 @@ def group_whiten(
     eps: float = 1e-3,
     whitener: "str | Whitener | None" = None,
     eval_matrix: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Whiten channels-last ``x [..., C]`` per group of channels.
 
@@ -443,6 +458,12 @@ def group_whiten(
     must be viewable as ``[M, C]`` (a channels-last activation is): the
     apply reads it without a copy, a bf16 ``x`` as bf16.
 
+    ``group`` (train mode; a :class:`~dwt_tpu_torch.parallel.mesh.Mesh`,
+    the JAX op's ``axis_name``): ``x`` is this rank's slice of the batch,
+    and the moments are the global batch's — the mean averaged over the
+    ranks, then the centred covariance summed with the global count
+    (differentiable collectives, so the gradient is the global batch's).
+
     Returns ``(whitened, new_stats)`` — whitened has the dtype/shape of ``x``.
     """
     whitener = get_whitener(whitener)
@@ -454,8 +475,10 @@ def group_whiten(
     xf = x.to(dtype)
     if train:
         m = xf.mean(dim=tuple(range(x.dim() - 1)))
+        if group is not None:
+            m = group.psum(m) / group.size
         xn = xf - m
-        cov = group_cov(xn, num_groups, group_size)
+        cov = group_cov(xn, num_groups, group_size, group)
         w, aux = whitener.train_matrix(
             cov.to(whitener.precision_policy(x.dtype)), stats, eps)
         y = apply_whitening(xn, w, compute_dtype=x.dtype).to(x.dtype)

@@ -1,0 +1,315 @@
+"""Process groups and rank meshes — the port of ``dwt_tpu.parallel.mesh``.
+
+The JAX package's mesh is a grid of devices that one program spans; the
+port runs one process per rank (``torch.distributed``), and its mesh is
+the grid of those ranks.  :func:`initialize_distributed` joins the
+process group: its address, size and this process's rank come from the
+JAX package's variables ``DWT_COORDINATOR_ADDRESS``, ``DWT_NUM_PROCESSES``
+and ``DWT_PROCESS_ID``, or, where those are absent, from torchrun's
+``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE`` (``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``), as JAX auto-detects a pod.
+
+**The backend follows from the topology, never from a failure**
+(:func:`choose_backend`): gloo on the CPU and wherever two ranks of a
+host share a device, NCCL where every rank owns its own device.  A rank's
+device is ``cuda:(local_rank % device_count)``.  Under NCCL the group also
+gets a gloo group over the same ranks (:func:`cpu_group`), which the
+step-boundary consensus uses, so that a boundary decision never waits on
+the card.  A rank that cannot join the group raises; nothing trains alone.
+
+:class:`Mesh` is a 1-D ``(data,)`` or slice-major 2-D ``(dcn, data)``
+grid of ranks.  Its collectives reduce over every axis — within a slice
+over ``data``, then across slices over ``dcn`` — which is what the JAX
+package's two-axis ``pmean``/``psum`` lowers to.  :meth:`Mesh.psum` is
+differentiable (``torch.distributed.nn.functional.all_reduce``: its
+backward is the all-reduce of the gradients), so a plain op written with
+it has the global batch's gradient, as JAX's does under ``shard_map``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import warnings
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+# Axis names of the JAX package's meshes.
+DATA_AXIS = "data"
+DCN_AXIS = "dcn"
+
+# Seconds a collective may wait before it fails the run (a hang is an error,
+# not a stall): DWT_DIST_TIMEOUT_S overrides it.
+DEFAULT_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DistInfo:
+    """What :func:`initialize_distributed` set up: the backend, this rank
+    and the group's size, this process's device and every rank's device
+    (``devices[r]``, gathered once at start)."""
+
+    backend: str
+    rank: int
+    world_size: int
+    local_rank: int
+    local_world_size: int
+    device: str
+    devices: List[str]
+
+
+_INFO: Optional[DistInfo] = None
+_CPU_GROUP = None
+
+
+def process_index() -> int:
+    """This process's rank (0 without a group) — ``jax.process_index``."""
+    return _INFO.rank if _INFO is not None else 0
+
+
+def process_count() -> int:
+    """The group's size (1 without a group) — ``jax.process_count``."""
+    return _INFO.world_size if _INFO is not None else 1
+
+
+def dist_info() -> Optional[DistInfo]:
+    return _INFO
+
+
+def cpu_group():
+    """A gloo group over every rank, for collectives of host values (the
+    consensus flags); None without a group."""
+    return _CPU_GROUP
+
+
+def choose_backend(device_type: str, local_world_size: int,
+                   device_count: int) -> str:
+    """gloo on the CPU and where ranks of one host share a device; NCCL
+    where each rank of the host owns a device of its own."""
+    if device_type != "cuda" or device_count < local_world_size:
+        return "gloo"
+    return "nccl"
+
+
+def rank_device(device_type: str, local_rank: int, device_count: int) -> str:
+    """``cuda:(local_rank % device_count)``, or ``cpu``."""
+    if device_type != "cuda":
+        return "cpu"
+    if device_count < 1:
+        raise RuntimeError("--distributed on CUDA: no CUDA device is visible")
+    return f"cuda:{local_rank % device_count}"
+
+
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(
+        seconds=float(os.environ.get("DWT_DIST_TIMEOUT_S", DEFAULT_TIMEOUT_S)))
+
+
+def _int_env(name: str) -> Optional[int]:
+    value = os.environ.get(name)
+    try:
+        return int(value) if value else None
+    except ValueError:
+        raise RuntimeError(f"--distributed: {name}={value!r} is not an integer") from None
+
+
+def cluster_from_env():
+    """``(address, world_size, rank, local_rank, local_world_size,
+    explicit)`` from the DWT_* variables, else torchrun's; None where
+    neither names a cluster.  ``explicit`` is True for DWT_*."""
+    coordinator = os.environ.get("DWT_COORDINATOR_ADDRESS")
+    num = _int_env("DWT_NUM_PROCESSES")
+    pid = _int_env("DWT_PROCESS_ID")
+    if coordinator or num is not None or pid is not None:
+        local = _int_env("LOCAL_RANK")
+        return coordinator, num, pid, (pid if local is None else local), \
+            _int_env("LOCAL_WORLD_SIZE") or num, True
+    if os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE"):
+        rank = _int_env("RANK")
+        world = _int_env("WORLD_SIZE")
+        local = _int_env("LOCAL_RANK")
+        address = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '29500')}"
+        return address, world, rank, (rank if local is None else local), \
+            _int_env("LOCAL_WORLD_SIZE") or world, False
+    return None
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    device: str = "cuda",
+) -> DistInfo:
+    """Join the process group (``torch.distributed.init_process_group``
+    over ``tcp://<coordinator_address>``) and return its :class:`DistInfo`.
+
+    Arguments left None come from the environment (module docstring), as
+    do the host's local rank and size (``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``; by default the rank and the group's size: one
+    host).
+    ``device`` is the run's device type: ``cpu`` takes gloo, ``cuda`` the
+    backend :func:`choose_backend` picks for this host.  Call once per
+    process, before any collective; a second call returns the first's
+    info."""
+    global _INFO, _CPU_GROUP
+    import torch.distributed as dist
+
+    if _INFO is not None:
+        return _INFO
+    env = cluster_from_env()
+    local_rank = local_world_size = None
+    if env is not None:
+        address, world, rank, local_rank, local_world_size, _ = env
+        coordinator_address = coordinator_address or address
+        num_processes = num_processes if num_processes is not None else world
+        process_id = process_id if process_id is not None else rank
+    if not coordinator_address or num_processes is None or process_id is None:
+        raise ValueError(
+            "no cluster to join: pass the coordinator address, the number "
+            "of processes and this process's id, or set them in the "
+            "environment")
+    if not 0 <= int(process_id) < int(num_processes):
+        raise ValueError(f"process id {process_id} is outside 0..{int(num_processes) - 1}")
+    local_rank = int(process_id if local_rank is None else local_rank)
+    local_world_size = int(num_processes if local_world_size is None else local_world_size)
+    dtype = torch.device(device).type
+    count = torch.cuda.device_count() if dtype == "cuda" else 0
+    backend = choose_backend(dtype, local_world_size, count)
+    mine = rank_device(dtype, local_rank, count)
+    if dtype == "cuda":
+        torch.cuda.set_device(torch.device(mine))
+    dist.init_process_group(
+        backend=backend, init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id), timeout=_timeout())
+    _CPU_GROUP = (dist.group.WORLD if backend == "gloo"
+                  else dist.new_group(backend="gloo", timeout=_timeout()))
+    devices: List[Optional[str]] = [None] * int(num_processes)
+    dist.all_gather_object(devices, mine, group=_CPU_GROUP)
+    _INFO = DistInfo(backend=backend, rank=int(process_id),
+                     world_size=int(num_processes), local_rank=local_rank,
+                     local_world_size=local_world_size, device=mine,
+                     devices=[str(d) for d in devices])
+    return _INFO
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (a no-op without one)."""
+    global _INFO, _CPU_GROUP
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _INFO = _CPU_GROUP = None
+
+
+class Mesh:
+    """A grid of ranks with named axes: ``(data,)`` or ``(dcn, data)``.
+
+    ``ranks`` is the grid (a numpy int array); a rank's batch shard is its
+    position in the flattened grid (:attr:`index`), the block that the
+    JAX package's ``P(("dcn", "data"))`` gives the device at that
+    position.  Inside a process group the mesh makes one subgroup per
+    row and column of a 2-D grid (every rank takes part in every
+    ``new_group`` call, in one order); outside one it only describes the
+    layout and its collectives raise."""
+
+    def __init__(self, ranks: np.ndarray, axis_names: Sequence[str]):
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        self.axis_names = tuple(axis_names)
+        if self.ranks.ndim != len(self.axis_names):
+            raise ValueError(f"rank grid {self.ranks.shape} vs axes {self.axis_names}")
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, self.ranks.shape))
+        self.size = int(self.ranks.size)
+        self.backend = _INFO.backend if _INFO is not None else None
+        self._axis_groups: List = []
+        if _INFO is not None:
+            self._make_groups()
+
+    def _make_groups(self) -> None:
+        import torch.distributed as dist
+
+        world = sorted(int(r) for r in self.ranks.reshape(-1))
+        if world != list(range(process_count())):
+            raise ValueError(
+                f"mesh ranks {world} must be every rank of the group "
+                f"(0..{process_count() - 1}): a rank outside the mesh would "
+                "train alone")
+        if self.ranks.ndim == 1:
+            self._axis_groups = [dist.group.WORLD]
+            return
+        mine = process_index()
+        # The data axis first (within a slice), then dcn (across slices).
+        for axis in (1, 0):
+            lines = np.moveaxis(self.ranks, axis, -1).reshape(-1, self.ranks.shape[axis])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line], timeout=_timeout())
+                if mine in line:
+                    self._axis_groups.append(group)
+
+    @property
+    def index(self) -> int:
+        """This rank's position in the flattened grid (its batch shard)."""
+        flat = [int(r) for r in self.ranks.reshape(-1)]
+        return flat.index(process_index())
+
+    @property
+    def capturable(self) -> bool:
+        """Can a step with this mesh's collectives be captured as a CUDA
+        graph?  NCCL's can; gloo stages through the host and cannot."""
+        return self.backend == "nccl"
+
+    def _groups(self):
+        if not self._axis_groups:
+            raise RuntimeError("this mesh has no process group (describe-only)")
+        return self._axis_groups
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every rank, differentiable: the backward
+        all-reduces the incoming gradient the same way."""
+        from torch.distributed.nn.functional import all_reduce
+
+        for group in self._groups():
+            with warnings.catch_warnings():
+                # Its deprecation names a replacement whose backward is not
+                # the all-reduce of the gradient; this one's is.
+                warnings.filterwarnings("ignore", category=FutureWarning,
+                                        message=".*all_reduce is deprecated")
+                t = all_reduce(t, group=group)
+        return t
+
+    def psum_(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every rank, in place, outside autograd."""
+        import torch.distributed as dist
+
+        for group in self._groups():
+            dist.all_reduce(t, group=group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of the grid's first rank, in place."""
+        import torch.distributed as dist
+
+        dist.broadcast(t, src=int(self.ranks.reshape(-1)[0]))
+        return t
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, backend={self.backend})"
+
+
+def make_mesh(ranks: Optional[Sequence[int]] = None,
+              dcn_slices: Optional[int] = None) -> Mesh:
+    """The data-parallel mesh over ``ranks`` (default: every rank of the
+    group): 1-D ``(data,)``, or with ``dcn_slices = S > 1`` the slice-major
+    ``(dcn, data)`` grid ``[S, n / S]``."""
+    ranks = list(range(process_count()) if ranks is None else ranks)
+    if dcn_slices and dcn_slices > 1:
+        n = len(ranks)
+        if n % dcn_slices:
+            raise ValueError(f"{n} devices cannot split into {dcn_slices} equal slices")
+        return Mesh(np.asarray(ranks).reshape(dcn_slices, n // dcn_slices),
+                    (DCN_AXIS, DATA_AXIS))
+    return Mesh(np.asarray(ranks), (DATA_AXIS,))

@@ -9,12 +9,14 @@
 * :class:`HangWatchdog` — heartbeat-fed stall detector: all-thread stacks
   under ``ckpt_dir/watchdog/`` and exit :data:`WATCHDOG_EXIT_CODE`.
 * :class:`AsyncCheckpointer` / :class:`DeltaAsyncCheckpointer` — the
-  single-in-flight background checkpoint writer.
-* :class:`Coordinator` — the step boundary's decision, single process.
+  single-in-flight background checkpoint writer;
+  :class:`MultiHostAsyncCheckpointer` /
+  :class:`MultiHostDeltaAsyncCheckpointer` — its multi-process form (each
+  rank's host shard, rank 0's promotion at the consensus frontier).
+* :class:`Coordinator` — the step boundary's decision: every rank's flags
+  allgathered over a gloo group in a multi-process run.
 * :mod:`~dwt_tpu_torch.resilience.inject` — the deterministic fault plans
   (``DWT_FAULT_PLAN``) that drive every path above.
-
-Not ported: the multi-host writers and consensus (ROADMAP queue 1 item 8).
 
 The names are exported lazily (:func:`~dwt_tpu_torch._lazy.lazy_exports`):
 the fleet's balancer reads :mod:`~dwt_tpu_torch.resilience.inject` and
@@ -26,6 +28,8 @@ from dwt_tpu_torch._lazy import lazy_exports
 _EXPORTS = {
     "AsyncCheckpointer": "async_ckpt",
     "DeltaAsyncCheckpointer": "async_ckpt",
+    "MultiHostAsyncCheckpointer": "async_ckpt",
+    "MultiHostDeltaAsyncCheckpointer": "async_ckpt",
     "snapshot_state": "async_ckpt",
     "Coordinator": "coord",
     "Decision": "coord",

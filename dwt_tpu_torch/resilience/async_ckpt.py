@@ -33,9 +33,20 @@ The JAX docstring's three rules hold here too:
   :meth:`save`/:meth:`flush`.
 
 Each target's write is the writer thread's ``ckpt_write`` span, as in the
-JAX writer.  ``MultiHostAsyncCheckpointer`` (and with it the
-``shard_write``, ``ckpt_host_fetch`` and ``ckpt_promote`` spans) waits
-for multi-process training (ROADMAP queue 1 item 8).
+JAX writer.
+
+**Multi-process runs** (:class:`MultiHostAsyncCheckpointer`, JAX's
+collective-free writer): the loop's thread copies the state to the host
+itself (``ckpt_host_fetch``: the save's whole cost on the hot path), and
+the writer thread writes this rank's shard of the
+host-shard format (``utils.checkpoint.save_host_shard``; ``shard_write``)
+and then reports the save's sequence number as done.  The step boundary's
+consensus carries every rank's done sequence; the minimum is the
+promotion frontier, up to which rank 0 promotes the steps
+(:meth:`MultiHostAsyncCheckpointer.promote_up_to`; ``ckpt_promote``).
+:class:`MultiHostDeltaAsyncCheckpointer` is the same for the delta
+format: rank 0 stages the blobs and the manifest for every rank (the
+state is replicated), the others run the finite gate only.
 """
 
 from __future__ import annotations
@@ -191,3 +202,150 @@ class DeltaAsyncCheckpointer(AsyncCheckpointer):
             delta_max_chain=(self._delta_max_chain if self._delta_max_chain is not None
                              else DEFAULT_DELTA_MAX_CHAIN),
             gc=self._gc, **kwargs)
+
+
+class MultiHostAsyncCheckpointer(AsyncCheckpointer):
+    """The multi-process writer (module docstring): the same
+    single-in-flight, backpressure and error contract; saves are numbered
+    by a sequence that is the same on every rank (saves come from
+    lockstep control flow)."""
+
+    def __init__(self):
+        super().__init__()
+        from dwt_tpu_torch.parallel.mesh import process_count, process_index
+
+        self.process_index = process_index()
+        self.process_count = process_count()
+        self._done_seq = -1
+        # [(seq, step, ckpt_dir, kwargs)] written here, awaiting promotion;
+        # appended by the writer, drained on the loop's thread.
+        self._due: List[Tuple[int, int, str, dict]] = []
+        self._due_lock = threading.Lock()
+
+    def _write_target(self, ckpt_dir: str, step: int, host, kwargs: dict) -> bool:
+        from dwt_tpu_torch.utils.checkpoint import save_host_shard
+
+        return save_host_shard(ckpt_dir, step, host, self.process_index,
+                               data_state=kwargs.get("data_state"))
+
+    def _promote(self, ckpt_dir: str, step: int, kwargs: dict) -> str:
+        from dwt_tpu_torch.utils.checkpoint import promote_host_shards
+
+        return promote_host_shards(ckpt_dir, step, self.process_count,
+                                   keep=kwargs.get("keep"))
+
+    def _run(self, targets, seq: int, step: int, host) -> None:
+        t0 = time.perf_counter()
+        try:
+            paths = []
+            for ckpt_dir, kwargs in targets:
+                with obs.span("shard_write", "ckpt", step=int(step)):
+                    wrote = self._write_target(ckpt_dir, step, host, kwargs)
+                paths.append(wrote)
+                if wrote:
+                    with self._due_lock:
+                        self._due.append((int(seq), int(step), ckpt_dir, dict(kwargs)))
+            # Done only once every target's shard is durable.
+            self._done_seq = int(seq)
+            self.done.append({"seq": seq, "step": step, "paths": paths,
+                              "writer_s": time.perf_counter() - t0})
+        except BaseException as e:  # surfaced on the next save/flush
+            self._error, self._error_step = e, step
+            log.warning("async shard save @%d failed: %s", step, e)
+
+    @property
+    def done_seq(self) -> int:
+        """The newest save this rank's writer has finished (-1: none)."""
+        return self._done_seq
+
+    def join(self) -> None:
+        """Join the writer without raising its error: the rendezvous's
+        collectives must run on every rank before a rank-local failure
+        surfaces."""
+        self._join()
+
+    def save_multi(self, targets: List[Tuple[str, dict]], step: int, state) -> None:
+        from dwt_tpu_torch.resilience.coord import assert_not_writer_thread
+        from dwt_tpu_torch.utils.checkpoint import host_state
+
+        self._join()
+        self._raise_pending()
+        assert_not_writer_thread("multi-process checkpoint fetch")
+        with obs.span("ckpt_host_fetch", "ckpt", step=int(step)):
+            host = host_state(state)
+        self.seq += 1
+        self._pending_step = int(step)
+        self._thread = threading.Thread(
+            target=self._run, args=(list(targets), self.seq, int(step), host),
+            name=f"{WRITER_THREAD_PREFIX}-{int(step)}", daemon=True)
+        self._thread.start()
+
+    def promote_up_to(self, agreed_seq: int) -> List[Tuple[int, int, str, Optional[str]]]:
+        """Finalize every written save with a sequence up to ``agreed_seq``
+        (the consensus minimum of the ranks' done sequences): rank 0
+        promotes, the others drop the entries.  Returns ``(seq, step, dir,
+        path)`` of each (path None off rank 0 or where the promotion
+        failed; its error surfaces at the next save or flush)."""
+        if agreed_seq < 0:
+            return []
+        with self._due_lock:
+            due = [d for d in self._due if d[0] <= agreed_seq]
+            self._due = [d for d in self._due if d[0] > agreed_seq]
+        out = []
+        for seq, step, ckpt_dir, kwargs in due:
+            path = None
+            if self.process_index == 0:
+                try:
+                    with obs.span("ckpt_promote", "ckpt", step=int(step)):
+                        path = self._last_path = self._promote(ckpt_dir, step, kwargs)
+                except OSError as e:
+                    if self._error is None:
+                        self._error, self._error_step = e, step
+                    log.warning("checkpoint promotion @%d failed: %s", step, e)
+            out.append((seq, step, ckpt_dir, path))
+        return out
+
+
+class MultiHostDeltaAsyncCheckpointer(MultiHostAsyncCheckpointer):
+    """The multi-process writer in the delta format: rank 0 stages the
+    moved blobs and the manifest for every rank (the state is replicated),
+    the others run only the finite gate, so that every rank reports the
+    same verdict; promotion as the host-shard writer's."""
+
+    def __init__(self, store_root=None, delta_max_chain: Optional[int] = None,
+                 gc: bool = True):
+        super().__init__()
+        self._store_root = store_root
+        self._delta_max_chain = delta_max_chain
+        self._gc = gc
+
+    def _write_target(self, ckpt_dir: str, step: int, host, kwargs: dict) -> bool:
+        from dwt_tpu_torch.ckpt.store import (
+            DEFAULT_DELTA_MAX_CHAIN,
+            TORCH_META,
+            payload_leaves,
+            stage_delta,
+        )
+        from dwt_tpu_torch.utils.checkpoint import host_params_finite, params_digest
+
+        if not host_params_finite(host):
+            log.warning("skipping delta save @%d: non-finite params", step)
+            return False
+        if self.process_index != 0:
+            return True
+        leaves, meta = payload_leaves(host.payload)
+        digest = params_digest((n, host.payload["model"][n]) for n in host.param_names)
+        extra = {TORCH_META: meta}
+        if kwargs.get("data_state") is not None:
+            extra["data_state"] = kwargs["data_state"]
+        stage_delta(ckpt_dir, step, leaves, digest=digest, extra=extra,
+                    store_root=self._store_root,
+                    delta_max_chain=(self._delta_max_chain if self._delta_max_chain
+                                     is not None else DEFAULT_DELTA_MAX_CHAIN))
+        return True
+
+    def _promote(self, ckpt_dir: str, step: int, kwargs: dict) -> str:
+        from dwt_tpu_torch.ckpt.store import promote_delta
+
+        return promote_delta(ckpt_dir, step, keep=kwargs.get("keep"),
+                             store_root=self._store_root, gc=self._gc)

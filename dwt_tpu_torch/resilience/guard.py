@@ -40,8 +40,15 @@ poisoned already).  The history holds at most ``depth + 2`` snapshots and
 the harvester's deterministic floor prunes it toward two; each is a
 device copy of the whole state, 189.8 MB for ResNet50-DWT with its SGD
 momentum, so depth 2 holds up to ~760 MB of history on the card.
-``mirror_recovery`` (a remote host's verdict) waits for the multi-host
-plane (ROADMAP queue 1 item 8).
+
+:meth:`DivergenceGuard.mirror_recovery` takes a remote rank's verdict: the
+boundary consensus reports that another rank's guard fired while this
+rank's metrics looked finite (a rank-local fault), and this rank takes
+the same rung from the snapshot both hold — in harvested mode the history
+reverted to the remote's bad step; in the synchronous mode the snapshot
+before this boundary's refresh, which a guard built with
+``keep_previous=True`` (multi-process runs) keeps beside the newest (a
+second device copy of the state).
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ class RollbackRequest(Exception):
 class DivergenceGuard:
     def __init__(self, policy: str, interval: int, logger=None,
                  max_rollbacks: int = 3, lr_backoff: float = 0.0,
-                 backoff_recovery: int = 3):
+                 backoff_recovery: int = 3, keep_previous: bool = False):
         if policy not in POLICIES or policy == "none":
             raise ValueError(f"guard policy must be one of {POLICIES[1:]}; got {policy!r}")
         if lr_backoff and not (0.0 < lr_backoff < 1.0):
@@ -92,6 +99,10 @@ class DivergenceGuard:
         self._logger = logger  # logger(kind, step, **fields)
         self._since_check = 0
         self._good = None  # StateSnapshot of the last passing check
+        # The synchronous mode's snapshot before the newest refresh
+        # (keep_previous: mirror_recovery's target), double-buffered.
+        self.keep_previous = bool(keep_previous)
+        self._prev_good = None
         # The newest backoff episode as [engage step, recover step or None]:
         # a strike at a step inside it escalates, as the JAX guard's (under
         # harvested verdicts a strike's flag can drain after the scale
@@ -130,8 +141,14 @@ class DivergenceGuard:
 
         assert_not_writer_thread("guard snapshot")
         # Harvested mode keeps every snapshot of its history as it is; the
-        # synchronous mode refreshes its one snapshot in place.
-        self._good = state.snapshot(self._good if self._snaps is None else None)
+        # synchronous mode refreshes its one snapshot in place (with
+        # keep_previous, the older of two, so the newest survives it).
+        if self._snaps is not None:
+            self._good = state.snapshot()
+        elif self.keep_previous:
+            self._prev_good, self._good = self._good, state.snapshot(self._prev_good)
+        else:
+            self._good = state.snapshot(self._good)
 
     def _revert(self, state, scale: float):
         """The last good state, in place, at backoff ``scale``."""
@@ -289,6 +306,26 @@ class DivergenceGuard:
         while len(self._snaps) > 1 and self._snaps[-1][0] >= bad_step:
             self._snaps.pop()
         self._good = self._snaps[-1][1]
+
+    def mirror_recovery(self, state, step_no: int, bad_step: int = -1):
+        """Take the rung a remote rank's guard took, without a local
+        verdict (module docstring): revert the snapshots this rank took
+        that the firing rank did not — in harvested mode those at or after
+        the remote's ``bad_step`` (else this boundary's refresh), in the
+        synchronous mode this boundary's refresh — then act as
+        :meth:`step` does on a divergence (it may raise, as there)."""
+        if self._snaps is not None:
+            if bad_step >= 0:
+                self._revert_history_to(bad_step)
+            elif len(self._snaps) > 1:
+                self._snaps.pop()
+                self._good = self._snaps[-1][1]
+        elif self._prev_good is not None:
+            self._good, self._prev_good = self._prev_good, None
+        elif self._keeps_good and not self.keep_previous:
+            raise RuntimeError("mirror_recovery in the synchronous mode needs a "
+                               "guard built with keep_previous=True")
+        return self._diverged(state, step_no)
 
     def _diverged(self, state, step_no: int, detected_at: Optional[int] = None):
         # Harvested mode: the verdict for step_no acted on at a later

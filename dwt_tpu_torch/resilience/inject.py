@@ -17,6 +17,11 @@ real fault would strike, so every recovery path can be driven on demand:
   ``notice_at_step`` (the preemption notice becomes visible),
   ``sigterm_at_step`` (a self-delivered SIGTERM) and ``hang`` (never
   returns; only the hang watchdog ends the process).
+* ``maybe_kill_writer_mid_shard(step)`` — called by ``save_host_shard``
+  between the leaf bytes and the shard manifest of a multi-process save;
+  SIGKILLs the process, a rank dying mid-shard-write (promotion must
+  refuse the torn shard; the previous finalized step stays
+  authoritative).
 * ``maybe_kill_mid_delta_promote(step)`` — SIGKILLs the process inside
   the delta store's promote, after the staged chain validates and before
   the finalize rename.
@@ -57,10 +62,6 @@ with :func:`arm`, or through the ``DWT_FAULT_PLAN`` environment variable
 (JSON, read once at first use) — the scheduler-facing contract both
 packages share.  Every fault fires at most once per arm (each element of a
 burst once).
-
-The JAX package's host-shard kind is not ported: a plan naming it raises
-with the ROADMAP item that takes it, since a plan that silently injects
-nothing proves nothing.
 """
 
 from __future__ import annotations
@@ -77,10 +78,9 @@ from typing import Any, Dict, List, Optional, Tuple
 ENV_VAR = "DWT_FAULT_PLAN"
 
 # Kinds of the JAX package's plans that the port does not inject yet, with
-# the ROADMAP queue 1 item that takes each.
-UNPORTED_KINDS = {
-    "kill_writer_mid_shard": "item 8 (multi-host host-shard writes)",
-}
+# the ROADMAP queue 1 item that takes each (none since the host-shard
+# writer landed; a plan naming one would raise rather than inject nothing).
+UNPORTED_KINDS: Dict[str, str] = {}
 
 
 class SimulatedCrash(Exception):
@@ -290,6 +290,7 @@ class FaultPlan:
     slow_item_s: float = 1.0
     notice_at_step: Optional[int] = None
     kill_mid_delta_promote: Any = None  # True = next promote; int = that step
+    kill_writer_mid_shard: Any = None  # True = next shard write; int = that step
     missing_parent_blob: Optional[int] = None
     # The sweep supervisor's kinds: SIGKILL the supervisor inside its Nth
     # scheduling event (1-based), between the journal write and the spawn;
@@ -380,6 +381,7 @@ class FaultPlan:
             slow_item_at=slow_item, slow_item_s=slow_item_s,
             notice_at_step=notice,
             kill_mid_delta_promote=_true_or_step(spec, "kill_mid_delta_promote"),
+            kill_writer_mid_shard=_true_or_step(spec, "kill_writer_mid_shard"),
             missing_parent_blob=_opt_int(spec, "missing_parent_blob"),
             kill_supervisor_at_schedule=_opt_int(spec, "kill_supervisor_at_schedule"),
             sweep_preempt_pairs=_tag_list(spec, "sweep_preempt_pairs"),
@@ -522,6 +524,19 @@ def maybe_kill_mid_delta_promote(step: int) -> None:
     if plan.kill_mid_delta_promote is True or (
             int(plan.kill_mid_delta_promote) == int(step)):
         plan.kill_mid_delta_promote = None
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_kill_writer_mid_shard(step: int) -> None:
+    """SIGKILL the process if armed for this shard write (called after the
+    leaf bytes, before the shard manifest): a real kill, which the writer
+    thread cannot catch — the rank dies mid-write."""
+    plan = current()
+    if plan is None or plan.kill_writer_mid_shard is None:
+        return
+    if plan.kill_writer_mid_shard is True or (
+            int(plan.kill_writer_mid_shard) == int(step)):
+        plan.kill_writer_mid_shard = None
         os.kill(os.getpid(), signal.SIGKILL)
 
 

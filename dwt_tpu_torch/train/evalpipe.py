@@ -26,12 +26,25 @@ epochs and worker count (an item's random crop draws from its token
 i)`` in a collection pass) and reach the device through
 ``prefetch_to_device``.  The passes open the JAX pipeline's spans
 (``whiten_cache_build``, ``eval_batch_wait``, ``eval_dispatch``,
-``eval_host_fetch``, ``collect_batch_wait``, ``collect_dispatch``).  Mesh
-sharding is not ported yet.
+``eval_host_fetch``, ``collect_batch_wait``, ``collect_dispatch``).
+
+**Mesh sharding** (a replica ``plan``, JAX's ``--data_parallel``): each
+rank forwards ``1/N`` of every eval and collection batch, its slice
+loaded by ``batch_iterator(shard=(rank, N))``.  Eval batches are rounded
+up to a multiple of ``N`` and padded and masked, and the counter deltas
+are summed over the ranks inside the step, so the counters come out
+exactly the single-process ones on every rank.  A collection batch is
+sharded when ``test_batch_size`` splits over the ranks: the sites' moments
+are then the global batch's; its ragged tail is loaded whole by every rank
+and forwarded with each site's own moments (``nn.norms.local_moments``),
+as JAX's axis-free ``_collect_tail``.  A batch size that does not split
+runs the whole pass unsharded, every rank on the same rows, with a
+warning.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -40,8 +53,13 @@ import torch
 from torch import nn
 
 from dwt_tpu_torch import obs
-from dwt_tpu_torch.data.loader import batch_iterator, prefetch_to_device
-from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
+from dwt_tpu_torch.data.loader import (
+    QUARANTINED,
+    _load_item,
+    batch_iterator,
+    prefetch_to_device,
+)
+from dwt_tpu_torch.nn.norms import install_eval_matrix, local_moments, whitening_sites
 from dwt_tpu_torch.ops.whitening import WHITEN_CACHE_COL, build_whiten_cache
 from dwt_tpu_torch.train.state import TrainState
 from dwt_tpu_torch.utils.metrics import percentile_summary
@@ -51,6 +69,8 @@ from dwt_tpu_torch.train.steps import (
     make_scanned_collect,
     make_stat_collection_step,
 )
+
+log = logging.getLogger(__name__)
 
 
 def whitening_stats_tree(model: nn.Module) -> Dict:
@@ -139,10 +159,13 @@ class EvalPipeline:
     item-loading threads and ``eval_k`` the batches per dispatch
     (``eval_steps_per_dispatch``).  The dispatch functions, and their
     graphs on the card, are built at a pass of a model and kept for the
-    next passes of the same model (``eval_graph``, ``collect_graph``)."""
+    next passes of the same model (``eval_graph``, ``collect_graph``).
+    ``plan`` is the run's ``parallel.ShardingPlan`` (None: single); in
+    replica mode the model's sites carry its mesh (module docstring)."""
 
     def __init__(self, test_batch_size: int, device: torch.device,
-                 num_domains: int, num_workers: int = 0, eval_k: int = 1):
+                 num_domains: int, num_workers: int = 0, eval_k: int = 1,
+                 plan=None):
         if eval_k < 1:
             raise ValueError(f"eval_steps_per_dispatch must be >= 1, got {eval_k}")
         self.test_batch_size = int(test_batch_size)
@@ -150,15 +173,29 @@ class EvalPipeline:
         self.num_domains = num_domains
         self.num_workers = int(num_workers)
         self.eval_k = int(eval_k)
+        self._plan = plan
+        self._mesh = None if plan is None else plan.mesh
+        self._capture = plan is None or plan.capture
         self._model = None
         self._eval_fn = self._collect_step = self._collect_fn = None
+        self._warned_unsharded_collect = False
+
+    def _shard(self) -> Optional[Tuple[int, int]]:
+        return None if self._mesh is None else (self._mesh.index, self._mesh.size)
 
     def _dispatch(self, model: nn.Module) -> None:
         if model is not self._model:
             self._model = model
-            self._eval_fn = make_accum_eval_step(model, self.eval_k)
+            group = self._mesh
+            eval_fn = make_accum_eval_step(model, self.eval_k, group=group,
+                                           capture=self._capture)
             self._collect_step = make_stat_collection_step(model, self.num_domains)
-            self._collect_fn = make_scanned_collect(self._collect_step, self.eval_k)
+            collect_fn = make_scanned_collect(self._collect_step, self.eval_k,
+                                              capture=self._capture)
+            if self._plan is not None:
+                eval_fn = self._plan.make_eval_step(eval_fn)
+                collect_fn = self._plan.make_collect_step(collect_fn)
+            self._eval_fn, self._collect_fn = eval_fn, collect_fn
 
     @property
     def eval_graph(self):
@@ -182,9 +219,13 @@ class EvalPipeline:
         self._dispatch(model)
         counters = eval_counters(self.device)
         forwards = 0
+        # Eval-mode forwards are per-sample: the batch may be rounded up to
+        # the shard count, the padding masked.
+        shards = 1 if self._mesh is None else self._mesh.size
+        local_bs = -(-self.test_batch_size // shards)
         stream = batch_iterator(
-            dataset, self.test_batch_size, shuffle=False, drop_last=False,
-            num_workers=self.num_workers, pad_and_mask=True,
+            dataset, local_bs, shuffle=False, drop_last=False,
+            shard=self._shard(), num_workers=self.num_workers, pad_and_mask=True,
         )
         chunks = prefetch_to_device(
             (stack_eval_chunk(g) for g in chunk_groups(stream, self.eval_k)),
@@ -230,14 +271,70 @@ class EvalPipeline:
                                  prefix="dispatch_ms_p"),
         }
 
+    def _load_tail(self, dataset, start: int, stop: int, seed: int, epoch: int):
+        """The ragged tail of a sharded collection pass, whole, with the
+        items' tokens of the unsharded pass (JAX's ``_load_tail``)."""
+        items = [_load_item(dataset, i, (seed, epoch, int(i))) for i in range(start, stop)]
+        items = [it for it in items if it is not QUARANTINED]
+        if not items:
+            return None
+        return torch.from_numpy(
+            np.stack([np.asarray(it[0], np.float32) for it in items])).to(self.device)
+
     def collect_stats(self, state: TrainState, dataset, *, seed: int = 0,
                       epoch: int = 0) -> int:
         """One stat-collection pass (reference ``eval_pass_collect_stats``):
         gradient-free train-mode forwards over ``dataset`` that advance
         only the running stats; ``seed``/``epoch`` set the items' tokens.
         Full batches go ``eval_k`` per dispatch; the ragged tail is an
-        eager forward of its own.  Returns the number of forwards."""
+        eager forward of its own.  Returns the number of forwards (this
+        rank's, under a mesh)."""
         self._dispatch(state.model)
+        bs, n = self.test_batch_size, len(dataset)
+        if self._mesh is not None:
+            if bs % self._mesh.size == 0 and n >= bs:
+                return self._collect_sharded(state, dataset, seed, epoch)
+            if n >= bs and not self._warned_unsharded_collect:
+                self._warned_unsharded_collect = True
+                log.warning(
+                    "stat collection runs unsharded: --test_batch_size %d does "
+                    "not split over the plan's %d batch shards (padding would "
+                    "perturb the collected moments); eval itself stays sharded",
+                    bs, self._mesh.size)
+            # Every rank forwards the same rows with its own moments.
+            with local_moments(state.model):
+                return self._collect_local(state, dataset, seed, epoch, eager=True)
+        return self._collect_local(state, dataset, seed, epoch)
+
+    def _collect_sharded(self, state: TrainState, dataset, seed: int, epoch: int) -> int:
+        bs, n = self.test_batch_size, len(dataset)
+        usable = n - n % bs
+        stream = batch_iterator(
+            dataset, bs // self._mesh.size, shuffle=False, drop_last=True,
+            seed=seed, epoch=epoch, shard=self._shard(), num_workers=self.num_workers,
+        )
+        chunks = prefetch_to_device(
+            (np.stack([np.asarray(b[0], np.float32) for b in g])
+             for g in chunk_groups(stream, self.eval_k)), device=self.device)
+        forwards = 0
+        try:
+            for xs in obs.traced_iter(chunks, "collect_batch_wait", "eval"):
+                with obs.span("collect_dispatch", "eval"):
+                    self._collect_fn(state, xs)
+                forwards += int(xs.shape[0])
+        finally:
+            chunks.close()
+            stream.close()
+        if usable < n:
+            tail = self._load_tail(dataset, usable, n, seed, epoch)
+            if tail is not None:
+                with obs.span("collect_dispatch", "eval"), local_moments(state.model):
+                    self._collect_step(state, tail)
+                forwards += 1
+        return forwards
+
+    def _collect_local(self, state: TrainState, dataset, seed: int, epoch: int,
+                       eager: bool = False) -> int:
         forwards = 0
         stream = batch_iterator(
             dataset, self.test_batch_size, shuffle=False, drop_last=False,
@@ -249,7 +346,7 @@ class EvalPipeline:
         try:
             for xs in obs.traced_iter(chunks, "collect_batch_wait", "eval"):
                 with obs.span("collect_dispatch", "eval"):
-                    if xs.shape[1] == self.test_batch_size:
+                    if xs.shape[1] == self.test_batch_size and not eager:
                         self._collect_fn(state, xs)
                     else:  # the ragged tail: eager forwards
                         for x in xs:

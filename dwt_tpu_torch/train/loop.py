@@ -110,8 +110,26 @@ resume checks compare bitwise.  ``dwt_ckpt_bytes_written_total
 {mode}`` and the ``dwt_ckpt_dir_bytes`` gauge feed the heartbeat's
 checkpoint fields.
 
-Not ported yet, in either loop (ROADMAP): ``mirror_recovery`` and
-multi-host runs (queue 1 item 8).
+**Data parallelism across processes** (``--distributed
+--data_parallel``, the JAX loops' replica mode): each rank is a process
+that joins the group (:func:`_maybe_init_distributed`: the DWT_* or
+torchrun variables; the run's first record, ``distributed``, names the
+backend, the rank-to-device map and the plan), loads its ``1/N`` of every
+batch (:func:`_multihost_data_split`, ``DataPlane(shard=...)``), and
+runs the replica step of the run's ``parallel.ShardingPlan``
+(:func:`_make_plan`): the norm sites' moments, the gradients and the
+metrics are the global batch's on every rank, and the eval counters the
+global ones.  Under gloo a chunk's steps run eagerly (no capture: gloo
+stages through the host), under NCCL the replica step is captured.  The
+step boundary's consensus (``resilience.coord``, the ``consensus_decide``
+span, a ``consensus`` record every 50 decisions) makes any rank's stop,
+notice or guard event every rank's: a rank whose own check passed mirrors
+the remote rung (``DivergenceGuard.mirror_recovery``).  Saves go through
+the multi-process writer — each rank writes its shard of the host-shard
+format and rank 0 promotes a step once the consensus says every shard is
+durable (``ckpt_barrier`` at each flush); with ``--no-async_ckpt`` rank 0
+writes the checkpoint and the ranks meet at a barrier.  Every rank logs
+its ``params_digest``, and a run whose ranks' digests differ fails.
 """
 
 from __future__ import annotations
@@ -158,12 +176,25 @@ from dwt_tpu_torch.data.transforms import (
     random_affine,
 )
 from dwt_tpu_torch.nn.lenet import build_lenet
+from dwt_tpu_torch.nn.norms import set_group
 from dwt_tpu_torch.nn.registry import build_backbone
 from dwt_tpu_torch.obs.registry import get_registry
 from dwt_tpu_torch.ops.whitening import get_whitener
+from dwt_tpu_torch.parallel.mesh import process_index
 from dwt_tpu_torch.resilience import inject
-from dwt_tpu_torch.resilience.async_ckpt import AsyncCheckpointer, DeltaAsyncCheckpointer
-from dwt_tpu_torch.resilience.coord import Coordinator
+from dwt_tpu_torch.resilience.async_ckpt import (
+    AsyncCheckpointer,
+    DeltaAsyncCheckpointer,
+    MultiHostAsyncCheckpointer,
+    MultiHostDeltaAsyncCheckpointer,
+)
+from dwt_tpu_torch.resilience.coord import (
+    EVENT_HALT,
+    EVENT_NONE,
+    EVENT_RECOVERED,
+    EVENT_ROLLBACK,
+    Coordinator,
+)
 from dwt_tpu_torch.resilience.guard import (
     DivergenceError,
     DivergenceGuard,
@@ -180,7 +211,6 @@ from dwt_tpu_torch.train.state import TrainState
 from dwt_tpu_torch.train.steps import (
     make_digits_train_step,
     make_officehome_train_step,
-    make_scanned_step,
     stack_batches,
 )
 from dwt_tpu_torch.utils.checkpoint import (
@@ -197,7 +227,7 @@ from dwt_tpu_torch.utils.checkpoint import (
     restore_state,
     save_state,
 )
-from dwt_tpu_torch.utils.metrics import HeartbeatEmitter
+from dwt_tpu_torch.utils.metrics import HeartbeatEmitter, percentile_summary
 
 log = logging.getLogger(__name__)
 
@@ -216,14 +246,16 @@ def _keep_kwargs(cfg) -> dict:
 
 
 def _saved_bytes(path: str) -> int:
-    """The bytes a save wrote: its state file (full format), or its new
-    blobs and its manifest (delta format)."""
+    """The bytes a save wrote: its state file (full format), its new
+    blobs (delta format) or its shards (host-shard format), and its
+    manifest."""
     state_file = os.path.join(path, STATE_FILE)
     if os.path.exists(state_file):
         return os.path.getsize(state_file)
     manifest = os.path.join(path, MANIFEST)
     with open(manifest) as f:
-        written = int(json.load(f).get("bytes_written", 0))
+        content = json.load(f)
+    written = int(content.get("bytes_written", sum(content.get("files", {}).values())))
     return written + os.path.getsize(manifest)
 
 
@@ -235,13 +267,98 @@ def _params_digest(model: nn.Module) -> float:
 
 
 def _log_params_digest(logger: Logger, step: int, model: nn.Module,
-                       ckpt_dir: Optional[str]) -> None:
+                       ckpt_dir: Optional[str], coord: Optional[Coordinator] = None) -> None:
     """JAX's ``digest`` on every run; with a checkpoint directory, whose
-    resumes are checked bitwise, also the parameters' ``sha256``."""
+    resumes are checked bitwise, also the parameters' ``sha256``.  In a
+    multi-process run every rank logs its own, and ranks whose digests
+    differ (forked replicas) fail the run."""
     fields = {"digest": _params_digest(model)}
     if ckpt_dir:
         fields["sha256"] = params_digest(model.named_parameters())
     logger("params_digest", step, **fields)
+    if coord is not None:
+        coord.assert_same(int(np.float64(fields["digest"]).view(np.int64)), "params_digest")
+
+
+# ------------------------------------------------------- data parallelism
+
+
+def _maybe_init_distributed(cfg):
+    """Join the process group when asked (``--distributed``), from the
+    DWT_* variables or torchrun's; returns its ``DistInfo`` (None: one
+    process).  Launch the same command once per device on every host."""
+    if not cfg.distributed:
+        return None
+    from dwt_tpu_torch.parallel import dist_info, initialize_distributed
+    from dwt_tpu_torch.parallel.mesh import cluster_from_env
+
+    if dist_info() is not None:
+        return dist_info()
+    env = cluster_from_env()
+    explicit = env is not None and env[-1]
+    try:
+        if env is None:
+            raise ValueError("no DWT_* or torchrun variables are set")
+        return initialize_distributed(device=cfg.device)
+    except (ValueError, RuntimeError) as e:
+        if explicit:
+            detail = ("explicit DWT_* configuration failed — check that all three "
+                      "of DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
+                      "DWT_PROCESS_ID are set and the coordinator is reachable.")
+        else:
+            detail = ("could not auto-detect the cluster (torchrun's MASTER_ADDR, "
+                      "MASTER_PORT, RANK and WORLD_SIZE are read when it launches "
+                      "every process). For bare-metal, set "
+                      "DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
+                      "DWT_PROCESS_ID; or drop --distributed for single-host runs.")
+        raise RuntimeError(f"--distributed: {detail} Underlying error: {e}") from e
+
+
+def _multihost_data_split(cfg, bs: int) -> Tuple[int, Optional[Tuple[int, int]]]:
+    """``(local batch size, shard)`` of this process: ``(bs, None)`` on
+    one process; else each rank loads ``bs / N`` of every batch, which
+    needs a sharded step (JAX's decisions and texts)."""
+    from dwt_tpu_torch.parallel import process_count, process_index, sharding_requested
+
+    n = process_count()
+    if n == 1:
+        return bs, None
+    if not sharding_requested(cfg):
+        raise ValueError(
+            "multi-host runs require a sharded step (--data_parallel or "
+            "--mesh_shape/--sharding_rules): without it there is no "
+            "gradient/moment sync and every process would silently train "
+            "its own divergent model")
+    if bs % n != 0:
+        raise ValueError(
+            f"--source_batch_size={bs} must be divisible by the {n} "
+            "participating processes")
+    return bs // n, (process_index(), n)
+
+
+def _make_plan(cfg):
+    """The run's ``parallel.ShardingPlan``: ``single``, or ``replica``
+    with ``--data_parallel`` on more than one rank.  The model's sites
+    take ``plan.group`` (None in single mode)."""
+    from dwt_tpu_torch.parallel import plan_from_config
+
+    return plan_from_config(cfg)
+
+
+def _start_parallel(cfg, logger: Logger):
+    """``(plan, device)`` of the run: the group joined,
+    the plan resolved and, in a multi-process run, the ``distributed``
+    record (backend, rank, world size, every rank's device, the plan and
+    whether the steps are captured) logged."""
+    device = resolve_device(cfg.device)
+    info = _maybe_init_distributed(cfg)
+    plan = _make_plan(cfg)
+    if info is not None:
+        device = torch.device(info.device)
+        logger("distributed", 0, backend=info.backend, rank=info.rank,
+               world_size=info.world_size, devices=info.devices,
+               plan=plan.describe(), captured_steps=plan.capture)
+    return plan, device
 
 
 # --------------------------------------------------- live metrics plane
@@ -310,8 +427,9 @@ class _CkptPipeline:
     ``bytes`` and ``sync``.  The registry's ``dwt_ckpt_saves_total{mode}``
     counts the saves, ``dwt_ckpt_stall_ms`` the loop's stall per save."""
 
-    def __init__(self, cfg, logger: Logger):
+    def __init__(self, cfg, logger: Logger, coord: Optional[Coordinator] = None):
         self._logger = logger
+        self._coord = coord if coord is not None and coord.enabled else None
         reg = get_registry()
         self._m_saves = reg.counter("dwt_ckpt_saves_total", "checkpoint saves initiated",
                                     labelnames=("mode",))
@@ -335,22 +453,30 @@ class _CkptPipeline:
                       "total bytes under --ckpt_dir (sampled at scrape)").set_function(
                 lambda root=cfg.ckpt_dir: float(tree_bytes(root)))
         self._acp = None
-        if cfg.ckpt_dir and cfg.async_ckpt:
+        if cfg.ckpt_dir and cfg.async_ckpt and self._coord is not None:
+            self._acp = (MultiHostDeltaAsyncCheckpointer(self._store_root,
+                                                         self._delta_max_chain, gc=self._gc)
+                         if self._fmt == "delta" else MultiHostAsyncCheckpointer())
+        elif cfg.ckpt_dir and cfg.async_ckpt:
             self._acp = (DeltaAsyncCheckpointer(self._store_root, self._delta_max_chain,
                                                 gc=self._gc)
                          if self._fmt == "delta" else AsyncCheckpointer())
+        self._multi = isinstance(self._acp, MultiHostAsyncCheckpointer)
         # The in-flight async save: (seq, step, dirs, the loop's stall).
         self._pending: Optional[Tuple[int, int, List[str], float]] = None
+        self._stalls = {}  # seq -> the loop's stall (multi-process records)
 
-    def _log(self, step: int, directory: str, path: str, seconds: float,
+    def _log(self, step: int, directory: str, path: Optional[str], seconds: float,
              writer_s: float, sync: bool) -> None:
         self._logger("checkpoint", step, dir=directory, seconds=seconds,
-                     writer_s=writer_s, bytes=_saved_bytes(path), sync=sync)
+                     writer_s=writer_s, bytes=_saved_bytes(path) if path else 0,
+                     sync=sync)
 
     def _report(self) -> None:
         """After a join: log the joined async save's records (none when
-        it failed; its error is raised at the join)."""
-        if self._pending is None:
+        it failed; its error is raised at the join).  The multi-process
+        writer's records come at promotion (:meth:`promote_up_to`)."""
+        if self._pending is None or self._multi:
             return
         seq, step, dirs, seconds = self._pending
         self._pending = None
@@ -362,13 +488,25 @@ class _CkptPipeline:
 
     def _blocking_save_multi(self, targets, step: int, state) -> List[Optional[str]]:
         """Blocking saves in the run's format: the host copy once for all
-        targets."""
-        host = host_state(state)
-        if self._fmt == "delta":
-            return [save_delta(d, step, host, store_root=self._store_root,
-                               delta_max_chain=self._delta_max_chain, gc=self._gc, **kw)
-                    for d, kw in targets]
-        return [save_state(d, step, host, **kw) for d, kw in targets]
+        targets.  In a multi-process run rank 0 writes (the state is
+        replicated) and the ranks meet at a barrier that hands every rank
+        rank 0's outcome."""
+        paths: List[Optional[str]] = [None] * len(targets)
+        if self._coord is None or process_index() == 0:
+            host = host_state(state)
+            if self._fmt == "delta":
+                paths = [save_delta(d, step, host, store_root=self._store_root,
+                                    delta_max_chain=self._delta_max_chain, gc=self._gc,
+                                    **kw) for d, kw in targets]
+            else:
+                paths = [save_state(d, step, host, **kw) for d, kw in targets]
+        if self._coord is not None:
+            with obs.span("ckpt_barrier", "ckpt"):
+                bits = self._coord.first(sum(1 << i for i, p in enumerate(paths)
+                                             if p is not None))
+            paths = [os.path.join(d, str(int(step))) if bits >> i & 1 else None
+                     for i, (d, _) in enumerate(targets)]
+        return paths
 
     def save(self, ckpt_dir: str, step: int, state, **kwargs) -> None:
         self.save_multi([(ckpt_dir, kwargs)], step, state)
@@ -387,6 +525,7 @@ class _CkptPipeline:
                 self._report()
             seconds = time.perf_counter() - t0
             self._pending = (self._acp.seq, int(step), [d for d, _ in targets], seconds)
+            self._stalls[self._acp.seq] = seconds
             self._note(seconds)
             return
         with obs.span("ckpt_enqueue", step=int(step)):
@@ -417,7 +556,45 @@ class _CkptPipeline:
     def in_flight_depth(self) -> int:
         return int(self._acp is not None and self._acp.in_flight is not None)
 
+    def done_seq(self) -> int:
+        """This rank's newest fully written multi-process save (-1 off that
+        path): the consensus carries it."""
+        return self._acp.done_seq if self._multi else -1
+
+    def promote_up_to(self, agreed_seq: int) -> None:
+        """Promote the multi-process saves up to the consensus-agreed
+        sequence (rank 0) and log their ``checkpoint`` records (every
+        rank; ``bytes`` on rank 0, which promoted them)."""
+        if not self._multi:
+            return
+        for seq, step, directory, path in self._acp.promote_up_to(agreed_seq):
+            done = [d for d in self._acp.done if d["seq"] == seq]
+            for d in done:
+                self._acp.done.remove(d)
+            writer_s = done[0]["writer_s"] if done else 0.0
+            stall = self._stalls.get(seq, 0.0)
+            self._log(step, directory, path, stall, writer_s, False)
+
+    def finalize(self, raise_errors: bool = True) -> None:
+        """The multi-process rendezvous (``ckpt_barrier``): agree the
+        frontier (the smallest done sequence), promote up to it, then a
+        second gather so that every rank's walk sees the promoted steps."""
+        if not self._multi:
+            return
+        with obs.span("ckpt_barrier", "ckpt"):
+            agreed = self._coord.agree_step(self._acp.done_seq)
+            self.promote_up_to(agreed)
+            self._coord.agree_step(agreed)
+        if raise_errors:
+            self._acp.flush()
+
     def flush(self) -> None:
+        if self._multi:
+            # Collectives first, raise last: a rank-local writer error raised
+            # before the gathers would leave the other ranks waiting in them.
+            self._acp.join()
+            self.finalize(raise_errors=True)
+            return
         if self._acp is not None:
             try:
                 self._acp.flush()
@@ -425,6 +602,9 @@ class _CkptPipeline:
                 self._report()
 
     def close(self, raise_errors: bool = True) -> None:
+        if self._multi and raise_errors:
+            self.flush()
+            return
         if self._acp is not None:
             try:
                 self._acp.close(raise_errors=raise_errors)
@@ -446,27 +626,44 @@ def _make_guard(cfg, logger: Logger) -> Optional[DivergenceGuard]:
                            backoff_recovery=cfg.guard_backoff_recovery)
 
 
+# Consensus records aggregate this many decisions each (the JAX loops').
+_CONSENSUS_LOG_EVERY = 50
+_EVENT_NAMES = {EVENT_RECOVERED: "recovered", EVENT_ROLLBACK: "rollback",
+                EVENT_HALT: "halt"}
+
+
 class _StepBoundary:
     """What the loops do once per step or chunk, as the JAX loops'
-    ``_StepBoundary`` on one process: the watchdog's heartbeat, the fault
-    plan's step hooks over the ``n_steps`` that just ran, the guard's
-    check (harvested flags with ``check_harvested``, else ``step``; it may
+    ``_StepBoundary``: the watchdog's heartbeat, the fault plan's step
+    hooks over the ``n_steps`` that just ran, the guard's check
+    (harvested flags with ``check_harvested``, else ``step``; it may
     revert ``state`` in place, or raise ``RollbackRequest``/
     ``DivergenceError``; a guard event fences the harvester's pending
-    flags), then the stop flag and, on an otherwise clean boundary, the
-    notice's proactive save, once (``on_notice(state)`` returns the saved
-    step, kept as ``notice_step``).  Returns whether the run must stop;
-    ``stop`` stays set.  Before the fault hooks, the run plane: the
-    ``dwt_train_steps_total`` counter, the heartbeat and the alert rules
-    (host-side numbers only); a guard event counts in
+    flags), then the decision of the stop flag and, on an otherwise clean
+    boundary, the notice's proactive save, once (``on_notice(state)``
+    returns the saved step, kept as ``notice_step``).  Returns whether the
+    run must stop; ``stop`` stays set.  Before the fault hooks, the run
+    plane: the ``dwt_train_steps_total`` counter, the heartbeat and the
+    alert rules (host-side numbers only); a guard event counts in
     ``dwt_guard_events_total{event}`` and, with ``flight_dir``, dumps the
     trailing span window there before any recovery runs (the flight
     recorder).  The whole call is the ``boundary`` span, the guard's
-    check the nested ``guard_check``."""
+    check the nested ``guard_check``.
+
+    In a multi-process run (``coord.enabled``) the decision is the
+    consensus of every rank's flags (``consensus_decide``): the guard's
+    event code, the rollback target (or the harvested bad step), the
+    checkpoint pipeline's done sequence, the stop and the notice.  A local
+    guard event is raised only after every rank knows it; a more severe
+    remote one is mirrored (``remote_*`` in the guard counter): a remote
+    rollback raises ``RollbackRequest``, a remote in-memory rung runs
+    ``guard.mirror_recovery``, a remote halt raises ``DivergenceError``.
+    The agreed done sequence promotes the saves every rank has written."""
 
     def __init__(self, guard, preempt, watchdog, notice_watcher, harvester=None,
                  logger: Optional[Logger] = None, heartbeat=None, alerts=None,
-                 flight_dir: Optional[str] = None):
+                 flight_dir: Optional[str] = None, coord: Optional[Coordinator] = None,
+                 ckpt: Optional["_CkptPipeline"] = None):
         self.guard = guard
         self.preempt = preempt
         self.watchdog = watchdog
@@ -474,7 +671,8 @@ class _StepBoundary:
         self.harvester = harvester
         self._harvest_guard = (guard is not None and harvester is not None
                                and harvester.async_mode)
-        self.coord = Coordinator()
+        self.coord = coord if coord is not None else Coordinator()
+        self.ckpt = ckpt
         self.logger = logger
         self.heartbeat = heartbeat
         self.alerts = alerts
@@ -489,6 +687,7 @@ class _StepBoundary:
         self.notice_step: Optional[int] = None
         self._notice_handled = False
         self.stop = False
+        self._decides_logged = 0
 
     def _flight(self, reason: str) -> None:
         """Dump the trailing span window into ``flight_dir`` under the
@@ -497,7 +696,8 @@ class _StepBoundary:
         if self.flight_dir:
             obs.flight_dump(self.flight_dir, reason, keep=self.watchdog.keep)
 
-    def _check(self, state, metrics, n_steps: int, gstep: int) -> None:
+    def _check(self, state, n_steps: int, gstep: int, metrics):
+        """The guard's check: ``(event code, the raised event or None)``."""
         recoveries = self.guard.recoveries
         try:
             with obs.span("guard_check", "detail"):
@@ -505,16 +705,11 @@ class _StepBoundary:
                     self.guard.check_harvested(state, n_steps, gstep)
                 else:
                     self.guard.step(state, metrics, n_steps, gstep)
-        except (RollbackRequest, DivergenceError) as e:
-            self._m_guard.labels(
-                event="rollback" if isinstance(e, RollbackRequest) else "halt").inc()
-            self._flight(f"guard_event_step{gstep}")
-            self._fence()
-            raise
-        if self.guard.recoveries != recoveries:
-            self._m_guard.labels(event="recovered").inc()
-            self._flight(f"guard_event_step{gstep}")
-            self._fence()
+        except RollbackRequest as e:
+            return EVENT_ROLLBACK, e
+        except DivergenceError as e:
+            return EVENT_HALT, e
+        return (EVENT_RECOVERED if self.guard.recoveries != recoveries else EVENT_NONE), None
 
     def _fence(self) -> None:
         # Pending entries predate the recovery: their records still emit,
@@ -534,6 +729,27 @@ class _StepBoundary:
             for ev in events:
                 self.logger("alert", gstep, **ev.record_fields())
 
+    def _log_consensus(self, gstep: int) -> None:
+        """One ``consensus`` record per ``_CONSENSUS_LOG_EVERY`` decisions:
+        the gather's latency (last, mean, max, p50/p99)."""
+        c = self.coord
+        if (self.logger is None or c.decides == 0
+                or c.decides - self._decides_logged < _CONSENSUS_LOG_EVERY):
+            return
+        self._decides_logged = c.decides
+        self.logger("consensus", gstep, decides=c.decides,
+                    last_s=round(c.last_decide_s, 6),
+                    mean_s=round(c.total_decide_s / c.decides, 6),
+                    max_s=round(c.max_decide_s, 6),
+                    **percentile_summary(list(c.recent_decide_s), (50.0, 99.0),
+                                         prefix="p", round_to=6))
+
+    def _notice(self, state) -> None:
+        if not self._notice_handled:
+            self._notice_handled = True
+            if self.on_notice is not None:
+                self.notice_step = self.on_notice(state)
+
     def __call__(self, state, metrics, n_steps: int, gstep: int) -> bool:
         with obs.span("boundary"):
             return self._run(state, metrics, n_steps, gstep)
@@ -548,15 +764,54 @@ class _StepBoundary:
         # Between the heartbeat and the guard: a hang is measured from a
         # fresh beat, a SIGTERM is seen by this boundary's stop flag.
         inject.at_step(gstep - n_steps + 1, gstep)
+        code, event = EVENT_NONE, None
         if self.guard is not None:
-            self._check(state, metrics, n_steps, gstep)
-        decision = self.coord.decide(stop=self.preempt.should_stop,
-                                     notice=self.notice_watcher.noticed)
+            code, event = self._check(state, n_steps, gstep, metrics)
+        if code != EVENT_NONE:
+            self._m_guard.labels(event=_EVENT_NAMES[code]).inc()
+            self._flight(f"guard_event_step{gstep}")
+            self._fence()
+        if not self.coord.enabled:
+            if event is not None:
+                raise event
+            decision = self.coord.decide(stop=self.preempt.should_stop,
+                                         notice=self.notice_watcher.noticed)
+            self.stop = self.stop or decision.stop
+            if decision.notice and not self.stop:
+                self._notice(state)
+            return self.stop
+        rollback_step = (event.step if isinstance(event, RollbackRequest)
+                         else self.guard.last_bad_step
+                         if code == EVENT_RECOVERED else -1)
+        with obs.span("consensus_decide", "detail"):
+            decision = self.coord.decide(
+                stop=self.preempt.should_stop, event=code, rollback_step=rollback_step,
+                save_done_seq=self.ckpt.done_seq() if self.ckpt is not None else -1,
+                notice=self.notice_watcher.noticed)
+        self._log_consensus(gstep)
         self.stop = self.stop or decision.stop
-        if decision.notice and not self.stop and not self._notice_handled:
-            self._notice_handled = True
-            if self.on_notice is not None:
-                self.notice_step = self.on_notice(state)
+        if self.ckpt is not None:
+            self.ckpt.promote_up_to(decision.save_done_seq)
+        if event is not None:
+            raise event  # every rank knows it now
+        if decision.notice and not decision.stop and decision.event == EVENT_NONE:
+            # Only on a clean boundary of every rank: a save on some ranks
+            # alone would leave its shard set incomplete.
+            self._notice(state)
+        if decision.event > code:
+            # A remote rank's guard outranked this one's view: take its rung,
+            # so that the replicas stay the same.
+            self._m_guard.labels(event="remote_" + _EVENT_NAMES[decision.event]).inc()
+            self._flight(f"remote_guard_event_step{gstep}")
+            self._fence()
+            if decision.event == EVENT_ROLLBACK and self.guard is not None:
+                self.guard.rollbacks += 1  # the same budget and reseed stride
+                raise RollbackRequest(decision.rollback_step,
+                                      "divergence detected on another host")
+            if decision.event == EVENT_RECOVERED and self.guard is not None:
+                self.guard.mirror_recovery(state, gstep, bad_step=decision.rollback_step)
+                return self.stop
+            raise DivergenceError("divergence detected on another host")
         return self.stop
 
 
@@ -686,10 +941,14 @@ def _preempt_exit(cfg, pipeline: _CkptPipeline, wd, boundary: _StepBoundary,
         return None
     with wd.suspended():
         pipeline.close(raise_errors=False)
+        pipeline.finalize(raise_errors=False)  # multi-process: the notice save promoted
         resume_step = boundary.notice_step
         if resume_step is not None and not is_valid_checkpoint(
                 os.path.join(cfg.ckpt_dir, str(resume_step))):
             resume_step = None
+        if boundary.coord.enabled:  # rank 0's view of the shared directory
+            resume_step = boundary.coord.first(-1 if resume_step is None else resume_step)
+            resume_step = None if resume_step < 0 else resume_step
         if resume_step is None:
             pipeline.save(cfg.ckpt_dir, state.step, state,
                           data_state=plane.snapshot(), **_keep_kwargs(cfg))
@@ -812,6 +1071,7 @@ def run_digits(
     is moved to the device, its convs to channels_last memory format."""
     logger = logger or _log_record
     obs.maybe_enable(cfg.obs_trace)
+    plan, device = _start_parallel(cfg, logger)
     alert_engine = _setup_metrics_plane(cfg, logger)
     _note_inert(cfg)
     if cfg.group_size == 32:
@@ -826,7 +1086,6 @@ def run_digits(
     if cfg.source_batch_size != cfg.target_batch_size:
         raise ValueError(
             "domain-split training needs equal source/target batch sizes")
-    device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -834,25 +1093,29 @@ def run_digits(
     source_ds = inject.wrap_dataset(source_ds, "source")
     target_ds = inject.wrap_dataset(target_ds, "target")
     bs = cfg.source_batch_size
+    local_bs, shard = _multihost_data_split(cfg, bs)
     steps_per_epoch = min(len(source_ds), len(target_ds)) // bs
     if steps_per_epoch == 0:
         raise ValueError("datasets smaller than one batch")
     if model is None:
         model = build_digits_model(cfg)
+    set_group(model, plan.group)  # the sites reduce their moments over the ranks
     model.to(device, memory_format=torch.channels_last)
     optimizer, schedules = digits_tx(model, cfg, steps_per_epoch)
     state = TrainState(model, optimizer, schedules)
-    train_step = make_digits_train_step(model, cfg.lambda_entropy_loss)
+    raw_step = make_digits_train_step(model, cfg.lambda_entropy_loss, group=plan.group)
+    train_step = plan.make_train_step(raw_step)
     k_dispatch = max(1, cfg.steps_per_dispatch)
-    scanned = make_scanned_step(train_step, k_dispatch) if k_dispatch > 1 else None
+    scanned = plan.make_scanned_step(raw_step, k_dispatch) if k_dispatch > 1 else None
     evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=2,
                          num_workers=cfg.num_workers,
-                         eval_k=cfg.eval_steps_per_dispatch)
+                         eval_k=cfg.eval_steps_per_dispatch, plan=plan)
+    coord = Coordinator()
     # Both streams roll over at the zip's length, so a stream's position
     # is a function of the step.
     plane = DataPlane(num_workers=cfg.num_workers,
                       quarantine_registry=_quarantine_registry(cfg),
-                      stall_timeout=cfg.data_stall_timeout)
+                      stall_timeout=cfg.data_stall_timeout, shard=shard)
     plane.register("source", seed=cfg.seed, epoch_len=steps_per_epoch)
     plane.register("target", seed=cfg.seed + 1, epoch_len=steps_per_epoch)
 
@@ -866,20 +1129,25 @@ def run_digits(
         logger("resume", state.step, epoch=epoch, source=restored.source,
                data=data_mode, cursor=plane.streams["source"].cursor,
                restore_s=seconds)
+        coord.assert_same(state.step, "resume step")
+    plan.place_replicated(state)
     if epoch >= cfg.epochs:
         # Resumed from a finished run: report the restored model's
         # accuracy instead of training.
         result = evalp.evaluate(state, test_ds)
         _note_accuracy(result["accuracy"])
         logger("test", state.step, epoch=epoch, **result)
-        _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
+        _log_params_digest(logger, state.step, model, cfg.ckpt_dir, coord)
         obs.export()
         return result["accuracy"]
 
     guard = _make_guard(cfg, logger)
     if guard:
+        # Multi-process: keep the snapshot before each refresh too, the
+        # mirror rung's target (guard.mirror_recovery).
+        guard.keep_previous = coord.enabled
         guard.prime(state)
-    pipeline = _CkptPipeline(cfg, logger)
+    pipeline = _CkptPipeline(cfg, logger, coord)
     # A resumed run continues its recorded seed lineage.
     bump0 = plane.seed_bump
     # Stream position == divmod(step) unless the resume fell back to an
@@ -897,7 +1165,8 @@ def run_digits(
             guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
             heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
                                        pipeline.in_flight_depth),
-            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None)
+            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None,
+            coord=coord, ckpt=pipeline)
 
         def proactive_save(st):
             # A preemption notice: save now and keep training; the SIGTERM
@@ -915,8 +1184,8 @@ def run_digits(
         while epoch < cfg.epochs:
             # Each stream opens at the plane's position and shuffles anew each
             # epoch, from its own seed; the zip ends with the shorter one.
-            source = plane.epoch_iterator(source_ds, "source", bs)
-            target = plane.epoch_iterator(target_ds, "target", bs)
+            source = plane.epoch_iterator(source_ds, "source", local_bs)
+            target = plane.epoch_iterator(target_ds, "target", local_bs)
             epoch_batches = ({
                 "source_x": np.asarray(sx, np.float32),
                 "source_y": np.asarray(sy, np.int64),
@@ -973,7 +1242,9 @@ def run_digits(
                 harvester.reset_stamps()
                 with wd.suspended():  # the join waits for the in-flight write
                     pipeline.close(raise_errors=False)
+                    pipeline.finalize(raise_errors=False)
                 source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                coord.assert_same(state.step, "rollback restore step")
                 wd.heartbeat()
                 gstep = state.step
                 mode = _seek_data_plane(
@@ -1018,7 +1289,7 @@ def run_digits(
             epoch += 1
         with wd.suspended():
             pipeline.flush()  # a writer failure surfaces while the run can fail
-    _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
+    _log_params_digest(logger, state.step, model, cfg.ckpt_dir, coord)
     obs.export()  # the normal exit's trace (a no-op when tracing is off)
     return acc
 
@@ -1090,19 +1361,22 @@ def officehome_batches(plane: DataPlane, source_ds, target_ds, batch_size: int,
         target.close()
 
 
-def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds) -> DataPlane:
+def officehome_plane(cfg: OfficeHomeConfig, source_ds, target_ds,
+                     shard: Optional[Tuple[int, int]] = None) -> DataPlane:
     """The run's data plane: the source at ``seed``, the target at
     ``seed + 1`` and its augmented view as an alias of the target, each
-    rolling over at its own dataset's batch count; with ``ckpt_dir``,
-    quarantined items are recorded there."""
-    bs = cfg.source_batch_size  # the target stream uses the source's too
-    source_len = epoch_batch_count(len(source_ds), bs)
-    target_len = epoch_batch_count(len(target_ds), bs)
+    rolling over at its own dataset's batch count (per process under
+    ``shard``, each loading ``1/count`` of every batch); with
+    ``ckpt_dir``, quarantined items are recorded there."""
+    count = 1 if shard is None else shard[1]
+    bs = cfg.source_batch_size // count  # the target stream uses the source's too
+    source_len = epoch_batch_count(len(source_ds), bs, shard_count=count)
+    target_len = epoch_batch_count(len(target_ds), bs, shard_count=count)
     if min(source_len, target_len) == 0:
         raise ValueError("datasets smaller than one batch")
     plane = DataPlane(num_workers=cfg.num_workers,
                       quarantine_registry=_quarantine_registry(cfg),
-                      stall_timeout=cfg.data_stall_timeout)
+                      stall_timeout=cfg.data_stall_timeout, shard=shard)
     plane.register("source", seed=cfg.seed, epoch_len=source_len)
     plane.register("target", seed=cfg.seed + 1, epoch_len=target_len)
     plane.register("target_aug", seed=cfg.seed + 1, epoch_len=target_len,
@@ -1137,27 +1411,30 @@ def run_officehome(
     a resume, ``init_ckpt`` or ``resnet_path`` loads into it."""
     logger = logger or _log_record
     obs.maybe_enable(cfg.obs_trace)
+    plan, device = _start_parallel(cfg, logger)
     alert_engine = _setup_metrics_plane(cfg, logger)
     _note_inert(cfg)
-    device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     source_ds, target_ds, test_ds = _officehome_datasets(cfg)
     source_ds = inject.wrap_dataset(source_ds, "source")
     target_ds = inject.wrap_dataset(target_ds, "target")
-    plane = officehome_plane(cfg, source_ds, target_ds)
+    local_bs, shard = _multihost_data_split(cfg, cfg.source_batch_size)
+    plane = officehome_plane(cfg, source_ds, target_ds, shard)
     if model is None:
         model = build_model(cfg)
+    set_group(model, plan.group)  # the sites reduce their moments over the ranks
     model.to(device, memory_format=torch.channels_last)
     optimizer, schedules = officehome_tx(model, cfg)
     state = TrainState(model, optimizer, schedules)
-    train_step = make_officehome_train_step(model, cfg.lambda_mec_loss)
     k_dispatch = max(1, cfg.steps_per_dispatch)
-    scanned = make_scanned_step(train_step, k_dispatch)
+    scanned = plan.make_scanned_step(
+        make_officehome_train_step(model, cfg.lambda_mec_loss, group=plan.group), k_dispatch)
     evalp = EvalPipeline(cfg.test_batch_size, device, num_domains=3,
                          num_workers=cfg.num_workers,
-                         eval_k=cfg.eval_steps_per_dispatch)
+                         eval_k=cfg.eval_steps_per_dispatch, plan=plan)
+    coord = Coordinator()
 
     # The initial state: a resume beats init_ckpt, which beats the
     # reference checkpoint, which beats fresh init.
@@ -1185,11 +1462,16 @@ def run_officehome(
         best_acc = _read_best_record(cfg.ckpt_dir)
         logger("resume", start_iter, source=restored.source, data=data_mode,
                cursor=plane.streams["target"].cursor, restore_s=seconds)
+        coord.assert_same(state.step, "resume step")
+    plan.place_replicated(state)
 
     guard = _make_guard(cfg, logger)
     if guard:
+        # Multi-process: keep the snapshot before each refresh too, the
+        # mirror rung's target (guard.mirror_recovery).
+        guard.keep_previous = coord.enabled
         guard.prime(state)
-    pipeline = _CkptPipeline(cfg, logger)
+    pipeline = _CkptPipeline(cfg, logger, coord)
     bump0 = plane.seed_bump
     step_aligned = data_mode != "epoch_boundary"
     acc = 0.0
@@ -1219,7 +1501,8 @@ def run_officehome(
             guard, preempt, wd, nw, harvester, logger=logger, alerts=alert_engine,
             heartbeat=HeartbeatEmitter(logger, cfg.heartbeat_every,
                                        pipeline.in_flight_depth),
-            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None)
+            flight_dir=os.path.join(cfg.ckpt_dir, "watchdog") if cfg.ckpt_dir else None,
+            coord=coord, ckpt=pipeline)
 
         def proactive_save(st):
             if not cfg.ckpt_dir:
@@ -1259,7 +1542,8 @@ def run_officehome(
                             state.step, state, keep=1, data_state=plane.snapshot())
                     if best is not None:
                         best_acc = acc
-                        _write_best_record(cfg.ckpt_dir, acc, state.step)
+                        if process_index() == 0:
+                            _write_best_record(cfg.ckpt_dir, acc, state.step)
                         logger("best", state.step, accuracy=acc)
             if targets:
                 data_state = plane.snapshot()
@@ -1275,7 +1559,7 @@ def run_officehome(
             # recovery rewinds state.step, not the iteration).
             step0 = state.step - start_iter
             produce = officehome_batches(plane, source_ds, target_ds,
-                                         cfg.source_batch_size, cfg.num_iters - start_iter)
+                                         local_bs, cfg.num_iters - start_iter)
             batches = None
             try:
                 it = start_iter
@@ -1309,7 +1593,9 @@ def run_officehome(
                 harvester.reset_stamps()  # the restore rewinds the numbering
                 with wd.suspended():
                     pipeline.close(raise_errors=False)
+                    pipeline.finalize(raise_errors=False)
                 source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                coord.assert_same(state.step, "rollback restore step")
                 wd.heartbeat()
                 start_iter = state.step
                 mode = _seek_data_plane(plane, cfg.ckpt_dir, source_kind, start_iter, 0,
@@ -1364,7 +1650,7 @@ def run_officehome(
     acc = result["accuracy"]
     _note_accuracy(acc)
     logger("final_test", state.step, **result)
-    _log_params_digest(logger, state.step, model, cfg.ckpt_dir)
+    _log_params_digest(logger, state.step, model, cfg.ckpt_dir, coord)
     if cfg.ckpt_dir:
         # The post-collection state is the run's deployable artifact.
         pipeline.save(cfg.ckpt_dir, state.step, state,

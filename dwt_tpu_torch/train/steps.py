@@ -62,25 +62,58 @@ def _finite_flag(metrics: Metrics) -> torch.Tensor:
     return torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"])
 
 
+def _mean_grads(grads: List[torch.Tensor], group) -> None:
+    """Each rank's gradients of its local-mean loss → the gradient of the
+    global-mean loss, in place: the sum over the group's ranks divided by
+    its size (``_mean_grads_if``), one flat buffer per dtype, one
+    all-reduce each."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        group.psum_(flat)
+        flat /= group.size
+        offset = 0
+        for g in same:
+            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
+
+
+def _mean_metrics(metrics: Metrics, group) -> Metrics:
+    """The step's scalar metrics averaged over the group's ranks (one
+    all-reduce): every rank records the global batch's."""
+    keys = list(metrics)
+    both = group.psum_(torch.stack([metrics[k] for k in keys])) / group.size
+    return {k: both[i] for i, k in enumerate(keys)}
+
+
 def _finish_step(state: TrainState, loss: torch.Tensor,
-                 metrics: Metrics) -> Metrics:
+                 metrics: Metrics, group=None) -> Metrics:
     """Backward of ``loss``, the global gradient norm and the finite flag
-    into ``metrics``, then the optimizer step at the lrs already set."""
+    into ``metrics``, then the optimizer step at the lrs already set.
+    With a process ``group`` the gradients and the metrics are averaged
+    over its ranks first (``_mean_grads_if`` and the metrics' ``pmean``
+    of the JAX step)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads_in_param_dtype(state.model)
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    if group is not None:
+        _mean_grads(grads, group)
+        metrics = _mean_metrics(metrics, group)
     metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
     metrics["finite"] = _finite_flag(metrics)
     state.optimizer.step()
     return metrics
 
 
-def _train_step(body: Callable[[TrainState, Batch], Metrics]
+def _train_step(body: Callable[[TrainState, Batch], Metrics], group=None
                 ) -> Callable[[TrainState, Batch], Metrics]:
     """``body`` (forward, backward, optimizer step: what a graph captures)
     as one train step: the schedules' lrs for ``state.step`` set first,
-    ``state.step`` advanced after.  The step keeps ``body`` as ``.body``."""
+    ``state.step`` advanced after.  The step keeps ``body`` as ``.body``
+    and its process group as ``.group``."""
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         set_learning_rates(state.optimizer, state.schedules, state.step,
@@ -90,11 +123,12 @@ def _train_step(body: Callable[[TrainState, Batch], Metrics]
         return metrics
 
     train_step.body = body
+    train_step.group = group
     return train_step
 
 
 def make_digits_train_step(
-    model: nn.Module, lambda_entropy: float = 0.1
+    model: nn.Module, lambda_entropy: float = 0.1, group=None,
 ) -> Callable[[TrainState, Batch], Metrics]:
     """Digits (USPS↔MNIST) step: cls on source + λ·entropy on target.
 
@@ -102,7 +136,9 @@ def make_digits_train_step(
     stacked ``[2, N, 28, 28, 1]``, one train forward (every norm site's
     running stats advance), ``nll(log_softmax(src), y) + λ·H(tgt)``, the
     global gradient norm, then the Adam step at the schedule's lr for
-    ``state.step``.  ``state.step`` advances by one.
+    ``state.step``.  ``state.step`` advances by one.  With a process
+    ``group`` (the model's sites built with it too) the batch is this
+    rank's slice, and the gradients and metrics the global batch's.
     """
 
     def body(state: TrainState, batch: Batch) -> Metrics:
@@ -113,13 +149,13 @@ def make_digits_train_step(
         loss = cls + ent
         return _finish_step(state, loss, {
             "loss": loss.detach(), "cls_loss": cls.detach(),
-            "entropy_loss": ent.detach()})
+            "entropy_loss": ent.detach()}, group)
 
-    return _train_step(body)
+    return _train_step(body, group)
 
 
 def make_officehome_train_step(
-    model: nn.Module, lambda_mec: float = 0.1
+    model: nn.Module, lambda_mec: float = 0.1, group=None,
 ) -> Callable[[TrainState, Batch], Metrics]:
     """OfficeHome step: cls on source + λ·MEC between the two target views.
 
@@ -127,7 +163,8 @@ def make_officehome_train_step(
     target) stacked ``[3, N, H, W, C]``, one train forward (every norm
     site's running stats advance), ``nll + λ·MEC(tgt, tgt_aug)``, the
     global gradient norm, then the SGD step at the schedules' lrs for
-    ``state.step``.  ``state.step`` advances by one.
+    ``state.step``.  ``state.step`` advances by one.  ``group`` as
+    :func:`make_digits_train_step`'s.
     """
 
     def body(state: TrainState, batch: Batch) -> Metrics:
@@ -141,9 +178,9 @@ def make_officehome_train_step(
         loss = cls + mec
         return _finish_step(state, loss, {
             "loss": loss.detach(), "cls_loss": cls.detach(),
-            "mec_loss": mec.detach()})
+            "mec_loss": mec.detach()}, group)
 
-    return _train_step(body)
+    return _train_step(body, group)
 
 
 def make_stat_collection_step(
@@ -154,7 +191,8 @@ def make_stat_collection_step(
     The reference's ``eval_pass_collect_stats``: the model in train mode
     under no_grad, fed the same batch tiled into every domain slot, purely
     to advance the running stats toward the target distribution.  Only
-    the stats change.
+    the stats change.  The model's sites reduce their moments over their
+    ``group`` (``.group``, read off the model: each rank's ``x`` its slice).
     """
 
     @torch.no_grad()
@@ -163,6 +201,9 @@ def make_stat_collection_step(
         model(x.unsqueeze(0).expand((num_domains,) + tuple(x.shape)))
         return state
 
+    from dwt_tpu_torch.nn.norms import norm_sites
+
+    collect.group = next((s.group for s in norm_sites(model)), None)
     return collect
 
 
@@ -200,19 +241,25 @@ def make_eval_step(
 
 
 def _eval_deltas(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
-                 mask: torch.Tensor) -> Metrics:
+                 mask: torch.Tensor, group=None) -> Metrics:
     """One eval-mode forward's masked counter deltas: padded rows (the
-    loader pads a ragged final batch) add nothing to any counter."""
+    loader pads a ragged final batch) add nothing to any counter.  With a
+    process ``group`` the batch is this rank's slice and the deltas are
+    summed over the ranks (one float64 all-reduce: the counts exact)."""
     model.eval()
     logits = model(x)
     per_sample = nll_loss(F.log_softmax(at_least_f32(logits), dim=-1), y,
                           reduction="none")
     hit = (logits.argmax(dim=-1) == y) & mask
-    return {
-        "loss_sum": torch.where(mask, per_sample, 0.0).sum(),
-        "correct": hit.sum(dtype=torch.int32),
-        "count": mask.sum(dtype=torch.int32),
-    }
+    loss_sum = torch.where(mask, per_sample, 0.0).sum()
+    correct = hit.sum(dtype=torch.int32)
+    count = mask.sum(dtype=torch.int32)
+    if group is not None:
+        total = group.psum_(torch.stack([loss_sum.double(), correct.double(),
+                                         count.double()]))
+        loss_sum = total[0].to(loss_sum.dtype)
+        correct, count = total[1].to(torch.int32), total[2].to(torch.int32)
+    return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
 
 # --------------------------------------------------------- the graph runner
@@ -342,6 +389,7 @@ def stack_batches(batches: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndar
 
 def make_scanned_step(
     train_step: Callable[[TrainState, Batch], Metrics], k: int,
+    capture: bool = True,
 ) -> Callable[[TrainState, Batch], Metrics]:
     """Up to ``k`` train steps per dispatch: ``scanned(state, chunk)`` takes
     a batch dict whose tensors carry a leading axis of ``n ≤ k`` stacked
@@ -352,8 +400,10 @@ def make_scanned_step(
     On the card each step is a replay of one captured step
     (:class:`StepGraph`; the module docstring), whose lr the host writes
     before the replay, so a milestone or a backoff between two replays
-    reaches the step it applies to.  On the CPU, and at ``k = 1``, the
-    steps run eagerly, one by one.  The runner is ``scanned.graph``."""
+    reaches the step it applies to.  On the CPU, at ``k = 1`` and with
+    ``capture=False`` (a step whose collectives cannot be captured: gloo's
+    stage through the host), the steps run eagerly, one by one.  The
+    runner is ``scanned.graph``."""
     if k < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
     graph = StepGraph("train step")
@@ -362,7 +412,7 @@ def make_scanned_step(
         n = _chunk_len(chunk)
         if n > k:
             raise ValueError(f"a chunk of {n} steps exceeds steps_per_dispatch={k}")
-        if not next(iter(chunk.values())).is_cuda or k < 2:
+        if not next(iter(chunk.values())).is_cuda or k < 2 or not capture:
             rows = [train_step(state, _row(chunk, i)) for i in range(n)]
             return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
         reads = lambda: _state_tensors(state.model, state.optimizer)
@@ -387,23 +437,26 @@ def make_scanned_step(
         return out
 
     scanned.graph = graph
+    scanned.group = getattr(train_step, "group", None)
     return scanned
 
 
 def make_scanned_collect(
     collect: Callable[[TrainState, torch.Tensor], TrainState], k: int,
+    capture: bool = True,
 ) -> Callable[[TrainState, torch.Tensor], TrainState]:
     """Up to ``k`` stat-collection forwards per dispatch over ``xs [n, N,
     ...]``: only the running stats advance.  On the card with ``k ≥ 2``
-    each forward is a replay of one captured forward; else they run
-    eagerly, one by one.  The runner is ``scanned.graph``."""
+    each forward is a replay of one captured forward; else (and with
+    ``capture=False``) they run eagerly, one by one.  The runner is
+    ``scanned.graph``."""
     graph = StepGraph("stat-collection forward")
 
     def scanned(state: TrainState, xs: torch.Tensor) -> TrainState:
         n = _chunk_len(xs)
         if n > k:
             raise ValueError(f"a chunk of {n} batches exceeds eval_steps_per_dispatch={k}")
-        if not xs.is_cuda or k < 2:
+        if not xs.is_cuda or k < 2 or not capture:
             for i in range(n):
                 collect(state, xs[i])
             return state
@@ -414,11 +467,12 @@ def make_scanned_collect(
         return state
 
     scanned.graph = graph
+    scanned.group = getattr(collect, "group", None)
     return scanned
 
 
 def make_accum_eval_step(
-    model: nn.Module, k: int = 1,
+    model: nn.Module, k: int = 1, group=None, capture: bool = True,
 ) -> Callable[[Metrics, Dict[str, torch.Tensor]], Metrics]:
     """Accumulating eval dispatch: ``(counters, chunk) -> counters``.
 
@@ -433,7 +487,10 @@ def make_accum_eval_step(
     The graph reads the sites' eval matrices from tensors of its own:
     each pass installs a new cache (``install_eval_matrix`` rebinds
     ``site.eval_matrix``), which a dispatch copies into them in place
-    before it replays.  Else the batches run eagerly.  The runner is
+    before it replays.  Else (and with ``capture=False``) the batches run eagerly.  With a
+    process ``group`` each rank's chunk is its slice of every batch and the
+    deltas are summed over the ranks (:func:`_eval_deltas`), so every
+    rank's counters are the global ones.  The runner is
     ``accum_eval.graph``."""
     from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
 
@@ -467,10 +524,10 @@ def make_accum_eval_step(
         n = _chunk_len(chunk)
         if n > k:
             raise ValueError(f"a chunk of {n} batches exceeds eval_steps_per_dispatch={k}")
-        if not chunk["x"].is_cuda or k < 2:
+        if not chunk["x"].is_cuda or k < 2 or not capture:
             for i in range(n):
                 deltas = _eval_deltas(model, chunk["x"][i], chunk["y"][i],
-                                      chunk["mask"][i])
+                                      chunk["mask"][i], group)
                 counters = {key: counters[key] + deltas[key] for key in counters}
             return counters
         if not acc:
@@ -480,9 +537,12 @@ def make_accum_eval_step(
         reads = lambda: _state_tensors(model) + matrices_read
         for i in range(n):
             graph.step(_row(chunk, i), reads,
-                       eager=lambda b: add(_eval_deltas(model, b["x"], b["y"], b["mask"])),
-                       body=lambda b: add(_eval_deltas(model, b["x"], b["y"], b["mask"])))
+                       eager=lambda b: add(_eval_deltas(model, b["x"], b["y"], b["mask"],
+                                                        group)),
+                       body=lambda b: add(_eval_deltas(model, b["x"], b["y"], b["mask"],
+                                                       group)))
         return {key: v.clone() for key, v in acc.items()}
 
     accum_eval.graph = graph
+    accum_eval.group = group
     return accum_eval

@@ -53,8 +53,22 @@ disk either way.  The fault hooks sit where the JAX package has them: an
 injected ``OSError`` at the top of each write attempt, and an injected
 crash between the manifest and the finalize rename.
 
-Not ported (ROADMAP queue 1 item 8): multi-host saves and restore onto a
-sharding plan.
+**Multi-process saves** (a data-parallel run; the JAX package's
+host-shard format, ``format: host_shards``): every rank writes its
+replica of the state, collective-free, into
+``<ckpt_dir>/.tmp-mh-<step>/shard_<rank>/`` (:func:`save_host_shard`:
+``leaves.bin``, the raw bytes of the leaves the delta store names —
+``['model'][...]`` and ``['optimizer']['state'][i][...]`` — and, written
+last, ``shard_manifest.json`` with the leaves' paths, dtypes, shapes and
+offsets, the parameters' digest, the sizes, the ``data_state`` and the
+state dict's other entries under ``torch_meta``), and rank 0 promotes the
+step once every shard is durable (:func:`promote_host_shards`: the
+top-level manifest with ``process_count``, then the atomic rename) — the
+JAX directories byte for byte in layout, so a port-written step passes
+the JAX package's validity check.  A port-written host-shard step (its
+manifest carries ``torch_meta``) resumes a run, from this rank's own
+shard or else shard 0.  Restore onto a sharding plan waits for ROADMAP
+queue 1 item 8b.
 """
 
 from __future__ import annotations
@@ -352,11 +366,12 @@ def _refusal(path: str, manifest: Optional[dict]) -> Optional[str]:
 
 
 def _is_jax_checkpoint(manifest: dict) -> bool:
-    """A host-shard or cas checkpoint the JAX package wrote."""
+    """A host-shard or cas checkpoint the JAX package wrote (the port's
+    own carry ``torch_meta``)."""
     from dwt_tpu_torch.ckpt.store import is_torch_chain
 
     fmt = manifest.get("format")
-    return fmt == HOST_SHARD_FORMAT or (fmt == CAS_FORMAT and not is_torch_chain(manifest))
+    return fmt in (HOST_SHARD_FORMAT, CAS_FORMAT) and not is_torch_chain(manifest)
 
 
 def read_payload(path: str) -> Tuple[dict, Optional[str]]:
@@ -375,6 +390,8 @@ def read_payload(path: str) -> Tuple[dict, Optional[str]]:
         from dwt_tpu_torch.ckpt.store import read_torch_payload
 
         return read_torch_payload(path), manifest.get("params_digest")
+    if manifest["format"] == HOST_SHARD_FORMAT:
+        return _read_host_shard_payload(path), manifest.get("params_digest")
 
     def _read():
         with open(os.path.join(path, STATE_FILE), "rb") as f:
@@ -587,6 +604,136 @@ def read_host_shard_tree(path: str) -> dict:
             node = node.setdefault(key, {})
         node[keys[-1]] = arr
     return tree
+
+
+def _shard_dir_to_read(path: str) -> str:
+    """This rank's own shard of a promoted host-shard step when it has
+    one, else shard 0 (a run resumed with another process count)."""
+    from dwt_tpu_torch.parallel.mesh import process_index
+
+    own = os.path.join(path, f"shard_{process_index()}")
+    return own if os.path.isdir(own) else os.path.join(path, "shard_0")
+
+
+def _read_host_shard_payload(path: str) -> dict:
+    """A port-written host-shard step as the ``TrainState.state_dict()``
+    payload."""
+    from dwt_tpu_torch.ckpt.store import TORCH_META, _payload_from_leaves
+
+    shard_dir = _shard_dir_to_read(path)
+    shard = _read_shard_manifest(shard_dir)
+    if shard is None or TORCH_META not in shard:
+        raise ValueError(f"checkpoint {path}: shard manifest missing/torn")
+
+    def _read():
+        with open(os.path.join(shard_dir, _LEAVES_FILE), "rb") as f:
+            return f.read()
+
+    blob = _with_retries(_read, f"host-shard restore {shard_dir}")
+    arrays = {}
+    for entry in shard["leaves"]:
+        shape = tuple(entry["shape"])
+        arrays[entry["path"]] = np.frombuffer(
+            blob, dtype=np.dtype(entry["dtype"]),
+            count=int(np.prod(shape, dtype=np.int64)), offset=entry["offset"]).reshape(shape)
+    return _payload_from_leaves(arrays, shard[TORCH_META])
+
+
+def _mh_tmp_dir(root: str, step: int) -> str:
+    return os.path.join(root, f"{_TMP_PREFIX}mh-{int(step)}")
+
+
+def save_host_shard(ckpt_dir: str, step: int, state, process_index: int,
+                    require_finite: bool = True,
+                    data_state: Optional[dict] = None) -> bool:
+    """Write this rank's replica of ``state`` (a ``TrainState`` or a
+    ``HostState``) under ``.tmp-mh-<step>/shard_<process_index>``, the
+    JAX package's layout (module docstring); the shard manifest last, so
+    a torn shard is recognizable.  Pure host I/O for a ``HostState``
+    (safe on the writer thread).  Returns False, writing nothing, when
+    ``require_finite`` refuses non-finite parameters."""
+    from dwt_tpu_torch.ckpt.store import TORCH_META, payload_leaves
+
+    host = host_state(state)
+    if require_finite and not host_params_finite(host):
+        log.warning("skipping host-shard save @%d: non-finite params (a NaN "
+                    "checkpoint would poison newest-valid resume)", step)
+        return False
+    root = _root(ckpt_dir)
+    shard = os.path.join(_mh_tmp_dir(root, step), f"shard_{int(process_index)}")
+    leaves, meta = payload_leaves(host.payload)
+    digest = params_digest((n, host.payload["model"][n]) for n in host.param_names)
+
+    def _write():
+        inject.maybe_io_error(f"host shard @{step}")
+        os.makedirs(shard, exist_ok=True)
+        entries, offset = [], 0
+        with open(os.path.join(shard, _LEAVES_FILE), "wb") as f:
+            for key, arr in leaves:
+                arr = np.asarray(arr)
+                f.write(arr.tobytes())
+                entries.append({"path": key, "dtype": str(arr.dtype),
+                                "shape": list(arr.shape), "offset": offset,
+                                "nbytes": int(arr.nbytes)})
+                offset += arr.nbytes
+            f.flush()
+            os.fsync(f.fileno())
+        # A rank dying here (bytes written, manifest not) leaves a torn
+        # shard that promotion refuses.
+        inject.maybe_kill_writer_mid_shard(step)
+        manifest = {"step": int(step), "format": HOST_SHARD_FORMAT,
+                    "process_index": int(process_index), "params_digest": digest,
+                    "timestamp": time.time(), "leaves": entries,
+                    "files": {_LEAVES_FILE: offset}, TORCH_META: meta}
+        if data_state is not None:
+            manifest["data_state"] = data_state
+        tmp_manifest = os.path.join(shard, SHARD_MANIFEST + ".tmp")
+        with open(tmp_manifest, "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp_manifest, os.path.join(shard, SHARD_MANIFEST))
+        count_ckpt_bytes("full", offset)
+
+    _with_retries(_write, f"host-shard save @{step}")
+    return True
+
+
+def promote_host_shards(ckpt_dir: str, step: int, process_count: int,
+                        keep: Optional[int] = None) -> str:
+    """Finalize ``.tmp-mh-<step>`` once every rank's shard is durable
+    (rank 0, its loop's thread, pure filesystem): each shard's manifest
+    is checked (a torn or missing one raises ``OSError``; the previous
+    finalized step stays authoritative), the top-level manifest written
+    (``format: host_shards``, ``process_count``, shard 0's digest,
+    ``data_state`` and ``torch_meta``) and the directory renamed to
+    ``<step>``.  A step already promoted is returned as it is."""
+    from dwt_tpu_torch.ckpt.store import TORCH_META
+
+    root = _root(ckpt_dir)
+    tmp = _mh_tmp_dir(root, step)
+    final = os.path.join(root, str(int(step)))
+    if not os.path.isdir(tmp) and is_valid_checkpoint(final):
+        return final
+    first = None
+    for p in range(int(process_count)):
+        manifest = _read_shard_manifest(os.path.join(tmp, f"shard_{p}"))
+        if manifest is None or int(manifest.get("step", -1)) != int(step):
+            raise OSError(
+                f"cannot promote checkpoint step {step}: shard_{p} is missing or "
+                "torn (its writer died mid-shard-write?) — the previous finalized "
+                "step stays authoritative")
+        first = first or manifest
+    extra = {"format": HOST_SHARD_FORMAT, "process_count": int(process_count)}
+    for key in ("data_state", TORCH_META):
+        if first.get(key) is not None:
+            extra[key] = first[key]
+    _write_manifest(tmp, step, first.get("params_digest"), extra)
+    _finalize_rename(root, tmp, final, step)
+    _sweep_stale_tmp(root)
+    if keep is not None:
+        prune_checkpoints(root, keep)
+    return final
 
 
 # ------------------------------------------------- ranked checkpoint walk

@@ -42,10 +42,10 @@ import torch_obs_report  # noqa: E402
 
 sys.path.pop(0)
 
-# Spans the JAX package opens in modules the port has not got yet: the
-# sharded placement and gather of parallel/plan.py, the sharded restore
-# and the multi-host shard writer — all multi-process (ROADMAP queue 1
-# item 8).  Nothing else may be missing from the port.
+# Spans neither single-process run compares: the sharded placement, gather
+# and restore of parallel/plan.py's gspmd mode, which the port has not got
+# yet (ROADMAP queue 1 item 8b), and the multi-process shard writer's.
+# Nothing else may be missing from the port.
 ITEM8_SPANS = {"shard_put", "gather", "restore_place", "shard_write"}
 
 DIGITS_ARGS = ["--synthetic", "--synthetic_size", "32",

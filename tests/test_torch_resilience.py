@@ -149,14 +149,17 @@ def test_fault_plan_accepts_and_refuses_what_the_jax_plan_does(spec):
 
 
 # The sweep kinds are ported (tests/test_torch_sweep.py holds them to the
-# JAX plan); the host-shard kind waits for the parallel slice.
+# JAX plan); the host-shard kind came with the parallel slice (queue 1
+# item 8): the port no longer refuses any kind, and takes this one as the
+# JAX plan does.
 @pytest.mark.parametrize("kind,value,item", [
     ("kill_writer_mid_shard", 8, "item 8"),
 ])
 def test_fault_plan_refuses_the_kinds_it_does_not_port(kind, value, item):
-    jax_inject.FaultPlan.from_spec({kind: value})  # a kind the JAX plan takes
-    with pytest.raises(ValueError, match=f"not ported.*ROADMAP queue 1 {item}"):
-        inject.FaultPlan.from_spec({kind: value})
+    assert not inject.UNPORTED_KINDS
+    ref = jax_inject.FaultPlan.from_spec({kind: value})
+    assert getattr(inject.FaultPlan.from_spec({kind: value}), kind) == getattr(ref, kind)
+    assert inject.FaultPlan.from_spec({kind: True}).kill_writer_mid_shard is True
 
 
 def test_fault_plan_env_contract(monkeypatch):
@@ -567,5 +570,10 @@ def test_coordinator_combines_flags_by_the_jax_rules():
                  rollback_step=[-1, 7, 5], notice=[False, True])
     assert (d.stop, d.event, d.rollback_step, d.notice) == (True, EVENT_HALT, 7, True)
     assert not c.decide().diverged
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Coordinator(enabled=True)
+    # Forced on one process: the one-row gather, the same decision.
+    forced = Coordinator(enabled=True)
+    d = forced.decide(stop=True, event=EVENT_ROLLBACK, rollback_step=7, notice=False,
+                      save_done_seq=3)
+    assert (d.stop, d.event, d.rollback_step, d.notice, d.save_done_seq) == (
+        True, EVENT_ROLLBACK, 7, False, 3)
+    assert forced.decides == 1 and forced.agree_step(5) == 5

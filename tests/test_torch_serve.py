@@ -215,6 +215,14 @@ from dwt_tpu_torch.sweep.cli import make_argv_fn
 from dwt_tpu_torch.cli import officehome_sweep
 spec = importlib.util.spec_from_file_location("torch_ckpt_fsck", "tools/torch_ckpt_fsck.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# The data-parallel slice: the parallel package and the multi-process
+# checkpoint plane.
+from dwt_tpu_torch.parallel import (Mesh, ShardingPlan, initialize_distributed,
+                                    make_mesh, plan_from_flags, shard_batch)
+from dwt_tpu_torch.parallel import dp, mesh, plan
+from dwt_tpu_torch.resilience.async_ckpt import (MultiHostAsyncCheckpointer,
+                                                 MultiHostDeltaAsyncCheckpointer)
+from dwt_tpu_torch.utils.checkpoint import promote_host_shards, save_host_shard
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")

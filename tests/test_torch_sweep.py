@@ -369,8 +369,9 @@ def test_supervisor_metrics_carry_each_job_under_a_pair_label(tmp_path):
             rendered[name] = s._render_metrics()
             s.running.clear()
     finally:
-        exporter.shutdown()
-        exporter.server_close()
+        # stop_exporter also forgets the process's exporter, so a later
+        # test's start_exporter does not get this closed one back.
+        prom.stop_exporter()
     ours = rendered["ours"]
     assert ours == rendered["jax"]
     assert prom.validate_exposition(ours) == [] == jax_prom.validate_exposition(ours)
