@@ -569,6 +569,39 @@ script exits non-zero without the final line:
                   spawn-to-first-record; the kernels line gains the per-rank
                   rows, timed in this process at the per-rank shapes.
 
+53. ``gspmd`` — the gspmd mode of the sharding plan (after
+                  ``data_parallel``): each trainer's CLI entry with
+                  ``--distributed --mesh_shape D,A,M --sharding_rules``
+                  (gloo, the ranks sharing the card; (a) and (b)'s first
+                  pair and its one process run side by side), each rank
+                  through
+                  ``DP_JOB`` plus ``GSPMD_JOB_EXTRA`` (its placed state's
+                  resident parameter and moment bytes against their whole
+                  bytes, its blocks against its rules, each restore's
+                  ``max_memory_allocated`` rise).  (a) Digits on 4 ranks at
+                  ``1,2,2`` under ``model`` (``DP_DIGITS_FLAGS``, async
+                  host-shard saves) against phase 52's one-process run:
+                  records and digests equal across the ranks, the eval
+                  counters equal, step 1 within ``GSPMD_STEP1_TOL``, 2 + 2
+                  launches a step, the step saved with ``process_count`` 4.
+                  (b) The flagship on 2 ranks at ``1,1,2`` under ``fsdp``
+                  (``GSPMD_TRAIN_FLAGS``: 3 × 18 images, ``--pad_classes_to
+                  2``, 3 steps, one eval, one collection pass, a save)
+                  against one process of the same recipe: 11 + 11 launches
+                  a step, step 1 within ``GSPMD_STEP1_TOL``; then a pair that
+                  restores the save to spec (one restore each, its memory
+                  rise within the rank's block bytes) and trains to step
+                  ``GSPMD_RESUME_ITERS`` with equal digests.  (c) Every
+                  rank's kernels against their plain versions at the shapes
+                  it launched (digits: half rows; flagship: whole rows).
+                  Each rank's resident share must be at most
+                  ``GSPMD_RESIDENT_MAX``; the row prints, with the card, the
+                  shares, peak memory and launches a train step of each
+                  rank (step ms too, not comparable: the runs overlap).
+                  The kernels line
+                  gains each rank's rows, timed at the same shapes in
+                  phases ``data_parallel`` and ``train``.
+
 Every phase row carries ``phase_s``, the wall seconds since the row before;
 the ``budget`` row, before the kernels line, gives the script's total
 seconds and its ``BUDGET_HEAVIEST`` heaviest phases.
@@ -7133,6 +7166,7 @@ def dump():
                                                        "cov_max_abs_err": pc, "ok": ok}},
                                   "apply_vs_plain": a}})
             del x
+    out.update(globals().get("extra_dump", dict)())
     with open(os.environ["DWT_DP_OUT"], "w") as f:
         json.dump(out, f)
 atexit.register(dump)
@@ -7192,10 +7226,12 @@ parallel.shutdown_distributed()
 """
 
 
-def dp_spawn(script, module, flags, root, name, world, shapes=(), plans=None):
-    """``world`` ranks (or, at ``world`` 1, one plain process) of ``module``
-    with ``flags`` through ``script``; returns ``(return codes, outputs,
-    the jobs' dumps, their metrics records)``."""
+def dp_start(script, module, flags, root, name, world, shapes=(), plans=None,
+             parallel=("--distributed", "--data_parallel")):
+    """Start ``world`` ranks (or, at ``world`` 1, one plain process) of
+    ``module`` with ``flags`` and, on more than one rank, ``parallel``
+    through ``script``, each writing its output to a file under ``root``;
+    returns the handle :func:`dp_finish` takes."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -7206,22 +7242,34 @@ def dp_spawn(script, module, flags, root, name, world, shapes=(), plans=None):
         if world > 1:
             env.update(DWT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        DWT_NUM_PROCESSES=str(world), DWT_PROCESS_ID=str(rank))
-            argv += ["--distributed", "--data_parallel"]
+            argv += list(parallel)
         if plans and plans[rank]:
             env["DWT_FAULT_PLAN"] = json.dumps(plans[rank])
-        procs.append((time.time(), subprocess.Popen(
-            [sys.executable, script, module, *argv], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    outs = []
+        out = os.path.join(root, f"{name}_{rank}.out")
+        with open(out, "w") as f:
+            procs.append((time.time(), subprocess.Popen(
+                [sys.executable, script, module, *argv], env=env, stdout=f,
+                stderr=subprocess.STDOUT, text=True), out))
+    return root, name, procs
+
+
+def dp_finish(started, timeout: float = 600.0):
+    """Wait for the processes of :func:`dp_start` (killing any left at
+    ``timeout`` seconds or on an error); returns ``(return codes, outputs,
+    the jobs' dumps, their metrics records)``."""
+    root, name, procs = started
+    deadline = time.time() + timeout
     try:
-        for _, p in procs:
-            outs.append(p.communicate(timeout=600)[0])
+        for _, p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
     finally:
-        for _, p in procs:
+        for _, p, _ in procs:
             if p.poll() is None:
                 p.kill()
-    jobs, records = [], []
-    for rank, (spawned, p) in enumerate(procs):
+                p.wait()
+    outs, jobs, records = [], [], []
+    for rank, (spawned, p, out) in enumerate(procs):
+        outs.append(open(out, errors="replace").read())
         path = os.path.join(root, f"{name}_{rank}.json")
         job = json.load(open(path)) if os.path.exists(path) else {}
         job["spawned"] = spawned
@@ -7229,7 +7277,15 @@ def dp_spawn(script, module, flags, root, name, world, shapes=(), plans=None):
         jsonl = os.path.join(root, f"{name}_{rank}.jsonl")
         records.append([json.loads(line) for line in open(jsonl) if line.strip()]
                        if os.path.exists(jsonl) else [])
-    return [p.returncode for _, p in procs], outs, jobs, records
+    return [p.returncode for _, p, _ in procs], outs, jobs, records
+
+
+def dp_spawn(script, module, flags, root, name, world, shapes=(), plans=None,
+             parallel=("--distributed", "--data_parallel")):
+    """:func:`dp_start` and :func:`dp_finish`: ``world`` ranks of ``module``
+    to their end."""
+    return dp_finish(dp_start(script, module, flags, root, name, world, shapes, plans,
+                              parallel))
 
 
 def free_port() -> int:
@@ -7263,10 +7319,11 @@ def dp_job_stats(job, steps_in):
             "peak_mib": job["peak_bytes"] / 2 ** 20}
 
 
-def dp_check_records(name, rank_records, single, keys, launches_of, jobs):
-    """The replica ranks' records against each other and the one-process
-    run's (module docstring, phase 52); returns the largest relative loss
-    difference from the one-process run at step 1 and after."""
+def dp_check_records(name, rank_records, single, keys, launches_of, jobs,
+                     step1_tol=DP_STEP1_TOL, later_tol=DP_LATER_TOL, phase="data_parallel"):
+    """The ranks' records against each other and the one-process run's
+    (module docstring, phases 52 and 53); returns the largest relative
+    loss difference from the one-process run at step 1 and after."""
     trains = lambda recs: {r["step"]: r for r in recs if r["kind"] == "train"}
     counters = lambda recs: [(r["kind"], r["step"], r["count"]) for r in recs
                              if r["kind"] in ("test", "final_test")]
@@ -7297,7 +7354,7 @@ def dp_check_records(name, rank_records, single, keys, launches_of, jobs):
             err = abs(a - b) / max(abs(b), 1e-12)
             which = "step1" if step == min(theirs) else "later"
             rel[which] = max(rel[which], err)
-    if rel["step1"] > DP_STEP1_TOL or rel["later"] > DP_LATER_TOL:
+    if rel["step1"] > step1_tol or rel["later"] > later_tol:
         problems.append(f"losses against the one-process run {rel}")
     for rank, (recs, job) in enumerate(zip(rank_records, jobs)):
         want = launches_of(recs)
@@ -7307,7 +7364,7 @@ def dp_check_records(name, rank_records, single, keys, launches_of, jobs):
             if not (row["moments_vs_plain"]["ok"] and row["apply_vs_plain"]["ok"]):
                 problems.append(f"rank {rank} kernels disagree at {row['shape']}")
     if problems:
-        raise AssertionError(f"data_parallel {name}: {problems}")
+        raise AssertionError(f"{phase} {name}: {problems}")
     return rel
 
 
@@ -7452,7 +7509,8 @@ def data_parallel(torch, cw, root, device, rate):
            "checkpoint": {"step": final, "shards": shards, "format": manifest["format"]},
            "sigterm": {"preempt_steps": preempt, "saved": saved}, "capture": captured}
     emit(row)
-    return {"launches": row["launches"], "parity": row["parity"], "timing": timing}
+    return {"launches": row["launches"], "parity": row["parity"], "timing": timing,
+            "one_process": {"digits": d1_recs[0]}}
 
 
 def dp_rows(r, floor):
@@ -7499,6 +7557,279 @@ def dp_rows(r, floor):
                     **(floor if part == "apply" else {}),
                     "path": f"data_parallel_{path}_rank{rank}", "per": per})
     return rows
+
+
+# ------------------------------------------------------------------ gspmd
+
+GSPMD_DIGITS_WORLD = 4
+GSPMD_DIGITS_PARALLEL = ("--distributed", "--mesh_shape", "1,2,2", "--sharding_rules", "model")
+GSPMD_TRAIN_WORLD = 2
+GSPMD_TRAIN_PARALLEL = ("--distributed", "--mesh_shape", "1,1,2", "--sharding_rules", "fsdp")
+GSPMD_TRAIN_FLAGS = DP_TRAIN_FLAGS + ["--pad_classes_to", "2"]
+GSPMD_RESUME_ITERS = 4  # the restoring pair trains one step past the saved state
+# The flagship ranks at 1,1,2 launch both kernels on the whole rows.
+GSPMD_TRAIN_SHAPES = [(f"fsdp_{name}", DOMAINS, m, c) for name, m, c, _ in TRAIN_SITES]
+# Step 1 against one process: the digits ranks split the rows (sums in
+# another order), the flagship ranks see every row with the gathered
+# weights, which are the whole weights bitwise.
+GSPMD_STEP1_TOL = 1e-5
+GSPMD_RESIDENT_MAX = 0.55  # a rank's parameter-plus-moment bytes against replicated, model = 2
+GSPMD_JOB_EXTRA = """\
+import math
+from dwt_tpu_torch.parallel import plan as gplan
+from dwt_tpu_torch.utils import checkpoint as gck
+placed, restores, peaks = [], [], []
+place = gplan.ShardingPlan.place
+def placing(self, state, what="train state"):
+    out = place(self, state, what)
+    if self.mode == "gspmd" and not placed:
+        placed.append(state)
+    return out
+gplan.ShardingPlan.place = placing
+restore_at = gck._restore_state_at
+def restoring(path, state, jax_params=False, shardings=None):
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = restore_at(path, state, jax_params, shardings)
+    torch.cuda.synchronize()
+    restores.append({"to_spec": shardings is not None, "allocated_before": before,
+                     "peak_increase": torch.cuda.max_memory_allocated() - before})
+    return out
+gck._restore_state_at = restoring
+def extra_dump():
+    if not placed:
+        return {}
+    st = placed[0]
+    layout = st.model._gspmd_layout
+    params = dict(st.model.named_parameters())
+    nbytes = lambda t: t.numel() * t.element_size()
+    full = lambda n, t: math.prod(layout.leaves[n].full_shape) * t.element_size()
+    moments = [(n, v) for n, p in params.items() for v in st.optimizer.state.get(p, {}).values()
+               if torch.is_tensor(v) and v.dim()]
+    block = lambda n: tuple(layout.block_shape(layout.leaves[n]))
+    sharded = [l for l in layout.leaves.values() if l.sharded]
+    return {"gspmd": {
+        "coords": list(layout.mesh.coords),
+        "param_bytes": sum(nbytes(p) for p in params.values()),
+        "param_full_bytes": sum(full(n, p) for n, p in params.items()),
+        "moment_bytes": sum(nbytes(v) for _, v in moments),
+        "moment_full_bytes": sum(full(n, v) for n, v in moments),
+        "sharded_leaves": len(sharded), "leaves": len(layout.leaves),
+        "largest_sharded_full_bytes": max([math.prod(l.full_shape) * 4 for l in sharded] or [0]),
+        "blocks_ok": all(tuple(p.shape) == block(n) for n, p in params.items())
+                     and all(tuple(v.shape) == block(n) for n, v in moments),
+        "restores": restores,
+        "peak_bytes": max(peaks + [torch.cuda.max_memory_allocated()])}}
+"""
+
+
+def gspmd_resident(job):
+    """A rank's resident parameter-plus-moment bytes against replicated."""
+    g = job["gspmd"]
+    return (g["param_bytes"] + g["moment_bytes"]) / (g["param_full_bytes"]
+                                                     + g["moment_full_bytes"])
+
+
+def gspmd_check_jobs(name, jobs, records, window):
+    """Each rank's blocks, resident share and peak memory (module
+    docstring, phase 53), and its launches a train step between the train
+    records at ``window`` ``(first, last)`` (None: not read); returns the
+    rows' per-rank summaries."""
+    problems, ranks = [], []
+    for rank, (job, recs) in enumerate(zip(jobs, records)):
+        g = job.get("gspmd")
+        if not g:
+            problems.append(f"rank {rank} placed no gspmd state")
+            continue
+        share = gspmd_resident(job)
+        if not g["blocks_ok"]:
+            problems.append(f"rank {rank} holds a tensor other than its block")
+        if share > GSPMD_RESIDENT_MAX:
+            problems.append(f"rank {rank} resident share {share:.4f} > {GSPMD_RESIDENT_MAX}")
+        at = {m[1]: m for m in dp_marks(job, "train")}
+        per_step = None
+        if window is not None:
+            lo, hi = window
+            per_step = {k: (at[hi][4 + i] - at[lo][4 + i]) / (hi - lo)
+                        for i, k in enumerate(("moments", "apply"))}
+        ranks.append({"coords": g["coords"], "resident_share": share,
+                      "param_bytes": g["param_bytes"], "moment_bytes": g["moment_bytes"],
+                      "replicated_bytes": g["param_full_bytes"] + g["moment_full_bytes"],
+                      "sharded_leaves": g["sharded_leaves"], "leaves": g["leaves"],
+                      "peak_mib": g["peak_bytes"] / 2 ** 20,
+                      "launches_per_train_step": per_step,
+                      "restores": g["restores"]})
+    if problems:
+        raise AssertionError(f"gspmd {name}: {problems}")
+    return ranks
+
+
+def gspmd(torch, cw, root, one_process):
+    """Phase ``gspmd`` (module docstring, phase 53).  ``one_process`` is
+    phase ``data_parallel``'s one-process digits run.  Returns the ranks'
+    launches and parity for the kernels line."""
+    smi = nvidia_smi()
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = os.path.join(root, "gspmd_job.py")
+    with open(job, "w") as f:
+        f.write(DP_JOB.format(repo=here).replace(
+            "atexit.register(dump)", GSPMD_JOB_EXTRA + "atexit.register(dump)"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stages = {}
+    sites = len(DIGITS_SITES)
+
+    # The digits ranks, the flagship pair and the flagship's one process run
+    # side by side on the card (their step times are not compared here:
+    # ranks share a card whatever runs beside them); the pair restoring the
+    # flagship's save runs after it.
+    ck = os.path.join(root, "digits_ck")
+    digits = dp_start(job, "dwt_tpu_torch.cli.usps_mnist",
+                      DP_DIGITS_FLAGS + ["--ckpt_dir", ck], root, "gspmd_digits",
+                      GSPMD_DIGITS_WORLD, DP_DIGITS_SHAPES, parallel=GSPMD_DIGITS_PARALLEL)
+    t_ck = os.path.join(root, "flagship_ck")
+    flags = GSPMD_TRAIN_FLAGS + ["--ckpt_dir", t_ck]
+    flagship = dp_start(job, "dwt_tpu_torch.cli.officehome", flags, root, "gspmd_flagship",
+                        GSPMD_TRAIN_WORLD, GSPMD_TRAIN_SHAPES, parallel=GSPMD_TRAIN_PARALLEL)
+    one = dp_start(job, "dwt_tpu_torch.cli.officehome", GSPMD_TRAIN_FLAGS, root,
+                   "gspmd_flagship_one", 1)
+    runs = {}
+    try:
+        for what, started in (("flagship", flagship), ("one", one), ("digits", digits)):
+            runs[what] = dp_finish(started)
+            stages[f"{what}_s"] = time.perf_counter() - t0
+    finally:
+        for started in (digits, flagship, one):  # a failure above leaves none running
+            for _, p, _ in started[2]:
+                if p.poll() is None:
+                    p.kill()
+    for what, world in (("flagship", GSPMD_TRAIN_WORLD), ("one", 1),
+                        ("digits", GSPMD_DIGITS_WORLD)):
+        if runs[what][0] != [0] * world:
+            raise AssertionError(f"gspmd {what} rc {runs[what][0]}: "
+                                 + " ".join(o[-1500:] for o in runs[what][1]))
+    _, _, d_jobs, d_recs = runs["digits"]
+    _, _, t_jobs, t_recs = runs["flagship"]
+    _, _, t1_jobs, t1_recs = runs["one"]
+
+    # (a) Digits: 4 ranks at 1,2,2 under model, against the one-process run.
+    def digits_launches(recs):
+        steps = len([r for r in recs if r["kind"] == "train"])
+        forwards = sum(r["forwards"] for r in recs if r["kind"] == "test")
+        return {"moments": sites * steps, "apply": sites * (steps + forwards)}
+
+    d_rel = dp_check_records("digits", d_recs, one_process["digits"],
+                             ("loss", "cls_loss", "entropy_loss"), digits_launches, d_jobs,
+                             step1_tol=GSPMD_STEP1_TOL, phase="gspmd")
+    d_ranks = gspmd_check_jobs("digits", d_jobs, d_recs, (2, 8))
+    final = max(r["step"] for r in d_recs[0] if r["kind"] == "test")
+    with open(os.path.join(ck, str(final), "manifest.json")) as f:
+        manifest = json.load(f)
+    if (manifest.get("format") != "host_shards"
+            or manifest.get("process_count") != GSPMD_DIGITS_WORLD):
+        raise AssertionError(f"gspmd digits checkpoint: {manifest.get('format')}, "
+                             f"{manifest.get('process_count')}")
+
+    # (b) The flagship at 1,1,2 under fsdp, against one process; then a pair
+    # that restores the save to spec and trains on.
+    def flagship_launches(recs):
+        steps = len([r for r in recs if r["kind"] == "train"])
+        evals = sum(r["forwards"] for r in recs if r["kind"] in ("test", "final_test"))
+        collect = sum(r.get("forwards", 0) for r in recs if r["kind"] == "stat_collection")
+        return {"moments": WHITENED_SITES * (steps + collect),
+                "apply": WHITENED_SITES * (steps + evals + collect)}
+
+    t_rel = dp_check_records("flagship", t_recs, t1_recs[0], ("loss", "cls_loss", "mec_loss"),
+                             flagship_launches, t_jobs, step1_tol=GSPMD_STEP1_TOL,
+                             phase="gspmd")
+    t_ranks = gspmd_check_jobs("flagship", t_jobs, t_recs, (1, 3))
+    t1 = time.perf_counter()
+    rcs, outs, r_jobs, r_recs = dp_spawn(
+        job, "dwt_tpu_torch.cli.officehome",
+        flags + ["--num_iters", str(GSPMD_RESUME_ITERS)], root, "gspmd_restore",
+        GSPMD_TRAIN_WORLD, parallel=GSPMD_TRAIN_PARALLEL)
+    if rcs != [0] * GSPMD_TRAIN_WORLD:
+        raise AssertionError(f"gspmd restore ranks rc {rcs}: "
+                             + " ".join(o[-2000:] for o in outs))
+    r_ranks = gspmd_check_jobs("restore", r_jobs, r_recs, None)
+    problems = []
+    for rank, (recs, info) in enumerate(zip(r_recs, r_ranks)):
+        resumed = [r["step"] for r in recs if r["kind"] == "resume"]
+        spec = [x for x in info["restores"] if x["to_spec"]]
+        blocks = info["param_bytes"] + info["moment_bytes"]
+        if resumed != [max(r["step"] for r in t_recs[0] if r["kind"] == "train")]:
+            problems.append(f"rank {rank} resumed at {resumed}")
+        if len(spec) != 1 or spec[0]["peak_increase"] > blocks:
+            problems.append(f"rank {rank} restore {info['restores']} against {blocks} "
+                            "block bytes")
+        if max(r["step"] for r in recs if r["kind"] == "train") != GSPMD_RESUME_ITERS:
+            problems.append(f"rank {rank} did not train past the restore")
+    digests = [[r["digest"] for r in recs if r["kind"] == "params_digest"] for recs in r_recs]
+    if any(d != digests[0] for d in digests) or not digests[0]:
+        problems.append(f"restored ranks' digests differ: {digests}")
+    if problems:
+        raise AssertionError(f"gspmd restore: {problems}")
+    stages["restore_s"] = time.perf_counter() - t1
+    for jobs, what in ((d_jobs, "digits"), (t_jobs, "flagship")):
+        for rank, j in enumerate(jobs):
+            if not all(p["moments_vs_plain"]["ok"] and p["apply_vs_plain"]["ok"]
+                       for p in j.get("parity", [])):
+                raise AssertionError(f"gspmd {what} rank {rank}: kernels disagree")
+    row = {"phase": "gspmd", "card": smi, "seconds": time.perf_counter() - t0,
+           "stages": stages,
+           "digits": {"mesh": GSPMD_DIGITS_PARALLEL[2], "rules": GSPMD_DIGITS_PARALLEL[4],
+                      "ranks": d_ranks, "loss_rel_vs_one_process": d_rel,
+                      "stats": [dp_job_stats(j, [(2, 8), (10, 16)]) for j in d_jobs],
+                      "checkpoint": {"step": final, "format": manifest["format"],
+                                     "process_count": manifest["process_count"]}},
+           "flagship": {"mesh": GSPMD_TRAIN_PARALLEL[2], "rules": GSPMD_TRAIN_PARALLEL[4],
+                        "ranks": t_ranks, "loss_rel_vs_one_process": t_rel,
+                        "stats": [dp_job_stats(j, [(2, 3)]) for j in t_jobs],
+                        "one_process": dp_job_stats(t1_jobs[0], [(2, 3)])},
+           "concurrent": "the digits ranks, the flagship pair and its one process ran side "
+                         "by side on the card: step ms are not comparable across them",
+           "restore": {"ranks": r_ranks, "digests_equal": True},
+           "step1_tol": GSPMD_STEP1_TOL, "resident_max": GSPMD_RESIDENT_MAX,
+           "records_and_digests_equal_across_ranks": True,
+           "launches": {"digits": [j["launches"] for j in d_jobs],
+                        "flagship": [j["launches"] for j in t_jobs]},
+           "parity": {"digits": [j.get("parity", []) for j in d_jobs],
+                      "flagship": [j.get("parity", []) for j in t_jobs]}}
+    emit(row)
+    return {"launches": row["launches"], "parity": row["parity"]}
+
+
+def gspmd_rows(r, floor, rows):
+    """The kernels line's rows of phase ``gspmd``: per rank and kernel, that
+    rank's launches (counted in its process) and its kernels' largest error
+    against plain at the shapes it launched, with the times of those shapes
+    measured in this run: the digits ranks' half rows in phase
+    ``data_parallel``, the flagship ranks' whole rows on the train path."""
+    g = r["gspmd"]
+    base = {row["path"] + "/" + row["name"]: row for row in rows}
+    out = []
+    for what, world, carried, per in (
+            ("digits", GSPMD_DIGITS_WORLD, "data_parallel_digits_rank0",
+             "the 2 whitened sites of one LeNet-DWT train step on one of 4 ranks at mesh "
+             "1,2,2 under the model rules (gloo, one card), one launch per site for its 2 "
+             "domains, 16 images per stream at 28²"),
+            ("flagship", GSPMD_TRAIN_WORLD, "train",
+             "the 11 whitened sites of one ResNet50 train step on one of 2 ranks at mesh "
+             "1,1,2 under the fsdp rules (gloo, one card), one launch per site for its 3 "
+             "domains, 18 images per stream at 224²")):
+        for part in ("apply", "moments"):
+            ref = base[f"{carried}/whiten_{part}"]
+            for rank in range(world):
+                errs = [(p["apply_vs_plain"]["max_abs_err"] if part == "apply"
+                         else max(p["moments_vs_plain"]["mean_max_abs_err"],
+                                  p["moments_vs_plain"]["cov_max_abs_err"]))
+                        for p in g["parity"][what][rank]]
+                out.append({**ref, "launches": g["launches"][what][rank][part],
+                            "max_abs_err": max(errs), "path": f"gspmd_{what}_rank{rank}",
+                            "per": per, "carried_from": carried})
+    return out
 
 
 def kernels_line(torch, r):
@@ -7655,6 +7986,7 @@ def kernels_line(torch, r):
                      "jobs of the calm sweep (python -m dwt_tpu_torch.sweep.cli)"}
              for part in ("apply", "moments")]
     rows += dp_rows(r, floor)
+    rows += gspmd_rows(r, floor, rows)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -7853,6 +8185,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks share the card with this process
     with tempfile.TemporaryDirectory(prefix="dp-", dir=build) as root:
         r["data_parallel"] = data_parallel(torch, cw, root, device, rate)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gspmd-", dir=build) as root:
+        r["gspmd"] = gspmd(torch, cw, root, r["data_parallel"]["one_process"])
     shown = caught.rows()
     emit({"phase": "warnings", "warnings": shown})
     stream = [w for w in shown if STREAM_WARNING in w["message"]]

@@ -40,9 +40,10 @@ A multi-process run stages and promotes in two steps
 (``resilience.async_ckpt.MultiHostDeltaAsyncCheckpointer``): rank 0
 stages the blobs and the manifest for every rank (the state is
 replicated) and promotes once the consensus says every rank's writer is
-done; a blocking save is rank 0's, followed by a barrier.  Not ported:
-the sharded, memory-mapped restore (``restore_cas_state`` onto a
-sharding; ROADMAP queue 1 item 8b).
+done; a blocking save is rank 0's, followed by a barrier.  A gspmd
+plan's restore reads a chain's whole host arrays like any other and cuts
+them to the rank's blocks before they reach the device
+(``utils.checkpoint._restore_state_at``).
 """
 
 from __future__ import annotations
@@ -251,7 +252,7 @@ def stage_delta(
         os.makedirs(tmp, exist_ok=True)
         entries, written = [], 0
         for key, arr in leaves:
-            arr = np.ascontiguousarray(arr)
+            arr = np.require(arr, requirements="C")  # a 0-d leaf stays 0-d
             raw = arr.reshape(-1).view(np.uint8)  # hashed and written without a copy
             d = _leaf_digest(arr.dtype, arr.shape, raw)
             entry = {"path": key, "dtype": str(arr.dtype),

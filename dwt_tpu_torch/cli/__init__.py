@@ -112,15 +112,19 @@ def add_parallel_args(p: argparse.ArgumentParser, d) -> None:
                    help=">1: 2-D (dcn, data) rank grid — reductions within a "
                         "slice first, then across slices")
     p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
-                   help="mesh as 'dcn,data,model' sizes (e.g. 2,2); '4' and '2,4' "
-                        "shorthands pad the missing axes to 1.  It must cover "
-                        "every rank; the model axis must be 1 (the dp rules).  "
-                        "Unset keeps the single/--data_parallel decision")
+                   help="mesh as 'dcn,data,model' sizes (e.g. 1,2,2); '4' and "
+                        "'2,4' shorthands pad the missing axes to 1.  It must "
+                        "cover every rank; a model axis > 1 needs a "
+                        "model-sharding --sharding_rules.  Unset keeps the "
+                        "single/--data_parallel decision")
     p.add_argument("--sharding_rules", type=str, default=d.sharding_rules,
                    help="rules table of the state's placement: 'dp' (replicate "
-                        "every state tensor); 'model', 'fsdp' and rules files "
-                        "are the gspmd mode, not ported (ROADMAP queue 1 item "
-                        "8b) — they raise")
+                        "every state tensor); 'model' (conv and fc kernels "
+                        "sharded over the model axis, heads and stats "
+                        "replicated), 'fsdp' (every kernel, heads included: "
+                        "pass --pad_classes_to) or a JSON rules file "
+                        "(configs/*_rules.json) — the gspmd mode: each rank "
+                        "holds its block of every sharded tensor")
 
 
 def add_numerics_args(p: argparse.ArgumentParser, d, remat: bool = False) -> None:

@@ -26,7 +26,10 @@ flags are the JAX CLI's: ``--metrics_jsonl``, ``--heartbeat_every``,
 ``--target_batch_size`` and ``--lr_change_step`` are accepted and change
 nothing.  Data parallelism: one process per device with ``--distributed
 --data_parallel`` (the DWT_* variables or torchrun); ``--dcn_slices``,
-``--mesh_shape`` and ``--sharding_rules dp`` are the JAX CLI's.
+``--mesh_shape`` and ``--sharding_rules`` are the JAX CLI's: with
+``--distributed --mesh_shape D,A,M --sharding_rules model|fsdp|<rules.json>``
+each rank holds its block of every sharded tensor (the gspmd mode; under
+``fsdp`` the head shards too, so pass ``--pad_classes_to M``).
 """
 
 from __future__ import annotations

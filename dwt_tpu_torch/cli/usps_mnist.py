@@ -25,7 +25,10 @@ and ``--apply_lowering`` are accepted and change nothing.  Data
 parallelism: launch one process per device with ``--distributed
 --data_parallel`` (``DWT_COORDINATOR_ADDRESS``, ``DWT_NUM_PROCESSES``,
 ``DWT_PROCESS_ID``, or torchrun); ``--dcn_slices``, ``--mesh_shape`` and
-``--sharding_rules dp`` are the JAX CLI's.
+``--sharding_rules`` are the JAX CLI's (``--distributed --mesh_shape
+D,A,M --sharding_rules model|fsdp|<rules.json>``: the gspmd mode, each
+rank holding its block of every sharded tensor; LeNet's ``fc5`` head stays
+whole under ``model``).
 """
 
 from __future__ import annotations

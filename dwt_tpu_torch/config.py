@@ -115,8 +115,9 @@ class DigitsConfig:
     # torch.distributed (--distributed joins the group from the DWT_* or
     # torchrun variables); --data_parallel runs the replica step over every
     # rank; --dcn_slices S > 1 the 2-D (dcn, data) rank grid; --mesh_shape
-    # "dcn,data[,model]" sizes; --sharding_rules "dp" (the only table the
-    # port runs: the others wait for ROADMAP queue 1 item 8b).
+    # "dcn,data[,model]" sizes; --sharding_rules "dp" (replicate the state),
+    # or "model", "fsdp" or a JSON rules file: the gspmd mode, each state
+    # tensor placed by its rule over the (dcn, data, model) rank mesh.
     data_parallel: bool = False
     distributed: bool = False
     dcn_slices: int = 0
@@ -211,8 +212,9 @@ class OfficeHomeConfig:
     # torch.distributed (--distributed joins the group from the DWT_* or
     # torchrun variables); --data_parallel runs the replica step over every
     # rank; --dcn_slices S > 1 the 2-D (dcn, data) rank grid; --mesh_shape
-    # "dcn,data[,model]" sizes; --sharding_rules "dp" (the only table the
-    # port runs: the others wait for ROADMAP queue 1 item 8b).
+    # "dcn,data[,model]" sizes; --sharding_rules "dp" (replicate the state),
+    # or "model", "fsdp" or a JSON rules file: the gspmd mode, each state
+    # tensor placed by its rule over the (dcn, data, model) rank mesh.
     data_parallel: bool = False
     distributed: bool = False
     dcn_slices: int = 0

@@ -17,14 +17,16 @@ submodule names are the Flax scope names.  Layouts:
 * ``BatchNormStats`` → buffers ``mean``/``var [D, C]``, ``count [D]``.
 
 The inverse of the key/layout scheme of
-``dwt_tpu/convert/torch_resnet.py``.  It fails loudly: a leaf the module
+``dwt_tpu/convert/torch_resnet.py``; :func:`jax_leaves` is that scheme as
+one table (the sharding plan's key paths read it too,
+``dwt_tpu_torch.parallel.paths``).  It fails loudly: a leaf the module
 needs and the trees lack, a leaf of the wrong shape, and a leaf of the
 trees that no module consumed are all errors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Set, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +89,58 @@ def _copy(dst: torch.Tensor, value: np.ndarray, path: Path, what: str) -> None:
     dst.copy_(torch.tensor(value, dtype=dst.dtype))
 
 
+class JaxLeaf(NamedTuple):
+    """One tensor of a port module and the Flax leaf it stands for:
+    ``module.<attr>`` (the model's state-dict key ``name``) holds the leaf
+    at ``path`` of the ``collection`` tree (``"params"`` or
+    ``"batch_stats"``); ``perm`` is the layout map, torch dim ``t``
+    holding Flax dim ``perm[t]`` (None: the same layout)."""
+
+    module: nn.Module
+    attr: str
+    name: str
+    collection: str
+    path: Path
+    perm: Optional[Tuple[int, ...]]
+
+
+def jax_leaves(model: nn.Module) -> List[JaxLeaf]:
+    """Every parameter and running statistic of ``model`` as its Flax leaf
+    (the module docstring's scheme), in module order — the one table the
+    weight bridge and ``parallel.paths`` read."""
+    out: List[JaxLeaf] = []
+
+    def add(mod, scope, attr, col, path, perm=None):
+        name = ".".join(scope + (attr,))
+        out.append(JaxLeaf(mod, attr, name, col, scope + path, perm))
+
+    for name, mod in model.named_modules():
+        scope: Path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, nn.Conv2d):
+            add(mod, scope, "weight", "params", ("kernel",), (3, 2, 0, 1))
+            if mod.bias is not None:
+                add(mod, scope, "bias", "params", ("bias",))
+        elif isinstance(mod, nn.Linear):
+            add(mod, scope, "weight", "params", ("kernel",), (1, 0))
+            add(mod, scope, "bias", "params", ("bias",))
+        elif isinstance(mod, nn.LayerNorm):
+            add(mod, scope, "weight", "params", ("scale",))
+            add(mod, scope, "bias", "params", ("bias",))
+        elif isinstance(mod, (DomainWhiten, DomainBatchNorm)):
+            for leaf in ("gamma", "beta"):
+                add(mod, scope, leaf, "params", (leaf,))
+            if isinstance(mod, DomainWhiten):
+                stat_leaves = [("whitening", n) for n in mod._stat_names]
+            else:
+                stat_leaves = (("bn", "mean"), ("bn", "var"), ("bn", "count"))
+            for kind, leaf in stat_leaves:
+                add(mod, scope, leaf, "batch_stats", (kind, leaf))
+        else:
+            for leaf, _ in mod.named_parameters(recurse=False):
+                add(mod, scope, leaf, "params", (leaf,))
+    return out
+
+
 @torch.no_grad()
 def load_jax_variables(
     model: nn.Module, params: Dict[str, Any], batch_stats: Dict[str, Any]
@@ -94,51 +148,22 @@ def load_jax_variables(
     """Load the Flax ``params``/``batch_stats`` trees into ``model`` in
     place; returns ``model``."""
     used: Set[Tuple[str, Path]] = set()
+    trees = {"params": params, "batch_stats": batch_stats}
+    checked: Set[int] = set()
+    for leaf in jax_leaves(model):
+        if leaf.collection == "batch_stats" and isinstance(leaf.module, DomainWhiten) \
+                and id(leaf.module) not in checked:
+            checked.add(id(leaf.module))
+            scope = leaf.path[:-2]
+            _check_whitener(leaf.module, _node(batch_stats, scope + ("whitening",),
+                                               "batch_stats"), scope)
+        used.add((leaf.collection, leaf.path))
+        value = _get(trees[leaf.collection], leaf.path, leaf.collection)
+        if leaf.perm is not None:
+            value = np.transpose(value, leaf.perm)
+        _copy(getattr(leaf.module, leaf.attr), value, leaf.path, leaf.collection)
 
-    def take(col: str, tree: Any, path: Path) -> np.ndarray:
-        used.add((col, path))
-        return _get(tree, path, col)
-
-    for name, mod in model.named_modules():
-        scope: Path = tuple(name.split(".")) if name else ()
-        if isinstance(mod, nn.Conv2d):
-            path = scope + ("kernel",)
-            hwio = take("params", params, path)
-            _copy(mod.weight, np.transpose(hwio, (3, 2, 0, 1)), path, "params")
-            if mod.bias is not None:
-                path = scope + ("bias",)
-                _copy(mod.bias, take("params", params, path), path, "params")
-        elif isinstance(mod, nn.Linear):
-            path = scope + ("kernel",)
-            _copy(mod.weight, take("params", params, path).T, path, "params")
-            path = scope + ("bias",)
-            _copy(mod.bias, take("params", params, path), path, "params")
-        elif isinstance(mod, nn.LayerNorm):
-            for leaf, flax_leaf in (("weight", "scale"), ("bias", "bias")):
-                path = scope + (flax_leaf,)
-                _copy(getattr(mod, leaf), take("params", params, path),
-                      path, "params")
-        elif isinstance(mod, (DomainWhiten, DomainBatchNorm)):
-            for leaf in ("gamma", "beta"):
-                path = scope + (leaf,)
-                _copy(getattr(mod, leaf), take("params", params, path),
-                      path, "params")
-            if isinstance(mod, DomainWhiten):
-                _check_whitener(mod, _node(batch_stats, scope + ("whitening",),
-                                           "batch_stats"), scope)
-                stat_leaves = [("whitening", name) for name in mod._stat_names]
-            else:
-                stat_leaves = (("bn", "mean"), ("bn", "var"), ("bn", "count"))
-            for kind, leaf in stat_leaves:
-                path = scope + (kind, leaf)
-                _copy(getattr(mod, leaf), take("batch_stats", batch_stats, path),
-                      path, "batch_stats")
-        else:
-            for leaf, param in mod.named_parameters(recurse=False):
-                path = scope + (leaf,)
-                _copy(param, take("params", params, path), path, "params")
-
-    for col, tree in (("params", params), ("batch_stats", batch_stats)):
+    for col, tree in trees.items():
         extra = [p for p in _leaf_paths(tree) if (col, p) not in used]
         if extra:
             raise ValueError(

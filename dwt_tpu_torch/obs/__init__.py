@@ -33,9 +33,10 @@ Span categories (the report tool groups by these):
 * ``eval`` — eval/stat-collection pipeline internals.
 * ``ckpt`` — checkpoint pipeline (writer-thread writes; the
   multi-process writers' ``ckpt_host_fetch``, ``shard_write``,
-  ``ckpt_promote`` and ``ckpt_barrier``).  The ``shard`` category's
-  placement, gather and restore spans wait for the gspmd mode (ROADMAP
-  queue 1 item 8b).
+  ``ckpt_promote`` and ``ckpt_barrier``).
+* ``shard`` — the gspmd mode's state placement (``shard_put``), the
+  gather before a save (``gather``) and the restore to spec
+  (``restore_place``).
 * ``data`` — prefetch producer thread (batch assembly, H2D staging).
 * ``serve`` — serving path (admission → plan → build → stage → device →
   resolve), spans carrying ``bucket``/``req_id`` attrs that correlate

@@ -46,22 +46,28 @@ def _slice(a, index: int, count: int, axis: int):
     return a[tuple(sl)]
 
 
-def shard_batch(batch: Any, mesh: Mesh, chunked: bool = False) -> Any:
-    """This rank's slice of every leaf of ``batch`` (numpy arrays or
-    tensors; a dict, tuple or list of them): the leading axis split into
-    ``mesh.size`` equal blocks, block ``mesh.index`` kept
-    (``chunked=True``: the second axis, leaves ``[k, batch, ...]``)."""
-    axis, index, count = int(chunked), mesh.index, mesh.size
+def slice_batch(batch: Any, index: int, count: int, chunked: bool = False) -> Any:
+    """Block ``index`` of ``count`` of every leaf of ``batch`` (numpy
+    arrays or tensors; a dict, tuple or list of them) along the leading
+    axis (``chunked=True``: the second axis, leaves ``[k, batch, ...]``)."""
     if isinstance(batch, dict):
-        return {k: shard_batch(v, mesh, chunked) for k, v in batch.items()}
+        return {k: slice_batch(v, index, count, chunked) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):
-        return type(batch)(shard_batch(v, mesh, chunked) for v in batch)
-    return _slice(batch, index, count, axis)
+        return type(batch)(slice_batch(v, index, count, chunked) for v in batch)
+    return _slice(batch, index, count, int(chunked))
+
+
+def shard_batch(batch: Any, mesh: Mesh, chunked: bool = False) -> Any:
+    """This rank's slice of every leaf of ``batch``: the leading axis split
+    into ``mesh.size`` equal blocks, block ``mesh.index`` kept
+    (:func:`slice_batch`)."""
+    return slice_batch(batch, mesh.index, mesh.size, chunked)
 
 
 def replicate_state(state, mesh: Mesh):
     """Broadcast the model's parameters and buffers and the optimizer's
-    tensors from the mesh's first rank, in place; returns ``state``.  The
+    tensors from the first rank of ``mesh`` (or of a ``RankGroup``), in
+    place; returns ``state``.  The
     ranks build their models from one seed, so this changes nothing on a
     fresh run — it makes a start from diverging inputs impossible."""
     tensors = list(state.model.state_dict().values())

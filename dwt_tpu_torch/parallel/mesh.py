@@ -2,7 +2,8 @@
 
 The JAX package's mesh is a grid of devices that one program spans; the
 port runs one process per rank (``torch.distributed``), and its mesh is
-the grid of those ranks.  :func:`initialize_distributed` joins the
+the grid of those ranks (:class:`Mesh` for the replica mode, :class:`PlanMesh`
+for the gspmd mode).  :func:`initialize_distributed` joins the
 process group: its address, size and this process's rank come from the
 JAX package's variables ``DWT_COORDINATOR_ADDRESS``, ``DWT_NUM_PROCESSES``
 and ``DWT_PROCESS_ID``, or, where those are absent, from torchrun's
@@ -24,6 +25,17 @@ package's two-axis ``pmean``/``psum`` lowers to.  :meth:`Mesh.psum` is
 differentiable (``torch.distributed.nn.functional.all_reduce``: its
 backward is the all-reduce of the gradients), so a plain op written with
 it has the global batch's gradient, as JAX's does under ``shard_map``.
+
+:class:`PlanMesh` is the gspmd mode's slice-major ``(dcn, data, model)``
+grid (:func:`make_plan_mesh`, ``dwt_tpu.parallel.plan.make_plan_mesh``'s
+device order: rank ``r`` at position ``unravel(r)``, ``model`` innermost).
+Its reductions run over rank groups (:class:`RankGroup`): one line of each axis, the
+**data group** (the ranks that share a ``model`` index: the batch's
+shards) and the **model group** (the ranks that share a ``(dcn, data)``
+position: one batch shard, the blocks of every sharded tensor).  A rank's
+batch shard is its **batch position**, its index among the ``(dcn,
+data)`` positions — never its index in the whole grid, which would give
+each model rank a batch slice of its own.
 """
 
 from __future__ import annotations
@@ -37,9 +49,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-# Axis names of the JAX package's meshes.
+# Axis names of the JAX package's meshes; the plan mesh's third axis is
+# model (tensor) parallelism, which batches never shard over.
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
+MODEL_AXIS = "model"
+PLAN_AXES = (DCN_AXIS, DATA_AXIS, MODEL_AXIS)
 
 # Seconds a collective may wait before it fails the run (a hang is an error,
 # not a stall): DWT_DIST_TIMEOUT_S overrides it.
@@ -313,3 +328,169 @@ def make_mesh(ranks: Optional[Sequence[int]] = None,
         return Mesh(np.asarray(ranks).reshape(dcn_slices, n // dcn_slices),
                     (DCN_AXIS, DATA_AXIS))
     return Mesh(np.asarray(ranks), (DATA_AXIS,))
+
+
+class RankGroup:
+    """Ranks that reduce together over one process group, in the order of
+    their coordinate along the grid: a line of a :class:`PlanMesh` axis,
+    its data group or its model group.  A group of one rank needs no
+    process group (its collectives are identities); a group of more built
+    outside a process group only describes the layout, and its collectives
+    raise.  The norm sites and the steps read ``size``, ``psum`` and
+    ``psum_``, as they read a :class:`Mesh`'s."""
+
+    def __init__(self, ranks: Sequence[int], group=None, backend: Optional[str] = None):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.size = len(self.ranks)
+        self.backend = backend
+        self._group = group
+
+    def _pg(self):
+        if self._group is None:
+            raise RuntimeError(f"rank group {self.ranks} has no process group (describe-only)")
+        return self._group
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the group, differentiable (:meth:`Mesh.psum`)."""
+        if self.size == 1:
+            return t
+        from torch.distributed.nn.functional import all_reduce
+
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", category=FutureWarning,
+                                    message=".*all_reduce is deprecated")
+            return all_reduce(t, group=self._pg())
+
+    def psum_(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the group, in place, outside autograd."""
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, group=self._pg())
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``t`` (one shape on all), in the group's order."""
+        if self.size == 1:
+            return [t]
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(out, t, group=self._pg())
+        return out
+
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of the group's first rank, in place."""
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.broadcast(t, src=self.ranks[0], group=self._pg())
+        return t
+
+    def __repr__(self) -> str:
+        return f"RankGroup({list(self.ranks)})"
+
+
+class PlanMesh:
+    """The gspmd mode's ``(dcn, data, model)`` grid of ranks (module
+    docstring).  Inside a process group it makes one subgroup for each
+    line of each axis and one data group for each ``model`` index, every
+    rank calling ``new_group`` for every one of them in one order; outside
+    one it only describes the layout."""
+
+    axis_names = PLAN_AXES
+
+    def __init__(self, ranks: np.ndarray):
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        if self.ranks.ndim != 3:
+            raise ValueError(f"a plan mesh is a 3-D rank grid, got {self.ranks.shape}")
+        self.shape: Dict[str, int] = dict(zip(PLAN_AXES, self.ranks.shape))
+        self.size = int(self.ranks.size)
+        self.backend = _INFO.backend if _INFO is not None else None
+        mine = process_index()
+        flat = [int(r) for r in self.ranks.reshape(-1)]
+        self.coords = tuple(int(c) for c in np.unravel_index(
+            flat.index(mine) if mine in flat else 0, self.ranks.shape))
+        self._lines: Dict[str, RankGroup] = {}
+        self.data_group = self.world_group = None
+        self._make_groups()
+
+    def _line_ranks(self, axis: int) -> List[int]:
+        sl = list(self.coords)
+        sl[axis] = slice(None)
+        return [int(r) for r in self.ranks[tuple(sl)]]
+
+    def _make_groups(self) -> None:
+        live = _INFO is not None
+        if live:
+            import torch.distributed as dist
+
+            world = sorted(int(r) for r in self.ranks.reshape(-1))
+            if world != list(range(process_count())):
+                raise ValueError(
+                    f"mesh ranks {world} must be every rank of the group "
+                    f"(0..{process_count() - 1}): a rank outside the mesh would "
+                    "train alone")
+        mine = process_index()
+
+        def group(ranks: List[int]):
+            if not live or len(ranks) == 1:
+                return None
+            if len(ranks) == process_count():
+                return dist.group.WORLD
+            return dist.new_group(ranks, timeout=_timeout())
+
+        for axis, name in enumerate(PLAN_AXES):
+            lines = np.moveaxis(self.ranks, axis, -1).reshape(-1, self.ranks.shape[axis])
+            for line in lines:
+                ranks = [int(r) for r in line]
+                g = group(ranks)
+                if mine in ranks or not live:
+                    self._lines.setdefault(name, RankGroup(
+                        self._line_ranks(axis), g, self.backend))
+        model = self.shape[MODEL_AXIS]
+        for m in range(model):
+            ranks = [int(r) for r in self.ranks[:, :, m].reshape(-1)]
+            g = group(ranks)
+            if m == self.coords[2]:
+                self.data_group = RankGroup(ranks, g, self.backend)
+        all_ranks = [int(r) for r in self.ranks.reshape(-1)]
+        self.world_group = RankGroup(all_ranks, group(all_ranks), self.backend)
+
+    def line(self, axis: str) -> RankGroup:
+        """This rank's line along ``axis``: the ranks that differ from it
+        in that coordinate alone, in coordinate order."""
+        return self._lines[axis]
+
+    @property
+    def model_group(self) -> RankGroup:
+        """The ranks that share this rank's ``(dcn, data)`` position."""
+        return self._lines[MODEL_AXIS]
+
+    @property
+    def data_size(self) -> int:
+        """The number of ``(dcn, data)`` positions: the batch's shards."""
+        return self.shape[DCN_AXIS] * self.shape[DATA_AXIS]
+
+    @property
+    def batch_position(self) -> int:
+        """This rank's batch shard: its index among the ``(dcn, data)``
+        positions."""
+        return self.coords[0] * self.shape[DATA_AXIS] + self.coords[1]
+
+    def __repr__(self) -> str:
+        return f"PlanMesh({self.shape}, backend={self.backend})"
+
+
+def make_plan_mesh(shape: Sequence[int], world: Optional[int] = None) -> PlanMesh:
+    """The ``(dcn, data, model)`` :class:`PlanMesh` over ranks ``0..n-1``
+    (``dwt_tpu.parallel.plan.make_plan_mesh``'s device order and its
+    error); ``world`` defaults to the group's size."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    world = process_count() if world is None else int(world)
+    if n > world:
+        raise ValueError(
+            f"mesh shape {shape} needs {n} devices; only {world} available")
+    return PlanMesh(np.arange(n).reshape(shape))

@@ -46,7 +46,10 @@ promotion frontier, up to which rank 0 promotes the steps
 (:meth:`MultiHostAsyncCheckpointer.promote_up_to`; ``ckpt_promote``).
 :class:`MultiHostDeltaAsyncCheckpointer` is the same for the delta
 format: rank 0 stages the blobs and the manifest for every rank (the
-state is replicated), the others run the finite gate only.
+state is replicated), the others run the finite gate only.  Under a
+gspmd plan whose rules shard the state, both take the plan's gather and
+run it inside ``ckpt_host_fetch`` (the ``gather`` span), so every rank's
+host copy is the whole state and the format is the replica mode's.
 """
 
 from __future__ import annotations
@@ -210,10 +213,14 @@ class MultiHostAsyncCheckpointer(AsyncCheckpointer):
     by a sequence that is the same on every rank (saves come from
     lockstep control flow)."""
 
-    def __init__(self):
+    def __init__(self, gather=None):
         super().__init__()
         from dwt_tpu_torch.parallel.mesh import process_count, process_index
 
+        # A gspmd plan's gather: the sharded leaves all-gathered on the
+        # loop's thread (a collective) before the host fetch, so a shard's
+        # bytes do not depend on the plan.
+        self._gather = gather
         self.process_index = process_index()
         self.process_count = process_count()
         self._done_seq = -1
@@ -272,7 +279,7 @@ class MultiHostAsyncCheckpointer(AsyncCheckpointer):
         self._raise_pending()
         assert_not_writer_thread("multi-process checkpoint fetch")
         with obs.span("ckpt_host_fetch", "ckpt", step=int(step)):
-            host = host_state(state)
+            host = host_state(self._gather(state) if self._gather is not None else state)
         self.seq += 1
         self._pending_step = int(step)
         self._thread = threading.Thread(
@@ -313,8 +320,8 @@ class MultiHostDeltaAsyncCheckpointer(MultiHostAsyncCheckpointer):
     same verdict; promotion as the host-shard writer's."""
 
     def __init__(self, store_root=None, delta_max_chain: Optional[int] = None,
-                 gc: bool = True):
-        super().__init__()
+                 gc: bool = True, gather=None):
+        super().__init__(gather=gather)
         self._store_root = store_root
         self._delta_max_chain = delta_max_chain
         self._gc = gc

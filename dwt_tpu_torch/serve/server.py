@@ -641,9 +641,9 @@ def build_engine(args) -> ServeEngine:
 # Flags of the JAX server whose subsystems are not ported yet, with the
 # ROADMAP queue 1 item that takes each.
 UNPORTED_FLAGS = {
-    "data_parallel": "parallel serving (ROADMAP queue 1 item 8b)",
-    "mesh_shape": "parallel serving (ROADMAP queue 1 item 8b)",
-    "sharding_rules": "parallel serving (ROADMAP queue 1 item 8b)",
+    "data_parallel": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
+    "mesh_shape": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
+    "sharding_rules": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
 }
 
 

@@ -40,6 +40,13 @@ and forwarded with each site's own moments (``nn.norms.local_moments``),
 as JAX's axis-free ``_collect_tail``.  A batch size that does not split
 runs the whole pass unsharded, every rank on the same rows, with a
 warning.
+
+**A gspmd plan** shards the same way over its batch positions (the ranks
+of one model group load the same rows, and its gathers run inside the
+forwards), sums the counters and combines the moments over its data
+group, and after an eager forward (the ragged tail, an unsharded pass)
+re-pins the state (``plan.place``: the ``shard_put`` span, and a check
+that no tensor left its placement).
 """
 
 from __future__ import annotations
@@ -174,19 +181,32 @@ class EvalPipeline:
         self.num_workers = int(num_workers)
         self.eval_k = int(eval_k)
         self._plan = plan
-        self._mesh = None if plan is None else plan.mesh
+        # The group the counters and moments reduce over (the mesh, or a
+        # gspmd plan's data group) and this rank's batch shard.
+        self._group = None if plan is None else plan.group
+        self._shards = None if plan is None else plan.batch_shard
         self._capture = plan is None or plan.capture
         self._model = None
         self._eval_fn = self._collect_step = self._collect_fn = None
         self._warned_unsharded_collect = False
 
     def _shard(self) -> Optional[Tuple[int, int]]:
-        return None if self._mesh is None else (self._mesh.index, self._mesh.size)
+        return self._shards
+
+    @property
+    def _shard_count(self) -> int:
+        return 1 if self._shards is None else self._shards[1]
+
+    def _repin(self, state: TrainState) -> None:
+        """Re-pin the state to the plan after an eager forward (a gspmd
+        plan checks that no tensor left its placement; JAX's re-pin)."""
+        if self._plan is not None:
+            self._plan.place(state, "train state")
 
     def _dispatch(self, model: nn.Module) -> None:
         if model is not self._model:
             self._model = model
-            group = self._mesh
+            group = self._group
             eval_fn = make_accum_eval_step(model, self.eval_k, group=group,
                                            capture=self._capture)
             self._collect_step = make_stat_collection_step(model, self.num_domains)
@@ -221,8 +241,7 @@ class EvalPipeline:
         forwards = 0
         # Eval-mode forwards are per-sample: the batch may be rounded up to
         # the shard count, the padding masked.
-        shards = 1 if self._mesh is None else self._mesh.size
-        local_bs = -(-self.test_batch_size // shards)
+        local_bs = -(-self.test_batch_size // self._shard_count)
         stream = batch_iterator(
             dataset, local_bs, shuffle=False, drop_last=False,
             shard=self._shard(), num_workers=self.num_workers, pad_and_mask=True,
@@ -291,8 +310,8 @@ class EvalPipeline:
         rank's, under a mesh)."""
         self._dispatch(state.model)
         bs, n = self.test_batch_size, len(dataset)
-        if self._mesh is not None:
-            if bs % self._mesh.size == 0 and n >= bs:
+        if self._shards is not None:
+            if bs % self._shard_count == 0 and n >= bs:
                 return self._collect_sharded(state, dataset, seed, epoch)
             if n >= bs and not self._warned_unsharded_collect:
                 self._warned_unsharded_collect = True
@@ -300,17 +319,19 @@ class EvalPipeline:
                     "stat collection runs unsharded: --test_batch_size %d does "
                     "not split over the plan's %d batch shards (padding would "
                     "perturb the collected moments); eval itself stays sharded",
-                    bs, self._mesh.size)
+                    bs, self._shard_count)
             # Every rank forwards the same rows with its own moments.
             with local_moments(state.model):
-                return self._collect_local(state, dataset, seed, epoch, eager=True)
+                forwards = self._collect_local(state, dataset, seed, epoch, eager=True)
+            self._repin(state)
+            return forwards
         return self._collect_local(state, dataset, seed, epoch)
 
     def _collect_sharded(self, state: TrainState, dataset, seed: int, epoch: int) -> int:
         bs, n = self.test_batch_size, len(dataset)
         usable = n - n % bs
         stream = batch_iterator(
-            dataset, bs // self._mesh.size, shuffle=False, drop_last=True,
+            dataset, bs // self._shard_count, shuffle=False, drop_last=True,
             seed=seed, epoch=epoch, shard=self._shard(), num_workers=self.num_workers,
         )
         chunks = prefetch_to_device(
@@ -331,6 +352,7 @@ class EvalPipeline:
                 with obs.span("collect_dispatch", "eval"), local_moments(state.model):
                     self._collect_step(state, tail)
                 forwards += 1
+                self._repin(state)
         return forwards
 
     def _collect_local(self, state: TrainState, dataset, seed: int, epoch: int,

@@ -259,10 +259,23 @@ def _saved_bytes(path: str) -> int:
     return written + os.path.getsize(manifest)
 
 
-def _params_digest(model: nn.Module) -> float:
-    """The JAX loops' digest: Σ|p| in float64 over the parameters, one
-    host read (a healthy run's replicas log the identical value)."""
-    sums = [p.detach().abs().sum(dtype=torch.float64) for p in model.parameters()]
+def _full_named_parameters(model: nn.Module):
+    """``model.named_parameters()``, a gspmd plan's blocks gathered (a
+    collective: every rank calls it)."""
+    from dwt_tpu_torch.parallel import gspmd
+
+    layout = gspmd.layout_of(model)
+    if layout is None:
+        return list(model.named_parameters())
+    return layout.full_named_parameters(model)
+
+
+def _params_digest(model: nn.Module, named=None) -> float:
+    """The JAX loops' digest: Σ|p| in float64 over the parameters (whole
+    tensors), one host read (a healthy run's replicas log the identical
+    value)."""
+    named = _full_named_parameters(model) if named is None else named
+    sums = [p.detach().abs().sum(dtype=torch.float64) for _, p in named]
     return float(torch.stack(sums).sum().item()) if sums else 0.0
 
 
@@ -272,9 +285,10 @@ def _log_params_digest(logger: Logger, step: int, model: nn.Module,
     resumes are checked bitwise, also the parameters' ``sha256``.  In a
     multi-process run every rank logs its own, and ranks whose digests
     differ (forked replicas) fail the run."""
-    fields = {"digest": _params_digest(model)}
+    named = _full_named_parameters(model)
+    fields = {"digest": _params_digest(model, named)}
     if ckpt_dir:
-        fields["sha256"] = params_digest(model.named_parameters())
+        fields["sha256"] = params_digest(named)
     logger("params_digest", step, **fields)
     if coord is not None:
         coord.assert_same(int(np.float64(fields["digest"]).view(np.int64)), "params_digest")
@@ -314,7 +328,7 @@ def _maybe_init_distributed(cfg):
         raise RuntimeError(f"--distributed: {detail} Underlying error: {e}") from e
 
 
-def _multihost_data_split(cfg, bs: int) -> Tuple[int, Optional[Tuple[int, int]]]:
+def _multihost_data_split(cfg, bs: int, plan=None) -> Tuple[int, Optional[Tuple[int, int]]]:
     """``(local batch size, shard)`` of this process: ``(bs, None)`` on
     one process; else each rank loads ``bs / N`` of every batch, which
     needs a sharded step (JAX's decisions and texts)."""
@@ -329,6 +343,11 @@ def _multihost_data_split(cfg, bs: int) -> Tuple[int, Optional[Tuple[int, int]]]
             "--mesh_shape/--sharding_rules): without it there is no "
             "gradient/moment sync and every process would silently train "
             "its own divergent model")
+    if plan is not None and plan.mode == "gspmd":
+        # The ranks of one model group load the same rows: the shard is the
+        # batch position among the plan's data shards.
+        index, count = plan.batch_shard
+        return bs // count, (index, count)
     if bs % n != 0:
         raise ValueError(
             f"--source_batch_size={bs} must be divisible by the {n} "
@@ -427,9 +446,14 @@ class _CkptPipeline:
     ``bytes`` and ``sync``.  The registry's ``dwt_ckpt_saves_total{mode}``
     counts the saves, ``dwt_ckpt_stall_ms`` the loop's stall per save."""
 
-    def __init__(self, cfg, logger: Logger, coord: Optional[Coordinator] = None):
+    def __init__(self, cfg, logger: Logger, coord: Optional[Coordinator] = None,
+                 plan=None):
         self._logger = logger
         self._coord = coord if coord is not None and coord.enabled else None
+        # A gspmd plan that shards the state gathers it (a collective, on
+        # every rank) before any save's host copy.
+        self._gather = (plan.gather if plan is not None and plan.uses_state_sharding
+                        else None)
         reg = get_registry()
         self._m_saves = reg.counter("dwt_ckpt_saves_total", "checkpoint saves initiated",
                                     labelnames=("mode",))
@@ -455,8 +479,10 @@ class _CkptPipeline:
         self._acp = None
         if cfg.ckpt_dir and cfg.async_ckpt and self._coord is not None:
             self._acp = (MultiHostDeltaAsyncCheckpointer(self._store_root,
-                                                         self._delta_max_chain, gc=self._gc)
-                         if self._fmt == "delta" else MultiHostAsyncCheckpointer())
+                                                         self._delta_max_chain, gc=self._gc,
+                                                         gather=self._gather)
+                         if self._fmt == "delta"
+                         else MultiHostAsyncCheckpointer(gather=self._gather))
         elif cfg.ckpt_dir and cfg.async_ckpt:
             self._acp = (DeltaAsyncCheckpointer(self._store_root, self._delta_max_chain,
                                                 gc=self._gc)
@@ -492,6 +518,8 @@ class _CkptPipeline:
         replicated) and the ranks meet at a barrier that hands every rank
         rank 0's outcome."""
         paths: List[Optional[str]] = [None] * len(targets)
+        if self._gather is not None:
+            state = self._gather(state)
         if self._coord is None or process_index() == 0:
             host = host_state(state)
             if self._fmt == "delta":
@@ -888,7 +916,7 @@ def _seek_data_plane(plane: DataPlane, ckpt_dir, source: str, step: int,
 
 
 def _rollback_state(cfg, logger: Logger, guard: DivergenceGuard, state: TrainState,
-                    failed_step: int) -> str:
+                    failed_step: int, plan=None) -> str:
     """Restore, in place, the newest valid on-disk checkpoint (anchors
     included), else the guard's in-memory good state; returns the source
     (``checkpoint``, ``anchor`` or ``memory``).  The caller has flushed
@@ -898,7 +926,8 @@ def _rollback_state(cfg, logger: Logger, guard: DivergenceGuard, state: TrainSta
     if cfg.ckpt_dir:
         ranked = ranked_checkpoints(cfg.ckpt_dir)
         if ranked:
-            source = restore_newest(cfg.ckpt_dir, state, ranked).source
+            source = restore_newest(cfg.ckpt_dir, state, ranked,
+                                    shardings=_restore_shardings(plan, state)).source
     if source is None:
         if not guard.has_good_state:
             raise DivergenceError(
@@ -956,15 +985,22 @@ def _preempt_exit(cfg, pipeline: _CkptPipeline, wd, boundary: _StepBoundary,
     return resume_step
 
 
+def _restore_shardings(plan, state: TrainState):
+    return None if plan is None else plan.restore_shardings(state)
+
+
 def _resume(cfg, state: TrainState, plane: DataPlane, ranked,
-            fallback_epoch) -> Tuple[Restored, str, float]:
+            fallback_epoch, plan=None) -> Tuple[Restored, str, float]:
     """Restore the newest valid checkpoint of ``cfg.ckpt_dir`` (main or
     anchors) into ``state`` and re-open the data plane where the saved
     run stood: at the manifest's ``data_state`` (``"exact"``), else at the
     epoch boundary ``fallback_epoch(step)``, logged as a downgrade.
-    Returns the restore, the data mode and the restore's seconds."""
+    Under a gspmd plan the restore goes to spec (the state is placed
+    first).  Returns the restore, the data mode and the restore's
+    seconds."""
     t0 = time.perf_counter()
-    restored = restore_newest(cfg.ckpt_dir, state, ranked)
+    restored = restore_newest(cfg.ckpt_dir, state, ranked,
+                              shardings=_restore_shardings(plan, state))
     seconds = time.perf_counter() - t0
     if plane.load_snapshot(load_data_state(restored.path)):
         return restored, "exact", seconds
@@ -1093,7 +1129,7 @@ def run_digits(
     source_ds = inject.wrap_dataset(source_ds, "source")
     target_ds = inject.wrap_dataset(target_ds, "target")
     bs = cfg.source_batch_size
-    local_bs, shard = _multihost_data_split(cfg, bs)
+    local_bs, shard = _multihost_data_split(cfg, bs, plan)
     steps_per_epoch = min(len(source_ds), len(target_ds)) // bs
     if steps_per_epoch == 0:
         raise ValueError("datasets smaller than one batch")
@@ -1103,6 +1139,9 @@ def run_digits(
     model.to(device, memory_format=torch.channels_last)
     optimizer, schedules = digits_tx(model, cfg, steps_per_epoch)
     state = TrainState(model, optimizer, schedules)
+    # A gspmd plan places the state before any restore lands in it (the
+    # restore goes to spec); a no-op in single and replica mode.
+    plan.place(state)
     raw_step = make_digits_train_step(model, cfg.lambda_entropy_loss, group=plan.group)
     train_step = plan.make_train_step(raw_step)
     k_dispatch = max(1, cfg.steps_per_dispatch)
@@ -1124,7 +1163,7 @@ def run_digits(
     data_mode = None
     if ranked:
         restored, data_mode, seconds = _resume(
-            cfg, state, plane, ranked, lambda step: step // steps_per_epoch)
+            cfg, state, plane, ranked, lambda step: step // steps_per_epoch, plan)
         epoch = plane.streams["source"].epoch
         logger("resume", state.step, epoch=epoch, source=restored.source,
                data=data_mode, cursor=plane.streams["source"].cursor,
@@ -1147,7 +1186,7 @@ def run_digits(
         # mirror rung's target (guard.mirror_recovery).
         guard.keep_previous = coord.enabled
         guard.prime(state)
-    pipeline = _CkptPipeline(cfg, logger, coord)
+    pipeline = _CkptPipeline(cfg, logger, coord, plan)
     # A resumed run continues its recorded seed lineage.
     bump0 = plane.seed_bump
     # Stream position == divmod(step) unless the resume fell back to an
@@ -1243,7 +1282,7 @@ def run_digits(
                 with wd.suspended():  # the join waits for the in-flight write
                     pipeline.close(raise_errors=False)
                     pipeline.finalize(raise_errors=False)
-                source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                source_kind = _rollback_state(cfg, logger, guard, state, rb.step, plan)
                 coord.assert_same(state.step, "rollback restore step")
                 wd.heartbeat()
                 gstep = state.step
@@ -1420,7 +1459,7 @@ def run_officehome(
     source_ds, target_ds, test_ds = _officehome_datasets(cfg)
     source_ds = inject.wrap_dataset(source_ds, "source")
     target_ds = inject.wrap_dataset(target_ds, "target")
-    local_bs, shard = _multihost_data_split(cfg, cfg.source_batch_size)
+    local_bs, shard = _multihost_data_split(cfg, cfg.source_batch_size, plan)
     plane = officehome_plane(cfg, source_ds, target_ds, shard)
     if model is None:
         model = build_model(cfg)
@@ -1452,10 +1491,13 @@ def run_officehome(
         else:
             logger("checkpoint_convert", 0,
                    detail="resnet_path missing; training from fresh init")
+    # A gspmd plan places the state now (whole tensors loaded above), so
+    # a resume restores to spec; a no-op in single and replica mode.
+    plan.place(state)
     start_iter, best_acc, data_mode = 0, -1.0, None
     if ranked:
         restored, data_mode, seconds = _resume(cfg, state, plane, ranked,
-                                               lambda step: 0)
+                                               lambda step: 0, plan)
         start_iter = state.step
         # Only a resume inherits the best record: a fresh run in a used
         # directory would otherwise never beat a dead run's best.
@@ -1471,7 +1513,7 @@ def run_officehome(
         # mirror rung's target (guard.mirror_recovery).
         guard.keep_previous = coord.enabled
         guard.prime(state)
-    pipeline = _CkptPipeline(cfg, logger, coord)
+    pipeline = _CkptPipeline(cfg, logger, coord, plan)
     bump0 = plane.seed_bump
     step_aligned = data_mode != "epoch_boundary"
     acc = 0.0
@@ -1594,7 +1636,7 @@ def run_officehome(
                 with wd.suspended():
                     pipeline.close(raise_errors=False)
                     pipeline.finalize(raise_errors=False)
-                source_kind = _rollback_state(cfg, logger, guard, state, rb.step)
+                source_kind = _rollback_state(cfg, logger, guard, state, rb.step, plan)
                 coord.assert_same(state.step, "rollback restore step")
                 wd.heartbeat()
                 start_iter = state.step

@@ -43,6 +43,7 @@ from torch import nn
 
 from dwt_tpu_torch.data.loader import stage_into
 from dwt_tpu_torch.ops import cuda_whitening
+from dwt_tpu_torch.parallel import gspmd
 from dwt_tpu_torch.ops.losses import (
     at_least_f32,
     entropy_loss,
@@ -94,15 +95,23 @@ def _finish_step(state: TrainState, loss: torch.Tensor,
     into ``metrics``, then the optimizer step at the lrs already set.
     With a process ``group`` the gradients and the metrics are averaged
     over its ranks first (``_mean_grads_if`` and the metrics' ``pmean``
-    of the JAX step)."""
+    of the JAX step); a model placed by a gspmd plan holds blocks, whose
+    gradients and norm its layout reduces (``parallel.gspmd``)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads_in_param_dtype(state.model)
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    if group is not None:
+    # A gspmd plan's blocks: the data group's mean (and the model group's
+    # for whole leaves), the norm of the gathered gradients.
+    layout = gspmd.layout_of(state.model)
+    if layout is not None:
+        layout.mean_grads(state.model, group)
+    elif group is not None:
         _mean_grads(grads, group)
+    if group is not None:
         metrics = _mean_metrics(metrics, group)
-    metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+    metrics["grad_norm"] = (layout.grad_norm(state.model) if layout is not None
+                            else torch.nn.utils.get_total_norm(grads))
     metrics["finite"] = _finite_flag(metrics)
     state.optimizer.step()
     return metrics

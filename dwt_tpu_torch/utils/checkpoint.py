@@ -67,8 +67,16 @@ top-level manifest with ``process_count``, then the atomic rename) — the
 JAX directories byte for byte in layout, so a port-written step passes
 the JAX package's validity check.  A port-written host-shard step (its
 manifest carries ``torch_meta``) resumes a run, from this rank's own
-shard or else shard 0.  Restore onto a sharding plan waits for ROADMAP
-queue 1 item 8b.
+shard or else shard 0.
+
+**Restore to spec** (a gspmd plan, ``shardings=plan.restore_shardings(
+state)``): every rank reads the whole host arrays (any port format, a
+delta chain included), checks them and their digest, cuts them to its
+blocks on the host and copies only the blocks into the placed state's
+tensors, so no whole copy of a sharded tensor reaches the device; the
+on-disk format does not depend on the plan (a gspmd save gathers first),
+so a checkpoint crosses between the single, replica and gspmd plans both
+ways.
 """
 
 from __future__ import annotations
@@ -105,6 +113,7 @@ from dwt_tpu_torch.ckpt.layout import (  # noqa: F401
 )
 from dwt_tpu_torch.convert.from_jax import load_jax_variables
 from dwt_tpu_torch.nn.norms import install_eval_matrix, whitening_sites
+from dwt_tpu_torch import obs
 from dwt_tpu_torch.resilience import inject
 
 log = logging.getLogger(__name__)
@@ -405,10 +414,12 @@ def read_payload(path: str) -> Tuple[dict, Optional[str]]:
 
 
 def _check_weights(path: str, model: nn.Module, weights: dict,
-                   digest: Optional[str]) -> None:
+                   digest: Optional[str], shapes: Optional[dict] = None) -> None:
     """Raise ``ValueError`` unless ``weights`` (a state dict) has exactly
-    the model's entries and shapes, and its parameters ``digest``."""
-    want = model.state_dict()
+    the model's entries and shapes (``shapes``: the whole shapes of a
+    model that holds blocks), and its parameters ``digest``."""
+    want = {k: v.shape for k, v in model.state_dict().items()}
+    want.update(shapes or {})
     missing = sorted(set(want) - set(weights))
     extra = sorted(set(weights) - set(want))
     whiteners = {site.whitener for site in whitening_sites(model).values()}
@@ -425,10 +436,10 @@ def _check_weights(path: str, model: nn.Module, weights: dict,
             f"checkpoint {path} does not match {type(model).__name__}: "
             f"missing {missing[:3]}, unexpected {extra[:3]}")
     for key, value in weights.items():
-        if tuple(value.shape) != tuple(want[key].shape):
+        if tuple(value.shape) != tuple(want[key]):
             raise ValueError(
                 f"checkpoint {path}: {key} has shape {tuple(value.shape)}; "
-                f"the model expects {tuple(want[key].shape)}")
+                f"the model expects {tuple(want[key])}")
     got = params_digest((n, weights[n]) for n, _ in model.named_parameters())
     if got != digest:
         raise ValueError(
@@ -453,10 +464,25 @@ def is_jax_checkpoint(path: str) -> bool:
             and _is_jax_checkpoint(manifest))
 
 
-def _restore_state_at(path: str, state, jax_params: bool = False) -> int:
+def _restore_state_at(path: str, state, jax_params: bool = False,
+                      shardings=None) -> int:
     """Restore ``path`` into ``state``; with ``jax_params`` a JAX
     checkpoint loads its parameters and stats only (the optimizer stays
-    as it is) and sets the step it recorded."""
+    as it is) and sets the step it recorded.  With ``shardings`` (a gspmd
+    plan's ``restore_shardings``: the placed state's layout) the restore
+    goes to spec: the whole host arrays are checked, cut to this rank's
+    blocks on the host and only the blocks copied to the device (span
+    ``restore_place``)."""
+    if shardings is not None:
+        if jax_params:
+            raise ValueError("--init_ckpt loads whole tensors: restore it before "
+                             "the plan places the state")
+        payload, digest = read_payload(path)
+        _check_weights(path, state.model, payload["model"], digest,
+                       shardings.full_shapes())
+        with obs.span("restore_place", "shard"):
+            state.load_state_dict(shardings.host_blocks(payload, state))
+        return state.step
     if jax_params:
         manifest = _read_manifest(path)
         if manifest is not None and _is_jax_checkpoint(manifest):
@@ -465,12 +491,14 @@ def _restore_state_at(path: str, state, jax_params: bool = False) -> int:
             return state.step
     payload, digest = read_payload(path)
     _check_weights(path, state.model, payload["model"], digest)
-    state.load_state_dict(payload)
+    # The restored arrays' placement onto the device (JAX's span).
+    with obs.span("restore_place", "shard"):
+        state.load_state_dict(payload)
     return state.step
 
 
 def restore_state(ckpt_dir: str, state, step: Optional[int] = None,
-                  jax_params: bool = False) -> Restored:
+                  jax_params: bool = False, shardings=None) -> Restored:
     """Restore ``state`` (a ``TrainState``, in place) from
     ``ckpt_dir/<step>``.
 
@@ -478,7 +506,8 @@ def restore_state(ckpt_dir: str, state, step: Optional[int] = None,
     validates and restores, walking older ones on failure; an explicit
     ``step`` must be valid and restore, or this raises.  ``jax_params``
     (``--init_ckpt``) also takes a JAX package's checkpoint, its
-    parameters and stats only.
+    parameters and stats only; ``shardings`` restores to spec
+    (:func:`_restore_state_at`).
     """
     root = _root(ckpt_dir)
     if step is not None:
@@ -487,12 +516,13 @@ def restore_state(ckpt_dir: str, state, step: Optional[int] = None,
             raise FileNotFoundError(
                 f"checkpoint step {step} under {ckpt_dir} is missing, "
                 "unfinalized, or truncated")
-        return Restored(_restore_state_at(path, state, jax_params), "checkpoint", path)
+        return Restored(_restore_state_at(path, state, jax_params, shardings),
+                        "checkpoint", path)
     errors: List[str] = []
     for s in reversed(valid_steps(root)):
         path = os.path.join(root, str(s))
         try:
-            return Restored(_restore_state_at(path, state, jax_params),
+            return Restored(_restore_state_at(path, state, jax_params, shardings),
                             "checkpoint", path)
         except (OSError, ValueError) as e:
             errors.append(f"step {s}: {e}")
@@ -755,7 +785,7 @@ def ranked_checkpoints(ckpt_dir: str):
     return ranked
 
 
-def restore_newest(ckpt_dir: str, target, ranked=None) -> Restored:
+def restore_newest(ckpt_dir: str, target, ranked=None, shardings=None) -> Restored:
     """Restore the newest step that validates and restores, ranked by step
     across the main directory and ``anchors/``.  Raises
     ``FileNotFoundError``, with every candidate's reason, when none does:
@@ -765,7 +795,8 @@ def restore_newest(ckpt_dir: str, target, ranked=None) -> Restored:
     ``target`` is a ``TrainState`` (resume: model, optimizer and step,
     port format only) or an ``nn.Module`` (serving: parameters and stats,
     either format; :func:`restore_model`).  ``ranked`` reuses a
-    :func:`ranked_checkpoints` walk the caller already made.
+    :func:`ranked_checkpoints` walk the caller already made;
+    ``shardings`` restores a ``TrainState`` to spec.
     """
     if ranked is None:
         ranked = ranked_checkpoints(ckpt_dir)
@@ -776,7 +807,7 @@ def restore_newest(ckpt_dir: str, target, ranked=None) -> Restored:
             if isinstance(target, nn.Module):
                 step = restore_model(path, target)
             else:
-                step = _restore_state_at(path, target)
+                step = _restore_state_at(path, target, shardings=shardings)
             if errors:
                 log.warning("restored %s step %d after skipping newer "
                             "checkpoints: %s", src, s, "; ".join(errors))

@@ -6,7 +6,7 @@ the same span names, the same parent→child pairs (by containment on one
 thread) and the same count of each span on the loop's thread
 (:func:`assert_spans_match`, which ``tests/test_torch_obs_officehome.py``
 applies to an OfficeHome run).  A JAX span may be missing from the port
-only if its module waits for multi-process training (``ITEM8_SPANS``).
+only if multi-process training opens it (``ITEM8_SPANS``).
 Both harvesters treat their copies as not landed at ``put`` (as the JAX
 harvester on the CPU finds them), so the drain spans fall where the JAX
 run's fall.  ``tools/torch_obs_report.py`` and ``tools/obs_report.py``
@@ -43,8 +43,8 @@ import torch_obs_report  # noqa: E402
 sys.path.pop(0)
 
 # Spans neither single-process run compares: the sharded placement, gather
-# and restore of parallel/plan.py's gspmd mode, which the port has not got
-# yet (ROADMAP queue 1 item 8b), and the multi-process shard writer's.
+# and restore of parallel/plan.py's gspmd mode (tests/test_torch_gspmd.py
+# holds their names to JAX's) and the multi-process shard writer's.
 # Nothing else may be missing from the port.
 ITEM8_SPANS = {"shard_put", "gather", "restore_place", "shard_write"}
 

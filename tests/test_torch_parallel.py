@@ -29,8 +29,8 @@ numpy state and batches:
   against JAX's ``group_whiten`` on the concatenated batch: outputs,
   stats and the input gradient, in float64 (``jax.enable_x64``) to 1e-10
   and in float32 to 1e-4;
-* ``plan_from_flags`` on a table of flag combinations against JAX's
-  decision or error text.
+* ``plan_from_flags`` on a table of flag combinations, the gspmd mode's
+  included, against JAX's decision or error text.
 """
 
 from __future__ import annotations
@@ -369,6 +369,7 @@ def test_group_whitening_gradient_is_the_global_batchs(tmp_path):
 
 # (flags, JAX world): the port's plan at world size N against JAX's with N
 # devices (the fake mesh has 8).
+RULES_FILE = os.path.join(REPO, "configs", "resnet152_fsdp_rules.json")
 PLAN_CASES = [
     dict(),
     dict(data_parallel=True),
@@ -387,6 +388,19 @@ PLAN_CASES = [
     dict(mesh_shape="x,4"),
     dict(mesh_shape="8", batch_size=12),
     dict(data_parallel=True, sharding_rules="model"),
+    # The gspmd mode: presets, a rules file, a table that shards nothing,
+    # the dcn and mesh conflicts, batch divisibility over the data axes.
+    dict(mesh_shape="1,4,2", sharding_rules="model"),
+    dict(mesh_shape="1,4,2", sharding_rules="fsdp"),
+    dict(mesh_shape="1,4,2", sharding_rules=RULES_FILE),
+    dict(mesh_shape="2,2,2", sharding_rules="fsdp"),
+    dict(mesh_shape="1,8,1", sharding_rules="model"),
+    dict(sharding_rules="fsdp"),
+    dict(mesh_shape="1,4,2", sharding_rules="model", dcn_slices=2),
+    dict(mesh_shape="4,2,1", sharding_rules="model", dcn_slices=2),
+    dict(mesh_shape="1,4,2", sharding_rules="model", batch_size=6),
+    dict(mesh_shape="1,64,2", sharding_rules="model"),
+    dict(mesh_shape="1,2,2", sharding_rules="dp"),
 ]
 
 
@@ -399,7 +413,8 @@ def _decide(fn, kwargs):
     return (plan.mode, plan.data_size, shape)
 
 
-@pytest.mark.parametrize("flags", PLAN_CASES, ids=lambda f: ",".join(f"{k}={v}" for k, v in f.items()) or "none")
+@pytest.mark.parametrize("flags", PLAN_CASES, ids=lambda f: ",".join(
+    f"{k}={os.path.basename(str(v))}" for k, v in f.items()) or "none")
 def test_plan_from_flags_matches_jax(flags):
     assert jax.device_count() == 8
     ours = _decide(lambda **kw: parallel.plan_from_flags(world_size=8, local_devices=0,
@@ -409,11 +424,16 @@ def test_plan_from_flags_matches_jax(flags):
 
 
 def test_plan_rules_and_device_guards():
-    """A non-dp rules table raises naming item 8b; --data_parallel on one
-    rank is single, and without --distributed on a multi-GPU host it
-    raises; a mesh shape that leaves ranks out raises."""
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        parallel.plan_from_flags(sharding_rules="fsdp", world_size=8, local_devices=0)
+    """A non-dp rules table is the gspmd mode over every rank; --data_parallel
+    on one rank is single, and without --distributed on a multi-GPU host it
+    raises; a mesh shape that leaves ranks out raises, under dp rules and
+    under a model-sharding table."""
+    plan = parallel.plan_from_flags(sharding_rules="fsdp", world_size=8, local_devices=0)
+    assert plan.mode == "gspmd" and dict(plan.mesh.shape) == {"dcn": 1, "data": 8, "model": 1}
+    assert not plan.uses_state_sharding and plan.data_size == 8
+    with pytest.raises(ValueError, match="every rank must be in the mesh"):
+        parallel.plan_from_flags(mesh_shape="1,2,2", sharding_rules="model", world_size=8,
+                                 local_devices=0)
     assert parallel.plan_from_flags(data_parallel=True, world_size=1,
                                     local_devices=0).mode == "single"
     with pytest.raises(ValueError, match="one process per GPU"):

@@ -560,7 +560,7 @@ def main(argv=None) -> int:
         print(json.dumps(run_ramp(args)), flush=True)
         return 0
 
-    refuse_unported(args)  # the parallel-serving flags (ROADMAP queue 1 item 8b)
+    refuse_unported(args)  # the parallel-serving flags (ROADMAP queue 1 item 8c)
     # Inherited --obs_trace (server parser): every bench run can emit a
     # bucket-attributed serving trace for tools/torch_obs_report.py.
     from dwt_tpu_torch import obs
