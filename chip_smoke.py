@@ -563,8 +563,10 @@ script exits non-zero without the final line:
                   stage-1 shapes; peak memory per process.  (c) A one-rank
                   NCCL group (``DP_CAPTURE``): the replica digits step at k = 4
                   captured and replayed, bitwise equal to the same steps
-                  eager.  The row prints, with the card, each rank's step ms
-                  against the one-process step (no scaling claim: the ranks
+                  eager.  All of (a)–(c) run side by side on the card (a
+                  depth cut: their step ms are not comparable).  The row
+                  prints, with the card, each rank's step ms
+                  and the one-process step (no scaling claim: the ranks
                   share one card), host syncs per step and each process's
                   spawn-to-first-record; the kernels line gains the per-rank
                   rows, timed in this process at the per-rank shapes.
@@ -601,6 +603,37 @@ script exits non-zero without the final line:
                   The kernels line
                   gains each rank's rows, timed at the same shapes in
                   phases ``data_parallel`` and ``train``.
+54. ``serve_fanout`` — the server's fan-out over ranks on run A's
+                  checkpoint (inside the checkpoint block, after
+                  ``dispatch_resnet50``): ``python -m
+                  dwt_tpu_torch.serve.server --distributed`` on 2 gloo ranks
+                  sharing the card (``FanoutRanks``, each through
+                  ``FANOUT_JOB``, which dumps its launches and, at exit, the
+                  apply kernel against plain at its shapes), never beside a
+                  timed phase.  First one process (``--buckets 1,8,32,128``)
+                  alone: one ``.npy`` request of 1, 8, 32 and 128 images,
+                  each then timed ``FANOUT_REPEATS`` times.  Then both rank
+                  pairs start beside each other; (b) serves and drains
+                  before (a) serves.  (b) 2 ranks at
+                  ``1,1,2`` under ``model`` (buckets 1 and 128): logits
+                  within ``FANOUT_TOL`` of one process, 11 apply launches a
+                  forward on each rank (``/fanout`` counts), each rank's
+                  resident parameter bytes against replicated at most
+                  ``FANOUT_RESIDENT_MAX`` (predicted
+                  ``FANOUT_PREDICTED_SHARE``), one generation digest.  (a)
+                  2 ranks with ``--data_parallel``: buckets rounded to
+                  2/8/32/128, the same requests (e2e ms per bucket beside
+                  one process's), logits within ``FANOUT_TOL``, 11 launches
+                  a forward on each rank at its half rows; (c) run A's step
+                  6 written into the watched directory under a load of 1-
+                  and 8-image requests: every rank restores it, it goes
+                  live with no failed request, every batch single-version,
+                  one generation digest on both ranks; (d) SIGTERM to the
+                  front: both ranks exit 0 (also for (b)).  Then the apply
+                  at a replica rank's block shapes (``FANOUT_SITES``) against
+                  plain and timed in this process.  The row says "ranks
+                  share one card, no scaling claim"; the kernels line gains
+                  a row per rank of each mode.
 
 Every phase row carries ``phase_s``, the wall seconds since the row before;
 the ``budget`` row, before the kernels line, gives the script's total
@@ -7403,18 +7436,54 @@ def data_parallel(torch, cw, root, device, rate):
     stages = {}
     sites = len(DIGITS_SITES)
 
-    # (a) Digits: the replica pair, then the one-process run.
+    # Every run of the phase side by side on the card (their step times
+    # are not compared here: ranks share a card whatever runs beside them):
+    # the digits pair and its one process, the flagship pair and its one
+    # process, the SIGTERM pair, and the NCCL capture.
     ck = os.path.join(root, "digits_ck")
-    rcs, outs, d_jobs, d_recs = dp_spawn(
-        job, "dwt_tpu_torch.cli.usps_mnist", DP_DIGITS_FLAGS + ["--ckpt_dir", ck], root,
-        "digits", DP_WORLD, DP_DIGITS_SHAPES)
-    if rcs != [0] * DP_WORLD:
-        raise AssertionError(f"data_parallel digits ranks rc {rcs}: {outs[0][-2000:]} "
-                             f"{outs[1][-2000:]}")
-    rcs1, outs1, d1_jobs, d1_recs = dp_spawn(job, "dwt_tpu_torch.cli.usps_mnist",
-                                             DP_DIGITS_FLAGS, root, "digits_one", 1)
-    if rcs1 != [0]:
-        raise AssertionError(f"data_parallel digits one-process rc {rcs1}: {outs1[0][-2000:]}")
+    ck2 = os.path.join(root, "sigterm_ck")
+    started = {
+        "digits": dp_start(job, "dwt_tpu_torch.cli.usps_mnist",
+                           DP_DIGITS_FLAGS + ["--ckpt_dir", ck], root, "digits", DP_WORLD,
+                           DP_DIGITS_SHAPES),
+        "digits_one": dp_start(job, "dwt_tpu_torch.cli.usps_mnist", DP_DIGITS_FLAGS, root,
+                               "digits_one", 1),
+        "flagship": dp_start(job, "dwt_tpu_torch.cli.officehome", DP_TRAIN_FLAGS, root,
+                             "flagship", DP_WORLD, DP_TRAIN_SHAPES),
+        "flagship_one": dp_start(job, "dwt_tpu_torch.cli.officehome", DP_TRAIN_FLAGS, root,
+                                 "flagship_one", 1),
+        "sigterm": dp_start(job, "dwt_tpu_torch.cli.usps_mnist",
+                            DP_DIGITS_FLAGS + ["--ckpt_dir", ck2], root, "sigterm", DP_WORLD,
+                            plans=[None, {"sigterm_at_step": DP_SIGTERM_STEP}]),
+    }
+    cap = subprocess.Popen([sys.executable, capture, str(free_port())],
+                           env={k: v for k, v in os.environ.items()
+                                if not k.startswith(("DWT_", "MASTER_"))},
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = {}
+    try:
+        for what, run in started.items():
+            runs[what] = dp_finish(run)
+            stages[f"{what}_s"] = time.perf_counter() - t0
+        cap_out, cap_err = cap.communicate(timeout=600)
+        stages["capture_s"] = time.perf_counter() - t0
+    finally:  # a failure above leaves none running
+        for run in started.values():
+            for _, p, _ in run[2]:
+                if p.poll() is None:
+                    p.kill()
+        if cap.poll() is None:
+            cap.kill()
+    for what, world in (("digits", DP_WORLD), ("digits_one", 1), ("flagship", DP_WORLD),
+                        ("flagship_one", 1), ("sigterm", DP_WORLD)):
+        if runs[what][0] != [0] * world:
+            raise AssertionError(f"data_parallel {what} rc {runs[what][0]}: "
+                                 + " ".join(o[-2000:] for o in runs[what][1]))
+    _, _, d_jobs, d_recs = runs["digits"]
+    _, _, d1_jobs, d1_recs = runs["digits_one"]
+    _, _, t_jobs, t_recs = runs["flagship"]
+    _, _, t1_jobs, t1_recs = runs["flagship_one"]
+    _, _, _, s_recs = runs["sigterm"]
 
     def digits_launches(recs):
         steps = len([r for r in recs if r["kind"] == "train"])
@@ -7433,20 +7502,6 @@ def data_parallel(torch, cw, root, device, rate):
         raise AssertionError(f"data_parallel digits checkpoint {step_dir}: {manifest}, {shards}")
     windows = [(DIGITS_STEPS_PER_EPOCH * e + 2, DIGITS_STEPS_PER_EPOCH * (e + 1))
                for e in range(2)]
-    stages["digits_s"] = time.perf_counter() - t0
-
-    # (b) The flagship: the replica pair, then the one-process run.
-    rcs, outs, t_jobs, t_recs = dp_spawn(job, "dwt_tpu_torch.cli.officehome",
-                                         DP_TRAIN_FLAGS, root, "flagship", DP_WORLD,
-                                         DP_TRAIN_SHAPES)
-    if rcs != [0] * DP_WORLD:
-        raise AssertionError(f"data_parallel flagship ranks rc {rcs}: {outs[0][-2000:]} "
-                             f"{outs[1][-2000:]}")
-    rcs1, outs1, t1_jobs, t1_recs = dp_spawn(job, "dwt_tpu_torch.cli.officehome",
-                                             DP_TRAIN_FLAGS, root, "flagship_one", 1)
-    if rcs1 != [0]:
-        raise AssertionError(f"data_parallel flagship one-process rc {rcs1}: "
-                             f"{outs1[0][-2000:]}")
 
     def flagship_launches(recs):
         steps = len([r for r in recs if r["kind"] == "train"])
@@ -7457,20 +7512,8 @@ def data_parallel(torch, cw, root, device, rate):
 
     t_rel = dp_check_records("flagship", t_recs, t1_recs[0],
                              ("loss", "cls_loss", "mec_loss"), flagship_launches, t_jobs)
-    stages["flagship_s"] = time.perf_counter() - t0 - stages["digits_s"]
 
-    # (c) NCCL capture, beside the SIGTERM pair.
-    cap = subprocess.Popen([sys.executable, capture, str(free_port())],
-                           env={k: v for k, v in os.environ.items()
-                                if not k.startswith(("DWT_", "MASTER_"))},
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    ck2 = os.path.join(root, "sigterm_ck")
-    rcs, outs, _, s_recs = dp_spawn(job, "dwt_tpu_torch.cli.usps_mnist",
-                                    DP_DIGITS_FLAGS + ["--ckpt_dir", ck2], root, "sigterm",
-                                    DP_WORLD, plans=[None, {"sigterm_at_step": DP_SIGTERM_STEP}])
-    cap_out, cap_err = cap.communicate(timeout=600)
-    if rcs != [0] * DP_WORLD:
-        raise AssertionError(f"data_parallel sigterm ranks rc {rcs}: {outs[1][-2000:]}")
+    # (c) The SIGTERM pair and the NCCL capture.
     preempt = [[r["step"] for r in recs if r["kind"] == "preempt"] for recs in s_recs]
     from dwt_tpu_torch.ckpt.layout import valid_steps
 
@@ -7486,8 +7529,6 @@ def data_parallel(torch, cw, root, device, rate):
             and captured["graph_launches"] == captured["eager_launches"]):
         raise AssertionError(f"data_parallel capture: {captured}")
 
-    stages["sigterm_and_capture_s"] = (time.perf_counter() - t0 - stages["digits_s"]
-                                       - stages["flagship_s"])
     t1 = time.perf_counter()
     timing = {"digits": dp_timing(torch, cw, DP_DIGITS_SHAPES, device, rate),
               "train": dp_timing(torch, cw, DP_TRAIN_SHAPES, device, rate)}
@@ -7507,7 +7548,9 @@ def data_parallel(torch, cw, root, device, rate):
            "parity": {"digits": [j["parity"] for j in d_jobs],
                       "flagship": [j["parity"] for j in t_jobs]},
            "checkpoint": {"step": final, "shards": shards, "format": manifest["format"]},
-           "sigterm": {"preempt_steps": preempt, "saved": saved}, "capture": captured}
+           "sigterm": {"preempt_steps": preempt, "saved": saved}, "capture": captured,
+           "concurrent": "every run of the phase ran side by side on the card: step ms are "
+                         "not comparable across them"}
     emit(row)
     return {"launches": row["launches"], "parity": row["parity"], "timing": timing,
             "one_process": {"digits": d1_recs[0]}}
@@ -7832,6 +7875,393 @@ def gspmd_rows(r, floor, rows):
     return out
 
 
+# ------------------------------------------------------------- serve_fanout
+
+FANOUT_WORLD = 2
+FANOUT_BUCKETS = "1,8,32,128"  # rounded up to 2/8/32/128 over the 2 replica ranks
+FANOUT_SIZES = (1, 8, 32, 128)  # one request per bucket
+FANOUT_REPEATS = 3  # timed requests per bucket (median), after one untimed
+FANOUT_GSPMD_BUCKETS = "1,128"
+FANOUT_GSPMD = ("--mesh_shape", "1,1,2", "--sharding_rules", "model")
+# A replica rank's block of a bucket-128 forward: half the rows of each site.
+FANOUT_SITES = tuple((name, m // FANOUT_WORLD, c, n) for name, m, c, n in RESNET50_SITES)
+# Logits against one process, max |a − b| / max |b|: the ranks forward
+# blocks of other sizes than one process does (cuDNN may pick other
+# algorithms), so the whole forwards' tolerance.
+FANOUT_TOL = FORWARD_TOL
+# A gspmd rank's resident parameter bytes against replicated under the
+# model rules at 1,1,2: every conv kernel halved, the 65-class head and the
+# norm affines whole — 11,913,761 of 23,641,217 f32 parameters (0.50394,
+# the serve state's blocks on the meta device).
+FANOUT_PREDICTED_SHARE = 0.50394
+FANOUT_RESIDENT_MAX = 0.51
+FANOUT_SWAP_FLAGS = ["--watch", "--reload_poll_s", "0.2", "--rollback_min_requests", "8",
+                     "--rollback_decide_s", "600", "--rollback_p99_factor", "1000"]
+FANOUT_READY_S = 300
+FANOUT_JOB = """\
+import atexit, json, os, runpy, sys
+sys.path.insert(0, {repo!r})
+import torch
+from dwt_tpu_torch.ops import cuda_whitening as cw
+def dump():
+    out = {{"launches": {{"apply": cw.apply_launches, "moments": cw.moments_launches}}}}
+    shapes = json.loads(os.environ.get("DWT_DP_SHAPES", "[]"))
+    if shapes and torch.cuda.is_initialized():
+        # The apply kernel against its plain version at this rank's shapes,
+        # after the counted run.
+        import chip_smoke as cs
+        device = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=device).manual_seed(7)
+        cpu_gen = torch.Generator().manual_seed(7)
+        out["parity"] = []
+        for name, m, c in shapes:
+            x, mean, w = cs.site_inputs(torch, m, c, gen, cpu_gen, device)
+            out["parity"].append(cs.apply_parity(torch, cw, name, x, mean, w))
+            del x
+    with open(os.environ["DWT_DP_OUT"], "w") as f:
+        json.dump(out, f)
+atexit.register(dump)
+sys.argv = ["dwt_tpu_torch.serve.server"] + sys.argv[1:]
+runpy.run_module("dwt_tpu_torch.serve.server", run_name="__main__", alter_sys=True)
+"""
+
+
+class FanoutRanks:
+    """``FANOUT_WORLD`` ranks of the server started through ``FANOUT_JOB``
+    with ``--distributed`` and the DWT_* variables; after
+    :meth:`wait_ready`, ``ready`` is the front's ``serve_ready`` record and
+    ``http`` a client of it."""
+
+    def __init__(self, server, script, flags, root, name, shapes=()):
+        port = free_port()
+        self.server, self.root, self.name, self.procs = server, root, name, []
+        for rank in range(FANOUT_WORLD):
+            env = {k: v for k, v in os.environ.items() if not k.startswith(("DWT_", "MASTER_"))}
+            env.update(DWT_DP_OUT=os.path.join(root, f"{name}_{rank}.json"),
+                       DWT_DP_SHAPES=json.dumps([list(s) for s in shapes]),
+                       DWT_DIST_TIMEOUT_S="300", DWT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       DWT_NUM_PROCESSES=str(FANOUT_WORLD), DWT_PROCESS_ID=str(rank))
+            with open(self.path(rank, "out"), "w") as out, \
+                    open(self.path(rank, "err"), "w") as err:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, script, *flags, "--distributed", "--host", "127.0.0.1",
+                     "--port", "0"], env=env, stdout=out, stderr=err, text=True))
+        self.ready = self.http = None
+
+    def wait_ready(self):
+        deadline = time.time() + FANOUT_READY_S
+        while self.ready is None:
+            with open(self.path(0, "out")) as f:
+                line = f.readline()
+            if line.endswith("\n"):
+                self.ready = json.loads(line)
+            elif time.time() > deadline or any(p.poll() is not None for p in self.procs):
+                self.kill()
+                raise AssertionError(f"{self.name}: the front never became ready: "
+                                     + " | ".join(self.tail(r) for r in range(FANOUT_WORLD)))
+            else:
+                time.sleep(0.2)
+        self.http = self.server.HttpServeClient("127.0.0.1", self.ready["port"], timeout=300)
+
+    def path(self, rank, kind):
+        return os.path.join(self.root, f"{self.name}_{rank}.{kind}")
+
+    def tail(self, rank, n=1500):
+        with open(self.path(rank, "err"), errors="replace") as f:
+            return f.read()[-n:]
+
+    def report(self, digest=False):
+        status, body = self.http.request("GET", "/fanout" + ("?digest=1" if digest else ""))
+        if status != 200:
+            raise AssertionError(f"{self.name} /fanout: {status} {body}")
+        return body["ranks"]
+
+    def drain(self, timeout=120):
+        """SIGTERM to the front: every rank's exit code and its dump."""
+        if self.http is not None:
+            self.http.close()
+        self.procs[0].send_signal(signal.SIGTERM)
+        deadline = time.time() + timeout
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(deadline - time.time(), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+        rcs = [p.poll() for p in self.procs]
+        self.kill()
+        jobs = []
+        for rank in range(FANOUT_WORLD):
+            path = os.path.join(self.root, f"{self.name}_{rank}.json")
+            jobs.append(json.load(open(path)) if os.path.exists(path) else {})
+        return rcs, jobs
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def fanout_requests(http, inputs, repeats):
+    """Each input once untimed (its logits), then ``repeats`` timed:
+    ``([logits], {images: median e2e ms})``."""
+    logits, e2e = [], {}
+    for x in inputs:
+        logits.append(http.infer(x, binary=True))
+        times = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            http.infer(x, binary=True)
+            times.append((time.perf_counter() - t) * 1e3)
+        e2e[len(x)] = statistics.median(times) if times else None
+    return logits, e2e
+
+
+def fanout_counts(before, after):
+    """Per rank: forwards, apply and moments launches between two
+    ``/fanout`` reports, and apply launches a forward."""
+    out = []
+    for b, a in zip(before, after):
+        fwd = a["forwards"] - b["forwards"]
+        apply = a["kernel_launches"]["apply"] - b["kernel_launches"]["apply"]
+        out.append({"rank": a["rank"], "forwards": fwd, "apply": apply,
+                    "moments": a["kernel_launches"]["moments"]
+                    - b["kernel_launches"]["moments"],
+                    "apply_per_forward": apply / fwd if fwd else None})
+    return out
+
+
+def serve_fanout(torch, cw, server, root, a_dir, device, rate):
+    """Phase ``serve_fanout`` (module docstring, phase 54).  Returns the
+    ranks' launches and parity, and the block shapes' parity and times,
+    for the kernels line."""
+    import shutil
+
+    import numpy as np
+
+    smi = nvidia_smi()
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = os.path.join(root, "fanout_job.py")
+    with open(job, "w") as f:
+        f.write(FANOUT_JOB.format(repo=here))
+    t0 = time.perf_counter()
+    stages = {}
+    watched = os.path.join(root, "fanout_watched")
+    os.makedirs(watched)
+    shutil.copytree(os.path.join(a_dir, "3"), os.path.join(watched, "3"))
+    spec = SERVED["resnet50"]
+    rng = np.random.default_rng(54)
+    inputs = [rng.normal(size=(n,) + spec["shape"]).astype(np.float32) for n in FANOUT_SIZES]
+    by_size = dict(zip(FANOUT_SIZES, inputs))
+
+    # One process, alone on the card: the reference logits and e2e ms.
+    args = served_args(server, "--ckpt_dir", watched, "--buckets", FANOUT_BUCKETS)
+    stack, http = serving_stack(server, args)
+    try:
+        one_logits, one_e2e = fanout_requests(http, inputs, FANOUT_REPEATS)
+        boot = stack.engine.version.label
+    finally:
+        http.close()
+        stack.front.close()
+        stack.access_log.close()
+    del stack
+    torch.cuda.empty_cache()
+    reference = dict(zip(FANOUT_SIZES, one_logits))
+    stages["one_process_s"] = time.perf_counter() - t0
+
+    def vs_one(sizes, logits):
+        errs = {}
+        for n, out in zip(sizes, logits):
+            if out.shape != (n, spec["classes"]) or not np.isfinite(out).all():
+                raise AssertionError(f"serve_fanout: bad logits {out.shape} for {n} images")
+            errs[n] = norm_err(torch.from_numpy(out), torch.from_numpy(reference[n]))
+        return errs
+
+    # Both rank pairs start beside each other (nothing is timed while they
+    # start); (b) then serves and drains before (a) serves alone.
+    t1 = time.perf_counter()
+    g_sizes = tuple(int(b) for b in FANOUT_GSPMD_BUCKETS.split(","))
+    log_path = os.path.join(root, "fanout_access.jsonl")
+    g_ranks = FanoutRanks(server, job, spec["flags"] + [
+        "--ckpt_dir", watched, "--buckets", FANOUT_GSPMD_BUCKETS, *FANOUT_GSPMD], root,
+        "fanout_gspmd", shapes=[(n, m, c) for n, m, c, _ in RESNET50_SITES])
+    r_ranks = FanoutRanks(server, job, spec["flags"] + [
+        "--ckpt_dir", watched, "--buckets", FANOUT_BUCKETS, "--data_parallel",
+        "--access_log", log_path, *FANOUT_SWAP_FLAGS], root, "fanout_replica",
+        shapes=[(n, m, c) for n, m, c, _ in FANOUT_SITES])
+    replies, failures, stop = [], [], threading.Event()
+    try:
+        # (b) gspmd: 2 ranks at 1,1,2 under the model rules, each forwarding
+        # the whole bucket with its blocks gathered over the model group.
+        try:
+            g_ranks.wait_ready()
+            g_before = g_ranks.report()
+            g_logits, _ = fanout_requests(g_ranks.http, [by_size[n] for n in g_sizes], 0)
+            g_after = g_ranks.report(digest=True)
+            g_ready = g_ranks.ready
+        finally:
+            g_rcs, g_jobs = g_ranks.drain()
+        stages["gspmd_s"] = time.perf_counter() - t1
+
+        # (a) Replica: 2 ranks, --data_parallel, one request per bucket; (c)
+        # a --watch swap to run A's step 6 under traffic; (d) SIGTERM to the
+        # front.
+        t1 = time.perf_counter()
+        r_ranks.wait_ready()
+        r_ready = r_ranks.ready
+        r_before = r_ranks.report()
+        r_logits, r_e2e = fanout_requests(r_ranks.http, inputs, FANOUT_REPEATS)
+        r_after = r_ranks.report(digest=True)
+        stages["replica_requests_s"] = time.perf_counter() - t1
+
+        def load():
+            c = server.HttpServeClient("127.0.0.1", r_ready["port"], timeout=300)
+            try:
+                for i in itertools.count():
+                    if stop.is_set():
+                        return
+                    x = inputs[i % 2]
+                    try:
+                        reply = c.infer_reply(x, binary=True)
+                        out = np.asarray(reply["logits"], np.float32)
+                        if out.shape != (len(x), spec["classes"]) or \
+                                not np.isfinite(out).all():
+                            failures.append(f"bad reply {out.shape}")
+                        replies.append(reply["version"])
+                    except Exception as e:  # every failure is counted
+                        failures.append(f"{type(e).__name__}: {e}")
+            finally:
+                c.close()
+
+        loader = threading.Thread(target=load)
+        loader.start()
+        t_swap = time.perf_counter()
+        tmp = os.path.join(watched, ".tmp-fanout-6")
+        shutil.copytree(os.path.join(a_dir, "6"), tmp)
+        os.rename(tmp, os.path.join(watched, "6"))
+
+        def live_step():
+            status, health = r_ranks.http.healthz()
+            return status == 200 and health["step"] == 6
+
+        wait_for(live_step, "the fan-out's swap to step 6")
+        swap_s = time.perf_counter() - t_swap
+        served = len(replies)
+        wait_for(lambda: len(replies) >= served + 6, "requests on step 6")
+        stop.set()
+        loader.join(120)
+        swapped = r_ranks.report(digest=True)
+        r_rcs, r_jobs = r_ranks.drain()
+    finally:
+        stop.set()
+        for ranks in (g_ranks, r_ranks):
+            ranks.kill()
+    g_counts = fanout_counts(g_before, g_after)
+    g_errs = vs_one(g_sizes, g_logits)
+    shares = [a["resident_param_bytes"] / a["full_param_bytes"] for a in g_after]
+    r_counts = fanout_counts(r_before, r_after)
+    r_errs = vs_one(FANOUT_SIZES, r_logits)
+    batch_versions = single_version_batches(log_path)
+    kinds = [e["kind"] for e in lifecycle(log_path)]
+    stages["replica_s"] = time.perf_counter() - t1
+
+    # The apply at a replica rank's block shapes, alone on the card.
+    t1 = time.perf_counter()
+    parity, timing = served_apply_sites(torch, cw, FANOUT_SITES, 54, device, rate,
+                                        "serve_fanout")
+    stages["block_timing_s"] = time.perf_counter() - t1
+    sites = spec["sites"]
+    row = {"phase": "serve_fanout", "card": smi, "seconds": time.perf_counter() - t0,
+           "stages": stages, "note": "ranks share one card, no scaling claim",
+           "replica": {"plan": r_ready["plan"], "buckets": r_ready["buckets"],
+                       "e2e_ms": r_e2e, "one_process_e2e_ms": one_e2e,
+                       "logits_vs_one_process": r_errs, "counts": r_counts,
+                       "digests_equal": len({a["digest"] for a in r_after}) == 1,
+                       "rcs": r_rcs},
+           "swap": {"boot": boot, "live_after": [a["version"] for a in swapped],
+                    "gens_after": [a["gen"] for a in swapped],
+                    "digests_equal": len({a["digest"] for a in swapped}) == 1,
+                    "swap_s": swap_s, "replies": len(replies),
+                    "replies_by_version": {v: replies.count(v) for v in sorted(set(replies))},
+                    "failures": failures[:5], "events": kinds,
+                    "batch_versions": sorted(set(batch_versions.values()))},
+           "gspmd": {"plan": g_ready["plan"], "buckets": g_ready["buckets"],
+                     "logits_vs_one_process": g_errs, "counts": g_counts,
+                     "resident_share": shares, "predicted_share": FANOUT_PREDICTED_SHARE,
+                     "resident_max": FANOUT_RESIDENT_MAX,
+                     "resident_param_bytes": [a["resident_param_bytes"] for a in g_after],
+                     "full_param_bytes": [a["full_param_bytes"] for a in g_after],
+                     "digests_equal": len({a["digest"] for a in g_after}) == 1,
+                     "rcs": g_rcs},
+           "tolerance": FANOUT_TOL,
+           "parity": {"replica": [j.get("parity", []) for j in r_jobs],
+                      "gspmd": [j.get("parity", []) for j in g_jobs]}}
+    emit(row)
+    problems = []
+    if r_ready["buckets"] != [2, 8, 32, 128] or g_ready["buckets"] != [1, 128]:
+        problems.append(f"buckets {r_ready['buckets']} / {g_ready['buckets']}")
+    if max(r_errs.values()) > FANOUT_TOL or max(g_errs.values()) > FANOUT_TOL:
+        problems.append(f"logits against one process: {r_errs} / {g_errs}")
+    for what, counts in (("replica", r_counts), ("gspmd", g_counts)):
+        want = len(FANOUT_SIZES) * (1 + FANOUT_REPEATS) if what == "replica" else len(g_sizes)
+        if any(c["forwards"] != want or c["apply"] != sites * want for c in counts):
+            problems.append(f"{what} launches {counts}: {sites} a forward, {want} forwards")
+    if max(shares) > FANOUT_RESIDENT_MAX:
+        problems.append(f"gspmd resident share {shares}")
+    if not row["replica"]["digests_equal"] or not row["gspmd"]["digests_equal"] \
+            or not row["swap"]["digests_equal"]:
+        problems.append("the ranks' generation digests differ")
+    swapped_versions = set(row["swap"]["live_after"])
+    if failures or len(swapped_versions) != 1 or boot in swapped_versions \
+            or set(replies) - ({boot} | swapped_versions) or "swap" not in kinds:
+        problems.append(f"the swap under traffic: {row['swap']}")
+    if r_rcs != [0] * FANOUT_WORLD or g_rcs != [0] * FANOUT_WORLD:
+        problems.append(f"drain rcs {r_rcs} / {g_rcs}: " + " | ".join(
+            f"{n} {rank}: {rk.tail(rank)}" for n, rk in (("replica", r_ranks), ("gspmd", g_ranks))
+            for rank in range(FANOUT_WORLD)))
+    for what, jobs, n in (("replica", r_jobs, len(FANOUT_SITES)),
+                          ("gspmd", g_jobs, len(RESNET50_SITES))):
+        for rank, j in enumerate(jobs):
+            rows = j.get("parity", [])
+            if len(rows) != n or not all(p["ok"] for p in rows):
+                problems.append(f"{what} rank {rank}: kernels against plain {rows}")
+    if problems:
+        raise AssertionError(f"serve_fanout: {problems}")
+    return {"replica": {"launches": [c["apply"] for c in r_counts],
+                        "parity": row["parity"]["replica"]},
+            "gspmd": {"launches": [c["apply"] for c in g_counts],
+                      "parity": row["parity"]["gspmd"]},
+            "block_parity": parity, "block_timing": timing}
+
+
+def fanout_rows(r, floor, rows):
+    """The kernels line's rows of phase ``serve_fanout``: per rank, the
+    apply kernel's launches on that rank's run (its own process's
+    counters, between two ``/fanout`` reports) and its largest error
+    against plain at the shapes it launched; times at those shapes
+    measured in this run: a replica rank's half rows in phase
+    ``serve_fanout``, a gspmd rank's whole rows in phase ``timing``."""
+    f = r["serve_fanout"]
+    base = {row["path"] + "/" + row["name"]: row for row in rows}
+    out = []
+    for rank in range(FANOUT_WORLD):
+        errs = [p["max_abs_err"] for p in f["replica"]["parity"][rank]]
+        out.append({**served_apply_row(
+            FANOUT_SITES, f["block_parity"], f["block_timing"],
+            f["replica"]["launches"][rank], floor, f"serve_fanout_replica_rank{rank}",
+            "the 11 whitened sites of one replica rank's block of a bucket-128 "
+            "ResNet50 forward at 224² (64 of 128 images; 2 gloo ranks on one card)"),
+            "max_abs_err": max(errs)})
+        errs = [p["max_abs_err"] for p in f["gspmd"]["parity"][rank]]
+        out.append({**base["serve/whiten_apply"], "launches": f["gspmd"]["launches"][rank],
+                    "max_abs_err": max(errs), "path": f"serve_fanout_gspmd_rank{rank}",
+                    "per": "the 11 whitened sites of one bucket-128 ResNet50 forward at "
+                           "224² on one of 2 ranks at mesh 1,1,2 under the model rules "
+                           "(gloo, one card; every rank forwards the whole bucket)",
+                    "carried_from": "serve"})
+    return out
+
+
 def kernels_line(torch, r):
     """The contract line's rows: per kernel and path, its launches on that
     path's run, its largest error against its plain version, and its
@@ -7987,6 +8417,7 @@ def kernels_line(torch, r):
              for part in ("apply", "moments")]
     rows += dp_rows(r, floor)
     rows += gspmd_rows(r, floor, rows)
+    rows += fanout_rows(r, floor, rows)
     # The checkpoint phases' launches, on the paths whose shapes they run.
     for row in rows:
         part = row["name"].split("_")[1]
@@ -8130,6 +8561,8 @@ def main() -> int:
         r["flight_recorder"] = flight_recorder(flight)
         resnet_dispatch = dispatch_resnet50(torch, cw, officehome, loop, loader, root,
                                             a_records, a_dir)
+        torch.cuda.empty_cache()  # the fan-out's ranks share the card with this process
+        r["serve_fanout"] = serve_fanout(torch, cw, server, root, a_dir, device, rate)
     k4 = DISPATCH_K["folder"]
     r["graph_launches"] = {
         "train_graph": resnet_dispatch["launches"],

@@ -9,7 +9,9 @@ fleet applies the same philosophy at the serve boundary, in two stages:
 * **pre-swap** (:class:`CanaryGate`): every candidate runs a fixture
   eval — the deployment forward itself (``ServeEngine.infer`` with the
   CANDIDATE state pinned, never swapped live) on a held-out batch —
-  before it can go live.  Non-finite logits, a forward that raises
+  before it can go live (on a serving fan-out the fixture forward runs
+  on every rank, as JAX's ``infer(state=candidate)`` runs the sharded
+  program).  Non-finite logits, a forward that raises
   (wrong dtype/structure past the adapt-time checks), or a fixture
   accuracy regressed more than ``max_regress_pp`` below the live
   version's refuse the candidate.  A digest-corrupt artifact never

@@ -27,7 +27,11 @@ whiten-cache factorization, the device placement — runs on the producer's own 
 while the dispatcher keeps serving the live generation (the double
 buffer); only the final pointer flip (``ServeEngine.swap``) touches the
 serving path, and that flip is a single reference assignment between
-dispatches.
+dispatches.  On a serving fan-out (``serve.fanout.FanoutEngine``) the
+same calls reach every rank: each follower restores the candidate's
+checkpoint itself on a build thread, the controller submits it once
+every rank built it, and the swap, a rollback and a refused candidate's
+release are operations of the front's ordered stream.
 
 Failure containment mirrors the training guard ladder:
 
@@ -146,6 +150,8 @@ class DeployController:
                 self._event("canary", origin, version=label, ok=verdict.ok,
                             reason=verdict.reason, **verdict.metrics)
                 if not verdict.ok:
+                    # Released on every rank of a serving fan-out.
+                    self.engine.discard(state)
                     return False, verdict.reason
             old_label = self.engine.version.label
             baseline_p99 = None

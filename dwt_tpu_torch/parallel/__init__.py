@@ -6,8 +6,10 @@ with their collectives explicit (:mod:`.dp`: the norm sites' batch
 moments, the gradients and the eval counters, each reduced over the mesh),
 the run's :class:`ShardingPlan` with its rules tables (:mod:`.plan`), and
 the gspmd mode's sharded state (:mod:`.gspmd`, over the JAX key paths of
-:mod:`.paths`).  The server's fan-out over ranks waits for ROADMAP queue 1
-item 8c.
+:mod:`.paths`).  The server's fan-out over ranks (``serve.fanout``) reads
+the plan's serving half: ``make_serve_forward``, ``place_serve``,
+``serve_split``/``serve_join``, and the host collectives of
+``mesh.RankGroup`` over ``mesh.host_group``.
 
 Imports torch and numpy only.
 """
@@ -23,6 +25,7 @@ from dwt_tpu_torch.parallel.mesh import (
     choose_backend,
     cpu_group,
     dist_info,
+    host_group,
     initialize_distributed,
     make_mesh,
     make_plan_mesh,
@@ -34,6 +37,7 @@ from dwt_tpu_torch.parallel.dp import (
     make_sharded_collect_step,
     make_sharded_eval_step,
     make_sharded_scanned_step,
+    make_sharded_serve_forward,
     make_sharded_train_step,
     replicate_state,
     shard_batch,
@@ -65,6 +69,7 @@ __all__ = [
     "choose_backend",
     "cpu_group",
     "dist_info",
+    "host_group",
     "initialize_distributed",
     "load_rules_file",
     "make_mesh",
@@ -72,6 +77,7 @@ __all__ = [
     "make_sharded_collect_step",
     "make_sharded_eval_step",
     "make_sharded_scanned_step",
+    "make_sharded_serve_forward",
     "make_sharded_train_step",
     "match_partition_rules",
     "parse_mesh_shape",

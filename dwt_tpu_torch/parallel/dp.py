@@ -24,6 +24,8 @@ Every rank's state is the same: :func:`replicate_state` broadcasts rank
 that ``NamedSharding(mesh, P(axes))`` places on the device at this rank's
 grid position; the training loops never need it, since each process
 loads only its own slice (``batch_iterator(shard=(rank, N))``).
+:func:`make_sharded_serve_forward` is the serving fan-out's per-rank
+forward over a bucket's block.
 """
 
 from __future__ import annotations
@@ -123,3 +125,15 @@ def make_sharded_collect_step(scanned_collect: Callable, mesh: Mesh) -> Callable
     batch's, so every rank's running stats advance alike."""
     return _check_group(scanned_collect, mesh, "stat-collection step")
 
+
+def make_sharded_serve_forward(forward: Callable, mesh: Mesh) -> Callable:
+    """The replica fan-out's per-rank serving body: ``forward(model, x)``
+    (the eval forward) on this rank's block of each bucket, the bucket's
+    rows split into ``mesh.size`` equal blocks in the mesh's flattened
+    order (``dwt_tpu.parallel.dp._batch_spec``; ``ShardingPlan.
+    serve_split``).  Eval forwards are per-sample (running stats, no batch
+    moments), so the body needs no collective and is ``forward`` itself;
+    the serving front gathers the ranks' logits in the same order
+    (``dwt_tpu_torch.serve.fanout``).  Bucket sizes must divide the mesh
+    (``serve.engine`` rounds them up)."""
+    return forward

@@ -40,6 +40,12 @@ communication; here every rank is a process, and :class:`Layout` does it:
 * **Restore to spec.** :meth:`Layout.host_blocks` cuts a checkpoint's host
   payload down to this rank's blocks, so a restore moves only blocks to
   the device (``utils.checkpoint``).
+* **Serving.** A serving generation's eval module takes the same layout
+  without an optimizer (``ShardingPlan.serve_layout``, over the serve
+  state's paths): :meth:`Layout.place` on the host module, then the move
+  to the device; its forwards run under ``torch.inference_mode``, where
+  the pre-hooks gather the blocks as in training and nothing records a
+  backward.
 
 Imports torch only.
 """
@@ -201,8 +207,10 @@ class Layout:
                 if old is None:
                     raise ValueError(
                         f"sharding rule for {leaf.keystr} ({leaf.jax_spec}) shards a "
-                        "running statistic: the port's norm sites update their stats "
-                        "in place, so a rules table must keep batch_stats replicated")
+                        "running statistic or an eval matrix: the port's norm sites "
+                        "update their stats in place and read their eval matrices "
+                        "whole, so a rules table must keep batch_stats and "
+                        "whiten_cache replicated")
                 if tuple(old.shape) != leaf.full_shape:
                     raise ValueError(f"{leaf.name}: shape {tuple(old.shape)} is not the "
                                      f"planned {leaf.full_shape}")

@@ -36,6 +36,11 @@ position: one batch shard, the blocks of every sharded tensor).  A rank's
 batch shard is its **batch position**, its index among the ``(dcn,
 data)`` positions — never its index in the whole grid, which would give
 each model rank a batch slice of its own.
+
+:func:`host_group` is every rank over the gloo group, whose
+:class:`RankGroup` methods move host objects and tensors between the
+first rank and the others (broadcast, scatter, gather): the serving
+fan-out's wire (``dwt_tpu_torch.serve.fanout``).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import dataclasses
 import datetime
 import os
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -209,6 +214,34 @@ def initialize_distributed(
                      local_world_size=local_world_size, device=mine,
                      devices=[str(d) for d in devices])
     return _INFO
+
+
+def join_from_flags(distributed: bool, device: str) -> Optional[DistInfo]:
+    """The CLIs' ``--distributed``: join the process group from the DWT_*
+    variables or torchrun's and return its :class:`DistInfo`; None
+    without the flag (one process).  A failure names what to set."""
+    if not distributed:
+        return None
+    if _INFO is not None:
+        return _INFO
+    env = cluster_from_env()
+    explicit = env is not None and env[-1]
+    try:
+        if env is None:
+            raise ValueError("no DWT_* or torchrun variables are set")
+        return initialize_distributed(device=device)
+    except (ValueError, RuntimeError) as e:
+        if explicit:
+            detail = ("explicit DWT_* configuration failed — check that all three "
+                      "of DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
+                      "DWT_PROCESS_ID are set and the coordinator is reachable.")
+        else:
+            detail = ("could not auto-detect the cluster (torchrun's MASTER_ADDR, "
+                      "MASTER_PORT, RANK and WORLD_SIZE are read when it launches "
+                      "every process). For bare-metal, set "
+                      "DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
+                      "DWT_PROCESS_ID; or drop --distributed for single-host runs.")
+        raise RuntimeError(f"--distributed: {detail} Underlying error: {e}") from e
 
 
 def shutdown_distributed() -> None:
@@ -388,8 +421,68 @@ class RankGroup:
             dist.broadcast(t, src=self.ranks[0], group=self._pg())
         return t
 
+    # Host values between the group's first rank and the others: the
+    # serving fan-out's wire (``serve.fanout``), on a gloo group.
+
+    def broadcast_object(self, obj: Any = None) -> Any:
+        """The first rank's picklable ``obj``, on every rank."""
+        if self.size == 1:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self._pg())
+        return box[0]
+
+    def gather_object(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's picklable ``obj`` in the group's order on the first
+        rank; None on the others."""
+        if self.size == 1:
+            return [obj]
+        import torch.distributed as dist
+
+        first = process_index() == self.ranks[0]
+        out = [None] * self.size if first else None
+        dist.gather_object(obj, out, dst=self.ranks[0], group=self._pg())
+        return out
+
+    def scatter_host(self, chunks: Optional[Sequence[torch.Tensor]], shape: Sequence[int],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """This rank's host tensor of ``shape`` from the first rank's
+        ``chunks`` (one per rank, in the group's order; None elsewhere)."""
+        if self.size == 1:
+            return chunks[0]
+        import torch.distributed as dist
+
+        out = torch.empty(tuple(shape), dtype=dtype)
+        first = process_index() == self.ranks[0]
+        dist.scatter(out, [c.contiguous() for c in chunks] if first else None,
+                     src=self.ranks[0], group=self._pg())
+        return out
+
+    def gather_host(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank's host tensor ``t`` (one shape on all) in the group's
+        order on the first rank; None on the others."""
+        if self.size == 1:
+            return [t]
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        first = process_index() == self.ranks[0]
+        out = [torch.empty_like(t) for _ in range(self.size)] if first else None
+        dist.gather(t, out, dst=self.ranks[0], group=self._pg())
+        return out
+
     def __repr__(self) -> str:
         return f"RankGroup({list(self.ranks)})"
+
+
+def host_group() -> RankGroup:
+    """Every rank of the process group over its gloo group (:func:`cpu_group`),
+    for host tensors and objects; a one-rank group without a process group."""
+    if _INFO is None:
+        return RankGroup([0])
+    return RankGroup(range(_INFO.world_size), _CPU_GROUP, "gloo")
 
 
 class PlanMesh:

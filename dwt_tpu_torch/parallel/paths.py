@@ -147,3 +147,29 @@ def state_leaves(model: nn.Module, optimizer=None,
             seen.add(leaf.keystr)
         unique.append(leaf)
     return unique
+
+
+def serve_leaves(model: nn.Module) -> List[StateLeaf]:
+    """Every tensor of a serving generation of ``model`` as a
+    :class:`StateLeaf` under the path of the JAX engine's serve state
+    ``{"params", "batch_stats", "whiten_cache"}`` (``dwt_tpu.serve.
+    engine.ServeEngine.build_state``), in JAX's flatten order:
+    ``['params']['conv1']['kernel']``, ``['batch_stats']['dn1']
+    ['whitening'].mean`` and, for each whitening site, its eval matrix
+    ``['whiten_cache']['whiten_cache']['dn1']['w']`` (the site's module
+    key ``<site>.eval_matrix``, shape ``[G, g, g]``: its stats' ``cov`` of
+    one domain)."""
+    out: List[StateLeaf] = []
+    for leaf in state_leaves(model):
+        head, _, rest = leaf.keystr[1:].partition("[")
+        out.append(leaf._replace(keystr=f"['{head}'][{rest}",
+                                 order=((1 if head == "params" else 0),) + leaf.order[1:]))
+    from dwt_tpu_torch.nn.norms import whitening_sites
+
+    for name, site in whitening_sites(model).items():
+        path = tuple(name.split("."))
+        out.append(StateLeaf(f"['whiten_cache']['whiten_cache']{_dict_path(path)}['w']",
+                             tuple(int(s) for s in site.cov.shape[1:]), None,
+                             f"{name}.eval_matrix", None,
+                             (2, (1, "whiten_cache")) + tuple((1, k) for k in path)))
+    return sorted(out, key=lambda l: l.order)

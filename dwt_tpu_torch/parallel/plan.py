@@ -59,7 +59,7 @@ from __future__ import annotations
 import json
 import logging
 import re
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -318,9 +318,22 @@ def _rebuild(tree, specs: Dict[str, P], prefix: str = ""):
     return specs[prefix]
 
 
+class ServeState(NamedTuple):
+    """A serving generation's module as the JAX engine's serve state
+    ``{"params", "batch_stats", "whiten_cache"}`` (``paths.serve_leaves``),
+    for :func:`match_partition_rules`."""
+
+    model: Any
+
+
 def _leaf_items(tree) -> List[Tuple[str, Tuple[int, ...]]]:
-    """``(keystr, JAX-layout shape)`` of every leaf: a train state's
-    through ``parallel.paths``, a nest of arrays by its own keys."""
+    """``(keystr, JAX-layout shape)`` of every leaf: a serve state's and a
+    train state's through ``parallel.paths``, a nest of arrays by its own
+    keys."""
+    if isinstance(tree, ServeState):
+        from dwt_tpu_torch.parallel.paths import serve_leaves
+
+        return [(l.keystr, l.shape) for l in serve_leaves(tree.model)]
     if hasattr(tree, "model"):
         from dwt_tpu_torch.parallel.paths import state_leaves
 
@@ -339,7 +352,8 @@ def match_partition_rules(
     what: str = "tree",
 ) -> Any:
     """The :class:`P` of every leaf of ``tree``: a nest of arrays (the
-    specs in its structure) or a train state (``{keystr: spec}``).
+    specs in its structure), a train state or a :class:`ServeState`
+    (``{keystr: spec}``).
 
     Ordered first-match-wins ``re.search`` over each leaf's JAX path (so a
     pattern may anchor with ``^``/``$``).  Scalars and single-element
@@ -548,17 +562,31 @@ class ShardingPlan:
         if layout is not None:
             return layout
         specs = self.tree_specs(state, what=what)
-        sd = state.model.state_dict()
-        leaves = {}
-        for leaf in state_leaves(state.model, state.optimizer):
-            if leaf.opt_key is not None:
-                continue
-            full = tuple(sd[leaf.name].shape)
+        leaves = [l for l in state_leaves(state.model, state.optimizer) if l.opt_key is None]
+        return gspmd.Layout(self.mesh, self._leaf_layouts(leaves, specs))
+
+    def _leaf_layouts(self, leaves, specs) -> Dict[str, Any]:
+        """``{name: gspmd.LeafLayout}`` of ``paths`` leaves under ``specs``."""
+        from dwt_tpu_torch.parallel import gspmd
+
+        out = {}
+        for leaf in leaves:
+            full = tuple(leaf.shape) if leaf.perm is None else tuple(
+                leaf.shape[j] for j in leaf.perm)
             spec = gspmd.torch_spec(specs[leaf.keystr], len(full), leaf.perm)
-            leaves[leaf.name] = gspmd.LeafLayout(
+            out[leaf.name] = gspmd.LeafLayout(
                 leaf.name, leaf.keystr, specs[leaf.keystr], spec, full,
                 gspmd.block_slices(spec, full, self.mesh.coords, _axis_sizes(self.mesh)))
-        return gspmd.Layout(self.mesh, leaves)
+        return out
+
+    def serve_layout(self, model):
+        """The gspmd layout of a serving generation of ``model`` (whole
+        tensors): its serve state's specs, validated against the mesh."""
+        from dwt_tpu_torch.parallel import gspmd
+        from dwt_tpu_torch.parallel.paths import serve_leaves
+
+        specs = self.tree_specs(ServeState(model), what="serve state")
+        return gspmd.Layout(self.mesh, self._leaf_layouts(serve_leaves(model), specs))
 
     def restore_shardings(self, template: Any, what: str = "state"):
         """The restore-to-spec target of a checkpoint restore (the placed
@@ -596,6 +624,24 @@ class ShardingPlan:
             layout.place(state.model, state.optimizer)
             state.model._gspmd_layout = layout
         return state
+
+    def place_serve(self, model):
+        """Place a serving generation's module (gspmd; span ``shard_put``),
+        else identity: each sharded parameter cut to this rank's block on
+        the host, where the module still is, and the gathering hooks
+        installed, so only blocks reach the device — the serving restore
+        to spec (``dwt_tpu.serve.engine``'s loose restore plus plan
+        placement).  The stats and eval matrices stay whole."""
+        if self.mode != "gspmd":
+            return model
+        from dwt_tpu_torch.parallel import gspmd
+
+        with obs.span("shard_put", "shard"):
+            if gspmd.layout_of(model) is None:
+                layout = self.serve_layout(model)
+                layout.place(model)
+                model._gspmd_layout = layout
+        return model
 
     def place_replicated(self, state):
         """Make every rank's state rank 0's (replica mode), else identity:
@@ -649,6 +695,49 @@ class ShardingPlan:
 
         index, count = self.batch_shard
         return dp.slice_batch(batch, index, count, chunked)
+
+    # ----------------------------------------------------------- serving
+
+    def serve_positions(self) -> List[int]:
+        """Each rank's batch position (its block of a bucket), by rank:
+        the replica mesh's flattened order, the gspmd ``(dcn, data)``
+        position (the ranks of one model group share theirs)."""
+        if self.mode == "single":
+            return [0]
+        ranks = [int(r) for r in self.mesh.ranks.reshape(-1)]
+        if self.mode == "replica":
+            return [ranks.index(r) for r in range(len(ranks))]
+        shape = self.mesh.ranks.shape
+        coords = [np.unravel_index(ranks.index(r), shape) for r in range(len(ranks))]
+        return [int(c[0]) * shape[1] + int(c[1]) for c in coords]
+
+    def serve_split(self, x) -> List[Any]:
+        """A bucket's rows (its leading axis a multiple of the data size)
+        as one block per rank, by rank (:meth:`serve_positions`)."""
+        from dwt_tpu_torch.parallel import dp
+
+        count = self.data_size
+        return [dp.slice_batch(x, p, count) for p in self.serve_positions()]
+
+    def serve_join(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The ranks' logits blocks (by rank) as the bucket's: the first
+        rank's block of each batch position, in position order."""
+        first: Dict[int, torch.Tensor] = {}
+        for p, b in zip(self.serve_positions(), blocks):
+            first.setdefault(p, b)
+        return torch.cat([first[p] for p in range(self.data_size)])
+
+    def make_serve_forward(self, forward: Callable) -> Callable:
+        """The serving fan-out's per-rank body ``(model, x block) ->
+        logits block``: the replica mode's collective-free per-sample
+        forward (``dp.make_sharded_serve_forward``); gspmd and single the
+        forward itself — under gspmd the placed module's hooks gather its
+        blocks over the model group."""
+        if self.mode == "replica":
+            from dwt_tpu_torch.parallel import dp
+
+            return dp.make_sharded_serve_forward(forward, self.mesh)
+        return forward
 
     # ------------------------------------------------------ step factories
 

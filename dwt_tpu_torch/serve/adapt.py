@@ -1,6 +1,10 @@
 """Guarded online domain adaptation at the serve edge.
 
-The port of ``dwt_tpu.serve.adapt``.  The collect forward is the port's
+The port of ``dwt_tpu.serve.adapt``.  On a serving fan-out the adapter
+runs on the front, on the rows it holds (every real row of each bucket,
+as the JAX collect runs unsharded), and an adapted generation reaches the
+followers as a build that carries only the folded stats
+(``serve.fanout``).  The collect forward is the port's
 train-mode forward under ``torch.no_grad`` on the adapter's own copy of
 the model (never the live generation's module: a train forward advances
 its module's running buffers in place), the batch tiled into
@@ -92,14 +96,16 @@ class _Collector:
                  x: np.ndarray) -> Dict[str, torch.Tensor]:
         model = self.model
         if self._params_of is not state.params:
+            # Whole tensors: on a serving fan-out under a gspmd plan the
+            # front gathers the generation's blocks from every rank.
+            params, scales = self.engine.full_params(state)
             for name, p in model.named_parameters():
-                q = state.params[name]
-                p.copy_(q if state.scales is None
-                        else dequantize_tensor(q, state.scales[name]))
+                q = params[name]
+                p.copy_(q if scales is None else dequantize_tensor(q, scales[name]))
             self._params_of = state.params
         for k, v in batch_stats.items():
             model.get_buffer(k).copy_(v)
-        xb = self.engine.stage(x)
+        xb = self.engine.stage_rows(x)
         model.train()
         model(xb.unsqueeze(0).expand((self.num_domains,) + tuple(xb.shape)))
         return {k: model.get_buffer(k).clone() for k in batch_stats}

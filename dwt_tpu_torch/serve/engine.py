@@ -49,6 +49,17 @@ forward, through a parametrization of each parameter (``q.float() *
 scale`` at each read), as the JAX engine dequantizes inside its compiled
 forward.
 
+**Across ranks** (``plan=``, the run's :class:`~dwt_tpu_torch.parallel.
+ShardingPlan`): the engine is one rank's part of the serving fan-out
+(``dwt_tpu_torch.serve.fanout``).  Bucket sizes round up to multiples of
+the plan's data size, as the JAX engine rounds them, and the rank stages,
+warms and forwards its block of each bucket (``bucket / data size``
+rows): under the replica plan the generation is whole on every rank;
+under a gspmd plan each generation's module is placed by the rules
+(``ShardingPlan.place_serve``: its sharded parameters cut to this rank's
+blocks on the host before the move to the device, the stats and the
+cache whole) and its forwards gather the blocks over the model group.
+
 The engine runs on CUDA unless the caller passes ``device="cpu"``; it
 raises when CUDA is absent rather than choosing the CPU itself.  It
 turns TF32 off for cuDNN convolutions and cuBLAS matmuls
@@ -73,6 +84,7 @@ from torch.nn.utils import parametrize
 
 from dwt_tpu_torch import obs
 from dwt_tpu_torch.nn.norms import whitening_sites
+from dwt_tpu_torch.parallel import ShardingPlan
 from dwt_tpu_torch.serve.batcher import DEFAULT_BUCKETS, bucket_for, pad_to_bucket
 from dwt_tpu_torch.serve.quant import dequantize_tensor, quantize_tensor
 from dwt_tpu_torch.train.evalpipe import install_whiten_cache, make_whiten_cache
@@ -124,11 +136,13 @@ class EngineState(NamedTuple):
     """One immutable generation of device-resident serving weights.
 
     ``model`` is the generation's eval-mode module; ``params`` (by
-    parameter name: f32, or int8 under quantization), ``batch_stats``
-    (the stat buffers by name), ``cache`` (each whitening site's eval
-    matrix) and ``scales`` (the int8 dequant scale of each parameter, or
-    None) are views of its tensors, so they travel as one value: a swap
-    can never pair new weights with an old cache or old scales."""
+    parameter name: f32, or int8 under quantization; under a gspmd plan
+    this rank's blocks), ``batch_stats`` (the stat buffers by name),
+    ``cache`` (each whitening site's eval matrix) and ``scales`` (the int8
+    dequant scale of each parameter, or None) are views of its tensors, so
+    they travel as one value: a swap can never pair new weights with an
+    old cache or old scales.  ``gen`` is the generation's id in a serving
+    fan-out (the front numbers them; 0 for the first)."""
 
     params: Dict[str, torch.Tensor]
     batch_stats: Dict[str, torch.Tensor]
@@ -136,6 +150,7 @@ class EngineState(NamedTuple):
     version: Version
     scales: Optional[Dict[str, torch.Tensor]]
     model: nn.Module
+    gen: int = 0
 
 
 class _Dequant(nn.Module):
@@ -200,10 +215,15 @@ class ServeEngine:
     are built from.  ``input_shape`` is the per-sample shape, ``(224,
     224, 3)`` for OfficeHome.  ``step``, ``source`` and ``digest`` name
     the checkpoint the model came from (None for fresh weights).
-    ``quantize`` serves int8 weights (module docstring).
+    ``quantize`` serves int8 weights (module docstring).  ``plan`` makes
+    the engine one rank of a serving fan-out (module docstring; default
+    the single plan).
     """
 
     input_dtype = np.dtype(np.float32)
+    # A rank's own engine does not fail as a group; the fan-out's front
+    # engine sets this when a rank is lost (``serve.fanout``).
+    fault: Optional[BaseException] = None
 
     def __init__(
         self,
@@ -216,12 +236,24 @@ class ServeEngine:
         source: Optional[str] = None,
         digest: Optional[str] = None,
         quantize: bool = False,
+        plan=None,
     ):
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        self.plan = ShardingPlan.single() if plan is None else plan
+        if quantize and self.plan.mode == "gspmd":
+            raise ValueError(
+                "int8 serving under a gspmd plan is not ported: the int8 weights "
+                "would need their blocks placed under the dequant parametrization "
+                "(ROADMAP queue 1); serve int8 replicated (--data_parallel)")
         self.input_shape = tuple(int(d) for d in input_shape)
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.data_size = self.plan.data_size
+        # Bucket sizes round UP to data-shard multiples so every rank's
+        # block is equal (the JAX engine's rounding).
+        self.buckets = tuple(sorted({-(-int(b) // self.data_size) * self.data_size
+                                     for b in buckets}))
+        self._forward = self.plan.make_serve_forward(lambda model, x: model(x))
         self.source = source
         self.quantize = bool(quantize)
         self.num_domains = getattr(model, "num_domains", 2)
@@ -238,7 +270,7 @@ class ServeEngine:
         self.warmup_s: Dict[int, float] = {}
         for b in self.buckets:
             t0 = time.perf_counter()
-            x = self.stage(np.zeros((b,) + self.input_shape, np.float32))
+            x = self.stage(np.zeros((self.block_rows(b),) + self.input_shape, np.float32))
             self.forward(x, b)
             self._sync()
             self.warmup_s[b] = round(time.perf_counter() - t0, 3)
@@ -263,6 +295,10 @@ class ServeEngine:
             digest = params_digest(model.named_parameters())
         return cls(model, input_shape, step=restored.step,
                    source=restored.source, digest=digest, **kwargs)
+
+    def block_rows(self, bucket: int) -> int:
+        """This rank's rows of a bucket (the whole bucket on one rank)."""
+        return int(bucket) // self.data_size
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -309,6 +345,22 @@ class ServeEngine:
         cache = {k: site.eval_matrix for k, site in whitening_sites(model).items()}
         return EngineState(params, stats, cache, version, scales, model)
 
+    def full_params(self, state: EngineState) -> Tuple[Dict[str, torch.Tensor],
+                                                        Optional[Dict[str, torch.Tensor]]]:
+        """``(parameters, int8 scales or None)`` of ``state`` as whole
+        tensors: what the adapter's collect forward loads.  A rank's own
+        engine holds them whole unless a gspmd plan placed them, whose
+        gather needs every rank (the fan-out front's engine does it)."""
+        if self.plan.mode == "gspmd":
+            raise RuntimeError("a gspmd rank holds blocks: gather the parameters "
+                               "through the serving fan-out")
+        return state.params, state.scales
+
+    def discard(self, state: EngineState) -> None:
+        """A built generation that will never serve (a refused candidate):
+        nothing to release on one process — it is garbage once unreferenced.
+        The fan-out's front releases it on every rank."""
+
     @torch.no_grad()
     def build_state(self, model: nn.Module, *,
                     version: Optional[Version] = None) -> EngineState:
@@ -319,7 +371,10 @@ class ServeEngine:
         weights when the engine serves int8, and place the module on the
         device in eval mode, conv weights in channels_last memory format
         like the activations.  Touches nothing of the live generation, so
-        it is safe off the dispatcher thread."""
+        it is safe off the dispatcher thread.  Under a gspmd plan the
+        module is placed on the host first (``ShardingPlan.place_serve``),
+        so only this rank's blocks of the sharded parameters move to the
+        device."""
         with obs.span("build_state", "fleet",
                       version=version.label if version else "fresh"):
             model = model.eval()
@@ -327,7 +382,7 @@ class ServeEngine:
             to_channels_last(model)
             if self.quantize:
                 _quantize_module(model)
-            model = model.to(self.device)
+            model = self.plan.place_serve(model).to(self.device)
         return self._state_of(model, version or Version())
 
     @torch.no_grad()
@@ -353,7 +408,13 @@ class ServeEngine:
                 for k, v in stats.items():
                     self._shell.get_buffer(k).copy_(v)
                 cache = self._factorize_cache(self._shell)
-            model = copy.deepcopy(base.model, {id(p): p for p in base.model.parameters()})
+            # The copy shares the base's parameters and, under a gspmd plan,
+            # its layout (whose mesh holds the process groups).
+            memo = {id(p): p for p in base.model.parameters()}
+            layout = getattr(base.model, "_gspmd_layout", None)
+            if layout is not None:
+                memo[id(layout)] = layout
+            model = copy.deepcopy(base.model, memo)
             for k, v in stats.items():
                 model.get_buffer(k).copy_(v)
             install_whiten_cache(model, {k: w.to(self.device) for k, w in cache.items()})
@@ -419,38 +480,47 @@ class ServeEngine:
 
     # ------------------------------------------------------------ inference
 
-    def stage(self, x: np.ndarray) -> torch.Tensor:
-        """H2D placement of one bucket batch (pinned host memory,
-        non-blocking copy on the current stream)."""
+    def stage_rows(self, x: np.ndarray) -> torch.Tensor:
+        """H2D placement of host rows (pinned host memory, non-blocking
+        copy on the current stream)."""
         t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    # A rank stages its block of a bucket: the whole bucket on one rank.
+    stage = stage_rows
+
     @torch.inference_mode()
     def forward(self, x_staged: torch.Tensor, bucket: int,
                 state: Optional[EngineState] = None) -> torch.Tensor:
-        """Eval forward of one staged bucket batch → device logits (f32).
-        ``state`` pins the generation (the dispatcher passes its per-batch
-        snapshot, the canary a candidate under test); default is the live
-        one."""
+        """Eval forward of one staged bucket batch (this rank's block of
+        it under a plan) → device logits (f32).  ``state`` pins the
+        generation (the dispatcher passes its per-batch snapshot, the
+        canary a candidate under test); default is the live one."""
         if int(bucket) not in self.buckets:
             raise ValueError(
                 f"no warmed forward for bucket {bucket} (buckets: {self.buckets})"
             )
-        if tuple(x_staged.shape) != (int(bucket),) + self.input_shape:
+        rows = self.block_rows(bucket)
+        if tuple(x_staged.shape) != (rows,) + self.input_shape:
             raise ValueError(
                 f"staged batch {tuple(x_staged.shape)} is not "
-                f"[{bucket}, {', '.join(map(str, self.input_shape))}]"
+                f"[{rows}, {', '.join(map(str, self.input_shape))}]"
             )
         st = self._state if state is None else state
-        return st.model(x_staged).float()
+        return self._forward(st.model, x_staged).float()
 
     def infer(self, x: np.ndarray, bucket: Optional[int] = None,
               state: Optional[EngineState] = None) -> np.ndarray:
         """Synchronous pad → stage → forward → fetch; returns the
         ``[n, classes]`` logits of the real rows only.  ``state`` as in
-        :meth:`forward` (the canary's fixture eval of a candidate)."""
+        :meth:`forward` (the canary's fixture eval of a candidate).  A rank
+        of a fan-out forwards only its block, in step with the other ranks:
+        infer through the front (``serve.fanout.FanoutEngine``)."""
+        if self.plan.mode != "single":
+            raise RuntimeError(f"a {self.plan.mode} rank forwards its block with the "
+                               "other ranks: infer through the serving fan-out")
         x = np.asarray(x, np.float32)
         n = x.shape[0]
         if bucket is None:

@@ -47,6 +47,20 @@ here, each carrying the batch's ``req_ids`` — and writes them as a Chrome
 trace at the drain.  SIGTERM or SIGINT drains: the reloader
 and the adapter stop, in-flight requests complete, queued requests
 dispatch, new arrivals get 503 with ``Retry-After``, exit code 0.
+
+**Across ranks** (``--distributed`` with ``--data_parallel``, or
+``--mesh_shape``/``--sharding_rules``; the JAX server's flags, resolved
+by ``parallel.plan_from_flags`` with its decisions and texts): one
+process per rank, launched as the trainers are (the DWT_* or torchrun
+variables).  Rank 0 is the front — everything above — and its engine a
+:class:`~dwt_tpu_torch.serve.fanout.FanoutEngine`; every other rank is a
+follower with no HTTP port, running the front's operations in order
+(``dwt_tpu_torch.serve.fanout``).  ``GET /fanout`` reports every rank
+(``?digest=1`` adds each rank's generation digest, ``?shapes=1`` its
+local parameter shapes).  The front's drain stops the followers and every
+rank exits 0; a follower that dies makes the front fail that batch's
+requests, turn ``/healthz`` unhealthy and exit 1.  ``--quantize_int8``
+under a gspmd plan is refused (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ import logging
 import signal
 import threading
 import time
+import urllib.parse
 from http.server import ThreadingHTTPServer
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
@@ -73,6 +88,14 @@ from dwt_tpu_torch.nn.lenet import build_lenet
 from dwt_tpu_torch.nn.registry import build_backbone
 from dwt_tpu_torch.obs.registry import get_registry
 from dwt_tpu_torch.ops import cuda_whitening
+from dwt_tpu_torch.parallel import (
+    host_group,
+    plan_from_flags,
+    process_count,
+    process_index,
+    shutdown_distributed,
+)
+from dwt_tpu_torch.parallel.mesh import join_from_flags
 from dwt_tpu_torch.resilience import inject
 from dwt_tpu_torch.serve.batcher import (
     Future,
@@ -82,6 +105,7 @@ from dwt_tpu_torch.serve.batcher import (
     resolve_future,
 )
 from dwt_tpu_torch.serve.engine import ServeEngine
+from dwt_tpu_torch.serve.fanout import FanoutEngine, follow
 from dwt_tpu_torch.serve.http import DrainAwareHandler
 from dwt_tpu_torch.serve.metrics import AccessLog
 from dwt_tpu_torch.utils.metrics import device_memory_stats
@@ -89,6 +113,10 @@ from dwt_tpu_torch.utils.metrics import device_memory_stats
 log = logging.getLogger(__name__)
 
 NPY_CONTENT_TYPE = "application/x-npy"
+
+# Seconds a front that lost a rank keeps answering (``/healthz`` 503, every
+# request an error) before it drains and exits 1: a balancer's probe sees it.
+FAULT_GRACE_S = 1.0
 
 
 class _Dispatcher(threading.Thread):
@@ -477,8 +505,10 @@ class _Handler(DrainAwareHandler):
 
     def do_GET(self):
         client = self.client
+        url = urllib.parse.urlparse(self.path)
         if self.path == "/healthz":
-            alive = client.dispatcher_alive
+            fault = client.engine.fault
+            alive = client.dispatcher_alive and fault is None
             err = client.dispatcher_error
             self._reply(200 if alive else 503, {
                 "ok": alive,
@@ -494,7 +524,18 @@ class _Handler(DrainAwareHandler):
                 "device": str(client.engine.device),
                 **({"dispatcher_error": f"{type(err).__name__}: {err}"}
                    if err is not None else {}),
+                **({"fanout_fault": f"{type(fault).__name__}: {fault}"}
+                   if fault is not None else {}),
             })
+        elif url.path == "/fanout" and isinstance(client.engine, FanoutEngine):
+            query = urllib.parse.parse_qs(url.query)
+            flag = lambda k: query.get(k, ["0"])[0] not in ("", "0")
+            try:
+                body = client.engine.report(digest=flag("digest"), shapes=flag("shapes"))
+            except Exception as e:
+                self._reply(503, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._reply(200, body)
         elif self.path == "/stats":
             self._reply(200, client.stats())
         elif self.path == "/metrics":
@@ -621,8 +662,11 @@ def build_model(args):
     return model, (args.image_size, args.image_size, 3)
 
 
-def build_engine(args) -> ServeEngine:
-    """The engine of ``--ckpt_dir`` (which wins) or ``--init_random``."""
+def build_engine(args, plan=None) -> ServeEngine:
+    """This rank's engine of ``--ckpt_dir`` (which wins) or
+    ``--init_random`` under ``plan`` (:func:`build_plan`; default one
+    process).  Every rank builds its own from the same source: the same
+    checkpoint, or the same ``--seed``."""
     if not (args.ckpt_dir or args.init_random):
         raise SystemExit(
             "dwt_tpu_torch serve: pass --ckpt_dir (a training checkpoint "
@@ -631,20 +675,40 @@ def build_engine(args) -> ServeEngine:
     model, input_shape = build_model(args)
     kwargs = dict(buckets=[int(b) for b in args.buckets.split(",")],
                   device=args.device,
-                  quantize=bool(getattr(args, "quantize_int8", False)))
+                  quantize=bool(getattr(args, "quantize_int8", False)), plan=plan)
     if args.ckpt_dir:
         return ServeEngine.from_checkpoint(args.ckpt_dir, model, input_shape,
                                            **kwargs)
     return ServeEngine(model, input_shape, **kwargs)
 
 
-# Flags of the JAX server whose subsystems are not ported yet, with the
-# ROADMAP queue 1 item that takes each.
-UNPORTED_FLAGS = {
-    "data_parallel": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
-    "mesh_shape": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
-    "sharding_rules": "the server's fan-out over ranks (ROADMAP queue 1 item 8c)",
-}
+def build_plan(args, world_size: Optional[int] = None):
+    """The run's sharding plan from ``--data_parallel``, ``--mesh_shape``
+    and ``--sharding_rules`` (``parallel.plan_from_flags``: the JAX
+    server's decisions and error texts), joining the process group first
+    under ``--distributed``.  ``world_size`` stands in for the group's
+    size without one (a plan that only describes the layout).  More than
+    one rank with nothing to fan out, and int8 under a gspmd plan, are
+    refused; a flag conflict raises ``SystemExit`` with JAX's text."""
+    join_from_flags(args.distributed, args.device)
+    try:
+        plan = plan_from_flags(
+            mesh_shape=args.mesh_shape, sharding_rules=args.sharding_rules,
+            data_parallel=args.data_parallel, distributed=args.distributed,
+            world_size=world_size, local_devices=0 if args.device == "cpu" else None)
+    except ValueError as e:
+        raise SystemExit(f"dwt_tpu_torch serve: {e}") from e
+    world = process_count() if world_size is None else int(world_size)
+    if plan.mode == "single" and world > 1:
+        raise SystemExit(
+            f"dwt_tpu_torch serve: {world} ranks and nothing to fan out over them: "
+            "pass --data_parallel, or --mesh_shape with --sharding_rules")
+    if plan.mode == "gspmd" and args.quantize_int8:
+        raise SystemExit(
+            "dwt_tpu_torch serve: --quantize_int8 under a gspmd plan is not ported "
+            "(ROADMAP queue 1): the int8 weights' blocks would need placing under "
+            "their dequant parametrization; serve int8 with --data_parallel")
+    return plan
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -768,24 +832,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "build_batch → stage → device → resolve, req_id-"
                         "correlated with access records) to this path at "
                         "drain; DWT_OBS_TRACE env is the flagless form")
-    # ---- the JAX server's flags of later slices: refused by name ----
-    p.add_argument("--data_parallel", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--mesh_shape", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--sharding_rules", default=None, help=argparse.SUPPRESS)
+    # ---- the fan-out over ranks (dwt_tpu_torch.serve.fanout) ----
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard every bucket over the ranks (replica fan-out: "
+                        "every rank holds the weights whole and forwards its "
+                        "block of the bucket)")
+    p.add_argument("--mesh_shape", type=str, default=None,
+                   help="sharding-rules mesh as 'dcn,data,model' sizes over "
+                        "the ranks (see the trainer CLIs); buckets shard "
+                        "over the data axes, weights per the rules table")
+    p.add_argument("--sharding_rules", type=str, default="dp",
+                   help="rules table preset ('dp'/'model'/'fsdp') or JSON "
+                        "rules file driving weight placement for serving")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per device: join the process group from "
+                        "the DWT_* (or torchrun) variables; rank 0 is the "
+                        "front, the others follow it")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without CUDA) or cpu")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8978)
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise ``SystemExit`` naming the later slice for a flag of the JAX
-    server whose subsystem the port does not have yet."""
-    for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag, None):
-            raise SystemExit(
-                f"dwt_tpu_torch serve: --{flag} is not ported yet: {what}")
 
 
 def load_canary_fixture(args, input_shape):
@@ -890,16 +957,22 @@ class ServeStack(NamedTuple):
     front: "HttpFront"
 
 
-def build_stack(args) -> ServeStack:
+def build_stack(args, plan=None) -> ServeStack:
     """The server's wiring of ``args``: the engine, the ``--access_log``
     stream, the client with its batcher, one deploy controller shared by
     both producers (checkpoint reloads and adapted generations serialize
     through one canary baseline and one last-good rollback buffer), the
-    reloader, the adapter attached to the client, and the HTTP front."""
-    refuse_unported(args)
+    reloader, the adapter attached to the client, and the HTTP front.
+    ``plan`` is :func:`build_plan`'s (made here when None); across ranks
+    this is the front's wiring, its engine the fan-out's, and the
+    followers must be in ``fanout.follow``."""
     if args.watch and not args.ckpt_dir:
         raise SystemExit("dwt_tpu_torch serve: --watch requires --ckpt_dir")
-    engine = build_engine(args)
+    if plan is None:
+        plan = build_plan(args)
+    engine = build_engine(args, plan)
+    if plan.mode != "single":
+        engine = FanoutEngine(engine, host_group())
     access_log = AccessLog(args.access_log)
     client = ServeClient(
         engine,
@@ -920,11 +993,27 @@ def build_stack(args) -> ServeStack:
     return ServeStack(engine, access_log, client, controller, reloader, adapter, front)
 
 
+def follower_main(args, plan) -> int:
+    """A follower rank: its engine, then the front's operations until the
+    front stops it.  SIGTERM and SIGINT are logged and otherwise ignored:
+    the front's drain stops every rank (module docstring)."""
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: log.info(
+            "follower %d: signal %d; serving until the front stops", process_index(), signum))
+    rc = follow(build_engine(args, plan), host_group())
+    if rc == 0:
+        shutdown_distributed()
+    return rc
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    plan = build_plan(args)
+    if process_index() > 0:
+        return follower_main(args, plan)
     obs.maybe_enable(args.obs_trace)
-    engine, access_log, client, _, reloader, adapter, front = build_stack(args)
+    engine, access_log, client, _, reloader, adapter, front = build_stack(args, plan)
     for producer in (reloader, adapter):
         if producer is not None:
             producer.start()
@@ -939,10 +1028,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "version": engine.version.label,
         "watch": bool(args.watch), "adapt": adapter is not None,
         "quantize_int8": engine.quantize,
-        "warmup_s": engine.warmup_s,
+        "warmup_s": engine.warmup_s, "plan": plan.describe(),
     }), flush=True)
-    stop.wait()
-    log.info("drain: signal received; completing in-flight work")
+    # Idle on the signal; across ranks also on a lost rank, after which
+    # /healthz answers 503 for FAULT_GRACE_S before the drain closes it.
+    while not stop.wait(0.25):
+        if engine.fault is not None:
+            log.error("drain: the serving fan-out lost a rank (%s)", engine.fault)
+            time.sleep(FAULT_GRACE_S)
+            break
+    log.info("drain: completing in-flight work")
     # Stop deploying before draining: a swap mid-drain would be harmless
     # (in-flight batches pin their snapshot) but would muddy the summary.
     if reloader is not None:
@@ -953,6 +1048,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(json.dumps({"kind": "serve_summary", **client.stats()}), flush=True)
     access_log.close()
     obs.export()  # flush the serving trace inside the grace window
+    if engine.fault is not None:
+        return 1
+    if plan.mode != "single":
+        engine.close()  # the followers' stop
+        shutdown_distributed()
     return 0
 
 

@@ -301,31 +301,9 @@ def _maybe_init_distributed(cfg):
     """Join the process group when asked (``--distributed``), from the
     DWT_* variables or torchrun's; returns its ``DistInfo`` (None: one
     process).  Launch the same command once per device on every host."""
-    if not cfg.distributed:
-        return None
-    from dwt_tpu_torch.parallel import dist_info, initialize_distributed
-    from dwt_tpu_torch.parallel.mesh import cluster_from_env
+    from dwt_tpu_torch.parallel.mesh import join_from_flags
 
-    if dist_info() is not None:
-        return dist_info()
-    env = cluster_from_env()
-    explicit = env is not None and env[-1]
-    try:
-        if env is None:
-            raise ValueError("no DWT_* or torchrun variables are set")
-        return initialize_distributed(device=cfg.device)
-    except (ValueError, RuntimeError) as e:
-        if explicit:
-            detail = ("explicit DWT_* configuration failed — check that all three "
-                      "of DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
-                      "DWT_PROCESS_ID are set and the coordinator is reachable.")
-        else:
-            detail = ("could not auto-detect the cluster (torchrun's MASTER_ADDR, "
-                      "MASTER_PORT, RANK and WORLD_SIZE are read when it launches "
-                      "every process). For bare-metal, set "
-                      "DWT_COORDINATOR_ADDRESS, DWT_NUM_PROCESSES, and "
-                      "DWT_PROCESS_ID; or drop --distributed for single-host runs.")
-        raise RuntimeError(f"--distributed: {detail} Underlying error: {e}") from e
+    return join_from_flags(cfg.distributed, cfg.device)
 
 
 def _multihost_data_split(cfg, bs: int, plan=None) -> Tuple[int, Optional[Tuple[int, int]]]:

@@ -76,7 +76,11 @@ blocks on the host and copies only the blocks into the placed state's
 tensors, so no whole copy of a sharded tensor reaches the device; the
 on-disk format does not depend on the plan (a gspmd save gathers first),
 so a checkpoint crosses between the single, replica and gspmd plans both
-ways.
+ways.  A serving generation restores the same way: :func:`restore_model`
+loads the whole host arrays into a host module, and the serving engine's
+gspmd placement (``ShardingPlan.place_serve``) cuts its parameters to the
+rank's blocks there, before the move to the device (the JAX engine's
+loose restore plus plan placement).
 """
 
 from __future__ import annotations

@@ -221,7 +221,8 @@ def test_collect_advances_stats_as_jax_in_f64():
     stub = types.SimpleNamespace(
         num_domains=2, device=torch.device("cpu"),
         fresh_model=lambda: copy.deepcopy(port64),
-        stage=lambda a: torch.from_numpy(np.asarray(a, np.float64)))
+        stage_rows=lambda a: torch.from_numpy(np.asarray(a, np.float64)),
+        full_params=lambda st: (st.params, st.scales))
     state = types.SimpleNamespace(params=dict(port64.named_parameters()), scales=None)
     names = {n for n, _ in port64.named_parameters()}
     live = {k: v for k, v in port64.state_dict().items() if k not in names}

@@ -484,14 +484,23 @@ def test_serve_watch_hot_reload_over_http(tmp_path, tied):
     assert {"reload", "canary", "swap", "access"} <= set(kinds)
 
 
-@pytest.mark.parametrize("flag,later", [
-    (["--sharding_rules", "model"], "item 8"),
-    (["--mesh_shape", "1,1,1"], "item 8"),
-    (["--data_parallel"], "item 8"),
+@pytest.mark.parametrize("flag,world,jax_flags", [
+    (["--sharding_rules", "model"], 8, dict(sharding_rules="model")),
+    (["--mesh_shape", "1,1,1"], 1, dict(mesh_shape="1,1,1")),
+    (["--data_parallel"], 8, dict(data_parallel=True)),
 ])
-def test_later_slice_flags_are_refused_by_name(flag, later):
+def test_fanout_flags_resolve_to_the_jax_plan(flag, world, jax_flags):
+    """The server's three fan-out flags resolve, at a group of ``world``
+    ranks, to the plan JAX's ``plan_from_flags`` gives on as many devices
+    (the conftest's 8; ``--mesh_shape 1,1,1`` needs one device whatever
+    the count, and the port's mesh must cover every rank)."""
+    from dwt_tpu import parallel as jpar
     from dwt_tpu_torch.serve import server
 
     args = server.build_parser().parse_args(["--init_random", "--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match=f"not ported yet.*{later}"):
-        server.refuse_unported(args)
+    port = server.build_plan(args, world_size=world)
+    want = jpar.plan_from_flags(**jax_flags)
+    assert port.mode == want.mode
+    assert dict(port.mesh.shape) == dict(want.mesh.shape)
+    assert port.data_size == want.data_size
+    assert port.rules == [(pat, tuple(spec)) for pat, spec in want.rules]

@@ -444,8 +444,8 @@ def test_obs_trace_is_accepted_by_every_entry_point():
         cfg = to_cfg(cli.build_parser().parse_args(["--obs_trace", "t.json", "--device", "cpu"]))
         assert cfg.obs_trace == "t.json"
     args = server.build_parser().parse_args(["--init_random", "--obs_trace", "t.json"])
-    assert args.obs_trace == "t.json" and "obs_trace" not in server.UNPORTED_FLAGS
-    server.refuse_unported(args)  # tracing is not refused
+    assert args.obs_trace == "t.json"
+    assert server.build_plan(args).mode == "single"  # tracing is not refused
 
 
 # ------------------------------------------------- checkpoint byte counters

@@ -509,7 +509,7 @@ def run_ramp(args) -> dict:
 
 
 def main(argv=None) -> int:
-    from dwt_tpu_torch.serve.server import build_parser, refuse_unported
+    from dwt_tpu_torch.serve.server import build_parser, build_plan
 
     p = argparse.ArgumentParser(
         description="open-loop (Poisson) serving load sweep",
@@ -560,7 +560,9 @@ def main(argv=None) -> int:
         print(json.dumps(run_ramp(args)), flush=True)
         return 0
 
-    refuse_unported(args)  # the parallel-serving flags (ROADMAP queue 1 item 8c)
+    if build_plan(args).mode != "single":
+        p.error("the bench drives one in-process engine: serve the fan-out over "
+                "ranks with the server and drive it with --ramp --target_url")
     # Inherited --obs_trace (server parser): every bench run can emit a
     # bucket-attributed serving trace for tools/torch_obs_report.py.
     from dwt_tpu_torch import obs
